@@ -1,0 +1,37 @@
+"""Arithmetic — port of ``spark_rapids_tpu/ops/arithmetic.py`` (Spark
+non-ANSI semantics): integral add/sub/mul wrap (two's complement, as
+torch's integer ops do), floats follow IEEE, and a null on either side
+gives null (``BinaryExpression`` propagates validity)."""
+
+from __future__ import annotations
+
+from .. import types as T
+from .expression import BinaryExpression
+
+
+class BinaryArithmetic(BinaryExpression):
+    @property
+    def data_type(self) -> T.DataType:
+        return T.numeric_promote(self.left.data_type, self.right.data_type)
+
+    def do_device(self, l, r):
+        dt = self.data_type.torch_dtype
+        return self.kernel(l.to(dt), r.to(dt)), None
+
+    def kernel(self, l, r):
+        raise NotImplementedError
+
+
+class Add(BinaryArithmetic):
+    def kernel(self, l, r):
+        return l + r
+
+
+class Subtract(BinaryArithmetic):
+    def kernel(self, l, r):
+        return l - r
+
+
+class Multiply(BinaryArithmetic):
+    def kernel(self, l, r):
+        return l * r

@@ -1,0 +1,249 @@
+"""Row rearrangement: gather, compact (filter), multi-key sort, top-k.
+
+Port of ``spark_rapids_tpu/ops/kernels/rowops.py``. Float keys map to
+order-preserving operands so NaN ordering (greatest) and -0.0 == 0.0
+match Spark; nulls order through an explicit bucket operand.
+
+The reference sorts several operands at once with ``lax.sort(...,
+num_keys=k)``. torch has no multi-operand sort, so :func:`lexsort` runs
+one STABLE ``torch.sort`` per operand from the least significant up;
+stability makes the passes compose into the same lexicographic order,
+ties included, so group order and first/last positions match the
+reference.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from ...data.batch import ColumnarBatch
+from ...data.column import DeviceColumn, bucket_capacity
+
+_INT64_MIN = -0x8000000000000000
+_CANON_NAN_BITS = 0x7FF8000000000000
+
+
+def orderable_values(data: torch.Tensor, is_floating: bool) -> torch.Tensor:
+    """Monotone int64 transform: ascending int order of the result is SQL
+    ascending order of the values (NaN last, -0 == 0)."""
+    if not is_floating:
+        return data.to(torch.int64)
+    bits = data.to(torch.float64).contiguous().view(torch.int64)
+    bits = torch.where(torch.isnan(data), _CANON_NAN_BITS, bits)
+    bits = torch.where(data == 0, 0, bits)
+    return torch.where(bits < 0, ~bits + _INT64_MIN, bits)
+
+
+def orderable_key(col: DeviceColumn, ascending: bool = True,
+                  nulls_first: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(key, bucket): lexicographic (bucket, key) ascending order is the
+    requested SQL order. Nulls ride the bucket as +/-3, NaN as +/-2;
+    -0.0 canonicalizes to 0.0 and NaN keys zero, so (bucket, key)
+    equality is Spark grouping equality. The bucket must sort as a more
+    significant operand than the key."""
+    assert not col.is_string, "string sort keys come from string_sort_keys"
+    if col.dtype.is_floating:
+        v = col.data
+        nan = torch.isnan(v)
+        v = torch.where(nan | (v == 0), torch.zeros((), dtype=v.dtype,
+                                                    device=v.device), v)
+        key = v if ascending else -v
+        bucket = torch.where(nan, 2 if ascending else -2, 0)
+    else:
+        key = col.data if ascending else ~col.data
+        bucket = torch.zeros(col.capacity, dtype=torch.int64,
+                             device=col.device)
+    bucket = torch.where(col.validity, bucket, -3 if nulls_first else 3)
+    return key, bucket.to(torch.int8)
+
+
+def string_sort_keys(col: DeviceColumn, ascending: bool = True,
+                     nulls_first: bool = True) -> List[torch.Tensor]:
+    """[null bucket, code] operands of a sorted-dictionary string column
+    (code order is byte order by construction)."""
+    null_bucket = torch.where(col.validity, 0, -1 if nulls_first else 1)
+    key = torch.where(col.validity, col.codes, 0)
+    if not ascending:
+        key = -key - 1
+    return [null_bucket.to(torch.int8), key]
+
+
+def lexsort(operands: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Stable permutation ordering rows by ``operands`` (the first is the
+    most significant), like ``lax.sort(operands + (iota,), num_keys=k,
+    is_stable=True)[-1]``."""
+    n = operands[0].shape[0]
+    perm = torch.arange(n, device=operands[0].device)
+    for op in reversed(operands):
+        k = op[perm]
+        if k.dtype in (torch.bool, torch.int8):
+            k = k.to(torch.int32)
+        perm = perm[torch.sort(k, stable=True).indices]
+    return perm
+
+
+def sort_operands(keys: Sequence[DeviceColumn], ascending: Sequence[bool],
+                  nulls_first: Sequence[bool]) -> List[torch.Tensor]:
+    """Bucket and key operands for each sort key, in significance order."""
+    operands: List[torch.Tensor] = []
+    for k, a, n in zip(keys, ascending, nulls_first):
+        if k.is_string:
+            operands.extend(string_sort_keys(k, a, n))
+        else:
+            key, bucket = orderable_key(k, a, n)
+            operands.extend((bucket, key))
+    return operands
+
+
+def gather_column(col: DeviceColumn, indices: torch.Tensor,
+                  index_valid: Optional[torch.Tensor] = None) -> DeviceColumn:
+    """Rows of ``col`` at ``indices``; fixed-width and dictionary columns
+    both move one lane (a dictionary rides along untouched)."""
+    safe = indices.clamp(0, col.capacity - 1).long()
+    validity = col.validity[safe]
+    if index_valid is not None:
+        validity = validity & index_valid
+    lane = col.lane[safe]
+    lane = torch.where(validity, lane, torch.zeros((), dtype=lane.dtype,
+                                                   device=lane.device))
+    return col.replace_rows(validity, lane)
+
+
+def gather_columns(columns, indices: torch.Tensor,
+                   index_valid: Optional[torch.Tensor] = None) -> tuple:
+    return tuple(gather_column(c, indices, index_valid) for c in columns)
+
+
+def compact(batch: ColumnarBatch, keep: torch.Tensor) -> ColumnarBatch:
+    """Filter, LAZY: record the kept-row mask instead of moving rows."""
+    keep = keep & batch.row_mask()
+    return ColumnarBatch(batch.columns, keep.sum(), batch.schema, live=keep)
+
+
+def physical(batch: ColumnarBatch) -> ColumnarBatch:
+    """Move live rows of a lazy batch to the front, keeping their order
+    (a cumsum gives each its slot; one scatter builds the gather map)."""
+    if batch.live is None:
+        return batch
+    cap = batch.capacity
+    live = batch.live
+    iota = torch.arange(cap, device=live.device)
+    pos = torch.cumsum(live.to(torch.int64), 0) - 1
+    src = torch.zeros(cap + 1, dtype=torch.int64, device=live.device)
+    src.scatter_(0, torch.where(live, pos, cap), iota)
+    cols = gather_columns(batch.columns, src[:cap], iota < batch.n_rows)
+    return ColumnarBatch(cols, batch.n_rows, batch.schema)
+
+
+def shrink_sparse(batch: ColumnarBatch) -> ColumnarBatch:
+    """A lazy batch whose live rows fill at most a quarter of it, moved
+    to the front of a batch at their own ladder rung, in row order (the
+    reference's streaming-mode shrink of sparse join outputs). Costs one
+    host read of the live count; any other batch comes back unchanged."""
+    if batch.live is None or batch.capacity < 4 * 128:
+        return batch
+    n = int(batch.n_rows)
+    cap = bucket_capacity(max(n, 1))
+    if cap * 4 > batch.capacity:
+        return batch
+    src = torch.zeros(cap, dtype=torch.int64, device=batch.device)
+    src[:n] = torch.nonzero(batch.live).squeeze(1)
+    iota = torch.arange(cap, device=batch.device)
+    cols = gather_columns(batch.columns, src, iota < n)
+    return ColumnarBatch(cols, batch.n_rows, batch.schema)
+
+
+def sort_batch_by_columns(batch: ColumnarBatch,
+                          keys: Sequence[DeviceColumn],
+                          ascending: Sequence[bool],
+                          nulls_first: Sequence[bool]) -> ColumnarBatch:
+    """Sort a batch by evaluated key columns; dead rows (lazy or past
+    ``n_rows``) sink to the tail through a leading dead-row operand.
+
+    The reference routes one packable int key through the Pallas bitonic
+    sort (``sortStep``), which is not ported yet; every sort here takes
+    this path, the reference's own default."""
+    live = batch.row_mask()
+    operands = [(~live).to(torch.int8)] + sort_operands(keys, ascending,
+                                                        nulls_first)
+    perm = lexsort(operands)
+    iota = torch.arange(batch.capacity, device=live.device)
+    cols = gather_columns(batch.columns, perm, iota < batch.n_rows)
+    return ColumnarBatch(cols, batch.n_rows, batch.schema)
+
+
+def _topk_single_lane(key: DeviceColumn, ascending: bool,
+                      nulls_first: bool, live: torch.Tensor):
+    """(enc, ok): one float64 lane whose DESCENDING order is the requested
+    SQL order, with finite sentinel layers dead -1e308 < nulls-last
+    -1e307 < NaN-last -1e306 < values < NaN-first 1e306 < nulls-first
+    1e307. ``ok`` is True when the encoding is exact by type, else a
+    device bool that is False when a live value cannot ride the lane
+    (|v| > 1e305 or inf; int64 beyond float64's exact range)."""
+    valid = key.validity
+    nan = None
+    if key.is_dict:
+        vf = key.codes.to(torch.float64)
+        ok = True
+    elif key.dtype.is_floating:
+        v = key.data.to(torch.float64)
+        nan = torch.isnan(v)
+        ok = ~(live & valid & ~nan & (v.abs() > 1e305)).any()
+        vf = torch.where(nan, 0.0, v)
+    else:
+        vf = key.data.to(torch.float64)
+        if key.data.dtype == torch.int64:
+            exact = vf.to(torch.int64) == key.data
+            ok = ~(live & valid & ~exact).any()
+        else:
+            ok = True
+    enc = -vf if ascending else vf
+    if nan is not None:
+        enc = torch.where(nan, -1e306 if ascending else 1e306, enc)
+    enc = torch.where(valid, enc, 1e307 if nulls_first else -1e307)
+    enc = torch.where(live, enc, -1e308)
+    return enc, ok
+
+
+def topk_batch_by_columns(batch: ColumnarBatch,
+                          keys: Sequence[DeviceColumn],
+                          ascending: Sequence[bool],
+                          nulls_first: Sequence[bool], k: int,
+                          allow_data_fallback: bool = True):
+    """First ``k`` rows in sort order, in a k-sized capacity bucket.
+    Returns ``(batch, ok)``; ``ok`` False (a device bool) means the
+    single-lane encoding was inexact and the caller must take the exact
+    path (``allow_data_fallback=False``).
+
+    Single orderable key: a stable descending sort of the float64 lane,
+    whose tie order (lower row first) is ``lax.top_k``'s. Otherwise: the
+    keys-only lexsort of (dead flag, key operands)."""
+    cap = batch.capacity
+    kcap = bucket_capacity(max(k, 1))
+    live = batch.row_mask()
+    n_out = torch.clamp(batch.n_rows, max=k)
+    iota_out = torch.arange(kcap, device=live.device)
+    live_out = iota_out < n_out
+    k_take = min(kcap, cap)
+    single = len(keys) == 1
+    if single and not allow_data_fallback and not keys[0].is_string \
+            and (keys[0].dtype.is_floating
+                 or keys[0].data.dtype == torch.int64):
+        single = False
+    if single:
+        enc, ok = _topk_single_lane(keys[0], ascending[0], nulls_first[0],
+                                    live)
+        idx = torch.sort(enc, descending=True, stable=True).indices[:k_take]
+    else:
+        operands = [(~live).to(torch.int8)] + sort_operands(
+            keys, ascending, nulls_first)
+        idx = lexsort(operands)[:k_take]
+        ok = True
+    if k_take < kcap:
+        idx = torch.cat([idx, torch.zeros(kcap - k_take, dtype=idx.dtype,
+                                          device=idx.device)])
+    cols = gather_columns(batch.columns, idx, live_out)
+    return ColumnarBatch(cols, n_out, batch.schema), ok

@@ -1,0 +1,125 @@
+"""The CUDA kernels of ``spark_rapids_tpu_torch`` against their plain
+PyTorch versions, on the card. Every test here needs an NVIDIA GPU and
+skips without one; the module imports neither JAX nor the JAX package,
+so it runs on a machine that has only PyTorch:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+(``--noconftest`` skips the JAX set-up of ``tests/conftest.py``.) The
+case builders here are shared with ``tests/test_torch_kernels.py``, which
+holds the same plain versions against the JAX package's Pallas kernels.
+"""
+
+import numpy as np
+import pytest
+
+import torch
+
+from spark_rapids_tpu_torch.ops.kernels.cuda import join_probe as JP
+from spark_rapids_tpu_torch.ops.kernels.cuda import segmented as SEG
+
+JOINPROBE_CASES = ["duplicate keys", "every probed slot empty",
+                   "one live row", "all rows dead", "unique keys"]
+SEG_GIDS = ["random groups", "one group", "one group per row", "dead tail"]
+N, CAP = 1024, 1280
+
+
+def joinprobe_case(name: str, cap_b: int = 512, cap_p: int = 1024):
+    """(bslot, pslot, tbl) of one joinProbe edge case, int32."""
+    rng = np.random.default_rng(len(name))
+    tbl = 4 * cap_b
+    pslot = rng.integers(0, tbl, cap_p)
+    if name == "duplicate keys":
+        bslot = rng.integers(0, tbl // 2, cap_b)
+        bslot[1] = bslot[0]
+    elif name == "every probed slot empty":
+        bslot = rng.integers(0, tbl // 2, cap_b)
+        pslot = rng.integers(tbl // 2, tbl, cap_p)
+    elif name == "one live row":
+        bslot = np.full(cap_b, tbl)
+        bslot[cap_b // 3] = 17
+    elif name == "all rows dead":
+        bslot = np.full(cap_b, tbl)
+    else:  # unique keys, a third dead
+        bslot = rng.permutation(tbl)[:cap_b]
+        bslot[rng.random(cap_b) < 0.3] = tbl
+    return bslot.astype(np.int32), pslot.astype(np.int32), tbl
+
+
+def segment_gids(name: str, n: int, cap: int) -> np.ndarray:
+    """Sorted int32 group ids of one segmented edge case."""
+    rng = np.random.default_rng(7)
+    if name == "one group":
+        return np.zeros(n, np.int32)
+    if name == "one group per row":
+        return np.arange(n, dtype=np.int32)
+    sizes = rng.integers(1, 9, n)
+    g = np.repeat(np.arange(n), sizes)[:n].astype(np.int32)
+    if name == "dead tail":
+        g[-n // 8:] = cap  # the port's sort path sends dead rows here
+    return g
+
+
+def segment_lanes(n: int) -> dict:
+    """The lanes each segmented case reduces, by name."""
+    rng = np.random.default_rng(11)
+    big = 2 ** 62
+    f = rng.normal(size=(n, 2))
+    f[rng.random((n, 2)) < 0.1] = 0.0
+    f[rng.random((n, 2)) < 0.1] = -0.0
+    f[rng.random((n, 2)) < 0.02] = np.nan
+    return {
+        "int64 [n]": rng.integers(-big, big, n, dtype=np.int64),
+        "int64 [n,3]": rng.integers(-big, big, (n, 3), dtype=np.int64),
+        "int32 [n]": rng.integers(-2 ** 31, 2 ** 31, n,
+                                  dtype=np.int64).astype(np.int32),
+        "float64 [n,2] +/-0 NaN": f,
+        "float64 [n] +/-0": np.where(rng.random(n) < 0.5, 0.0, -0.0),
+    }
+
+
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal bit for bit (floats compared as their integer bits)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if got.is_floating_point():
+        width = {torch.float64: torch.int64, torch.float32: torch.int32}
+        return torch.equal(got.contiguous().view(width[got.dtype]),
+                           want.contiguous().view(width[want.dtype]))
+    return torch.equal(got, want)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", JOINPROBE_CASES)
+def test_cuda_joinprobe_matches_plain(cuda_device, name):
+    bslot, pslot, tbl = joinprobe_case(name, 4096, 8192)
+    b = torch.as_tensor(bslot, device=cuda_device)
+    p = torch.as_tensor(pslot, device=cuda_device)
+    before = JP.dense_build_probe.launches
+    got = JP.dense_build_probe(b, p, tbl)
+    assert JP.dense_build_probe.launches == before + 1
+    for g, w in zip(got, JP.dense_build_probe_plain(b, p, tbl)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gname", SEG_GIDS)
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_cuda_segmented_matches_plain(cuda_device, gname, op):
+    gid = torch.as_tensor(segment_gids(gname, N, CAP), device=cuda_device)
+    for x in segment_lanes(N).values():
+        xt = torch.as_tensor(x, device=cuda_device)
+        if not SEG.eligible(xt, op):
+            continue
+        before = SEG.segment_reduce_sorted.launches
+        got = SEG.segment_reduce_sorted(xt, gid, CAP, op)
+        assert SEG.segment_reduce_sorted.launches == before + 1
+        assert same_bits(got, SEG.segment_reduce_sorted_plain(xt, gid, CAP,
+                                                              op))
