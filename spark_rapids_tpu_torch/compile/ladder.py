@@ -53,3 +53,8 @@ DEFAULT_LADDER = BucketLadder()
 def bucket_capacity(n: int, min_capacity: int = LANE) -> int:
     """Round ``n`` up onto the default ladder."""
     return DEFAULT_LADDER.bucket(n, min_capacity)
+
+
+#: Byte counts (a string payload, a char-matrix width) climb the same
+#: rungs as rows, floor 128, so a 2-byte string still gets ``W = 128``.
+bucket_byte_capacity = bucket_capacity

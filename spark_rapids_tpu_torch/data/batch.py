@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .. import types as T
-from .column import DeviceColumn, bucket_capacity
+from .column import DeviceColumn, bucket_capacity, dictionary_column
 
 
 @dataclasses.dataclass
@@ -62,6 +62,21 @@ class ColumnarBatch:
 def _pad(values: np.ndarray, capacity: int) -> np.ndarray:
     out = np.zeros(capacity, dtype=values.dtype)
     out[:len(values)] = values
+    return out
+
+
+def _flat_to_host(c: DeviceColumn, mask: torch.Tensor,
+                  valid: np.ndarray) -> np.ndarray:
+    """A flat string column's live rows as a numpy object array (None
+    under a null), from its offsets and payload."""
+    starts = c.offsets[:-1][mask].cpu().numpy()
+    ends = c.offsets[1:][mask].cpu().numpy()
+    hi = int(ends.max()) if len(ends) else 0
+    payload = c.data[:hi].cpu().numpy().tobytes()
+    out = np.empty(len(starts), dtype=object)
+    for i, (a, b, ok) in enumerate(zip(starts, ends, valid)):
+        out[i] = payload[a:b].decode("utf-8", errors="replace") if ok \
+            else None
     return out
 
 
@@ -129,8 +144,9 @@ class HostBatch:
                                               return_inverse=True)
                 codes = np.where(self.validity[f.name], codes, 0)
                 lane = _to_device(_pad(codes.astype(np.int32), cap), device)
-                cols.append(DeviceColumn(None, valid, f.data_type, codes=lane,
-                                         dictionary=dictionary.astype(object)))
+                cols.append(dictionary_column(lane, valid,
+                                              dictionary.astype(object),
+                                              dict_sorted=True))
             else:
                 vals = np.where(self.validity[f.name],
                                 arr.astype(f.data_type.np_dtype),
@@ -147,6 +163,10 @@ class HostBatch:
         cols, valid = {}, {}
         for f, c in zip(batch.schema, batch.columns):
             v = c.validity[mask].cpu().numpy()
+            if c.is_flat:
+                cols[f.name] = _flat_to_host(c, mask, v)
+                valid[f.name] = v
+                continue
             lane = c.lane[mask].cpu().numpy()
             if c.is_dict:
                 vals = c.dictionary[np.clip(lane, 0, c.dict_size - 1)] \

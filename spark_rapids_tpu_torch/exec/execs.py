@@ -1,7 +1,9 @@
 """Physical operators — port of ``spark_rapids_tpu/exec/execs.py``, cut to
-what TPC-H Q3 runs: device source, filter, project, hash aggregate,
-shuffled hash join (direct-address modes and the exact binary-search
-path), top-k, sort, limit, and the device-to-host transition.
+what TPC-H Q1, Q3, Q4, Q6 and Q22 run: device source, filter, project,
+hash aggregate (grouped and global), shuffled hash join (inner, semi and
+anti; direct-address modes and the exact binary-search path), top-k,
+sort, limit, and the device-to-host transition. The nested-loop joins
+are in :mod:`.joins`.
 
 Execution model: every operator's ``execute(ctx)`` returns ONE
 :class:`ColumnarBatch` holding its whole output on the device. The
@@ -183,15 +185,14 @@ class FilterExec(TorchExec):
 class HashAggregateExec(TorchExec):
     """Grouped aggregation: one grouping pass over the whole input (the
     reference's partial/merge stack collapses to this for one batch),
-    then the final buffer-evaluation projection. A sparse input is
-    compacted first (:func:`..ops.kernels.rowops.shrink_sparse`). The dense grouping path
-    is optimistic; its fail flag escalates this site to the sort path."""
+    then the final buffer-evaluation projection. A sparse input to a
+    grouped aggregation is compacted first
+    (:func:`..ops.kernels.rowops.shrink_sparse`). The dense grouping path
+    is optimistic; its fail flag escalates this site to the sort path.
+    Without grouping keys it is the global aggregate: one output row."""
 
     def __init__(self, child: TorchExec, groupings: List[Expression],
                  aggregates: List[AGG.AggregateExpression]):
-        if not groupings:
-            raise NotImplementedError(
-                "global aggregation (no grouping keys) is not ported yet")
         self.children = [child]
         self.groupings = groupings
         self.aggregates = aggregates
@@ -222,8 +223,9 @@ class HashAggregateExec(TorchExec):
         site = ctx.next_site("aggregate")
         # The grouping sort and every reduction cost the input's capacity:
         # a sparse lazy input (a filtered join output) moves to its live
-        # bucket first.
-        batch = KR.shrink_sparse(batch)
+        # bucket first. The global aggregate's masked reductions need not.
+        if self.groupings:
+            batch = KR.shrink_sparse(batch)
         child_schema = self.children[0].schema
         groupings = _bind_all(self.groupings, child_schema)
         aggs = [AGG.AggregateExpression(a.func.bind(child_schema), a.name)
@@ -270,9 +272,14 @@ def aggregate_batch(batch: ColumnarBatch, key_exprs: List[Expression],
                 values = c.data.to(spec.dtype.torch_dtype)
                 validity = c.validity
             inputs.append((values, validity, spec.update_op, spec))
-    key_cols, results, n_groups, group_live, fail = KG.grouped_aggregate(
-        keys, live, [(v, val, op) for v, val, op, _ in inputs],
-        dense_mode=dense_mode)
+    triples = [(v, val, op) for v, val, op, _ in inputs]
+    if keys:
+        key_cols, results, n_groups, group_live, fail = \
+            KG.grouped_aggregate(keys, live, triples, dense_mode=dense_mode)
+    else:
+        key_cols, results, n_groups, group_live = KG.global_aggregate(
+            capacity, live, triples)
+        fail = False
     out_cols = list(key_cols)
     for (_, _, op, spec), (result, counts) in zip(inputs, results):
         if spec.from_count:
@@ -287,10 +294,12 @@ def aggregate_batch(batch: ColumnarBatch, key_exprs: List[Expression],
 
 
 class ShuffledHashJoinExec(TorchExec):
-    """Inner equi join, left = probe, right = build. A single integer key
-    tries the direct-address table first (mode 1: table over the build
-    side; mode 2: over the probe side), each escalated by its fail flag;
-    mode 3, and every other key, takes the exact binary-search path."""
+    """Equi join (inner, left_semi or left_anti), left = probe, right =
+    build. A single integer key tries the direct-address table first
+    (mode 1: table over the build side; mode 2, inner joins only: over
+    the probe side), each escalated by its fail flag; mode 3, and every
+    other key, takes the exact binary-search path. Semi and anti joins
+    keep the probe's columns and mark its kept rows live."""
 
     def __init__(self, left: TorchExec, right: TorchExec, join_type: str,
                  left_keys: List[Expression], right_keys: List[Expression],
@@ -318,13 +327,15 @@ class ShuffledHashJoinExec(TorchExec):
         lkeys = _bind_all(self.left_keys, left.schema)
         rkeys = _bind_all(self.right_keys, right.schema)
         mode = 1 + ctx.mode(site)
+        if mode == 2 and self.join_type != "inner":
+            mode = 3  # the swapped table exists for inner joins only
         with ctx.timed(self.name):
             pk = [e.eval_device(probe) for e in lkeys]
             bk = [e.eval_device(build) for e in rkeys]
-            if KJ.dense_joinable(rkeys) and mode <= 2:
+            if KJ.dense_joinable(self.join_type, rkeys) and mode <= 2:
                 if mode == 1:
                     out, fail = KJ.dense_join(probe, build, pk[0], bk[0],
-                                              self._schema)
+                                              self._schema, self.join_type)
                 else:
                     out, fail = KJ.dense_join_swapped(probe, build, pk[0],
                                                       bk[0], self._schema)
@@ -345,6 +356,11 @@ class ShuffledHashJoinExec(TorchExec):
         lo, counts, build_at_rank = KJ.join_match_binsearch(
             bk[0], pk[0], build.row_mask(), live_p)
         counts = torch.where(live_p, counts, 0)
+        if self.join_type in ("left_semi", "left_anti"):
+            keep = counts > 0 if self.join_type == "left_semi" \
+                else live_p & (counts == 0)
+            return ColumnarBatch(probe.columns, keep.sum(), self._schema,
+                                 live=keep)
         total = int(counts.sum())
         out_cap = bucket_capacity(max(total, 1))
         p_idx, b_idx, n_out, _ = KJ.expand_matches_binsearch(

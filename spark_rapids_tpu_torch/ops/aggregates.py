@@ -13,7 +13,8 @@ import dataclasses
 from typing import List, Optional
 
 from .. import types as T
-from .expression import Expression
+from .arithmetic import Divide
+from .expression import Cast, Expression
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +74,22 @@ class Count(AggregateFunction):
 
     def buffers(self):
         return [BufferSpec("count", "count", "sum", T.LONG, from_count=True)]
+
+
+class Average(AggregateFunction):
+    """avg = sum / count, carried as two buffers; the final divide gives
+    null for an empty group (a zero count)."""
+
+    @property
+    def data_type(self) -> T.DataType:
+        return T.DOUBLE
+
+    def buffers(self):
+        return [BufferSpec("sum", "sum", "sum", T.DOUBLE),
+                BufferSpec("count", "count", "sum", T.LONG, from_count=True)]
+
+    def evaluate(self, buffer_refs):
+        return Divide(buffer_refs[0], Cast(buffer_refs[1], T.DOUBLE))
 
 
 @dataclasses.dataclass

@@ -7,7 +7,10 @@ PyTorch version (taken for CPU tensors, and the kernel's yardstick on
 the card) and nothing else:
 
 * :mod:`.join_probe` — ``joinProbe``, the direct-address join table;
-* :mod:`.segmented` — ``segmented``, the sort-path group-by reductions.
+* :mod:`.segmented` — ``segmented``, the sort-path group-by reductions;
+* :mod:`.sort_steps` — ``sortStep``, the argsort of a packed single-key
+  lane;
+* :mod:`.strings` — ``strings``, the gather of flat-string char rows.
 
 Sources are in ``csrc/``; :mod:`._build` compiles them with ``nvcc`` at
 first use and loads them with ``ctypes``.

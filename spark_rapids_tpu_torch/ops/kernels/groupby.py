@@ -1,7 +1,13 @@
 """Grouped aggregation — port of ``spark_rapids_tpu/ops/kernels/groupby.py``.
 
-Two strategies, as in the reference:
+Four strategies, as in the reference:
 
+* **Dictionary** (:func:`_dict_grouped_aggregate`): every key a sorted
+  dictionary string whose code space (the product of ``dict_size + 1``)
+  is at most ``_DICT_GROUP_LIMIT`` slots. The group id is the mixed-radix
+  packed code; every reduction is one scatter into the slot table, and
+  the occupied slots compact to the front in packed (= sorted key) order.
+  Always exact.
 * **Dense int** (:func:`_dense_int_aggregate`): int-like keys pack
   mixed-radix into one slot id of a ``2**21``-slot table; every reduction
   is one scatter. Optimistic: a ``fail`` flag (a device bool) trips when
@@ -13,11 +19,12 @@ Two strategies, as in the reference:
   Eligible lanes (integer sums, min and max) run through the
   ``segmented`` CUDA kernel (:mod:`.cuda.segmented`); float sums and bool
   lanes take the plain segment sum, as the reference leaves them to XLA.
+  A flat string key sorts on one operand per char-matrix column.
+* **Global** (:func:`global_aggregate`): no keys; masked whole-lane
+  reductions into one group.
 
-The reference's packed-dictionary path (every key a small dictionary)
-and ``global_aggregate`` wait for the Q1/Q6 slice; an all-dictionary key
-set takes the sort path here, which gives the same groups in the same
-order.
+Float sums in the scatters add in atomic order on the card, so their
+last bits may vary from run to run.
 """
 
 from __future__ import annotations
@@ -26,13 +33,16 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from ...data.column import DeviceColumn
+from ...data.column import DeviceColumn, bucket_capacity
 from .cuda import segmented as SEG
 from .rowops import (gather_column, lexsort, orderable_key, orderable_values,
                      string_sort_keys)
 
 #: Slot-table width of the dense path (the reference's ``_DENSE_AGG_SLOTS``).
 _DENSE_AGG_SLOTS = 1 << 21
+
+#: Largest packed code space the dictionary path takes (the reference's).
+_DICT_GROUP_LIMIT = 4096
 
 _REDUCE = {"min": "amin", "max": "amax"}
 
@@ -91,6 +101,8 @@ def _dense_eligible(keys, inputs) -> bool:
         return False
     for k in keys:
         if k.dtype.is_floating and not k.is_dict:
+            return False
+        if k.is_string and not (k.is_dict and k.dict_sorted):
             return False
     return all(v.dim() == 1 for v, _, _ in inputs)
 
@@ -263,9 +275,88 @@ def grouped_aggregate(keys: Sequence[DeviceColumn], live: torch.Tensor,
     count)], n_groups, group_live, fail)`` as dense group rows (row g =
     group g); ``fail`` is ``False`` on the always-exact sort path, else a
     device bool for the session's dense-mode escalation."""
+    if all(k.is_dict and k.dict_sorted for k in keys):
+        n_slots = 1
+        for k in keys:
+            n_slots *= k.dict_size + 1  # slot 0 = null
+        if n_slots <= _DICT_GROUP_LIMIT:
+            return _dict_grouped_aggregate(keys, live, inputs, n_slots) \
+                + (False,)
     if dense_mode == 0 and _dense_eligible(keys, inputs):
         return _dense_int_aggregate(keys, live, inputs)
     return _sort_grouped_aggregate(keys, live, inputs) + (False,)
+
+
+def _dict_grouped_aggregate(keys: Sequence[DeviceColumn], live: torch.Tensor,
+                            inputs, n_slots: int):
+    """Direct-indexed grouping for sorted-dictionary keys. Group id =
+    mixed-radix packed (code + 1, or 0 for null) per key; packed ascending
+    order is the sort path's nulls-first order, so groups come out in the
+    same order. Output rows sit at ``bucket_capacity(n_slots)``."""
+    capacity = keys[0].capacity
+    dev = live.device
+    gid = torch.zeros(capacity, dtype=torch.int64, device=dev)
+    for k in keys:
+        slot = torch.where(k.validity, k.codes.long() + 1, 0)
+        gid = gid * (k.dict_size + 1) + slot
+    gid = torch.where(live, gid, n_slots)  # dead rows: the spare slot
+    rows_per_slot = segment_reduce(live.to(torch.int32), gid, n_slots,
+                                   "sum")
+    out_cap = bucket_capacity(n_slots)
+    occupied = torch.zeros(out_cap, dtype=torch.bool, device=dev)
+    occupied[:n_slots] = rows_per_slot > 0
+    n_groups, slot_of_group, group_live = _compact_slots(occupied, out_cap)
+
+    key_cols: List[DeviceColumn] = []
+    stride = 1
+    for k in reversed(keys):
+        slot = (slot_of_group // stride) % (k.dict_size + 1)
+        validity = (slot > 0) & group_live
+        codes = torch.where(validity, slot - 1, 0).to(torch.int32)
+        key_cols.append(k.replace_rows(validity, codes))
+        stride *= k.dict_size + 1
+    key_cols.reverse()
+
+    def seg(x, op="sum"):
+        full = segment_reduce(x, gid, n_slots, op)
+        pad = torch.zeros((out_cap - n_slots,) + tuple(full.shape[1:]),
+                          dtype=full.dtype, device=dev)
+        return torch.cat([full, pad])[slot_of_group]
+
+    def post(x):
+        return torch.where(group_live.view((-1,) + (1,) * (x.dim() - 1)), x,
+                           torch.zeros((), dtype=x.dtype, device=dev))
+
+    iota = torch.arange(capacity, dtype=torch.int32, device=dev)
+    results = _segment_reduce_inputs(inputs, seg, iota, capacity, live,
+                                     post=post)
+    return key_cols, results, n_groups, group_live
+
+
+def global_aggregate(capacity: int, live: torch.Tensor, inputs):
+    """Aggregation without keys: masked whole-lane reductions. Always one
+    group (count 0 and null values over an empty input), so no caller
+    needs a host read to handle emptiness. Output rows sit at the
+    smallest capacity, 128, instead of the input's. Only the ``sum`` and
+    ``count`` buffers of Sum, Count and Average reach it."""
+    dev = live.device
+    out_cap = bucket_capacity(1)
+    first = torch.arange(out_cap, device=dev) == 0
+    results = []
+    for v, val, op in inputs:
+        contrib = val & live
+        cnt = contrib.sum(dtype=torch.int64)
+        if op == "count":
+            res = cnt
+        elif op == "sum":
+            res = torch.where(contrib, v, torch.zeros(
+                (), dtype=v.dtype, device=dev)).sum(dtype=v.dtype)
+        else:
+            raise ValueError(op)
+        zero = torch.zeros((), dtype=res.dtype, device=dev)
+        results.append((torch.where(first, res, zero),
+                        torch.where(first, cnt, 0)))
+    return [], results, torch.ones((), dtype=torch.int64, device=dev), first
 
 
 def _segment_lane(x: torch.Tensor, gid: torch.Tensor, capacity: int,

@@ -3,7 +3,8 @@
 Two paths, as in the reference:
 
 * **Direct address** (:func:`dense_join`, :func:`dense_join_swapped`):
-  a single unique integer key indexes a table of ``4 x capacity`` slots;
+  a single integer key (unique on the table's side for an inner join;
+  any for a semi or anti join) indexes a table of ``4 x capacity`` slots;
   each probe row's match is two gathers. The table build and probe is
   the ``joinProbe`` CUDA kernel (:mod:`.cuda.join_probe`). Runtime
   conditions (unique keys, keys inside the table) are checked on the
@@ -47,10 +48,11 @@ def _table_build_probe(slot: torch.Tensor, pslot: torch.Tensor, tbl: int
     return cnt_p, row_p, max_cnt > 1
 
 
-def dense_joinable(keys) -> bool:
-    """Static eligibility for the direct-address join: a single
-    fixed-width integer key (``keys`` are bound expressions)."""
-    if len(keys) != 1:
+def dense_joinable(jt: str, keys) -> bool:
+    """Static eligibility for the direct-address join: an inner, semi or
+    anti join on a single fixed-width integer key (``keys`` are bound
+    expressions)."""
+    if jt not in ("inner", "left_semi", "left_anti") or len(keys) != 1:
         return False
     dt = keys[0].data_type
     return dt is not T.STRING and not dt.is_floating
@@ -82,12 +84,16 @@ def dense_join_swapped(probe: ColumnarBatch, build: ColumnarBatch,
 
 
 def dense_join(probe: ColumnarBatch, build: ColumnarBatch,
-               pk: DeviceColumn, bk: DeviceColumn, out_schema):
-    """Inner join for UNIQUE integer build keys (dense mode 1): the table
-    builds over the build side and every probe row gathers its match.
-    Output stays lazy at probe capacity (live = matched). Returns
-    ``(batch, fail)``: ``fail`` is a device bool, true when build keys
-    were duplicated or outside the table."""
+               pk: DeviceColumn, bk: DeviceColumn, out_schema,
+               jt: str = "inner"):
+    """Direct-address join, dense mode 1: the table builds over the build
+    side and every probe row looks up its match. Output stays lazy at
+    probe capacity. An inner join needs UNIQUE build keys and gathers the
+    build row (live = matched); a semi or anti join only tests membership,
+    so duplicate build keys are fine there, and it keeps the probe
+    columns (live = matched, or live and unmatched). Returns ``(batch,
+    fail)``: ``fail`` is a device bool, true when build keys were outside
+    the table or, for an inner join, duplicated."""
     cap_b = bk.capacity
     tbl = cap_b * _DENSE_TABLE_FACTOR
     usable_b = build.row_mask() & bk.validity
@@ -101,8 +107,13 @@ def dense_join(probe: ColumnarBatch, build: ColumnarBatch,
     pslot = torch.where(in_range_p, kp, 0)
 
     cnt_p, row_p, dup = _table_build_probe(slot, pslot, tbl)
-    fail = (usable_b & ~in_range_b).any() | dup
+    fail = (usable_b & ~in_range_b).any()
     matched = in_range_p & (cnt_p > 0)
+    if jt in ("left_semi", "left_anti"):
+        keep = matched if jt == "left_semi" else live_p & ~matched
+        return ColumnarBatch(probe.columns, keep.sum(), out_schema,
+                             live=keep), fail
+    fail = fail | dup
     bcols = gather_columns(build.columns, row_p.clamp(0, cap_b - 1), matched)
     return ColumnarBatch(tuple(probe.columns) + bcols, matched.sum(),
                          out_schema, live=matched), fail

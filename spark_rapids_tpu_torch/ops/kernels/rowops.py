@@ -4,6 +4,11 @@ Port of ``spark_rapids_tpu/ops/kernels/rowops.py``. Float keys map to
 order-preserving operands so NaN ordering (greatest) and -0.0 == 0.0
 match Spark; nulls order through an explicit bucket operand.
 
+Two hand-written kernels run here: a flat string column moves through
+its char matrix with the ``strings`` gather (:mod:`.cuda.strings`), and a
+single packable sort key sorts as one int64 lane with the ``sortStep``
+bitonic sort (:mod:`.cuda.sort_steps`).
+
 The reference sorts several operands at once with ``lax.sort(...,
 num_keys=k)``. torch has no multi-operand sort, so :func:`lexsort` runs
 one STABLE ``torch.sort`` per operand from the least significant up;
@@ -18,8 +23,12 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ... import types as T
 from ...data.batch import ColumnarBatch
-from ...data.column import DeviceColumn, bucket_capacity
+from ...data.column import DeviceColumn, bucket_byte_capacity, bucket_capacity
+from ..strings_util import PAD, char_matrix
+from .cuda import sort_steps as SS
+from .cuda import strings as SG
 
 _INT64_MIN = -0x8000000000000000
 _CANON_NAN_BITS = 0x7FF8000000000000
@@ -62,13 +71,22 @@ def orderable_key(col: DeviceColumn, ascending: bool = True,
 
 def string_sort_keys(col: DeviceColumn, ascending: bool = True,
                      nulls_first: bool = True) -> List[torch.Tensor]:
-    """[null bucket, code] operands of a sorted-dictionary string column
-    (code order is byte order by construction)."""
-    null_bucket = torch.where(col.validity, 0, -1 if nulls_first else 1)
-    key = torch.where(col.validity, col.codes, 0)
+    """Sort operands of a string column: [null bucket, code] for a
+    sorted dictionary (code order is byte order by construction), else
+    [null bucket] + one int16 char operand per column of the char
+    matrix."""
+    null_bucket = torch.where(col.validity, 0, -1 if nulls_first else 1
+                              ).to(torch.int8)
+    if col.is_dict and col.dict_sorted:
+        key = torch.where(col.validity, col.codes, 0)
+        if not ascending:
+            key = -key - 1
+        return [null_bucket, key]
+    m = char_matrix(col)
+    cols = [m[:, i] for i in range(m.shape[1])]
     if not ascending:
-        key = -key - 1
-    return [null_bucket.to(torch.int8), key]
+        cols = [-(c.to(torch.int32) + 1) for c in cols]
+    return [null_bucket] + cols
 
 
 def lexsort(operands: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -101,15 +119,43 @@ def sort_operands(keys: Sequence[DeviceColumn], ascending: Sequence[bool],
 def gather_column(col: DeviceColumn, indices: torch.Tensor,
                   index_valid: Optional[torch.Tensor] = None) -> DeviceColumn:
     """Rows of ``col`` at ``indices``; fixed-width and dictionary columns
-    both move one lane (a dictionary rides along untouched)."""
+    both move one lane (a dictionary rides along untouched). Flat strings
+    gather rows of their char matrix (the ``strings`` kernel) and rebuild
+    offsets and payload."""
     safe = indices.clamp(0, col.capacity - 1).long()
     validity = col.validity[safe]
     if index_valid is not None:
         validity = validity & index_valid
+    if col.is_flat:
+        m = SG.ragged_gather(char_matrix(col), safe.to(torch.int32),
+                             validity)
+        return strings_from_matrix(m, validity, col.max_bytes)
     lane = col.lane[safe]
     lane = torch.where(validity, lane, torch.zeros((), dtype=lane.dtype,
                                                    device=lane.device))
     return col.replace_rows(validity, lane)
+
+
+def strings_from_matrix(m: torch.Tensor, validity: torch.Tensor,
+                        max_bytes: int) -> DeviceColumn:
+    """Rebuild a flat string column (offsets + payload) from a char
+    matrix whose rows end in PAD. The non-PAD chars in row-major order are
+    the payload; the reference compacts them with one stable sort, here a
+    cumsum gives each kept char its byte position and one scatter writes
+    it, which gives the same offsets and bytes."""
+    out_cap, w = m.shape
+    dev = m.device
+    keep = (m != PAD).reshape(-1)
+    lens = keep.reshape(out_cap, w).sum(1, dtype=torch.int32)
+    offsets = torch.zeros(out_cap + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(lens, 0, dtype=torch.int32)
+    byte_cap = bucket_byte_capacity(out_cap * w)
+    pos = torch.cumsum(keep, 0) - 1
+    payload = torch.zeros(byte_cap + 1, dtype=torch.uint8, device=dev)
+    payload.scatter_(0, torch.where(keep, pos, byte_cap),
+                     m.reshape(-1).to(torch.uint8))
+    return DeviceColumn(payload[:byte_cap], validity, T.STRING,
+                        offsets=offsets, max_bytes=max_bytes)
 
 
 def gather_columns(columns, indices: torch.Tensor,
@@ -156,6 +202,40 @@ def shrink_sparse(batch: ColumnarBatch) -> ColumnarBatch:
     return ColumnarBatch(cols, batch.n_rows, batch.schema)
 
 
+def packed_sort_lane(batch: ColumnarBatch, keys: Sequence[DeviceColumn],
+                     ascending: Sequence[bool], nulls_first: Sequence[bool]
+                     ) -> Optional[torch.Tensor]:
+    """The sort operands packed into ONE unique int64 lane, or None when
+    the keys cannot pack. Eligible, as in the reference: a single key of
+    at most 32 bits that is not a float (ints, dates, bools, sorted
+    dictionary codes), at a capacity of at most ``2**27``. Layout, high
+    to low, the stable sort's operand order (dead flag, null bucket, key,
+    row index), each field non-negative in its width:
+    ``[bit63: 0][4: dead 8 / bucket + 4][32: key + 2**31][27: row]``."""
+    if len(keys) != 1:
+        return None
+    k = keys[0]
+    if k.is_string and not (k.is_dict and k.dict_sorted):
+        return None
+    if not k.is_string and (k.dtype.is_floating
+                            or k.data.element_size() > 4
+                            or k.data.dtype == torch.uint8):
+        return None
+    capacity = batch.capacity
+    if capacity > 1 << SS.INDEX_BITS:
+        return None
+    a, nf = ascending[0], nulls_first[0]
+    if k.is_string:
+        bucket, key = string_sort_keys(k, a, nf)
+    else:
+        key, bucket = orderable_key(k, a, nf)
+    live = batch.row_mask()
+    field = torch.where(live, bucket.to(torch.int64) + 4, 8)
+    u = key.to(torch.int64) + (1 << 31)
+    iota = torch.arange(capacity, dtype=torch.int64, device=live.device)
+    return (field << (32 + SS.INDEX_BITS)) | (u << SS.INDEX_BITS) | iota
+
+
 def sort_batch_by_columns(batch: ColumnarBatch,
                           keys: Sequence[DeviceColumn],
                           ascending: Sequence[bool],
@@ -163,14 +243,17 @@ def sort_batch_by_columns(batch: ColumnarBatch,
     """Sort a batch by evaluated key columns; dead rows (lazy or past
     ``n_rows``) sink to the tail through a leading dead-row operand.
 
-    The reference routes one packable int key through the Pallas bitonic
-    sort (``sortStep``), which is not ported yet; every sort here takes
-    this path, the reference's own default."""
+    A single packable key sorts as one int64 lane through the ``sortStep``
+    kernel (:func:`packed_sort_lane`); the lane is unique per row, so the
+    order is the stable sort's. Other keys take the stable lexsort."""
     live = batch.row_mask()
-    operands = [(~live).to(torch.int8)] + sort_operands(keys, ascending,
-                                                        nulls_first)
-    perm = lexsort(operands)
     iota = torch.arange(batch.capacity, device=live.device)
+    lane = packed_sort_lane(batch, keys, ascending, nulls_first)
+    if lane is not None:
+        perm = SS.packed_argsort(lane)
+    else:
+        perm = lexsort([(~live).to(torch.int8)]
+                       + sort_operands(keys, ascending, nulls_first))
     cols = gather_columns(batch.columns, perm, iota < batch.n_rows)
     return ColumnarBatch(cols, batch.n_rows, batch.schema)
 
@@ -228,7 +311,8 @@ def topk_batch_by_columns(batch: ColumnarBatch,
     iota_out = torch.arange(kcap, device=live.device)
     live_out = iota_out < n_out
     k_take = min(kcap, cap)
-    single = len(keys) == 1
+    single = len(keys) == 1 and (not keys[0].is_string or (
+        keys[0].is_dict and keys[0].dict_sorted))
     if single and not allow_data_fallback and not keys[0].is_string \
             and (keys[0].dtype.is_floating
                  or keys[0].data.dtype == torch.int64):

@@ -9,13 +9,15 @@ Strings compare through their dictionaries: the dictionaries are small
 and on the host, so the comparison runs once per (left entry, right
 entry) pair on the host, and each row gathers its pair's answer by codes
 on the device. This is the reference's dictionary fast path
-(``strings_util.device_string_compare``); the flat-string path waits
-for the strings port.
+(``strings_util.device_string_compare``); comparisons of flat strings
+wait for a later slice. ``In`` over strings matches char rows through
+the dictionary (``strings_util.lift_dict``), for both layouts.
 """
 
 from __future__ import annotations
 
 import operator
+from typing import List
 
 import numpy as np
 import torch
@@ -24,6 +26,7 @@ from .. import types as T
 from ..data.batch import ColumnarBatch
 from ..data.column import DeviceColumn
 from .expression import BinaryExpression, Expression, make_column
+from .strings_util import PAD, lift_dict
 
 #: Entry-pair product above which a dictionary comparison is refused.
 _MAX_DICT_PAIRS = 1 << 24
@@ -31,6 +34,9 @@ _MAX_DICT_PAIRS = 1 << 24
 
 def dict_compare(op, l: DeviceColumn, r: DeviceColumn) -> torch.Tensor:
     """``op(l, r)`` per row for two dictionary-encoded string columns."""
+    if not (l.is_dict and r.is_dict):
+        raise NotImplementedError(
+            "comparison of flat strings is not ported yet")
     if l.dict_size == 0 or r.dict_size == 0:
         return torch.zeros(l.capacity, dtype=torch.bool, device=l.device)
     if l.dict_size * r.dict_size > _MAX_DICT_PAIRS:
@@ -161,3 +167,45 @@ class IsNotNull(IsNull):
         c = self.children[0].eval_device(batch)
         live = batch.row_mask()
         return make_column(c.validity & live, live, T.BOOLEAN)
+
+
+class In(Expression):
+    """value IN (literals...), Spark's null semantics: a null input gives
+    null; a value not found gives null when the list holds a null."""
+
+    def __init__(self, child: Expression, values: List):
+        self.children = [child]
+        self.values = list(values)
+
+    @property
+    def data_type(self) -> T.DataType:
+        return T.BOOLEAN
+
+    def with_children(self, children):
+        return In(children[0], self.values)
+
+    def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
+        c = self.children[0].eval_device(batch)
+        non_null = [x for x in self.values if x is not None]
+        has_null = len(non_null) != len(self.values)
+        if c.is_string:
+            needles = [str(x).encode("utf-8") for x in non_null]
+            w = max([c.max_bytes, 1] + [len(b) for b in needles])
+            rows = np.full((max(len(needles), 1), w), PAD, dtype=np.int16)
+            for i, b in enumerate(needles):
+                rows[i, :len(b)] = np.frombuffer(b, dtype=np.uint8)
+
+            def match(m, _lengths):
+                found = torch.zeros(m.shape[0], dtype=torch.bool,
+                                    device=m.device)
+                want = torch.from_numpy(rows).to(m.device)
+                for i in range(len(needles)):
+                    found = found | (m == want[i]).all(1)
+                return found
+            found = lift_dict(c, match, width=w)
+        else:
+            found = torch.zeros_like(c.validity)
+            for x in non_null:
+                found = found | (c.data == x)
+        validity = c.validity & (found | (not has_null))
+        return make_column(found, validity, T.BOOLEAN)

@@ -1,7 +1,9 @@
 """Logical plans and the DataFrame API — port of
-``spark_rapids_tpu/plan/logical.py``, cut to what TPC-H Q3 runs:
-``where``, ``with_column``, an inner equi ``join``, ``group_by(...).agg``,
-``sort``, ``limit`` and ``collect``.
+``spark_rapids_tpu/plan/logical.py``, cut to what TPC-H Q1, Q3, Q4, Q6
+and Q22 run: ``select``, ``where``, ``with_column``, equi ``join``
+(inner, left_semi, left_anti), ``cross_join`` (a keyless inner join is
+one, with its condition), ``group_by(...).agg`` (no keys: a global
+aggregate), ``sort``, ``limit`` and ``collect``.
 
 Analysis is eager, as in the reference: every node resolves attribute
 types against its child's schema and inserts numeric coercion casts when
@@ -150,14 +152,25 @@ class Aggregate(LogicalPlan):
 
 
 class Join(LogicalPlan):
-    """Inner equi join: left is the probe side, right the build side."""
+    """Equi join (inner, left_semi, left_anti) or cross join (no keys, an
+    optional condition over both sides' columns): left is the probe
+    side, right the build side."""
+
+    TYPES = ("inner", "left_semi", "left_anti", "cross")
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  join_type: str, left_keys: List[Expression],
-                 right_keys: List[Expression]):
-        if join_type != "inner":
+                 right_keys: List[Expression],
+                 condition: Optional[Expression] = None):
+        if join_type not in self.TYPES:
             raise NotImplementedError(
-                f"{join_type} joins are not ported yet; only inner")
+                f"{join_type} joins are not ported yet")
+        if (join_type == "cross") != (not left_keys):
+            raise ValueError("a cross join takes no keys; every other join "
+                             "needs them")
+        if condition is not None and join_type != "cross":
+            raise NotImplementedError(
+                "residual conditions on equi joins are not ported yet")
         self.children = [left, right]
         self.join_type = join_type
         lk, rk = [], []
@@ -168,10 +181,16 @@ class Join(LogicalPlan):
             lk.append(l)
             rk.append(r)
         self.left_keys, self.right_keys = lk, rk
+        if condition is not None:
+            condition = resolve(condition, T.Schema(list(left.schema)
+                                                    + list(right.schema)))
+        self.condition = condition
 
     @property
     def schema(self) -> T.Schema:
         left, right = self.children
+        if self.join_type in ("left_semi", "left_anti"):
+            return left.schema
         return T.Schema(list(left.schema) + list(right.schema))
 
     def describe(self):
@@ -211,7 +230,8 @@ class Limit(LogicalPlan):
 
 def split_join_condition(cond: Expression, lschema: T.Schema,
                          rschema: T.Schema):
-    """Equi key pairs of a conjunction of ``left = right`` terms."""
+    """Equi key pairs of a conjunction of ``left = right`` terms, and the
+    conjunction of the other terms (None when there are none)."""
     conjuncts: List[Expression] = []
 
     def flatten(e):
@@ -223,6 +243,7 @@ def split_join_condition(cond: Expression, lschema: T.Schema,
     flatten(cond)
     lnames, rnames = set(lschema.names), set(rschema.names)
     lk, rk = [], []
+    residual = None
     for c in conjuncts:
         if isinstance(c, PRED.EqualTo):
             a, b = c.children
@@ -235,13 +256,13 @@ def split_join_condition(cond: Expression, lschema: T.Schema,
                 lk.append(b)
                 rk.append(a)
                 continue
-        raise NotImplementedError(
-            f"join condition term {c} is not an equi key; residual join "
-            "conditions are not ported yet")
-    return lk, rk
+        residual = c if residual is None else PRED.And(residual, c)
+    return lk, rk, residual
 
 
 class GroupedData:
+    """``group_by(*keys)``; no keys makes ``agg`` a global aggregate."""
+
     def __init__(self, df: "DataFrame", keys: List[Expression]):
         self._df = df
         self._keys = keys
@@ -264,6 +285,15 @@ class DataFrame:
     def columns(self) -> List[str]:
         return self._plan.schema.names
 
+    def select(self, *cols) -> "DataFrame":
+        exprs = []
+        for c in cols:
+            e = _as_expr(c)
+            if not isinstance(e, (Alias, AttributeReference)):
+                e = Alias(e, e.name)
+            exprs.append(e)
+        return DataFrame(Project(self._plan, exprs), self._session)
+
     def where(self, condition: Expression) -> "DataFrame":
         return DataFrame(Filter(self._plan, condition), self._session)
 
@@ -275,10 +305,24 @@ class DataFrame:
     def group_by(self, *keys) -> GroupedData:
         return GroupedData(self, [_as_expr(k) for k in keys])
 
-    def join(self, other: "DataFrame", on: Expression,
+    def join(self, other: "DataFrame", on: Optional[Expression] = None,
              how: str = "inner") -> "DataFrame":
-        lk, rk = split_join_condition(on, self.schema, other.schema)
-        return DataFrame(Join(self._plan, other._plan, how, lk, rk),
+        """Equi join on the ``left = right`` terms of ``on``. An inner join
+        with no equi term is a cross join filtered by ``on``."""
+        if on is None:
+            jt = "cross" if how in ("inner", "cross") else how
+            return DataFrame(Join(self._plan, other._plan, jt, [], []),
+                             self._session)
+        lk, rk, residual = split_join_condition(on, self.schema,
+                                                other.schema)
+        if not lk and how == "inner":
+            plan = Join(self._plan, other._plan, "cross", [], [], residual)
+        else:
+            plan = Join(self._plan, other._plan, how, lk, rk, residual)
+        return DataFrame(plan, self._session)
+
+    def cross_join(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(Join(self._plan, other._plan, "cross", [], []),
                          self._session)
 
     def sort(self, *orders) -> "DataFrame":

@@ -1,15 +1,18 @@
 """Logical -> physical planning — port of the parts of
-``spark_rapids_tpu/plan/planner.py`` and ``plan/overrides.py`` that Q3
-needs. Every logical node maps to its device exec directly (the port
-has no CPU operators to replace); ``ORDER BY ... LIMIT n`` with ``n`` at
-or below ``spark.rapids.tpu.sort.topKThreshold`` plans as a top-k, as
-the reference's limit-into-sort rule does.
+``spark_rapids_tpu/plan/planner.py`` and ``plan/overrides.py`` that the
+port's TPC-H queries need. Every logical node maps to its device exec
+directly (the port has no CPU operators to replace); a keyless join
+plans as the nested-loop join (``planner.py:_plan_join``,
+``overrides.py:_make_nlj``); ``ORDER BY ... LIMIT n`` with ``n`` at or
+below ``spark.rapids.tpu.sort.topKThreshold`` plans as a top-k, as the
+reference's limit-into-sort rule does.
 """
 
 from __future__ import annotations
 
 from ..config import TOPK_THRESHOLD, TorchConf
 from ..exec import execs as E
+from ..exec.joins import NestedLoopJoinExec
 from . import logical as L
 
 
@@ -25,6 +28,11 @@ def plan_physical(plan: L.LogicalPlan, conf: TorchConf) -> E.TorchExec:
     if isinstance(plan, L.Aggregate):
         return E.HashAggregateExec(plan_physical(plan.children[0], conf),
                                    plan.groupings, plan.aggregates)
+    if isinstance(plan, L.Join) and plan.join_type == "cross":
+        return NestedLoopJoinExec(
+            plan_physical(plan.children[0], conf),
+            plan_physical(plan.children[1], conf), plan.condition,
+            plan.schema)
     if isinstance(plan, L.Join):
         return E.ShuffledHashJoinExec(
             plan_physical(plan.children[0], conf),

@@ -43,6 +43,17 @@ class QueryInfo:
     exec_ms: Dict[str, float]
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the card when it is None; raises when the card is
+    asked for and there is none, instead of running on the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the "
+            "CPU explicitly")
+    return device
+
+
 class TorchSession:
     """Entry point of the port. ``device`` defaults to ``"cuda"``; without
     CUDA it raises instead of running on the CPU. Pass ``device="cpu"``
@@ -50,12 +61,7 @@ class TorchSession:
 
     def __init__(self, conf: Optional[dict] = None, device=None):
         self.conf = TorchConf(conf)
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "TorchSession needs a CUDA device and none is available; "
-                "pass device='cpu' to run on the CPU explicitly")
-        self.device = device
+        self.device = resolve_device(device)
         self._learned: Dict[str, Dict[int, int]] = {}
         self.last_query: Optional[QueryInfo] = None
 

@@ -3,9 +3,10 @@
 Port of ``spark_rapids_tpu/types.py``, cut to the types the port runs:
 every type knows the numpy dtype of its host values and the torch dtype
 of its device lane. Dates are int32 days since the epoch, Spark's
-internal representation. Strings are dictionary-encoded on the device
-(int32 codes) with the dictionary kept on the host, so their device
-lane is int32.
+internal representation. Uploaded strings are dictionary-encoded on
+the device (int32 codes) with the dictionary kept on the host, so their
+device lane is int32; expressions may build flat strings (offsets and
+a byte payload, ``data/column.py``).
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ class DateType(DataType):
 
 
 class StringType(DataType):
-    """Sorted-dictionary strings: int32 codes on the device."""
+    """Strings: int32 dictionary codes, or a flat offsets + bytes layout."""
 
     name = "string"
     np_dtype = np.dtype(object)

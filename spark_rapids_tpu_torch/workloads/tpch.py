@@ -1,5 +1,6 @@
 """TPC-H-shaped tables and queries — port of
-``spark_rapids_tpu/workloads/tpch.py`` (``gen_tables`` and ``q3``).
+``spark_rapids_tpu/workloads/tpch.py`` (``gen_tables``, ``q1``, ``q3``,
+``q4``, ``q6`` and ``q22``).
 
 :func:`gen_tables` is a numpy-only copy of the reference generator: the
 same seed draws the same values in the same order, so both packages see
@@ -17,11 +18,19 @@ from .. import types as T
 from ..data.batch import HostBatch
 from ..ops import aggregates as A
 from ..ops import predicates as P
-from ..ops.arithmetic import Multiply, Subtract
+from ..ops.arithmetic import Add, Multiply, Subtract
 from ..ops.expression import col, lit
+from ..ops.strings import Substring
 from ..plan.logical import SortOrder
 
+# days since the epoch of the queries' date literals
+D_1994_01_01 = 8766
+D_1995_01_01 = 9131
 D_1995_03_15 = 9204
+D_1998_09_02 = 10471
+
+#: Q22's country codes.
+Q22_CODES = ["13", "31", "23", "29", "30", "18", "17"]
 
 _FLAGS = np.array(["A", "N", "R"])
 _STATUS = np.array(["F", "O"])
@@ -180,6 +189,29 @@ def _rev():
                     Subtract(lit(1.0), col("l_discount")))
 
 
+def q1(t):
+    """Pricing summary report (Q1): filter, two dictionary keys, sums,
+    averages and a count."""
+    return (t["lineitem"]
+            .where(P.LessThanOrEqual(col("l_shipdate"),
+                                     lit(D_1998_09_02, T.DATE)))
+            .with_column("disc_price", _rev())
+            .with_column("charge",
+                         Multiply(_rev(), Add(lit(1.0), col("l_tax"))))
+            .group_by(col("l_returnflag"), col("l_linestatus"))
+            .agg(A.AggregateExpression(A.Sum(col("l_quantity")), "sum_qty"),
+                 A.AggregateExpression(A.Sum(col("l_extendedprice")),
+                                       "sum_base_price"),
+                 A.AggregateExpression(A.Sum(col("disc_price")),
+                                       "sum_disc_price"),
+                 A.AggregateExpression(A.Sum(col("charge")), "sum_charge"),
+                 A.AggregateExpression(A.Average(col("l_quantity")),
+                                       "avg_qty"),
+                 A.AggregateExpression(A.Average(col("l_discount")),
+                                       "avg_disc"),
+                 A.AggregateExpression(A.Count(), "count_order")))
+
+
 def q3(t):
     """Shipping priority (Q3): 3-way join, grouped revenue, top-10."""
     cust = t["customer"].where(
@@ -198,3 +230,59 @@ def q3(t):
             .agg(A.AggregateExpression(A.Sum(col("revenue")), "revenue"))
             .sort(SortOrder(col("revenue"), ascending=False))
             .limit(10))
+
+
+def q4(t):
+    """Order priority checking (Q4): EXISTS as a left-semi join, then a
+    count per priority in priority order."""
+    late = t["lineitem"].where(
+        P.LessThan(col("l_commitdate"), col("l_receiptdate")))
+    orders = t["orders"].where(P.And(
+        P.GreaterThanOrEqual(col("o_orderdate"), lit(D_1994_01_01, T.DATE)),
+        P.LessThan(col("o_orderdate"), lit(D_1995_01_01, T.DATE))))
+    return (orders
+            .join(late, on=P.EqualTo(col("o_orderkey"), col("l_orderkey")),
+                  how="left_semi")
+            .group_by(col("o_orderpriority"))
+            .agg(A.AggregateExpression(A.Count(), "order_count"))
+            .sort(SortOrder(col("o_orderpriority"))))
+
+
+def q6(t):
+    """Forecasting revenue change (Q6): a selective filter and one global
+    sum."""
+    li = t["lineitem"].where(P.And(P.And(P.And(
+        P.GreaterThanOrEqual(col("l_shipdate"), lit(D_1994_01_01, T.DATE)),
+        P.LessThan(col("l_shipdate"), lit(D_1995_01_01, T.DATE))),
+        P.And(P.GreaterThanOrEqual(col("l_discount"), lit(0.05)),
+              P.LessThanOrEqual(col("l_discount"), lit(0.07)))),
+        P.LessThan(col("l_quantity"), lit(24.0))))
+    return (li.with_column("rev",
+                           Multiply(col("l_extendedprice"),
+                                    col("l_discount")))
+            .group_by()
+            .agg(A.AggregateExpression(A.Sum(col("rev")), "revenue")))
+
+
+def q22(t):
+    """Global sales opportunity (Q22): a substring country code, the
+    scalar avg(acctbal) subquery as a cross join, NOT EXISTS as an anti
+    join."""
+    cust = (t["customer"]
+            .with_column("cntrycode",
+                         Substring(col("c_phone"), lit(1), lit(2)))
+            .where(P.In(col("cntrycode"), Q22_CODES)))
+    avg_bal = (cust.where(P.GreaterThan(col("c_acctbal"), lit(0.0)))
+               .group_by()
+               .agg(A.AggregateExpression(A.Average(col("c_acctbal")),
+                                          "avg_bal")))
+    return (cust.cross_join(avg_bal)
+            .where(P.GreaterThan(col("c_acctbal"), col("avg_bal")))
+            .join(t["orders"].select(col("o_custkey")),
+                  on=P.EqualTo(col("c_custkey"), col("o_custkey")),
+                  how="left_anti")
+            .group_by(col("cntrycode"))
+            .agg(A.AggregateExpression(A.Count(), "numcust"),
+                 A.AggregateExpression(A.Sum(col("c_acctbal")),
+                                       "totacctbal"))
+            .sort(SortOrder(col("cntrycode"))))

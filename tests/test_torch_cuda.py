@@ -17,6 +17,8 @@ import torch
 
 from spark_rapids_tpu_torch.ops.kernels.cuda import join_probe as JP
 from spark_rapids_tpu_torch.ops.kernels.cuda import segmented as SEG
+from spark_rapids_tpu_torch.ops.kernels.cuda import sort_steps as SS
+from spark_rapids_tpu_torch.ops.kernels.cuda import strings as SG
 
 JOINPROBE_CASES = ["duplicate keys", "every probed slot empty",
                    "one live row", "all rows dead", "unique keys"]
@@ -78,6 +80,53 @@ def segment_lanes(n: int) -> dict:
     }
 
 
+SORT_CASES = ["one lane", "power of two", "power of two plus one",
+              "all lanes dead", "random 1000", "descending keys"]
+
+
+def sort_lane_case(name: str) -> np.ndarray:
+    """A unique packed sortStep lane (``rowops.packed_sort_lane``'s
+    layout: field, key + 2**31, row index), int64."""
+    rng = np.random.default_rng(len(name))
+    n = {"one lane": 1, "power of two": 4096, "power of two plus one": 4097,
+         "all lanes dead": 777, "random 1000": 1000,
+         "descending keys": 3000}[name]
+    field = rng.integers(1, 8, n)  # null buckets -3..3 ride as 1..7
+    field[rng.random(n) < 0.2] = 8  # dead rows
+    if name == "all lanes dead":
+        field[:] = 8
+    u = rng.integers(0, 2 ** 32, n)
+    if name == "descending keys":
+        field[:] = 4
+        u = np.sort(u)[::-1].copy()
+    return (field.astype(np.int64) << 59) | (u.astype(np.int64) << 27) \
+        | np.arange(n, dtype=np.int64)
+
+
+STRING_CASES = ["all valid", "none valid", "indices out of range",
+                "more rows out than in", "fewer rows out than in"]
+
+
+def gather_case(name: str, w: int):
+    """(mat int16 [n, w], idx int32 [m], valid bool [m]) of one strings
+    gather case: rows of bytes ending in PAD (-1)."""
+    rng = np.random.default_rng(len(name) + w)
+    n, m = {"more rows out than in": (300, 1000),
+            "fewer rows out than in": (1000, 300)}.get(name, (512, 512))
+    lens = rng.integers(0, w + 1, n)
+    mat = rng.integers(0, 256, (n, w)).astype(np.int16)
+    mat[np.arange(w)[None, :] >= lens[:, None]] = -1
+    idx = rng.integers(0, n, m)
+    if name == "indices out of range":
+        idx = rng.integers(-50, n + 50, m)
+    valid = rng.random(m) < 0.8
+    if name == "all valid":
+        valid[:] = True
+    elif name == "none valid":
+        valid[:] = False
+    return mat, idx.astype(np.int32), valid
+
+
 def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
     """Equal bit for bit (floats compared as their integer bits)."""
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -123,3 +172,50 @@ def test_cuda_segmented_matches_plain(cuda_device, gname, op):
         assert SEG.segment_reduce_sorted.launches == before + 1
         assert same_bits(got, SEG.segment_reduce_sorted_plain(xt, gid, CAP,
                                                               op))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SORT_CASES)
+def test_cuda_sort_steps_matches_plain(cuda_device, name):
+    lane = torch.as_tensor(sort_lane_case(name), device=cuda_device)
+    before = SS.packed_argsort.launches
+    got = SS.packed_argsort(lane)
+    assert SS.packed_argsort.launches == before + 1
+    assert torch.equal(got, SS.packed_argsort_plain(lane))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4095, 4096, 8193, 1 << 16, 1_000_003])
+def test_cuda_sort_steps_random_lanes(cuda_device, n):
+    rng = np.random.default_rng(n)
+    lane = (rng.integers(0, 2 ** 35, n).astype(np.int64) << 27) \
+        | rng.permutation(n).astype(np.int64)
+    lane = torch.as_tensor(lane, device=cuda_device)
+    assert torch.equal(SS.packed_argsort(lane), SS.packed_argsort_plain(lane))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [8, 128])
+@pytest.mark.parametrize("name", STRING_CASES)
+def test_cuda_strings_gather_matches_plain(cuda_device, name, w):
+    mat, idx, valid = (torch.as_tensor(a, device=cuda_device)
+                       for a in gather_case(name, w))
+    before = SG.ragged_gather.launches
+    got = SG.ragged_gather(mat, idx, valid)
+    assert SG.ragged_gather.launches == before + 1
+    assert torch.equal(got, SG.ragged_gather_plain(mat, idx, valid))
+
+
+@pytest.mark.cuda
+def test_cuda_strings_gather_empty_sides(cuda_device):
+    mat = torch.full((0, 128), -1, dtype=torch.int16, device=cuda_device)
+    idx = torch.zeros(5, dtype=torch.int32, device=cuda_device)
+    valid = torch.ones(5, dtype=torch.bool, device=cuda_device)
+    before = SG.ragged_gather.launches
+    out = SG.ragged_gather(mat, idx, valid)
+    assert out.shape == (5, 128) and bool((out == -1).all())
+    empty = SG.ragged_gather(torch.zeros((4, 8), dtype=torch.int16,
+                                         device=cuda_device), idx[:0],
+                             valid[:0])
+    assert empty.shape == (0, 8)
+    assert SG.ragged_gather.launches == before

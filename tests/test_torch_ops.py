@@ -52,6 +52,10 @@ def ref_fields(c) -> dict:
         f["dictionary"] = np.array(
             [bytes(data[off[i]:off[i + 1]]).decode()
              for i in range(len(off) - 1)], dtype=object)
+        f["dict_sorted"] = c.dict_sorted
+    elif c.is_string:
+        f.update(data=np.asarray(c.data), offsets=np.asarray(c.offsets),
+                 max_bytes=c.max_bytes)
     else:
         f["data"] = np.asarray(c.data)
     return f
@@ -66,7 +70,7 @@ def to_port(rb: RBatch) -> "ColumnarBatch":  # noqa: F821
     live = None if rb.live is None else np.asarray(rb.live)
     return carry.batch_from_reference([ref_fields(c) for c in rb.columns],
                                       port_schema(rb.schema),
-                                      int(rb.n_rows), live)
+                                      int(rb.n_rows), live, device="cpu")
 
 
 def table(n: int = 600, seed: int = 3) -> pa.RecordBatch:
@@ -274,7 +278,8 @@ def test_dense_aggregate_trips_on_wide_spans_like_reference():
     rcol_ = rb.column("k").__class__(data=jnp.asarray(wide),
                                      validity=rb.column("k").validity,
                                      dtype=RT.LONG)
-    pcol_ = carry.column_from_reference(ref_fields(rcol_), T.LONG)
+    pcol_ = carry.column_from_reference(ref_fields(rcol_), T.LONG,
+                                        device="cpu")
     ones_r = jnp.ones(rb.capacity, jnp.int64)
     ones_p = torch.ones(rb.capacity, dtype=torch.int64)
     rfail = RKG.grouped_aggregate(
