@@ -15,20 +15,29 @@ Phases; each one passes or the script exits non-zero:
    group, one group per row; for ``sortStep`` one lane, a power of two and
    one past it, all lanes dead, random unique lanes up to 1,000,003; for
    the ``strings`` gather W 8 and 128, all or no rows valid, indices out of
-   range on both sides, more and fewer rows out than in. Outputs equal bit
-   for bit;
+   range on both sides, more and fewer rows out than in; for ``hash`` n 1,
+   255, 256, 257 and 100,003 rows by W 4, 8, 128 and 1024, lengths 0-5
+   and W, bytes >= 128, all-PAD rows and random per-row seeds. Outputs
+   equal bit for bit; ``hash`` also equals this script's own numpy
+   murmur3;
 3. TPC-H Q3, Q1, Q4, Q6 and Q22 at SF1 (6,001,215 lineitem rows by
-   default), and all of lineitem sorted by ``l_shipdate``, through
-   ``TorchSession`` on ``cuda``: each answer must match an independent
-   numpy implementation written here, and the kernels of each query's path
-   must have launched during it (counts set to 0 just before, read just
-   after): ``joinProbe`` and ``segmented`` in Q3, ``sortStep`` in Q4 and
-   the sort, the ``strings`` gather in Q22;
+   default), all of lineitem sorted by ``l_shipdate``, and Q1 over
+   ``lineitem.repartition(16, l_returnflag, l_linestatus)`` (``q1_hash_str``)
+   and over ``lineitem.repartition(4, l_orderkey)`` (``q1_hash_key``),
+   through ``TorchSession`` on ``cuda``: each answer must match an
+   independent numpy implementation written here, and the kernels of each
+   query's path must have launched during it (counts set to 0 just
+   before, read just after): ``joinProbe`` and ``segmented`` in Q3,
+   ``sortStep`` in Q4 and the sort, the ``strings`` gather in Q22,
+   ``hash`` and ``segmented`` (the merge aggregate) in ``q1_hash_str``.
+   Then each exchange alone: every lineitem row must land in the
+   partition this script's numpy murmur3 pmod n names;
 4. at the shapes the queries gave each kernel: kernel vs plain version
    (equal bit for bit), median times over CUDA events with the L2 flushed
    between launches, the memory bound, and a PyTorch library yardstick;
-   and the sort exec's permutation of SF1 lineitem by ``l_shipdate``
-   through ``sortStep`` against the stable lexsort route;
+   the sort exec's permutation of SF1 lineitem by ``l_shipdate`` through
+   ``sortStep`` against the stable lexsort route; and the char matrix
+   that feeds ``hash``;
 5. one JSON line with every kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -58,6 +67,10 @@ Q22_CODES = ["13", "31", "23", "29", "30", "18", "17"]
 #: Float sums and averages against numpy: the card adds in another order.
 REV_RTOL = 1e-9
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
+
+
+#: Spark's murmur3 seed of a row hash (``HashPartitioning``).
+SPARK_SEED = 42
 
 
 def fail(msg: str) -> None:
@@ -237,6 +250,118 @@ def strings_edge_cases(torch, SG, rng, dev):
         print(f"  strings gather W={w}: every case equal")
 
 
+def _np_rotl(x, r: int):
+    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+
+def _np_mix_k1(k):
+    return _np_rotl(k * np.uint32(0xCC9E2D51), 15) * np.uint32(0x1B873593)
+
+
+def _np_mix_h1(h, k):
+    return _np_rotl(h ^ k, 13) * np.uint32(5) + np.uint32(0xE6546B64)
+
+
+def _np_fmix(h, length):
+    h = h ^ length
+    h = (h ^ (h >> np.uint32(16))) * np.uint32(0x85EBCA6B)
+    h = (h ^ (h >> np.uint32(13))) * np.uint32(0xC2B2AE35)
+    return h ^ (h >> np.uint32(16))
+
+
+def np_murmur3_bytes(raw: np.ndarray, lengths: np.ndarray,
+                     seed: np.ndarray) -> np.ndarray:
+    """Spark's ``Murmur3_x86_32.hashUnsafeBytes`` in numpy uint32, written
+    here independently of the port: ``raw`` uint8 [n, W] (row r's bytes
+    first), byte ``lengths`` [n], ``seed`` uint32 [n]. Whole 4-byte
+    little-endian blocks, then each tail byte as a signed Java byte, then
+    fmix with the length."""
+    n, w = raw.shape
+    lengths = np.asarray(lengths, np.int64)
+    with np.errstate(over="ignore"):
+        h = np.asarray(seed, np.uint32).copy()
+        m = raw.astype(np.uint32)
+        blocks = np.minimum(np.maximum(lengths, 0) // 4, w // 4)
+        for b in range(w // 4):
+            k = m[:, 4 * b] | (m[:, 4 * b + 1] << np.uint32(8)) \
+                | (m[:, 4 * b + 2] << np.uint32(16)) \
+                | (m[:, 4 * b + 3] << np.uint32(24))
+            h = np.where(b < blocks, _np_mix_h1(h, _np_mix_k1(k)), h)
+        end = np.clip(lengths, 0, w)
+        rows = np.arange(n)
+        for j in range(3):
+            pos = blocks * 4 + j
+            byte = raw[rows, np.minimum(pos, max(w - 1, 0))].astype(np.int32)
+            k = np.where(byte > 127, byte - 256, byte).astype(np.uint32)
+            h = np.where(pos < end, _np_mix_h1(h, _np_mix_k1(k)), h)
+        return _np_fmix(h, lengths.astype(np.uint32))
+
+
+def np_hash_strings(values: np.ndarray, seed: np.ndarray) -> np.ndarray:
+    """Spark's murmur3 of each UTF-8 string of ``values`` (no nulls),
+    ``seed`` uint32 [n]; encodes each distinct value once."""
+    uniq, inv = np.unique(np.asarray(values).astype(str), return_inverse=True)
+    enc = [u.encode("utf-8") for u in uniq]
+    w = max(4, -(-max([len(e) for e in enc] + [1]) // 4) * 4)
+    mat = np.zeros((len(enc), w), np.uint8)
+    for i, e in enumerate(enc):
+        mat[i, :len(e)] = np.frombuffer(e, np.uint8)
+    lens = np.array([len(e) for e in enc], np.int64)
+    return np_murmur3_bytes(mat[inv], lens[inv], seed)
+
+
+def np_hash_longs(values: np.ndarray, seed: np.ndarray) -> np.ndarray:
+    """Spark's murmur3 of int64 values: low word, high word, fmix 8."""
+    v = np.asarray(values, np.int64).view(np.uint64)
+    with np.errstate(over="ignore"):
+        lo = (v & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        hi = (v >> np.uint64(32)).astype(np.uint32)
+        h = _np_mix_h1(np.asarray(seed, np.uint32), _np_mix_k1(lo))
+        h = _np_mix_h1(h, _np_mix_k1(hi))
+        return _np_fmix(h, np.uint32(8))
+
+
+def np_pmod(h: np.ndarray, n_parts: int) -> np.ndarray:
+    return np.mod(h.view(np.int32).astype(np.int64), n_parts)
+
+
+def hash_case(rng, n: int, w: int):
+    """(mat int16 [n, W] PAD-ended, lengths int32, seed uint32 bits as
+    int32) of one ``hash`` edge case: lengths 0-5 and W and random,
+    bytes over the whole 0-255 range, every eleventh row all PAD."""
+    lengths = rng.integers(0, w + 1, n)
+    pick = rng.random(n)
+    for lo, hi, val in ((0.0, 0.3, None), (0.3, 0.4, w)):
+        sel = (pick >= lo) & (pick < hi)
+        lengths[sel] = rng.integers(0, 6, int(sel.sum())) if val is None \
+            else val
+    lengths = np.minimum(lengths, w)
+    mat = rng.integers(0, 256, (n, w)).astype(np.int16)
+    lengths[::11] = 0
+    mat[np.arange(w)[None, :] >= lengths[:, None]] = -1
+    seed = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    return mat, lengths.astype(np.int32), seed.view(np.int32)
+
+
+def hash_edge_cases(torch, HK, rng, dev):
+    for w in (4, 8, 128, 1024):
+        for n in (1, 255, 256, 257, 100_003):
+            mat, lengths, seed = hash_case(rng, n, w)
+            mt, lt, st = (torch.as_tensor(a, device=dev)
+                          for a in (mat, lengths, seed))
+            got = HK.murmur3_bytes_rows(mt, lt, st)
+            want = HK.murmur3_bytes_rows_plain(mt, lt, st)
+            torch.cuda.synchronize()
+            check(bits_equal(torch, got, want),
+                  f"hash n={n} W={w}: differs from the plain version")
+            raw = np.where(mat < 0, 0, mat).astype(np.uint8)
+            ref = np_murmur3_bytes(raw, lengths, seed.view(np.uint32))
+            check(np.array_equal(got.cpu().numpy().view(np.uint32), ref),
+                  f"hash n={n} W={w}: differs from the numpy murmur3")
+        print(f"  hash W={w}: n 1/255/256/257/100003 equal to the plain "
+              "version and to numpy")
+
+
 # --------------------------------------------------------------------------
 # phase 3: Q3 and its numpy reference
 # --------------------------------------------------------------------------
@@ -386,6 +511,60 @@ def sort_lineitem(dfs):
         .sort("l_shipdate")
 
 
+def repartitioned(dfs, n_parts: int, *keys):
+    """The tables with lineitem hash-repartitioned (``tools/chaos_bench.py``
+    forces an exchange into Q1 this way)."""
+    return {**dfs, "lineitem": dfs["lineitem"].repartition(n_parts, *keys)}
+
+
+def check_placement(torch, session, tables, n_parts: int, keys) -> dict:
+    """The exchange alone over ``lineitem.select(l_orderkey,
+    l_returnflag, l_linestatus)``: every row must sit in the partition
+    that this script's numpy murmur3 of ``keys`` pmod ``n_parts`` names,
+    and the partitions must hold every lineitem row once."""
+    from spark_rapids_tpu_torch.data.batch import HostBatch
+    from spark_rapids_tpu_torch.exec import execs as E
+    df = session.create_dataframe(HostBatch.from_numpy(
+        {k: tables["lineitem"].columns[k]
+         for k in ("l_orderkey", "l_returnflag", "l_linestatus")}))
+    plan = session.plan(df.repartition(n_parts, *keys)._plan)
+    ctx = E.ExecContext(session.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parts = plan.execute(ctx)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts, okeys = [], []
+    for p, part in enumerate(parts):
+        rows = [HostBatch.from_device(b) for b in part]
+        n = sum(r.num_rows for r in rows)
+        counts.append(n)
+        if not n:
+            continue
+        cols = {k: np.concatenate([r.columns[k] for r in rows])
+                for k in rows[0].columns}
+        h = np.full(n, SPARK_SEED, np.uint32)
+        for k in keys:
+            h = np_hash_longs(cols[k], h) if k == "l_orderkey" \
+                else np_hash_strings(cols[k], h)
+        bad = int((np_pmod(h, n_parts) != p).sum())
+        check(bad == 0, f"placement {keys}: {bad} rows of partition {p} "
+              "belong elsewhere")
+        okeys.append(cols["l_orderkey"])
+    total = tables["lineitem"].num_rows
+    check(sum(counts) == total, f"placement {keys}: {sum(counts)} rows, "
+          f"expected {total}")
+    check(np.array_equal(np.sort(np.concatenate(okeys)),
+                         np.sort(tables["lineitem"].columns["l_orderkey"])),
+          f"placement {keys}: the partitions do not hold lineitem's rows")
+    print(f"  placement {n_parts} x {list(keys)}: all {total} rows where "
+          f"numpy murmur3 pmod {n_parts} puts them; rows per partition "
+          f"{counts}; exchange {wall:.1f} ms; per exec "
+          + ", ".join(f"{k}={v:.3f}" for k, v in ctx.exec_ms().items()))
+    return {"n_parts": n_parts, "keys": list(keys), "rows": counts,
+            "exchange_ms": wall}
+
+
 #: (key or exact columns, float columns) of each query's answer.
 ANSWERS = {
     "q1": (["l_returnflag", "l_linestatus", "count_order"],
@@ -484,13 +663,14 @@ def profile_query(torch, name, build, exec_ms) -> None:
 
 
 class Wrappers:
-    """The four kernel wrappers, their launch counts and capture."""
+    """The five kernel wrappers, their launch counts and capture."""
 
-    def __init__(self, JP, SEG, SS, SG):
+    def __init__(self, JP, SEG, SS, SG, HK):
         self.mods = {"joinProbe": (JP, "dense_build_probe"),
                      "segmented": (SEG, "segment_reduce_sorted"),
                      "sortStep": (SS, "packed_argsort"),
-                     "strings": (SG, "ragged_gather")}
+                     "strings": (SG, "ragged_gather"),
+                     "hash": (HK, "murmur3_bytes_rows")}
         # the wrappers themselves, which own the counts while a Capture
         # stands in for them
         self.fns = {k: getattr(m, a) for k, (m, a) in self.mods.items()}
@@ -506,7 +686,8 @@ class Wrappers:
 def run_query(torch, session, wrappers, name, build, check_fn, need):
     """Cold run (launch counts set to 0 just before, read just after),
     one captured warm run, then 3 timed warm runs. Returns (cold launch
-    counts, captured calls by kernel, a summary dict)."""
+    counts, captured calls by kernel, a summary dict, the median run's
+    per-exec ms)."""
     wrappers.reset()
     t0 = time.perf_counter()
     got = build().collect()
@@ -617,7 +798,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available; this smoke run needs an NVIDIA GPU")
     from spark_rapids_tpu_torch.ops.kernels import rowops as KR
+    from spark_rapids_tpu_torch.ops import strings_util as SU
     from spark_rapids_tpu_torch.ops.kernels.cuda import _build
+    from spark_rapids_tpu_torch.ops.kernels.cuda import hashing as HK
     from spark_rapids_tpu_torch.ops.kernels.cuda import join_probe as JP
     from spark_rapids_tpu_torch.ops.kernels.cuda import segmented as SEG
     from spark_rapids_tpu_torch.ops.kernels.cuda import sort_steps as SS
@@ -654,10 +837,12 @@ def main() -> int:
     segmented_edge_cases(torch, SEG, rng, dev)
     sortstep_edge_cases(torch, SS, rng, dev)
     strings_edge_cases(torch, SG, rng, dev)
+    hash_edge_cases(torch, HK, rng, dev)
 
     # -- phase 3: the queries at SF1 -------------------------------------
-    print(f"phase 3: TPC-H Q3, Q1, Q4, Q6, Q22 and lineitem sorted by "
-          f"l_shipdate, lineitem_rows={args.lineitem_rows}")
+    print(f"phase 3: TPC-H Q3, Q1, Q4, Q6, Q22, lineitem sorted by "
+          f"l_shipdate, and Q1 over two hash repartitions of lineitem, "
+          f"lineitem_rows={args.lineitem_rows}")
     t0 = time.perf_counter()
     tables = tpch.gen_tables(args.lineitem_rows, seed=args.seed)
     t_gen = time.perf_counter() - t0
@@ -674,7 +859,7 @@ def main() -> int:
           f"numpy references {t_ref:.1f} s; rows "
           + ", ".join(f"{k}={v.num_rows}" for k, v in tables.items()))
 
-    wrappers = Wrappers(JP, SEG, SS, SG)
+    wrappers = Wrappers(JP, SEG, SS, SG, HK)
     queries = {
         "q3": (lambda: tpch.q3(dfs), lambda got: check_q3(got, ref3),
                ("joinProbe", "segmented")),
@@ -691,6 +876,14 @@ def main() -> int:
         "sort": (lambda: sort_lineitem(dfs),
                  lambda got: check_answer("sort", got, refs["sort"]),
                  ("sortStep",)),
+        # 16 is spark.sql.shuffle.partitions' default
+        "q1_hash_str": (lambda: tpch.q1(repartitioned(
+            dfs, 16, "l_returnflag", "l_linestatus")),
+            lambda got: check_answer("q1", got, refs["q1"]),
+            ("hash", "segmented")),
+        "q1_hash_key": (lambda: tpch.q1(repartitioned(dfs, 4, "l_orderkey")),
+                        lambda got: check_answer("q1", got, refs["q1"]),
+                        ("segmented",)),
     }
     launches = {k: 0 for k in wrappers.mods}
     calls = {k: [] for k in wrappers.mods}
@@ -703,6 +896,9 @@ def main() -> int:
             calls[k] += got_calls[k]
         if args.profile:
             profile_query(torch, q, build, mid)
+    placement = [check_placement(torch, session, tables, 16,
+                                 ("l_returnflag", "l_linestatus")),
+                 check_placement(torch, session, tables, 4, ("l_orderkey",))]
 
     # -- phase 4: kernels at the queries' shapes ---------------------------
     print("phase 4: kernels at the shapes the queries gave them")
@@ -843,12 +1039,52 @@ def main() -> int:
                  "bound_ms": st["bytes"] / HBM_BYTES_PER_S * 1e3,
                  "bound_by": "bytes", "library_ms": st["lib"]})
 
+    hs = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "err": 0}
+    for mat, lengths, seed in calls["hash"]:
+        n, w = mat.shape
+        got_k = HK.murmur3_bytes_rows(mat, lengths, seed)
+        want = HK.murmur3_bytes_rows_plain(mat, lengths, seed)
+        check(bits_equal(torch, got_k, want), "hash differs from the plain "
+              f"version at n={n} W={w}")
+        hs["err"] = max(hs["err"], max_abs_err(torch, got_k, want))
+        ms = median_ms(torch, lambda: HK.murmur3_bytes_rows(mat, lengths,
+                                                            seed), flush)
+        pms = median_ms(torch, lambda: HK.murmur3_bytes_rows_plain(
+            mat, lengths, seed), flush, reps=5)
+        # lengths, seed and the output (12 B a row) plus the 32-byte
+        # sectors of chars each row's length needs
+        chars = 2 * lengths.long().clamp(0, w)
+        nbytes = 12 * n + int((32 * ((chars + 31) // 32)).sum())
+        print(f"  hash n={n} W={w} (max length {int(lengths.max())}): "
+              f"kernel {ms:.4f} ms, plain {pms:.4f} ms, no one PyTorch call, "
+              f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        hs["ms"] += ms
+        hs["plain_ms"] += pms
+        hs["bytes"] += nbytes
+    rows.append({"name": "hash", "route": "cuda",
+                 "source": "spark_rapids_tpu_torch/ops/kernels/cuda/csrc/"
+                           "hashing.cu",
+                 "replaces": "spark_rapids_tpu/ops/kernels/pallas/"
+                             "hashing.py:69",
+                 "launches": launches["hash"], "max_abs_err": hs["err"],
+                 "ms": hs["ms"], "plain_ms": hs["plain_ms"],
+                 "bound_ms": hs["bytes"] / HBM_BYTES_PER_S * 1e3,
+                 "bound_by": "bytes", "library_ms": None})
+    # The char matrix that feeds each hash call: a dictionary column's
+    # [capacity, W] int16 matrix gathered by code.
+    flag = dfs["lineitem"]._plan.batch.column("l_returnflag")
+    cm_ms = median_ms(torch, lambda: SU.char_matrix(flag), flush, reps=5)
+    print(f"  char_matrix of l_returnflag at capacity {flag.capacity}, W="
+          f"{flag.max_bytes}: {cm_ms:.4f} ms (writes "
+          f"{2 * flag.capacity * flag.max_bytes / 2 ** 30:.2f} GiB)")
+
     # -- phase 5: results --------------------------------------------------
     print(json.dumps({"queries_sf1": {
         "lineitem_rows": args.lineitem_rows, "card": smi,
         **{q: {k: v for k, v in s.items() if k != "per_exec_ms"}
            for q, s in summaries.items()},
-        "sortStep_l_shipdate": shipdate}}))
+        "sortStep_l_shipdate": shipdate, "placement": placement,
+        "char_matrix_ms": cm_ms}}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,15 +1,20 @@
 """Physical operators — port of ``spark_rapids_tpu/exec/execs.py``, cut to
-what TPC-H Q1, Q3, Q4, Q6 and Q22 run: device source, filter, project,
-hash aggregate (grouped and global), shuffled hash join (inner, semi and
-anti; direct-address modes and the exact binary-search path), top-k,
-sort, limit, and the device-to-host transition. The nested-loop joins
-are in :mod:`.joins`.
+what TPC-H Q1, Q3, Q4, Q6 and Q22 run, over a hash exchange or not:
+device source, filter, project, hash aggregate (grouped and global,
+partial per batch plus merge), shuffled hash join (inner, semi and anti;
+direct-address modes and the exact binary-search path), top-k, sort,
+limit, and the device-to-host transition. The nested-loop joins are in
+:mod:`.joins`, the shuffle exchange in :mod:`..shuffle.exchange`.
 
-Execution model: every operator's ``execute(ctx)`` returns ONE
-:class:`ColumnarBatch` holding its whole output on the device. The
-reference streams batch iterators through fusion, spill, shuffle and pipelining; none of those
-is ported yet, and one whole-relation batch is what they reduce to on a
-single card that holds the data.
+Execution model, the reference's: every operator's ``execute(ctx)``
+returns a list of partitions, each a list of :class:`ColumnarBatch` on
+the device. Narrow operators (project, filter) map each batch; the
+aggregate reduces every batch to partial buffers and merges them; joins,
+sort, top-k and limit accumulate their child into one batch first
+(:func:`accumulate`, the reference's ``_accumulate_spillable`` without
+its spill catalog). A plan without an exchange is one partition of one
+batch throughout, and :func:`_coalesce_device` hands a single batch on
+untouched, so such a plan does no extra copy.
 
 Optimistic operators (dense joins, the dense aggregate, the single-lane
 top-k) take a *site* ordinal from the context, run in the mode the
@@ -28,10 +33,11 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from .. import types as T
-from ..data.batch import ColumnarBatch, HostBatch
+from ..data.batch import ColumnarBatch, HostBatch, empty_batch
 from ..data.column import bucket_capacity
 from ..ops import aggregates as AGG
 from ..ops.expression import BoundReference, Expression, make_column
+from ..ops.kernels import concat as KC
 from ..ops.kernels import groupby as KG
 from ..ops.kernels import join as KJ
 from ..ops.kernels import rowops as KR
@@ -48,8 +54,10 @@ class ExecContext:
         self.dense_fails: List[Tuple[int, torch.Tensor]] = []
         self.site_kinds: List[str] = []
         #: (operator, start, end): CUDA events on the card, host seconds
-        #: on the CPU. Read through :meth:`exec_ms` after the run.
+        #: on the CPU or for host work. Read through :meth:`exec_ms`.
         self._marks: List[tuple] = []
+        #: The exchanges' block store, made at the first exchange.
+        self.shuffle_catalog = None
 
     def next_site(self, kind: str) -> int:
         self.site_kinds.append(kind)
@@ -64,11 +72,13 @@ class ExecContext:
             self.dense_fails.append((site, fail))
 
     @contextlib.contextmanager
-    def timed(self, name: str):
+    def timed(self, name: str, host: bool = False):
         """Time an operator's own work (its children run before this),
-        labelled for ``torch.profiler``."""
+        labelled for ``torch.profiler``; ``host`` times host work (the
+        exchange's serialization) on the host clock. Times of one name
+        add up across batches."""
         with torch.profiler.record_function(name):
-            if self.device.type == "cuda":
+            if self.device.type == "cuda" and not host:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -86,7 +96,7 @@ class ExecContext:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         for name, a, b in self._marks:
-            ms = a.elapsed_time(b) if self.device.type == "cuda" \
+            ms = a.elapsed_time(b) if isinstance(a, torch.cuda.Event) \
                 else (b - a) * 1e3
             out[name] = out.get(name, 0.0) + ms
         return out
@@ -116,8 +126,28 @@ class TorchExec:
             out += c.tree_string(indent + 1)
         return out
 
-    def execute(self, ctx: ExecContext) -> ColumnarBatch:
+    def execute(self, ctx: ExecContext) -> List[List[ColumnarBatch]]:
+        """The output partitions, each a list of device batches."""
         raise NotImplementedError
+
+
+def _coalesce_device(batches: List[ColumnarBatch]) -> ColumnarBatch:
+    """Concatenate device batches at the ladder rung of the sum of their
+    capacities (a bound on the live rows that needs no host sync). A
+    single batch comes back untouched, lazy or not."""
+    if len(batches) == 1:
+        return batches[0]
+    cap = bucket_capacity(max(sum(b.capacity for b in batches), 1))
+    return KC.concat_batches(batches, cap)
+
+
+def accumulate(child: TorchExec, ctx: ExecContext) -> ColumnarBatch:
+    """All of a child's batches as one (an empty batch of its schema when
+    it has none): the input of joins, sort, top-k and limit."""
+    batches = [b for part in child.execute(ctx) for b in part]
+    if not batches:
+        return empty_batch(child.schema, ctx.device)
+    return _coalesce_device(batches)
 
 
 class DeviceSourceExec(TorchExec):
@@ -136,7 +166,7 @@ class DeviceSourceExec(TorchExec):
                f"cap={self.batch.capacity}"
 
     def execute(self, ctx):
-        return self.batch
+        return [[self.batch]]
 
 
 class ProjectExec(TorchExec):
@@ -153,11 +183,14 @@ class ProjectExec(TorchExec):
         return "Project [" + ", ".join(str(e) for e in self.exprs) + "]"
 
     def execute(self, ctx):
-        batch = self.children[0].execute(ctx)
+        parts = self.children[0].execute(ctx)
         bound = _bind_all(self.exprs, self.children[0].schema)
-        with ctx.timed(self.name):
-            cols = [e.eval_device(batch) for e in bound]
-            return batch.with_columns(cols, self.schema)
+
+        def project(batch):
+            with ctx.timed(self.name):
+                cols = [e.eval_device(batch) for e in bound]
+                return batch.with_columns(cols, self.schema)
+        return [[project(b) for b in part] for part in parts]
 
 
 class FilterExec(TorchExec):
@@ -175,21 +208,28 @@ class FilterExec(TorchExec):
         return f"Filter ({self.condition})"
 
     def execute(self, ctx):
-        batch = self.children[0].execute(ctx)
+        parts = self.children[0].execute(ctx)
         cond = self.condition.bind(self.schema)
-        with ctx.timed(self.name):
-            m = cond.eval_device(batch)
-            return KR.compact(batch, m.data & m.validity)
+
+        def keep(batch):
+            with ctx.timed(self.name):
+                m = cond.eval_device(batch)
+                return KR.compact(batch, m.data & m.validity)
+        return [[keep(b) for b in part] for part in parts]
 
 
 class HashAggregateExec(TorchExec):
-    """Grouped aggregation: one grouping pass over the whole input (the
-    reference's partial/merge stack collapses to this for one batch),
-    then the final buffer-evaluation projection. A sparse input to a
-    grouped aggregation is compacted first
-    (:func:`..ops.kernels.rowops.shrink_sparse`). The dense grouping path
-    is optimistic; its fail flag escalates this site to the sort path.
-    Without grouping keys it is the global aggregate: one output row."""
+    """Grouped aggregation, the reference's partial/merge stack: every
+    input batch is reduced to partial buffers (update mode), partials
+    merge (merge mode, over their concatenation) when the newer one has
+    caught up with the older in capacity, the rest merge at the end, and
+    the final projection evaluates the buffers. One input batch is one
+    partial and no merge. A sparse input to a grouped aggregation is
+    compacted first (:func:`..ops.kernels.rowops.shrink_sparse`). The
+    dense grouping path is optimistic: the fail flags of every partial
+    and merge report under this one site, which escalates to the sort
+    path. Without grouping keys it is the global aggregate: one output
+    row, also for no input."""
 
     def __init__(self, child: TorchExec, groupings: List[Expression],
                  aggregates: List[AGG.AggregateExpression]):
@@ -219,23 +259,60 @@ class HashAggregateExec(TorchExec):
         return T.Schema(fields)
 
     def execute(self, ctx):
-        batch = self.children[0].execute(ctx)
+        parts = self.children[0].execute(ctx)
         site = ctx.next_site("aggregate")
-        # The grouping sort and every reduction cost the input's capacity:
-        # a sparse lazy input (a filtered join output) moves to its live
-        # bucket first. The global aggregate's masked reductions need not.
-        if self.groupings:
-            batch = KR.shrink_sparse(batch)
         child_schema = self.children[0].schema
         groupings = _bind_all(self.groupings, child_schema)
         aggs = [AGG.AggregateExpression(a.func.bind(child_schema), a.name)
                 for a in self.aggregates]
         buf_schema = self._buffer_schema()
-        with ctx.timed(self.name):
-            state, fail = aggregate_batch(batch, groupings, aggs, buf_schema,
-                                          dense_mode=min(ctx.mode(site), 1))
+        n_keys = len(groupings)
+        key_refs = [BoundReference(i, f.data_type, f.nullable)
+                    for i, f in enumerate(buf_schema)][:n_keys]
+        dense_mode = min(ctx.mode(site), 1)
+
+        def partial(batch):
+            # The grouping sort and every reduction cost the input's
+            # capacity: a sparse lazy input (a filtered join output) moves
+            # to its live bucket first. The global aggregate's masked
+            # reductions need not.
+            if self.groupings:
+                batch = KR.shrink_sparse(batch)
+            with ctx.timed(self.name):
+                out, fail = aggregate_batch(batch, groupings, aggs,
+                                            buf_schema, n_keys, True,
+                                            dense_mode)
             ctx.report(site, fail)
-            return self._finalize(state)
+            return out
+
+        def merge(batches):
+            batch = _coalesce_device(batches)
+            with ctx.timed(self.name + ".merge"):
+                out, fail = aggregate_batch(batch, key_refs, aggs,
+                                            buf_schema, n_keys, False,
+                                            dense_mode)
+            ctx.report(site, fail)
+            return out
+
+        # Merge two partials only when the newer has caught up with the
+        # older in capacity: concatenation sizes by the capacities' sum,
+        # so a running accumulator would re-group the whole state per
+        # batch; the stack keeps the merge work O(N log N).
+        stack: List[ColumnarBatch] = []
+        for part in parts:
+            for b in part:
+                stack.append(partial(b))
+                while len(stack) >= 2 and \
+                        stack[-1].capacity >= stack[-2].capacity:
+                    b2, b1 = stack.pop(), stack.pop()
+                    stack.append(merge([b1, b2]))
+        if not stack:  # no input batch: group an empty one
+            stack.append(partial(empty_batch(child_schema, ctx.device)))
+        state = stack.pop()
+        while stack:
+            state = merge([stack.pop(), state])
+        with ctx.timed(self.name):
+            return [[self._finalize(state)]]
 
     def _finalize(self, b: ColumnarBatch) -> ColumnarBatch:
         n_keys = len(self.groupings)
@@ -252,26 +329,37 @@ class HashAggregateExec(TorchExec):
 
 def aggregate_batch(batch: ColumnarBatch, key_exprs: List[Expression],
                     aggs: List[AGG.AggregateExpression], buf_schema: T.Schema,
+                    n_keys: int, update_mode: bool = True,
                     dense_mode: int = 1):
-    """One grouping pass in update mode (``_aggregate_batch`` of the
-    reference): evaluate each aggregate's child, reduce it per group into
-    its buffers. Returns ``(buffer batch, fail)``; ``fail`` is ``None``
-    on the always-exact sort path."""
+    """One grouping pass (``_aggregate_batch`` of the reference). Update
+    mode: the inputs are rows; each aggregate's child is evaluated and
+    reduced per group by its buffers' ``update_op``. Merge mode: the
+    inputs are buffer batches (keys first, then the buffers in
+    ``buf_schema`` order) and each buffer reduces by its ``merge_op``.
+    Returns ``(buffer batch, fail)``; ``fail`` is ``None`` on the
+    always-exact paths."""
     capacity = batch.capacity
     dev = batch.device
     live = batch.row_mask()
     keys = [e.eval_device(batch) for e in key_exprs]
     inputs = []
+    bi = n_keys
     for a in aggs:
-        for spec in a.func.buffers():
-            if a.func.child is None:  # count(*)
+        specs = a.func.buffers()
+        for j, spec in enumerate(specs):
+            if not update_mode:
+                c = batch.columns[bi + j]
+                values, validity, op = c.data, c.validity, spec.merge_op
+            elif a.func.child is None:  # count(*)
                 values = torch.ones(capacity, dtype=torch.int64, device=dev)
                 validity = torch.ones(capacity, dtype=torch.bool, device=dev)
+                op = spec.update_op
             else:
                 c = a.func.child.eval_device(batch)
                 values = c.data.to(spec.dtype.torch_dtype)
-                validity = c.validity
-            inputs.append((values, validity, spec.update_op, spec))
+                validity, op = c.validity, spec.update_op
+            inputs.append((values, validity, op, spec))
+        bi += len(specs)
     triples = [(v, val, op) for v, val, op, _ in inputs]
     if keys:
         key_cols, results, n_groups, group_live, fail = \
@@ -321,8 +409,8 @@ class ShuffledHashJoinExec(TorchExec):
 
     def execute(self, ctx):
         left, right = self.children
-        probe = left.execute(ctx)
-        build = right.execute(ctx)
+        probe = accumulate(left, ctx)
+        build = accumulate(right, ctx)
         site = ctx.next_site("join")
         lkeys = _bind_all(self.left_keys, left.schema)
         rkeys = _bind_all(self.right_keys, right.schema)
@@ -340,8 +428,8 @@ class ShuffledHashJoinExec(TorchExec):
                     out, fail = KJ.dense_join_swapped(probe, build, pk[0],
                                                       bk[0], self._schema)
                 ctx.report(site, fail)
-                return out
-            return self._exact(probe, build, pk, bk)
+                return [[out]]
+            return [[self._exact(probe, build, pk, bk)]]
 
     def _exact(self, probe, build, pk, bk) -> ColumnarBatch:
         """Sort the build keys, binary-search every probe key, expand the
@@ -389,7 +477,7 @@ class TopKExec(TorchExec):
         return f"TopK n={self.n}"
 
     def execute(self, ctx):
-        batch = self.children[0].execute(ctx)
+        batch = accumulate(self.children[0], ctx)
         site = ctx.next_site("topk")
         key_exprs = [o.child.bind(self.schema) for o in self.orders]
         with ctx.timed(self.name):
@@ -400,7 +488,7 @@ class TopKExec(TorchExec):
                 allow_data_fallback=ctx.mode(site) == 0)
             if ok is not True:
                 ctx.report(site, ~ok)
-            return top
+            return [[top]]
 
 
 class SortExec(TorchExec):
@@ -418,13 +506,13 @@ class SortExec(TorchExec):
             for o in self.orders) + "]"
 
     def execute(self, ctx):
-        batch = self.children[0].execute(ctx)
+        batch = accumulate(self.children[0], ctx)
         key_exprs = [o.child.bind(self.schema) for o in self.orders]
         with ctx.timed(self.name):
             keys = [e.eval_device(batch) for e in key_exprs]
-            return KR.sort_batch_by_columns(
+            return [[KR.sort_batch_by_columns(
                 batch, keys, [o.ascending for o in self.orders],
-                [o.effective_nulls_first for o in self.orders])
+                [o.effective_nulls_first for o in self.orders])]]
 
 
 class LimitExec(TorchExec):
@@ -442,19 +530,20 @@ class LimitExec(TorchExec):
         return f"Limit {self.n}"
 
     def execute(self, ctx):
-        batch = self.children[0].execute(ctx)
+        batch = accumulate(self.children[0], ctx)
         with ctx.timed(self.name):
             b = KR.physical(batch)
             cap = min(b.capacity, bucket_capacity(max(self.n, 1)))
             iota = torch.arange(cap, device=b.device)
             n_out = torch.clamp(b.n_rows, max=self.n)
             cols = KR.gather_columns(b.columns, iota, iota < n_out)
-            return ColumnarBatch(cols, n_out, b.schema)
+            return [[ColumnarBatch(cols, n_out, b.schema)]]
 
 
 def collect(root: TorchExec, ctx: ExecContext) -> HostBatch:
     """Device-to-host transition: run the plan and download the live
-    rows of its result in row order."""
-    batch = root.execute(ctx)
+    rows of its result, partitions in order, each in row order."""
+    parts = root.execute(ctx)
     with ctx.timed("DeviceToHost"):
-        return HostBatch.from_device(batch)
+        hosts = [HostBatch.from_device(b) for part in parts for b in part]
+    return HostBatch.concat(hosts) if hosts else HostBatch.empty(root.schema)

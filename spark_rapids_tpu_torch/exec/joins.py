@@ -21,7 +21,7 @@ from ..data.batch import ColumnarBatch
 from ..data.column import bucket_capacity
 from ..ops.expression import Expression
 from ..ops.kernels import rowops as KR
-from .execs import TorchExec
+from .execs import TorchExec, accumulate
 
 
 class NestedLoopJoinExec(TorchExec):
@@ -46,8 +46,8 @@ class NestedLoopJoinExec(TorchExec):
 
     def execute(self, ctx):
         left, right = self.children
-        probe = left.execute(ctx)
-        build = right.execute(ctx)
+        probe = accumulate(left, ctx)
+        build = accumulate(right, ctx)
         cond = None if self.condition is None \
             else self.condition.bind(self._schema)
         with ctx.timed(self.name):
@@ -64,6 +64,6 @@ class NestedLoopJoinExec(TorchExec):
                 + KR.gather_columns(build.columns, b_idx, live)
             pairs = ColumnarBatch(cols, live.sum(), self._schema, live=live)
             if cond is None:
-                return pairs
+                return [[pairs]]
             m = cond.eval_device(pairs)
-            return KR.compact(pairs, m.data & m.validity)
+            return [[KR.compact(pairs, m.data & m.validity)]]

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "_build"
 
 #: The kernel sources (``csrc/<name>.cu``).
-KERNELS = ("join_probe", "segmented", "sort_steps", "strings")
+KERNELS = ("join_probe", "segmented", "sort_steps", "strings", "hashing")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

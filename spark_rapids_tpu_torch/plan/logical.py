@@ -3,7 +3,8 @@
 and Q22 run: ``select``, ``where``, ``with_column``, equi ``join``
 (inner, left_semi, left_anti), ``cross_join`` (a keyless inner join is
 one, with its condition), ``group_by(...).agg`` (no keys: a global
-aggregate), ``sort``, ``limit`` and ``collect``.
+aggregate), ``sort``, ``limit``, ``repartition`` (hash on columns, or
+round-robin) and ``collect``.
 
 Analysis is eager, as in the reference: every node resolves attribute
 types against its child's schema and inserts numeric coercion casts when
@@ -215,6 +216,30 @@ class Sort(LogicalPlan):
             for o in self.orders) + "]"
 
 
+class Repartition(LogicalPlan):
+    """Redistribute rows over ``n_parts`` partitions: ``hash`` on ``keys``
+    (Spark's murmur3 pmod n) or ``round_robin``."""
+
+    def __init__(self, child: LogicalPlan, n_parts: int, mode: str,
+                 keys: Optional[List[Expression]] = None):
+        if mode not in ("hash", "round_robin"):
+            raise NotImplementedError(f"{mode} repartitioning is not ported")
+        if n_parts < 1:
+            raise ValueError(f"repartition needs n_parts >= 1, got {n_parts}")
+        self.children = [child]
+        self.n_parts = n_parts
+        self.mode = mode
+        self.keys = [resolve(k, child.schema) for k in (keys or [])]
+
+    @property
+    def schema(self) -> T.Schema:
+        return self.children[0].schema
+
+    def describe(self):
+        keys = ", ".join(str(k) for k in self.keys)
+        return f"Repartition {self.mode} {self.n_parts} [{keys}]"
+
+
 class Limit(LogicalPlan):
     def __init__(self, child: LogicalPlan, n: int):
         self.children = [child]
@@ -332,6 +357,15 @@ class DataFrame:
 
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(Limit(self._plan, n), self._session)
+
+    def repartition(self, n_parts: int, *cols) -> "DataFrame":
+        """Hash-repartition on columns, or round-robin without columns."""
+        if cols:
+            plan = Repartition(self._plan, n_parts, "hash",
+                               keys=[_as_expr(c) for c in cols])
+        else:
+            plan = Repartition(self._plan, n_parts, "round_robin")
+        return DataFrame(plan, self._session)
 
     def collect(self):
         """Run the query; returns a :class:`~..data.batch.HostBatch`

@@ -5,7 +5,9 @@ directly (the port has no CPU operators to replace); a keyless join
 plans as the nested-loop join (``planner.py:_plan_join``,
 ``overrides.py:_make_nlj``); ``ORDER BY ... LIMIT n`` with ``n`` at or
 below ``spark.rapids.tpu.sort.topKThreshold`` plans as a top-k, as the
-reference's limit-into-sort rule does.
+reference's limit-into-sort rule does; a repartition plans as the
+shuffle exchange (``planner.py:140-146`` plans it on the CPU and
+``overrides`` moves it to the device).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 from ..config import TOPK_THRESHOLD, TorchConf
 from ..exec import execs as E
 from ..exec.joins import NestedLoopJoinExec
+from ..shuffle.exchange import ShuffleExchangeExec
+from ..shuffle.partitioners import partitioner_factory
 from . import logical as L
 
 
@@ -38,6 +42,11 @@ def plan_physical(plan: L.LogicalPlan, conf: TorchConf) -> E.TorchExec:
             plan_physical(plan.children[0], conf),
             plan_physical(plan.children[1], conf), plan.join_type,
             plan.left_keys, plan.right_keys, plan.schema)
+    if isinstance(plan, L.Repartition):
+        return ShuffleExchangeExec(
+            plan_physical(plan.children[0], conf),
+            partitioner_factory(plan.mode, plan.n_parts, keys=plan.keys),
+            plan.n_parts)
     if isinstance(plan, L.Sort):
         return E.SortExec(plan_physical(plan.children[0], conf), plan.orders)
     if isinstance(plan, L.Limit):

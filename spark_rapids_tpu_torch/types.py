@@ -86,6 +86,12 @@ DATE = DateType()
 STRING = StringType()
 
 _NUMERIC_ORDER = [INT, LONG, DOUBLE]
+_BY_NAME = {t.name: t for t in (BOOLEAN, INT, LONG, DOUBLE, DATE, STRING)}
+
+
+def from_name(name: str) -> DataType:
+    """The type whose ``name`` this is (the shuffle block header's)."""
+    return _BY_NAME[name]
 
 
 def numeric_promote(a: DataType, b: DataType) -> DataType:

@@ -135,8 +135,8 @@ def test_semi_anti_exact_path_matches_dense_path(jt):
     join = E.ShuffledHashJoinExec(E.DeviceSourceExec(pp),
                                   E.DeviceSourceExec(pb), jt, [col("pk")],
                                   [col("bk")], schema)
-    dense = join.execute(E.ExecContext(torch.device("cpu")))
-    exact = join.execute(E.ExecContext(torch.device("cpu"), {0: 2}))
+    [[dense]] = join.execute(E.ExecContext(torch.device("cpu")))
+    [[exact]] = join.execute(E.ExecContext(torch.device("cpu"), {0: 2}))
     np.testing.assert_array_equal(dense.row_mask().numpy(),
                                   exact.row_mask().numpy())
     assert int(dense.n_rows) == int(exact.n_rows) > 0
@@ -193,7 +193,7 @@ def test_cross_join_grid_is_probe_by_live_build_rows():
     pr = _port_df(ps, right).where(P.GreaterThan(col("b"), lit(40)))
     n_b = int((right.column("b").to_numpy() > 40).sum())
     plan = ps.plan(pl.cross_join(pr)._plan)
-    out = plan.execute(E.ExecContext(torch.device("cpu")))
+    [[out]] = plan.execute(E.ExecContext(torch.device("cpu")))
     assert out.capacity == max(128, 1 << (512 * n_b - 1).bit_length())
     assert int(out.n_rows) == 300 * n_b
     assert T.STRING is out.schema["tag"].data_type

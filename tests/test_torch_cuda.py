@@ -15,6 +15,7 @@ import pytest
 
 import torch
 
+from spark_rapids_tpu_torch.ops.kernels.cuda import hashing as HK
 from spark_rapids_tpu_torch.ops.kernels.cuda import join_probe as JP
 from spark_rapids_tpu_torch.ops.kernels.cuda import segmented as SEG
 from spark_rapids_tpu_torch.ops.kernels.cuda import sort_steps as SS
@@ -127,6 +128,28 @@ def gather_case(name: str, w: int):
     return mat, idx.astype(np.int32), valid
 
 
+HASH_WIDTHS = [4, 8, 128, 1024]
+HASH_ROWS = [1, 255, 257, 4097]
+
+
+def hash_case(n: int, w: int, seed: int = 0):
+    """(mat int16 [n, w], lengths int32 [n], seed int32 [n] as uint32
+    bits) of one ``hash`` case: lengths 0-5, W and random, bytes over
+    0-255 (the tail's signed bytes included), every eleventh row all
+    PAD."""
+    rng = np.random.default_rng(seed + 31 * n + w)
+    lengths = rng.integers(0, w + 1, n)
+    short = rng.random(n) < 0.3
+    lengths[short] = rng.integers(0, 6, int(short.sum()))
+    lengths[rng.random(n) < 0.1] = w
+    lengths = np.minimum(lengths, w)
+    lengths[::11] = 0
+    mat = rng.integers(0, 256, (n, w)).astype(np.int16)
+    mat[np.arange(w)[None, :] >= lengths[:, None]] = -1
+    seeds = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    return mat, lengths.astype(np.int32), seeds.view(np.int32)
+
+
 def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
     """Equal bit for bit (floats compared as their integer bits)."""
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -219,3 +242,27 @@ def test_cuda_strings_gather_empty_sides(cuda_device):
                              valid[:0])
     assert empty.shape == (0, 8)
     assert SG.ragged_gather.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", HASH_WIDTHS)
+@pytest.mark.parametrize("n", HASH_ROWS)
+def test_cuda_hash_matches_plain(cuda_device, n, w):
+    mat, lengths, seed = (torch.as_tensor(a, device=cuda_device)
+                          for a in hash_case(n, w))
+    before = HK.murmur3_bytes_rows.launches
+    got = HK.murmur3_bytes_rows(mat, lengths, seed)
+    assert HK.murmur3_bytes_rows.launches == before + 1
+    assert torch.equal(got, HK.murmur3_bytes_rows_plain(mat, lengths, seed))
+
+
+@pytest.mark.cuda
+def test_cuda_hash_refuses_what_it_cannot_take(cuda_device):
+    mat, lengths, seed = (torch.as_tensor(a, device=cuda_device)
+                          for a in hash_case(16, 8))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        HK.murmur3_bytes_rows(mat[:, :6].contiguous(), lengths, seed)
+    with pytest.raises(ValueError, match="int16"):
+        HK.murmur3_bytes_rows(mat.to(torch.int32), lengths, seed)
+    with pytest.raises(ValueError, match="seed"):
+        HK.murmur3_bytes_rows(mat, lengths, seed.long())
