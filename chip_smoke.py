@@ -17,9 +17,12 @@ Phases; each one passes or the script exits non-zero:
    the ``strings`` gather W 8 and 128, all or no rows valid, indices out of
    range on both sides, more and fewer rows out than in; for ``hash`` n 1,
    255, 256, 257 and 100,003 rows by W 4, 8, 128 and 1024, lengths 0-5
-   and W, bytes >= 128, all-PAD rows and random per-row seeds. Outputs
-   equal bit for bit; ``hash`` also equals this script's own numpy
-   murmur3;
+   and W, bytes >= 128, all-PAD rows and random per-row seeds; for the
+   rowwise compare (``stringsEqual``) n 1, 7, 8,191 and 100,003 by W 8,
+   12, 128 and 1,024, rows that differ only in their last char or only
+   at a PAD position, all-PAD rows, chars above 127, and the row views
+   ``m[1:]`` / ``m[:-1]`` of one matrix. Outputs equal bit for bit;
+   ``hash`` also equals this script's own numpy murmur3;
 3. TPC-H Q3, Q1, Q4, Q6 and Q22 at SF1 (6,001,215 lineitem rows by
    default), all of lineitem sorted by ``l_shipdate``, and Q1 over
    ``lineitem.repartition(16, l_returnflag, l_linestatus)`` (``q1_hash_str``)
@@ -31,13 +34,25 @@ Phases; each one passes or the script exits non-zero:
    ``sortStep`` in Q4 and the sort, the ``strings`` gather in Q22,
    ``hash`` and ``segmented`` (the merge aggregate) in ``q1_hash_str``.
    Then each exchange alone: every lineitem row must land in the
-   partition this script's numpy murmur3 pmod n names;
+   partition this script's numpy murmur3 pmod n names. Then
+   ``group_ids`` (with ``segment_reduce`` and ``gather_group_keys``) over
+   lineitem's dictionary ``l_shipmode`` and Q22's flat ``cntrycode``:
+   groups, keys and row counts equal to numpy's ``np.unique``, the
+   rowwise compare (``stringsEqual``) launched. Then Q1, Q3, Q4 and Q6
+   with ``spark.rapids.tpu.mesh.enabled`` over a mesh of four shards on
+   the card (``[cuda:0] * 4``): the same numpy answers, every run on the
+   mesh path over 4 shards, ``hash`` launched by Q1's and Q4's
+   exchanges, ``sortStep`` by Q4's range sort, ``segmented`` by Q3's
+   aggregate; Q6 once more on the session's default mesh (every visible
+   card); and ``distributed_sum_by_key`` of ``l_partkey`` by
+   ``l_suppkey`` over the 4 shards: sums and counts equal to numpy's,
+   every group on the shard numpy murmur3 pmod 4 names;
 4. at the shapes the queries gave each kernel: kernel vs plain version
    (equal bit for bit), median times over CUDA events with the L2 flushed
    between launches, the memory bound, and a PyTorch library yardstick;
    the sort exec's permutation of SF1 lineitem by ``l_shipdate`` through
-   ``sortStep`` against the stable lexsort route; and the char matrix
-   that feeds ``hash``;
+   ``sortStep`` against the stable lexsort route; the rowwise compare at
+   the ``group_ids`` shapes; and the char matrix that feeds ``hash``;
 5. one JSON line with every kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -53,6 +68,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -248,6 +264,46 @@ def strings_edge_cases(torch, SG, rng, dev):
                   f"strings gather '{name}' W={w}: rows differ from the "
                   "plain version")
         print(f"  strings gather W={w}: every case equal")
+
+
+def row_equal_pair(rng, n: int, w: int):
+    """(a, b) int16 [n, W] char matrices of one rowwise-compare case:
+    PAD-ended rows of bytes over the whole 0-255 range (chars above 127
+    included), every fifth row all PAD in both; of the rest, rows of
+    ``b`` that differ from ``a`` only in their last char, only at one
+    PAD position (a PAD made a byte), or only by a byte made PAD."""
+    lens = rng.integers(0, w + 1, n)
+    lens[::5] = 0
+    a = rng.integers(0, 256, (n, w)).astype(np.int16)
+    a[np.arange(w)[None, :] >= lens[:, None]] = -1
+    b = a.copy()
+    kind = rng.integers(0, 4, n)
+    rows = np.flatnonzero((kind == 1) & (lens > 0))
+    b[rows, lens[rows] - 1] = (b[rows, lens[rows] - 1] + 1) % 256
+    rows = np.flatnonzero((kind == 2) & (lens < w))
+    b[rows, w - 1] = 7
+    rows = np.flatnonzero((kind == 3) & (lens > 0))
+    b[rows, 0] = -1
+    return a, b
+
+
+def row_equal_edge_cases(torch, SG, rng, dev):
+    for w in (8, 12, 128, 1024):
+        for n in (1, 7, 8191, 100_003):
+            a, b = (torch.as_tensor(x, device=dev)
+                    for x in row_equal_pair(rng, n, w))
+            for x, y, what in ((a, b, "a vs b"), (a, a, "a vs a"),
+                               (a[1:], a[:-1], "views m[1:] vs m[:-1]")):
+                got = SG.ragged_row_equal(x, y)
+                want = SG.ragged_row_equal_plain(x, y)
+                torch.cuda.synchronize()
+                check(bits_equal(torch, got, want),
+                      f"strings compare n={n} W={w} {what}: differs from "
+                      "the plain version")
+            check(not bool(SG.ragged_row_equal(a, b).all()) or n < 8,
+                  f"strings compare n={n} W={w}: no differing row found")
+        print(f"  strings compare W={w}: n 1/7/8191/100003 equal to the "
+              "plain version (a vs b, a vs a, the row views)")
 
 
 def _np_rotl(x, r: int):
@@ -601,6 +657,16 @@ def check_answer(q: str, got, ref) -> None:
               f"{q}: {name} {g.tolist()} vs {w.tolist()}")
 
 
+def in_key_order(got, keys):
+    """The rows of ``got`` sorted by the ``keys`` columns: the order of a
+    query with no ORDER BY whose rows come shard by shard."""
+    order = np.lexsort([np.asarray(got.columns[k]).astype(str)
+                        for k in reversed(keys)])
+    return types.SimpleNamespace(
+        columns={k: np.asarray(v)[order] for k, v in got.columns.items()},
+        validity={k: np.asarray(v)[order] for k, v in got.validity.items()})
+
+
 class Capture:
     """Wraps a kernel wrapper to keep a copy of every call's inputs
     (the launch count stays with the wrapped function)."""
@@ -663,14 +729,15 @@ def profile_query(torch, name, build, exec_ms) -> None:
 
 
 class Wrappers:
-    """The five kernel wrappers, their launch counts and capture."""
+    """The six kernel wrappers, their launch counts and capture."""
 
     def __init__(self, JP, SEG, SS, SG, HK):
         self.mods = {"joinProbe": (JP, "dense_build_probe"),
                      "segmented": (SEG, "segment_reduce_sorted"),
                      "sortStep": (SS, "packed_argsort"),
                      "strings": (SG, "ragged_gather"),
-                     "hash": (HK, "murmur3_bytes_rows")}
+                     "hash": (HK, "murmur3_bytes_rows"),
+                     "stringsEqual": (SG, "ragged_row_equal")}
         # the wrappers themselves, which own the counts while a Capture
         # stands in for them
         self.fns = {k: getattr(m, a) for k, (m, a) in self.mods.items()}
@@ -683,20 +750,38 @@ class Wrappers:
         return {name: fn.launches for name, fn in self.fns.items()}
 
 
-def run_query(torch, session, wrappers, name, build, check_fn, need):
+def check_path(session, name: str, shards: int) -> None:
+    """With ``shards``, the query's final run must have taken the mesh
+    path over that many shards; without, the single-device path."""
+    info = session.last_query
+    want = ("mesh", shards) if shards else ("single", 1)
+    check((info.path, info.shards) == want,
+          f"{name} ran on the {info.path} path over {info.shards} shard(s), "
+          f"expected {want[0]} over {want[1]}")
+
+
+def run_query(torch, session, wrappers, name, build, check_fn, need,
+              shards: int = 0):
     """Cold run (launch counts set to 0 just before, read just after),
-    one captured warm run, then 3 timed warm runs. Returns (cold launch
-    counts, captured calls by kernel, a summary dict, the median run's
-    per-exec ms)."""
+    one captured warm run, then 3 timed warm runs; every run on the mesh
+    path over ``shards`` shards when that is given, else on the single
+    path. Returns (cold launch counts, captured calls by kernel, a
+    summary dict with the cold run's peak device memory, the median
+    run's per-exec ms)."""
+    torch.cuda.reset_peak_memory_stats()
     wrappers.reset()
     t0 = time.perf_counter()
     got = build().collect()
     cold_s = time.perf_counter() - t0
     launches = wrappers.counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     info = session.last_query
     print(f"  {name} cold run: {cold_s * 1e3:.1f} ms, {info.attempts} "
-          f"attempt(s), sites {info.site_kinds}, modes {info.dense_modes}; "
-          f"kernel launches {launches}")
+          f"attempt(s), path {info.path} over {info.shards} shard(s), "
+          f"sites {info.site_kinds}, modes {info.dense_modes}; "
+          f"kernel launches {launches}; peak device memory "
+          f"{peak_gib:.2f} GiB")
+    check_path(session, name, shards)
     check_fn(got)
     for k in need:
         check(launches[k] > 0, f"{k} was not launched during {name}")
@@ -711,6 +796,7 @@ def run_query(torch, session, wrappers, name, build, check_fn, need):
     finally:
         for c in caps.values():
             c.__exit__()
+    check_path(session, name, shards)
     check_fn(got)
     runs, per_exec = [], []
     for _ in range(3):
@@ -718,6 +804,7 @@ def run_query(torch, session, wrappers, name, build, check_fn, need):
         got = build().collect()
         runs.append((time.perf_counter() - t0) * 1e3)
         per_exec.append(session.last_query.exec_ms)
+        check_path(session, name, shards)
         check_fn(got)
     e2e = statistics.median(runs)
     mid = per_exec[runs.index(e2e)]
@@ -729,8 +816,103 @@ def run_query(torch, session, wrappers, name, build, check_fn, need):
         {k: np.asarray(v).tolist()[:10] for k, v in got.columns.items()}))
     summary = {"cold_ms": cold_s * 1e3, "warm_median_ms": e2e,
                "warm_runs_ms": runs, "attempts": info.attempts,
-               "launches": launches, "per_exec_ms": mid}
+               "path": info.path, "shards": info.shards,
+               "peak_gib": peak_gib, "launches": launches,
+               "per_exec_ms": mid}
     return launches, {k: c.calls for k, c in caps.items()}, summary, mid
+
+
+def group_by_string_key(torch, KG, T, HostBatch, wrappers, name, col,
+                        n_rows, values) -> dict:
+    """``group_ids``, then ``segment_reduce`` (count) and
+    ``gather_group_keys`` over one string key column, its launch counts
+    set to 0 just before and read just after. The groups, each key and
+    its row count must equal numpy's ``np.unique(values,
+    return_counts=True)``; the rowwise-compare kernel must launch."""
+    from spark_rapids_tpu_torch.data.batch import ColumnarBatch
+    cap, dev = col.capacity, col.device
+    wrappers.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seg, n_groups, firsts = KG.group_ids([col], n_rows)
+    live = torch.arange(cap, device=dev) < n_rows
+    counts, _ = KG.segment_reduce(
+        torch.ones(cap, dtype=torch.int64, device=dev), col.validity, seg,
+        cap, "count", live)
+    [keys] = KG.gather_group_keys([col], firsts, n_groups)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = wrappers.counts()
+    check(launches["stringsEqual"] > 0,
+          f"stringsEqual was not launched by group_ids over {name}")
+    ng = int(n_groups)
+    got = HostBatch.from_device(ColumnarBatch(
+        (keys,), n_groups, T.Schema([T.StructField("k", T.STRING)])))
+    want_keys, want_counts = np.unique(np.asarray(values).astype(str),
+                                       return_counts=True)
+    check(ng == len(want_keys), f"group_ids over {name}: {ng} groups, "
+          f"expected {len(want_keys)}")
+    check(np.array_equal(got.columns["k"].astype(str), want_keys),
+          f"group_ids over {name}: keys {list(got.columns['k'][:8])} vs "
+          f"{list(want_keys[:8])}")
+    check(np.array_equal(counts[:ng].cpu().numpy(), want_counts),
+          f"group_ids over {name}: row counts differ from numpy's")
+    print(f"  group_ids over {name} (capacity {cap}, W={col.max_bytes}, "
+          f"{'dictionary' if col.is_dict else 'flat'}): {ng} groups equal to "
+          f"numpy's np.unique, {ms:.1f} ms with segment_reduce and "
+          f"gather_group_keys; kernel launches {launches}")
+    return {"name": name, "capacity": cap, "width": col.max_bytes,
+            "groups": ng, "ms": ms, "launches": launches}
+
+
+def check_distributed(torch, D, mesh, dfs, tables) -> dict:
+    """``distributed_sum_by_key`` of ``l_partkey`` by ``l_suppkey`` over
+    ``mesh``: sums and counts per key must equal numpy's, and every group
+    must sit on the shard that this script's numpy murmur3 pmod n
+    names."""
+    batch = dfs["lineitem"]._plan.batch
+    key, val = batch.column("l_suppkey"), batch.column("l_partkey")
+    n_parts = mesh.size
+    shard_cap = batch.capacity // n_parts
+    n_rows = (batch.n_rows - torch.arange(n_parts, device=key.device)
+              * shard_cap).clamp(0, shard_cap).to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = D.distributed_sum_by_key(mesh, key.data, key.validity, val.data,
+                                   val.validity, n_rows)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    gk, gkv, gs, gc, gn = (t.cpu().numpy() for t in out)
+    li = tables["lineitem"].columns
+    keys, vals = li["l_suppkey"], li["l_partkey"]
+    n_keys = int(keys.max()) + 1
+    sums = np.zeros(n_keys, np.int64)
+    np.add.at(sums, keys, vals)
+    cnts = np.bincount(keys, minlength=n_keys)
+    seen = np.zeros(n_keys, bool)
+    for d in range(n_parts):
+        rows = slice(d * shard_cap, d * shard_cap + int(gn[d]))
+        k = gk[rows]
+        check(bool(gkv[rows].all()), "distributed_sum_by_key: a null key")
+        check(not seen[k].any(), "distributed_sum_by_key: a key on two "
+              "shards")
+        seen[k] = True
+        home = np_pmod(np_hash_longs(k, np.full(len(k), SPARK_SEED,
+                                                np.uint32)), n_parts)
+        check(bool((home == d).all()), f"distributed_sum_by_key: "
+              f"{int((home != d).sum())} groups of shard {d} belong "
+              "elsewhere")
+        check(np.array_equal(gs[rows], sums[k]) and
+              np.array_equal(gc[rows], cnts[k]),
+              f"distributed_sum_by_key: shard {d}'s sums or counts differ "
+              "from numpy's")
+    check(np.array_equal(seen, cnts > 0), "distributed_sum_by_key: groups "
+          "missing")
+    print(f"  distributed_sum_by_key(l_suppkey -> sum(l_partkey)) over "
+          f"{n_parts} shards: {int(gn.sum())} groups (per shard "
+          f"{gn.tolist()}) equal to numpy, each on its murmur3 shard; "
+          f"{ms:.1f} ms")
+    return {"shards": n_parts, "groups_per_shard": gn.tolist(), "ms": ms}
 
 
 def time_sortstep(torch, SS, lane, flush):
@@ -797,14 +979,23 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         fail("CUDA is not available; this smoke run needs an NVIDIA GPU")
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.data.batch import HostBatch
+    from spark_rapids_tpu_torch.exec import execs as E
+    from spark_rapids_tpu_torch.ops.expression import col, lit
+    from spark_rapids_tpu_torch.ops.kernels import groupby as KG
     from spark_rapids_tpu_torch.ops.kernels import rowops as KR
     from spark_rapids_tpu_torch.ops import strings_util as SU
+    from spark_rapids_tpu_torch.ops.strings import Substring
     from spark_rapids_tpu_torch.ops.kernels.cuda import _build
     from spark_rapids_tpu_torch.ops.kernels.cuda import hashing as HK
     from spark_rapids_tpu_torch.ops.kernels.cuda import join_probe as JP
     from spark_rapids_tpu_torch.ops.kernels.cuda import segmented as SEG
     from spark_rapids_tpu_torch.ops.kernels.cuda import sort_steps as SS
     from spark_rapids_tpu_torch.ops.kernels.cuda import strings as SG
+    from spark_rapids_tpu_torch.parallel import distributed as D
+    from spark_rapids_tpu_torch.parallel.mesh import make_mesh
+    from spark_rapids_tpu_torch.plan import logical as L
     from spark_rapids_tpu_torch.session import TorchSession
     from spark_rapids_tpu_torch.workloads import tpch
 
@@ -838,10 +1029,13 @@ def main() -> int:
     sortstep_edge_cases(torch, SS, rng, dev)
     strings_edge_cases(torch, SG, rng, dev)
     hash_edge_cases(torch, HK, rng, dev)
+    row_equal_edge_cases(torch, SG, rng, dev)
 
     # -- phase 3: the queries at SF1 -------------------------------------
     print(f"phase 3: TPC-H Q3, Q1, Q4, Q6, Q22, lineitem sorted by "
-          f"l_shipdate, and Q1 over two hash repartitions of lineitem, "
+          f"l_shipdate, Q1 over two hash repartitions of lineitem, "
+          f"group_ids over two string keys, Q1, Q3, Q4 and Q6 over a "
+          f"4-shard mesh on the card, distributed_sum_by_key, "
           f"lineitem_rows={args.lineitem_rows}")
     t0 = time.perf_counter()
     tables = tpch.gen_tables(args.lineitem_rows, seed=args.seed)
@@ -899,6 +1093,69 @@ def main() -> int:
     placement = [check_placement(torch, session, tables, 16,
                                  ("l_returnflag", "l_linestatus")),
                  check_placement(torch, session, tables, 4, ("l_orderkey",))]
+
+    # group_ids over string keys: lineitem's dictionary l_shipmode and
+    # Q22's flat cntrycode (substring(c_phone, 1, 2) over customer).
+    li_batch = dfs["lineitem"]._plan.batch
+    [[cust]] = session.plan(dfs["customer"].with_column(
+        "cntrycode", Substring(col("c_phone"), lit(1), lit(2)))._plan
+    ).execute(E.ExecContext(dev))
+    code_values = np.array([p.encode()[:2].decode()
+                            for p in tables["customer"].columns["c_phone"]])
+    equal_keys = {"l_shipmode": (li_batch.column("l_shipmode"),
+                                 li_batch.n_rows,
+                                 tables["lineitem"].columns["l_shipmode"]),
+                  "cntrycode": (cust.column("cntrycode"), cust.n_rows,
+                                code_values)}
+    group_ids_runs = []
+    for name, (key_col, n_rows, values) in equal_keys.items():
+        group_ids_runs.append(group_by_string_key(
+            torch, KG, T, HostBatch, wrappers, name, key_col, n_rows, values))
+        for k, v in group_ids_runs[-1]["launches"].items():
+            launches[k] += v
+
+    # The mesh path: four shards on the one card.
+    mesh4 = make_mesh(devices=[dev] * 4)
+    mesh_session = TorchSession({"spark.rapids.tpu.mesh.enabled": True},
+                                device="cuda", mesh=mesh4)
+    mesh_dfs = {k: L.DataFrame(v._plan, mesh_session) for k, v in dfs.items()}
+    mesh_queries = {
+        "mesh_q1": (lambda: tpch.q1(mesh_dfs),
+                    lambda got: check_answer("q1", in_key_order(
+                        got, ["l_returnflag", "l_linestatus"]), refs["q1"]),
+                    ("hash",)),
+        "mesh_q3": (lambda: tpch.q3(mesh_dfs),
+                    lambda got: check_q3(got, ref3), ("segmented",)),
+        "mesh_q4": (lambda: tpch.q4(mesh_dfs),
+                    lambda got: check_answer("q4", got, refs["q4"]),
+                    ("hash", "sortStep")),
+        "mesh_q6": (lambda: tpch.q6(mesh_dfs),
+                    lambda got: check_answer("q6", got, refs["q6"]), ()),
+    }
+    for q, (build, check_fn, need) in mesh_queries.items():
+        got_launches, got_calls, summaries[q], mid = run_query(
+            torch, mesh_session, wrappers, q.upper(), build, check_fn, need,
+            shards=mesh4.size)
+        for k in launches:
+            launches[k] += got_launches[k]
+            calls[k] += got_calls[k]
+        if args.profile:
+            profile_query(torch, q, build, mid)
+    # The session's own mesh: every visible card.
+    default_session = TorchSession({"spark.rapids.tpu.mesh.enabled": True},
+                                   device="cuda")
+    t0 = time.perf_counter()
+    got = tpch.q6({k: L.DataFrame(v._plan, default_session)
+                   for k, v in dfs.items()}).collect()
+    default_ms = (time.perf_counter() - t0) * 1e3
+    check_answer("q6", got, refs["q6"])
+    check_path(default_session, "Q6 on the default mesh",
+               torch.cuda.device_count())
+    print(f"  Q6 on the session's default mesh ({default_session.mesh}): "
+          f"path {default_session.last_query.path} over "
+          f"{default_session.last_query.shards} shard(s), {default_ms:.1f} "
+          "ms cold, answer matches the numpy reference")
+    distributed = check_distributed(torch, D, mesh4, dfs, tables)
 
     # -- phase 4: kernels at the queries' shapes ---------------------------
     print("phase 4: kernels at the shapes the queries gave them")
@@ -1070,6 +1327,44 @@ def main() -> int:
                  "ms": hs["ms"], "plain_ms": hs["plain_ms"],
                  "bound_ms": hs["bytes"] / HBM_BYTES_PER_S * 1e3,
                  "bound_by": "bytes", "library_ms": None})
+    # The rowwise compare at the group_ids calls' shapes: the sorted char
+    # matrix against itself one row back, as two views of one buffer.
+    eq = {"ms": 0.0, "plain_ms": 0.0, "lib": 0.0, "bytes": 0, "err": 0}
+    for name, (key_col, n_rows, _) in equal_keys.items():
+        m = SU.char_matrix(key_col)[KR.sort_permutation([key_col], n_rows)]
+        a, b = m[1:], m[:-1]
+        n, w = a.shape
+        got_k = SG.ragged_row_equal(a, b)
+        want = SG.ragged_row_equal_plain(a, b)
+        check(bits_equal(torch, got_k, want), "strings compare differs from "
+              f"the plain version at {name}'s n={n} W={w}")
+        eq["err"] = max(eq["err"], max_abs_err(torch, got_k, want))
+        ms = median_ms(torch, lambda: SG.ragged_row_equal(a, b), flush)
+        pms = median_ms(torch, lambda: SG.ragged_row_equal_plain(a, b),
+                        flush)
+        lib = median_ms(torch, lambda: (a == b).all(1), flush)
+        # one read of the matrix both views share, one byte out a row
+        nbytes = 2 * (n + 1) * w + n
+        print(f"  strings compare at {name}'s group_ids n={n} W={w} (views "
+              f"of one matrix): kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"(a == b).all(1) {lib:.4f} ms, bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        eq["ms"] += ms
+        eq["plain_ms"] += pms
+        eq["lib"] += lib
+        eq["bytes"] += nbytes
+        del m, a, b
+    rows.append({"name": "stringsEqual", "route": "cuda",
+                 "source": "spark_rapids_tpu_torch/ops/kernels/cuda/csrc/"
+                           "strings.cu",
+                 "replaces": "spark_rapids_tpu/ops/kernels/pallas/"
+                             "strings.py:99",
+                 "launches": launches["stringsEqual"],
+                 "max_abs_err": eq["err"], "ms": eq["ms"],
+                 "plain_ms": eq["plain_ms"],
+                 "bound_ms": eq["bytes"] / HBM_BYTES_PER_S * 1e3,
+                 "bound_by": "bytes", "library_ms": eq["lib"]})
+
     # The char matrix that feeds each hash call: a dictionary column's
     # [capacity, W] int16 matrix gathered by code.
     flag = dfs["lineitem"]._plan.batch.column("l_returnflag")
@@ -1084,7 +1379,9 @@ def main() -> int:
         **{q: {k: v for k, v in s.items() if k != "per_exec_ms"}
            for q, s in summaries.items()},
         "sortStep_l_shipdate": shipdate, "placement": placement,
-        "char_matrix_ms": cm_ms}}))
+        "char_matrix_ms": cm_ms, "group_ids": group_ids_runs,
+        "distributed_sum_by_key": distributed,
+        "q6_default_mesh_ms": default_ms}}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -40,10 +40,23 @@ def conf_int(key: str, default: int, doc: str) -> ConfEntry:
     return _register(key, default, doc, int)
 
 
+def conf_bool(key: str, default: bool, doc: str) -> ConfEntry:
+    return _register(key, default, doc,
+                     lambda v: v.strip().lower() == "true")
+
+
 TOPK_THRESHOLD = conf_int(
     "spark.rapids.tpu.sort.topKThreshold", 16384,
     "ORDER BY ... LIMIT n with n at or below this runs as the top-k exec "
     "instead of a global sort. 0 disables limit-into-sort.")
+
+MESH_ENABLED = conf_bool(
+    "spark.rapids.tpu.mesh.enabled", False,
+    "Run mesh-capable queries as one partitioned program over the "
+    "session's device mesh: sources shard row-wise, narrow operators run "
+    "per shard, and aggregate, join and sort boundaries exchange rows "
+    "between shards by murmur3 or by range (exec/mesh.py). Other plans "
+    "run on the single-device path.")
 
 
 class TorchConf:

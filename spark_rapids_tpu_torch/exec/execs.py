@@ -258,17 +258,25 @@ class HashAggregateExec(TorchExec):
                                             spec.dtype, True))
         return T.Schema(fields)
 
-    def execute(self, ctx):
-        parts = self.children[0].execute(ctx)
-        site = ctx.next_site("aggregate")
+    def bind(self):
+        """``(groupings, aggregates, buffer schema, key refs)`` bound to
+        the child's schema; the key refs read the grouping keys of a
+        buffer batch (merge mode)."""
         child_schema = self.children[0].schema
         groupings = _bind_all(self.groupings, child_schema)
         aggs = [AGG.AggregateExpression(a.func.bind(child_schema), a.name)
                 for a in self.aggregates]
         buf_schema = self._buffer_schema()
-        n_keys = len(groupings)
         key_refs = [BoundReference(i, f.data_type, f.nullable)
-                    for i, f in enumerate(buf_schema)][:n_keys]
+                    for i, f in enumerate(buf_schema)][:len(groupings)]
+        return groupings, aggs, buf_schema, key_refs
+
+    def execute(self, ctx):
+        parts = self.children[0].execute(ctx)
+        site = ctx.next_site("aggregate")
+        child_schema = self.children[0].schema
+        groupings, aggs, buf_schema, key_refs = self.bind()
+        n_keys = len(groupings)
         dense_mode = min(ctx.mode(site), 1)
 
         def partial(batch):
@@ -312,9 +320,11 @@ class HashAggregateExec(TorchExec):
         while stack:
             state = merge([stack.pop(), state])
         with ctx.timed(self.name):
-            return [[self._finalize(state)]]
+            return [[self.finalize(state)]]
 
-    def _finalize(self, b: ColumnarBatch) -> ColumnarBatch:
+    def finalize(self, b: ColumnarBatch) -> ColumnarBatch:
+        """The aggregate's output from a buffer batch: the keys, then each
+        aggregate's result expression over its buffers."""
         n_keys = len(self.groupings)
         cols = list(b.columns[:n_keys])
         bi = n_keys
@@ -429,34 +439,44 @@ class ShuffledHashJoinExec(TorchExec):
                                                       bk[0], self._schema)
                 ctx.report(site, fail)
                 return [[out]]
-            return [[self._exact(probe, build, pk, bk)]]
+            out, _ = join_exact(self.join_type, probe, build, pk, bk,
+                                self._schema)
+            return [[out]]
 
-    def _exact(self, probe, build, pk, bk) -> ColumnarBatch:
-        """Sort the build keys, binary-search every probe key, expand the
-        match ranges. The output is sized from the exact match total,
-        read on the host (one sync)."""
-        if len(bk) != 1 or not (KJ.binsearch_joinable(bk[0])
-                                and KJ.binsearch_joinable(pk[0])):
-            raise NotImplementedError(
-                "multi-key, string and float join keys need the general "
-                "matcher, which is not ported yet")
-        live_p = probe.row_mask()
-        lo, counts, build_at_rank = KJ.join_match_binsearch(
-            bk[0], pk[0], build.row_mask(), live_p)
-        counts = torch.where(live_p, counts, 0)
-        if self.join_type in ("left_semi", "left_anti"):
-            keep = counts > 0 if self.join_type == "left_semi" \
-                else live_p & (counts == 0)
-            return ColumnarBatch(probe.columns, keep.sum(), self._schema,
-                                 live=keep)
-        total = int(counts.sum())
-        out_cap = bucket_capacity(max(total, 1))
-        p_idx, b_idx, n_out, _ = KJ.expand_matches_binsearch(
-            lo, counts, build_at_rank, out_cap)
-        out_live = torch.arange(out_cap, device=probe.device) < n_out
-        pcols = KR.gather_columns(probe.columns, p_idx, out_live)
-        bcols = KR.gather_columns(build.columns, b_idx, out_live)
-        return ColumnarBatch(pcols + bcols, n_out, self._schema)
+
+def join_exact(join_type: str, probe: ColumnarBatch, build: ColumnarBatch,
+               pk, bk, out_schema: T.Schema, out_cap: Optional[int] = None):
+    """The exact local equi join (the reference's ``hash_join_kernel``
+    without a dense mode): sort the build keys, binary-search every probe
+    key, and expand the match ranges (inner), or keep the matched or
+    unmatched probe rows live (semi, anti). Returns ``(batch, total)``.
+    An inner join's output holds ``out_cap`` rows, or, with no
+    ``out_cap``, the ladder rung of the exact match total, read on the
+    host (one sync); ``total`` is the match count on the device, which
+    may exceed ``out_cap`` (the caller re-runs bigger), and None for
+    semi and anti joins."""
+    if len(bk) != 1 or not (KJ.binsearch_joinable(bk[0])
+                            and KJ.binsearch_joinable(pk[0])):
+        raise NotImplementedError(
+            "multi-key, string and float join keys need the general "
+            "matcher, which is not ported yet")
+    live_p = probe.row_mask()
+    lo, counts, build_at_rank = KJ.join_match_binsearch(
+        bk[0], pk[0], build.row_mask(), live_p)
+    counts = torch.where(live_p, counts, 0)
+    if join_type in ("left_semi", "left_anti"):
+        keep = counts > 0 if join_type == "left_semi" \
+            else live_p & (counts == 0)
+        return ColumnarBatch(probe.columns, keep.sum(), out_schema,
+                             live=keep), None
+    if out_cap is None:
+        out_cap = bucket_capacity(max(int(counts.sum()), 1))
+    p_idx, b_idx, n_out, total = KJ.expand_matches_binsearch(
+        lo, counts, build_at_rank, out_cap)
+    out_live = torch.arange(out_cap, device=probe.device) < n_out
+    pcols = KR.gather_columns(probe.columns, p_idx, out_live)
+    bcols = KR.gather_columns(build.columns, b_idx, out_live)
+    return ColumnarBatch(pcols + bcols, n_out, out_schema), total
 
 
 class TopKExec(TorchExec):

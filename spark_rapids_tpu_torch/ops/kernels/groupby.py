@@ -25,6 +25,13 @@ Four strategies, as in the reference:
 
 Float sums in the scatters add in atomic order on the card, so their
 last bits may vary from run to run.
+
+Beside the strategies, the reference's row-space group-by primitives,
+which the distributed group-by step (:mod:`...parallel.distributed`)
+composes: :func:`group_ids` (dense segment ids from one stable sort of
+the keys; a string key's adjacent rows compare through the ``strings``
+rowwise-compare kernel, :mod:`.cuda.strings`), :func:`segment_reduce`
+and :func:`gather_group_keys`.
 """
 
 from __future__ import annotations
@@ -34,9 +41,11 @@ from typing import List, Sequence, Tuple
 import torch
 
 from ...data.column import DeviceColumn, bucket_capacity
+from ..strings_util import char_matrix
 from .cuda import segmented as SEG
+from .cuda import strings as SG
 from .rowops import (gather_column, lexsort, orderable_key, orderable_values,
-                     string_sort_keys)
+                     sort_permutation, string_sort_keys)
 
 #: Slot-table width of the dense path (the reference's ``_DENSE_AGG_SLOTS``).
 _DENSE_AGG_SLOTS = 1 << 21
@@ -47,8 +56,8 @@ _DICT_GROUP_LIMIT = 4096
 _REDUCE = {"min": "amin", "max": "amax"}
 
 
-def segment_reduce(x: torch.Tensor, ids: torch.Tensor, num_segments: int,
-                   op: str) -> torch.Tensor:
+def _segment_scatter(x: torch.Tensor, ids: torch.Tensor,
+                     num_segments: int, op: str) -> torch.Tensor:
     """``jax.ops.segment_{sum,min,max}(x, ids, num_segments)``: rows with
     an id outside ``[0, num_segments)`` are dropped and empty segments
     hold the identity. Plain PyTorch (``index_add_`` / ``scatter_reduce_``);
@@ -76,6 +85,104 @@ def _identity(dtype: torch.dtype, op: str):
         return op == "min"
     info = torch.iinfo(dtype)
     return info.max if op == "min" else info.min
+
+
+def _max_value(dtype: torch.dtype):
+    """The largest value of ``dtype`` (inf for floats): min's identity."""
+    return _identity(dtype, "min")
+
+
+def _min_value(dtype: torch.dtype):
+    """The smallest value of ``dtype`` (-inf for floats): max's identity."""
+    return _identity(dtype, "max")
+
+
+def _equal_adjacent(col: DeviceColumn, perm: torch.Tensor) -> torch.Tensor:
+    """bool[capacity]: row i of the sorted order has the same key as row
+    i - 1 (row 0 compares with itself). A string key compares its sorted
+    char matrix with the same matrix one row back, as two row views of
+    one buffer, through the ``strings`` rowwise compare."""
+    sv = col.validity[perm]
+    vprev = torch.cat([sv[:1], sv[:-1]])
+    if col.is_string:
+        m = char_matrix(col)[perm]
+        data_eq = torch.ones(col.capacity, dtype=torch.bool, device=sv.device)
+        data_eq[1:] = SG.ragged_row_equal(m[1:], m[:-1])
+    else:
+        # (bucket, key) pair equality: NaN rides the bucket with a zeroed
+        # key and -0.0 canonicalizes, so this is Spark grouping equality.
+        key, nb = orderable_key(col)
+        k, b = key[perm], nb[perm]
+        data_eq = (k == torch.cat([k[:1], k[:-1]])) \
+            & (b == torch.cat([b[:1], b[:-1]]))
+    both_null = ~sv & ~vprev
+    return (data_eq & sv & vprev) | both_null
+
+
+def group_ids(keys: Sequence[DeviceColumn], n_rows: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(seg, n_groups, firsts)``: int32 dense segment id per original
+    row, the group count, and each group's first original row (int32
+    ``[capacity]``). Groups number in key order (nulls first); rows past
+    ``n_rows`` take the last live group's id and callers mask them."""
+    capacity = keys[0].capacity
+    dev = keys[0].device
+    perm = sort_permutation(keys, n_rows)
+    eq = torch.ones(capacity, dtype=torch.bool, device=dev)
+    for k in keys:
+        eq = eq & _equal_adjacent(k, perm)
+    iota = torch.arange(capacity, device=dev)
+    is_boundary = (~eq | (iota == 0)) & (iota < n_rows)
+    seg_sorted = (torch.cumsum(is_boundary.to(torch.int32), 0,
+                               dtype=torch.int32) - 1).clamp(min=0)
+    n_groups = is_boundary.sum(dtype=torch.int32)
+    seg = torch.zeros(capacity, dtype=torch.int32, device=dev)
+    seg.scatter_(0, perm, seg_sorted)
+    firsts = torch.zeros(capacity, dtype=torch.int32, device=dev)
+    firsts.scatter_reduce_(0, seg_sorted.long(),
+                           torch.where(is_boundary, perm, 0).to(torch.int32),
+                           "amax")
+    return seg, n_groups, firsts
+
+
+def segment_reduce(values: torch.Tensor, validity: torch.Tensor,
+                   seg: torch.Tensor, capacity: int, op: str,
+                   live: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reduce ``values`` per segment id ``seg`` (ids at or past
+    ``capacity`` drop): ``(result[capacity], count[capacity])`` of the
+    valid live contributions. ``op``: sum, min, max, count, first or
+    last; an empty segment holds the identity (first and last: the row
+    at the clamped position)."""
+    contrib = validity & live
+    counts = _segment_scatter(contrib.to(torch.int64), seg, capacity, "sum")
+    n = values.shape[0]
+    zero = torch.zeros((), dtype=values.dtype, device=values.device)
+    if op == "sum":
+        out = _segment_scatter(torch.where(contrib, values, zero), seg,
+                               capacity, "sum")
+    elif op in ("min", "max"):
+        neutral = _max_value(values.dtype) if op == "min" \
+            else _min_value(values.dtype)
+        out = _segment_scatter(torch.where(contrib, values, neutral), seg,
+                               capacity, op)
+    elif op == "count":
+        out = counts
+    elif op in ("first", "last"):
+        idx = torch.arange(n, dtype=torch.int32, device=values.device)
+        pick = _segment_scatter(
+            torch.where(contrib, idx, n if op == "first" else -1), seg,
+            capacity, "min" if op == "first" else "max")
+        out = values[pick.long().clamp(0, n - 1)]
+    else:
+        raise ValueError(op)
+    return out, counts
+
+
+def gather_group_keys(keys: Sequence[DeviceColumn], firsts: torch.Tensor,
+                      n_groups: torch.Tensor) -> List[DeviceColumn]:
+    """The group-key columns: each group's key from its first row."""
+    live = torch.arange(keys[0].capacity, device=firsts.device) < n_groups
+    return [gather_column(k, firsts, live) for k in keys]
 
 
 def _minmax_strip_nan(values: torch.Tensor, op: str) -> torch.Tensor:
@@ -247,18 +354,18 @@ def _dense_int_aggregate(keys, live, inputs):
         prod = torch.clamp(prod * span, max=S + 1)
     fail = fail | (prod > S)
     slot = torch.where(live, packed.clamp(0, S - 1), S)
-    rows_per_slot = segment_reduce(live.to(torch.int32), slot, S + 1,
-                                   "sum")[:S]
+    rows_per_slot = _segment_scatter(live.to(torch.int32), slot, S + 1,
+                                     "sum")[:S]
     n_groups, slot_of_group, group_live = _compact_slots(rows_per_slot > 0,
                                                          capacity)
     iota = torch.arange(capacity, dtype=torch.int32, device=dev)
-    rep = segment_reduce(torch.where(live, iota, capacity), slot, S + 1,
-                         "min")[:S]
+    rep = _segment_scatter(torch.where(live, iota, capacity), slot, S + 1,
+                           "min")[:S]
     rep_g = rep[slot_of_group].long().clamp(0, capacity - 1)
     key_cols = [gather_column(key, rep_g, group_live) for key in keys]
 
     def seg(x, op="sum"):
-        full = segment_reduce(x, slot, S + 1, op)[:S][slot_of_group]
+        full = _segment_scatter(x, slot, S + 1, op)[:S][slot_of_group]
         mask = group_live.view((-1,) + (1,) * (x.dim() - 1))
         return torch.where(mask, full, torch.zeros((), dtype=full.dtype,
                                                    device=dev))
@@ -300,8 +407,8 @@ def _dict_grouped_aggregate(keys: Sequence[DeviceColumn], live: torch.Tensor,
         slot = torch.where(k.validity, k.codes.long() + 1, 0)
         gid = gid * (k.dict_size + 1) + slot
     gid = torch.where(live, gid, n_slots)  # dead rows: the spare slot
-    rows_per_slot = segment_reduce(live.to(torch.int32), gid, n_slots,
-                                   "sum")
+    rows_per_slot = _segment_scatter(live.to(torch.int32), gid, n_slots,
+                                     "sum")
     out_cap = bucket_capacity(n_slots)
     occupied = torch.zeros(out_cap, dtype=torch.bool, device=dev)
     occupied[:n_slots] = rows_per_slot > 0
@@ -318,7 +425,7 @@ def _dict_grouped_aggregate(keys: Sequence[DeviceColumn], live: torch.Tensor,
     key_cols.reverse()
 
     def seg(x, op="sum"):
-        full = segment_reduce(x, gid, n_slots, op)
+        full = _segment_scatter(x, gid, n_slots, op)
         pad = torch.zeros((out_cap - n_slots,) + tuple(full.shape[1:]),
                           dtype=full.dtype, device=dev)
         return torch.cat([full, pad])[slot_of_group]
@@ -366,7 +473,7 @@ def _segment_lane(x: torch.Tensor, gid: torch.Tensor, capacity: int,
     reduction (float sums, bool lanes)."""
     if SEG.eligible(x, op):
         return SEG.segment_reduce_sorted(x.contiguous(), gid, capacity, op)
-    return segment_reduce(x, gid, capacity, op)
+    return _segment_scatter(x, gid, capacity, op)
 
 
 def _sort_grouped_aggregate(keys: Sequence[DeviceColumn], live: torch.Tensor,
@@ -411,8 +518,8 @@ def _sort_grouped_aggregate(keys: Sequence[DeviceColumn], live: torch.Tensor,
     # spare slot. They contribute only identities, so the results are the
     # reference's; it keeps the group walk of the last live group short.
     gid = torch.where(live_sorted, gid, capacity).to(torch.int32)
-    starts = segment_reduce(torch.where(boundary, iota, capacity), gid,
-                            capacity, "min")
+    starts = _segment_scatter(torch.where(boundary, iota, capacity), gid,
+                              capacity, "min")
     starts = torch.where(group_live, starts.clamp(max=capacity - 1), 0)
 
     orig_starts = perm[starts.long()]

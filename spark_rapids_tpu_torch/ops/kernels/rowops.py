@@ -116,6 +116,17 @@ def sort_operands(keys: Sequence[DeviceColumn], ascending: Sequence[bool],
     return operands
 
 
+def sort_permutation(keys: Sequence[DeviceColumn], n_rows: torch.Tensor
+                     ) -> torch.Tensor:
+    """Stable permutation ordering the live rows ``[0, n_rows)`` by
+    ``keys`` (ascending, nulls first); dead rows sink to the end. Returns
+    int64[capacity]."""
+    capacity = keys[0].capacity
+    up = [True] * len(keys)
+    dead = torch.arange(capacity, device=keys[0].device) >= n_rows
+    return lexsort([dead.to(torch.int8)] + sort_operands(keys, up, up))
+
+
 def gather_column(col: DeviceColumn, indices: torch.Tensor,
                   index_valid: Optional[torch.Tensor] = None) -> DeviceColumn:
     """Rows of ``col`` at ``indices``; fixed-width and dictionary columns

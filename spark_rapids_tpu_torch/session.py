@@ -10,6 +10,13 @@ aggregate: dense -> sort; top-k: single lane -> lexsort). The learned
 modes are kept per plan shape, so a query that escalated once runs in
 its final modes from then on. A tripped flag never changes a result: the
 run that tripped it is discarded.
+
+With ``spark.rapids.tpu.mesh.enabled`` a mesh-capable plan runs as one
+partitioned program over the session's mesh (:mod:`.exec.mesh`). Its
+exchange buckets are bounded; when a run overflows one, the session
+re-runs it with buckets 8x larger, up to 64x, and then runs the query on
+the single-device path (the reference's non-learning growth escalation,
+``session.py:523-529``).
 """
 
 from __future__ import annotations
@@ -20,15 +27,21 @@ from typing import Dict, List, Optional
 import torch
 
 from . import types as T
-from .config import TorchConf
+from .config import MESH_ENABLED, TorchConf
 from .data.batch import HostBatch
 from .exec import execs as E
+from .exec import mesh as MX
+from .parallel.mesh import Mesh, make_mesh
 from .plan import logical as L
 from .plan.planner import plan_physical
 
 #: Escalation rounds before a query gives up. Every site has at most
 #: three modes, so a query settles in at most three re-runs.
 _MAX_ATTEMPTS = 4
+
+#: The mesh's bucket growth stops here; a run that still overflows goes
+#: to the single-device path.
+_MAX_MESH_GROWTH = 64.0
 
 
 @dataclasses.dataclass
@@ -41,6 +54,10 @@ class QueryInfo:
     site_kinds: List[str]
     #: operator name -> milliseconds of the final run.
     exec_ms: Dict[str, float]
+    #: "mesh" or "single": the path the final run took.
+    path: str = "single"
+    #: Shards of the final run (1 on the single-device path).
+    shards: int = 1
 
 
 def resolve_device(device=None) -> torch.device:
@@ -57,13 +74,24 @@ def resolve_device(device=None) -> torch.device:
 class TorchSession:
     """Entry point of the port. ``device`` defaults to ``"cuda"``; without
     CUDA it raises instead of running on the CPU. Pass ``device="cpu"``
-    to run the plain PyTorch versions of the kernels (tests)."""
+    to run the plain PyTorch versions of the kernels (tests). ``mesh`` is
+    the device mesh of the mesh path; by default every visible card
+    (:func:`~.parallel.mesh.make_mesh`), made at the first mesh query."""
 
-    def __init__(self, conf: Optional[dict] = None, device=None):
+    def __init__(self, conf: Optional[dict] = None, device=None,
+                 mesh: Optional[Mesh] = None):
         self.conf = TorchConf(conf)
         self.device = resolve_device(device)
-        self._learned: Dict[str, Dict[int, int]] = {}
+        self._mesh = mesh
+        self._learned: Dict[tuple, Dict[int, int]] = {}
+        self._mesh_capable: Dict[tuple, bool] = {}
         self.last_query: Optional[QueryInfo] = None
+
+    @property
+    def mesh(self) -> Mesh:
+        if self._mesh is None:
+            self._mesh = make_mesh()
+        return self._mesh
 
     def create_dataframe(self, data, schema: Optional[T.Schema] = None
                          ) -> L.DataFrame:
@@ -82,11 +110,30 @@ class TorchSession:
 
     def execute(self, logical: L.LogicalPlan) -> HostBatch:
         physical = self.plan(logical)
-        sig = physical.tree_string()
+        mesh = self.mesh if self.conf.get(MESH_ENABLED) and \
+            MX.mesh_capable(physical, self._mesh_capable) else None
+        # Modes are learned per path: the mesh path numbers only the
+        # sites of its single-device tail.
+        sig = (physical.tree_string(), mesh is not None)
         modes = dict(self._learned.get(sig, {}))
-        for attempt in range(1, _MAX_ATTEMPTS + 1):
+        growth = 1.0
+        attempts = rounds = 0
+        while True:
+            attempts += 1
             ctx = E.ExecContext(self.device, modes)
-            result = E.collect(physical, ctx)
+            if mesh is not None:
+                result, overflowed = MX.mesh_collect(physical, ctx, mesh,
+                                                     growth)
+                if overflowed:
+                    if growth >= _MAX_MESH_GROWTH:
+                        mesh = None
+                        sig = (sig[0], False)
+                        modes = dict(self._learned.get(sig, {}))
+                    else:
+                        growth *= 8.0
+                    continue
+            else:
+                result = E.collect(physical, ctx)
             tripped = []
             if ctx.dense_fails:
                 flags = torch.stack([f.reshape(()) for _, f in
@@ -96,13 +143,17 @@ class TorchSession:
             if not tripped:
                 self._learned[sig] = modes
                 self.last_query = QueryInfo(
-                    attempts=attempt,
+                    attempts=attempts,
                     dense_modes={s: modes.get(s, 0)
                                  for s in range(len(ctx.site_kinds))},
                     site_kinds=list(ctx.site_kinds),
-                    exec_ms=ctx.exec_ms())
+                    exec_ms=ctx.exec_ms(),
+                    path="single" if mesh is None else "mesh",
+                    shards=1 if mesh is None else mesh.size)
                 return result
+            rounds += 1
+            if rounds >= _MAX_ATTEMPTS:
+                raise RuntimeError(f"query did not settle in "
+                                   f"{_MAX_ATTEMPTS} runs; modes {modes}")
             for s in set(tripped):
                 modes[s] = modes.get(s, 0) + 1
-        raise RuntimeError(f"query did not settle in {_MAX_ATTEMPTS} runs; "
-                           f"modes {modes}")

@@ -128,6 +128,24 @@ def gather_case(name: str, w: int):
     return mat, idx.astype(np.int32), valid
 
 
+def row_equal_case(n: int, w: int, seed: int = 0):
+    """Two int16 [n, W] char matrices of one rowwise-compare case:
+    PAD-ended rows with bytes up to 255, every third row of ``b`` changed
+    in one char (its last, or a PAD made a byte, or a byte made PAD),
+    and every fifth row of both all PAD."""
+    rng = np.random.default_rng(seed + n + w)
+    lens = rng.integers(0, w + 1, n)
+    lens[::5] = 0
+    a = rng.integers(0, 256, (n, w)).astype(np.int16)
+    a[np.arange(w)[None, :] >= lens[:, None]] = -1
+    b = a.copy()
+    rows = np.arange(0, n, 3)
+    cols = rng.integers(0, w, len(rows))
+    cols[::2] = w - 1
+    b[rows, cols] = np.where(b[rows, cols] == -1, 0, -1)
+    return a, b
+
+
 HASH_WIDTHS = [4, 8, 128, 1024]
 HASH_ROWS = [1, 255, 257, 4097]
 
@@ -266,3 +284,47 @@ def test_cuda_hash_refuses_what_it_cannot_take(cuda_device):
         HK.murmur3_bytes_rows(mat.to(torch.int32), lengths, seed)
     with pytest.raises(ValueError, match="seed"):
         HK.murmur3_bytes_rows(mat, lengths, seed.long())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [8, 12, 128, 1024])
+@pytest.mark.parametrize("n", [1, 7, 8191, 100_003])
+def test_cuda_row_equal_matches_plain(cuda_device, n, w):
+    a, b = (torch.as_tensor(x, device=cuda_device)
+            for x in row_equal_case(n, w))
+    before = SG.ragged_row_equal.launches
+    got = SG.ragged_row_equal(a, b)
+    assert SG.ragged_row_equal.launches == before + 1
+    assert torch.equal(got, SG.ragged_row_equal_plain(a, b))
+    assert torch.equal(SG.ragged_row_equal(a, a),
+                       torch.ones(n, dtype=torch.bool, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [8, 12, 128, 1024])
+def test_cuda_row_equal_on_row_views(cuda_device, w):
+    """``m[1:]`` and ``m[:-1]`` of one matrix, 16-byte aligned rows or
+    not, with runs of equal rows."""
+    a, _ = row_equal_case(4099, w, seed=1)
+    a[100:140] = a[99]
+    m = torch.as_tensor(a, device=cuda_device)
+    got = SG.ragged_row_equal(m[1:], m[:-1])
+    assert torch.equal(got, SG.ragged_row_equal_plain(m[1:], m[:-1]))
+    assert bool(got[99:139].all())
+
+
+@pytest.mark.cuda
+def test_cuda_row_equal_empty_and_refused(cuda_device):
+    z = torch.zeros((0, 128), dtype=torch.int16, device=cuda_device)
+    before = SG.ragged_row_equal.launches
+    assert SG.ragged_row_equal(z, z).shape == (0,)
+    w0 = torch.zeros((5, 0), dtype=torch.int16, device=cuda_device)
+    assert bool(SG.ragged_row_equal(w0, w0).all())
+    assert SG.ragged_row_equal.launches == before
+    m = torch.zeros((8, 16), dtype=torch.int16, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        SG.ragged_row_equal(m[:, :8], m[:, 8:])
+    with pytest.raises(ValueError, match="int16"):
+        SG.ragged_row_equal(m.int(), m.int())
+    with pytest.raises(ValueError, match="shapes differ"):
+        SG.ragged_row_equal(m[1:], m)
