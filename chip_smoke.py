@@ -11,9 +11,16 @@ Phases; each one passes or the script exits non-zero:
    power limit;
 2. hold each kernel against its plain PyTorch version on the card, on edge
    cases: for ``joinProbe`` duplicate keys, empty tables, one live row, all
-   rows dead; for ``segmented`` int64 and float64 lanes, +/-0.0, NaN, one
-   group, one group per row; for ``sortStep`` one lane, a power of two and
-   one past it, all lanes dead, random unique lanes up to 1,000,003; for
+   rows dead; for ``segmented`` int8 to int64 lanes (int8/int16 sums that
+   wrap), float32 and float64 lanes with +/-0.0 and NaN, 1, 2, 3 and 8
+   lanes, one group, one group per row, a group ending on a 1024-row tile
+   boundary, one group over many tiles, ids above 0, negative leading
+   ids, every row dead, no rows; for ``sortStep`` one lane, the
+   single-block threshold (4096 lanes) and one below and above it, all
+   lanes dead, random unique lanes up to 1,000,003, lanes where no digit
+   varies, only the dead field varies, a date-shaped key, or the index
+   bits are a permutation, up to 2^23 + 1 (the live radix passes printed
+   from 2^20 lanes up); each call must count one launch; for
    the ``strings`` gather W 8 and 128, all or no rows valid, indices out of
    range on both sides, more and fewer rows out than in; for ``hash`` n 1,
    255, 256, 257 and 100,003 rows by W 4, 8, 128 and 1024, lengths 0-5
@@ -75,6 +82,8 @@ import numpy as np
 
 #: H100 SXM device memory rate (NVIDIA data sheet), bytes per second.
 HBM_BYTES_PER_S = 3.35e12
+#: Clock cycles of the spin ahead of each timed launch (~1 ms at 1.98 GHz).
+SPIN_CYCLES = 2_000_000
 D_1994_01_01 = 8766
 D_1995_01_01 = 9131
 D_1995_03_15 = 9204
@@ -106,12 +115,16 @@ def check(cond: bool, msg: str) -> None:
 
 def median_ms(torch, fn, flush, reps: int = 15) -> float:
     """Median device time of ``fn()`` over CUDA events, the L2 flushed
-    (a 256 MB write, untimed) before every launch."""
+    (a 256 MB write, untimed) before every launch. A spin of about 1 ms
+    queued behind the flush keeps the card busy while the host enqueues
+    ``fn``, so the host's dispatch time (a wrapper's checks and
+    allocations) stays out of the events."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -172,39 +185,70 @@ def joinprobe_edge_cases(torch, JP, rng, dev):
         print(f"  joinProbe {name}: equal")
 
 
+def segmented_gids(rng, n: int, cap: int) -> dict:
+    """Sorted int32 group ids of the segmented edge cases, by name: the
+    kernel works by 1024-row tiles, so several cases aim at tiles."""
+    sizes = rng.integers(1, 9, n)
+    g = np.repeat(np.arange(len(sizes)), sizes)[:n]
+    r = np.arange(n)
+    dead_tail = g.copy()
+    dead_tail[-1000:] = cap  # the sort path's dead rows
+    many = np.where(r < 100, g, g[100])
+    many[n - 50:] = g[100] + 1 + np.arange(50) // 3
+    gids = {"random groups": g, "dead tail": dead_tail,
+            "one group": np.zeros(n, dtype=np.int64),
+            "one group per row": np.arange(n),
+            "tile boundary": 2 * (r // 1024) + (r % 1024 >= 1000),
+            "one group over many tiles": many,
+            "ids above 0": g + 5,
+            "negative leading ids": np.where(
+                r < 150, -3, np.where(r < 300, -1, g - g[300])),
+            "all dead": np.full(n, cap),
+            "no rows": np.zeros(0, dtype=np.int64)}
+    return {k: v.astype(np.int32) for k, v in gids.items()}
+
+
 def segmented_edge_cases(torch, SEG, rng, dev):
     n = 50_000
     cap = 65_536
-    sizes = rng.integers(1, 9, n)
-    gid_sorted = np.repeat(np.arange(len(sizes)), sizes)[:n]
-    dead_tail = gid_sorted.copy()
-    dead_tail[-1000:] = cap  # the sort path's dead rows
-    gids = {"random groups": gid_sorted, "dead tail": dead_tail,
-            "one group": np.zeros(n, dtype=np.int64),
-            "one group per row": np.arange(n)}
+    gids = segmented_gids(rng, n, cap)
     big = 2 ** 62
     lanes = {
         "int64 [n]": rng.integers(-big, big, n, dtype=np.int64),
         "int64 [n,3]": rng.integers(-big, big, (n, 3), dtype=np.int64),
+        "int64 [n,8]": rng.integers(-big, big, (n, 8), dtype=np.int64),
         "int32 [n]": rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64
                                   ).astype(np.int32),
+        "int8 [n] wrapping sums": rng.integers(60, 128, n).astype(np.int8),
+        "int16 [n,8] wrapping sums": rng.integers(
+            -32768, -20000, (n, 8)).astype(np.int16),
     }
     f = rng.normal(size=(n, 2))
     f[rng.random((n, 2)) < 0.05] = 0.0
     f[rng.random((n, 2)) < 0.05] = -0.0
     f[rng.random((n, 2)) < 0.01] = np.nan
     lanes["float64 [n,2] +/-0 NaN"] = f
+    f32 = rng.normal(size=(n, 3)).astype(np.float32)
+    f32[rng.random((n, 3)) < 0.05] = 0.0
+    f32[rng.random((n, 3)) < 0.05] = -0.0
+    f32[rng.random((n, 3)) < 0.01] = np.nan
+    lanes["float32 [n,3] +/-0 NaN"] = f32
     lanes["float64 [n] +/-0"] = np.where(rng.random(n) < 0.5, 0.0, -0.0)
     for gname, g in gids.items():
         gt = torch.as_tensor(g, dtype=torch.int32, device=dev)
         for lname, x in lanes.items():
-            xt = torch.as_tensor(x, device=dev)
+            xt = torch.as_tensor(x[:len(g)], device=dev)
             for op in ("sum", "min", "max"):
                 if not SEG.eligible(xt, op):
                     continue
+                before = SEG.segment_reduce_sorted.launches
                 got = SEG.segment_reduce_sorted(xt, gt, cap, op)
                 want = SEG.segment_reduce_sorted_plain(xt, gt, cap, op)
                 torch.cuda.synchronize()
+                check(SEG.segment_reduce_sorted.launches
+                      == before + int(xt.is_cuda),
+                      f"segmented {op} '{lname}' over '{gname}' did not "
+                      "count one launch")
                 check(bits_equal(torch, got, want),
                       f"segmented {op} '{lname}' over '{gname}' differs "
                       "from the plain version")
@@ -221,21 +265,56 @@ def packed_lanes(rng, n: int, dead: float = 0.2) -> np.ndarray:
         | np.arange(n, dtype=np.int64)
 
 
+def shaped_lanes(rng, n: int, shape: str) -> np.ndarray:
+    """Packed lanes whose digits vary only where ``shape`` says: a
+    constant key and field, only the dead/bucket field, a date-shaped key
+    (~2,500 days, a fifth dead), or random keys over a permuted index."""
+    iota = np.arange(n, dtype=np.int64)
+    field = np.full(n, 4)
+    u = np.full(n, 2 ** 31 + 9131)
+    if shape in ("dead field", "date key"):
+        field[rng.random(n) < 0.2] = 8
+    if shape == "date key":
+        u = 2 ** 31 + rng.integers(8036, 10_562, n)
+    if shape == "index permutation":
+        return (packed_lanes(rng, n) & ~((1 << 27) - 1)) \
+            | rng.permutation(n).astype(np.int64)
+    return (field.astype(np.int64) << 59) | (u.astype(np.int64) << 27) | iota
+
+
 def sortstep_edge_cases(torch, SS, rng, dev):
+    small = SS.SMALL_LANES
     cases = {"one lane": packed_lanes(rng, 1),
-             "power of two (4096)": packed_lanes(rng, 4096),
-             "power of two plus one (4097)": packed_lanes(rng, 4097),
-             "all lanes dead": packed_lanes(rng, 3000, dead=1.0)}
+             f"single-block threshold ({small})": packed_lanes(rng, small),
+             f"one below it ({small - 1})": packed_lanes(rng, small - 1),
+             f"one above it ({small + 1})": packed_lanes(rng, small + 1),
+             "all lanes dead": packed_lanes(rng, 3000, dead=1.0),
+             "all lanes dead (100,000)": packed_lanes(rng, 100_000, dead=1.0)}
     for n in (1000, 4096, 4097, 1_000_003):
         cases[f"random unique {n}"] = packed_lanes(rng, n)
+    for shape in ("constant lane", "dead field", "date key",
+                  "index permutation"):
+        for n in (100_000, 1 << 20):
+            cases[f"{shape} {n}"] = shaped_lanes(rng, n, shape)
+    cases["index permutation 2^23 + 1"] = shaped_lanes(
+        rng, (1 << 23) + 1, "index permutation")
     for name, lane in cases.items():
         lt = torch.as_tensor(lane, device=dev)
+        before = SS.packed_argsort.launches
         got = SS.packed_argsort(lt)
+        check(SS.packed_argsort.launches == before + int(lt.is_cuda),
+              f"sortStep '{name}' did not count one launch")
         want = SS.packed_argsort_plain(lt)
         torch.cuda.synchronize()
         check(bits_equal(torch, got, want),
               f"sortStep '{name}': permutation differs from the plain version")
-        print(f"  sortStep {name}: equal")
+        if lt.is_cuda and lt.numel() >= 1 << 20:
+            got, passes = SS.packed_argsort_passes(lt)
+            check(bits_equal(torch, got, want), f"sortStep '{name}': the "
+                  "second call differs from the plain version")
+            print(f"  sortStep {name}: equal, {passes} live radix passes")
+        else:
+            print(f"  sortStep {name}: equal")
 
 
 def strings_edge_cases(torch, SG, rng, dev):
@@ -948,15 +1027,15 @@ def time_sort_routes(torch, KR, SS, dfs, flush) -> dict:
     check(torch.equal(packed()[:n].long(), lex()[:n].long()),
           "the sortStep and lexsort routes order l_shipdate differently")
     ms, pms, lib, bound = time_sortstep(torch, SS, lane, flush)
+    passes = SS.packed_argsort_passes(lane)[1]
     route_ms = median_ms(torch, packed, flush)
     lex_ms = median_ms(torch, lex, flush)
-    print(f"  sortStep l_shipdate lane n={lane.numel()} (pads to "
-          f"{1 << (lane.numel() - 1).bit_length()}): kernel {ms:.4f} ms, "
-          f"plain {pms:.4f} ms, torch.sort {lib:.4f} ms, bound {bound:.4f} "
-          f"ms; with operands built: sortStep route {route_ms:.4f} ms, "
-          f"lexsort route {lex_ms:.4f} ms")
-    return {"n": lane.numel(), "ms": ms, "plain_ms": pms,
-            "library_ms": lib, "bound_ms": bound,
+    print(f"  sortStep l_shipdate lane n={lane.numel()} ({passes} live radix "
+          f"passes): kernel {ms:.4f} ms, plain {pms:.4f} ms, torch.sort "
+          f"{lib:.4f} ms, bound {bound:.4f} ms; with operands built: "
+          f"sortStep route {route_ms:.4f} ms, lexsort route {lex_ms:.4f} ms")
+    return {"n": lane.numel(), "live_radix_passes": passes, "ms": ms,
+            "plain_ms": pms, "library_ms": lib, "bound_ms": bound,
             "sortstep_route_ms": route_ms, "lexsort_route_ms": lex_ms}
 
 
@@ -1213,10 +1292,11 @@ def main() -> int:
             xf, op, lengths=lengths, unsafe=True), flush)
         nbytes = x.numel() * x.element_size() + 4 * gid.numel() \
             + capacity * (x.numel() // max(x.shape[0], 1)) * x.element_size()
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
         print(f"  segmented {op} x={tuple(x.shape)} {x.dtype} "
               f"capacity={capacity}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"torch.segment_reduce {lib:.4f} ms, bound "
-              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+              f"torch.segment_reduce {lib:.4f} ms, bound {bound:.4f} ms "
+              f"({ms / bound:.1f}x)")
         sg["ms"] += ms
         sg["plain_ms"] += pms
         sg["lib"] += lib
@@ -1240,8 +1320,12 @@ def main() -> int:
               f"plain version at {lane.numel()} lanes")
         ss["err"] = max(ss["err"], max_abs_err(torch, got_k, want))
         ms, pms, lib, bound = time_sortstep(torch, SS, lane, flush)
+        passes = ""
+        if lane.numel() >= 1 << 20:
+            passes = f", {SS.packed_argsort_passes(lane)[1]} live radix passes"
         print(f"  sortStep n={lane.numel()}: kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms, torch.sort {lib:.4f} ms, bound {bound:.6f} ms")
+              f"{pms:.4f} ms, torch.sort {lib:.4f} ms, bound {bound:.6f} ms"
+              f"{passes}")
         for k, v in zip(("ms", "plain_ms", "lib", "bound"),
                         (ms, pms, lib, bound)):
             ss[k] += v

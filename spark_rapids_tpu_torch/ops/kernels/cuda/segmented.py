@@ -4,7 +4,12 @@ Port of ``spark_rapids_tpu/ops/kernels/pallas/segmented.py``
 (``segment_reduce_sorted``). :func:`segment_reduce_sorted` launches the
 CUDA kernel ``csrc/segmented.cu`` for CUDA tensors and takes
 :func:`segment_reduce_sorted_plain`, the plain PyTorch version, for CPU
-tensors; a CUDA tensor the kernel cannot take raises.
+tensors; a CUDA tensor the kernel cannot take raises. The kernel works
+by tiles of consecutive rows (a reduce-by-key over each tile, then one
+fix-up launch for the groups that cross tiles and the identity rows), so
+a call makes one launch when ``n`` fits one tile (:data:`TILE_ROWS`) and
+two otherwise; its scratch is a few words per tile, nothing of
+``capacity``.
 
 Eligibility is the reference's: sum, min or max of an integer or float
 lane, except float sums (the order of the additions decides their last
@@ -33,6 +38,8 @@ _DTYPE_CODES = {torch.int8: 0, torch.int16: 1, torch.int32: 2,
 _KEY_MASK = {torch.float64: 0x7FFFFFFFFFFFFFFF, torch.float32: 0x7FFFFFFF}
 _BITS = {torch.float64: torch.int64, torch.float32: torch.int32}
 _CANON_NAN = {torch.float64: 0x7FF8000000000000, torch.float32: 0x7FC00000}
+#: Rows a block reduces (``kTileRows`` in ``csrc/segmented.cu``).
+TILE_ROWS = 1024
 
 
 def eligible(x: torch.Tensor, op: str) -> bool:
@@ -60,7 +67,7 @@ def segment_reduce_sorted_plain(x: torch.Tensor, gid: torch.Tensor,
     if not eligible(x, op):
         raise ValueError(f"segmented: {op} over {x.dtype} is not eligible")
     squeeze = x.dim() == 1
-    x2 = x.reshape(x.shape[0], -1).contiguous()
+    x2 = x.reshape(x.shape[0], 1 if squeeze else x.shape[1]).contiguous()
     n, lanes = x2.shape
     g = gid.long()
     idx = torch.where((g >= 0) & (g < capacity), g, capacity)
@@ -97,7 +104,9 @@ def _lib() -> ctypes.CDLL:
     fn = lib.srt_segment_reduce_sorted
     if fn.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        fn.argtypes = [p, i32, i32, i64, i64, p, i64, p, p, p, p]
+        lib.srt_segment_scratch_bytes.argtypes = [i64, i64]
+        lib.srt_segment_scratch_bytes.restype = i64
+        fn.argtypes = [p, i32, i32, i64, i64, p, i64, p, i64, p, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -124,15 +133,19 @@ def segment_reduce_sorted(x: torch.Tensor, gid: torch.Tensor, capacity: int,
         raise ValueError(f"gid must be a contiguous int32[{n}] tensor, got "
                          f"{gid.dtype} {tuple(gid.shape)}")
     lanes = 1 if x.dim() == 1 else x.shape[1]
-    lib = _lib()
     out = torch.empty((capacity, lanes), dtype=x.dtype, device=dev)
-    start = torch.empty(capacity, dtype=torch.int64, device=dev)
-    end = torch.empty(capacity, dtype=torch.int64, device=dev)
+    if capacity == 0 or lanes == 0:
+        return out[:, 0] if x.dim() == 1 else out
+    lib = _lib()
+    nbytes = lib.srt_segment_scratch_bytes(n, lanes)
+    scratch = torch.empty((nbytes + 7) // 8, dtype=torch.int64, device=dev) \
+        if nbytes else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.srt_segment_reduce_sorted(
             x.data_ptr(), _DTYPE_CODES[x.dtype], _OP_CODES[op], n, lanes,
-            gid.data_ptr(), capacity, start.data_ptr(), end.data_ptr(),
+            gid.data_ptr(), capacity,
+            None if scratch is None else scratch.data_ptr(), nbytes,
             out.data_ptr(), stream)
     _build.check(lib, rc, "segmented launch")
     _COUNTED.launches += 1

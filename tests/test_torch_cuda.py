@@ -23,8 +23,11 @@ from spark_rapids_tpu_torch.ops.kernels.cuda import strings as SG
 
 JOINPROBE_CASES = ["duplicate keys", "every probed slot empty",
                    "one live row", "all rows dead", "unique keys"]
-SEG_GIDS = ["random groups", "one group", "one group per row", "dead tail"]
-N, CAP = 1024, 1280
+SEG_GIDS = ["random groups", "one group", "one group per row", "dead tail",
+            "tile boundary", "one group over many tiles", "ids above 0",
+            "negative leading ids", "all dead", "no rows"]
+#: Rows of the segmented cases: several of the kernel's 1024-row tiles.
+N, CAP = 4500, 4800
 
 
 def joinprobe_case(name: str, cap_b: int = 512, cap_p: int = 1024):
@@ -50,58 +53,107 @@ def joinprobe_case(name: str, cap_b: int = 512, cap_p: int = 1024):
 
 
 def segment_gids(name: str, n: int, cap: int) -> np.ndarray:
-    """Sorted int32 group ids of one segmented edge case."""
+    """Sorted int32 group ids of one segmented edge case ("no rows" is
+    empty; the others have ``n`` rows)."""
     rng = np.random.default_rng(7)
+    if name == "no rows":
+        return np.zeros(0, np.int32)
     if name == "one group":
         return np.zeros(n, np.int32)
     if name == "one group per row":
         return np.arange(n, dtype=np.int32)
+    if name == "all dead":
+        return np.full(n, cap, np.int32)
+    r = np.arange(n)
+    if name == "tile boundary":
+        # each 1024-row tile holds two whole groups, the second ending on
+        # the tile's last row
+        return (2 * (r // 1024) + (r % 1024 >= 1000)).astype(np.int32)
     sizes = rng.integers(1, 9, n)
     g = np.repeat(np.arange(n), sizes)[:n].astype(np.int32)
-    if name == "dead tail":
+    if name == "one group over many tiles":
+        g = np.where(r < 100, g, g[100])
+        g[n - 50:] = g[100] + 1 + np.arange(50) // 3
+    elif name == "ids above 0":
+        g = g + 5
+    elif name == "negative leading ids":
+        g = np.where(r < 150, -3, np.where(r < 300, -1, g - g[300]))
+    elif name == "dead tail":
         g[-n // 8:] = cap  # the port's sort path sends dead rows here
-    return g
+    return g.astype(np.int32)
 
 
 def segment_lanes(n: int) -> dict:
-    """The lanes each segmented case reduces, by name."""
+    """The lanes each segmented case reduces, by name: 1, 3 and 8 lanes,
+    int8/int16 lanes whose sums wrap, floats with +/-0.0 and NaN."""
     rng = np.random.default_rng(11)
     big = 2 ** 62
     f = rng.normal(size=(n, 2))
     f[rng.random((n, 2)) < 0.1] = 0.0
     f[rng.random((n, 2)) < 0.1] = -0.0
     f[rng.random((n, 2)) < 0.02] = np.nan
+    f32 = rng.normal(size=(n, 3)).astype(np.float32)
+    f32[rng.random((n, 3)) < 0.1] = 0.0
+    f32[rng.random((n, 3)) < 0.1] = -0.0
+    f32[rng.random((n, 3)) < 0.02] = np.nan
     return {
         "int64 [n]": rng.integers(-big, big, n, dtype=np.int64),
         "int64 [n,3]": rng.integers(-big, big, (n, 3), dtype=np.int64),
+        "int64 [n,8]": rng.integers(-big, big, (n, 8), dtype=np.int64),
         "int32 [n]": rng.integers(-2 ** 31, 2 ** 31, n,
                                   dtype=np.int64).astype(np.int32),
+        "int8 [n] wrapping sums": rng.integers(60, 128, n).astype(np.int8),
+        "int16 [n,8] wrapping sums": rng.integers(
+            -32768, -20000, (n, 8)).astype(np.int16),
         "float64 [n,2] +/-0 NaN": f,
+        "float32 [n,3] +/-0 NaN": f32,
         "float64 [n] +/-0": np.where(rng.random(n) < 0.5, 0.0, -0.0),
     }
 
 
 SORT_CASES = ["one lane", "power of two", "power of two plus one",
-              "all lanes dead", "random 1000", "descending keys"]
+              "all lanes dead", "random 1000", "descending keys",
+              "threshold minus one", "constant lane",
+              "only the dead field varies", "date key", "index permutation"]
+#: Live radix passes the kernel's plan must choose (the rest sort in one
+#: block, or are not fixed by their data).
+SORT_PASSES = {"constant lane": 0, "only the dead field varies": 1,
+               "date key": 3}
 
 
 def sort_lane_case(name: str) -> np.ndarray:
     """A unique packed sortStep lane (``rowops.packed_sort_lane``'s
-    layout: field, key + 2**31, row index), int64."""
+    layout: field, key + 2**31, row index), int64. The sizes straddle
+    the kernel's single-block threshold (4096 lanes)."""
     rng = np.random.default_rng(len(name))
     n = {"one lane": 1, "power of two": 4096, "power of two plus one": 4097,
          "all lanes dead": 777, "random 1000": 1000,
-         "descending keys": 3000}[name]
+         "descending keys": 3000, "threshold minus one": 4095,
+         "constant lane": 10_000, "only the dead field varies": 20_000,
+         "date key": 50_000, "index permutation": 30_000}[name]
     field = rng.integers(1, 8, n)  # null buckets -3..3 ride as 1..7
     field[rng.random(n) < 0.2] = 8  # dead rows
     if name == "all lanes dead":
         field[:] = 8
     u = rng.integers(0, 2 ** 32, n)
+    index = np.arange(n, dtype=np.int64)
     if name == "descending keys":
         field[:] = 4
         u = np.sort(u)[::-1].copy()
+    elif name == "constant lane":
+        field[:] = 4
+        u[:] = 2 ** 31 + 9131
+    elif name == "only the dead field varies":
+        field = np.where(rng.random(n) < 0.2, 8, 4)
+        u[:] = 2 ** 31 + 9131
+    elif name == "date key":
+        # ~2,500 distinct days (l_shipdate's span), a fifth dead
+        field = np.where(rng.random(n) < 0.2, 8, 4)
+        u = 2 ** 31 + rng.integers(8036, 10_562, n)
+    elif name == "index permutation":
+        index = rng.permutation(n).astype(np.int64)
     return (field.astype(np.int64) << 59) | (u.astype(np.int64) << 27) \
-        | np.arange(n, dtype=np.int64)
+        | index
 
 
 STRING_CASES = ["all valid", "none valid", "indices out of range",
@@ -205,7 +257,7 @@ def test_cuda_joinprobe_matches_plain(cuda_device, name):
 def test_cuda_segmented_matches_plain(cuda_device, gname, op):
     gid = torch.as_tensor(segment_gids(gname, N, CAP), device=cuda_device)
     for x in segment_lanes(N).values():
-        xt = torch.as_tensor(x, device=cuda_device)
+        xt = torch.as_tensor(x[:gid.shape[0]], device=cuda_device)
         if not SEG.eligible(xt, op):
             continue
         before = SEG.segment_reduce_sorted.launches
@@ -223,16 +275,28 @@ def test_cuda_sort_steps_matches_plain(cuda_device, name):
     got = SS.packed_argsort(lane)
     assert SS.packed_argsort.launches == before + 1
     assert torch.equal(got, SS.packed_argsort_plain(lane))
+    got, passes = SS.packed_argsort_passes(lane)
+    assert torch.equal(got, SS.packed_argsort_plain(lane))
+    if name in SORT_PASSES:
+        assert passes == SORT_PASSES[name]
+    if lane.numel() <= SS.SMALL_LANES:
+        assert passes == 0
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [4095, 4096, 8193, 1 << 16, 1_000_003])
+@pytest.mark.parametrize("n", [4095, 4096, 4097, 8193, 1 << 16, 1_000_003,
+                               (1 << 23) + 1])
 def test_cuda_sort_steps_random_lanes(cuda_device, n):
+    """The general path: index bits a permutation, so every index window
+    is sorted too."""
     rng = np.random.default_rng(n)
     lane = (rng.integers(0, 2 ** 35, n).astype(np.int64) << 27) \
         | rng.permutation(n).astype(np.int64)
     lane = torch.as_tensor(lane, device=cuda_device)
-    assert torch.equal(SS.packed_argsort(lane), SS.packed_argsort_plain(lane))
+    before = SS.packed_argsort.launches
+    got = SS.packed_argsort(lane)
+    assert SS.packed_argsort.launches == before + 1
+    assert torch.equal(got, SS.packed_argsort_plain(lane))
 
 
 @pytest.mark.cuda

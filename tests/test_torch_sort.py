@@ -79,6 +79,21 @@ def test_packed_sort_lane_matches_reference(key, asc, nf):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("asc,nf", ORDERS)
+@pytest.mark.parametrize("key", ["i", "d", "s"])
+def test_packed_sort_lane_index_bits_are_row_positions(key, asc, nf):
+    """The low INDEX_BITS of every lane are its row position (dead rows
+    included), the contract under which the radix sortStep skips its
+    index windows."""
+    _, pb = sort_batches()
+    lane = KR.packed_sort_lane(pb, [pb.column(key)], [asc], [nf])
+    mask = (1 << SS.INDEX_BITS) - 1
+    assert lane.shape == (pb.capacity,)
+    np.testing.assert_array_equal((lane & mask).numpy(),
+                                  np.arange(pb.capacity))
+    assert bool((lane >= 0).all())
+
+
 @pytest.mark.parametrize("keys", [["a"], ["b"], ["f"], ["i", "d"]])
 def test_packed_sort_lane_refuses_what_reference_refuses(keys):
     rb, pb = sort_batches()
