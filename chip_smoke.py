@@ -11,7 +11,10 @@ Phases; each one passes or the script exits non-zero:
    power limit;
 2. hold each kernel against its plain PyTorch version on the card, on edge
    cases: for ``joinProbe`` duplicate keys, empty tables, one live row, all
-   rows dead; for ``segmented`` int8 to int64 lanes (int8/int16 sums that
+   rows dead, a table of one slot, no build rows, every build row
+   unusable, one slot hit by every row (the max is the row count), only
+   the last rows live (both launch routes while they are measured); for
+   ``segmented`` int8 to int64 lanes (int8/int16 sums that
    wrap), float32 and float64 lanes with +/-0.0 and NaN, 1, 2, 3 and 8
    lanes, one group, one group per row, a group ending on a 1024-row tile
    boundary, one group over many tiles, ids above 0, negative leading
@@ -24,12 +27,16 @@ Phases; each one passes or the script exits non-zero:
    the ``strings`` gather W 8 and 128, all or no rows valid, indices out of
    range on both sides, more and fewer rows out than in; for ``hash`` n 1,
    255, 256, 257 and 100,003 rows by W 4, 8, 128 and 1024, lengths 0-5
-   and W, bytes >= 128, all-PAD rows and random per-row seeds; for the
+   and W, bytes >= 128, all-PAD rows and random per-row seeds, and for
+   its ragged entry (a column's own layout) dictionary and flat columns,
+   codes out of range, lengths 0-5, W and past W, negative lengths,
+   unaligned entry starts, n 1, 255, 256, 257 and 100,003, and whole
+   columns with null rows through ``spark_hash_columns_device``; for the
    rowwise compare (``stringsEqual``) n 1, 7, 8,191 and 100,003 by W 8,
    12, 128 and 1,024, rows that differ only in their last char or only
    at a PAD position, all-PAD rows, chars above 127, and the row views
    ``m[1:]`` / ``m[:-1]`` of one matrix. Outputs equal bit for bit;
-   ``hash`` also equals this script's own numpy murmur3;
+   both ``hash`` entries also equal this script's own numpy murmur3;
 3. TPC-H Q3, Q1, Q4, Q6 and Q22 at SF1 (6,001,215 lineitem rows by
    default), all of lineitem sorted by ``l_shipdate``, and Q1 over
    ``lineitem.repartition(16, l_returnflag, l_linestatus)`` (``q1_hash_str``)
@@ -39,9 +46,11 @@ Phases; each one passes or the script exits non-zero:
    query's path must have launched during it (counts set to 0 just
    before, read just after): ``joinProbe`` and ``segmented`` in Q3,
    ``sortStep`` in Q4 and the sort, the ``strings`` gather in Q22,
-   ``hash`` and ``segmented`` (the merge aggregate) in ``q1_hash_str``.
-   Then each exchange alone: every lineitem row must land in the
-   partition this script's numpy murmur3 pmod n names. Then
+   ``hash`` (its ragged entry) and ``segmented`` (the merge aggregate) in
+   ``q1_hash_str``. Then each exchange alone: every lineitem row must
+   land in the partition this script's numpy murmur3 pmod n names; the
+   partition step of ``q1_hash_str``'s exchange must build no char
+   matrix. Then
    ``group_ids`` (with ``segment_reduce`` and ``gather_group_keys``) over
    lineitem's dictionary ``l_shipmode`` and Q22's flat ``cntrycode``:
    groups, keys and row counts equal to numpy's ``np.unique``, the
@@ -57,9 +66,14 @@ Phases; each one passes or the script exits non-zero:
 4. at the shapes the queries gave each kernel: kernel vs plain version
    (equal bit for bit), median times over CUDA events with the L2 flushed
    between launches, the memory bound, and a PyTorch library yardstick;
-   the sort exec's permutation of SF1 lineitem by ``l_shipdate`` through
-   ``sortStep`` against the stable lexsort route; the rowwise compare at
-   the ``group_ids`` shapes; and the char matrix that feeds ``hash``;
+   ``joinProbe``'s table clear beside its bound, its two launch routes
+   (three launches, one cooperative launch), and Q3's direct-address
+   joins whole and their slot preparation; the sort exec's permutation
+   of SF1 lineitem by ``l_shipdate`` through ``sortStep`` against the
+   stable lexsort route; the rowwise compare at the ``group_ids``
+   shapes; the ragged ``hash`` calls of the queries (also against numpy
+   murmur3), and the matrix entry with its char matrix at
+   ``q1_hash_str``'s shape;
 5. one JSON line with every kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -164,25 +178,48 @@ def joinprobe_edge_cases(torch, JP, rng, dev):
     tbl = 4 * cap_b
     kb = rng.integers(0, tbl // 2, cap_b)
     kb[1] = kb[0]
-    cases["duplicate keys"] = (kb, rng.integers(0, tbl, cap_p))
+    cases["duplicate keys"] = (kb, rng.integers(0, tbl, cap_p), tbl)
     cases["every probed slot empty"] = (
-        rng.integers(0, tbl // 2, cap_b), rng.integers(tbl // 2, tbl, cap_p))
+        rng.integers(0, tbl // 2, cap_b), rng.integers(tbl // 2, tbl, cap_p),
+        tbl)
     one = np.full(cap_b, tbl)
     one[cap_b // 3] = 17
-    cases["one live row"] = (one, rng.integers(0, tbl, cap_p))
-    cases["all rows dead"] = (np.full(cap_b, tbl), rng.integers(0, tbl, cap_p))
+    cases["one live row"] = (one, rng.integers(0, tbl, cap_p), tbl)
+    cases["all rows dead"] = (np.full(cap_b, tbl),
+                              rng.integers(0, tbl, cap_p), tbl)
     wild = rng.integers(-tbl, 2 * tbl, cap_b)
-    cases["out-of-range slots"] = (wild, rng.integers(-5, tbl + 5, cap_p))
-    for name, (b, p) in cases.items():
+    cases["out-of-range slots"] = (wild, rng.integers(-5, tbl + 5, cap_p),
+                                   tbl)
+    cases["a table of one slot"] = (rng.integers(-1, 3, cap_b),
+                                    rng.integers(-2, 3, cap_p), 1)
+    cases["no build rows"] = (np.zeros(0, np.int64),
+                              rng.integers(0, tbl, cap_p), tbl)
+    cases["every build row unusable"] = (
+        np.where(rng.random(cap_b) < 0.5, rng.integers(-9, 0, cap_b),
+                 rng.integers(tbl, tbl + 9, cap_b)),
+        rng.integers(0, tbl, cap_p), tbl)
+    every = np.full(1 << 20, 5)
+    cases["one slot hit by every row"] = (every, rng.integers(0, 9, cap_p),
+                                          tbl)
+    last = np.full(1 << 20, tbl)
+    last[-3:] = [7, 9, 7]
+    cases["only the last rows live"] = (last, rng.integers(0, 12, cap_p), tbl)
+    for name, (b, p, t) in cases.items():
         bs = torch.as_tensor(b, dtype=torch.int32, device=dev)
         ps = torch.as_tensor(p, dtype=torch.int32, device=dev)
-        got = JP.dense_build_probe(bs, ps, tbl)
-        want = JP.dense_build_probe_plain(bs, ps, tbl)
-        torch.cuda.synchronize()
-        for g, w, what in zip(got, want, ("count", "row", "max")):
-            check(bits_equal(torch, g, w),
-                  f"joinProbe '{name}': {what} differs from the plain version")
-        print(f"  joinProbe {name}: equal")
+        want = JP.dense_build_probe_plain(bs, ps, t)
+        for route in ("three launches", "one cooperative launch"):
+            JP.COOPERATIVE = route != "three launches"
+            before = JP.dense_build_probe.launches
+            got = JP.dense_build_probe(bs, ps, t)
+            torch.cuda.synchronize()
+            check(JP.dense_build_probe.launches == before + int(bs.is_cuda),
+                  f"joinProbe '{name}' did not count one launch")
+            for g, w, what in zip(got, want, ("count", "row", "max")):
+                check(bits_equal(torch, g, w), f"joinProbe '{name}' "
+                      f"({route}): {what} differs from the plain version")
+        JP.COOPERATIVE = False
+        print(f"  joinProbe {name}: equal (max {int(want[2])})")
 
 
 def segmented_gids(rng, n: int, cap: int) -> dict:
@@ -497,6 +534,123 @@ def hash_edge_cases(torch, HK, rng, dev):
               "version and to numpy")
 
 
+def ragged_hash_case(rng, kind: str, n: int, w: int):
+    """(payload uint8, offsets int32, codes int32 or None, seed uint32
+    bits as int32) of one ragged ``hash`` case: entry lengths 0-5, W and
+    past W, bytes over 0-255, entries from unaligned payload bytes; a
+    dictionary of a few dozen entries with codes out of range on both
+    sides, a flat column of one entry a row, or a flat column whose
+    offsets step back (negative lengths)."""
+    m = 3 + min(n, 40) if kind == "dictionary" else n
+    lens = rng.integers(0, w + 1, m)
+    pick = rng.random(m)
+    lens[pick < 0.3] = rng.integers(0, 6, int((pick < 0.3).sum()))
+    lens[(pick >= 0.3) & (pick < 0.4)] = w
+    past = (pick >= 0.4) & (pick < 0.5)
+    lens[past] = w + rng.integers(1, 10, int(past.sum()))
+    offsets = 1 + np.concatenate([[0], np.cumsum(lens)])
+    if kind == "negative lengths":
+        back = np.flatnonzero(rng.random(m) < 0.2) + 1
+        offsets[back] = np.maximum(offsets[back - 1] - rng.integers(
+            1, 4, len(back)), 0)
+    payload = rng.integers(0, 256, int(offsets.max()) + 7).astype(np.uint8)
+    codes = None
+    if kind == "dictionary":
+        codes = rng.integers(0, m, n)
+        wild = rng.random(n) < 0.1
+        codes[wild] = rng.integers(-5, m + 5, int(wild.sum()))
+        codes = codes.astype(np.int32)
+    seed = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    return payload, offsets.astype(np.int32), codes, seed.view(np.int32)
+
+
+def np_hash_layout(payload, offsets, codes, w: int, seed) -> np.ndarray:
+    """This script's numpy murmur3 of each row of a string layout: row r
+    is entry ``codes[r]`` clamped into the dictionary (entry r without
+    codes); its bytes are the entry's first ``min(length, W)`` (W a
+    multiple of 4), read from the payload with positions clamped into
+    it; the full length is folded in. The byte matrix is only as wide as
+    the longest row needs."""
+    offsets = np.asarray(offsets, np.int64)
+    entries = len(offsets) - 1
+    rows = np.arange(len(seed)) if codes is None \
+        else np.clip(np.asarray(codes, np.int64), 0, entries - 1)
+    start, lens = offsets[rows], (offsets[1:] - offsets[:-1])[rows]
+    need = int(np.clip(lens, 0, w).max(initial=0))
+    width = w if (lens > w).any() else max(4, -(-need // 4) * 4)
+    pos = start[:, None] + np.arange(min(width, max(need, 1)))[None, :]
+    raw = np.zeros((len(rows), width), np.uint8)
+    raw[:, :pos.shape[1]] = np.asarray(payload)[np.clip(pos, 0,
+                                                        len(payload) - 1)]
+    raw[np.arange(width)[None, :] >= lens[:, None]] = 0
+    return np_murmur3_bytes(raw, lens, np.asarray(seed).view(np.uint32))
+
+
+def ragged_hash_edge_cases(torch, HK, T, DC, PN, rng, dev):
+    """The ragged entry against its plain version and numpy on layouts,
+    then whole columns with null rows through the row hash: a null row
+    keeps the running hash."""
+    for kind in ("dictionary", "flat", "negative lengths"):
+        for w in (4, 8, 128):
+            for n in (1, 255, 256, 257, 100_003):
+                payload, offsets, codes, seed = ragged_hash_case(rng, kind,
+                                                                 n, w)
+                args = [None if a is None else torch.as_tensor(a, device=dev)
+                        for a in (payload, offsets, codes, seed)]
+                before = HK.murmur3_string_rows.launches
+                got = HK.murmur3_string_rows(*args[:3], w, args[3])
+                want = HK.murmur3_string_rows_plain(*args[:3], w, args[3])
+                torch.cuda.synchronize()
+                check(HK.murmur3_string_rows.launches
+                      == before + int(args[0].is_cuda),
+                      f"ragged hash {kind} n={n} W={w}: not one launch")
+                check(bits_equal(torch, got, want), f"ragged hash {kind} "
+                      f"n={n} W={w}: differs from the plain version")
+                check(np.array_equal(got.cpu().numpy().view(np.uint32),
+                                     np_hash_layout(payload, offsets, codes,
+                                                    w, seed)),
+                      f"ragged hash {kind} n={n} W={w}: differs from the "
+                      "numpy murmur3")
+        print(f"  ragged hash {kind}: W 4/8/128, n 1/255/256/257/100003 "
+              "equal to the plain version and to numpy")
+    n = 100_003
+    words = np.array(["", "A", "N", "R", "apple", "dragonfruit", "\u00e9t\u00e9",
+                      "x" * 20])
+    values = words[rng.integers(0, len(words), n)]
+    valid = rng.random(n) < 0.8
+    enc = [v.encode("utf-8") for v in values]
+    offsets = np.concatenate([[0], np.cumsum([len(e) for e in enc])])
+    flat = DC(torch.as_tensor(np.frombuffer(b"".join(enc) + b"\0", np.uint8)
+                              .copy(), device=dev),
+              torch.as_tensor(valid, device=dev), T.STRING,
+              offsets=torch.as_tensor(offsets.astype(np.int32), device=dev),
+              max_bytes=128)
+    uniq, inv = np.unique(values, return_inverse=True)
+    dic = dictionary_column_of(torch, uniq, inv, valid, dev)
+    seed42 = np.full(n, SPARK_SEED, np.uint32)
+    want1 = np.where(valid, np_hash_strings(values, seed42), seed42)
+    want2 = np.where(valid, np_hash_strings(values, want1), want1)
+    for name, cols in (("dictionary", [dic]), ("flat", [flat]),
+                       ("flat then dictionary", [flat, dic])):
+        before = HK.murmur3_string_rows.launches
+        got = PN.spark_hash_columns_device(cols).cpu().numpy().view(
+            np.uint32)
+        check(HK.murmur3_string_rows.launches
+              == before + len(cols) * int(dic.codes.is_cuda),
+              f"row hash over {name}: not one ragged launch a column")
+        check(np.array_equal(got, want1 if len(cols) == 1 else want2),
+              f"row hash over {name} with null rows differs from numpy")
+    print("  row hash of dictionary and flat columns with null rows: equal "
+          "to numpy")
+
+
+def dictionary_column_of(torch, uniq, inv, valid, dev):
+    from spark_rapids_tpu_torch.data.column import dictionary_column
+    codes = np.where(valid, inv, 0).astype(np.int32)
+    return dictionary_column(torch.as_tensor(codes, device=dev),
+                             torch.as_tensor(valid, device=dev), uniq)
+
+
 # --------------------------------------------------------------------------
 # phase 3: Q3 and its numpy reference
 # --------------------------------------------------------------------------
@@ -700,6 +854,56 @@ def check_placement(torch, session, tables, n_parts: int, keys) -> dict:
             "exchange_ms": wall}
 
 
+def check_no_char_matrix(torch, HK, batch, col) -> dict:
+    """The partition step of ``q1_hash_str``'s exchange (the hash
+    partitioner over ``l_returnflag, l_linestatus``, then the sort by
+    id) on lineitem, with every char-matrix builder of the package
+    counting its calls: none may run, and the ragged ``hash`` entry must
+    launch once a key column."""
+    from spark_rapids_tpu_torch.ops import strings as S
+    from spark_rapids_tpu_torch.ops import strings_util as SU
+    from spark_rapids_tpu_torch.ops.kernels import concat as KC
+    from spark_rapids_tpu_torch.ops.kernels import groupby as KG
+    from spark_rapids_tpu_torch.ops.kernels import rowops as KR
+    from spark_rapids_tpu_torch.shuffle import exchange as EX
+    from spark_rapids_tpu_torch.shuffle import partitioners as PR
+    from spark_rapids_tpu_torch.shuffle import partitioning as PN
+    built = []
+    patched = []
+    for mod in (SU, S, KC, KG, KR, PN):
+        for name in ("char_matrix", "_matrix_from_offsets"):
+            fn = getattr(mod, name, None)
+            if fn is None:
+                continue
+
+            def counting(*a, _fn=fn, _name=name, **k):
+                built.append(_name)
+                return _fn(*a, **k)
+            patched.append((mod, name, fn))
+            setattr(mod, name, counting)
+    try:
+        part = PR.HashPartitioner([col("l_returnflag"), col("l_linestatus")],
+                                  16, batch.schema)
+        before = HK.murmur3_string_rows.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        EX.partition_sort(batch, part, 16)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = HK.murmur3_string_rows.launches - before
+    finally:
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+    check(not built, f"the hash partition step built a char matrix: {built}")
+    check(launched == 2, f"the hash partition step launched the ragged hash "
+          f"{launched} times, expected 2")
+    print(f"  q1_hash_str partition step over {batch.capacity} rows: no char "
+          f"matrix built ({len(patched)} builders watched), ragged hash "
+          f"launched {launched} times, {ms:.3f} ms")
+    return {"char_matrices": len(built), "ragged_launches": launched,
+            "ms": ms}
+
+
 #: (key or exact columns, float columns) of each query's answer.
 ANSWERS = {
     "q1": (["l_returnflag", "l_linestatus", "count_order"],
@@ -808,14 +1012,15 @@ def profile_query(torch, name, build, exec_ms) -> None:
 
 
 class Wrappers:
-    """The six kernel wrappers, their launch counts and capture."""
+    """The six kernel wrappers, their launch counts and capture (``hash``
+    is its ragged entry, the one every hash exchange takes)."""
 
     def __init__(self, JP, SEG, SS, SG, HK):
         self.mods = {"joinProbe": (JP, "dense_build_probe"),
                      "segmented": (SEG, "segment_reduce_sorted"),
                      "sortStep": (SS, "packed_argsort"),
                      "strings": (SG, "ragged_gather"),
-                     "hash": (HK, "murmur3_bytes_rows"),
+                     "hash": (HK, "murmur3_string_rows"),
                      "stringsEqual": (SG, "ragged_row_equal")}
         # the wrappers themselves, which own the counts while a Capture
         # stands in for them
@@ -994,6 +1199,214 @@ def check_distributed(torch, D, mesh, dfs, tables) -> dict:
     return {"shards": n_parts, "groups_per_shard": gn.tolist(), "ms": ms}
 
 
+def join_slots(torch, swapped, probe, build, pk, bk):
+    """The slots ``ops/kernels/join.py``'s direct-address joins compute
+    ahead of ``joinProbe``, as they compute them: the table side's
+    (unusable rows to ``tbl``) and the other side's (unusable rows to 0),
+    both cast to int32."""
+    key, key_batch = (pk, probe) if swapped else (bk, build)
+    other, other_batch = (bk, build) if swapped else (pk, probe)
+    tbl = key.capacity * 4
+    k = key.data.long()
+    usable = key_batch.row_mask() & key.validity
+    slot = torch.where(usable & (k >= 0) & (k < tbl), k, tbl)
+    o = other.data.long()
+    reach = other_batch.row_mask() & other.validity & (o >= 0) & (o < tbl)
+    oslot = torch.where(reach, o, 0)
+    return (slot.to(torch.int32).contiguous(),
+            oslot.to(torch.int32).contiguous(), tbl)
+
+
+def time_q3_joins(torch, KJ, JP, dfs, flush) -> list:
+    """Q3's direct-address joins (one warm run captured): each whole
+    ``dense_join`` call, its slot preparation and its ``joinProbe``
+    call, with the L2 flushed; the prepared slots must be the kernel's
+    captured inputs."""
+    from spark_rapids_tpu_torch.workloads import tpch
+    with Capture(KJ, "dense_join") as d1, \
+            Capture(KJ, "dense_join_swapped") as d2, \
+            Capture(JP, "dense_build_probe") as kp:
+        tpch.q3(dfs).collect()
+    joins = [(False, c) for c in d1.calls] + [(True, c) for c in d2.calls]
+    check(len(joins) == len(kp.calls), "Q3's direct-address joins and "
+          "joinProbe calls do not pair up")
+    out = []
+    for swapped, args in joins:
+        probe, build, pk, bk = args[:4]
+        slot, oslot, tbl = join_slots(torch, swapped, probe, build, pk, bk)
+        check(any(torch.equal(slot, b) and torch.equal(oslot, p) and tbl == t
+                  for b, p, t in kp.calls),
+              "the mirrored slot preparation differs from the join's")
+        fn = KJ.dense_join_swapped if swapped else KJ.dense_join
+        whole = median_ms(torch, lambda: fn(*args), flush)
+        prep = median_ms(torch, lambda: join_slots(torch, swapped, probe,
+                                                   build, pk, bk), flush)
+        kern = median_ms(torch, lambda: JP.dense_build_probe(slot, oslot,
+                                                             tbl), flush)
+        print(f"  Q3 {'swapped ' if swapped else ''}dense join, table "
+              f"side {slot.numel()} rows, other side {oslot.numel()}: whole "
+              f"call {whole:.4f} ms, slot preparation {prep:.4f} ms, "
+              f"joinProbe {kern:.4f} ms")
+        out.append({"swapped": swapped, "table_rows": slot.numel(),
+                    "other_rows": oslot.numel(), "whole_ms": whole,
+                    "slot_prep_ms": prep, "joinprobe_ms": kern})
+    return out
+
+
+def time_matrix_hash(torch, HK, SU, dfs, rng, flush) -> dict:
+    """The matrix entry of ``hash`` at ``q1_hash_str``'s shape (lineitem's
+    ``l_returnflag``, random seeds), beside the char matrix it needs and
+    the ragged entry on the same column: the route each exchange took
+    before the ragged entry, and the one it takes now. Both entries must
+    give the same hashes."""
+    flag = dfs["lineitem"]._plan.batch.column("l_returnflag")
+    n, w = flag.capacity, max(flag.max_bytes, 1)
+    seed = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, n).astype(
+        np.int32), device=flag.device)
+    mat, lens = SU.char_matrix(flag), SU.lengths(flag)
+    payload, offsets = flag.dict_bytes
+    ragged = HK.murmur3_string_rows(payload, offsets, flag.codes, w, seed)
+    check(bits_equal(torch, HK.murmur3_bytes_rows(mat, lens, seed), ragged),
+          "the matrix and ragged hash entries differ on l_returnflag")
+    ms = median_ms(torch, lambda: HK.murmur3_bytes_rows(mat, lens, seed),
+                   flush)
+    del mat
+    cm_ms = median_ms(torch, lambda: SU.char_matrix(flag), flush, reps=5)
+    ragged_ms = median_ms(torch, lambda: HK.murmur3_string_rows(
+        payload, offsets, flag.codes, w, seed), flush)
+    # lengths, seed and output plus the 32-byte sectors of chars each
+    # row's length needs
+    chars = 2 * lens.long().clamp(0, w)
+    nbytes = 12 * n + int((32 * ((chars + 31) // 32)).sum())
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  hash matrix entry at l_returnflag n={n} W={w}: kernel "
+          f"{ms:.4f} ms, bound {bound:.4f} ms; its char matrix {cm_ms:.4f} "
+          f"ms (writes {2 * n * w / 2 ** 30:.2f} GiB); the ragged entry on "
+          f"the same column {ragged_ms:.4f} ms")
+    return {"n": n, "width": w, "ms": ms, "bound_ms": bound,
+            "char_matrix_ms": cm_ms, "ragged_ms": ragged_ms}
+
+
+def time_joinprobe(torch, JP, jp_call_args, n_launches, flush):
+    """``joinProbe`` at each captured call: both launch routes equal to
+    the plain version, timed in turns, with the table clear beside the
+    bound. Returns (the kernels-line row, per-call dicts)."""
+    jp = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "err": 0, "clear": 0,
+          "coop_ms": 0.0}
+    jp_calls = []
+    for bslot, pslot, tbl in jp_call_args:
+        want = JP.dense_build_probe_plain(bslot, pslot, tbl)
+        for route in (False, True):
+            JP.COOPERATIVE = route
+            got_k = JP.dense_build_probe(bslot, pslot, tbl)
+            for g, w in zip(got_k, want):
+                check(bits_equal(torch, g, w), "joinProbe differs from the "
+                      f"plain version at shape {tuple(bslot.shape)}x"
+                      f"{tuple(pslot.shape)} (cooperative {route})")
+                jp["err"] = max(jp["err"], max_abs_err(torch, g, w))
+        # the two launch routes in turns: three, one, one, three
+        times = {}
+        for route in (False, True, True, False):
+            JP.COOPERATIVE = route
+            times.setdefault(route, []).append(median_ms(
+                torch, lambda: JP.dense_build_probe(bslot, pslot, tbl),
+                flush))
+        JP.COOPERATIVE = False
+        ms, coop_ms = min(times[False]), min(times[True])
+        pms = median_ms(torch, lambda: JP.dense_build_probe_plain(
+            bslot, pslot, tbl), flush)
+        nbytes = 4 * bslot.numel() + 4 * pslot.numel() + 8 * pslot.numel() + 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        clear = 8 * tbl
+        clear_ms = clear / HBM_BYTES_PER_S * 1e3
+        live = int(((bslot >= 0) & (bslot < tbl)).sum())
+        print(f"  joinProbe cap_b={bslot.numel()} ({live} live) "
+              f"cap_p={pslot.numel()} tbl={tbl}: kernel {ms:.4f} ms "
+              f"(three launches {times[False][0]:.4f}/{times[False][1]:.4f}, "
+              f"one cooperative launch {times[True][0]:.4f}/"
+              f"{times[True][1]:.4f}), plain {pms:.4f} ms, bound "
+              f"{bound:.4f} ms, table clear {clear} B {clear_ms:.4f} ms, "
+              f"bound + clear {bound + clear_ms:.4f} ms "
+              f"({ms / (bound + clear_ms):.2f}x)")
+        jp_calls.append({"cap_b": bslot.numel(), "live_b": live,
+                         "cap_p": pslot.numel(), "tbl": tbl, "ms": ms,
+                         "three_launches_ms": times[False],
+                         "cooperative_ms": times[True], "plain_ms": pms,
+                         "bound_ms": bound, "clear_ms": clear_ms})
+        jp["ms"] += ms
+        jp["coop_ms"] += coop_ms
+        jp["plain_ms"] += pms
+        jp["bytes"] += nbytes
+        jp["clear"] += clear
+    print(f"  joinProbe summed over {len(jp_call_args)} calls: three "
+          f"launches {jp['ms']:.4f} ms, one cooperative launch "
+          f"{jp['coop_ms']:.4f} ms, bound "
+          f"{jp['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms + table clear "
+          f"{jp['clear'] / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    return {"name": "joinProbe", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/ops/kernels/cuda/csrc/"
+                      "join_probe.cu",
+            "replaces": "spark_rapids_tpu/ops/kernels/pallas/"
+                        "join_probe.py:87",
+            "launches": n_launches,
+            "max_abs_err": jp["err"], "ms": jp["ms"],
+            "plain_ms": jp["plain_ms"],
+            "bound_ms": jp["bytes"] / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None}, jp_calls
+
+
+def time_ragged_hash(torch, HK, hash_call_args, n_launches, flush):
+    """The ragged ``hash`` entry at each captured call: equal to the plain
+    version and to numpy murmur3, timed, with its bound. Returns (the
+    kernels-line row, per-call dicts)."""
+    hs = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "err": 0}
+    hash_calls = []
+    for payload, offsets, codes, width, seed in hash_call_args:
+        n = seed.numel()
+        got_k = HK.murmur3_string_rows(payload, offsets, codes, width, seed)
+        want = HK.murmur3_string_rows_plain(payload, offsets, codes, width,
+                                            seed)
+        kind = "flat" if codes is None else "dictionary"
+        check(bits_equal(torch, got_k, want), "ragged hash differs from the "
+              f"plain version at n={n} W={width} ({kind})")
+        check(np.array_equal(
+            got_k.cpu().numpy().view(np.uint32), np_hash_layout(
+                payload.cpu().numpy(), offsets.cpu().numpy(),
+                None if codes is None else codes.cpu().numpy(), width,
+                seed.cpu().numpy())),
+            f"ragged hash differs from the numpy murmur3 at n={n} W={width}")
+        hs["err"] = max(hs["err"], max_abs_err(torch, got_k, want))
+        ms = median_ms(torch, lambda: HK.murmur3_string_rows(
+            payload, offsets, codes, width, seed), flush)
+        pms = median_ms(torch, lambda: HK.murmur3_string_rows_plain(
+            payload, offsets, codes, width, seed), flush, reps=5)
+        # the code (dictionary) or offset (flat), seed and output of each
+        # row, plus each entry's bytes (up to W) and a dictionary's
+        # offsets, read once
+        entry_bytes = int((offsets[1:] - offsets[:-1]).clamp(0, width).sum())
+        nbytes = 12 * n + entry_bytes \
+            + (4 * offsets.numel() if codes is not None else 0)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"  ragged hash n={n} W={width} ({kind}, "
+              f"{offsets.numel() - 1} entries): kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, no one PyTorch call, bound {bound:.4f} ms "
+              f"({ms / bound:.1f}x)")
+        hash_calls.append({"n": n, "width": width, "kind": kind, "ms": ms,
+                           "plain_ms": pms, "bound_ms": bound})
+        hs["ms"] += ms
+        hs["plain_ms"] += pms
+        hs["bytes"] += nbytes
+    return {"name": "hash", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/ops/kernels/cuda/csrc/"
+                      "hashing.cu",
+            "replaces": "spark_rapids_tpu/ops/kernels/pallas/"
+                        "hashing.py:69",
+            "launches": n_launches, "max_abs_err": hs["err"],
+            "ms": hs["ms"], "plain_ms": hs["plain_ms"],
+            "bound_ms": hs["bytes"] / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None}, hash_calls
+
+
 def time_sortstep(torch, SS, lane, flush):
     """(kernel ms, plain ms, torch.sort ms, bound ms) of one lane."""
     ms = median_ms(torch, lambda: SS.packed_argsort(lane), flush)
@@ -1067,6 +1480,8 @@ def main() -> int:
     from spark_rapids_tpu_torch.ops import strings_util as SU
     from spark_rapids_tpu_torch.ops.strings import Substring
     from spark_rapids_tpu_torch.ops.kernels.cuda import _build
+    from spark_rapids_tpu_torch.data.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops.kernels import join as KJ
     from spark_rapids_tpu_torch.ops.kernels.cuda import hashing as HK
     from spark_rapids_tpu_torch.ops.kernels.cuda import join_probe as JP
     from spark_rapids_tpu_torch.ops.kernels.cuda import segmented as SEG
@@ -1076,6 +1491,7 @@ def main() -> int:
     from spark_rapids_tpu_torch.parallel.mesh import make_mesh
     from spark_rapids_tpu_torch.plan import logical as L
     from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.shuffle import partitioning as PN
     from spark_rapids_tpu_torch.workloads import tpch
 
     dev = torch.device("cuda")
@@ -1108,6 +1524,7 @@ def main() -> int:
     sortstep_edge_cases(torch, SS, rng, dev)
     strings_edge_cases(torch, SG, rng, dev)
     hash_edge_cases(torch, HK, rng, dev)
+    ragged_hash_edge_cases(torch, HK, T, DeviceColumn, PN, rng, dev)
     row_equal_edge_cases(torch, SG, rng, dev)
 
     # -- phase 3: the queries at SF1 -------------------------------------
@@ -1169,6 +1586,8 @@ def main() -> int:
             calls[k] += got_calls[k]
         if args.profile:
             profile_query(torch, q, build, mid)
+    no_matrix = check_no_char_matrix(torch, HK, dfs["lineitem"]._plan.batch,
+                                     col)
     placement = [check_placement(torch, session, tables, 16,
                                  ("l_returnflag", "l_linestatus")),
                  check_placement(torch, session, tables, 4, ("l_orderkey",))]
@@ -1234,42 +1653,20 @@ def main() -> int:
           f"path {default_session.last_query.path} over "
           f"{default_session.last_query.shards} shard(s), {default_ms:.1f} "
           "ms cold, answer matches the numpy reference")
-    distributed = check_distributed(torch, D, mesh4, dfs, tables)
+    with Capture(*wrappers.mods["hash"]) as cap:
+        wrappers.reset()
+        distributed = check_distributed(torch, D, mesh4, dfs, tables)
+        launches["hash"] += wrappers.counts()["hash"]
+        calls["hash"] += cap.calls
 
     # -- phase 4: kernels at the queries' shapes ---------------------------
     print("phase 4: kernels at the shapes the queries gave them")
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
     rows = []
-    jp = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "err": 0}
-    for bslot, pslot, tbl in calls["joinProbe"]:
-        got_k = JP.dense_build_probe(bslot, pslot, tbl)
-        want = JP.dense_build_probe_plain(bslot, pslot, tbl)
-        for g, w in zip(got_k, want):
-            check(bits_equal(torch, g, w), "joinProbe differs from the "
-                  f"plain version at shape {tuple(bslot.shape)}x"
-                  f"{tuple(pslot.shape)}")
-            jp["err"] = max(jp["err"], max_abs_err(torch, g, w))
-        ms = median_ms(torch, lambda: JP.dense_build_probe(bslot, pslot,
-                                                           tbl), flush)
-        pms = median_ms(torch, lambda: JP.dense_build_probe_plain(
-            bslot, pslot, tbl), flush)
-        nbytes = 4 * bslot.numel() + 4 * pslot.numel() + 8 * pslot.numel() + 4
-        print(f"  joinProbe cap_b={bslot.numel()} cap_p={pslot.numel()} "
-              f"tbl={tbl}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
-        jp["ms"] += ms
-        jp["plain_ms"] += pms
-        jp["bytes"] += nbytes
-    rows.append({"name": "joinProbe", "route": "cuda",
-                 "source": "spark_rapids_tpu_torch/ops/kernels/cuda/csrc/"
-                           "join_probe.cu",
-                 "replaces": "spark_rapids_tpu/ops/kernels/pallas/"
-                             "join_probe.py:87",
-                 "launches": launches["joinProbe"],
-                 "max_abs_err": jp["err"], "ms": jp["ms"],
-                 "plain_ms": jp["plain_ms"],
-                 "bound_ms": jp["bytes"] / HBM_BYTES_PER_S * 1e3,
-                 "bound_by": "bytes", "library_ms": None})
+    row, jp_calls = time_joinprobe(torch, JP, calls["joinProbe"],
+                                   launches["joinProbe"], flush)
+    rows.append(row)
+    q3_joins = time_q3_joins(torch, KJ, JP, dfs, flush)
 
     sg = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "lib": 0.0, "err": 0}
     for x, gid, capacity, op in calls["segmented"]:
@@ -1380,37 +1777,10 @@ def main() -> int:
                  "bound_ms": st["bytes"] / HBM_BYTES_PER_S * 1e3,
                  "bound_by": "bytes", "library_ms": st["lib"]})
 
-    hs = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "err": 0}
-    for mat, lengths, seed in calls["hash"]:
-        n, w = mat.shape
-        got_k = HK.murmur3_bytes_rows(mat, lengths, seed)
-        want = HK.murmur3_bytes_rows_plain(mat, lengths, seed)
-        check(bits_equal(torch, got_k, want), "hash differs from the plain "
-              f"version at n={n} W={w}")
-        hs["err"] = max(hs["err"], max_abs_err(torch, got_k, want))
-        ms = median_ms(torch, lambda: HK.murmur3_bytes_rows(mat, lengths,
-                                                            seed), flush)
-        pms = median_ms(torch, lambda: HK.murmur3_bytes_rows_plain(
-            mat, lengths, seed), flush, reps=5)
-        # lengths, seed and the output (12 B a row) plus the 32-byte
-        # sectors of chars each row's length needs
-        chars = 2 * lengths.long().clamp(0, w)
-        nbytes = 12 * n + int((32 * ((chars + 31) // 32)).sum())
-        print(f"  hash n={n} W={w} (max length {int(lengths.max())}): "
-              f"kernel {ms:.4f} ms, plain {pms:.4f} ms, no one PyTorch call, "
-              f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
-        hs["ms"] += ms
-        hs["plain_ms"] += pms
-        hs["bytes"] += nbytes
-    rows.append({"name": "hash", "route": "cuda",
-                 "source": "spark_rapids_tpu_torch/ops/kernels/cuda/csrc/"
-                           "hashing.cu",
-                 "replaces": "spark_rapids_tpu/ops/kernels/pallas/"
-                             "hashing.py:69",
-                 "launches": launches["hash"], "max_abs_err": hs["err"],
-                 "ms": hs["ms"], "plain_ms": hs["plain_ms"],
-                 "bound_ms": hs["bytes"] / HBM_BYTES_PER_S * 1e3,
-                 "bound_by": "bytes", "library_ms": None})
+    row, hash_calls = time_ragged_hash(torch, HK, calls["hash"],
+                                       launches["hash"], flush)
+    rows.append(row)
+    matrix_hash = time_matrix_hash(torch, HK, SU, dfs, rng, flush)
     # The rowwise compare at the group_ids calls' shapes: the sorted char
     # matrix against itself one row back, as two views of one buffer.
     eq = {"ms": 0.0, "plain_ms": 0.0, "lib": 0.0, "bytes": 0, "err": 0}
@@ -1449,21 +1819,16 @@ def main() -> int:
                  "bound_ms": eq["bytes"] / HBM_BYTES_PER_S * 1e3,
                  "bound_by": "bytes", "library_ms": eq["lib"]})
 
-    # The char matrix that feeds each hash call: a dictionary column's
-    # [capacity, W] int16 matrix gathered by code.
-    flag = dfs["lineitem"]._plan.batch.column("l_returnflag")
-    cm_ms = median_ms(torch, lambda: SU.char_matrix(flag), flush, reps=5)
-    print(f"  char_matrix of l_returnflag at capacity {flag.capacity}, W="
-          f"{flag.max_bytes}: {cm_ms:.4f} ms (writes "
-          f"{2 * flag.capacity * flag.max_bytes / 2 ** 30:.2f} GiB)")
-
     # -- phase 5: results --------------------------------------------------
     print(json.dumps({"queries_sf1": {
         "lineitem_rows": args.lineitem_rows, "card": smi,
         **{q: {k: v for k, v in s.items() if k != "per_exec_ms"}
            for q, s in summaries.items()},
         "sortStep_l_shipdate": shipdate, "placement": placement,
-        "char_matrix_ms": cm_ms, "group_ids": group_ids_runs,
+        "matrix_hash": matrix_hash, "hash_calls": hash_calls,
+        "group_ids": group_ids_runs,
+        "hash_partition_step": no_matrix, "joinProbe_calls": jp_calls,
+        "q3_dense_joins": q3_joins,
         "distributed_sum_by_key": distributed,
         "q6_default_mesh_ms": default_ms}}))
     print(json.dumps({"kernels": rows}))

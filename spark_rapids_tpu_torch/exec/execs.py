@@ -366,8 +366,15 @@ def aggregate_batch(batch: ColumnarBatch, key_exprs: List[Expression],
                 op = spec.update_op
             else:
                 c = a.func.child.eval_device(batch)
-                values = c.data.to(spec.dtype.torch_dtype)
                 validity, op = c.validity, spec.update_op
+                if op == "count":
+                    # a count reads the child's validity alone: a
+                    # dictionary string has no data lane, a flat one a
+                    # byte payload
+                    values = torch.ones(capacity, dtype=torch.int64,
+                                        device=dev)
+                else:
+                    values = c.data.to(spec.dtype.torch_dtype)
             inputs.append((values, validity, op, spec))
         bi += len(specs)
     triples = [(v, val, op) for v, val, op, _ in inputs]

@@ -14,128 +14,197 @@
 //
 // The Pallas kernel builds the table at grid step 0 and probes it in later
 // steps, which relies on the TPU running its grid in order. Hopper runs
-// blocks in no order, so the work is four passes on one stream:
-//   1. fill the table (cnt = 0, row = INT32_MAX, max = 0);
-//   2. build: one thread per build row, atomicAdd on the count and
-//      atomicMin on the first row. Integer atomics are exact and commute,
-//      so the table is the same whatever order the threads run in;
-//   3. max over cnt[0:tbl): a warp/block reduction, then one atomicMax per
-//      block;
-//   4. probe: one thread per probe row gathers both lanes.
+// blocks in no order, so the build and the probe are two launches on one
+// stream, after a cudaMemsetAsync that clears the table:
+//   * the table is one int2 {cnt, enc} a slot, 8 bytes, enc = INT32_MAX -
+//     row under atomicMax, so all-zero bytes mean "no row" and one memset
+//     fills it. A build row's two atomics hit one sector, a probe row
+//     gathers one 8-byte word;
+//   * the build takes the max on the way: atomicAdd returns the old count,
+//     and the largest old + 1 over the build rows is the largest final
+//     count (0 when no row is live, as the memset leaves it). A warp and
+//     block reduction, then one atomicMax a block into a spare entry after
+//     the table, which the probe launch copies out;
+//   * each thread keeps kUnroll rows in flight (the gathers and the
+//     atomics' returns are latency-bound).
+// Integer atomics are exact and commute, so the table is the same whatever
+// order the threads run in.
 //
-// Bound on the card: memory. The least traffic for the function is reading
-// bslot and pslot (4 B a row each) and writing cnt_out and row_out (8 B a
-// probe row). The table itself (8 B a slot, 8-64 MB at TPC-H SF1) is
-// scratch this design fills, updates and reads in device memory; at SF1 it
-// is about the size of the 50 MB L2. Skipping the unusable rows matters:
-// a dense join's build side is mostly dead rows after a filter, and
-// sending them all to one spare slot serialises their atomics on one
-// address. Keeping the table in shared memory or L2 is later work.
+// Bound on the card: memory. The function must read bslot and pslot (4 B a
+// row each) and write cnt_out and row_out (8 B a probe row). Any
+// direct-address design also clears its table (8 B a slot: 8-268 MB at
+// TPC-H SF1, against a 50 MB L2), and each live build row and each probe
+// row then touches one random 32-byte sector of it.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kUnroll = 4;
 
-unsigned grid_for(int64_t n) {
-  int64_t blocks = (n + kThreads - 1) / kThreads;
+// Blocks for n rows, kUnroll rows a thread, at most what the card holds at
+// once (grid-stride loops cover the rest).
+unsigned grid_for(int64_t n, int max_blocks) {
+  int64_t per = static_cast<int64_t>(kThreads) * kUnroll;
+  int64_t blocks = (n + per - 1) / per;
   if (blocks < 1) blocks = 1;
-  if (blocks > 65536) blocks = 65536;  // grid-stride loops cover the rest
+  if (blocks > max_blocks) blocks = max_blocks;
   return static_cast<unsigned>(blocks);
 }
 
-__global__ void fill_table(int32_t* __restrict__ cnt,
-                           int32_t* __restrict__ row, int64_t slots,
-                           int32_t* __restrict__ max_out) {
-  int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                   threadIdx.x;
-       i < slots; i += stride) {
-    cnt[i] = 0;
-    row[i] = INT_MAX;
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *max_out = 0;
-}
-
-__global__ void build_table(const int32_t* __restrict__ bslot, int64_t cap_b,
-                            int32_t tbl, int32_t* __restrict__ cnt,
-                            int32_t* __restrict__ row) {
-  int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                   threadIdx.x;
-       i < cap_b; i += stride) {
-    int32_t s = bslot[i];
-    if (s < 0 || s >= tbl) continue;  // dead, null or out of range
-    atomicAdd(&cnt[s], 1);
-    atomicMin(&row[s], static_cast<int32_t>(i));
-  }
-}
-
-__global__ void max_count(const int32_t* __restrict__ cnt, int64_t tbl,
-                          int32_t* __restrict__ max_out) {
+// The block's largest m into *out: one atomicMax a block, skipped when
+// *out already holds as much (it only grows).
+__device__ void block_max_to(int32_t m, int32_t* out) {
   __shared__ int32_t warp_max[kThreads / 32];
-  int32_t m = 0;
-  int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                   threadIdx.x;
-       i < tbl; i += stride) {
-    m = max(m, cnt[i]);
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    m = max(m, __shfl_down_sync(0xffffffffu, m, off));
+  m = __reduce_max_sync(0xffffffffu, m);
   int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) warp_max[warp] = m;
   __syncthreads();
-  if (warp == 0) {
-    m = lane < kThreads / 32 ? warp_max[lane] : 0;
-    for (int off = 16; off > 0; off >>= 1)
-      m = max(m, __shfl_down_sync(0xffffffffu, m, off));
-    if (lane == 0) atomicMax(max_out, m);
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kThreads / 32; ++w) m = max(m, warp_max[w]);
+    if (m > *reinterpret_cast<volatile int32_t*>(out)) atomicMax(out, m);
   }
 }
 
-__global__ void probe_table(const int32_t* __restrict__ pslot, int64_t cap_p,
-                            int32_t tbl, const int32_t* __restrict__ cnt,
-                            const int32_t* __restrict__ row,
-                            int32_t* __restrict__ cnt_out,
-                            int32_t* __restrict__ row_out) {
-  int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                   threadIdx.x;
-       i < cap_p; i += stride) {
-    int32_t s = pslot[i];
-    s = s < 0 ? 0 : (s > tbl - 1 ? tbl - 1 : s);
-    cnt_out[i] = cnt[s];
-    row_out[i] = row[s];
+__device__ void build_rows(const int32_t* __restrict__ bslot, int64_t cap_b,
+                           int32_t tbl, int2* table, int64_t first,
+                           int64_t stride) {
+  int32_t m = 0;
+  for (int64_t base = first; base < cap_b; base += kUnroll * stride) {
+    int32_t s[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      int64_t i = base + k * stride;
+      s[k] = i < cap_b ? bslot[i] : -1;
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      if (s[k] < 0 || s[k] >= tbl) continue;  // dead, null or out of range
+      int32_t* e = reinterpret_cast<int32_t*>(table + s[k]);
+      m = max(m, atomicAdd(e, 1) + 1);
+      atomicMax(e + 1, INT_MAX - static_cast<int32_t>(base + k * stride));
+    }
   }
+  block_max_to(m, &table[tbl].x);
+}
+
+__device__ void probe_rows(const int32_t* __restrict__ pslot, int64_t cap_p,
+                           int32_t tbl, const int2* table,
+                           int32_t* __restrict__ cnt_out,
+                           int32_t* __restrict__ row_out, int64_t first,
+                           int64_t stride) {
+  for (int64_t base = first; base < cap_p; base += kUnroll * stride) {
+    int2 v[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      int64_t i = base + k * stride;
+      if (i < cap_p) {
+        int32_t s = pslot[i];
+        s = s < 0 ? 0 : (s > tbl - 1 ? tbl - 1 : s);
+        v[k] = __ldcg(table + s);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      int64_t i = base + k * stride;
+      if (i < cap_p) {
+        cnt_out[i] = v[k].x;
+        row_out[i] = INT_MAX - v[k].y;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    build_table(const int32_t* __restrict__ bslot, int64_t cap_b, int32_t tbl,
+                int2* table) {
+  build_rows(bslot, cap_b, tbl, table,
+             blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x,
+             static_cast<int64_t>(gridDim.x) * blockDim.x);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    probe_table(const int32_t* __restrict__ pslot, int64_t cap_p, int32_t tbl,
+                const int2* table, int32_t* __restrict__ cnt_out,
+                int32_t* __restrict__ row_out, int32_t* __restrict__ max_out) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) *max_out = __ldcg(&table[tbl].x);
+  probe_rows(pslot, cap_p, tbl, table, cnt_out, row_out,
+             blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x,
+             static_cast<int64_t>(gridDim.x) * blockDim.x);
+}
+
+// The same three steps in one cooperative launch: clear, grid barrier,
+// build, grid barrier, probe.
+__global__ void __launch_bounds__(kThreads)
+    build_probe_cooperative(const int32_t* __restrict__ bslot, int64_t cap_b,
+                            const int32_t* __restrict__ pslot, int64_t cap_p,
+                            int32_t tbl, int2* table,
+                            int32_t* __restrict__ cnt_out,
+                            int32_t* __restrict__ row_out,
+                            int32_t* __restrict__ max_out) {
+  cg::grid_group grid = cg::this_grid();
+  int64_t first = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = first; i <= tbl; i += stride) table[i] = make_int2(0, 0);
+  grid.sync();
+  build_rows(bslot, cap_b, tbl, table, first, stride);
+  grid.sync();
+  if (first == 0) *max_out = __ldcg(&table[tbl].x);
+  probe_rows(pslot, cap_p, tbl, table, cnt_out, row_out, first, stride);
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms > 0 ? sms : 1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the four passes on `stream`; returns cudaGetLastError().
-// cnt_tbl and row_tbl are scratch of tbl int32 each.
+// Clears, builds and probes on `stream`; returns cudaGetLastError().
+// table is scratch of tbl + 1 int2 (the last one holds the running max).
+// cooperative != 0 runs the three steps as one cooperative launch.
 int srt_dense_build_probe(const int32_t* bslot, int64_t cap_b,
                           const int32_t* pslot, int64_t cap_p, int32_t tbl,
-                          int32_t* cnt_tbl, int32_t* row_tbl,
-                          int32_t* cnt_out, int32_t* row_out,
-                          int32_t* max_out, void* stream) {
-  if (tbl < 1) return static_cast<int>(cudaErrorInvalidValue);
+                          void* table, int32_t* cnt_out, int32_t* row_out,
+                          int32_t* max_out, int cooperative, void* stream) {
+  if (tbl < 1 || cap_b < 0 || cap_b > INT_MAX || cap_p < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fill_table<<<grid_for(tbl), kThreads, 0, s>>>(cnt_tbl, row_tbl, tbl,
-                                                 max_out);
+  int2* t = static_cast<int2*>(table);
+  int resident = sm_count() * (2048 / kThreads);
+  if (cooperative) {
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, build_probe_cooperative, kThreads, 0);
+    int most = per_sm * sm_count();
+    int64_t n = cap_b > cap_p ? cap_b : cap_p;
+    if (tbl + int64_t{1} > n) n = tbl + int64_t{1};
+    unsigned blocks = grid_for(n, most > 0 ? most : 1);
+    void* args[] = {&bslot, &cap_b, &pslot, &cap_p, &tbl,
+                    &t, &cnt_out, &row_out, &max_out};
+    cudaLaunchCooperativeKernel(
+        reinterpret_cast<void*>(build_probe_cooperative), dim3(blocks),
+        dim3(kThreads), args, 0, s);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaError_t rc = cudaMemsetAsync(t, 0, sizeof(int2) * (tbl + int64_t{1}), s);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   if (cap_b > 0)
-    build_table<<<grid_for(cap_b), kThreads, 0, s>>>(bslot, cap_b, tbl,
-                                                      cnt_tbl, row_tbl);
-  max_count<<<grid_for(tbl), kThreads, 0, s>>>(cnt_tbl, tbl, max_out);
-  if (cap_p > 0)
-    probe_table<<<grid_for(cap_p), kThreads, 0, s>>>(
-        pslot, cap_p, tbl, cnt_tbl, row_tbl, cnt_out, row_out);
+    build_table<<<grid_for(cap_b, resident), kThreads, 0, s>>>(bslot, cap_b,
+                                                                tbl, t);
+  probe_table<<<grid_for(cap_p, resident), kThreads, 0, s>>>(
+      pslot, cap_p, tbl, t, cnt_out, row_out, max_out);
   return static_cast<int>(cudaGetLastError());
 }
 

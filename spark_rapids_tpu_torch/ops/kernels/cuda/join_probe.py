@@ -47,9 +47,15 @@ def _lib() -> ctypes.CDLL:
     fn = lib.srt_dense_build_probe
     if fn.argtypes is None:
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        fn.argtypes = [p, i64, p, i64, ctypes.c_int32, p, p, p, p, p, p]
+        fn.argtypes = [p, i64, p, i64, ctypes.c_int32, p, p, p, p,
+                       ctypes.c_int, p]
         fn.restype = ctypes.c_int
     return lib
+
+
+#: Run the clear, build and probe as one cooperative launch (measured
+#: against the three launches by ``chip_smoke.py``).
+COOPERATIVE = False
 
 
 def _check_lane(t: torch.Tensor, what: str, device: torch.device) -> None:
@@ -78,9 +84,11 @@ def dense_build_probe(bslot: torch.Tensor, pslot: torch.Tensor, tbl: int
     _check_lane(pslot, "pslot", dev)
     lib = _lib()
     cap_b, cap_p = bslot.shape[0], pslot.shape[0]
+    if cap_b > INT32_MAX:
+        raise ValueError(f"{cap_b} build rows do not fit int32 row indices")
     i32 = dict(dtype=torch.int32, device=dev)
-    cnt_tbl = torch.empty(tbl, **i32)
-    row_tbl = torch.empty(tbl, **i32)
+    # {count, INT32_MAX - first row} a slot, and the running max after it
+    table = torch.empty(2 * (tbl + 1), **i32)
     cnt_out = torch.empty(cap_p, **i32)
     row_out = torch.empty(cap_p, **i32)
     max_out = torch.empty((), **i32)
@@ -88,8 +96,8 @@ def dense_build_probe(bslot: torch.Tensor, pslot: torch.Tensor, tbl: int
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.srt_dense_build_probe(
             bslot.data_ptr(), cap_b, pslot.data_ptr(), cap_p, tbl,
-            cnt_tbl.data_ptr(), row_tbl.data_ptr(), cnt_out.data_ptr(),
-            row_out.data_ptr(), max_out.data_ptr(), stream)
+            table.data_ptr(), cnt_out.data_ptr(), row_out.data_ptr(),
+            max_out.data_ptr(), int(COOPERATIVE), stream)
     _build.check(lib, rc, "joinProbe launch")
     _COUNTED.launches += 1
     return cnt_out, row_out, max_out

@@ -12,20 +12,24 @@ masks back to 32 bits, right shifts of such values are logical, and
 int64 product overflows. Hashes leave :func:`spark_hash_columns_device`
 as int32 bits, as the port stores them.
 
-String columns hash through their char matrix with the ``hash`` kernel
-(:mod:`..ops.kernels.cuda.hashing`); :func:`murmur3_bytes_rows` is that
-kernel's plain version. Fixed-width columns hash in plain torch, as the
+String columns hash from their own layout (a dictionary's entry bytes
+and codes, a flat column's payload and offsets) with the ``hash`` kernel
+(:mod:`..ops.kernels.cuda.hashing`), so no char matrix is built on the
+card; :func:`murmur3_string_rows` is that entry's plain version, the
+column's char matrix hashed by :func:`murmur3_bytes_rows`, the matrix
+entry's plain version. Fixed-width columns hash in plain torch, as the
 reference leaves them to XLA.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 from .. import types as T
 from ..data.column import DeviceColumn
+from ..ops.strings_util import _matrix_from_offsets
 
 _C1 = 0xCC9E2D51
 _C2 = 0x1B873593
@@ -171,22 +175,41 @@ def murmur3_bytes_rows(mat: torch.Tensor, lengths: torch.Tensor,
     return to_int32_bits(_fmix_len(h1, lengths))
 
 
+def murmur3_string_rows(payload: torch.Tensor, offsets: torch.Tensor,
+                        codes: Optional[torch.Tensor], width: int,
+                        seed: torch.Tensor) -> torch.Tensor:
+    """Spark murmur3 of each row of a string column given by its layout:
+    ``payload`` and ``offsets`` of its entries, the ``codes`` of its rows
+    for a dictionary (clamped into it) or ``None`` for a flat column. The
+    ``width``-wide char matrix of the column and its byte lengths, hashed
+    by :func:`murmur3_bytes_rows`: the ragged ``hash`` entry's plain
+    version."""
+    mat = _matrix_from_offsets(payload, offsets, width)
+    lengths = offsets[1:] - offsets[:-1]
+    if codes is not None:
+        safe = codes.long().clamp(0, mat.shape[0] - 1)
+        mat, lengths = mat[safe], lengths[safe]
+    return murmur3_bytes_rows(mat, lengths, seed)
+
+
 def spark_hash_columns_device(cols: Sequence[DeviceColumn],
                               seed: int = SPARK_SEED) -> torch.Tensor:
     """Spark's row hash over device columns, int32 bits ``[capacity]``:
     the running hash starts at ``seed`` and each column folds in turn; a
-    null keeps the running hash. A string column hashes its char matrix
-    through the ``hash`` kernel."""
+    null keeps the running hash. A string column hashes from its own
+    layout through the ``hash`` kernel's ragged entry, as wide as its
+    char matrix would be."""
     from ..ops.kernels.cuda import hashing as HK
-    from ..ops.strings_util import char_matrix
-    from ..ops.strings_util import lengths as str_lengths
     n = cols[0].capacity
     h = torch.full((n,), seed & _M32, dtype=torch.int64,
                    device=cols[0].device)
     for c in cols:
         if c.is_string:
-            nh = HK.murmur3_bytes_rows(char_matrix(c), str_lengths(c),
-                                       to_int32_bits(h))
+            payload, offsets = c.dict_bytes if c.is_dict \
+                else (c.data, c.offsets)
+            nh = HK.murmur3_string_rows(payload, offsets, c.codes,
+                                        max(c.max_bytes, 1),
+                                        to_int32_bits(h))
             h = torch.where(c.validity, u32(nh), h)
         else:
             h = hash_column(c.data, c.validity, c.dtype, h)

@@ -197,3 +197,42 @@ def test_cross_join_grid_is_probe_by_live_build_rows():
     assert out.capacity == max(128, 1 << (512 * n_b - 1).bit_length())
     assert int(out.n_rows) == 300 * n_b
     assert T.STRING is out.schema["tag"].data_type
+
+
+def _count_table():
+    """A key, a dictionary string column with a fifth of its rows null
+    and a float column: ``count(s)`` must count the non-null strings."""
+    rng = np.random.default_rng(21)
+    n = 400
+    words = np.array(["", "apple", "fig", "kiwi", "pear", "dragonfruit"])
+    s = words[rng.integers(0, len(words), n)].astype(object)
+    s[rng.random(n) < 0.2] = None
+    return pa.RecordBatch.from_arrays([
+        pa.array(rng.integers(0, 9, n), pa.int64()), pa.array(s, pa.string()),
+        pa.array(rng.normal(size=n), pa.float64())], names=["k", "s", "x"])
+
+
+@pytest.mark.parametrize("case", ["grouped", "global", "after repartition"])
+def test_count_of_dictionary_strings_matches_reference(case):
+    """``count(<dictionary string>)`` builds its buffer from the child's
+    validity: the column has codes and no data lane."""
+    from spark_rapids_tpu.ops import aggregates as RAGG
+    from spark_rapids_tpu_torch.ops import aggregates as AGG
+    table = _count_table()
+    rs = TpuSession({"spark.rapids.sql.enabled": True})
+    ps = TorchSession(device="cpu")
+    rdf, pdf = rs.create_dataframe(table), _port_df(ps, table)
+    if case == "after repartition":
+        rdf, pdf = rdf.repartition(4, "k"), pdf.repartition(4, "k")
+    rkeys, pkeys = ([], []) if case == "global" else ([rcol("k")], [col("k")])
+    want = rdf.group_by(*rkeys).agg(
+        RAGG.AggregateExpression(RAGG.Count(rcol("s")), "c"),
+        RAGG.AggregateExpression(RAGG.Count(None), "n")).collect()
+    got = pdf.group_by(*pkeys).agg(
+        AGG.AggregateExpression(AGG.Count(col("s")), "c"),
+        AGG.AggregateExpression(AGG.Count(None), "n")).collect()
+    names = ["c", "n"] if case == "global" else ["k", "c", "n"]
+    rows = sorted(zip(*(got.columns[c].tolist() for c in names)))
+    assert rows == sorted(zip(*(want.column(c).to_pylist() for c in names)))
+    assert sum(r[-2] for r in rows) == \
+        table.num_rows - table.column("s").null_count

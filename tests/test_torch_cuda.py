@@ -22,7 +22,11 @@ from spark_rapids_tpu_torch.ops.kernels.cuda import sort_steps as SS
 from spark_rapids_tpu_torch.ops.kernels.cuda import strings as SG
 
 JOINPROBE_CASES = ["duplicate keys", "every probed slot empty",
-                   "one live row", "all rows dead", "unique keys"]
+                   "one live row", "all rows dead", "unique keys",
+                   "a table of one slot", "every build row unusable",
+                   "one slot hit by every row", "only the last rows live"]
+#: Cases outside the Pallas kernel's shapes (it needs build rows).
+JOINPROBE_CARD_CASES = JOINPROBE_CASES + ["no build rows"]
 SEG_GIDS = ["random groups", "one group", "one group per row", "dead tail",
             "tile boundary", "one group over many tiles", "ids above 0",
             "negative leading ids", "all dead", "no rows"]
@@ -35,7 +39,22 @@ def joinprobe_case(name: str, cap_b: int = 512, cap_p: int = 1024):
     rng = np.random.default_rng(len(name))
     tbl = 4 * cap_b
     pslot = rng.integers(0, tbl, cap_p)
-    if name == "duplicate keys":
+    if name == "a table of one slot":
+        tbl = 1
+        bslot = rng.integers(0, 3, cap_b)  # slot 0, and unusable rows
+        pslot = rng.integers(-2, 3, cap_p)
+    elif name == "no build rows":
+        bslot = np.zeros(0, np.int64)
+    elif name == "every build row unusable":  # the sentinel and past it
+        bslot = tbl + rng.integers(0, 9, cap_b)
+    elif name == "one slot hit by every row":  # the max is cap_b
+        bslot = np.full(cap_b, 5)
+        pslot[::3] = 5
+    elif name == "only the last rows live":  # rows near cap_b - 1
+        bslot = np.full(cap_b, tbl)
+        bslot[-3:] = [7, 9, 7]
+        pslot[:4] = [7, 9, 8, 7]
+    elif name == "duplicate keys":
         bslot = rng.integers(0, tbl // 2, cap_b)
         bslot[1] = bslot[0]
     elif name == "every probed slot empty":
@@ -220,6 +239,41 @@ def hash_case(n: int, w: int, seed: int = 0):
     return mat, lengths.astype(np.int32), seeds.view(np.int32)
 
 
+RAGGED_KINDS = ["dictionary", "flat", "negative lengths"]
+RAGGED_WIDTHS = [4, 6, 8, 128]
+
+
+def ragged_case(kind: str, n: int, w: int, seed: int = 0):
+    """(payload uint8, offsets int32, codes int32 or None, seed int32 as
+    uint32 bits) of one ragged ``hash`` case: entry lengths 0-5, W and
+    past W, random bytes over 0-255, entries starting at unaligned
+    payload bytes. A dictionary has a few dozen entries and codes out of
+    range on both sides; a flat column is one entry a row, and its
+    "negative lengths" variant has offsets that step back."""
+    rng = np.random.default_rng(seed + 31 * n + w + len(kind))
+    m = n if kind != "dictionary" else 3 + min(n, 40)
+    lens = rng.integers(0, w + 1, m)
+    pick = rng.random(m)
+    lens[pick < 0.3] = rng.integers(0, 6, int((pick < 0.3).sum()))
+    lens[(pick >= 0.3) & (pick < 0.4)] = w
+    past = (pick >= 0.4) & (pick < 0.5)
+    lens[past] = w + rng.integers(1, 10, int(past.sum()))
+    offsets = 3 + np.concatenate([[0], np.cumsum(lens)])
+    if kind == "negative lengths":
+        back = np.flatnonzero(rng.random(m) < 0.2) + 1
+        offsets[back] = np.maximum(offsets[back - 1] - rng.integers(
+            1, 4, len(back)), 0)
+    payload = rng.integers(0, 256, int(offsets.max()) + 5).astype(np.uint8)
+    codes = None
+    if kind == "dictionary":
+        codes = rng.integers(0, m, n)
+        wild = rng.random(n) < 0.1
+        codes[wild] = rng.integers(-5, m + 5, int(wild.sum()))
+        codes = codes.astype(np.int32)
+    seeds = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    return payload, offsets.astype(np.int32), codes, seeds.view(np.int32)
+
+
 def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
     """Equal bit for bit (floats compared as their integer bits)."""
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -239,7 +293,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", JOINPROBE_CASES)
+@pytest.mark.parametrize("name", JOINPROBE_CARD_CASES)
 def test_cuda_joinprobe_matches_plain(cuda_device, name):
     bslot, pslot, tbl = joinprobe_case(name, 4096, 8192)
     b = torch.as_tensor(bslot, device=cuda_device)
@@ -348,6 +402,43 @@ def test_cuda_hash_refuses_what_it_cannot_take(cuda_device):
         HK.murmur3_bytes_rows(mat.to(torch.int32), lengths, seed)
     with pytest.raises(ValueError, match="seed"):
         HK.murmur3_bytes_rows(mat, lengths, seed.long())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", RAGGED_WIDTHS)
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 100_003])
+@pytest.mark.parametrize("kind", RAGGED_KINDS)
+def test_cuda_hash_string_rows_matches_plain(cuda_device, kind, n, w):
+    payload, offsets, codes, seed = ragged_case(kind, n, w)
+    args = [None if a is None else torch.as_tensor(a, device=cuda_device)
+            for a in (payload, offsets, codes, seed)]
+    before = HK.murmur3_string_rows.launches
+    got = HK.murmur3_string_rows(*args[:3], w, args[3])
+    assert HK.murmur3_string_rows.launches == before + 1
+    assert torch.equal(got, HK.murmur3_string_rows_plain(*args[:3], w,
+                                                         args[3]))
+
+
+@pytest.mark.cuda
+def test_cuda_hash_string_rows_refuses_what_it_cannot_take(cuda_device):
+    payload, offsets, codes, seed = (
+        torch.as_tensor(a, device=cuda_device)
+        for a in ragged_case("dictionary", 64, 8))
+    before = HK.murmur3_string_rows.launches
+    assert HK.murmur3_string_rows(payload, offsets, codes[:0], 8,
+                                  seed[:0]).shape == (0,)
+    assert HK.murmur3_string_rows.launches == before
+    with pytest.raises(ValueError, match="payload"):
+        HK.murmur3_string_rows(payload.to(torch.int16), offsets, codes, 8,
+                               seed)
+    with pytest.raises(ValueError, match="codes"):
+        HK.murmur3_string_rows(payload, offsets, codes.long(), 8, seed)
+    with pytest.raises(ValueError, match="seed"):
+        HK.murmur3_string_rows(payload, offsets, codes, 8, seed[1:])
+    with pytest.raises(ValueError, match="width"):
+        HK.murmur3_string_rows(payload, offsets, codes, 0, seed)
+    with pytest.raises(ValueError, match="entry"):
+        HK.murmur3_string_rows(payload, offsets[:1], codes, 8, seed)
 
 
 @pytest.mark.cuda

@@ -78,6 +78,16 @@ def test_joinprobe_cpu_takes_plain_and_counts_nothing():
     assert JP.dense_build_probe.launches == before
 
 
+def test_joinprobe_plain_with_no_build_rows():
+    """Every probe finds an empty slot and the max is 0 (a shape the
+    Pallas kernel does not take)."""
+    _, pslot, tbl = joinprobe_case("no build rows")
+    cnt, row, mx = JP.dense_build_probe(torch.zeros(0, dtype=torch.int32),
+                                        torch.as_tensor(pslot), tbl)
+    assert not bool(cnt.any()) and int(mx) == 0
+    assert bool((row == JP.INT32_MAX).all()) and row.shape == pslot.shape
+
+
 def test_joinprobe_plain_drops_out_of_range_build_slots():
     # Slots outside [0, tbl] land in the spare slot, which no probe reads.
     bslot, pslot, tbl = joinprobe_case("unique keys")
