@@ -13,7 +13,7 @@ Phases; each one passes or the script exits non-zero:
    cases: for ``joinProbe`` duplicate keys, empty tables, one live row, all
    rows dead, a table of one slot, no build rows, every build row
    unusable, one slot hit by every row (the max is the row count), only
-   the last rows live (both launch routes while they are measured); for
+   the last rows live, clustered keys (runs of 1-7 rows); for
    ``segmented`` int8 to int64 lanes (int8/int16 sums that
    wrap), float32 and float64 lanes with +/-0.0 and NaN, 1, 2, 3 and 8
    lanes, one group, one group per row, a group ending on a 1024-row tile
@@ -66,8 +66,7 @@ Phases; each one passes or the script exits non-zero:
 4. at the shapes the queries gave each kernel: kernel vs plain version
    (equal bit for bit), median times over CUDA events with the L2 flushed
    between launches, the memory bound, and a PyTorch library yardstick;
-   ``joinProbe``'s table clear beside its bound, its two launch routes
-   (three launches, one cooperative launch), and Q3's direct-address
+   ``joinProbe``'s table clear beside its bound, and Q3's direct-address
    joins whole and their slot preparation; the sort exec's permutation
    of SF1 lineitem by ``l_shipdate`` through ``sortStep`` against the
    stable lexsort route; the rowwise compare at the ``group_ids``
@@ -204,21 +203,22 @@ def joinprobe_edge_cases(torch, JP, rng, dev):
     last = np.full(1 << 20, tbl)
     last[-3:] = [7, 9, 7]
     cases["only the last rows live"] = (last, rng.integers(0, 12, cap_p), tbl)
+    runs = np.repeat(np.arange(1 << 18), rng.integers(1, 8, 1 << 18))
+    clustered = np.where(rng.random(len(runs)) < 0.4, tbl, runs % tbl)
+    cases["clustered keys (runs of 1-7 rows)"] = (
+        clustered, rng.integers(0, tbl, cap_p), tbl)
     for name, (b, p, t) in cases.items():
         bs = torch.as_tensor(b, dtype=torch.int32, device=dev)
         ps = torch.as_tensor(p, dtype=torch.int32, device=dev)
         want = JP.dense_build_probe_plain(bs, ps, t)
-        for route in ("three launches", "one cooperative launch"):
-            JP.COOPERATIVE = route != "three launches"
-            before = JP.dense_build_probe.launches
-            got = JP.dense_build_probe(bs, ps, t)
-            torch.cuda.synchronize()
-            check(JP.dense_build_probe.launches == before + int(bs.is_cuda),
-                  f"joinProbe '{name}' did not count one launch")
-            for g, w, what in zip(got, want, ("count", "row", "max")):
-                check(bits_equal(torch, g, w), f"joinProbe '{name}' "
-                      f"({route}): {what} differs from the plain version")
-        JP.COOPERATIVE = False
+        before = JP.dense_build_probe.launches
+        got = JP.dense_build_probe(bs, ps, t)
+        torch.cuda.synchronize()
+        check(JP.dense_build_probe.launches == before + int(bs.is_cuda),
+              f"joinProbe '{name}' did not count one launch")
+        for g, w, what in zip(got, want, ("count", "row", "max")):
+            check(bits_equal(torch, g, w),
+                  f"joinProbe '{name}': {what} differs from the plain version")
         print(f"  joinProbe {name}: equal (max {int(want[2])})")
 
 
@@ -614,8 +614,8 @@ def ragged_hash_edge_cases(torch, HK, T, DC, PN, rng, dev):
         print(f"  ragged hash {kind}: W 4/8/128, n 1/255/256/257/100003 "
               "equal to the plain version and to numpy")
     n = 100_003
-    words = np.array(["", "A", "N", "R", "apple", "dragonfruit", "\u00e9t\u00e9",
-                      "x" * 20])
+    words = np.array(["", "A", "N", "R", "apple", "dragonfruit",
+                      "\u00e9t\u00e9", "x" * 20])
     values = words[rng.integers(0, len(words), n)]
     valid = rng.random(n) < 0.8
     enc = [v.encode("utf-8") for v in values]
@@ -1288,31 +1288,21 @@ def time_matrix_hash(torch, HK, SU, dfs, rng, flush) -> dict:
 
 
 def time_joinprobe(torch, JP, jp_call_args, n_launches, flush):
-    """``joinProbe`` at each captured call: both launch routes equal to
-    the plain version, timed in turns, with the table clear beside the
-    bound. Returns (the kernels-line row, per-call dicts)."""
-    jp = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "err": 0, "clear": 0,
-          "coop_ms": 0.0}
+    """``joinProbe`` at each captured call: equal to the plain version,
+    timed, with the table clear beside the bound. Returns (the
+    kernels-line row, per-call dicts)."""
+    jp = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "err": 0, "clear": 0}
     jp_calls = []
     for bslot, pslot, tbl in jp_call_args:
+        got_k = JP.dense_build_probe(bslot, pslot, tbl)
         want = JP.dense_build_probe_plain(bslot, pslot, tbl)
-        for route in (False, True):
-            JP.COOPERATIVE = route
-            got_k = JP.dense_build_probe(bslot, pslot, tbl)
-            for g, w in zip(got_k, want):
-                check(bits_equal(torch, g, w), "joinProbe differs from the "
-                      f"plain version at shape {tuple(bslot.shape)}x"
-                      f"{tuple(pslot.shape)} (cooperative {route})")
-                jp["err"] = max(jp["err"], max_abs_err(torch, g, w))
-        # the two launch routes in turns: three, one, one, three
-        times = {}
-        for route in (False, True, True, False):
-            JP.COOPERATIVE = route
-            times.setdefault(route, []).append(median_ms(
-                torch, lambda: JP.dense_build_probe(bslot, pslot, tbl),
-                flush))
-        JP.COOPERATIVE = False
-        ms, coop_ms = min(times[False]), min(times[True])
+        for g, w in zip(got_k, want):
+            check(bits_equal(torch, g, w), "joinProbe differs from the "
+                  f"plain version at shape {tuple(bslot.shape)}x"
+                  f"{tuple(pslot.shape)}")
+            jp["err"] = max(jp["err"], max_abs_err(torch, g, w))
+        ms = median_ms(torch, lambda: JP.dense_build_probe(bslot, pslot,
+                                                           tbl), flush)
         pms = median_ms(torch, lambda: JP.dense_build_probe_plain(
             bslot, pslot, tbl), flush)
         nbytes = 4 * bslot.numel() + 4 * pslot.numel() + 8 * pslot.numel() + 4
@@ -1321,26 +1311,21 @@ def time_joinprobe(torch, JP, jp_call_args, n_launches, flush):
         clear_ms = clear / HBM_BYTES_PER_S * 1e3
         live = int(((bslot >= 0) & (bslot < tbl)).sum())
         print(f"  joinProbe cap_b={bslot.numel()} ({live} live) "
-              f"cap_p={pslot.numel()} tbl={tbl}: kernel {ms:.4f} ms "
-              f"(three launches {times[False][0]:.4f}/{times[False][1]:.4f}, "
-              f"one cooperative launch {times[True][0]:.4f}/"
-              f"{times[True][1]:.4f}), plain {pms:.4f} ms, bound "
+              f"cap_p={pslot.numel()} tbl={tbl}: kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, bound "
               f"{bound:.4f} ms, table clear {clear} B {clear_ms:.4f} ms, "
               f"bound + clear {bound + clear_ms:.4f} ms "
               f"({ms / (bound + clear_ms):.2f}x)")
         jp_calls.append({"cap_b": bslot.numel(), "live_b": live,
                          "cap_p": pslot.numel(), "tbl": tbl, "ms": ms,
-                         "three_launches_ms": times[False],
-                         "cooperative_ms": times[True], "plain_ms": pms,
+                         "plain_ms": pms,
                          "bound_ms": bound, "clear_ms": clear_ms})
         jp["ms"] += ms
-        jp["coop_ms"] += coop_ms
         jp["plain_ms"] += pms
         jp["bytes"] += nbytes
         jp["clear"] += clear
-    print(f"  joinProbe summed over {len(jp_call_args)} calls: three "
-          f"launches {jp['ms']:.4f} ms, one cooperative launch "
-          f"{jp['coop_ms']:.4f} ms, bound "
+    print(f"  joinProbe summed over {len(jp_call_args)} calls: "
+          f"{jp['ms']:.4f} ms, bound "
           f"{jp['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms + table clear "
           f"{jp['clear'] / HBM_BYTES_PER_S * 1e3:.4f} ms")
     return {"name": "joinProbe", "route": "cuda",

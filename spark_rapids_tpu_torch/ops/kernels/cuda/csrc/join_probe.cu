@@ -27,6 +27,11 @@
 //     the table, which the probe launch copies out;
 //   * each thread keeps kUnroll rows in flight (the gathers and the
 //     atomics' returns are latency-bound).
+// A cooperative single launch (clear, grid barrier, build, grid barrier,
+// probe) measured slower than the three launches at every call shape of
+// the TPC-H queries, and folding the lanes of a warp that share a slot
+// into one pair of atomics (__match_any_sync) gained nothing on their
+// unclustered build keys, so neither is kept.
 // Integer atomics are exact and commute, so the table is the same whatever
 // order the threads run in.
 //
@@ -36,13 +41,10 @@
 // TPC-H SF1, against a 50 MB L2), and each live build row and each probe
 // row then touches one random 32-byte sector of it.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -73,11 +75,14 @@ __device__ void block_max_to(int32_t m, int32_t* out) {
   }
 }
 
-__device__ void build_rows(const int32_t* __restrict__ bslot, int64_t cap_b,
-                           int32_t tbl, int2* table, int64_t first,
-                           int64_t stride) {
+__global__ void __launch_bounds__(kThreads)
+    build_table(const int32_t* __restrict__ bslot, int64_t cap_b, int32_t tbl,
+                int2* table) {
+  int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int32_t m = 0;
-  for (int64_t base = first; base < cap_b; base += kUnroll * stride) {
+  for (int64_t base = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                      threadIdx.x;
+       base < cap_b; base += kUnroll * stride) {
     int32_t s[kUnroll];
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
@@ -95,12 +100,16 @@ __device__ void build_rows(const int32_t* __restrict__ bslot, int64_t cap_b,
   block_max_to(m, &table[tbl].x);
 }
 
-__device__ void probe_rows(const int32_t* __restrict__ pslot, int64_t cap_p,
-                           int32_t tbl, const int2* table,
-                           int32_t* __restrict__ cnt_out,
-                           int32_t* __restrict__ row_out, int64_t first,
-                           int64_t stride) {
-  for (int64_t base = first; base < cap_p; base += kUnroll * stride) {
+// Also copies the build's max out of the spare entry.
+__global__ void __launch_bounds__(kThreads)
+    probe_table(const int32_t* __restrict__ pslot, int64_t cap_p, int32_t tbl,
+                const int2* table, int32_t* __restrict__ cnt_out,
+                int32_t* __restrict__ row_out, int32_t* __restrict__ max_out) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) *max_out = __ldcg(&table[tbl].x);
+  int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t base = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                      threadIdx.x;
+       base < cap_p; base += kUnroll * stride) {
     int2 v[kUnroll];
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
@@ -122,44 +131,6 @@ __device__ void probe_rows(const int32_t* __restrict__ pslot, int64_t cap_p,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    build_table(const int32_t* __restrict__ bslot, int64_t cap_b, int32_t tbl,
-                int2* table) {
-  build_rows(bslot, cap_b, tbl, table,
-             blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x,
-             static_cast<int64_t>(gridDim.x) * blockDim.x);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    probe_table(const int32_t* __restrict__ pslot, int64_t cap_p, int32_t tbl,
-                const int2* table, int32_t* __restrict__ cnt_out,
-                int32_t* __restrict__ row_out, int32_t* __restrict__ max_out) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) *max_out = __ldcg(&table[tbl].x);
-  probe_rows(pslot, cap_p, tbl, table, cnt_out, row_out,
-             blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x,
-             static_cast<int64_t>(gridDim.x) * blockDim.x);
-}
-
-// The same three steps in one cooperative launch: clear, grid barrier,
-// build, grid barrier, probe.
-__global__ void __launch_bounds__(kThreads)
-    build_probe_cooperative(const int32_t* __restrict__ bslot, int64_t cap_b,
-                            const int32_t* __restrict__ pslot, int64_t cap_p,
-                            int32_t tbl, int2* table,
-                            int32_t* __restrict__ cnt_out,
-                            int32_t* __restrict__ row_out,
-                            int32_t* __restrict__ max_out) {
-  cg::grid_group grid = cg::this_grid();
-  int64_t first = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = first; i <= tbl; i += stride) table[i] = make_int2(0, 0);
-  grid.sync();
-  build_rows(bslot, cap_b, tbl, table, first, stride);
-  grid.sync();
-  if (first == 0) *max_out = __ldcg(&table[tbl].x);
-  probe_rows(pslot, cap_p, tbl, table, cnt_out, row_out, first, stride);
-}
-
 int sm_count() {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -173,32 +144,17 @@ extern "C" {
 
 // Clears, builds and probes on `stream`; returns cudaGetLastError().
 // table is scratch of tbl + 1 int2 (the last one holds the running max).
-// cooperative != 0 runs the three steps as one cooperative launch.
 int srt_dense_build_probe(const int32_t* bslot, int64_t cap_b,
                           const int32_t* pslot, int64_t cap_p, int32_t tbl,
                           void* table, int32_t* cnt_out, int32_t* row_out,
-                          int32_t* max_out, int cooperative, void* stream) {
+                          int32_t* max_out, void* stream) {
   if (tbl < 1 || cap_b < 0 || cap_b > INT_MAX || cap_p < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int2* t = static_cast<int2*>(table);
   int resident = sm_count() * (2048 / kThreads);
-  if (cooperative) {
-    int per_sm = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, build_probe_cooperative, kThreads, 0);
-    int most = per_sm * sm_count();
-    int64_t n = cap_b > cap_p ? cap_b : cap_p;
-    if (tbl + int64_t{1} > n) n = tbl + int64_t{1};
-    unsigned blocks = grid_for(n, most > 0 ? most : 1);
-    void* args[] = {&bslot, &cap_b, &pslot, &cap_p, &tbl,
-                    &t, &cnt_out, &row_out, &max_out};
-    cudaLaunchCooperativeKernel(
-        reinterpret_cast<void*>(build_probe_cooperative), dim3(blocks),
-        dim3(kThreads), args, 0, s);
-    return static_cast<int>(cudaGetLastError());
-  }
-  cudaError_t rc = cudaMemsetAsync(t, 0, sizeof(int2) * (tbl + int64_t{1}), s);
+  cudaError_t rc =
+      cudaMemsetAsync(t, 0, sizeof(int2) * (tbl + int64_t{1}), s);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   if (cap_b > 0)
     build_table<<<grid_for(cap_b, resident), kThreads, 0, s>>>(bslot, cap_b,

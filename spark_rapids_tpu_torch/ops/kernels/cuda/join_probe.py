@@ -47,15 +47,9 @@ def _lib() -> ctypes.CDLL:
     fn = lib.srt_dense_build_probe
     if fn.argtypes is None:
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        fn.argtypes = [p, i64, p, i64, ctypes.c_int32, p, p, p, p,
-                       ctypes.c_int, p]
+        fn.argtypes = [p, i64, p, i64, ctypes.c_int32, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return lib
-
-
-#: Run the clear, build and probe as one cooperative launch (measured
-#: against the three launches by ``chip_smoke.py``).
-COOPERATIVE = False
 
 
 def _check_lane(t: torch.Tensor, what: str, device: torch.device) -> None:
@@ -97,7 +91,7 @@ def dense_build_probe(bslot: torch.Tensor, pslot: torch.Tensor, tbl: int
         rc = lib.srt_dense_build_probe(
             bslot.data_ptr(), cap_b, pslot.data_ptr(), cap_p, tbl,
             table.data_ptr(), cnt_out.data_ptr(), row_out.data_ptr(),
-            max_out.data_ptr(), int(COOPERATIVE), stream)
+            max_out.data_ptr(), stream)
     _build.check(lib, rc, "joinProbe launch")
     _COUNTED.launches += 1
     return cnt_out, row_out, max_out

@@ -24,7 +24,8 @@ from spark_rapids_tpu_torch.ops.kernels.cuda import strings as SG
 JOINPROBE_CASES = ["duplicate keys", "every probed slot empty",
                    "one live row", "all rows dead", "unique keys",
                    "a table of one slot", "every build row unusable",
-                   "one slot hit by every row", "only the last rows live"]
+                   "one slot hit by every row", "only the last rows live",
+                   "clustered keys"]
 #: Cases outside the Pallas kernel's shapes (it needs build rows).
 JOINPROBE_CARD_CASES = JOINPROBE_CASES + ["no build rows"]
 SEG_GIDS = ["random groups", "one group", "one group per row", "dead tail",
@@ -54,6 +55,9 @@ def joinprobe_case(name: str, cap_b: int = 512, cap_p: int = 1024):
         bslot = np.full(cap_b, tbl)
         bslot[-3:] = [7, 9, 7]
         pslot[:4] = [7, 9, 8, 7]
+    elif name == "clustered keys":  # sorted runs of 1-7 rows, 2/5 dead
+        runs = np.repeat(np.arange(cap_b), rng.integers(1, 8, cap_b))[:cap_b]
+        bslot = np.where(rng.random(cap_b) < 0.4, tbl, runs)
     elif name == "duplicate keys":
         bslot = rng.integers(0, tbl // 2, cap_b)
         bslot[1] = bslot[0]

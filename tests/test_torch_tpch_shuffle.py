@@ -95,21 +95,21 @@ def test_q1_over_repartition_matches_reference(shape, sessions):
     want = rtpch.q1({**rdfs, "lineitem": rdfs["lineitem"].repartition(*spec)}
                     ).collect()
     calls = []
-    plain = HK.murmur3_bytes_rows
+    plain = HK.murmur3_string_rows
 
     def counting(*args):
         calls.append(args[0].shape)
         return plain(*args)
-    HK.murmur3_bytes_rows = counting
+    HK.murmur3_string_rows = counting
     try:
         got = tpch.q1({**pdfs,
                        "lineitem": pdfs["lineitem"].repartition(*spec)}
                       ).collect()
     finally:
-        HK.murmur3_bytes_rows = plain
+        HK.murmur3_string_rows = plain
     _assert_same_rows(_port_rows(got), _ref_rows(want))
     assert list(got.columns) == want.column_names
-    # string keys hash through the kernel's wrapper, one call per key
+    # string keys hash through the kernel's ragged entry, one call per key
     assert len(calls) == (2 if shape == "string keys" else 0)
     info = port.last_query
     assert info.site_kinds == ["aggregate"] and info.attempts == 1
