@@ -590,6 +590,7 @@ def ragged_hash_edge_cases(torch, HK, T, DC, PN, rng, dev):
     """The ragged entry against its plain version and numpy on layouts,
     then whole columns with null rows through the row hash: a null row
     keeps the running hash."""
+    from spark_rapids_tpu_torch.data.column import dictionary_column
     for kind in ("dictionary", "flat", "negative lengths"):
         for w in (4, 8, 128):
             for n in (1, 255, 256, 257, 100_003):
@@ -626,7 +627,9 @@ def ragged_hash_edge_cases(torch, HK, T, DC, PN, rng, dev):
               offsets=torch.as_tensor(offsets.astype(np.int32), device=dev),
               max_bytes=128)
     uniq, inv = np.unique(values, return_inverse=True)
-    dic = dictionary_column_of(torch, uniq, inv, valid, dev)
+    dic = dictionary_column(
+        torch.as_tensor(np.where(valid, inv, 0).astype(np.int32), device=dev),
+        torch.as_tensor(valid, device=dev), uniq)
     seed42 = np.full(n, SPARK_SEED, np.uint32)
     want1 = np.where(valid, np_hash_strings(values, seed42), seed42)
     want2 = np.where(valid, np_hash_strings(values, want1), want1)
@@ -642,13 +645,6 @@ def ragged_hash_edge_cases(torch, HK, T, DC, PN, rng, dev):
               f"row hash over {name} with null rows differs from numpy")
     print("  row hash of dictionary and flat columns with null rows: equal "
           "to numpy")
-
-
-def dictionary_column_of(torch, uniq, inv, valid, dev):
-    from spark_rapids_tpu_torch.data.column import dictionary_column
-    codes = np.where(valid, inv, 0).astype(np.int32)
-    return dictionary_column(torch.as_tensor(codes, device=dev),
-                             torch.as_tensor(valid, device=dev), uniq)
 
 
 # --------------------------------------------------------------------------
