@@ -853,9 +853,9 @@ def check_placement(torch, session, tables, n_parts: int, keys) -> dict:
 def check_no_char_matrix(torch, HK, batch, col) -> dict:
     """The partition step of ``q1_hash_str``'s exchange (the hash
     partitioner over ``l_returnflag, l_linestatus``, then the sort by
-    id) on lineitem, with every char-matrix builder of the package
-    counting its calls: none may run, and the ragged ``hash`` entry must
-    launch once a key column."""
+    id) on lineitem, with every function of the package that builds a
+    char matrix counting its calls: none may run, and the ragged ``hash``
+    entry must launch once a key column."""
     from spark_rapids_tpu_torch.ops import strings as S
     from spark_rapids_tpu_torch.ops import strings_util as SU
     from spark_rapids_tpu_torch.ops.kernels import concat as KC
@@ -894,7 +894,7 @@ def check_no_char_matrix(torch, HK, batch, col) -> dict:
     check(launched == 2, f"the hash partition step launched the ragged hash "
           f"{launched} times, expected 2")
     print(f"  q1_hash_str partition step over {batch.capacity} rows: no char "
-          f"matrix built ({len(patched)} builders watched), ragged hash "
+          f"matrix built ({len(patched)} functions watched), ragged hash "
           f"launched {launched} times, {ms:.3f} ms")
     return {"char_matrices": len(built), "ragged_launches": launched,
             "ms": ms}
