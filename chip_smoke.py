@@ -382,6 +382,77 @@ def strings_edge_cases(torch, SG, rng, dev):
         print(f"  strings gather W={w}: every case equal")
 
 
+GATHER_CASES = ("mixed", "all valid", "none valid", "indices out of range",
+                "negative lengths", "wrapped lengths", "one source row",
+                "empty rows", "runs to the last byte")
+GATHER_ROWS = (1, 255, 256, 257, 8191, 8192, 8193, 100_003, 262_144)
+
+
+def gather_case(rng, name: str, m: int, w: int):
+    """(payload, offsets [n + 1], idx [m], valid [m]) of one ragged gather
+    case: source lengths 0-5, W, past W and random, entries starting at
+    odd bytes, rows about 80 % valid; the variants as in the names (wrapped
+    lengths: int32 offsets INT32_MAX - 1 then INT32_MIN, 0 bytes, and
+    INT32_MIN to a real end, W bytes clamped to payload byte 0)."""
+    n = 1 if name == "one source row" else max(m // 2, 1) + 3
+    lens = rng.integers(0, w + 1, n)
+    pick = rng.random(n)
+    lens[pick < 0.3] = rng.integers(0, 6, int((pick < 0.3).sum()))
+    lens[(pick >= 0.3) & (pick < 0.4)] = w
+    past = (pick >= 0.4) & (pick < 0.5)
+    lens[past] = w + rng.integers(1, 10, int(past.sum()))
+    if name == "empty rows":
+        lens[:] = 0
+    offsets = 3 + np.concatenate([[0], np.cumsum(lens)])
+    if name == "negative lengths":
+        back = np.flatnonzero(rng.random(n) < 0.2) + 1
+        offsets[back] = np.maximum(offsets[back - 1] - rng.integers(
+            1, 4, len(back)), 0)
+    slack = 0 if name == "runs to the last byte" else 5
+    payload = rng.integers(0, 256, int(offsets.max()) + slack
+                           ).astype(np.uint8)
+    if name == "wrapped lengths":
+        k = np.arange(1, n - 1, 7)
+        offsets[k], offsets[k + 1] = 2 ** 31 - 2, -2 ** 31
+    idx = rng.integers(0, n, m)
+    if name == "indices out of range":
+        idx = rng.integers(-50, n + 50, m)
+        idx[:2] = np.array([-1, n])[:m]
+    valid = rng.random(m) < 0.8
+    valid[:] = True if name == "all valid" else valid
+    valid[:] = False if name == "none valid" else valid
+    return payload, offsets.astype(np.int32), idx.astype(np.int32), valid
+
+
+def gather_strings_edge_cases(torch, SG, bucket_byte_capacity, rng, dev):
+    """The ragged gather against its plain version, bit for bit, on every
+    case by every row count (one tile of 8,192 and either side of it;
+    several tiles, so the look-back runs) by W 8 and 128, and with no
+    source rows; each call must count one launch."""
+    def one(payload, offsets, idx, valid, w, what):
+        args = (payload, offsets, idx, valid, w,
+                bucket_byte_capacity(idx.shape[0] * w))
+        before = SG.gather_strings.launches
+        got = SG.gather_strings(*args)
+        check(SG.gather_strings.launches == before + 1,
+              f"ragged gather {what}: not one launch")
+        want = SG.gather_strings_plain(*args)
+        torch.cuda.synchronize()
+        check(bits_equal(torch, got[1], want[1]),
+              f"ragged gather {what}: offsets differ from the plain version")
+        check(bits_equal(torch, got[0], want[0]),
+              f"ragged gather {what}: payload differs from the plain version")
+    for w in (8, 128):
+        for name in GATHER_CASES:
+            for m in GATHER_ROWS:
+                p, o, i, v = (torch.as_tensor(a, device=dev)
+                              for a in gather_case(rng, name, m, w))
+                one(p, o, i, v, w, f"'{name}' m={m} W={w}")
+        one(p[:0], o[:1], i, v, w, f"no source rows W={w}")
+        print(f"  ragged strings gather W={w}: {len(GATHER_CASES)} cases x "
+              f"m {list(GATHER_ROWS)} and no source rows equal to the plain "
+              "version")
+
 def row_equal_pair(rng, n: int, w: int):
     """(a, b) int16 [n, W] char matrices of one rowwise-compare case:
     PAD-ended rows of bytes over the whole 0-255 range (chars above 127
@@ -850,34 +921,49 @@ def check_placement(torch, session, tables, n_parts: int, keys) -> dict:
             "exchange_ms": wall}
 
 
+class CharMatrixWatch:
+    """Counts, while it stands, every call of a package function that
+    builds a char matrix (``char_matrix``, ``_matrix_from_offsets``, in
+    every module that binds one)."""
+
+    NAMES = ("char_matrix", "_matrix_from_offsets")
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.ops import strings as S
+        from spark_rapids_tpu_torch.ops import strings_util as SU
+        from spark_rapids_tpu_torch.ops.kernels import concat as KC
+        from spark_rapids_tpu_torch.ops.kernels import groupby as KG
+        from spark_rapids_tpu_torch.ops.kernels import rowops as KR
+        from spark_rapids_tpu_torch.ops.kernels.cuda import strings as SG
+        from spark_rapids_tpu_torch.shuffle import partitioning as PN
+        self.built, self.patched = [], []
+        for mod in (SU, S, KC, KG, KR, PN, SG):
+            for name in self.NAMES:
+                fn = getattr(mod, name, None)
+                if fn is None:
+                    continue
+
+                def counting(*a, _fn=fn, _name=name, **k):
+                    self.built.append(_name)
+                    return _fn(*a, **k)
+                self.patched.append((mod, name, fn))
+                setattr(mod, name, counting)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.patched:
+            setattr(mod, name, fn)
+
+
 def check_no_char_matrix(torch, HK, batch, col) -> dict:
     """The partition step of ``q1_hash_str``'s exchange (the hash
     partitioner over ``l_returnflag, l_linestatus``, then the sort by
     id) on lineitem, with every function of the package that builds a
     char matrix counting its calls: none may run, and the ragged ``hash``
     entry must launch once a key column."""
-    from spark_rapids_tpu_torch.ops import strings as S
-    from spark_rapids_tpu_torch.ops import strings_util as SU
-    from spark_rapids_tpu_torch.ops.kernels import concat as KC
-    from spark_rapids_tpu_torch.ops.kernels import groupby as KG
-    from spark_rapids_tpu_torch.ops.kernels import rowops as KR
     from spark_rapids_tpu_torch.shuffle import exchange as EX
     from spark_rapids_tpu_torch.shuffle import partitioners as PR
-    from spark_rapids_tpu_torch.shuffle import partitioning as PN
-    built = []
-    patched = []
-    for mod in (SU, S, KC, KG, KR, PN):
-        for name in ("char_matrix", "_matrix_from_offsets"):
-            fn = getattr(mod, name, None)
-            if fn is None:
-                continue
-
-            def counting(*a, _fn=fn, _name=name, **k):
-                built.append(_name)
-                return _fn(*a, **k)
-            patched.append((mod, name, fn))
-            setattr(mod, name, counting)
-    try:
+    with CharMatrixWatch() as watch:
         part = PR.HashPartitioner([col("l_returnflag"), col("l_linestatus")],
                                   16, batch.schema)
         before = HK.murmur3_string_rows.launches
@@ -887,17 +973,49 @@ def check_no_char_matrix(torch, HK, batch, col) -> dict:
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         launched = HK.murmur3_string_rows.launches - before
-    finally:
-        for mod, name, fn in patched:
-            setattr(mod, name, fn)
-    check(not built, f"the hash partition step built a char matrix: {built}")
+    check(not watch.built,
+          f"the hash partition step built a char matrix: {watch.built}")
     check(launched == 2, f"the hash partition step launched the ragged hash "
           f"{launched} times, expected 2")
     print(f"  q1_hash_str partition step over {batch.capacity} rows: no char "
-          f"matrix built ({len(patched)} functions watched), ragged hash "
-          f"launched {launched} times, {ms:.3f} ms")
-    return {"char_matrices": len(built), "ragged_launches": launched,
+          f"matrix built ({len(watch.patched)} functions watched), ragged "
+          f"hash launched {launched} times, {ms:.3f} ms")
+    return {"char_matrices": len(watch.built), "ragged_launches": launched,
             "ms": ms}
+
+
+def check_flat_gathers(torch, SG, KR, T, DeviceColumn, gathers) -> dict:
+    """Q22's captured flat-string gathers replayed through
+    ``gather_column`` (each as a column whose rows are all valid, with the
+    call's validity as the index validity), every char-matrix builder
+    counting: none may run, the ragged entry must launch once a call, and
+    the column must be the captured call's kernel output and validity."""
+    launched = 0
+    with CharMatrixWatch() as watch:
+        for payload, offsets, idx, valid, width, byte_cap in gathers:
+            n = offsets.numel() - 1
+            col = DeviceColumn(payload, torch.ones(n, dtype=torch.bool,
+                                                   device=payload.device),
+                               T.STRING, offsets=offsets, max_bytes=width)
+            before = SG.gather_strings.launches
+            got = KR.gather_column(col, idx, valid)
+            launched += SG.gather_strings.launches - before
+            want = SG.gather_strings(payload, offsets, idx, valid, width,
+                                     byte_cap)
+            check(bits_equal(torch, got.offsets, want[1])
+                  and bits_equal(torch, got.data, want[0])
+                  and bits_equal(torch, got.validity, valid.bool()),
+                  f"gather_column over Q22's flat gather m={idx.numel()} "
+                  "differs from the ragged entry")
+    check(not watch.built, f"Q22's flat gathers built a char matrix: "
+          f"{watch.built}")
+    check(launched == len(gathers), f"Q22's {len(gathers)} flat gathers "
+          f"launched the ragged entry {launched} times through gather_column")
+    print(f"  Q22's {len(gathers)} flat gathers through gather_column: no "
+          f"char matrix built ({len(watch.patched)} functions watched), the "
+          f"ragged entry launched once a call, columns equal")
+    return {"calls": len(gathers), "char_matrices": len(watch.built),
+            "ragged_launches": launched}
 
 
 #: (key or exact columns, float columns) of each query's answer.
@@ -1009,13 +1127,13 @@ def profile_query(torch, name, build, exec_ms) -> None:
 
 class Wrappers:
     """The six kernel wrappers, their launch counts and capture (``hash``
-    is its ragged entry, the one every hash exchange takes)."""
+    and ``strings`` are their ragged entries, the ones the path takes)."""
 
     def __init__(self, JP, SEG, SS, SG, HK):
         self.mods = {"joinProbe": (JP, "dense_build_probe"),
                      "segmented": (SEG, "segment_reduce_sorted"),
                      "sortStep": (SS, "packed_argsort"),
-                     "strings": (SG, "ragged_gather"),
+                     "strings": (SG, "gather_strings"),
                      "hash": (HK, "murmur3_string_rows"),
                      "stringsEqual": (SG, "ragged_row_equal")}
         # the wrappers themselves, which own the counts while a Capture
@@ -1388,6 +1506,122 @@ def time_ragged_hash(torch, HK, hash_call_args, n_launches, flush):
             "bound_by": "bytes", "library_ms": None}, hash_calls
 
 
+def time_gather_strings(torch, SG, gathers, n_launches, flush):
+    """The ragged ``strings`` gather at each captured call: offsets and
+    payload equal to the plain version and to the char-matrix route it
+    replaced (``_matrix_from_offsets`` + ``ragged_gather`` +
+    ``pack_rows``) bit for bit, then the three timed, with the bound and
+    the payload's tail clear beside them. Returns (the kernels-line row,
+    per-call dicts)."""
+    from spark_rapids_tpu_torch.ops import strings_util as SU
+
+    def matrix_route(payload, offsets, idx, valid, width, byte_cap):
+        mat = SU._matrix_from_offsets(payload, offsets, width)
+        return SG.pack_rows(SG.ragged_gather(mat, idx, valid), byte_cap)
+
+    st = {"ms": 0.0, "plain_ms": 0.0, "route_ms": 0.0, "bytes": 0,
+          "tail": 0, "err": 0}
+    per_call = []
+    for args in gathers:
+        payload, offsets, idx, valid, width, byte_cap = args
+        n, m = offsets.numel() - 1, idx.numel()
+        got = SG.gather_strings(*args)
+        for what, want in (("plain version", SG.gather_strings_plain(*args)),
+                           ("char-matrix route", matrix_route(*args))):
+            check(bits_equal(torch, got[1], want[1])
+                  and bits_equal(torch, got[0], want[0]),
+                  f"ragged strings gather n={n} m={m} W={width} differs "
+                  f"from the {what}")
+            st["err"] = max(st["err"], max_abs_err(torch, got[0], want[0]),
+                            max_abs_err(torch, got[1], want[1]))
+        ms = median_ms(torch, lambda: SG.gather_strings(*args), flush)
+        tiles = {}
+        for t in (1024, 2048, 8192, 8192, 2048, 1024):
+            v = SG.gather_strings(*args, tile_rows=t)
+            check(bits_equal(torch, got[1], v[1])
+                  and bits_equal(torch, got[0], v[0]),
+                  f"tile {t} differs at m={m}")
+            tiles.setdefault(t, []).append(median_ms(
+                torch, lambda: SG.gather_strings(*args, tile_rows=t), flush))
+        clear = median_ms(torch, lambda: torch.zeros(
+            byte_cap, dtype=torch.uint8, device=payload.device), flush)
+        print(f"  VARIANTS m={m} n={n}: "
+              + ", ".join(f"tile {t}: {v}" for t, v in tiles.items())
+              + f"; torch.zeros(byte_cap) alone {clear:.4f} ms")
+        route_ms = median_ms(torch, lambda: matrix_route(*args), flush)
+        pms = median_ms(torch, lambda: SG.gather_strings_plain(*args),
+                        flush)
+        nbytes_out = int(got[1][-1])
+        # idx, valid and the two source offsets of a row, the output
+        # offsets, and the gathered bytes read and written; the payload
+        # past them is the clear beside the bound
+        nbytes = 13 * m + 4 * (m + 1) + 2 * nbytes_out
+        tail = byte_cap - nbytes_out
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        tail_ms = tail / HBM_BYTES_PER_S * 1e3
+        print(f"  ragged strings gather n={n} m={m} W={width} "
+              f"({nbytes_out} bytes gathered, byte_cap {byte_cap}): kernel "
+              f"{ms:.4f} ms, char-matrix route {route_ms:.4f} ms, plain "
+              f"{pms:.4f} ms, no one PyTorch call, bound {bound:.4f} ms, "
+              f"tail clear {tail} B {tail_ms:.4f} ms, bound + clear "
+              f"{bound + tail_ms:.4f} ms ({ms / (bound + tail_ms):.2f}x)")
+        per_call.append({"n": n, "m": m, "width": width,
+                         "bytes_out": nbytes_out, "byte_cap": byte_cap,
+                         "ms": ms, "route_ms": route_ms, "plain_ms": pms,
+                         "bound_ms": bound, "tail_ms": tail_ms})
+        st["ms"] += ms
+        st["plain_ms"] += pms
+        st["route_ms"] += route_ms
+        st["bytes"] += nbytes
+        st["tail"] += tail
+    print(f"  ragged strings gather summed over {len(gathers)} calls: "
+          f"{st['ms']:.4f} ms, char-matrix route {st['route_ms']:.4f} ms, "
+          f"plain {st['plain_ms']:.4f} ms, bound "
+          f"{st['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms + tail clear "
+          f"{st['tail'] / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    return {"name": "strings", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/ops/kernels/cuda/csrc/"
+                      "strings.cu",
+            "replaces": "spark_rapids_tpu/ops/kernels/pallas/strings.py:48",
+            "launches": n_launches, "max_abs_err": st["err"],
+            "ms": st["ms"], "plain_ms": st["plain_ms"],
+            "bound_ms": st["bytes"] / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None}, per_call
+
+
+def time_matrix_gather(torch, SG, SU, gathers, flush) -> dict:
+    """The matrix entry of the ``strings`` gather (the Pallas kernel's
+    counterpart, off the path) at the largest captured call's shape: its
+    char matrix built from the call's layout, the entry against its plain
+    version bit for bit, timed beside its ``index_select`` + ``where``
+    yardstick, with its bound."""
+    payload, offsets, idx, valid, width, _ = max(
+        gathers, key=lambda a: a[2].numel() * a[4])
+    mat = SU._matrix_from_offsets(payload, offsets, width)
+    n, w = mat.shape
+    m = idx.numel()
+    got = SG.ragged_gather(mat, idx, valid)
+    check(bits_equal(torch, got, SG.ragged_gather_plain(mat, idx, valid)),
+          f"strings matrix gather differs from the plain version at n={n} "
+          f"m={m} W={w}")
+    ms = median_ms(torch, lambda: SG.ragged_gather(mat, idx, valid), flush)
+    pms = median_ms(torch, lambda: SG.ragged_gather_plain(mat, idx, valid),
+                    flush)
+    safe = idx.long().clamp(0, n - 1)
+    lib = median_ms(torch, lambda: torch.where(
+        valid[:, None], mat.index_select(0, safe), -1), flush)
+    # idx and valid read, the output written, and one read of each distinct
+    # source row a valid output row takes
+    src_rows = torch.unique(safe[valid.bool()]).numel()
+    bound = (5 * m + 2 * m * w + 2 * w * src_rows) / HBM_BYTES_PER_S * 1e3
+    print(f"  strings matrix gather (off the path) at n={n} m={m} W={w}, "
+          f"{src_rows} source rows read: kernel {ms:.4f} ms, plain "
+          f"{pms:.4f} ms, index_select + where {lib:.4f} ms, bound "
+          f"{bound:.4f} ms")
+    return {"n": n, "m": m, "width": w, "ms": ms, "plain_ms": pms,
+            "library_ms": lib, "bound_ms": bound}
+
+
 def time_sortstep(torch, SS, lane, flush):
     """(kernel ms, plain ms, torch.sort ms, bound ms) of one lane."""
     ms = median_ms(torch, lambda: SS.packed_argsort(lane), flush)
@@ -1461,7 +1695,8 @@ def main() -> int:
     from spark_rapids_tpu_torch.ops import strings_util as SU
     from spark_rapids_tpu_torch.ops.strings import Substring
     from spark_rapids_tpu_torch.ops.kernels.cuda import _build
-    from spark_rapids_tpu_torch.data.column import DeviceColumn
+    from spark_rapids_tpu_torch.data.column import (DeviceColumn,
+                                                    bucket_byte_capacity)
     from spark_rapids_tpu_torch.ops.kernels import join as KJ
     from spark_rapids_tpu_torch.ops.kernels.cuda import hashing as HK
     from spark_rapids_tpu_torch.ops.kernels.cuda import join_probe as JP
@@ -1504,6 +1739,7 @@ def main() -> int:
     segmented_edge_cases(torch, SEG, rng, dev)
     sortstep_edge_cases(torch, SS, rng, dev)
     strings_edge_cases(torch, SG, rng, dev)
+    gather_strings_edge_cases(torch, SG, bucket_byte_capacity, rng, dev)
     hash_edge_cases(torch, HK, rng, dev)
     ragged_hash_edge_cases(torch, HK, T, DeviceColumn, PN, rng, dev)
     row_equal_edge_cases(torch, SG, rng, dev)
@@ -1565,8 +1801,12 @@ def main() -> int:
         for k in launches:
             launches[k] += got_launches[k]
             calls[k] += got_calls[k]
+        if q == "q22":
+            q22_gathers = got_calls["strings"]
         if args.profile:
             profile_query(torch, q, build, mid)
+    flat_gathers = check_flat_gathers(torch, SG, KR, T, DeviceColumn,
+                                      q22_gathers)
     no_matrix = check_no_char_matrix(torch, HK, dfs["lineitem"]._plan.batch,
                                      col)
     placement = [check_placement(torch, session, tables, 16,
@@ -1588,8 +1828,11 @@ def main() -> int:
                                 code_values)}
     group_ids_runs = []
     for name, (key_col, n_rows, values) in equal_keys.items():
-        group_ids_runs.append(group_by_string_key(
-            torch, KG, T, HostBatch, wrappers, name, key_col, n_rows, values))
+        with Capture(*wrappers.mods["strings"]) as cap:
+            group_ids_runs.append(group_by_string_key(
+                torch, KG, T, HostBatch, wrappers, name, key_col, n_rows,
+                values))
+        calls["strings"] += cap.calls
         for k, v in group_ids_runs[-1]["launches"].items():
             launches[k] += v
 
@@ -1718,45 +1961,11 @@ def main() -> int:
                  "library_ms": ss["lib"]})
     shipdate = time_sort_routes(torch, KR, SS, dfs, flush)
 
-    st = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "lib": 0.0, "err": 0}
-    for mat, idx, valid in calls["strings"]:
-        n, w = mat.shape
-        m = idx.shape[0]
-        got_k = SG.ragged_gather(mat, idx, valid)
-        want = SG.ragged_gather_plain(mat, idx, valid)
-        check(bits_equal(torch, got_k, want), "strings gather differs from "
-              f"the plain version at n={n} m={m} W={w}")
-        st["err"] = max(st["err"], max_abs_err(torch, got_k, want))
-        ms = median_ms(torch, lambda: SG.ragged_gather(mat, idx, valid),
-                       flush)
-        pms = median_ms(torch, lambda: SG.ragged_gather_plain(mat, idx,
-                                                              valid), flush)
-        safe = idx.long().clamp(0, n - 1)
-        lib = median_ms(torch, lambda: torch.where(
-            valid[:, None], mat.index_select(0, safe), -1), flush)
-        # idx and valid read, the output written, and one read of each
-        # distinct source row a valid output row takes (invalid rows read
-        # no source)
-        src_rows = torch.unique(idx.long().clamp(0, n - 1)[valid.bool()]
-                                ).numel() if n else 0
-        nbytes = 5 * m + 2 * m * w + 2 * w * src_rows
-        print(f"  strings gather n={n} m={m} W={w} source rows read "
-              f"{src_rows}: kernel {ms:.4f} ms, "
-              f"plain {pms:.4f} ms, index_select {lib:.4f} ms, bound "
-              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
-        st["ms"] += ms
-        st["plain_ms"] += pms
-        st["lib"] += lib
-        st["bytes"] += nbytes
-    rows.append({"name": "strings", "route": "cuda",
-                 "source": "spark_rapids_tpu_torch/ops/kernels/cuda/csrc/"
-                           "strings.cu",
-                 "replaces": "spark_rapids_tpu/ops/kernels/pallas/"
-                             "strings.py:48",
-                 "launches": launches["strings"], "max_abs_err": st["err"],
-                 "ms": st["ms"], "plain_ms": st["plain_ms"],
-                 "bound_ms": st["bytes"] / HBM_BYTES_PER_S * 1e3,
-                 "bound_by": "bytes", "library_ms": st["lib"]})
+    row, gather_calls = time_gather_strings(torch, SG, calls["strings"],
+                                            launches["strings"], flush)
+    rows.append(row)
+    matrix_gather = time_matrix_gather(torch, SG, SU, calls["strings"],
+                                       flush)
 
     row, hash_calls = time_ragged_hash(torch, HK, calls["hash"],
                                        launches["hash"], flush)
@@ -1807,6 +2016,8 @@ def main() -> int:
            for q, s in summaries.items()},
         "sortStep_l_shipdate": shipdate, "placement": placement,
         "matrix_hash": matrix_hash, "hash_calls": hash_calls,
+        "gather_calls": gather_calls, "matrix_gather": matrix_gather,
+        "flat_gathers": flat_gathers,
         "group_ids": group_ids_runs,
         "hash_partition_step": no_matrix, "joinProbe_calls": jp_calls,
         "q3_dense_joins": q3_joins,

@@ -1,13 +1,55 @@
-// The char-matrix kernels of the "strings" family: the ragged gather and
+// The kernels of the "strings" family: two gathers of flat string rows and
 // the rowwise compare.
 //
-// 1. srt_ragged_gather replaces the Pallas kernel
+// 1. srt_gather_strings is the entry the path takes: every flat-string
+// gather of ops/kernels/rowops.py::gather_column (joins, compaction, sort
+// and top-k, the exchange's partition gather, group-key gathers). It is a
+// ragged gather over the column's own layout, a uint8 payload [P] and
+// int32 offsets [n + 1], and writes the gathered column's layout directly:
+// for output row r with int32 idx [m] and a one-byte valid [m],
+//   len[r]   = valid[r] && n > 0
+//              ? clamp(offsets[s + 1] - offsets[s], 0, W) : 0,
+//              s = clamp(idx[r], 0, n - 1), the difference in int64
+//   out_offsets[0] = 0, out_offsets[r + 1] = (int32) sum(len[0..r])
+//   out[out_offsets[r] + j] = payload[clamp(offsets[s] + j, 0, P - 1)]
+//              for j < len[r]
+//   out[b] = 0 for out_offsets[m] <= b < byte_cap
+// which is, bit for bit, the char matrix of the column (positions past
+// the row's end PAD), gathered by srt_ragged_gather, and packed back into
+// offsets and payload (rowops.py::strings_from_matrix): rows longer than W
+// clip to W bytes, negative lengths give 0. No [n, W] or [m, W] matrix
+// is built.
+//
+// The design: one cudaMemsetAsync clears the output payload and a small
+// scratch after it (a tile ticket and one status word a tile), then one
+// launch. Rows go in tiles of 8,192 (1,024 threads, 8 rows each); a block
+// loads its tile's idx, valid and the two source offsets of each valid
+// row, clips the lengths, scans them in shared memory, gets the tile's
+// byte prefix by a decoupled look-back over the earlier tiles' status
+// words (tiles are taken in order from an atomic ticket, so a tile's
+// predecessors are running or done; the pattern of sort_steps.cu's
+// scatter), writes its offsets, and copies its bytes: the tile's output
+// is one contiguous byte range, over which threads take 16-byte output
+// pieces, find each piece's first row by a binary search over the tile's
+// offsets in shared memory, and store whole pieces with one 16-byte store
+// (pieces shared with a neighbouring tile byte by byte). Sources start at
+// any byte, so source bytes are read one at a time. A call of one tile
+// runs as one block with no ticket and no look-back. Blocks are
+// persistent (at most the resident count) and loop over tiles.
+//
+// Bound on the card: memory. idx, valid and the two source offsets of a
+// row (4 + 1 + 8 bytes), the output offsets (4 (m + 1)), and the B
+// gathered bytes read and written once: 13 m + 4 (m + 1) + 2 B bytes.
+// The payload past B, byte_cap - B bytes, is the clear beside the bound:
+// at m = 262,144 and W = 128 it is most of the call (33.5 MB).
+//
+// 2. srt_ragged_gather is the counterpart of the Pallas kernel
 // spark_rapids_tpu/ops/kernels/pallas/strings.py::ragged_gather (body
-// _gather_kernel). Computes
+// _gather_kernel), kept as that kernel's port; the path no longer takes
+// it. Computes
 //   out[r, :] = valid[r] ? mat[clamp(idx[r], 0, n - 1), :] : PAD (-1)
 // for a [n, W] int16 char matrix, int32 idx [m] and a one-byte valid [m],
-// into out [m, W] int16: the flat-string branch of
-// ops/kernels/rowops.py::gather_column.
+// into out [m, W] int16.
 //
 // The Pallas kernel keeps the whole source matrix resident in VMEM and
 // gathers one output block per grid step. A Hopper SM has at most 227 KB
@@ -25,7 +67,7 @@
 // output (2 W bytes a row each): 5 m + 4 m W bytes. Rows that are not
 // valid read no source row at all.
 //
-// 2. srt_row_equal replaces the Pallas kernel pallas/strings.py::
+// 3. srt_row_equal replaces the Pallas kernel pallas/strings.py::
 // ragged_row_equal (body _row_equal_kernel). Computes
 //   out[r] = all(a[r, :] == b[r, :])
 // for two [n, W] int16 char matrices, one byte a row: the string branch of
@@ -80,6 +122,244 @@ __global__ void gather_rows(const int4* __restrict__ mat, int64_t n,
     out[t] = v;
   }
 }
+
+// ---- the ragged gather ----------------------------------------------------
+
+constexpr int kGatherItems = 8;  // rows a thread
+constexpr int kMaxGatherTile = 8192;
+// Tile byte sums stay below 2^31: kMaxGatherTile * W <= 2^30.
+constexpr int64_t kMaxGatherWidth = int64_t{1} << 17;
+constexpr unsigned long long kValueMask = (1ull << 62) - 1;
+constexpr unsigned long long kAggregate = 1ull << 62;  // the tile's own sum
+constexpr unsigned long long kInclusive = 2ull << 62;  // sum up to the tile
+constexpr unsigned kFull = 0xffffffffu;
+
+int64_t gather_tiles(int64_t m, int64_t tile_rows) {
+  return (m + tile_rows - 1) / tile_rows;
+}
+
+// Scratch after the payload: an 8-byte ticket word, then one status word a
+// tile; none for a call of one tile.
+int64_t gather_scratch_bytes(int64_t m, int64_t tile_rows) {
+  const int64_t tiles = gather_tiles(m, tile_rows);
+  return tiles > 1 ? 8 + 8 * tiles : 0;
+}
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+// Exclusive sum over the block of kThreads (all must call it); *total gets
+// the block's sum.
+template <int kThreads>
+__device__ __forceinline__ int32_t gather_block_scan(int32_t v,
+                                                     int32_t* warp_tot,
+                                                     int32_t* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int32_t x = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int32_t y = __shfl_up_sync(kFull, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) warp_tot[warp] = x;
+  __syncthreads();
+  constexpr int kWarps = kThreads / 32;
+  if (warp == 0) {
+    int32_t t = lane < kWarps ? warp_tot[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int32_t y = __shfl_up_sync(kFull, t, off);
+      if (lane >= off) t += y;
+    }
+    if (lane < kWarps) warp_tot[lane] = t;  // inclusive over the warps
+  }
+  __syncthreads();
+  *total = warp_tot[kWarps - 1];
+  return (warp > 0 ? warp_tot[warp - 1] : 0) + x - v;
+}
+
+// Tiles of kThreads * kGatherItems rows. ticket == nullptr: one tile, one
+// block, no look-back.
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
+    gather_strings(const uint8_t* __restrict__ payload, int64_t payload_len,
+                   const int32_t* __restrict__ offsets, int64_t n,
+                   const int32_t* __restrict__ idx,
+                   const uint8_t* __restrict__ valid, int64_t m,
+                   int64_t width, int64_t tiles, uint8_t* __restrict__ out,
+                   int32_t* __restrict__ out_offsets, unsigned* ticket,
+                   unsigned long long* status) {
+  constexpr int kGatherTile = kThreads * kGatherItems;
+  constexpr int kGatherThreads = kThreads;
+  extern __shared__ int32_t smem[];
+  int32_t* incl = smem;                // local inclusive byte ends
+  int32_t* start = smem + kGatherTile;  // source starts
+  __shared__ int32_t warp_tot[kThreads / 32];
+  __shared__ int64_t tile_sh;
+  __shared__ int64_t prefix_sh;
+  const int tid = threadIdx.x;
+  for (int64_t round = 0;; ++round) {
+    if (tid == 0)
+      tile_sh = ticket != nullptr ? static_cast<int64_t>(atomicAdd(ticket, 1u))
+                                  : round;
+    __syncthreads();
+    const int64_t tile = tile_sh;
+    if (tile >= tiles) return;
+    const int64_t base = tile * kGatherTile;
+    // 1. lengths and sources, rows strided over the threads (coalesced).
+    // All of a thread's idx and valid loads go out before any is used,
+    // then all its offset loads: two memory round trips, not sixteen.
+    int64_t src_row[kGatherItems];
+    bool live[kGatherItems];
+#pragma unroll
+    for (int j = 0; j < kGatherItems; ++j) {
+      const int64_t g = base + j * kGatherThreads + tid;
+      live[j] = g < m && n > 0 && valid[g] != 0;
+      src_row[j] = g < m ? idx[g] : 0;
+    }
+    int32_t a[kGatherItems], b[kGatherItems];
+#pragma unroll
+    for (int j = 0; j < kGatherItems; ++j) {
+      int64_t s = src_row[j];
+      s = s < 0 ? 0 : (s > n - 1 ? n - 1 : s);
+      a[j] = live[j] ? __ldg(offsets + s) : 0;
+      b[j] = live[j] ? __ldg(offsets + s + 1) : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kGatherItems; ++j) {
+      const int r = j * kGatherThreads + tid;
+      int64_t l = static_cast<int64_t>(b[j]) - a[j];
+      l = l < 0 ? 0 : (l > width ? width : l);
+      incl[r] = static_cast<int32_t>(l);
+      start[r] = a[j];
+    }
+    __syncthreads();
+    // 2. scan: thread t owns rows [8 t, 8 t + 8)
+    int32_t v[kGatherItems];
+    int32_t run = 0;
+#pragma unroll
+    for (int j = 0; j < kGatherItems; ++j) {
+      v[j] = incl[tid * kGatherItems + j];
+      run += v[j];
+    }
+    int32_t total;
+    int32_t acc = gather_block_scan<kThreads>(run, warp_tot, &total);
+#pragma unroll
+    for (int j = 0; j < kGatherItems; ++j) {
+      acc += v[j];
+      incl[tid * kGatherItems + j] = acc;
+    }
+    // 3. the tile's byte prefix over earlier tiles: warp 0 reads the
+    // status words of the 32 tiles before a window end at once, until one
+    // holds an inclusive sum
+    if (tid < 32) {
+      int64_t prefix = 0;
+      if (ticket != nullptr) {
+        unsigned long long* mine = status + tile;
+        const unsigned long long agg = static_cast<unsigned long long>(total);
+        if (tid == 0) atomicExch(mine, (tile == 0 ? kInclusive : kAggregate) |
+                                           agg);
+        for (int64_t end = tile - 1; end >= 0;) {
+          const int64_t p = end - tid;
+          const unsigned long long s =
+              p >= 0 ? load_status(status + p) : kInclusive;
+          const unsigned long long flag = s & ~kValueMask;
+          if (__any_sync(kFull, flag == 0)) continue;  // not yet published
+          const unsigned inclusive = __ballot_sync(kFull, flag == kInclusive);
+          // the nearest inclusive word ends the walk; the words before it
+          // (nearer the tile) are aggregates
+          const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
+          int64_t part =
+              tid <= stop ? static_cast<int64_t>(s & kValueMask) : 0;
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            part += __shfl_down_sync(kFull, part, off);
+          prefix += __shfl_sync(kFull, part, 0);
+          if (inclusive) break;
+          end -= 32;
+        }
+        if (tid == 0 && tile > 0)
+          atomicExch(mine,
+                     kInclusive | static_cast<unsigned long long>(prefix +
+                                                                  total));
+      }
+      if (tid == 0) prefix_sh = prefix;
+    }
+    __syncthreads();
+    const int64_t prefix = prefix_sh;
+    // 4. offsets
+#pragma unroll
+    for (int j = 0; j < kGatherItems; ++j) {
+      const int r = j * kGatherThreads + tid;
+      const int64_t g = base + r;
+      if (g < m) out_offsets[g + 1] = static_cast<int32_t>(prefix + incl[r]);
+    }
+    if (tile == 0 && tid == 0) out_offsets[0] = 0;
+    // 5. bytes: 16-byte output pieces of [prefix, prefix + total)
+    if (total > 0) {
+      const int64_t hi = prefix + total;
+      const int64_t last = (hi - 1) >> 4;
+      for (int64_t c = (prefix >> 4) + tid; c <= last; c += kGatherThreads) {
+        // local byte positions of the piece, and of its part in the tile
+        const int32_t qb = static_cast<int32_t>((c << 4) - prefix);
+        const int32_t q0 = qb > 0 ? qb : 0;
+        const int32_t q1 = qb + 16 < total ? qb + 16 : total;
+        // the first row whose inclusive end passes q0
+        int lo = 0, up = kGatherTile - 1;
+        while (lo < up) {
+          const int mid = (lo + up) >> 1;
+          if (incl[mid] > q0) up = mid; else lo = mid + 1;
+        }
+        int r = lo;
+        int32_t row_end = incl[r];
+        int32_t row_begin = r > 0 ? incl[r - 1] : 0;
+        // every source position first (shared memory only), then the 16
+        // loads at once. A position start + j lies below 2^31 + W, so it
+        // fits 32 bits.
+        uint32_t pos[16];
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          const int32_t q = qb + k;
+          pos[k] = 0;
+          if (q >= q0 && q < q1) {
+            while (row_end <= q) {
+              row_begin = row_end;
+              row_end = incl[++r];
+            }
+            int64_t src = static_cast<int64_t>(start[r]) + (q - row_begin);
+            src = src < 0 ? 0 : (src >= payload_len ? payload_len - 1 : src);
+            pos[k] = static_cast<uint32_t>(src);
+          }
+        }
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          const int32_t q = qb + k;
+          if (q >= q0 && q < q1)
+            w[k >> 2] |= static_cast<uint32_t>(__ldg(payload + pos[k]))
+                         << (8 * (k & 3));
+        }
+        if (q0 == qb && q1 == qb + 16) {
+          reinterpret_cast<uint4*>(out)[c] = make_uint4(w[0], w[1], w[2],
+                                                        w[3]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 16; ++k) {
+            const int32_t q = qb + k;
+            if (q >= q0 && q < q1)
+              out[(c << 4) + k] =
+                  static_cast<uint8_t>(w[k >> 2] >> (8 * (k & 3)));
+          }
+        }
+      }
+    }
+    __syncthreads();  // the tile's shared state is free again
+  }
+}
+
+// ---- the rowwise compare -------------------------------------------------
 
 __device__ __forceinline__ bool same(int4 x, int4 y) {
   return x.x == y.x && x.y == y.y && x.z == y.z && x.w == y.w;
@@ -137,9 +417,107 @@ int launch_row_equal(const void* a, const void* b, int64_t n, int64_t width,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launches the ragged gather of tiles of kThreads * kGatherItems rows:
+// the clear of buf, then one kernel.
+template <int kThreads>
+int launch_gather_strings(const uint8_t* payload, int64_t payload_len,
+                          const int32_t* offsets, int64_t n,
+                          const int32_t* idx, const uint8_t* valid, int64_t m,
+                          int64_t width, uint8_t* out, int64_t byte_cap,
+                          int32_t* out_offsets, cudaStream_t s) {
+  constexpr int64_t kTile = int64_t{kThreads} * kGatherItems;
+  // two int32 arrays a tile row: the inclusive byte ends, the source starts
+  constexpr int kSmem = static_cast<int>(2 * kTile * 4);
+  static int configured_device = -1;
+  static int resident = 0;
+  int device = 0;
+  cudaError_t rc = cudaGetDevice(&device);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (device != configured_device) {
+    rc = cudaFuncSetAttribute(gather_strings<kThreads>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kSmem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    int per_sm = 0, sms = 0;
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, gather_strings<kThreads>, kThreads, kSmem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    resident = per_sm * sms;
+    configured_device = device;
+  }
+  const int64_t tiles = gather_tiles(m, kTile);
+  const int64_t scratch_at = (byte_cap + 15) / 16 * 16;
+  rc = cudaMemsetAsync(out, 0,
+                       static_cast<size_t>(scratch_at +
+                                           gather_scratch_bytes(m, kTile)),
+                       s);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  unsigned* ticket = nullptr;
+  unsigned long long* status = nullptr;
+  int64_t blocks = 1;
+  if (tiles > 1) {
+    ticket = reinterpret_cast<unsigned*>(out + scratch_at);
+    status = reinterpret_cast<unsigned long long*>(out + scratch_at + 8);
+    blocks = tiles < resident ? tiles : resident;
+  }
+  gather_strings<kThreads><<<static_cast<unsigned>(blocks), kThreads, kSmem,
+                             s>>>(payload, payload_len, offsets, n, idx,
+                                  valid, m, width, tiles, out, out_offsets,
+                                  ticket, status);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool gather_tile_known(int64_t tile_rows) {
+  return tile_rows == 1024 || tile_rows == 2048 || tile_rows == 8192;
+}
+
 }  // namespace
 
 extern "C" {
+
+// Scratch bytes srt_gather_strings needs after the payload for m output
+// rows in tiles of tile_rows (0 for one tile).
+int64_t srt_gather_strings_scratch_bytes(int64_t m, int64_t tile_rows) {
+  return gather_scratch_bytes(m, tile_rows);
+}
+
+// The ragged gather on `stream`; returns the first CUDA error. buf holds
+// byte_cap payload bytes, then (at byte_cap rounded up to 16) the scratch;
+// it is cleared whole, then one kernel writes the payload and out_offsets
+// [m + 1]. offsets holds n + 1 values; payload_len >= 1 when n >= 1;
+// m >= 1; 1 <= width <= 2^17; byte_cap >= m * width; buf 16-byte aligned;
+// tile_rows 1,024, 2,048 or 8,192.
+int srt_gather_strings(const void* payload, int64_t payload_len,
+                       const int32_t* offsets, int64_t n, const int32_t* idx,
+                       const uint8_t* valid, int64_t m, int64_t width,
+                       void* buf, int64_t byte_cap, int32_t* out_offsets,
+                       int64_t tile_rows, void* stream) {
+  if (m < 1 || n < 0 || (n > 0 && payload_len < 1) || width < 1 ||
+      width > kMaxGatherWidth || byte_cap < m * width ||
+      reinterpret_cast<uintptr_t>(buf) % 16 != 0 ||
+      !gather_tile_known(tile_rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uint8_t* p = static_cast<const uint8_t*>(payload);
+  uint8_t* out = static_cast<uint8_t*>(buf);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tile_rows) {
+    case 1024:
+      return launch_gather_strings<128>(p, payload_len, offsets, n, idx,
+                                        valid, m, width, out, byte_cap,
+                                        out_offsets, s);
+    case 2048:
+      return launch_gather_strings<256>(p, payload_len, offsets, n, idx,
+                                        valid, m, width, out, byte_cap,
+                                        out_offsets, s);
+    default:
+      return launch_gather_strings<1024>(p, payload_len, offsets, n, idx,
+                                         valid, m, width, out, byte_cap,
+                                         out_offsets, s);
+  }
+}
 
 // Launches the gather on `stream`; returns cudaGetLastError(). width is
 // W in int16 chars and must be a multiple of 8; n >= 1 and m >= 1.

@@ -4,10 +4,11 @@ Port of ``spark_rapids_tpu/ops/kernels/rowops.py``. Float keys map to
 order-preserving operands so NaN ordering (greatest) and -0.0 == 0.0
 match Spark; nulls order through an explicit bucket operand.
 
-Two hand-written kernels run here: a flat string column moves through
-its char matrix with the ``strings`` gather (:mod:`.cuda.strings`), and a
-single packable sort key sorts as one int64 lane with the ``sortStep``
-bitonic sort (:mod:`.cuda.sort_steps`).
+Two hand-written kernels run here: a flat string column moves with the
+``strings`` family's ragged gather over its own offsets and payload
+(:func:`.cuda.strings.gather_strings`), and a single packable sort key
+sorts as one int64 lane with the ``sortStep`` radix sort
+(:mod:`.cuda.sort_steps`).
 
 The reference sorts several operands at once with ``lax.sort(...,
 num_keys=k)``. torch has no multi-operand sort, so :func:`lexsort` runs
@@ -26,7 +27,7 @@ import torch
 from ... import types as T
 from ...data.batch import ColumnarBatch
 from ...data.column import DeviceColumn, bucket_byte_capacity, bucket_capacity
-from ..strings_util import PAD, char_matrix
+from ..strings_util import char_matrix
 from .cuda import sort_steps as SS
 from .cuda import strings as SG
 
@@ -131,16 +132,21 @@ def gather_column(col: DeviceColumn, indices: torch.Tensor,
                   index_valid: Optional[torch.Tensor] = None) -> DeviceColumn:
     """Rows of ``col`` at ``indices``; fixed-width and dictionary columns
     both move one lane (a dictionary rides along untouched). Flat strings
-    gather rows of their char matrix (the ``strings`` kernel) and rebuild
-    offsets and payload."""
+    move with the ragged ``strings`` gather, which reads the column's
+    offsets and payload and writes the gathered ones (each row clipped at
+    the column's width, as its char matrix would be)."""
     safe = indices.clamp(0, col.capacity - 1).long()
     validity = col.validity[safe]
     if index_valid is not None:
         validity = validity & index_valid
     if col.is_flat:
-        m = SG.ragged_gather(char_matrix(col), safe.to(torch.int32),
-                             validity)
-        return strings_from_matrix(m, validity, col.max_bytes)
+        w = max(col.max_bytes, 1)
+        m = safe.shape[0]
+        payload, offsets = SG.gather_strings(
+            col.data, col.offsets, safe.to(torch.int32), validity, w,
+            bucket_byte_capacity(m * w))
+        return DeviceColumn(payload, validity, T.STRING, offsets=offsets,
+                            max_bytes=col.max_bytes)
     lane = col.lane[safe]
     lane = torch.where(validity, lane, torch.zeros((), dtype=lane.dtype,
                                                    device=lane.device))
@@ -150,23 +156,12 @@ def gather_column(col: DeviceColumn, indices: torch.Tensor,
 def strings_from_matrix(m: torch.Tensor, validity: torch.Tensor,
                         max_bytes: int) -> DeviceColumn:
     """Rebuild a flat string column (offsets + payload) from a char
-    matrix whose rows end in PAD. The non-PAD chars in row-major order are
-    the payload; the reference compacts them with one stable sort, here a
-    cumsum gives each kept char its byte position and one scatter writes
-    it, which gives the same offsets and bytes."""
+    matrix whose rows end in PAD (:func:`.cuda.strings.pack_rows`, into
+    the byte ladder's rung for the matrix's bytes)."""
     out_cap, w = m.shape
-    dev = m.device
-    keep = (m != PAD).reshape(-1)
-    lens = keep.reshape(out_cap, w).sum(1, dtype=torch.int32)
-    offsets = torch.zeros(out_cap + 1, dtype=torch.int32, device=dev)
-    offsets[1:] = torch.cumsum(lens, 0, dtype=torch.int32)
-    byte_cap = bucket_byte_capacity(out_cap * w)
-    pos = torch.cumsum(keep, 0) - 1
-    payload = torch.zeros(byte_cap + 1, dtype=torch.uint8, device=dev)
-    payload.scatter_(0, torch.where(keep, pos, byte_cap),
-                     m.reshape(-1).to(torch.uint8))
-    return DeviceColumn(payload[:byte_cap], validity, T.STRING,
-                        offsets=offsets, max_bytes=max_bytes)
+    payload, offsets = SG.pack_rows(m, bucket_byte_capacity(out_cap * w))
+    return DeviceColumn(payload, validity, T.STRING, offsets=offsets,
+                        max_bytes=max_bytes)
 
 
 def gather_columns(columns, indices: torch.Tensor,

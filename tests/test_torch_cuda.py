@@ -15,6 +15,7 @@ import pytest
 
 import torch
 
+from spark_rapids_tpu_torch.data.column import bucket_byte_capacity
 from spark_rapids_tpu_torch.ops.kernels.cuda import hashing as HK
 from spark_rapids_tpu_torch.ops.kernels.cuda import join_probe as JP
 from spark_rapids_tpu_torch.ops.kernels.cuda import segmented as SEG
@@ -203,6 +204,57 @@ def gather_case(name: str, w: int):
     return mat, idx.astype(np.int32), valid
 
 
+GATHER_CASES = ["mixed", "all valid", "none valid", "indices out of range",
+                "negative lengths", "wrapped lengths", "one source row",
+                "empty rows", "runs to the last byte"]
+GATHER_WIDTHS = [8, 128]
+INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def gather_strings_case(name: str, m: int, w: int, seed: int = 0):
+    """(payload uint8, offsets int32 [n + 1], idx int32 [m], valid bool
+    [m]) of one ragged ``strings`` gather case: source lengths 0-5, W,
+    past W and random, entries starting at odd payload bytes, rows about
+    80 % valid. Variants: every or no row valid; indices below 0 and at
+    or past n; offsets that step back (negative lengths); int32 offsets
+    whose difference wraps (INT32_MAX - 1 to INT32_MIN: 0 bytes; INT32_MIN
+    to a real end: W bytes, all of them clamped to payload byte 0); one
+    source row; all sources empty; a payload that ends at the last
+    entry's last byte."""
+    rng = np.random.default_rng(seed + 7 * m + w + len(name))
+    n = 1 if name == "one source row" else max(m // 2, 1) + 3
+    lens = rng.integers(0, w + 1, n)
+    pick = rng.random(n)
+    lens[pick < 0.3] = rng.integers(0, 6, int((pick < 0.3).sum()))
+    lens[(pick >= 0.3) & (pick < 0.4)] = w
+    past = (pick >= 0.4) & (pick < 0.5)
+    lens[past] = w + rng.integers(1, 10, int(past.sum()))
+    if name == "empty rows":
+        lens[:] = 0
+    offsets = 3 + np.concatenate([[0], np.cumsum(lens)])
+    if name == "negative lengths":
+        back = np.flatnonzero(rng.random(n) < 0.2) + 1
+        offsets[back] = np.maximum(offsets[back - 1] - rng.integers(
+            1, 4, len(back)), 0)
+    slack = 0 if name == "runs to the last byte" else 5
+    payload = rng.integers(0, 256, int(offsets.max()) + slack
+                           ).astype(np.uint8)
+    if name == "wrapped lengths":
+        for k in range(1, n - 1, 7):
+            offsets[k], offsets[k + 1] = INT32_MAX - 1, INT32_MIN
+    idx = rng.integers(0, n, m)
+    if name == "indices out of range":
+        idx = rng.integers(-50, n + 50, m)
+        idx[:2] = np.array([-1, n])[:m]
+    valid = rng.random(m) < 0.8
+    if name == "all valid":
+        valid[:] = True
+    elif name == "none valid":
+        valid[:] = False
+    return (payload, offsets.astype(np.int32), idx.astype(np.int32),
+            valid)
+
+
 def row_equal_case(n: int, w: int, seed: int = 0):
     """Two int16 [n, W] char matrices of one rowwise-compare case:
     PAD-ended rows with bytes up to 255, every third row of ``b`` changed
@@ -382,6 +434,74 @@ def test_cuda_strings_gather_empty_sides(cuda_device):
                              valid[:0])
     assert empty.shape == (0, 8)
     assert SG.ragged_gather.launches == before
+
+
+GATHER_CARD_ROWS = [1, 255, 256, 257, 8191, 8192, 8193, 100_003, 262_144]
+
+
+def _gather_args(case, w, device):
+    payload, offsets, idx, valid = (torch.as_tensor(a, device=device)
+                                    for a in case)
+    return (payload, offsets, idx, valid, w,
+            bucket_byte_capacity(idx.shape[0] * w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", GATHER_WIDTHS)
+@pytest.mark.parametrize("m", GATHER_CARD_ROWS)
+@pytest.mark.parametrize("name", GATHER_CASES)
+def test_cuda_gather_strings_matches_plain(cuda_device, name, m, w):
+    args = _gather_args(gather_strings_case(name, m, w), w, cuda_device)
+    before = SG.gather_strings.launches
+    payload, offsets = SG.gather_strings(*args)
+    assert SG.gather_strings.launches == before + 1
+    want_payload, want_offsets = SG.gather_strings_plain(*args)
+    assert same_bits(offsets, want_offsets)
+    assert same_bits(payload, want_payload)
+
+
+@pytest.mark.cuda
+def test_cuda_gather_strings_empty_sides(cuda_device):
+    payload, offsets, idx, valid, w, cap = _gather_args(
+        gather_strings_case("mixed", 300, 8), 8, cuda_device)
+    before = SG.gather_strings.launches
+    # no output rows: no launch, the trivial layout
+    p, o = SG.gather_strings(payload, offsets, idx[:0], valid[:0], w, 128)
+    assert SG.gather_strings.launches == before
+    assert p.shape == (128,) and not bool(p.any()) and o.tolist() == [0]
+    # no source rows: every row empty, as the plain version gives
+    empty = (payload[:0], offsets[:1], idx, valid, w, cap)
+    p, o = SG.gather_strings(*empty)
+    assert SG.gather_strings.launches == before + 1
+    wp, wo = SG.gather_strings_plain(*empty)
+    assert same_bits(p, wp) and same_bits(o, wo) and not bool(o.any())
+
+
+@pytest.mark.cuda
+def test_cuda_gather_strings_refuses_what_it_cannot_take(cuda_device):
+    payload, offsets, idx, valid, w, cap = _gather_args(
+        gather_strings_case("mixed", 300, 8), 8, cuda_device)
+    before = SG.gather_strings.launches
+    with pytest.raises(ValueError, match="payload"):
+        SG.gather_strings(payload.to(torch.int16), offsets, idx, valid, w,
+                          cap)
+    with pytest.raises(ValueError, match="offsets"):
+        SG.gather_strings(payload, offsets.long(), idx, valid, w, cap)
+    with pytest.raises(ValueError, match="idx"):
+        SG.gather_strings(payload, offsets, idx.long(), valid, w, cap)
+    with pytest.raises(ValueError, match="valid"):
+        SG.gather_strings(payload, offsets, idx, valid[1:], w, cap)
+    with pytest.raises(ValueError, match="idx"):
+        SG.gather_strings(payload, offsets, idx[::2], valid[::2], w, cap)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        SG.gather_strings(payload, offsets.cpu(), idx, valid, w, cap)
+    with pytest.raises(ValueError, match="width"):
+        SG.gather_strings(payload, offsets, idx, valid, 0, cap)
+    with pytest.raises(ValueError, match="byte_cap"):
+        SG.gather_strings(payload, offsets, idx, valid, w, 300 * w - 1)
+    with pytest.raises(ValueError, match="payload byte"):
+        SG.gather_strings(payload[:0], offsets, idx, valid, w, cap)
+    assert SG.gather_strings.launches == before
 
 
 @pytest.mark.cuda
