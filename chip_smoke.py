@@ -24,7 +24,14 @@ Phases; each one passes or the script exits non-zero:
    varies, only the dead field varies, a date-shaped key, or the index
    bits are a permutation, up to 2^23 + 1 (the live radix passes printed
    from 2^20 lanes up); each call must count one launch; for
-   the ``strings`` gather W 8 and 128, all or no rows valid, indices out of
+   the ``strings`` gather's ragged entry (a flat column's own offsets and
+   payload, the path's) m 1, 255, 256, 257, one 1,024-row tile and either
+   side of it, 8,192, 100,003 and 262,144 by W 8 and 128: lengths 0, W
+   and past W, all or no rows valid, indices below 0 and past n, negative
+   and int32-wrapped lengths, one source row, every source empty, entries
+   at odd bytes, a payload ending at the last entry, no source rows (one
+   launch a call); for its matrix entry (the Pallas kernel's counterpart)
+   W 8 and 128, all or no rows valid, indices out of
    range on both sides, more and fewer rows out than in; for ``hash`` n 1,
    255, 256, 257 and 100,003 rows by W 4, 8, 128 and 1024, lengths 0-5
    and W, bytes >= 128, all-PAD rows and random per-row seeds, and for
@@ -45,9 +52,12 @@ Phases; each one passes or the script exits non-zero:
    independent numpy implementation written here, and the kernels of each
    query's path must have launched during it (counts set to 0 just
    before, read just after): ``joinProbe`` and ``segmented`` in Q3,
-   ``sortStep`` in Q4 and the sort, the ``strings`` gather in Q22,
+   ``sortStep`` in Q4 and the sort, the ``strings`` gather (its ragged
+   entry) in Q22,
    ``hash`` (its ragged entry) and ``segmented`` (the merge aggregate) in
-   ``q1_hash_str``. Then each exchange alone: every lineitem row must
+   ``q1_hash_str``. Q22's flat gathers, replayed through
+   ``gather_column``, must build no char matrix and launch the ragged
+   entry once a call. Then each exchange alone: every lineitem row must
    land in the partition this script's numpy murmur3 pmod n names; the
    partition step of ``q1_hash_str``'s exchange must build no char
    matrix. Then
@@ -69,8 +79,12 @@ Phases; each one passes or the script exits non-zero:
    ``joinProbe``'s table clear beside its bound, and Q3's direct-address
    joins whole and their slot preparation; the sort exec's permutation
    of SF1 lineitem by ``l_shipdate`` through ``sortStep`` against the
-   stable lexsort route; the rowwise compare at the ``group_ids``
-   shapes; the ragged ``hash`` calls of the queries (also against numpy
+   stable lexsort route; the ragged ``strings`` gather at Q22's and
+   ``group_ids cntrycode``'s calls beside the char-matrix route it
+   replaced, with the payload's tail clear beside the bound, and the
+   matrix entry at the largest of them; the rowwise compare at the
+   ``group_ids`` shapes; the ragged ``hash`` calls of the queries (also
+   against numpy
    murmur3), and the matrix entry with its char matrix at
    ``q1_hash_str``'s shape;
 5. one JSON line with every kernel, then the last line
@@ -385,7 +399,7 @@ def strings_edge_cases(torch, SG, rng, dev):
 GATHER_CASES = ("mixed", "all valid", "none valid", "indices out of range",
                 "negative lengths", "wrapped lengths", "one source row",
                 "empty rows", "runs to the last byte")
-GATHER_ROWS = (1, 255, 256, 257, 8191, 8192, 8193, 100_003, 262_144)
+GATHER_ROWS = (1, 255, 256, 257, 1023, 1024, 1025, 8192, 100_003, 262_144)
 
 
 def gather_case(rng, name: str, m: int, w: int):
@@ -426,7 +440,7 @@ def gather_case(rng, name: str, m: int, w: int):
 
 def gather_strings_edge_cases(torch, SG, bucket_byte_capacity, rng, dev):
     """The ragged gather against its plain version, bit for bit, on every
-    case by every row count (one tile of 8,192 and either side of it;
+    case by every row count (one tile of 1,024 and either side of it;
     several tiles, so the look-back runs) by W 8 and 128, and with no
     source rows; each call must count one launch."""
     def one(payload, offsets, idx, valid, w, what):
@@ -1535,19 +1549,6 @@ def time_gather_strings(torch, SG, gathers, n_launches, flush):
             st["err"] = max(st["err"], max_abs_err(torch, got[0], want[0]),
                             max_abs_err(torch, got[1], want[1]))
         ms = median_ms(torch, lambda: SG.gather_strings(*args), flush)
-        tiles = {}
-        for t in (1024, 2048, 8192, 8192, 2048, 1024):
-            v = SG.gather_strings(*args, tile_rows=t)
-            check(bits_equal(torch, got[1], v[1])
-                  and bits_equal(torch, got[0], v[0]),
-                  f"tile {t} differs at m={m}")
-            tiles.setdefault(t, []).append(median_ms(
-                torch, lambda: SG.gather_strings(*args, tile_rows=t), flush))
-        clear = median_ms(torch, lambda: torch.zeros(
-            byte_cap, dtype=torch.uint8, device=payload.device), flush)
-        print(f"  VARIANTS m={m} n={n}: "
-              + ", ".join(f"tile {t}: {v}" for t, v in tiles.items())
-              + f"; torch.zeros(byte_cap) alone {clear:.4f} ms")
         route_ms = median_ms(torch, lambda: matrix_route(*args), flush)
         pms = median_ms(torch, lambda: SG.gather_strings_plain(*args),
                         flush)

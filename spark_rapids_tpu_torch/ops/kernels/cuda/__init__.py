@@ -10,8 +10,10 @@ the card) and nothing else:
 * :mod:`.segmented` — ``segmented``, the sort-path group-by reductions;
 * :mod:`.sort_steps` — ``sortStep``, the argsort of a packed single-key
   lane;
-* :mod:`.strings` — ``strings``, the gather of flat-string char rows
-  and the rowwise compare of two char matrices (``group_ids``);
+* :mod:`.strings` — ``strings``, the gather of flat-string rows (from
+  the column's offsets and payload on the path; of char-matrix rows, the
+  Pallas kernel's counterpart) and the rowwise compare of two char
+  matrices (``group_ids``);
 * :mod:`.hashing` — ``hash``, Spark's murmur3 of string rows (the hash
   exchange's partition ids).
 

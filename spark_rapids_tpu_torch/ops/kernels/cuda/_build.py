@@ -91,6 +91,17 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def check_lane(t, what: str, dtypes: tuple, n=None) -> None:
+    """Raise unless ``t`` is a contiguous 1-D tensor of one of ``dtypes``
+    (of length ``n`` when given): what a kernel's lane argument must be."""
+    if t.dtype not in dtypes or t.dim() != 1 or not t.is_contiguous() \
+            or (n is not None and t.shape[0] != n):
+        want = f"[{n}]" if n is not None else "1-D"
+        names = "/".join(str(d) for d in dtypes)
+        raise ValueError(f"{what} must be a contiguous {want} {names} "
+                         f"tensor, got {t.dtype} {tuple(t.shape)}")
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if rc != 0:

@@ -22,20 +22,24 @@
 //
 // The design: one cudaMemsetAsync clears the output payload and a small
 // scratch after it (a tile ticket and one status word a tile), then one
-// launch. Rows go in tiles of 8,192 (1,024 threads, 8 rows each); a block
-// loads its tile's idx, valid and the two source offsets of each valid
-// row, clips the lengths, scans them in shared memory, gets the tile's
-// byte prefix by a decoupled look-back over the earlier tiles' status
-// words (tiles are taken in order from an atomic ticket, so a tile's
-// predecessors are running or done; the pattern of sort_steps.cu's
+// launch. Rows go in tiles of 1,024 (128 threads, 8 rows each); a block
+// loads its tile's idx and valid, then the two source offsets of each
+// valid row (each thread issues all its loads of a kind before it uses
+// one), clips the lengths, scans them in shared memory, gets the tile's
+// byte prefix by a decoupled look-back (one warp reads 32 earlier tiles'
+// status words at a time; tiles are taken in order from an atomic ticket,
+// so a tile's predecessors are running or done, as in sort_steps.cu's
 // scatter), writes its offsets, and copies its bytes: the tile's output
 // is one contiguous byte range, over which threads take 16-byte output
 // pieces, find each piece's first row by a binary search over the tile's
-// offsets in shared memory, and store whole pieces with one 16-byte store
-// (pieces shared with a neighbouring tile byte by byte). Sources start at
-// any byte, so source bytes are read one at a time. A call of one tile
-// runs as one block with no ticket and no look-back. Blocks are
-// persistent (at most the resident count) and loop over tiles.
+// offsets in shared memory, compute all 16 source positions, load them,
+// and store whole pieces with one 16-byte store (pieces shared with a
+// neighbouring tile byte by byte). Sources start at any byte, so source
+// bytes are read one at a time. A call of one tile runs as one block with
+// no ticket and no look-back. Blocks are persistent (at most the resident
+// count) and loop over tiles. On the H100, tiles of 8,192 rows (1,024
+// threads, one block for Q22's 8,192-row calls) and of 2,048 measured
+// slower or no faster at every call of the queries.
 //
 // Bound on the card: memory. idx, valid and the two source offsets of a
 // row (4 + 1 + 8 bytes), the output offsets (4 (m + 1)), and the B
@@ -125,23 +129,25 @@ __global__ void gather_rows(const int4* __restrict__ mat, int64_t n,
 
 // ---- the ragged gather ----------------------------------------------------
 
+constexpr int kGatherThreads = 128;
 constexpr int kGatherItems = 8;  // rows a thread
-constexpr int kMaxGatherTile = 8192;
-// Tile byte sums stay below 2^31: kMaxGatherTile * W <= 2^30.
-constexpr int64_t kMaxGatherWidth = int64_t{1} << 17;
+constexpr int kGatherTile = kGatherThreads * kGatherItems;  // 1,024 rows
+constexpr int kGatherWarps = kGatherThreads / 32;
+// Tile byte sums stay below 2^31: kGatherTile * W <= 2^30.
+constexpr int64_t kMaxGatherWidth = int64_t{1} << 20;
 constexpr unsigned long long kValueMask = (1ull << 62) - 1;
 constexpr unsigned long long kAggregate = 1ull << 62;  // the tile's own sum
 constexpr unsigned long long kInclusive = 2ull << 62;  // sum up to the tile
 constexpr unsigned kFull = 0xffffffffu;
 
-int64_t gather_tiles(int64_t m, int64_t tile_rows) {
-  return (m + tile_rows - 1) / tile_rows;
+int64_t gather_tiles(int64_t m) {
+  return (m + kGatherTile - 1) / kGatherTile;
 }
 
 // Scratch after the payload: an 8-byte ticket word, then one status word a
 // tile; none for a call of one tile.
-int64_t gather_scratch_bytes(int64_t m, int64_t tile_rows) {
-  const int64_t tiles = gather_tiles(m, tile_rows);
+int64_t gather_scratch_bytes(int64_t m) {
+  const int64_t tiles = gather_tiles(m);
   return tiles > 1 ? 8 + 8 * tiles : 0;
 }
 
@@ -150,9 +156,8 @@ __device__ __forceinline__ unsigned long long load_status(
   return *reinterpret_cast<const volatile unsigned long long*>(p);
 }
 
-// Exclusive sum over the block of kThreads (all must call it); *total gets
-// the block's sum.
-template <int kThreads>
+// Exclusive sum over the block (all threads must call it); *total gets the
+// block's sum.
 __device__ __forceinline__ int32_t gather_block_scan(int32_t v,
                                                      int32_t* warp_tot,
                                                      int32_t* total) {
@@ -165,25 +170,22 @@ __device__ __forceinline__ int32_t gather_block_scan(int32_t v,
   }
   if (lane == 31) warp_tot[warp] = x;
   __syncthreads();
-  constexpr int kWarps = kThreads / 32;
   if (warp == 0) {
-    int32_t t = lane < kWarps ? warp_tot[lane] : 0;
+    int32_t t = lane < kGatherWarps ? warp_tot[lane] : 0;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
       const int32_t y = __shfl_up_sync(kFull, t, off);
       if (lane >= off) t += y;
     }
-    if (lane < kWarps) warp_tot[lane] = t;  // inclusive over the warps
+    if (lane < kGatherWarps) warp_tot[lane] = t;  // inclusive over warps
   }
   __syncthreads();
-  *total = warp_tot[kWarps - 1];
+  *total = warp_tot[kGatherWarps - 1];
   return (warp > 0 ? warp_tot[warp - 1] : 0) + x - v;
 }
 
-// Tiles of kThreads * kGatherItems rows. ticket == nullptr: one tile, one
-// block, no look-back.
-template <int kThreads>
-__global__ void __launch_bounds__(kThreads)
+// ticket == nullptr: one tile, one block, no look-back.
+__global__ void __launch_bounds__(kGatherThreads)
     gather_strings(const uint8_t* __restrict__ payload, int64_t payload_len,
                    const int32_t* __restrict__ offsets, int64_t n,
                    const int32_t* __restrict__ idx,
@@ -191,12 +193,9 @@ __global__ void __launch_bounds__(kThreads)
                    int64_t width, int64_t tiles, uint8_t* __restrict__ out,
                    int32_t* __restrict__ out_offsets, unsigned* ticket,
                    unsigned long long* status) {
-  constexpr int kGatherTile = kThreads * kGatherItems;
-  constexpr int kGatherThreads = kThreads;
-  extern __shared__ int32_t smem[];
-  int32_t* incl = smem;                // local inclusive byte ends
-  int32_t* start = smem + kGatherTile;  // source starts
-  __shared__ int32_t warp_tot[kThreads / 32];
+  __shared__ int32_t incl[kGatherTile];   // local inclusive byte ends
+  __shared__ int32_t start[kGatherTile];  // source starts
+  __shared__ int32_t warp_tot[kGatherWarps];
   __shared__ int64_t tile_sh;
   __shared__ int64_t prefix_sh;
   const int tid = threadIdx.x;
@@ -245,7 +244,7 @@ __global__ void __launch_bounds__(kThreads)
       run += v[j];
     }
     int32_t total;
-    int32_t acc = gather_block_scan<kThreads>(run, warp_tot, &total);
+    int32_t acc = gather_block_scan(run, warp_tot, &total);
 #pragma unroll
     for (int j = 0; j < kGatherItems; ++j) {
       acc += v[j];
@@ -417,44 +416,62 @@ int launch_row_equal(const void* a, const void* b, int64_t n, int64_t width,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches the ragged gather of tiles of kThreads * kGatherItems rows:
-// the clear of buf, then one kernel.
-template <int kThreads>
-int launch_gather_strings(const uint8_t* payload, int64_t payload_len,
-                          const int32_t* offsets, int64_t n,
-                          const int32_t* idx, const uint8_t* valid, int64_t m,
-                          int64_t width, uint8_t* out, int64_t byte_cap,
-                          int32_t* out_offsets, cudaStream_t s) {
-  constexpr int64_t kTile = int64_t{kThreads} * kGatherItems;
-  // two int32 arrays a tile row: the inclusive byte ends, the source starts
-  constexpr int kSmem = static_cast<int>(2 * kTile * 4);
+// Blocks of the gather that fit on the current device at once.
+int gather_resident_blocks(int* resident) {
   static int configured_device = -1;
-  static int resident = 0;
+  static int blocks = 0;
   int device = 0;
   cudaError_t rc = cudaGetDevice(&device);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   if (device != configured_device) {
-    rc = cudaFuncSetAttribute(gather_strings<kThreads>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              kSmem);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
     int per_sm = 0, sms = 0;
     rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, gather_strings<kThreads>, kThreads, kSmem);
+        &per_sm, gather_strings, kGatherThreads, 0);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    resident = per_sm * sms;
+    blocks = per_sm * sms;
     configured_device = device;
   }
-  const int64_t tiles = gather_tiles(m, kTile);
+  *resident = blocks;
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Scratch bytes srt_gather_strings needs after the payload for m output
+// rows (0 for one tile).
+int64_t srt_gather_strings_scratch_bytes(int64_t m) {
+  return gather_scratch_bytes(m);
+}
+
+// The ragged gather on `stream`; returns the first CUDA error. buf holds
+// byte_cap payload bytes, then (at byte_cap rounded up to 16) the scratch;
+// it is cleared whole, then one kernel writes the payload and out_offsets
+// [m + 1]. offsets holds n + 1 values; payload_len >= 1 when n >= 1;
+// m >= 1; 1 <= width <= 2^20; byte_cap >= m * width; buf 16-byte aligned.
+int srt_gather_strings(const void* payload, int64_t payload_len,
+                       const int32_t* offsets, int64_t n, const int32_t* idx,
+                       const uint8_t* valid, int64_t m, int64_t width,
+                       void* buf, int64_t byte_cap, int32_t* out_offsets,
+                       void* stream) {
+  if (m < 1 || n < 0 || (n > 0 && payload_len < 1) || width < 1 ||
+      width > kMaxGatherWidth || byte_cap < m * width ||
+      reinterpret_cast<uintptr_t>(buf) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int resident = 0;
+  int rc = gather_resident_blocks(&resident);
+  if (rc != 0) return rc;
+  const int64_t tiles = gather_tiles(m);
   const int64_t scratch_at = (byte_cap + 15) / 16 * 16;
-  rc = cudaMemsetAsync(out, 0,
-                       static_cast<size_t>(scratch_at +
-                                           gather_scratch_bytes(m, kTile)),
-                       s);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
+  uint8_t* out = static_cast<uint8_t*>(buf);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(
+      out, 0, static_cast<size_t>(scratch_at + gather_scratch_bytes(m)), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   unsigned* ticket = nullptr;
   unsigned long long* status = nullptr;
   int64_t blocks = 1;
@@ -463,60 +480,10 @@ int launch_gather_strings(const uint8_t* payload, int64_t payload_len,
     status = reinterpret_cast<unsigned long long*>(out + scratch_at + 8);
     blocks = tiles < resident ? tiles : resident;
   }
-  gather_strings<kThreads><<<static_cast<unsigned>(blocks), kThreads, kSmem,
-                             s>>>(payload, payload_len, offsets, n, idx,
-                                  valid, m, width, tiles, out, out_offsets,
-                                  ticket, status);
+  gather_strings<<<static_cast<unsigned>(blocks), kGatherThreads, 0, s>>>(
+      static_cast<const uint8_t*>(payload), payload_len, offsets, n, idx,
+      valid, m, width, tiles, out, out_offsets, ticket, status);
   return static_cast<int>(cudaGetLastError());
-}
-
-bool gather_tile_known(int64_t tile_rows) {
-  return tile_rows == 1024 || tile_rows == 2048 || tile_rows == 8192;
-}
-
-}  // namespace
-
-extern "C" {
-
-// Scratch bytes srt_gather_strings needs after the payload for m output
-// rows in tiles of tile_rows (0 for one tile).
-int64_t srt_gather_strings_scratch_bytes(int64_t m, int64_t tile_rows) {
-  return gather_scratch_bytes(m, tile_rows);
-}
-
-// The ragged gather on `stream`; returns the first CUDA error. buf holds
-// byte_cap payload bytes, then (at byte_cap rounded up to 16) the scratch;
-// it is cleared whole, then one kernel writes the payload and out_offsets
-// [m + 1]. offsets holds n + 1 values; payload_len >= 1 when n >= 1;
-// m >= 1; 1 <= width <= 2^17; byte_cap >= m * width; buf 16-byte aligned;
-// tile_rows 1,024, 2,048 or 8,192.
-int srt_gather_strings(const void* payload, int64_t payload_len,
-                       const int32_t* offsets, int64_t n, const int32_t* idx,
-                       const uint8_t* valid, int64_t m, int64_t width,
-                       void* buf, int64_t byte_cap, int32_t* out_offsets,
-                       int64_t tile_rows, void* stream) {
-  if (m < 1 || n < 0 || (n > 0 && payload_len < 1) || width < 1 ||
-      width > kMaxGatherWidth || byte_cap < m * width ||
-      reinterpret_cast<uintptr_t>(buf) % 16 != 0 ||
-      !gather_tile_known(tile_rows))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const uint8_t* p = static_cast<const uint8_t*>(payload);
-  uint8_t* out = static_cast<uint8_t*>(buf);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tile_rows) {
-    case 1024:
-      return launch_gather_strings<128>(p, payload_len, offsets, n, idx,
-                                        valid, m, width, out, byte_cap,
-                                        out_offsets, s);
-    case 2048:
-      return launch_gather_strings<256>(p, payload_len, offsets, n, idx,
-                                        valid, m, width, out, byte_cap,
-                                        out_offsets, s);
-    default:
-      return launch_gather_strings<1024>(p, payload_len, offsets, n, idx,
-                                         valid, m, width, out, byte_cap,
-                                         out_offsets, s);
-  }
 }
 
 // Launches the gather on `stream`; returns cudaGetLastError(). width is

@@ -43,15 +43,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_lane(t: torch.Tensor, what: str, dtype: torch.dtype,
-                n: Optional[int] = None) -> None:
-    if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous() \
-            or (n is not None and t.shape[0] != n):
-        want = f"[{n}]" if n is not None else "1-D"
-        raise ValueError(f"{what} must be a contiguous {want} {dtype} "
-                         f"tensor, got {t.dtype} {tuple(t.shape)}")
-
-
 def murmur3_bytes_rows(mat: torch.Tensor, lengths: torch.Tensor,
                        seed: torch.Tensor) -> torch.Tensor:
     """Spark murmur3 of each row of an int16 ``[n, W]`` char matrix (PAD
@@ -73,8 +64,8 @@ def murmur3_bytes_rows(mat: torch.Tensor, lengths: torch.Tensor,
     if w % 4 != 0 or w == 0:
         raise ValueError(f"char-matrix width {w} is not a positive multiple "
                          "of 4")
-    _check_lane(lengths, "lengths", torch.int32, n)
-    _check_lane(seed, "seed", torch.int32, n)
+    _build.check_lane(lengths, "lengths", (torch.int32,), n)
+    _build.check_lane(seed, "seed", (torch.int32,), n)
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out
@@ -110,13 +101,13 @@ def murmur3_string_rows(payload: torch.Tensor, offsets: torch.Tensor,
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("murmur3 string hash runs on CUDA or CPU tensors, "
                          "got " + ", ".join(str(t.device) for t in tensors))
-    _check_lane(payload, "payload", torch.uint8)
-    _check_lane(offsets, "offsets", torch.int32)
+    _build.check_lane(payload, "payload", (torch.uint8,))
+    _build.check_lane(offsets, "offsets", (torch.int32,))
     entries = offsets.shape[0] - 1
     if codes is not None:
-        _check_lane(codes, "codes", torch.int32)
+        _build.check_lane(codes, "codes", (torch.int32,))
     n = entries if codes is None else codes.shape[0]
-    _check_lane(seed, "seed", torch.int32, n)
+    _build.check_lane(seed, "seed", (torch.int32,), n)
     if width < 1:
         raise ValueError(f"width must be positive, got {width}")
     out = torch.empty(n, dtype=torch.int32, device=dev)

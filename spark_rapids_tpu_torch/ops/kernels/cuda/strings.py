@@ -36,7 +36,7 @@ from ...strings_util import PAD, _matrix_from_offsets
 from . import _build
 
 #: Widest column the ragged gather takes (a tile's byte sums stay in int32).
-MAX_GATHER_WIDTH = 1 << 17
+MAX_GATHER_WIDTH = 1 << 20
 
 
 def ragged_gather_plain(mat: torch.Tensor, idx: torch.Tensor,
@@ -96,9 +96,9 @@ def _lib() -> ctypes.CDLL:
         lib.srt_ragged_gather.restype = ctypes.c_int
     if lib.srt_gather_strings.argtypes is None:
         lib.srt_gather_strings.argtypes = [p, i64, p, i64, p, p, i64, i64,
-                                           p, i64, p, i64, p]
+                                           p, i64, p, p]
         lib.srt_gather_strings.restype = ctypes.c_int
-        lib.srt_gather_strings_scratch_bytes.argtypes = [i64, i64]
+        lib.srt_gather_strings_scratch_bytes.argtypes = [i64]
         lib.srt_gather_strings_scratch_bytes.restype = i64
     if lib.srt_row_equal.argtypes is None:
         lib.srt_row_equal.argtypes = [p, p, i64, i64, ctypes.c_int, p, p]
@@ -106,19 +106,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_lane(t: torch.Tensor, what: str, dtypes, n=None) -> None:
-    if t.dtype not in dtypes or t.dim() != 1 or not t.is_contiguous() \
-            or (n is not None and t.shape[0] != n):
-        want = f"[{n}]" if n is not None else "1-D"
-        names = "/".join(str(d) for d in dtypes)
-        raise ValueError(f"{what} must be a contiguous {want} {names} "
-                         f"tensor, got {t.dtype} {tuple(t.shape)}")
-
-
 def gather_strings(payload: torch.Tensor, offsets: torch.Tensor,
                    idx: torch.Tensor, valid: torch.Tensor, width: int,
-                   byte_cap: int, tile_rows: int = 8192
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   byte_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather the rows of a flat string column, given by its uint8
     ``payload`` and int32 ``offsets`` ``[n + 1]``, at int32 ``idx``
     ``[m]`` (clamped into the column), as ``(payload uint8 [byte_cap],
@@ -136,11 +126,11 @@ def gather_strings(payload: torch.Tensor, offsets: torch.Tensor,
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("strings gather runs on CUDA or CPU tensors, got "
                          + ", ".join(str(t.device) for t in tensors))
-    _check_lane(payload, "payload", (torch.uint8,))
-    _check_lane(offsets, "offsets", (torch.int32,))
-    _check_lane(idx, "idx", (torch.int32,))
+    _build.check_lane(payload, "payload", (torch.uint8,))
+    _build.check_lane(offsets, "offsets", (torch.int32,))
+    _build.check_lane(idx, "idx", (torch.int32,))
     m = idx.shape[0]
-    _check_lane(valid, "valid", (torch.bool, torch.int8), m)
+    _build.check_lane(valid, "valid", (torch.bool, torch.int8), m)
     n = offsets.shape[0] - 1
     if n < 0:
         raise ValueError("offsets needs at least one value")
@@ -157,15 +147,15 @@ def gather_strings(payload: torch.Tensor, offsets: torch.Tensor,
                 torch.zeros(1, dtype=torch.int32, device=dev))
     lib = _lib()
     scratch_at = -(-byte_cap // 16) * 16
-    buf = torch.empty(scratch_at + lib.srt_gather_strings_scratch_bytes(
-        m, tile_rows), dtype=torch.uint8, device=dev)
+    buf = torch.empty(scratch_at + lib.srt_gather_strings_scratch_bytes(m),
+                      dtype=torch.uint8, device=dev)
     out_offsets = torch.empty(m + 1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.srt_gather_strings(
             payload.data_ptr(), payload.shape[0], offsets.data_ptr(), n,
             idx.data_ptr(), valid.data_ptr(), m, width, buf.data_ptr(),
-            byte_cap, out_offsets.data_ptr(), tile_rows, stream)
+            byte_cap, out_offsets.data_ptr(), stream)
     _build.check(lib, rc, "strings gather launch")
     _GATHER_COUNTED.launches += 1
     return buf[:byte_cap], out_offsets

@@ -436,7 +436,8 @@ def test_cuda_strings_gather_empty_sides(cuda_device):
     assert SG.ragged_gather.launches == before
 
 
-GATHER_CARD_ROWS = [1, 255, 256, 257, 8191, 8192, 8193, 100_003, 262_144]
+GATHER_CARD_ROWS = [1, 255, 256, 257, 1023, 1024, 1025, 8192, 100_003,
+                    262_144]
 
 
 def _gather_args(case, w, device):

@@ -61,7 +61,7 @@ def port_results():
     """Each query's result on the CPU, with the calls of the two new
     kernels' wrappers counted."""
     calls = {"sortStep": 0, "strings": 0}
-    ss, sg = SS.packed_argsort, SG.ragged_gather
+    ss, sg = SS.packed_argsort, SG.gather_strings
 
     def count_ss(*a):
         calls["sortStep"] += 1
@@ -74,7 +74,7 @@ def port_results():
     session = TorchSession(device="cpu")
     dfs = tpch.load(session, tpch.gen_tables(ROWS))
     results = {}
-    SS.packed_argsort, SG.ragged_gather = count_ss, count_sg
+    SS.packed_argsort, SG.gather_strings = count_ss, count_sg
     try:
         for q in QUERIES:
             before = dict(calls)
@@ -82,7 +82,7 @@ def port_results():
             results[q] = (out, {k: calls[k] - before[k] for k in calls},
                           session.last_query)
     finally:
-        SS.packed_argsort, SG.ragged_gather = ss, sg
+        SS.packed_argsort, SG.gather_strings = ss, sg
     return results
 
 
@@ -135,7 +135,7 @@ def test_q4_sorts_through_sort_step_and_q22_gathers_strings(port_results):
     for q in ("q1", "q6"):
         assert port_results[q][1] == {"sortStep": 0, "strings": 0}
     assert SS.packed_argsort.launches == 0 or torch.cuda.is_available()
-    assert SG.ragged_gather.launches == 0 or torch.cuda.is_available()
+    assert SG.gather_strings.launches == 0 or torch.cuda.is_available()
 
 
 def test_plans_take_the_dictionary_and_global_aggregates(port_results):
