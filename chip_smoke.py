@@ -29,16 +29,17 @@ Phases; each one passes or the script exits non-zero:
    side of it, 8,192, 100,003 and 262,144 by W 8 and 128: lengths 0, W
    and past W, all or no rows valid, indices below 0 and past n, negative
    and int32-wrapped lengths, one source row, every source empty, entries
-   at odd bytes, a payload ending at the last entry, no source rows (one
-   launch a call); for its matrix entry (the Pallas kernel's counterpart)
-   W 8 and 128, all or no rows valid, indices out of
-   range on both sides, more and fewer rows out than in; for ``hash`` n 1,
-   255, 256, 257 and 100,003 rows by W 4, 8, 128 and 1024, lengths 0-5
-   and W, bytes >= 128, all-PAD rows and random per-row seeds, and for
-   its ragged entry (a column's own layout) dictionary and flat columns,
-   codes out of range, lengths 0-5, W and past W, negative lengths,
-   unaligned entry starts, n 1, 255, 256, 257 and 100,003, and whole
-   columns with null rows through ``spark_hash_columns_device``; for the
+   at odd bytes, a payload ending at the last entry, no source rows, and
+   W 2^21 over 5 rows (one launch a call); for its matrix entry (the
+   Pallas kernel's counterpart) W 8 and 128, all or no rows valid,
+   indices out of range on both sides, more and fewer rows out than in;
+   for ``hash`` n 1, 255, 256, 257 and 100,003 rows by W 4, 8, 128 and
+   1024, lengths 0-5 and W, bytes >= 128, all-PAD rows and random
+   per-row seeds, and for its ragged entry (a column's own layout)
+   dictionary and flat columns, codes out of range, lengths 0-5, W and
+   past W, negative lengths, unaligned entry starts, n 1, 255, 256, 257
+   and 100,003, and whole columns with null rows through
+   ``spark_hash_columns_device``; for the
    rowwise compare (``stringsEqual``) n 1, 7, 8,191 and 100,003 by W 8,
    12, 128 and 1,024, rows that differ only in their last char or only
    at a PAD position, all-PAD rows, chars above 127, and the row views
@@ -396,54 +397,20 @@ def strings_edge_cases(torch, SG, rng, dev):
         print(f"  strings gather W={w}: every case equal")
 
 
-GATHER_CASES = ("mixed", "all valid", "none valid", "indices out of range",
-                "negative lengths", "wrapped lengths", "one source row",
-                "empty rows", "runs to the last byte")
-GATHER_ROWS = (1, 255, 256, 257, 1023, 1024, 1025, 8192, 100_003, 262_144)
-
-
-def gather_case(rng, name: str, m: int, w: int):
-    """(payload, offsets [n + 1], idx [m], valid [m]) of one ragged gather
-    case: source lengths 0-5, W, past W and random, entries starting at
-    odd bytes, rows about 80 % valid; the variants as in the names (wrapped
-    lengths: int32 offsets INT32_MAX - 1 then INT32_MIN, 0 bytes, and
-    INT32_MIN to a real end, W bytes clamped to payload byte 0)."""
-    n = 1 if name == "one source row" else max(m // 2, 1) + 3
-    lens = rng.integers(0, w + 1, n)
-    pick = rng.random(n)
-    lens[pick < 0.3] = rng.integers(0, 6, int((pick < 0.3).sum()))
-    lens[(pick >= 0.3) & (pick < 0.4)] = w
-    past = (pick >= 0.4) & (pick < 0.5)
-    lens[past] = w + rng.integers(1, 10, int(past.sum()))
-    if name == "empty rows":
-        lens[:] = 0
-    offsets = 3 + np.concatenate([[0], np.cumsum(lens)])
-    if name == "negative lengths":
-        back = np.flatnonzero(rng.random(n) < 0.2) + 1
-        offsets[back] = np.maximum(offsets[back - 1] - rng.integers(
-            1, 4, len(back)), 0)
-    slack = 0 if name == "runs to the last byte" else 5
-    payload = rng.integers(0, 256, int(offsets.max()) + slack
-                           ).astype(np.uint8)
-    if name == "wrapped lengths":
-        k = np.arange(1, n - 1, 7)
-        offsets[k], offsets[k + 1] = 2 ** 31 - 2, -2 ** 31
-    idx = rng.integers(0, n, m)
-    if name == "indices out of range":
-        idx = rng.integers(-50, n + 50, m)
-        idx[:2] = np.array([-1, n])[:m]
-    valid = rng.random(m) < 0.8
-    valid[:] = True if name == "all valid" else valid
-    valid[:] = False if name == "none valid" else valid
-    return payload, offsets.astype(np.int32), idx.astype(np.int32), valid
-
-
-def gather_strings_edge_cases(torch, SG, bucket_byte_capacity, rng, dev):
+def gather_strings_edge_cases(torch, SG, bucket_byte_capacity, seed, dev):
     """The ragged gather against its plain version, bit for bit, on every
-    case by every row count (one tile of 1,024 and either side of it;
-    several tiles, so the look-back runs) by W 8 and 128, and with no
-    source rows; each call must count one launch."""
-    def one(payload, offsets, idx, valid, w, what):
+    case of the package's ``strings_cases`` by every row count (one tile
+    of 1,024 and either side of it; several tiles, so the look-back runs)
+    by W 8 and 128, with no source rows, and at W 2^21 over 5 rows (the
+    tile sums in int64); each call must count one launch."""
+    from spark_rapids_tpu_torch.ops.kernels.cuda import strings_cases as SC
+
+    def one(name, m, w, what, empty_source=False):
+        payload, offsets, idx, valid = (
+            torch.as_tensor(a, device=dev)
+            for a in SC.gather_strings_case(name, m, w, seed))
+        if empty_source:
+            payload, offsets = payload[:0], offsets[:1]
         args = (payload, offsets, idx, valid, w,
                 bucket_byte_capacity(idx.shape[0] * w))
         before = SG.gather_strings.launches
@@ -456,16 +423,20 @@ def gather_strings_edge_cases(torch, SG, bucket_byte_capacity, rng, dev):
               f"ragged gather {what}: offsets differ from the plain version")
         check(bits_equal(torch, got[0], want[0]),
               f"ragged gather {what}: payload differs from the plain version")
-    for w in (8, 128):
-        for name in GATHER_CASES:
-            for m in GATHER_ROWS:
-                p, o, i, v = (torch.as_tensor(a, device=dev)
-                              for a in gather_case(rng, name, m, w))
-                one(p, o, i, v, w, f"'{name}' m={m} W={w}")
-        one(p[:0], o[:1], i, v, w, f"no source rows W={w}")
-        print(f"  ragged strings gather W={w}: {len(GATHER_CASES)} cases x "
-              f"m {list(GATHER_ROWS)} and no source rows equal to the plain "
-              "version")
+    for w in SC.GATHER_WIDTHS:
+        for name in SC.GATHER_CASES:
+            for m in SC.GATHER_CARD_ROWS:
+                one(name, m, w, f"'{name}' m={m} W={w}")
+        one("mixed", 257, w, f"no source rows W={w}", empty_source=True)
+        print(f"  ragged strings gather W={w}: {len(SC.GATHER_CASES)} cases "
+              f"x m {SC.GATHER_CARD_ROWS} and no source rows equal to the "
+              "plain version")
+    wide = 1 << 21
+    for name in ("mixed", "negative lengths", "wrapped lengths"):
+        one(name, 5, wide, f"'{name}' m=5 W={wide}")
+    print(f"  ragged strings gather W={wide}: 3 cases x m 5 equal to the "
+          "plain version")
+
 
 def row_equal_pair(rng, n: int, w: int):
     """(a, b) int16 [n, W] char matrices of one rowwise-compare case:
@@ -1235,26 +1206,36 @@ def run_query(torch, session, wrappers, name, build, check_fn, need,
 
 
 def group_by_string_key(torch, KG, T, HostBatch, wrappers, name, col,
-                        n_rows, values) -> dict:
+                        n_rows, values):
     """``group_ids``, then ``segment_reduce`` (count) and
-    ``gather_group_keys`` over one string key column, its launch counts
-    set to 0 just before and read just after. The groups, each key and
-    its row count must equal numpy's ``np.unique(values,
-    return_counts=True)``; the rowwise-compare kernel must launch."""
+    ``gather_group_keys`` over one string key column, timed, its launch
+    counts set to 0 just before and read just after. The groups, each key
+    and its row count must equal numpy's ``np.unique(values,
+    return_counts=True)``; the rowwise-compare kernel must launch. A
+    second, untimed run records the ``strings`` gather's calls. Returns
+    (a summary dict, those calls)."""
     from spark_rapids_tpu_torch.data.batch import ColumnarBatch
     cap, dev = col.capacity, col.device
+
+    def run():
+        seg, n_groups, firsts = KG.group_ids([col], n_rows)
+        live = torch.arange(cap, device=dev) < n_rows
+        counts, _ = KG.segment_reduce(
+            torch.ones(cap, dtype=torch.int64, device=dev), col.validity,
+            seg, cap, "count", live)
+        [keys] = KG.gather_group_keys([col], firsts, n_groups)
+        return n_groups, counts, keys
+
     wrappers.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    seg, n_groups, firsts = KG.group_ids([col], n_rows)
-    live = torch.arange(cap, device=dev) < n_rows
-    counts, _ = KG.segment_reduce(
-        torch.ones(cap, dtype=torch.int64, device=dev), col.validity, seg,
-        cap, "count", live)
-    [keys] = KG.gather_group_keys([col], firsts, n_groups)
+    n_groups, counts, keys = run()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     launches = wrappers.counts()
+    # the kernels' calls, recorded in a second run outside the timed one
+    with Capture(*wrappers.mods["strings"]) as captured:
+        run()
     check(launches["stringsEqual"] > 0,
           f"stringsEqual was not launched by group_ids over {name}")
     ng = int(n_groups)
@@ -1274,7 +1255,7 @@ def group_by_string_key(torch, KG, T, HostBatch, wrappers, name, col,
           f"numpy's np.unique, {ms:.1f} ms with segment_reduce and "
           f"gather_group_keys; kernel launches {launches}")
     return {"name": name, "capacity": cap, "width": col.max_bytes,
-            "groups": ng, "ms": ms, "launches": launches}
+            "groups": ng, "ms": ms, "launches": launches}, captured.calls
 
 
 def check_distributed(torch, D, mesh, dfs, tables) -> dict:
@@ -1520,6 +1501,24 @@ def time_ragged_hash(torch, HK, hash_call_args, n_launches, flush):
             "bound_by": "bytes", "library_ms": None}, hash_calls
 
 
+def gather_bound_bytes(torch, payload, offsets, idx, valid, width,
+                       bytes_out):
+    """(bytes, distinct source rows) the ragged gather must move at one
+    call: idx and valid of every row; for each distinct source row a
+    valid row takes, its offsets entries (neighbours share one) and its
+    clipped bytes, read once; the output offsets and the gathered bytes,
+    written once. Rows that are not valid read no source; the payload
+    past the gathered bytes is the clear beside the bound."""
+    n, m = offsets.numel() - 1, idx.numel()
+    nbytes = 5 * m + 4 * (m + 1) + bytes_out
+    if n == 0:
+        return nbytes, 0
+    src = torch.unique(idx.long().clamp(0, n - 1)[valid.bool()])
+    entries = torch.unique(torch.cat([src, src + 1])).numel()
+    lens = (offsets[src + 1].long() - offsets[src].long()).clamp(0, width)
+    return nbytes + 4 * entries + int(lens.sum()), src.numel()
+
+
 def time_gather_strings(torch, SG, gathers, n_launches, flush):
     """The ragged ``strings`` gather at each captured call: offsets and
     payload equal to the plain version and to the char-matrix route it
@@ -1553,20 +1552,20 @@ def time_gather_strings(torch, SG, gathers, n_launches, flush):
         pms = median_ms(torch, lambda: SG.gather_strings_plain(*args),
                         flush)
         nbytes_out = int(got[1][-1])
-        # idx, valid and the two source offsets of a row, the output
-        # offsets, and the gathered bytes read and written; the payload
-        # past them is the clear beside the bound
-        nbytes = 13 * m + 4 * (m + 1) + 2 * nbytes_out
+        nbytes, src_rows = gather_bound_bytes(torch, *args[:5], nbytes_out)
         tail = byte_cap - nbytes_out
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         tail_ms = tail / HBM_BYTES_PER_S * 1e3
         print(f"  ragged strings gather n={n} m={m} W={width} "
-              f"({nbytes_out} bytes gathered, byte_cap {byte_cap}): kernel "
+              f"({int(valid.sum())} valid rows, {src_rows} source rows, "
+              f"{nbytes_out} bytes gathered, byte_cap {byte_cap}): kernel "
               f"{ms:.4f} ms, char-matrix route {route_ms:.4f} ms, plain "
-              f"{pms:.4f} ms, no one PyTorch call, bound {bound:.4f} ms, "
+              f"{pms:.4f} ms, no one PyTorch call, bound {bound:.6f} ms, "
               f"tail clear {tail} B {tail_ms:.4f} ms, bound + clear "
               f"{bound + tail_ms:.4f} ms ({ms / (bound + tail_ms):.2f}x)")
         per_call.append({"n": n, "m": m, "width": width,
+                         "valid_rows": int(valid.sum()),
+                         "source_rows": src_rows,
                          "bytes_out": nbytes_out, "byte_cap": byte_cap,
                          "ms": ms, "route_ms": route_ms, "plain_ms": pms,
                          "bound_ms": bound, "tail_ms": tail_ms})
@@ -1578,7 +1577,7 @@ def time_gather_strings(torch, SG, gathers, n_launches, flush):
     print(f"  ragged strings gather summed over {len(gathers)} calls: "
           f"{st['ms']:.4f} ms, char-matrix route {st['route_ms']:.4f} ms, "
           f"plain {st['plain_ms']:.4f} ms, bound "
-          f"{st['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms + tail clear "
+          f"{st['bytes'] / HBM_BYTES_PER_S * 1e3:.6f} ms + tail clear "
           f"{st['tail'] / HBM_BYTES_PER_S * 1e3:.4f} ms")
     return {"name": "strings", "route": "cuda",
             "source": "spark_rapids_tpu_torch/ops/kernels/cuda/csrc/"
@@ -1740,7 +1739,8 @@ def main() -> int:
     segmented_edge_cases(torch, SEG, rng, dev)
     sortstep_edge_cases(torch, SS, rng, dev)
     strings_edge_cases(torch, SG, rng, dev)
-    gather_strings_edge_cases(torch, SG, bucket_byte_capacity, rng, dev)
+    gather_strings_edge_cases(torch, SG, bucket_byte_capacity, args.seed,
+                              dev)
     hash_edge_cases(torch, HK, rng, dev)
     ragged_hash_edge_cases(torch, HK, T, DeviceColumn, PN, rng, dev)
     row_equal_edge_cases(torch, SG, rng, dev)
@@ -1829,11 +1829,10 @@ def main() -> int:
                                 code_values)}
     group_ids_runs = []
     for name, (key_col, n_rows, values) in equal_keys.items():
-        with Capture(*wrappers.mods["strings"]) as cap:
-            group_ids_runs.append(group_by_string_key(
-                torch, KG, T, HostBatch, wrappers, name, key_col, n_rows,
-                values))
-        calls["strings"] += cap.calls
+        run, gathers = group_by_string_key(
+            torch, KG, T, HostBatch, wrappers, name, key_col, n_rows, values)
+        group_ids_runs.append(run)
+        calls["strings"] += gathers
         for k, v in group_ids_runs[-1]["launches"].items():
             launches[k] += v
 

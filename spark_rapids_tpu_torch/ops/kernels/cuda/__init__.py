@@ -17,6 +17,9 @@ the card) and nothing else:
 * :mod:`.hashing` — ``hash``, Spark's murmur3 of string rows (the hash
   exchange's partition ids).
 
+:mod:`.strings_cases` holds the ragged gather's edge cases (numpy only),
+for the tests and ``chip_smoke.py``.
+
 Sources are in ``csrc/``; :mod:`._build` compiles them with ``nvcc`` at
 first use and loads them with ``ctypes``.
 """

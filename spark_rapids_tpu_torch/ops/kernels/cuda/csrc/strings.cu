@@ -18,7 +18,8 @@
 // the row's end PAD), gathered by srt_ragged_gather, and packed back into
 // offsets and payload (rowops.py::strings_from_matrix): rows longer than W
 // clip to W bytes, negative lengths give 0. No [n, W] or [m, W] matrix
-// is built.
+// is built. Lengths and byte sums run in int64, so any W >= 1 is taken;
+// out_offsets keep the low 32 bits, as the route's int32 cumsum does.
 //
 // The design: one cudaMemsetAsync clears the output payload and a small
 // scratch after it (a tile ticket and one status word a tile), then one
@@ -41,11 +42,14 @@
 // threads, one block for Q22's 8,192-row calls) and of 2,048 measured
 // slower or no faster at every call of the queries.
 //
-// Bound on the card: memory. idx, valid and the two source offsets of a
-// row (4 + 1 + 8 bytes), the output offsets (4 (m + 1)), and the B
-// gathered bytes read and written once: 13 m + 4 (m + 1) + 2 B bytes.
-// The payload past B, byte_cap - B bytes, is the clear beside the bound:
-// at m = 262,144 and W = 128 it is most of the call (33.5 MB).
+// Bound on the card: memory. idx and valid of every row (5 m bytes); for
+// the distinct source rows that valid rows take, their offsets entries
+// (offsets[s] and offsets[s + 1], 4 bytes each, neighbours sharing one)
+// and their S clipped bytes, read once; the output offsets (4 (m + 1))
+// and the B gathered bytes, written once: 5 m + 4 |{s, s + 1}| + S +
+// 4 (m + 1) + B bytes. Rows that are not valid read no source. The
+// payload past B, byte_cap - B bytes, is the clear beside the bound: at
+// m = 262,144 and W = 128 it is most of the call (33.5 MB).
 //
 // 2. srt_ragged_gather is the counterpart of the Pallas kernel
 // spark_rapids_tpu/ops/kernels/pallas/strings.py::ragged_gather (body
@@ -133,8 +137,6 @@ constexpr int kGatherThreads = 128;
 constexpr int kGatherItems = 8;  // rows a thread
 constexpr int kGatherTile = kGatherThreads * kGatherItems;  // 1,024 rows
 constexpr int kGatherWarps = kGatherThreads / 32;
-// Tile byte sums stay below 2^31: kGatherTile * W <= 2^30.
-constexpr int64_t kMaxGatherWidth = int64_t{1} << 20;
 constexpr unsigned long long kValueMask = (1ull << 62) - 1;
 constexpr unsigned long long kAggregate = 1ull << 62;  // the tile's own sum
 constexpr unsigned long long kInclusive = 2ull << 62;  // sum up to the tile
@@ -158,23 +160,23 @@ __device__ __forceinline__ unsigned long long load_status(
 
 // Exclusive sum over the block (all threads must call it); *total gets the
 // block's sum.
-__device__ __forceinline__ int32_t gather_block_scan(int32_t v,
-                                                     int32_t* warp_tot,
-                                                     int32_t* total) {
+__device__ __forceinline__ int64_t gather_block_scan(int64_t v,
+                                                     int64_t* warp_tot,
+                                                     int64_t* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int32_t x = v;
+  int64_t x = v;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const int32_t y = __shfl_up_sync(kFull, x, off);
+    const int64_t y = __shfl_up_sync(kFull, x, off);
     if (lane >= off) x += y;
   }
   if (lane == 31) warp_tot[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    int32_t t = lane < kGatherWarps ? warp_tot[lane] : 0;
+    int64_t t = lane < kGatherWarps ? warp_tot[lane] : 0;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const int32_t y = __shfl_up_sync(kFull, t, off);
+      const int64_t y = __shfl_up_sync(kFull, t, off);
       if (lane >= off) t += y;
     }
     if (lane < kGatherWarps) warp_tot[lane] = t;  // inclusive over warps
@@ -193,9 +195,11 @@ __global__ void __launch_bounds__(kGatherThreads)
                    int64_t width, int64_t tiles, uint8_t* __restrict__ out,
                    int32_t* __restrict__ out_offsets, unsigned* ticket,
                    unsigned long long* status) {
-  __shared__ int32_t incl[kGatherTile];   // local inclusive byte ends
+  // local inclusive byte ends, in int64: a tile of W-byte rows may pass
+  // 2^31 bytes for any W
+  __shared__ int64_t incl[kGatherTile];
   __shared__ int32_t start[kGatherTile];  // source starts
-  __shared__ int32_t warp_tot[kGatherWarps];
+  __shared__ int64_t warp_tot[kGatherWarps];
   __shared__ int64_t tile_sh;
   __shared__ int64_t prefix_sh;
   const int tid = threadIdx.x;
@@ -231,20 +235,20 @@ __global__ void __launch_bounds__(kGatherThreads)
       const int r = j * kGatherThreads + tid;
       int64_t l = static_cast<int64_t>(b[j]) - a[j];
       l = l < 0 ? 0 : (l > width ? width : l);
-      incl[r] = static_cast<int32_t>(l);
+      incl[r] = l;
       start[r] = a[j];
     }
     __syncthreads();
     // 2. scan: thread t owns rows [8 t, 8 t + 8)
-    int32_t v[kGatherItems];
-    int32_t run = 0;
+    int64_t v[kGatherItems];
+    int64_t run = 0;
 #pragma unroll
     for (int j = 0; j < kGatherItems; ++j) {
       v[j] = incl[tid * kGatherItems + j];
       run += v[j];
     }
-    int32_t total;
-    int32_t acc = gather_block_scan(run, warp_tot, &total);
+    int64_t total;
+    int64_t acc = gather_block_scan(run, warp_tot, &total);
 #pragma unroll
     for (int j = 0; j < kGatherItems; ++j) {
       acc += v[j];
@@ -302,9 +306,9 @@ __global__ void __launch_bounds__(kGatherThreads)
       const int64_t last = (hi - 1) >> 4;
       for (int64_t c = (prefix >> 4) + tid; c <= last; c += kGatherThreads) {
         // local byte positions of the piece, and of its part in the tile
-        const int32_t qb = static_cast<int32_t>((c << 4) - prefix);
-        const int32_t q0 = qb > 0 ? qb : 0;
-        const int32_t q1 = qb + 16 < total ? qb + 16 : total;
+        const int64_t qb = (c << 4) - prefix;
+        const int64_t q0 = qb > 0 ? qb : 0;
+        const int64_t q1 = qb + 16 < total ? qb + 16 : total;
         // the first row whose inclusive end passes q0
         int lo = 0, up = kGatherTile - 1;
         while (lo < up) {
@@ -312,15 +316,15 @@ __global__ void __launch_bounds__(kGatherThreads)
           if (incl[mid] > q0) up = mid; else lo = mid + 1;
         }
         int r = lo;
-        int32_t row_end = incl[r];
-        int32_t row_begin = r > 0 ? incl[r - 1] : 0;
+        int64_t row_end = incl[r];
+        int64_t row_begin = r > 0 ? incl[r - 1] : 0;
         // every source position first (shared memory only), then the 16
-        // loads at once. A position start + j lies below 2^31 + W, so it
-        // fits 32 bits.
+        // loads at once. A position start + j with j < len <= offsets[s +
+        // 1] - start lies below 2^31, so it fits 32 bits once clamped.
         uint32_t pos[16];
 #pragma unroll
         for (int k = 0; k < 16; ++k) {
-          const int32_t q = qb + k;
+          const int64_t q = qb + k;
           pos[k] = 0;
           if (q >= q0 && q < q1) {
             while (row_end <= q) {
@@ -335,7 +339,7 @@ __global__ void __launch_bounds__(kGatherThreads)
         uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
         for (int k = 0; k < 16; ++k) {
-          const int32_t q = qb + k;
+          const int64_t q = qb + k;
           if (q >= q0 && q < q1)
             w[k >> 2] |= static_cast<uint32_t>(__ldg(payload + pos[k]))
                          << (8 * (k & 3));
@@ -346,7 +350,7 @@ __global__ void __launch_bounds__(kGatherThreads)
         } else {
 #pragma unroll
           for (int k = 0; k < 16; ++k) {
-            const int32_t q = qb + k;
+            const int64_t q = qb + k;
             if (q >= q0 && q < q1)
               out[(c << 4) + k] =
                   static_cast<uint8_t>(w[k >> 2] >> (8 * (k & 3)));
@@ -452,14 +456,14 @@ int64_t srt_gather_strings_scratch_bytes(int64_t m) {
 // byte_cap payload bytes, then (at byte_cap rounded up to 16) the scratch;
 // it is cleared whole, then one kernel writes the payload and out_offsets
 // [m + 1]. offsets holds n + 1 values; payload_len >= 1 when n >= 1;
-// m >= 1; 1 <= width <= 2^20; byte_cap >= m * width; buf 16-byte aligned.
+// m >= 1; width >= 1; byte_cap >= m * width; buf 16-byte aligned.
 int srt_gather_strings(const void* payload, int64_t payload_len,
                        const int32_t* offsets, int64_t n, const int32_t* idx,
                        const uint8_t* valid, int64_t m, int64_t width,
                        void* buf, int64_t byte_cap, int32_t* out_offsets,
                        void* stream) {
   if (m < 1 || n < 0 || (n > 0 && payload_len < 1) || width < 1 ||
-      width > kMaxGatherWidth || byte_cap < m * width ||
+      byte_cap / width < m ||
       reinterpret_cast<uintptr_t>(buf) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int resident = 0;

@@ -35,10 +35,6 @@ import torch
 from ...strings_util import PAD, _matrix_from_offsets
 from . import _build
 
-#: Widest column the ragged gather takes (a tile's byte sums stay in int32).
-MAX_GATHER_WIDTH = 1 << 20
-
-
 def ragged_gather_plain(mat: torch.Tensor, idx: torch.Tensor,
                         valid: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: rows of ``mat`` at ``clamp(idx, 0, n - 1)``,
@@ -134,9 +130,8 @@ def gather_strings(payload: torch.Tensor, offsets: torch.Tensor,
     n = offsets.shape[0] - 1
     if n < 0:
         raise ValueError("offsets needs at least one value")
-    if not 1 <= width <= MAX_GATHER_WIDTH:
-        raise ValueError(f"width must be in [1, {MAX_GATHER_WIDTH}], got "
-                         f"{width}")
+    if width < 1:
+        raise ValueError(f"width must be at least 1, got {width}")
     if byte_cap < m * width:
         raise ValueError(f"byte_cap {byte_cap} cannot hold {m} rows of "
                          f"{width} bytes")

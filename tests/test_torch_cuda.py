@@ -21,6 +21,8 @@ from spark_rapids_tpu_torch.ops.kernels.cuda import join_probe as JP
 from spark_rapids_tpu_torch.ops.kernels.cuda import segmented as SEG
 from spark_rapids_tpu_torch.ops.kernels.cuda import sort_steps as SS
 from spark_rapids_tpu_torch.ops.kernels.cuda import strings as SG
+from spark_rapids_tpu_torch.ops.kernels.cuda.strings_cases import (
+    GATHER_CARD_ROWS, GATHER_CASES, GATHER_WIDTHS, gather_strings_case)
 
 JOINPROBE_CASES = ["duplicate keys", "every probed slot empty",
                    "one live row", "all rows dead", "unique keys",
@@ -204,57 +206,6 @@ def gather_case(name: str, w: int):
     return mat, idx.astype(np.int32), valid
 
 
-GATHER_CASES = ["mixed", "all valid", "none valid", "indices out of range",
-                "negative lengths", "wrapped lengths", "one source row",
-                "empty rows", "runs to the last byte"]
-GATHER_WIDTHS = [8, 128]
-INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
-
-
-def gather_strings_case(name: str, m: int, w: int, seed: int = 0):
-    """(payload uint8, offsets int32 [n + 1], idx int32 [m], valid bool
-    [m]) of one ragged ``strings`` gather case: source lengths 0-5, W,
-    past W and random, entries starting at odd payload bytes, rows about
-    80 % valid. Variants: every or no row valid; indices below 0 and at
-    or past n; offsets that step back (negative lengths); int32 offsets
-    whose difference wraps (INT32_MAX - 1 to INT32_MIN: 0 bytes; INT32_MIN
-    to a real end: W bytes, all of them clamped to payload byte 0); one
-    source row; all sources empty; a payload that ends at the last
-    entry's last byte."""
-    rng = np.random.default_rng(seed + 7 * m + w + len(name))
-    n = 1 if name == "one source row" else max(m // 2, 1) + 3
-    lens = rng.integers(0, w + 1, n)
-    pick = rng.random(n)
-    lens[pick < 0.3] = rng.integers(0, 6, int((pick < 0.3).sum()))
-    lens[(pick >= 0.3) & (pick < 0.4)] = w
-    past = (pick >= 0.4) & (pick < 0.5)
-    lens[past] = w + rng.integers(1, 10, int(past.sum()))
-    if name == "empty rows":
-        lens[:] = 0
-    offsets = 3 + np.concatenate([[0], np.cumsum(lens)])
-    if name == "negative lengths":
-        back = np.flatnonzero(rng.random(n) < 0.2) + 1
-        offsets[back] = np.maximum(offsets[back - 1] - rng.integers(
-            1, 4, len(back)), 0)
-    slack = 0 if name == "runs to the last byte" else 5
-    payload = rng.integers(0, 256, int(offsets.max()) + slack
-                           ).astype(np.uint8)
-    if name == "wrapped lengths":
-        for k in range(1, n - 1, 7):
-            offsets[k], offsets[k + 1] = INT32_MAX - 1, INT32_MIN
-    idx = rng.integers(0, n, m)
-    if name == "indices out of range":
-        idx = rng.integers(-50, n + 50, m)
-        idx[:2] = np.array([-1, n])[:m]
-    valid = rng.random(m) < 0.8
-    if name == "all valid":
-        valid[:] = True
-    elif name == "none valid":
-        valid[:] = False
-    return (payload, offsets.astype(np.int32), idx.astype(np.int32),
-            valid)
-
-
 def row_equal_case(n: int, w: int, seed: int = 0):
     """Two int16 [n, W] char matrices of one rowwise-compare case:
     PAD-ended rows with bytes up to 255, every third row of ``b`` changed
@@ -436,10 +387,6 @@ def test_cuda_strings_gather_empty_sides(cuda_device):
     assert SG.ragged_gather.launches == before
 
 
-GATHER_CARD_ROWS = [1, 255, 256, 257, 1023, 1024, 1025, 8192, 100_003,
-                    262_144]
-
-
 def _gather_args(case, w, device):
     payload, offsets, idx, valid = (torch.as_tensor(a, device=device)
                                     for a in case)
@@ -459,6 +406,26 @@ def test_cuda_gather_strings_matches_plain(cuda_device, name, m, w):
     want_payload, want_offsets = SG.gather_strings_plain(*args)
     assert same_bits(offsets, want_offsets)
     assert same_bits(payload, want_payload)
+
+
+#: A width past 2^20 bytes: a 1,024-row tile of such rows may hold more
+#: than 2^31 bytes, so the kernel sums lengths in int64.
+WIDE_GATHER = 1 << 21
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mixed", "negative lengths",
+                                  "wrapped lengths"])
+def test_cuda_gather_strings_takes_any_width(cuda_device, name):
+    args = _gather_args(gather_strings_case(name, 5, WIDE_GATHER),
+                        WIDE_GATHER, cuda_device)
+    before = SG.gather_strings.launches
+    payload, offsets = SG.gather_strings(*args)
+    assert SG.gather_strings.launches == before + 1
+    want_payload, want_offsets = SG.gather_strings_plain(*args)
+    assert same_bits(offsets, want_offsets)
+    assert same_bits(payload, want_payload)
+    assert int(offsets[-1]) > WIDE_GATHER // 2  # long rows were gathered
 
 
 @pytest.mark.cuda

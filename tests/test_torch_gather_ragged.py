@@ -29,7 +29,8 @@ from spark_rapids_tpu_torch.data.column import bucket_byte_capacity
 from spark_rapids_tpu_torch.ops import strings_util as SU
 from spark_rapids_tpu_torch.ops.kernels import rowops as KR
 from spark_rapids_tpu_torch.ops.kernels.cuda import strings as SG
-from test_torch_cuda import GATHER_CASES, GATHER_WIDTHS, gather_strings_case
+from spark_rapids_tpu_torch.ops.kernels.cuda.strings_cases import (
+    GATHER_CASES, GATHER_WIDTHS, gather_strings_case)
 from test_torch_strings import batches as string_batches
 
 GATHER_ROWS = [1, 257, 1000]
