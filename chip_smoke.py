@@ -56,7 +56,17 @@ Phases; each one passes or the script exits non-zero:
    ``sortStep`` in Q4 and the sort, the ``strings`` gather (its ragged
    entry) in Q22,
    ``hash`` (its ragged entry) and ``segmented`` (the merge aggregate) in
-   ``q1_hash_str``. Q22's flat gathers, replayed through
+   ``q1_hash_str``. Then the rest of the bench suite's TPC-H entries, Q5,
+   Q12, Q14, Q19 and ``xbb_score``, and Q10 and Q18, each against its own
+   numpy implementation here (``xbb_score``'s ``max_score`` within 4 units
+   in the last place, the largest difference printed; Q10's top 20 with
+   runs of tied revenues compared as sets), ``joinProbe`` launched in all
+   but ``xbb_score``. Then the engine's entry stage
+   (``spark_rapids_tpu_torch.entry.entry``: filter, then the sort-path
+   aggregate of sum, count, min and max) at its defaults (1,000 rows) and
+   at SF1's 6,001,215 rows with 50 and with 1,500,000 keys: every group
+   equal to numpy's, ``segmented`` launched for its sum, min and max.
+   Q22's flat gathers, replayed through
    ``gather_column``, must build no char matrix and launch the ragged
    entry once a call. Then each exchange alone: every lineitem row must
    land in the partition this script's numpy murmur3 pmod n names; the
@@ -76,7 +86,9 @@ Phases; each one passes or the script exits non-zero:
    every group on the shard numpy murmur3 pmod 4 names;
 4. at the shapes the queries gave each kernel: kernel vs plain version
    (equal bit for bit), median times over CUDA events with the L2 flushed
-   between launches, the memory bound, and a PyTorch library yardstick;
+   between launches, the memory bound, and a PyTorch library yardstick
+   (``segmented``: every call of the queries and the entry stage, its
+   sum, min and max, beside ``torch.segment_reduce``);
    ``joinProbe``'s table clear beside its bound, and Q3's direct-address
    joins whole and their slot preparation; the sort exec's permutation
    of SF1 lineitem by ``l_shipdate`` through ``sortStep`` against the
@@ -115,10 +127,15 @@ SPIN_CYCLES = 2_000_000
 D_1994_01_01 = 8766
 D_1995_01_01 = 9131
 D_1995_03_15 = 9204
+D_1995_09_01 = 9374
+D_1995_10_01 = 9404
 D_1998_09_02 = 10471
 Q22_CODES = ["13", "31", "23", "29", "30", "18", "17"]
 #: Float sums and averages against numpy: the card adds in another order.
 REV_RTOL = 1e-9
+#: ``xbb_score``'s ``max_score`` against numpy, in units in the last place:
+#: it goes through ``exp``, whose CUDA and numpy versions may differ there.
+MAX_SCORE_ULPS = 4
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
 
@@ -711,7 +728,7 @@ def ragged_hash_edge_cases(torch, HK, T, DC, PN, rng, dev):
 def numpy_q3(tables, k: int = 11):
     """Q3 in plain numpy, independent of the port: sorted-key joins by
     ``np.searchsorted``, a lexsort group-by, a stable descending sort.
-    Returns the first ``k`` rows (orderkey, orderdate, revenue)."""
+    Returns the first ``k`` rows' columns."""
     c = tables["customer"].columns
     o = tables["orders"].columns
     li = tables["lineitem"].columns
@@ -736,36 +753,8 @@ def numpy_q3(tables, k: int = 11):
                                  | (gdate[1:] != gdate[:-1])])
     sums = np.add.reduceat(grev, start) if len(start) else grev[:0]
     top = np.argsort(-sums, kind="stable")[:k]
-    return gkey[start][top], gdate[start][top], sums[top]
-
-
-def check_q3(got, ref, n: int = 10) -> None:
-    """Keys and dates exact, revenue to ``REV_RTOL``, order exact except
-    inside runs of revenues equal to the tolerance, which compare as sets
-    (a run that crosses rank ``n`` may contribute any of its members)."""
-    gk, gd, gr = (got.columns["o_orderkey"], got.columns["o_orderdate"],
-                  got.columns["revenue"])
-    rk, rd, rr = ref
-    check(len(gk) == min(n, len(rk)),
-          f"Q3 returned {len(gk)} rows, expected {min(n, len(rk))}")
-    ref_rev = {(int(a), int(b)): float(c) for a, b, c in zip(rk, rd, rr)}
-    i = 0
-    while i < len(gk):
-        j = i + 1
-        while j < len(rr) and abs(rr[j] - rr[j - 1]) <= REV_RTOL * abs(rr[j]):
-            j += 1
-        run = {(int(a), int(b)) for a, b in zip(rk[i:j], rd[i:j])}
-        for r in range(i, min(j, len(gk))):
-            key = (int(gk[r]), int(gd[r]))
-            check(key in run, f"Q3 rank {r + 1}: {key} is not the "
-                  f"reference's row there ({sorted(run)})")
-            want = ref_rev[key]
-            check(abs(gr[r] - want) <= REV_RTOL * abs(want),
-                  f"Q3 rank {r + 1}: revenue {gr[r]!r} vs {want!r}")
-        check(len({(int(a), int(b)) for a, b in
-                   zip(gk[i:min(j, len(gk))], gd[i:min(j, len(gk))])})
-              == min(j, len(gk)) - i, "Q3 returned a row twice")
-        i = j
+    return {"o_orderkey": gkey[start][top], "o_orderdate": gdate[start][top],
+            "revenue": sums[top]}
 
 
 def _group_sums(keys, *values):
@@ -835,6 +824,154 @@ def numpy_q22(tables):
                                    np.ones(int(m.sum()), dtype=np.int64),
                                    bal[m])
     return {"cntrycode": keys[0], "numcust": cnt, "totacctbal": tot}
+
+
+def _lookup(build_keys, probe_keys):
+    """(hit, row): each probe key's row in a table whose keys are unique
+    (the build side of a direct-address join), and whether it has one."""
+    order = np.argsort(build_keys, kind="stable")
+    sk = build_keys[order]
+    pos = np.minimum(np.searchsorted(sk, probe_keys), max(len(sk) - 1, 0))
+    hit = (len(sk) > 0) & (sk[pos] == probe_keys)
+    return hit, order[pos]
+
+
+def _rev(li, m):
+    return li["l_extendedprice"][m] * (1.0 - li["l_discount"][m])
+
+
+def numpy_q5(tables):
+    """Revenue per nation over customer, orders of 1994, lineitem,
+    supplier and nation."""
+    c, o, li = (tables[t].columns for t in ("customer", "orders",
+                                            "lineitem"))
+    s, n = tables["supplier"].columns, tables["nation"].columns
+    hit_o, orow = _lookup(o["o_orderkey"], li["l_orderkey"])
+    od = o["o_orderdate"][orow]
+    m = hit_o & (od >= D_1994_01_01) & (od < D_1995_01_01)
+    m &= _lookup(c["c_custkey"], o["o_custkey"][orow])[0]
+    hit_s, srow = _lookup(s["s_suppkey"], li["l_suppkey"])
+    m &= hit_s
+    hit_n, nrow = _lookup(n["n_nationkey"], s["s_nationkey"][srow])
+    m &= hit_n
+    keys, (rev,) = _group_sums([n["n_name"][nrow][m]], _rev(li, m))
+    return {"n_name": keys[0], "revenue": rev}
+
+
+def numpy_q10(tables):
+    """Revenue per customer of the returned items of 1994's orders, the
+    top 30 by revenue, then by customer key (the query keeps 20)."""
+    c, o, li = (tables[t].columns for t in ("customer", "orders",
+                                            "lineitem"))
+    n = tables["nation"].columns
+    hit_o, orow = _lookup(o["o_orderkey"], li["l_orderkey"])
+    od = o["o_orderdate"][orow]
+    m = hit_o & (od >= D_1994_01_01) & (od < D_1995_01_01) \
+        & (li["l_returnflag"] == "R")
+    hit_c, crow = _lookup(c["c_custkey"], o["o_custkey"][orow])
+    hit_n, nrow = _lookup(n["n_nationkey"], c["c_nationkey"][crow])
+    m &= hit_c & hit_n
+    keys, (rev,) = _group_sums([c["c_custkey"][crow][m],
+                                n["n_name"][nrow][m]], _rev(li, m))
+    top = np.lexsort((keys[0], -rev))[:30]  # ties may cross rank 20
+    return {"c_custkey": keys[0][top], "n_name": keys[1][top],
+            "revenue": rev[top]}
+
+
+def numpy_q12(tables):
+    """High- and low-priority line counts per ship mode."""
+    o, li = tables["orders"].columns, tables["lineitem"].columns
+    mode, rd = li["l_shipmode"], li["l_receiptdate"]
+    m = ((mode == "MAIL") | (mode == "SHIP")) \
+        & (li["l_commitdate"] < rd) & (li["l_shipdate"] < li["l_commitdate"]) \
+        & (rd >= D_1994_01_01) & (rd < D_1995_01_01)
+    hit, orow = _lookup(o["o_orderkey"], li["l_orderkey"])
+    m &= hit
+    prio = o["o_orderpriority"][orow][m]
+    high = ((prio == "1-URGENT") | (prio == "2-HIGH")).astype(np.int64)
+    keys, (hi, lo) = _group_sums([mode[m]], high, 1 - high)
+    return {"l_shipmode": keys[0], "high_line_count": hi,
+            "low_line_count": lo}
+
+
+def numpy_q14(tables):
+    """Promotional and total revenue of September 1995's line items."""
+    p, li = tables["part"].columns, tables["lineitem"].columns
+    sd = li["l_shipdate"]
+    hit, prow = _lookup(p["p_partkey"], li["l_partkey"])
+    m = hit & (sd >= D_1995_09_01) & (sd < D_1995_10_01)
+    rev = _rev(li, m)
+    promo = np.char.startswith(p["p_type"][prow][m].astype(str), "PROMO")
+    return {"promo": np.array([np.where(promo, rev, 0.0).sum()]),
+            "total": np.array([rev.sum()])}
+
+
+def numpy_q18(tables):
+    """Customers of the orders whose quantity sums above 150: order count
+    and total quantity, the top 100 by quantity, then by customer key."""
+    c, o, li = (tables[t].columns for t in ("customer", "orders",
+                                            "lineitem"))
+    (okeys,), (qty,) = _group_sums([li["l_orderkey"]], li["l_quantity"])
+    big = qty > 150.0
+    okeys, qty = okeys[big], qty[big]
+    hit_o, orow = _lookup(o["o_orderkey"], okeys)
+    cust = o["o_custkey"][orow]
+    hit_c, _ = _lookup(c["c_custkey"], cust)
+    m = hit_o & hit_c
+    (ckeys,), (cnt, tot) = _group_sums([cust[m]],
+                                       np.ones(int(m.sum()), np.int64),
+                                       qty[m])
+    top = np.lexsort((ckeys, -tot))[:100]
+    return {"c_custkey": ckeys[top], "n_orders": cnt[top],
+            "total_qty": tot[top]}
+
+
+def numpy_q19(tables):
+    """Revenue of the air-shipped line items in either quantity band of
+    their part's type."""
+    p, li = tables["part"].columns, tables["lineitem"].columns
+    mode, qty = li["l_shipmode"], li["l_quantity"]
+    hit, prow = _lookup(p["p_partkey"], li["l_partkey"])
+    m = hit & ((mode == "AIR") | (mode == "REG AIR")) & (qty <= 30.0)
+    ptype = p["p_type"][prow].astype(str)
+    band = (np.char.startswith(ptype, "PROMO") & (qty <= 11.0)) \
+        | (np.char.startswith(ptype, "STANDARD") & (qty >= 10.0)
+           & (qty <= 20.0))
+    m &= band
+    return {"revenue": np.array([_rev(li, m).sum()])}
+
+
+def numpy_xbb_score(tables):
+    """The average and largest logistic score and the line count per
+    return flag; the linear term adds in the query's association."""
+    li = tables["lineitem"].columns
+    z = (li["l_quantity"] * 0.37 + li["l_extendedprice"] * -0.00021) \
+        + (li["l_discount"] * 14.2 + li["l_tax"] * -7.1)
+    score = 1.0 / (1.0 + np.exp(-z))
+    flag = li["l_returnflag"]
+    keys, (total, cnt) = _group_sums([flag], score,
+                                     np.ones(len(score), np.int64))
+    order = np.argsort(flag, kind="stable")
+    start = np.flatnonzero(np.r_[True, flag[order][1:] != flag[order][:-1]])
+    return {"l_returnflag": keys[0], "avg_score": total / cnt,
+            "max_score": np.maximum.reduceat(score[order], start),
+            "n": cnt}
+
+
+def numpy_entry(cols):
+    """The entry stage over its numpy columns: per key of the rows with
+    ``q < 90``, in key order, the sum of ``q``, the row count and the min
+    and max of ``p``."""
+    m = cols["q"] < 90
+    k, q, p = cols["k"][m], cols["q"][m], cols["p"][m]
+    order = np.argsort(k, kind="stable")
+    ks, qs, ps = k[order], q[order], p[order]
+    start = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]]) if len(ks) \
+        else np.zeros(0, np.int64)
+    return {"k": ks[start], "_buf0_sum": np.add.reduceat(qs, start),
+            "_buf1_count": np.diff(np.r_[start, len(ks)]),
+            "_buf2_min": np.minimum.reduceat(ps, start),
+            "_buf3_max": np.maximum.reduceat(ps, start)}
 
 
 def numpy_sort(tables):
@@ -1012,9 +1149,18 @@ ANSWERS = {
     "q6": ([], ["revenue"]),
     "q22": (["cntrycode", "numcust"], ["totacctbal"]),
     "sort": (["l_orderkey", "l_shipdate"], []),
+    "q5": (["n_name"], ["revenue"]),
+    "q12": (["l_shipmode", "high_line_count", "low_line_count"], []),
+    "q14": ([], ["promo", "total"]),
+    "q18": (["c_custkey", "n_orders", "total_qty"], []),
+    "q19": ([], ["revenue"]),
+    "xbb_score": (["l_returnflag", "n"], ["avg_score"]),
 }
 NUMPY_REFS = {"q1": numpy_q1, "q4": numpy_q4, "q6": numpy_q6,
-              "q22": numpy_q22, "sort": numpy_sort}
+              "q22": numpy_q22, "sort": numpy_sort, "q5": numpy_q5,
+              "q10": numpy_q10, "q12": numpy_q12, "q14": numpy_q14,
+              "q18": numpy_q18, "q19": numpy_q19,
+              "xbb_score": numpy_xbb_score}
 
 
 def check_answer(q: str, got, ref) -> None:
@@ -1037,6 +1183,49 @@ def check_answer(q: str, got, ref) -> None:
         g, w = np.asarray(got.columns[name], dtype=np.float64), ref[name]
         check(bool(np.all(np.abs(g - w) <= REV_RTOL * np.abs(w))),
               f"{q}: {name} {g.tolist()} vs {w.tolist()}")
+
+
+def check_top(q: str, got, ref, keys, value: str, n: int) -> None:
+    """A top-``n`` by ``value`` (descending, then by ``keys``): keys exact,
+    ``value`` to ``REV_RTOL``, the order exact except inside runs of values
+    equal to the tolerance, which compare as sets (a run that crosses rank
+    ``n`` may contribute any of its members), no nulls."""
+    check(set(got.columns) == set(ref), f"{q}: columns {sorted(got.columns)}")
+    for name in got.columns:
+        check(bool(np.all(got.validity[name])), f"{q}: null in {name}")
+    gk = list(zip(*(np.asarray(got.columns[k]).astype(str) for k in keys)))
+    rk = list(zip(*(np.asarray(ref[k]).astype(str) for k in keys)))
+    gv, rv = np.asarray(got.columns[value]), np.asarray(ref[value])
+    check(len(gk) == min(n, len(rk)),
+          f"{q} returned {len(gk)} rows, expected {min(n, len(rk))}")
+    want = dict(zip(rk, rv))
+    i = 0
+    while i < len(gk):
+        j = i + 1
+        while j < len(rv) and abs(rv[j] - rv[j - 1]) <= REV_RTOL * abs(rv[j]):
+            j += 1
+        run = set(rk[i:j])
+        for r in range(i, min(j, len(gk))):
+            check(gk[r] in run, f"{q} rank {r + 1}: {gk[r]} is not the "
+                  f"reference's row there ({sorted(run)[:4]})")
+            check(abs(gv[r] - want[gk[r]]) <= REV_RTOL * abs(want[gk[r]]),
+                  f"{q} rank {r + 1}: {value} {gv[r]!r} vs {want[gk[r]]!r}")
+        check(len(set(gk[i:min(j, len(gk))])) == min(j, len(gk)) - i,
+              f"{q} returned a row twice")
+        i = j
+
+
+def check_xbb_score(got, ref) -> float:
+    """``xbb_score``: keys and counts exact, ``avg_score`` to ``REV_RTOL``,
+    ``max_score`` within ``MAX_SCORE_ULPS`` units in the last place.
+    Returns the largest difference in those units."""
+    check_answer("xbb_score", got, ref)
+    g = np.asarray(got.columns["max_score"], dtype=np.float64)
+    w = ref["max_score"]
+    ulps = float(np.max(np.abs(g - w) / np.spacing(np.abs(w))))
+    check(ulps <= MAX_SCORE_ULPS, f"xbb_score: max_score {g.tolist()} vs "
+          f"{w.tolist()}, {ulps} ulp apart")
+    return ulps
 
 
 def in_key_order(got, keys):
@@ -1256,6 +1445,73 @@ def group_by_string_key(torch, KG, T, HostBatch, wrappers, name, col,
           f"gather_group_keys; kernel launches {launches}")
     return {"name": name, "capacity": cap, "width": col.max_bytes,
             "groups": ng, "ms": ms, "launches": launches}, captured.calls
+
+
+def run_entry_stage(torch, ENTRY, HostBatch, wrappers, name, profile,
+                    **kwargs):
+    """The engine's entry stage (``spark_rapids_tpu_torch.entry.entry``)
+    at ``kwargs``: one cold run with the launch counts set to 0 just
+    before and read just after, one run capturing ``segmented``'s calls,
+    then 3 timed runs (and, with ``profile``, one traced run); every
+    run's groups (key, sum, count, min, max) must equal ``numpy_entry``'s
+    exactly, and ``segmented`` must have launched its sum, min and max.
+    Returns (cold launch counts, captured ``segmented`` calls, a summary
+    dict)."""
+    forward, (batch,) = ENTRY.entry(**kwargs)
+    cols = ENTRY.entry_columns(**{k: v for k, v in kwargs.items()
+                                  if k != "device"})
+    want = numpy_entry(cols)
+
+    def run():
+        out, fail = forward(batch)
+        return fail, HostBatch.from_device(out)
+
+    def verify(result) -> None:
+        fail, got = result
+        check(fail is None, f"{name}: the sort path reported a fail flag")
+        for col_name, w in want.items():
+            g = got.columns[col_name]
+            check(bool(np.all(got.validity[col_name])),
+                  f"{name}: null in {col_name}")
+            check(len(g) == len(w) and np.array_equal(g, w),
+                  f"{name}: {col_name} {list(g[:6])} vs {list(w[:6])}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers.reset()
+    t0 = time.perf_counter()
+    result = run()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    launches = wrappers.counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    verify(result)
+    with Capture(*wrappers.mods["segmented"]) as cap:
+        verify(run())
+    ops = sorted(c[-1] for c in cap.calls)
+    check(launches["segmented"] > 0 and {"min", "max"} <= set(ops),
+          f"{name}: segmented launched {launches['segmented']} time(s), "
+          f"ops {ops}")
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        result = run()
+        runs.append((time.perf_counter() - t0) * 1e3)
+        verify(result)
+    if profile:
+        profile_query(torch, name.lower(),
+                      lambda: types.SimpleNamespace(collect=run), {})
+    groups = len(want["k"])
+    print(f"  {name} (n={len(cols['k'])}, capacity {batch.capacity}, "
+          f"{groups} groups): cold {cold_ms:.1f} ms, warm runs "
+          f"{[round(r, 3) for r in runs]} ms, median "
+          f"{statistics.median(runs):.3f} ms; kernel launches {launches}, "
+          f"segmented ops {ops}; peak device memory {peak_gib:.2f} GiB; "
+          "every group equals numpy's")
+    return launches, cap.calls, {
+        "rows": len(cols["k"]), "capacity": batch.capacity,
+        "groups": groups, "cold_ms": cold_ms, "warm_runs_ms": runs,
+        "warm_median_ms": statistics.median(runs), "peak_gib": peak_gib,
+        "launches": launches, "segmented_ops": ops}
 
 
 def check_distributed(torch, D, mesh, dfs, tables) -> dict:
@@ -1678,14 +1934,15 @@ def main() -> int:
                     help="TPC-H lineitem rows (SF1 = 6,001,215)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one warm run of each query with "
-                         "torch.profiler (tables in "
+                    help="also trace one warm run of each query and "
+                         "entry stage with torch.profiler (tables in "
                          "chiprun_out/<query>_profile.txt)")
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         fail("CUDA is not available; this smoke run needs an NVIDIA GPU")
+    from spark_rapids_tpu_torch import entry as ENTRY
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.data.batch import HostBatch
     from spark_rapids_tpu_torch.exec import execs as E
@@ -1747,7 +2004,8 @@ def main() -> int:
 
     # -- phase 3: the queries at SF1 -------------------------------------
     print(f"phase 3: TPC-H Q3, Q1, Q4, Q6, Q22, lineitem sorted by "
-          f"l_shipdate, Q1 over two hash repartitions of lineitem, "
+          f"l_shipdate, Q1 over two hash repartitions of lineitem, Q5, "
+          f"Q12, Q14, Q19, xbb_score, Q10, Q18, the entry stage, "
           f"group_ids over two string keys, Q1, Q3, Q4 and Q6 over a "
           f"4-shard mesh on the card, distributed_sum_by_key, "
           f"lineitem_rows={args.lineitem_rows}")
@@ -1769,7 +2027,8 @@ def main() -> int:
 
     wrappers = Wrappers(JP, SEG, SS, SG, HK)
     queries = {
-        "q3": (lambda: tpch.q3(dfs), lambda got: check_q3(got, ref3),
+        "q3": (lambda: tpch.q3(dfs), lambda got: check_top(
+            "Q3", got, ref3, ["o_orderkey", "o_orderdate"], "revenue", 10),
                ("joinProbe", "segmented")),
         "q1": (lambda: tpch.q1(dfs),
                lambda got: check_answer("q1", got, refs["q1"]), ()),
@@ -1792,7 +2051,31 @@ def main() -> int:
         "q1_hash_key": (lambda: tpch.q1(repartitioned(dfs, 4, "l_orderkey")),
                         lambda got: check_answer("q1", got, refs["q1"]),
                         ("segmented",)),
+        # the rest of the bench suite's TPC-H entries, then Q10 and Q18
+        "q5": (lambda: tpch.q5(dfs),
+               lambda got: check_answer("q5", got, refs["q5"]),
+               ("joinProbe",)),
+        "q12": (lambda: tpch.q12(dfs),
+                lambda got: check_answer("q12", got, refs["q12"]),
+                ("joinProbe",)),
+        "q14": (lambda: tpch.q14(dfs),
+                lambda got: check_answer("q14", got, refs["q14"]),
+                ("joinProbe",)),
+        "q19": (lambda: tpch.q19(dfs),
+                lambda got: check_answer("q19", got, refs["q19"]),
+                ("joinProbe",)),
+        "xbb_score": (lambda: tpch.xbb_score(dfs),
+                      lambda got: xbb_ulps.append(
+                          check_xbb_score(got, refs["xbb_score"])), ()),
+        "q10": (lambda: tpch.q10(dfs),
+                lambda got: check_top("q10", got, refs["q10"],
+                                      ["c_custkey", "n_name"], "revenue",
+                                      20), ("joinProbe",)),
+        "q18": (lambda: tpch.q18(dfs),
+                lambda got: check_answer("q18", got, refs["q18"]),
+                ("joinProbe",)),
     }
+    xbb_ulps = []
     launches = {k: 0 for k in wrappers.mods}
     calls = {k: [] for k in wrappers.mods}
     summaries = {}
@@ -1806,6 +2089,24 @@ def main() -> int:
             q22_gathers = got_calls["strings"]
         if args.profile:
             profile_query(torch, q, build, mid)
+    print(f"  XBB_SCORE max_score: at most {max(xbb_ulps)} ulp from numpy's "
+          f"over {len(xbb_ulps)} runs (limit {MAX_SCORE_ULPS})")
+
+    # The engine's entry stage (filter -> aggregate on the sort path): at
+    # entry()'s defaults, then at SF1's lineitem rows with entry()'s 50
+    # keys and with orders' 1,500,000.
+    entry_runs = {}
+    for name, kwargs in (
+            ("entry", {}),
+            ("entry_sf1_keys50", {"n": args.lineitem_rows, "key_range": 50}),
+            ("entry_sf1_keys1500000", {"n": args.lineitem_rows,
+                                       "key_range": 1_500_000})):
+        got_launches, got_calls, entry_runs[name] = run_entry_stage(
+            torch, ENTRY, HostBatch, wrappers, name.upper(), args.profile,
+            device="cuda", **kwargs)
+        for k in launches:
+            launches[k] += got_launches[k]
+        calls["segmented"] += got_calls
     flat_gathers = check_flat_gathers(torch, SG, KR, T, DeviceColumn,
                                       q22_gathers)
     no_matrix = check_no_char_matrix(torch, HK, dfs["lineitem"]._plan.batch,
@@ -1847,7 +2148,9 @@ def main() -> int:
                         got, ["l_returnflag", "l_linestatus"]), refs["q1"]),
                     ("hash",)),
         "mesh_q3": (lambda: tpch.q3(mesh_dfs),
-                    lambda got: check_q3(got, ref3), ("segmented",)),
+                    lambda got: check_top(
+                        "Q3", got, ref3, ["o_orderkey", "o_orderdate"],
+                        "revenue", 10), ("segmented",)),
         "mesh_q4": (lambda: tpch.q4(mesh_dfs),
                     lambda got: check_answer("q4", got, refs["q4"]),
                     ("hash", "sortStep")),
@@ -1914,8 +2217,11 @@ def main() -> int:
         nbytes = x.numel() * x.element_size() + 4 * gid.numel() \
             + capacity * (x.numel() // max(x.shape[0], 1)) * x.element_size()
         bound = nbytes / HBM_BYTES_PER_S * 1e3
+        groups = int((gid[gid < capacity].max() + 1).item()) \
+            if bool((gid < capacity).any()) else 0
         print(f"  segmented {op} x={tuple(x.shape)} {x.dtype} "
-              f"capacity={capacity}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"capacity={capacity} groups={groups}: kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms, "
               f"torch.segment_reduce {lib:.4f} ms, bound {bound:.4f} ms "
               f"({ms / bound:.1f}x)")
         sg["ms"] += ms
@@ -2022,7 +2328,8 @@ def main() -> int:
         "hash_partition_step": no_matrix, "joinProbe_calls": jp_calls,
         "q3_dense_joins": q3_joins,
         "distributed_sum_by_key": distributed,
-        "q6_default_mesh_ms": default_ms}}))
+        "q6_default_mesh_ms": default_ms, "entry_stage": entry_runs,
+        "xbb_score_max_score_ulps": max(xbb_ulps)}}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -241,8 +241,9 @@ def _compile_grouped_agg(node: E.HashAggregateExec, child: Program
 def _compile_global_agg(node: E.HashAggregateExec, child: Program
                         ) -> Program:
     """Aggregate without keys: partial buffers per shard, then one
-    reduction over the shards per buffer (sum, min or max), and the one
-    output row on shard 0 only."""
+    reduction over the shards per buffer (sum, min or max; a float min
+    is NaN only when every shard's is, a float max when any shard's is,
+    Spark's NaN order), and the one output row on shard 0 only."""
     _, aggs, buf_schema, _ = node.bind()
     merge_ops = [s.merge_op for a in aggs for s in a.func.buffers()]
     for op in merge_ops:
@@ -268,14 +269,26 @@ def _compile_global_agg(node: E.HashAggregateExec, child: Program
                         v, c.data, torch.zeros((), dtype=c.data.dtype,
                                                device=c.device))
                         for c, v in zip(cs, valid)])
-                elif op == "min":
-                    data = PM.pmin(mesh, [torch.where(
-                        v, c.data, _max_value(c.data.dtype))
-                        for c, v in zip(cs, valid)])
                 else:
-                    data = PM.pmax(mesh, [torch.where(
-                        v, c.data, _min_value(c.data.dtype))
-                        for c, v in zip(cs, valid)])
+                    # A float shard's partial is NaN when all its values
+                    # were (min) or any was (max): NaN partials sit out
+                    # the reduction, and the answer is one canonical NaN
+                    # when no partial is a number (min) or one is NaN
+                    # (max), Spark's NaN order.
+                    lo = op == "min"
+                    dtype = cs[0].data.dtype
+                    num = [v & ~torch.isnan(c.data) for c, v in zip(cs, valid)]
+                    ident = _max_value(dtype) if lo else _min_value(dtype)
+                    data = (PM.pmin if lo else PM.pmax)(mesh, [
+                        torch.where(n, c.data, ident)
+                        for c, n in zip(cs, num)])
+                    if dtype.is_floating_point:
+                        seen = PM.pmax(mesh, [
+                            (n if lo else v & ~n).to(torch.int32)
+                            for n, v in zip(num, valid)])
+                        data = [torch.where((h == 0) if lo else (h > 0),
+                                            float("nan"), d)
+                                for h, d in zip(seen, data)]
                 for s, c in enumerate(cs):
                     v = (any_valid[s] > 0) & row0[s]
                     d = torch.where(v, data[s], torch.zeros(

@@ -5,6 +5,11 @@ builds a buffer from input rows (``update_op``), the one that merges
 partial buffers (``merge_op``), and a final projection over the merged
 buffers (``evaluate``). The ops name reductions of
 :mod:`..ops.kernels.groupby`.
+
+``Min``, ``Max``, ``First`` and ``Last`` take fixed-width children
+(integers, dates, bools, floats with Spark's NaN order). A string child
+raises ``NotImplementedError``: string min and max need comparisons of
+flat strings, which the port does not have yet.
 """
 
 from __future__ import annotations
@@ -48,6 +53,58 @@ class AggregateFunction(Expression):
     @property
     def nullable(self) -> bool:
         return True
+
+
+class _SameType(AggregateFunction):
+    """An aggregate whose result and one buffer have the child's type."""
+
+    op = ""
+    #: What a string child would need, which the port does not have yet.
+    string_needs = "comparisons of flat strings"
+
+    @property
+    def data_type(self) -> T.DataType:
+        return self.child.data_type
+
+    def buffers(self):
+        if self.child.data_type is T.STRING:
+            raise NotImplementedError(
+                f"{self.op} of a string column needs {self.string_needs}, "
+                "which are not ported yet")
+        return [BufferSpec(self.op, self.op, self.op, self.data_type)]
+
+
+class Min(_SameType):
+    op = "min"
+
+
+class Max(_SameType):
+    op = "max"
+
+
+class _Positional(_SameType):
+    """first/last(expr, ignoreNulls): the value of a group's first or
+    last contributing row. The group-by reduces over valid rows only, so
+    that row is the first or last non-null one whatever the flag, as in
+    the reference, which keeps the flag for the plan's sake."""
+
+    string_needs = "gathers of string rows into group rows"
+
+    def __init__(self, child: Optional[Expression] = None,
+                 ignore_nulls: bool = True):
+        super().__init__(child)
+        self.ignore_nulls = ignore_nulls
+
+    def with_children(self, children):
+        return type(self)(children[0], self.ignore_nulls)
+
+
+class First(_Positional):
+    op = "first"
+
+
+class Last(_Positional):
+    op = "last"
 
 
 class Sum(AggregateFunction):

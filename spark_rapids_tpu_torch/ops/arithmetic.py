@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from .. import types as T
-from .expression import BinaryExpression
+from .expression import BinaryExpression, UnaryExpression
 
 
 class BinaryArithmetic(BinaryExpression):
@@ -51,3 +51,15 @@ class Divide(BinaryArithmetic):
         l, r = l.to(torch.float64), r.to(torch.float64)
         zero = r == 0
         return l / torch.where(zero, 1.0, r), zero
+
+
+class UnaryMinus(UnaryExpression):
+    """``-x`` in the child's type: an integral minimum wraps to itself
+    (non-ANSI), a float flips its sign bit (``-0.0`` from ``0.0``)."""
+
+    @property
+    def data_type(self) -> T.DataType:
+        return self.child.data_type
+
+    def do_device(self, data):
+        return -data, None

@@ -21,7 +21,7 @@ Four strategies, as in the reference:
   lanes take the plain segment sum, as the reference leaves them to XLA.
   A flat string key sorts on one operand per char-matrix column.
 * **Global** (:func:`global_aggregate`): no keys; masked whole-lane
-  reductions into one group.
+  reductions (sum, count, min, max, first, last) into one group.
 
 Float sums in the scatters add in atomic order on the card, so their
 last bits may vary from run to run.
@@ -441,11 +441,13 @@ def _dict_grouped_aggregate(keys: Sequence[DeviceColumn], live: torch.Tensor,
 
 
 def global_aggregate(capacity: int, live: torch.Tensor, inputs):
-    """Aggregation without keys: masked whole-lane reductions. Always one
-    group (count 0 and null values over an empty input), so no caller
-    needs a host read to handle emptiness. Output rows sit at the
-    smallest capacity, 128, instead of the input's. Only the ``sum`` and
-    ``count`` buffers of Sum, Count and Average reach it."""
+    """Aggregation without keys: masked whole-lane reductions of the
+    ``sum``, ``count``, ``min``, ``max``, ``first`` and ``last`` buffers.
+    Always one group (count 0 and null values over an empty input), so
+    no caller needs a host read to handle emptiness. Output rows sit at
+    the smallest capacity, 128, instead of the input's. Float min and max
+    follow Spark (NaN greatest, -0.0 equal to 0.0); first and last take
+    the first and last contributing row."""
     dev = live.device
     out_cap = bucket_capacity(1)
     first = torch.arange(out_cap, device=dev) == 0
@@ -458,6 +460,21 @@ def global_aggregate(capacity: int, live: torch.Tensor, inputs):
         elif op == "sum":
             res = torch.where(contrib, v, torch.zeros(
                 (), dtype=v.dtype, device=dev)).sum(dtype=v.dtype)
+        elif op in ("min", "max"):
+            floating = v.is_floating_point()
+            vv = _minmax_strip_nan(v, op) if floating else v
+            masked = torch.where(contrib, vv, _identity(vv.dtype, op))
+            res = masked.amin() if op == "min" else masked.amax()
+            if floating:
+                nan_cnt = (torch.isnan(v) & contrib).sum(dtype=torch.int64)
+                res = _minmax_reinstate_nan(res, nan_cnt, cnt, op)
+        elif op in ("first", "last"):
+            # the reference's argmax picks: row 0 (first) or the last row
+            # (last) when nothing contributes, under a null either way
+            hit = contrib.to(torch.uint8)
+            idx = hit.argmax() if op == "first" \
+                else capacity - 1 - hit.flip(0).argmax()
+            res = v.index_select(0, idx.view(1))[0]  # no host read
         else:
             raise ValueError(op)
         zero = torch.zeros((), dtype=res.dtype, device=dev)

@@ -328,6 +328,70 @@ def test_cuda_segmented_matches_plain(cuda_device, gname, op):
                                                               op))
 
 
+#: The entry stage at SF1: 6,001,215 rows at capacity 8,388,608, keys from
+#: ``entry()``'s 50 values and from orders' 1,500,000.
+SF1_ROWS, SF1_CAP = 6_001_215, 1 << 23
+KEY_RANGES = [50, 1_500_000]
+
+
+def sorted_stage_gids(key_range: int, seed: int = 0) -> np.ndarray:
+    """int32 group ids of the entry stage's sort path at SF1: the live
+    rows' keys sorted and numbered densely, the dead tail at the spare id
+    ``SF1_CAP``."""
+    rng = np.random.default_rng(seed)
+    keys = np.sort(rng.integers(0, key_range, SF1_ROWS))
+    gid = np.full(SF1_CAP, SF1_CAP, np.int32)
+    gid[:SF1_ROWS] = np.unique(keys, return_inverse=True)[1]
+    return gid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int64", "float64"])
+@pytest.mark.parametrize("key_range", KEY_RANGES)
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_cuda_segmented_min_max_at_sf1(cuda_device, op, key_range, dtype):
+    gid = torch.as_tensor(sorted_stage_gids(key_range), device=cuda_device)
+    rng = np.random.default_rng(key_range)
+    if dtype == "int64":
+        x = rng.integers(1, 1000, SF1_CAP, dtype=np.int64)
+    else:
+        x = np.round(rng.normal(0, 1e3, SF1_CAP), 2)
+        x[rng.random(SF1_CAP) < 0.01] = -0.0
+    xt = torch.as_tensor(x, device=cuda_device)
+    before = SEG.segment_reduce_sorted.launches
+    got = SEG.segment_reduce_sorted(xt, gid, SF1_CAP, op)
+    assert SEG.segment_reduce_sorted.launches == before + 1
+    assert same_bits(got, SEG.segment_reduce_sorted_plain(xt, gid, SF1_CAP,
+                                                          op))
+
+
+@pytest.mark.cuda
+def test_cuda_entry_matches_numpy(cuda_device):
+    from spark_rapids_tpu_torch.data.batch import HostBatch
+    from spark_rapids_tpu_torch.entry import entry, entry_columns
+    forward, (batch,) = entry()
+    assert batch.device.type == "cuda"
+    before = SEG.segment_reduce_sorted.launches
+    out, fail = forward(batch)
+    assert fail is None
+    assert SEG.segment_reduce_sorted.launches == before + 3
+    host = HostBatch.from_device(out)
+    cols = entry_columns()
+    m = cols["q"] < 90
+    keys, inv = np.unique(cols["k"][m], return_inverse=True)
+    mins = np.full(len(keys), np.iinfo(np.int64).max)
+    maxs = np.full(len(keys), np.iinfo(np.int64).min)
+    np.minimum.at(mins, inv, cols["p"][m])
+    np.maximum.at(maxs, inv, cols["p"][m])
+    want = {"k": keys, "_buf0_sum": np.bincount(inv, cols["q"][m]),
+            "_buf1_count": np.bincount(inv), "_buf2_min": mins,
+            "_buf3_max": maxs}
+    for name, w in want.items():
+        assert host.validity[name].all()
+        np.testing.assert_array_equal(host.columns[name],
+                                      w.astype(np.int64), err_msg=name)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", SORT_CASES)
 def test_cuda_sort_steps_matches_plain(cuda_device, name):
