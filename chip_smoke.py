@@ -958,22 +958,6 @@ def numpy_xbb_score(tables):
             "n": cnt}
 
 
-def numpy_entry(cols):
-    """The entry stage over its numpy columns: per key of the rows with
-    ``q < 90``, in key order, the sum of ``q``, the row count and the min
-    and max of ``p``."""
-    m = cols["q"] < 90
-    k, q, p = cols["k"][m], cols["q"][m], cols["p"][m]
-    order = np.argsort(k, kind="stable")
-    ks, qs, ps = k[order], q[order], p[order]
-    start = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]]) if len(ks) \
-        else np.zeros(0, np.int64)
-    return {"k": ks[start], "_buf0_sum": np.add.reduceat(qs, start),
-            "_buf1_count": np.diff(np.r_[start, len(ks)]),
-            "_buf2_min": np.minimum.reduceat(ps, start),
-            "_buf3_max": np.maximum.reduceat(ps, start)}
-
-
 def numpy_sort(tables):
     """All of lineitem by ``l_shipdate``, stable: ties keep table order."""
     li = tables["lineitem"].columns
@@ -1259,12 +1243,11 @@ class Capture:
         setattr(self.module, self.attr, self.fn)
 
 
-def profile_query(torch, name, build, exec_ms) -> None:
-    """Trace one warm run of a query: device time by kernel and by
-    operator, and the device's busy share of the run's wall time."""
+def trace_run(torch, build, labels):
+    """One traced warm run of ``build().collect()``: (wall us, the
+    device spans, the profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    labels = set(exec_ms)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1272,6 +1255,19 @@ def profile_query(torch, name, build, exec_ms) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()
                if e.device_type == DeviceType.CUDA and e.name not in labels]
+    return wall_us, kernels, prof
+
+
+def profile_query(torch, name, build, exec_ms) -> None:
+    """Trace two warm runs of a query: device time by kernel and by
+    operator, and the device's busy share of the run's wall time, from
+    the trace that holds more device spans. A trace can lose spans (one
+    of Q6 showed 37 launches where the next showed 137), so both counts
+    are printed and a gap of more than 1 % is named."""
+    labels = set(exec_ms)
+    traces = [trace_run(torch, build, labels) for _ in range(2)]
+    counts = [len(t[1]) for t in traces]
+    wall_us, kernels, prof = max(traces, key=lambda t: len(t[1]))
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, float("-inf")
     for a, b in spans:
@@ -1288,9 +1284,11 @@ def profile_query(torch, name, build, exec_ms) -> None:
         for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
             f.write(f"{us:12.1f} us  {kname}\n")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    lost = max(counts) - min(counts) > 0.01 * max(counts)
     print(f"  {name} profile: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
-          f"{len(kernels)} kernel launches; top: "
+          f"{len(kernels)} kernel launches (traces: {counts[0]}, "
+          f"{counts[1]}{'; one trace lost spans' if lost else ''}); top: "
           + "; ".join(f"{n[:60]} {us / 1e3:.3f} ms" for n, us in top))
 
 
@@ -1332,66 +1330,88 @@ def check_path(session, name: str, shards: int) -> None:
           f"expected {want[0]} over {want[1]}")
 
 
-def run_query(torch, session, wrappers, name, build, check_fn, need,
-              shards: int = 0):
-    """Cold run (launch counts set to 0 just before, read just after),
-    one captured warm run, then 3 timed warm runs; every run on the mesh
-    path over ``shards`` shards when that is given, else on the single
-    path. Returns (cold launch counts, captured calls by kernel, a
-    summary dict with the cold run's peak device memory, the median
-    run's per-exec ms)."""
+def drive_runs(torch, wrappers, run, verify):
+    """The measured sequence of a query or stage: a cold ``run()`` with
+    the launch counts set to 0 just before and read just after (and the
+    peak device memory reset), one warm run capturing every wrapper's
+    calls, then 3 timed warm runs; ``verify`` checks every run's result
+    and returns what the caller keeps of it. Returns (cold ms, cold
+    launch counts, peak GiB, launches per warm run, captured calls by
+    kernel, the 3 warm ms, ``verify``'s values: the cold run's first,
+    then the captured run's and the timed runs')."""
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wrappers.reset()
     t0 = time.perf_counter()
-    got = build().collect()
-    cold_s = time.perf_counter() - t0
+    got = run()
+    cold_ms = (time.perf_counter() - t0) * 1e3
     launches = wrappers.counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    info = session.last_query
-    print(f"  {name} cold run: {cold_s * 1e3:.1f} ms, {info.attempts} "
-          f"attempt(s), path {info.path} over {info.shards} shard(s), "
-          f"sites {info.site_kinds}, modes {info.dense_modes}; "
-          f"kernel launches {launches}; peak device memory "
-          f"{peak_gib:.2f} GiB")
-    check_path(session, name, shards)
-    check_fn(got)
-    for k in need:
-        check(launches[k] > 0, f"{k} was not launched during {name}")
+    kept = [verify(got)]
     caps = {k: Capture(*wrappers.mods[k]) for k in wrappers.mods}
     for c in caps.values():
         c.__enter__()
     try:
         before = wrappers.counts()
-        got = build().collect()
+        got = run()
         warm_launches = {k: v - before[k]
                          for k, v in wrappers.counts().items()}
     finally:
         for c in caps.values():
             c.__exit__()
-    check_path(session, name, shards)
-    check_fn(got)
-    runs, per_exec = [], []
+    kept.append(verify(got))
+    runs = []
     for _ in range(3):
         t0 = time.perf_counter()
-        got = build().collect()
+        got = run()
         runs.append((time.perf_counter() - t0) * 1e3)
-        per_exec.append(session.last_query.exec_ms)
+        kept.append(verify(got))
+    return (cold_ms, launches, peak_gib, warm_launches,
+            {k: c.calls for k, c in caps.items()}, runs, kept)
+
+
+def run_query(torch, session, wrappers, name, build, check_fn, need,
+              shards: int = 0):
+    """A query through :func:`drive_runs`: every run on the mesh path
+    over ``shards`` shards when that is given, else on the single path,
+    and checked by ``check_fn``; each kernel of ``need`` must launch in
+    the cold run. Returns (cold launch counts, captured calls by kernel,
+    a summary dict with the cold run's peak device memory, the median
+    run's per-exec ms)."""
+    last = {}
+
+    def verify(got):
+        info = session.last_query
         check_path(session, name, shards)
         check_fn(got)
+        last["got"] = got
+        return info
+
+    cold_ms, launches, peak_gib, warm_launches, calls, runs, infos = \
+        drive_runs(torch, wrappers, lambda: build().collect(), verify)
+    info = infos[0]
+    print(f"  {name} cold run: {cold_ms:.1f} ms, {info.attempts} "
+          f"attempt(s), path {info.path} over {info.shards} shard(s), "
+          f"sites {info.site_kinds}, modes {info.dense_modes}; "
+          f"kernel launches {launches}; peak device memory "
+          f"{peak_gib:.2f} GiB")
+    for k in need:
+        check(launches[k] > 0, f"{k} was not launched during {name}")
     e2e = statistics.median(runs)
-    mid = per_exec[runs.index(e2e)]
+    mid = infos[2 + runs.index(e2e)].exec_ms
     print(f"  {name} warm runs: {[round(r, 3) for r in runs]} ms, median "
           f"{e2e:.3f} ms; launches per warm run {warm_launches}")
     print(f"  {name} per exec (ms, median run): "
           + ", ".join(f"{k}={v:.3f}" for k, v in mid.items()))
     print(f"  {name} answer matches the numpy reference: " + json.dumps(
-        {k: np.asarray(v).tolist()[:10] for k, v in got.columns.items()}))
-    summary = {"cold_ms": cold_s * 1e3, "warm_median_ms": e2e,
+        {k: np.asarray(v).tolist()[:10]
+         for k, v in last["got"].columns.items()}))
+    summary = {"cold_ms": cold_ms, "warm_median_ms": e2e,
                "warm_runs_ms": runs, "attempts": info.attempts,
                "path": info.path, "shards": info.shards,
                "peak_gib": peak_gib, "launches": launches,
                "per_exec_ms": mid}
-    return launches, {k: c.calls for k, c in caps.items()}, summary, mid
+    return launches, calls, summary, mid
 
 
 def group_by_string_key(torch, KG, T, HostBatch, wrappers, name, col,
@@ -1450,17 +1470,16 @@ def group_by_string_key(torch, KG, T, HostBatch, wrappers, name, col,
 def run_entry_stage(torch, ENTRY, HostBatch, wrappers, name, profile,
                     **kwargs):
     """The engine's entry stage (``spark_rapids_tpu_torch.entry.entry``)
-    at ``kwargs``: one cold run with the launch counts set to 0 just
-    before and read just after, one run capturing ``segmented``'s calls,
-    then 3 timed runs (and, with ``profile``, one traced run); every
-    run's groups (key, sum, count, min, max) must equal ``numpy_entry``'s
-    exactly, and ``segmented`` must have launched its sum, min and max.
+    at ``kwargs`` through :func:`drive_runs` (and, with ``profile``,
+    :func:`profile_query`'s traced runs): every run's groups (key, sum,
+    count, min, max) must equal ``entry_reference``'s exactly, and
+    ``segmented`` must have launched its min and max in the cold run.
     Returns (cold launch counts, captured ``segmented`` calls, a summary
     dict)."""
     forward, (batch,) = ENTRY.entry(**kwargs)
     cols = ENTRY.entry_columns(**{k: v for k, v in kwargs.items()
                                   if k != "device"})
-    want = numpy_entry(cols)
+    want = ENTRY.entry_reference(cols)
 
     def run():
         out, fail = forward(batch)
@@ -1476,27 +1495,12 @@ def run_entry_stage(torch, ENTRY, HostBatch, wrappers, name, profile,
             check(len(g) == len(w) and np.array_equal(g, w),
                   f"{name}: {col_name} {list(g[:6])} vs {list(w[:6])}")
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    wrappers.reset()
-    t0 = time.perf_counter()
-    result = run()
-    cold_ms = (time.perf_counter() - t0) * 1e3
-    launches = wrappers.counts()
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    verify(result)
-    with Capture(*wrappers.mods["segmented"]) as cap:
-        verify(run())
-    ops = sorted(c[-1] for c in cap.calls)
+    cold_ms, launches, peak_gib, _, calls, runs, _ = drive_runs(
+        torch, wrappers, run, verify)
+    ops = sorted(c[-1] for c in calls["segmented"])
     check(launches["segmented"] > 0 and {"min", "max"} <= set(ops),
           f"{name}: segmented launched {launches['segmented']} time(s), "
           f"ops {ops}")
-    runs = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        result = run()
-        runs.append((time.perf_counter() - t0) * 1e3)
-        verify(result)
     if profile:
         profile_query(torch, name.lower(),
                       lambda: types.SimpleNamespace(collect=run), {})
@@ -1507,7 +1511,7 @@ def run_entry_stage(torch, ENTRY, HostBatch, wrappers, name, profile,
           f"{statistics.median(runs):.3f} ms; kernel launches {launches}, "
           f"segmented ops {ops}; peak device memory {peak_gib:.2f} GiB; "
           "every group equals numpy's")
-    return launches, cap.calls, {
+    return launches, calls["segmented"], {
         "rows": len(cols["k"]), "capacity": batch.capacity,
         "groups": groups, "cold_ms": cold_ms, "warm_runs_ms": runs,
         "warm_median_ms": statistics.median(runs), "peak_gib": peak_gib,
@@ -1934,7 +1938,7 @@ def main() -> int:
                     help="TPC-H lineitem rows (SF1 = 6,001,215)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one warm run of each query and "
+                    help="also trace two warm runs of each query and "
                          "entry stage with torch.profiler (tables in "
                          "chiprun_out/<query>_profile.txt)")
     args = ap.parse_args()
@@ -2214,13 +2218,19 @@ def main() -> int:
                                  minlength=capacity)
         lib = median_ms(torch, lambda: torch.segment_reduce(
             xf, op, lengths=lengths, unsafe=True), flush)
-        nbytes = x.numel() * x.element_size() + 4 * gid.numel() \
-            + capacity * (x.numel() // max(x.shape[0], 1)) * x.element_size()
+        # The least traffic: gid read whole, x read only at the rows whose
+        # gid lies in [0, capacity) (the rest, such as the sort path's dead
+        # tail, need not be read), and out written whole (the identity
+        # fills the groups with no rows).
+        row_bytes = (x.numel() // max(x.shape[0], 1)) * x.element_size()
+        live = int(((gid >= 0) & (gid < capacity)).sum().item())
+        nbytes = row_bytes * live + 4 * gid.numel() + capacity * row_bytes
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         groups = int((gid[gid < capacity].max() + 1).item()) \
             if bool((gid < capacity).any()) else 0
         print(f"  segmented {op} x={tuple(x.shape)} {x.dtype} "
-              f"capacity={capacity} groups={groups}: kernel {ms:.4f} ms, "
+              f"capacity={capacity} groups={groups} live rows={live}: "
+              f"kernel {ms:.4f} ms, "
               f"plain {pms:.4f} ms, "
               f"torch.segment_reduce {lib:.4f} ms, bound {bound:.4f} ms "
               f"({ms / bound:.1f}x)")

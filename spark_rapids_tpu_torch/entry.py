@@ -46,6 +46,24 @@ def entry_columns(n: int = 1000, key_range: int = 50, seed: int = 0
             "p": rng.integers(1, 1000, n).astype(np.int64)}
 
 
+def entry_reference(cols: dict) -> dict:
+    """The stage in numpy, apart from the port's operators: per key of
+    the rows of ``cols`` with ``q < 90``, in key order, the key, the sum
+    of ``q``, the row count and the min and max of ``p``, under the
+    buffer schema's names. The card tests, the CPU tests and
+    ``chip_smoke.py`` hold ``forward`` against this one copy."""
+    m = cols["q"] < 90
+    k, q, p = cols["k"][m], cols["q"][m], cols["p"][m]
+    order = np.argsort(k, kind="stable")
+    ks, qs, ps = k[order], q[order], p[order]
+    start = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]]) if len(ks) \
+        else np.zeros(0, np.int64)
+    return {"k": ks[start], "_buf0_sum": np.add.reduceat(qs, start),
+            "_buf1_count": np.diff(np.r_[start, len(ks)]),
+            "_buf2_min": np.minimum.reduceat(ps, start),
+            "_buf3_max": np.maximum.reduceat(ps, start)}
+
+
 def entry(n: int = 1000, key_range: int = 50, seed: int = 0, device=None):
     """``(forward, (batch,))``: the stage's step and its input, uploaded
     to ``device`` (the card when None; raises without one).

@@ -368,7 +368,8 @@ def test_cuda_segmented_min_max_at_sf1(cuda_device, op, key_range, dtype):
 @pytest.mark.cuda
 def test_cuda_entry_matches_numpy(cuda_device):
     from spark_rapids_tpu_torch.data.batch import HostBatch
-    from spark_rapids_tpu_torch.entry import entry, entry_columns
+    from spark_rapids_tpu_torch.entry import (entry, entry_columns,
+                                              entry_reference)
     forward, (batch,) = entry()
     assert batch.device.type == "cuda"
     before = SEG.segment_reduce_sorted.launches
@@ -376,20 +377,10 @@ def test_cuda_entry_matches_numpy(cuda_device):
     assert fail is None
     assert SEG.segment_reduce_sorted.launches == before + 3
     host = HostBatch.from_device(out)
-    cols = entry_columns()
-    m = cols["q"] < 90
-    keys, inv = np.unique(cols["k"][m], return_inverse=True)
-    mins = np.full(len(keys), np.iinfo(np.int64).max)
-    maxs = np.full(len(keys), np.iinfo(np.int64).min)
-    np.minimum.at(mins, inv, cols["p"][m])
-    np.maximum.at(maxs, inv, cols["p"][m])
-    want = {"k": keys, "_buf0_sum": np.bincount(inv, cols["q"][m]),
-            "_buf1_count": np.bincount(inv), "_buf2_min": mins,
-            "_buf3_max": maxs}
+    want = entry_reference(entry_columns())
     for name, w in want.items():
         assert host.validity[name].all()
-        np.testing.assert_array_equal(host.columns[name],
-                                      w.astype(np.int64), err_msg=name)
+        np.testing.assert_array_equal(host.columns[name], w, err_msg=name)
 
 
 @pytest.mark.cuda
