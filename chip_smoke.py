@@ -6,9 +6,9 @@ NVIDIA GPU.
 
 Phases; each one passes or the script exits non-zero:
 
-1. build the CUDA kernels from ``spark_rapids_tpu_torch/ops/kernels/cuda/
-   csrc`` (one ``nvcc`` per source, all at once); print the card's name and
-   power limit;
+1. build the CUDA kernels and the host snappy routine from
+   ``spark_rapids_tpu_torch/ops/kernels/cuda/csrc`` (one ``nvcc`` per
+   source, all at once); print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, on edge
    cases: for ``joinProbe`` duplicate keys, empty tables, one live row, all
    rows dead, a table of one slot, no build rows, every build row
@@ -44,7 +44,15 @@ Phases; each one passes or the script exits non-zero:
    12, 128 and 1,024, rows that differ only in their last char or only
    at a PAD position, all-PAD rows, chars above 127, and the row views
    ``m[1:]`` / ``m[:-1]`` of one matrix. Outputs equal bit for bit;
-   both ``hash`` entries also equal this script's own numpy murmur3;
+   both ``hash`` entries also equal this script's own numpy murmur3.
+   Then the host C++ snappy routine against its plain Python version:
+   every tag kind (literals with 0-4 extra length bytes, copies with 1-,
+   2- and 4-byte offsets, overlapping copies) decompressed as one page
+   list, every malformed block refused, the compressor byte for byte the
+   plain one's; and the committed pyarrow file
+   ``tests/data/lineitem_fixture.parquet`` (mixed dictionary/PLAIN
+   chunks, nulls, several pages and row groups, an empty one) decoded on
+   the card equal to its CPU decode;
 3. TPC-H Q3, Q1, Q4, Q6 and Q22 at SF1 (6,001,215 lineitem rows by
    default), all of lineitem sorted by ``l_shipdate``, and Q1 over
    ``lineitem.repartition(16, l_returnflag, l_linestatus)`` (``q1_hash_str``)
@@ -61,7 +69,16 @@ Phases; each one passes or the script exits non-zero:
    numpy implementation here (``xbb_score``'s ``max_score`` within 4 units
    in the last place, the largest difference printed; Q10's top 20 with
    runs of tied revenues compared as sets), ``joinProbe`` launched in all
-   but ``xbb_score``. Then the engine's entry stage
+   but ``xbb_score``. Then the SF1 tables written by the port's parquet
+   writer (SNAPPY, 1,048,576 rows a file, into a temporary directory
+   removed at exit), every page of them decompressed by the C++ routine
+   and by the plain version (worker processes) and equal, and the bench
+   suite's nine TPC-H queries over ``session.read.parquet`` frames
+   (``pq_q1`` ... ``pq_xbb_score``): the scan inside every run, each
+   answer against the same numpy references, the C++ snappy and the
+   queries' kernels launched, the scan's breakdown printed (file read,
+   footer and page-header parse, snappy, run tables, upload, device
+   decode, rows and bytes). Then the engine's entry stage
    (``spark_rapids_tpu_torch.entry.entry``: filter, then the sort-path
    aggregate of sum, count, min and max) at its defaults (1,000 rows) and
    at SF1's 6,001,215 rows with 50 and with 1,500,000 keys: every group
@@ -99,7 +116,8 @@ Phases; each one passes or the script exits non-zero:
    ``group_ids`` shapes; the ragged ``hash`` calls of the queries (also
    against numpy
    murmur3), and the matrix entry with its char matrix at
-   ``q1_hash_str``'s shape;
+   ``q1_hash_str``'s shape; the host snappy routine over every page of
+   the SF1 lineitem files beside the host's memory copy rate;
 5. one JSON line with every kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -110,12 +128,20 @@ prints no result. Long build logs go to ``chiprun_out/``.
 from __future__ import annotations
 
 import argparse
+import atexit
+import dataclasses
+import hashlib
 import json
+import multiprocessing
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -1398,7 +1424,8 @@ def run_query(torch, session, wrappers, name, build, check_fn, need,
     for k in need:
         check(launches[k] > 0, f"{k} was not launched during {name}")
     e2e = statistics.median(runs)
-    mid = infos[2 + runs.index(e2e)].exec_ms
+    mid_info = infos[2 + runs.index(e2e)]
+    mid = mid_info.exec_ms
     print(f"  {name} warm runs: {[round(r, 3) for r in runs]} ms, median "
           f"{e2e:.3f} ms; launches per warm run {warm_launches}")
     print(f"  {name} per exec (ms, median run): "
@@ -1410,7 +1437,7 @@ def run_query(torch, session, wrappers, name, build, check_fn, need,
                "warm_runs_ms": runs, "attempts": info.attempts,
                "path": info.path, "shards": info.shards,
                "peak_gib": peak_gib, "launches": launches,
-               "per_exec_ms": mid}
+               "per_exec_ms": mid, "counters": mid_info.counters}
     return launches, calls, summary, mid
 
 
@@ -1928,6 +1955,258 @@ def time_sort_routes(torch, KR, SS, dfs, flush) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the parquet scan: snappy, the fixture, the SF1 files
+# --------------------------------------------------------------------------
+
+#: Rows of one SF1 file the script writes: pyarrow's default row group
+#: (lineitem lands in 6 files, as the bench's pyarrow files hold 6 row
+#: groups; orders in 2).
+PQ_ROWS_PER_FILE = 1 << 20
+FIXTURE = Path(__file__).resolve().parent / "tests" / "data" / \
+    "lineitem_fixture.parquet"
+
+
+def snappy_edge_cases(SN, SC) -> None:
+    """The C++ snappy routine against the plain Python version: every tag
+    kind and overlapping copy decompressed as one page list (and equal to
+    the expected bytes), every malformed block refused, and the
+    compressor byte for byte the plain one's, round trip included."""
+    src, pages, size, wants = SC.page_batch(SC.valid_cases())
+    got = np.zeros(size, np.uint8)
+    plain = np.zeros(size, np.uint8)
+    SN.decompress_pages(src, pages, got, "cuda")
+    SN.decompress_pages(src, pages, plain, "cpu")
+    check(np.array_equal(got, plain), "snappy: C++ and plain differ")
+    for (_, _, d, n), want in zip(pages.tolist(), wants):
+        check(got[d:d + n].tobytes() == want, "snappy: a page differs from "
+              "its expected bytes")
+    for name, raw in SC.malformed_cases().items():
+        n = SN._varint(raw, 0)[0] if raw and raw[0] != 0xFF else 5
+        out = np.zeros(max(n, 1), np.uint8)
+        try:
+            SN.decompress_pages(np.frombuffer(raw, np.uint8),
+                                np.array([[0, len(raw), 0, n]]), out, "cuda")
+        except SN.SnappyError:
+            continue
+        fail(f"snappy: malformed input ({name}) was not refused")
+    for name, data in SC.compress_inputs().items():
+        c = SN.compress(data, "cuda")
+        check(c == SN.compress_plain(data), f"snappy compress ({name}) "
+              "differs from the plain version")
+        back = np.zeros(len(data), np.uint8)
+        SN.decompress_pages(np.frombuffer(c, np.uint8),
+                            np.array([[0, len(c), 0, len(data)]]), back,
+                            "cuda")
+        check(back.tobytes() == data, f"snappy round trip ({name})")
+    print(f"  snappy: {len(wants)} tag-kind cases, "
+          f"{len(SC.malformed_cases())} malformed blocks refused, "
+          f"{len(SC.compress_inputs())} compressions byte for byte the "
+          "plain version's and round trip")
+
+
+def host_columns_equal(a, b, what: str) -> None:
+    """Two HostBatches with equal validity and equal values where valid
+    (floats bit for bit)."""
+    check(list(a.columns) == list(b.columns), f"{what}: columns differ")
+    for name in a.columns:
+        va, vb = a.validity[name], b.validity[name]
+        check(np.array_equal(va, vb), f"{what}: {name} validity differs")
+        x, y = np.asarray(a.columns[name]), np.asarray(b.columns[name])
+        if x.dtype == object:
+            ok = list(x[va]) == list(y[vb])
+        elif x.dtype.kind == "f":
+            ok = np.array_equal(x[va].view(f"i{x.itemsize}"),
+                                y[vb].view(f"i{y.itemsize}"))
+        else:
+            ok = np.array_equal(x[va], y[vb])
+        check(ok, f"{what}: {name} differs")
+
+
+def check_fixture_decode(PD, M, HostBatch) -> dict:
+    """Every row group of the committed pyarrow file (the layouts the
+    port's writer never produces) decoded on the card and on the CPU:
+    equal column by column."""
+    path = str(FIXTURE)
+    meta = M.read_footer(path)
+    schema = M.schema_from_parquet(meta, path)
+    rows = 0
+    for rg in range(meta.num_row_groups):
+        card = HostBatch.from_device(PD.decode_row_group(
+            path, rg, schema, meta, device="cuda"))
+        cpu = HostBatch.from_device(PD.decode_row_group(
+            path, rg, schema, meta, device="cpu"))
+        host_columns_equal(card, cpu, f"fixture row group {rg}")
+        rows += card.num_rows
+    print(f"  fixture {FIXTURE.name}: {meta.num_row_groups} row groups, "
+          f"{rows} rows, {len(schema)} columns decoded on the card equal "
+          "the CPU decode")
+    return {"row_groups": meta.num_row_groups, "rows": rows}
+
+
+def device_rows(torch, ColumnarBatch, batch, a: int, b: int):
+    """Rows ``[a, b)`` of a physical device batch: views of its lanes,
+    dictionaries shared."""
+    cols = [dataclasses.replace(c, validity=c.validity[a:b],
+                                codes=c.codes[a:b]) if c.is_dict else
+            dataclasses.replace(c, data=c.data[a:b],
+                                validity=c.validity[a:b])
+            for c in batch.columns]
+    return ColumnarBatch(tuple(cols), torch.clamp(batch.n_rows - a, 0, b - a),
+                         batch.schema)
+
+
+def write_sf1_parquet(torch, PE, ColumnarBatch, tables, dfs,
+                      out_dir: str) -> dict:
+    """Every SF1 table through the port's writer (SNAPPY, one row group
+    a file, ``PQ_ROWS_PER_FILE`` rows a file) into ``out_dir/<table>/``,
+    from the tables already uploaded to the card. Returns the
+    directories and what was written."""
+    t0 = time.perf_counter()
+    dirs, files, nbytes = {}, [], 0
+    for name, hb in tables.items():
+        d = Path(out_dir) / name
+        d.mkdir()
+        dirs[name] = str(d)
+        batch = dfs[name]._plan.batch
+        for i, a in enumerate(range(0, max(hb.num_rows, 1),
+                                    PQ_ROWS_PER_FILE)):
+            part = device_rows(torch, ColumnarBatch, batch, a,
+                               a + PQ_ROWS_PER_FILE)
+            path = str(d / f"part-{i:05d}.parquet")
+            nbytes += PE.write_device_batch(part, path)
+            files.append(path)
+    secs = time.perf_counter() - t0
+    print(f"  wrote the SF1 tables with the port's writer (SNAPPY): "
+          f"{len(files)} files, {nbytes / 1e6:.1f} MB in {secs:.1f} s")
+    return {"dirs": dirs, "files": files, "bytes": nbytes, "seconds": secs}
+
+
+def plain_page_digest(task) -> bytes:
+    """SHA-256 of one page decompressed by the plain Python snappy (run
+    in a worker process)."""
+    from spark_rapids_tpu_torch.io import snappy as SN
+    raw, size = task
+    return hashlib.sha256(SN.decompress_plain(raw, size)).digest()
+
+
+def column_chunks(PD, M, files):
+    """Every column chunk of ``files``: (its bytes, its pages as rows of
+    (payload offset, compressed bytes, output offset, output bytes), the
+    output size), the pages laid out back to back."""
+    for path in files:
+        raw = Path(path).read_bytes()
+        for rg in M.read_footer(path).row_groups:
+            for c in rg.columns:
+                chunk = np.frombuffer(raw, np.uint8, c.total_compressed_size,
+                                      c.start)
+                pos, pages, dst = 0, [], 0
+                while pos < len(chunk):
+                    ph = PD.parse_page_header(chunk, pos)
+                    pages.append((ph.payload_pos, ph.compressed_size, dst,
+                                  ph.uncompressed_size))
+                    dst += ph.uncompressed_size
+                    pos = ph.payload_pos + ph.compressed_size
+                yield chunk, np.array(pages, np.int64), dst
+
+
+def check_sf1_pages(SN, PD, M, files) -> dict:
+    """Every page of the SF1 files decompressed by the C++ routine (one
+    call a column chunk) and by the plain version (spread over worker
+    processes, compared by SHA-256 of the output)."""
+    t0 = time.perf_counter()
+    tasks, native, out_bytes = [], [], 0
+    for chunk, pages, size in column_chunks(PD, M, files):
+        out = np.zeros(size, np.uint8)
+        SN.decompress_pages(chunk, pages, out, "cuda")
+        for so, sn, d, n in pages.tolist():
+            tasks.append((chunk[so:so + sn].tobytes(), n))
+            native.append(hashlib.sha256(out[d:d + n]).digest())
+        out_bytes += size
+    t_native = time.perf_counter() - t0
+    workers = min(8, os.cpu_count() or 1)
+    with ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        plain = list(ex.map(plain_page_digest, tasks))
+    bad = [i for i, (a, b) in enumerate(zip(native, plain)) if a != b]
+    check(len(plain) == len(native) and not bad,
+          f"snappy: C++ and plain differ on {len(bad)} SF1 pages")
+    secs = time.perf_counter() - t0
+    print(f"  snappy: all {len(tasks)} pages of the SF1 files "
+          f"({out_bytes / 1e6:.1f} MB out) equal between the C++ routine "
+          f"and the plain version ({workers} worker processes; "
+          f"{secs:.1f} s, of which the C++ pass {t_native:.1f} s)")
+    return {"pages": len(tasks), "bytes_out": out_bytes, "seconds": secs}
+
+
+def print_scan(name: str, summary: dict) -> None:
+    """A parquet cell's scan breakdown (median run)."""
+    ms = summary["per_exec_ms"]
+    c = summary["counters"]
+    part = {k: ms.get(f"ParquetScanExec.{k}", 0.0) for k in (
+        "read", "parse", "decompress", "runs", "upload", "decode")}
+    print(f"  {name} scan (median run): file read {part['read']:.3f} ms, "
+          f"footer and page-header parse {part['parse']:.3f} ms, snappy "
+          f"{part['decompress']:.3f} ms, run tables {part['runs']:.3f} ms "
+          f"(host clock); upload {part['upload']:.3f} ms, device decode "
+          f"{part['decode']:.3f} ms (CUDA events); "
+          f"{c.get('ParquetScanExec.rows', 0)} rows, "
+          f"{c.get('ParquetScanExec.read_bytes', 0)} bytes read, "
+          f"{c.get('ParquetScanExec.bytes', 0)} bytes decompressed, "
+          f"{c.get('ParquetScanExec.snappy_chunks', 0)} snappy calls")
+    summary["scan_ms"] = part
+
+
+def time_snappy(SN, PD, M, files) -> dict:
+    """The C++ snappy on every page of the SF1 lineitem files (one call a
+    column chunk, host clock, median of 3) beside its bound: the bytes it
+    writes at this host's memory copy rate, and that rate measured by a
+    numpy copy of 1 GiB and by reading the files from the page cache."""
+    chunks = [(chunk, pages, np.empty(size, np.uint8))
+              for chunk, pages, size in column_chunks(PD, M, files)]
+    bytes_in = sum(len(c) for c, _, _ in chunks)
+    bytes_out = sum(len(o) for _, _, o in chunks)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for chunk, pages, out in chunks:
+            SN.decompress_pages(chunk, pages, out, "cuda")
+        times.append((time.perf_counter() - t0) * 1e3)
+    src = np.ones(1 << 30, np.uint8)
+    dst = np.empty_like(src)
+    copies = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        np.copyto(dst, src)
+        copies.append(time.perf_counter() - t0)
+    copy_gbs = src.nbytes / min(copies) / 1e9
+    del src, dst
+    total = sum(Path(p).stat().st_size for p in files)
+    buf = bytearray(max(Path(p).stat().st_size for p in files))
+    reads = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for p in files:
+            with open(p, "rb", buffering=0) as f:
+                f.readinto(buf)
+        reads.append(time.perf_counter() - t0)
+    read_gbs = total / min(reads) / 1e9
+    ms = statistics.median(times)
+    bound = bytes_out / (copy_gbs * 1e9) * 1e3
+    print(f"  snappy (host C++) over the SF1 lineitem files: {len(chunks)} "
+          f"calls, {bytes_in / 1e6:.1f} MB in, {bytes_out / 1e6:.1f} MB "
+          f"out: {ms:.3f} ms ({bytes_out / ms / 1e6:.2f} GB/s out; runs "
+          f"{[round(t, 3) for t in times]}); host memory copy "
+          f"{copy_gbs:.2f} GB/s (numpy, 1 GiB), page-cache read "
+          f"{read_gbs:.2f} GB/s; bound {bound:.3f} ms at the copy rate")
+    return {"calls": len(chunks), "bytes_in": bytes_in,
+            "bytes_out": bytes_out, "ms": ms, "runs_ms": times,
+            "copy_gbs": copy_gbs, "page_cache_read_gbs": read_gbs,
+            "bound_ms": bound}
+
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -1948,7 +2227,7 @@ def main() -> int:
         fail("CUDA is not available; this smoke run needs an NVIDIA GPU")
     from spark_rapids_tpu_torch import entry as ENTRY
     from spark_rapids_tpu_torch import types as T
-    from spark_rapids_tpu_torch.data.batch import HostBatch
+    from spark_rapids_tpu_torch.data.batch import ColumnarBatch, HostBatch
     from spark_rapids_tpu_torch.exec import execs as E
     from spark_rapids_tpu_torch.ops.expression import col, lit
     from spark_rapids_tpu_torch.ops.kernels import groupby as KG
@@ -1970,6 +2249,11 @@ def main() -> int:
     from spark_rapids_tpu_torch.session import TorchSession
     from spark_rapids_tpu_torch.shuffle import partitioning as PN
     from spark_rapids_tpu_torch.workloads import tpch
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+    from spark_rapids_tpu_torch.io import parquet_encode as PE
+    from spark_rapids_tpu_torch.io import parquet_meta as M
+    from spark_rapids_tpu_torch.io import snappy as SN
+    from spark_rapids_tpu_torch.io import snappy_cases as SC
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2005,11 +2289,14 @@ def main() -> int:
     hash_edge_cases(torch, HK, rng, dev)
     ragged_hash_edge_cases(torch, HK, T, DeviceColumn, PN, rng, dev)
     row_equal_edge_cases(torch, SG, rng, dev)
+    snappy_edge_cases(SN, SC)
+    fixture = check_fixture_decode(PD, M, HostBatch)
 
     # -- phase 3: the queries at SF1 -------------------------------------
     print(f"phase 3: TPC-H Q3, Q1, Q4, Q6, Q22, lineitem sorted by "
           f"l_shipdate, Q1 over two hash repartitions of lineitem, Q5, "
-          f"Q12, Q14, Q19, xbb_score, Q10, Q18, the entry stage, "
+          f"Q12, Q14, Q19, xbb_score, Q10, Q18, the nine bench queries "
+          f"over SF1 parquet, the entry stage, "
           f"group_ids over two string keys, Q1, Q3, Q4 and Q6 over a "
           f"4-shard mesh on the card, distributed_sum_by_key, "
           f"lineitem_rows={args.lineitem_rows}")
@@ -2095,6 +2382,56 @@ def main() -> int:
             profile_query(torch, q, build, mid)
     print(f"  XBB_SCORE max_score: at most {max(xbb_ulps)} ulp from numpy's "
           f"over {len(xbb_ulps)} runs (limit {MAX_SCORE_ULPS})")
+
+    # The bench suite's TPC-H queries over parquet: the SF1 tables written
+    # by the port's writer, every collect scanning them (the scan inside
+    # every timed run).
+    pq_dir = tempfile.mkdtemp(prefix="chip_smoke_parquet_")
+    atexit.register(shutil.rmtree, pq_dir, True)
+    written = write_sf1_parquet(torch, PE, ColumnarBatch, tables, dfs,
+                                pq_dir)
+    sf1_pages = check_sf1_pages(SN, PD, M, written["files"])
+    pq_dfs = {name: session.read.parquet(d)
+              for name, d in written["dirs"].items()}
+    unordered = {"q1": ["l_returnflag", "l_linestatus"], "q5": ["n_name"],
+                 "q12": ["l_shipmode"], "xbb_score": ["l_returnflag"]}
+
+    def pq_check(q):
+        def check_fn(got):
+            if q in unordered:
+                got = in_key_order(got, unordered[q])
+            if q == "xbb_score":
+                xbb_ulps.append(check_xbb_score(got, refs["xbb_score"]))
+            elif q == "q3":
+                check_top("Q3", got, ref3, ["o_orderkey", "o_orderdate"],
+                          "revenue", 10)
+            else:
+                check_answer(q, got, refs[q])
+        return check_fn
+
+    pq_need = {"q3": ("joinProbe", "segmented"),
+               "q4": ("joinProbe", "sortStep"), "q5": ("joinProbe",),
+               "q12": ("joinProbe",), "q14": ("joinProbe",),
+               "q19": ("joinProbe",)}
+    for q in ("q1", "q3", "q4", "q5", "q6", "q12", "q14", "q19",
+              "xbb_score"):
+        cell = f"pq_{q}"
+        build = (lambda q=q: tpch.QUERIES[q](pq_dfs))
+        sn_before = SN.decompress_pages.launches
+        got_launches, got_calls, summaries[cell], mid = run_query(
+            torch, session, wrappers, cell.upper(), build, pq_check(q),
+            pq_need.get(q, ()))
+        sn_calls = SN.decompress_pages.launches - sn_before
+        check(sn_calls > 0 and summaries[cell]["counters"].get(
+            "ParquetScanExec.snappy_chunks", 0) > 0,
+            f"{cell}: the C++ snappy did not run in the scan")
+        summaries[cell]["snappy_calls"] = sn_calls
+        print_scan(cell.upper(), summaries[cell])
+        for k in launches:
+            launches[k] += got_launches[k]
+            calls[k] += got_calls[k]
+        if args.profile:
+            profile_query(torch, cell, build, mid)
 
     # The engine's entry stage (filter -> aggregate on the sort path): at
     # entry()'s defaults, then at SF1's lineitem rows with entry()'s 50
@@ -2325,6 +2662,10 @@ def main() -> int:
                  "bound_ms": eq["bytes"] / HBM_BYTES_PER_S * 1e3,
                  "bound_by": "bytes", "library_ms": eq["lib"]})
 
+    snappy_row = time_snappy(SN, PD, M, [
+        f for f in written["files"]
+        if Path(f).parent.name == "lineitem"])
+
     # -- phase 5: results --------------------------------------------------
     print(json.dumps({"queries_sf1": {
         "lineitem_rows": args.lineitem_rows, "card": smi,
@@ -2339,7 +2680,12 @@ def main() -> int:
         "q3_dense_joins": q3_joins,
         "distributed_sum_by_key": distributed,
         "q6_default_mesh_ms": default_ms, "entry_stage": entry_runs,
-        "xbb_score_max_score_ulps": max(xbb_ulps)}}))
+        "xbb_score_max_score_ulps": max(xbb_ulps),
+        "parquet": {"fixture": fixture, "sf1_pages": sf1_pages,
+                    "write": {k: v for k, v in written.items()
+                              if k in ("bytes", "seconds")},
+                    "files": len(written["files"]),
+                    "snappy": snappy_row}}}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -45,6 +45,10 @@ def conf_bool(key: str, default: bool, doc: str) -> ConfEntry:
                      lambda v: v.strip().lower() == "true")
 
 
+def conf_str(key: str, default: str, doc: str) -> ConfEntry:
+    return _register(key, default, doc, str)
+
+
 TOPK_THRESHOLD = conf_int(
     "spark.rapids.tpu.sort.topKThreshold", 16384,
     "ORDER BY ... LIMIT n with n at or below this runs as the top-k exec "
@@ -57,6 +61,14 @@ MESH_ENABLED = conf_bool(
     "per shard, and aggregate, join and sort boundaries exchange rows "
     "between shards by murmur3 or by range (exec/mesh.py). Other plans "
     "run on the single-device path.")
+
+
+PARQUET_REBASE_READ = conf_str(
+    "spark.sql.legacy.parquet.datetimeRebaseModeInRead", "EXCEPTION",
+    "Dates and timestamps of parquet files written with the legacy hybrid "
+    "calendar (Spark 2.x): EXCEPTION raises when they may reach before "
+    "the calendar switch, CORRECTED reads the raw values as proleptic, "
+    "LEGACY raises (the reader does not rebase).")
 
 
 class TorchConf:

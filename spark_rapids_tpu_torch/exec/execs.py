@@ -58,6 +58,8 @@ class ExecContext:
         self._marks: List[tuple] = []
         #: The exchanges' block store, made at the first exchange.
         self.shuffle_catalog = None
+        #: name -> count (the scan's rows and decompressed bytes).
+        self.counters: Dict[str, int] = {}
 
     def next_site(self, kind: str) -> int:
         self.site_kinds.append(kind)
@@ -65,6 +67,10 @@ class ExecContext:
 
     def mode(self, site: int) -> int:
         return self.dense_modes.get(site, 0)
+
+    def count(self, name: str, n: int) -> None:
+        """Add ``n`` to the counter ``name``."""
+        self.counters[name] = self.counters.get(name, 0) + int(n)
 
     def report(self, site: int, fail) -> None:
         """Record an optimistic site's device-side fail flag."""

@@ -1,7 +1,9 @@
 """Build and load the CUDA kernels: ``nvcc`` by hand into one shared
 library per source, with a plain C interface, loaded through ``ctypes``.
 
-Sources live in ``csrc/``; libraries go to ``spark_rapids_tpu_torch/
+Sources live in ``csrc/``: the kernels (``<name>.cu``) and the host
+routines (``<name>.cpp``, plain C++ that ``nvcc`` hands to the host
+compiler: the parquet scan's snappy codec). Libraries go to ``spark_rapids_tpu_torch/
 _build/`` (listed in ``.gitignore``), named by a digest of the source and
 the flags so an edited source rebuilds. The build runs at first use, or
 up front through :func:`build_all`, which starts one ``nvcc`` per source
@@ -24,6 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "_build"
 
 #: The kernel sources (``csrc/<name>.cu``).
 KERNELS = ("join_probe", "segmented", "sort_steps", "strings", "hashing")
+#: The host routines (``csrc/<name>.cpp``).
+HOST_ROUTINES = ("snappy",)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,13 +48,20 @@ def nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+def source_path(name: str) -> Path:
+    """``csrc/<name>.cu`` for a kernel, ``csrc/<name>.cpp`` for a host
+    routine."""
+    return CSRC / (f"{name}.cpp" if name in HOST_ROUTINES else f"{name}.cu")
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = source_path(name).read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+def build_all(names: Iterable[str] = KERNELS + HOST_ROUTINES
+              ) -> Dict[str, str]:
     """Compile every missing library, one ``nvcc`` process per source, all
     started together. Returns ``{name: ptxas report}`` for the sources
     compiled now; raises with the compiler output if any build fails."""
@@ -61,7 +72,7 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -69,7 +80,7 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}.cu:\n{log}")
+            failed.append(f"{source_path(name).name}:\n{log}")
             continue
         os.replace(tmp, out)
         reports[name] = log
@@ -79,7 +90,8 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``.cpp``), built on
+    first use."""
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:

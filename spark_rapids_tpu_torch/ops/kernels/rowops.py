@@ -22,11 +22,13 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ... import types as T
 from ...data.batch import ColumnarBatch
-from ...data.column import DeviceColumn, bucket_byte_capacity, bucket_capacity
+from ...data.column import (DeviceColumn, bucket_byte_capacity,
+                            bucket_capacity, dictionary_column)
 from ..strings_util import char_matrix
 from .cuda import sort_steps as SS
 from .cuda import strings as SG
@@ -208,21 +210,44 @@ def shrink_sparse(batch: ColumnarBatch) -> ColumnarBatch:
     return ColumnarBatch(cols, batch.n_rows, batch.schema)
 
 
+def sorted_dictionary(col: DeviceColumn) -> DeviceColumn:
+    """A dictionary string column with the same strings over a unique,
+    byte-ordered dictionary: the entries ranked on the host, the codes
+    remapped on the device (what the parquet scan does for a page
+    dictionary). For a dictionary a concatenation appended unsorted."""
+    raw = np.array([str(s).encode("utf-8") for s in col.dictionary],
+                   dtype=object)
+    if not len(raw):
+        return dictionary_column(torch.zeros_like(col.codes), col.validity,
+                                 np.zeros(0, object), dict_sorted=True)
+    entries, rank = np.unique(raw, return_inverse=True)
+    remap = torch.from_numpy(rank.astype(np.int32)).to(col.device)
+    codes = torch.where(col.validity,
+                        remap[col.codes.clamp(0, len(raw) - 1).long()], 0)
+    return dictionary_column(codes, col.validity,
+                             np.array([b.decode("utf-8") for b in entries],
+                                      dtype=object), dict_sorted=True)
+
+
 def packed_sort_lane(batch: ColumnarBatch, keys: Sequence[DeviceColumn],
                      ascending: Sequence[bool], nulls_first: Sequence[bool]
                      ) -> Optional[torch.Tensor]:
     """The sort operands packed into ONE unique int64 lane, or None when
-    the keys cannot pack. Eligible, as in the reference: a single key of
-    at most 32 bits that is not a float (ints, dates, bools, sorted
-    dictionary codes), at a capacity of at most ``2**27``. Layout, high
-    to low, the stable sort's operand order (dead flag, null bucket, key,
-    row index), each field non-negative in its width:
+    the keys cannot pack. Eligible: a single key of at most 32 bits that
+    is not a float (ints, dates, bools, dictionary codes), at a capacity
+    of at most ``2**27``. The reference packs sorted dictionaries only;
+    here an unsorted one (row groups or batches concatenated) packs its
+    codes' byte-order rank (:func:`sorted_dictionary`), the same order.
+    Layout, high to low, the stable sort's operand order (dead flag, null
+    bucket, key, row index), each field non-negative in its width:
     ``[bit63: 0][4: dead 8 / bucket + 4][32: key + 2**31][27: row]``."""
     if len(keys) != 1:
         return None
     k = keys[0]
-    if k.is_string and not (k.is_dict and k.dict_sorted):
+    if k.is_string and not k.is_dict:
         return None
+    if k.is_dict and not k.dict_sorted:
+        k = sorted_dictionary(k)
     if not k.is_string and (k.dtype.is_floating
                             or k.data.element_size() > 4
                             or k.data.dtype == torch.uint8):

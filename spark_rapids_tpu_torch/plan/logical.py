@@ -1,6 +1,6 @@
 """Logical plans and the DataFrame API — port of
-``spark_rapids_tpu/plan/logical.py``, cut to what TPC-H Q1, Q3, Q4, Q6
-and Q22 run: ``select``, ``where``, ``with_column``, equi ``join``
+``spark_rapids_tpu/plan/logical.py``, cut to what the TPC-H queries run:
+a device table or a parquet scan, ``select``, ``where``, ``with_column``, equi ``join``
 (inner, left_semi, left_anti), ``cross_join`` (a keyless inner join is
 one, with its condition), ``group_by(...).agg`` (no keys: a global
 aggregate), ``sort``, ``limit``, ``repartition`` (hash on columns, or
@@ -97,6 +97,28 @@ class DeviceRelation(LogicalPlan):
 
     def describe(self):
         return f"DeviceRelation[{', '.join(self.schema.names)}]"
+
+
+class Scan(LogicalPlan):
+    """A file scan (``TorchSession.read.parquet``): the files the paths
+    named, listed when the reader was called, and the schema of the
+    first. The scan decodes every column of that schema, as the
+    reference's does (its ``Scan.projected`` is never set): a
+    ``Project`` above drops the rest."""
+
+    def __init__(self, fmt: str, files: List[str], schema: T.Schema):
+        self.children = []
+        self.fmt = fmt
+        self.files = list(files)
+        self._schema = schema
+
+    @property
+    def schema(self) -> T.Schema:
+        return self._schema
+
+    def describe(self):
+        return f"Scan {self.fmt} [{', '.join(self._schema.names)}] " \
+               f"files={len(self.files)}"
 
 
 class Project(LogicalPlan):

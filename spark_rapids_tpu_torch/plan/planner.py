@@ -1,7 +1,10 @@
 """Logical -> physical planning — port of the parts of
 ``spark_rapids_tpu/plan/planner.py`` and ``plan/overrides.py`` that the
 port's TPC-H queries need. Every logical node maps to its device exec
-directly (the port has no CPU operators to replace); a keyless join
+directly (the port has no CPU operators to replace); a parquet scan
+plans as :class:`~..io.parquet_device.ParquetScanExec`, which decodes on
+the device (``planner.py:112`` and ``overrides`` in the reference); a
+keyless join
 plans as the nested-loop join (``planner.py:_plan_join``,
 ``overrides.py:_make_nlj``); ``ORDER BY ... LIMIT n`` with ``n`` at or
 below ``spark.rapids.tpu.sort.topKThreshold`` plans as a top-k, as the
@@ -12,8 +15,9 @@ shuffle exchange (``planner.py:140-146`` plans it on the CPU and
 
 from __future__ import annotations
 
-from ..config import TOPK_THRESHOLD, TorchConf
+from ..config import PARQUET_REBASE_READ, TOPK_THRESHOLD, TorchConf
 from ..exec import execs as E
+from ..io.parquet_device import ParquetScanExec
 from ..exec.joins import NestedLoopJoinExec
 from ..shuffle.exchange import ShuffleExchangeExec
 from ..shuffle.partitioners import partitioner_factory
@@ -23,6 +27,11 @@ from . import logical as L
 def plan_physical(plan: L.LogicalPlan, conf: TorchConf) -> E.TorchExec:
     if isinstance(plan, L.DeviceRelation):
         return E.DeviceSourceExec(plan.batch)
+    if isinstance(plan, L.Scan):
+        if plan.fmt != "parquet":
+            raise NotImplementedError(f"{plan.fmt} scans are not ported")
+        return ParquetScanExec(plan.files, plan.schema,
+                               conf.get(PARQUET_REBASE_READ))
     if isinstance(plan, L.Project):
         return E.ProjectExec(plan_physical(plan.children[0], conf),
                              plan.exprs)

@@ -31,6 +31,8 @@ from .config import MESH_ENABLED, TorchConf
 from .data.batch import HostBatch
 from .exec import execs as E
 from .exec import mesh as MX
+from .io import parquet_device as PQ
+from .io.parquet_meta import read_footer, schema_from_parquet
 from .parallel.mesh import Mesh, make_mesh
 from .plan import logical as L
 from .plan.planner import plan_physical
@@ -58,6 +60,8 @@ class QueryInfo:
     path: str = "single"
     #: Shards of the final run (1 on the single-device path).
     shards: int = 1
+    #: counter -> value of the final run (the scan's rows and bytes).
+    counters: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -69,6 +73,25 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU explicitly")
     return device
+
+
+class DataFrameReader:
+    """``session.read``: file sources (the reference's
+    ``session.py:26``). Only parquet is ported."""
+
+    def __init__(self, session: "TorchSession"):
+        self._session = session
+
+    def parquet(self, *paths: str) -> L.DataFrame:
+        """A DataFrame over parquet files or directories of them (their
+        ``*.parquet`` files; names starting with ``_`` or ``.`` are
+        skipped), typed by the first file's schema. It decodes on the
+        session's device when collected."""
+        files = PQ.scan_files(list(paths))
+        if not files:
+            raise FileNotFoundError(f"no parquet files under {paths}")
+        schema = schema_from_parquet(read_footer(files[0]), files[0])
+        return L.DataFrame(L.Scan("parquet", files, schema), self._session)
 
 
 class TorchSession:
@@ -92,6 +115,10 @@ class TorchSession:
         if self._mesh is None:
             self._mesh = make_mesh()
         return self._mesh
+
+    @property
+    def read(self) -> DataFrameReader:
+        return DataFrameReader(self)
 
     def create_dataframe(self, data, schema: Optional[T.Schema] = None
                          ) -> L.DataFrame:
@@ -149,7 +176,8 @@ class TorchSession:
                     site_kinds=list(ctx.site_kinds),
                     exec_ms=ctx.exec_ms(),
                     path="single" if mesh is None else "mesh",
-                    shards=1 if mesh is None else mesh.size)
+                    shards=1 if mesh is None else mesh.size,
+                    counters=dict(ctx.counters))
                 return result
             rounds += 1
             if rounds >= _MAX_ATTEMPTS:

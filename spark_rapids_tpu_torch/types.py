@@ -3,7 +3,9 @@
 Port of ``spark_rapids_tpu/types.py``, cut to the types the port runs:
 every type knows the numpy dtype of its host values and the torch dtype
 of its device lane. Dates are int32 days since the epoch, Spark's
-internal representation. Uploaded strings are dictionary-encoded on
+internal representation, timestamps int64 microseconds; the byte,
+short, float and timestamp types come from parquet files (the scan,
+``io/``). Uploaded strings are dictionary-encoded on
 the device (int32 codes) with the dictionary kept on the host, so their
 device lane is int32; expressions may build flat strings (offsets and
 a byte payload, ``data/column.py``).
@@ -41,6 +43,20 @@ class BooleanType(DataType):
     torch_dtype = torch.bool
 
 
+class ByteType(DataType):
+    name = "tinyint"
+    np_dtype = np.dtype(np.int8)
+    torch_dtype = torch.int8
+    is_numeric = is_integral = True
+
+
+class ShortType(DataType):
+    name = "smallint"
+    np_dtype = np.dtype(np.int16)
+    torch_dtype = torch.int16
+    is_numeric = is_integral = True
+
+
 class IntegerType(DataType):
     name = "int"
     np_dtype = np.dtype(np.int32)
@@ -53,6 +69,13 @@ class LongType(DataType):
     np_dtype = np.dtype(np.int64)
     torch_dtype = torch.int64
     is_numeric = is_integral = True
+
+
+class FloatType(DataType):
+    name = "float"
+    np_dtype = np.dtype(np.float32)
+    torch_dtype = torch.float32
+    is_numeric = is_floating = True
 
 
 class DoubleType(DataType):
@@ -70,6 +93,14 @@ class DateType(DataType):
     torch_dtype = torch.int32
 
 
+class TimestampType(DataType):
+    """Microseconds since the unix epoch (UTC), int64."""
+
+    name = "timestamp"
+    np_dtype = np.dtype(np.int64)
+    torch_dtype = torch.int64
+
+
 class StringType(DataType):
     """Strings: int32 dictionary codes, or a flat offsets + bytes layout."""
 
@@ -79,14 +110,19 @@ class StringType(DataType):
 
 
 BOOLEAN = BooleanType()
+BYTE = ByteType()
+SHORT = ShortType()
 INT = IntegerType()
 LONG = LongType()
+FLOAT = FloatType()
 DOUBLE = DoubleType()
 DATE = DateType()
+TIMESTAMP = TimestampType()
 STRING = StringType()
 
-_NUMERIC_ORDER = [INT, LONG, DOUBLE]
-_BY_NAME = {t.name: t for t in (BOOLEAN, INT, LONG, DOUBLE, DATE, STRING)}
+_NUMERIC_ORDER = [BYTE, SHORT, INT, LONG, FLOAT, DOUBLE]
+_BY_NAME = {t.name: t for t in (BOOLEAN, BYTE, SHORT, INT, LONG, FLOAT,
+                                DOUBLE, DATE, TIMESTAMP, STRING)}
 
 
 def from_name(name: str) -> DataType:

@@ -1,5 +1,6 @@
 """The CUDA kernels of ``spark_rapids_tpu_torch`` against their plain
-PyTorch versions, on the card. Every test here needs an NVIDIA GPU and
+PyTorch versions, on the card, and the parquet scan's host snappy
+routine and card decode against their plain and CPU versions. Every test here needs an NVIDIA GPU and
 skips without one; the module imports neither JAX nor the JAX package,
 so it runs on a machine that has only PyTorch:
 
@@ -10,12 +11,19 @@ case builders here are shared with ``tests/test_torch_kernels.py``, which
 holds the same plain versions against the JAX package's Pallas kernels.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 import torch
 
+from spark_rapids_tpu_torch.data.batch import HostBatch
 from spark_rapids_tpu_torch.data.column import bucket_byte_capacity
+from spark_rapids_tpu_torch.io import parquet_device as PD
+from spark_rapids_tpu_torch.io import parquet_meta as M
+from spark_rapids_tpu_torch.io import snappy as SN
+from spark_rapids_tpu_torch.io import snappy_cases as SC
 from spark_rapids_tpu_torch.ops.kernels.cuda import hashing as HK
 from spark_rapids_tpu_torch.ops.kernels.cuda import join_probe as JP
 from spark_rapids_tpu_torch.ops.kernels.cuda import segmented as SEG
@@ -630,3 +638,74 @@ def test_cuda_row_equal_empty_and_refused(cuda_device):
         SG.ragged_row_equal(m.int(), m.int())
     with pytest.raises(ValueError, match="shapes differ"):
         SG.ragged_row_equal(m[1:], m)
+
+
+# -- the parquet scan's host snappy routine and card decode ---------------------
+
+FIXTURE = Path(__file__).resolve().parent / "data" / "lineitem_fixture.parquet"
+
+
+@pytest.mark.cuda
+def test_cuda_snappy_matches_plain_on_every_tag_kind(cuda_device):
+    """The C++ routine (what a scan on the card calls) against the plain
+    version: one page list of every tag kind and overlapping copy."""
+    src, pages, size, wants = SC.page_batch(SC.valid_cases())
+    got = np.zeros(size, np.uint8)
+    plain = np.zeros(size, np.uint8)
+    before = SN.decompress_pages.launches
+    SN.decompress_pages(src, pages, got, cuda_device)
+    assert SN.decompress_pages.launches == before + 1
+    SN.decompress_pages(src, pages, plain, "cpu")
+    assert np.array_equal(got, plain)
+    for (_, _, d, n), want in zip(pages.tolist(), wants):
+        assert got[d:d + n].tobytes() == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SC.malformed_cases()))
+def test_cuda_snappy_refuses_malformed_input(cuda_device, name):
+    raw = SC.malformed_cases()[name]
+    n = SN._varint(raw, 0)[0] if raw and raw[0] != 0xFF else 5
+    out = np.zeros(max(n, 1), np.uint8)
+    with pytest.raises(SN.SnappyError):
+        SN.decompress_pages(np.frombuffer(raw, np.uint8),
+                            np.array([[0, len(raw), 0, n]]), out,
+                            cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SC.compress_inputs()))
+def test_cuda_snappy_compress_matches_plain(cuda_device, name):
+    data = SC.compress_inputs()[name]
+    got = SN.compress(data, cuda_device)
+    assert got == SN.compress_plain(data)
+    assert SN.decompress_plain(got, len(data)) == data
+
+
+@pytest.mark.cuda
+def test_cuda_fixture_decode_matches_cpu(cuda_device):
+    """Every row group of the committed pyarrow file decoded on the card
+    equals its CPU decode."""
+    path = str(FIXTURE)
+    meta = M.read_footer(path)
+    schema = M.schema_from_parquet(meta, path)
+    for rg in range(meta.num_row_groups):
+        card = HostBatch.from_device(PD.decode_row_group(
+            path, rg, schema, meta, device=cuda_device))
+        cpu = HostBatch.from_device(PD.decode_row_group(
+            path, rg, schema, meta, device="cpu"))
+        for name in cpu.columns:
+            assert np.array_equal(card.validity[name], cpu.validity[name])
+            valid = cpu.validity[name]
+            a, b = np.asarray(card.columns[name]), np.asarray(cpu.columns[name])
+            assert list(a[valid]) == list(b[valid]), name
+
+
+@pytest.mark.cuda
+def test_cuda_read_parquet_defaults_to_the_card(cuda_device):
+    from spark_rapids_tpu_torch.session import TorchSession
+    df = TorchSession().read.parquet(str(FIXTURE))
+    before = SN.decompress_pages.launches
+    got = df.collect()
+    assert SN.decompress_pages.launches > before
+    assert got.num_rows == 4 * 4096
