@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``spark_rapids_tpu_torch``) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py [--lineitem-rows N] [--seed S] [--profile]
+    python3 chip_smoke.py [--lineitem-rows N] [--xbb-clicks N] [--seed S]
+                          [--profile]
 
 Phases; each one passes or the script exits non-zero:
 
@@ -78,7 +79,16 @@ Phases; each one passes or the script exits non-zero:
    answer against the same numpy references, the C++ snappy and the
    queries' kernels launched, the scan's breakdown printed (file read,
    footer and page-header parse, snappy, run tables, upload, device
-   decode, rows and bytes). Then the engine's entry stage
+   decode, rows and bytes). Then the bench suite's three TPCxBB entries,
+   ``bb_q01`` (a self-join on the store ticket, a two-key count, top
+   100), ``bb_q05`` (click features and a dense LEFT join to the buyers)
+   and ``bb_q30`` (sessions by windows and a two-key left self-join,
+   then a two-key self-join), over ``tpcxbb.gen_tables`` at 2^22 clicks
+   by default (``--xbb-clicks``) uploaded to the card, and as
+   ``pq_bb_*`` over bench.py's 2^17-click tables written by the port's
+   writer: every answer equal to its numpy implementation here, row for
+   row, ``bb_q01`` not empty, ``joinProbe`` launched in ``bb_q05`` (its
+   left join too) and ``bb_q30``. Then the engine's entry stage
    (``spark_rapids_tpu_torch.entry.entry``: filter, then the sort-path
    aggregate of sum, count, min and max) at its defaults (1,000 rows) and
    at SF1's 6,001,215 rows with 50 and with 1,500,000 keys: every group
@@ -107,7 +117,8 @@ Phases; each one passes or the script exits non-zero:
    (``segmented``: every call of the queries and the entry stage, its
    sum, min and max, beside ``torch.segment_reduce``);
    ``joinProbe``'s table clear beside its bound, and Q3's direct-address
-   joins whole and their slot preparation; the sort exec's permutation
+   joins and ``bb_q05``'s dense left join whole and their slot
+   preparation; the sort exec's permutation
    of SF1 lineitem by ``l_shipdate`` through ``sortStep`` against the
    stable lexsort route; the ragged ``strings`` gather at Q22's and
    ``group_ids cntrycode``'s calls beside the char-matrix route it
@@ -163,6 +174,13 @@ REV_RTOL = 1e-9
 #: it goes through ``exp``, whose CUDA and numpy versions may differ there.
 MAX_SCORE_ULPS = 4
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
+#: The script's start, for the elapsed times its progress lines print.
+T_START = time.perf_counter()
+
+
+def at() -> str:
+    """Seconds since the script started, for progress lines."""
+    return f"[{time.perf_counter() - T_START:.1f} s]"
 
 
 #: Spark's murmur3 seed of a row hash (``HashPartitioning``).
@@ -1173,6 +1191,288 @@ NUMPY_REFS = {"q1": numpy_q1, "q4": numpy_q4, "q6": numpy_q6,
               "xbb_score": numpy_xbb_score}
 
 
+# --------------------------------------------------------------------------
+# phase 3: the TPCxBB entries and their numpy references
+# --------------------------------------------------------------------------
+
+#: Click count of the TPCxBB tables the bench suite writes to parquet
+#: (``bench.py``'s ``tpcxbb.gen_tables(1 << 17)``).
+BENCH_XBB_CLICKS = 1 << 17
+#: The TPCxBB tables the three entries read, plus customer.
+XBB_TABLES = ("item", "customer", "web_clickstreams", "store_sales",
+              "web_sales")
+SESSION_GAP = 3600
+
+
+def _top_by_count(cnt, key_a, key_b, names, n: int) -> dict:
+    """The first ``n`` rows by ``cnt`` descending, then the two keys
+    ascending (the queries' ORDER BY)."""
+    order = np.lexsort((key_b, key_a, -cnt))[:n]
+    return {names[0]: key_a[order], names[1]: key_b[order],
+            "cnt": cnt[order]}
+
+
+def numpy_bb_q01(tables, n: int = 100) -> dict:
+    """Basket analysis in numpy: every ordered pair of store_sales rows on
+    one ticket (the self-join, enumerated ticket by ticket after a stable
+    sort), kept where ``item_a < item_b``, counted per item pair, pairs
+    seen at least 3 times, the top ``n`` by count then items."""
+    ss = tables["store_sales"].columns
+    order = np.argsort(ss["ss_ticket_number"], kind="stable")
+    tick, item = ss["ss_ticket_number"][order], ss["ss_item_sk"][order]
+    starts = np.flatnonzero(np.r_[True, tick[1:] != tick[:-1]])
+    sizes = np.diff(np.r_[starts, len(tick)])
+    row_size = np.repeat(sizes, sizes)
+    a_idx = np.repeat(np.arange(len(tick)), row_size)
+    within = np.arange(len(a_idx)) - np.repeat(np.cumsum(row_size)
+                                               - row_size, row_size)
+    b_idx = np.repeat(np.repeat(starts, sizes), row_size) + within
+    ia, ib = item[a_idx], item[b_idx]
+    keep = ia < ib
+    base = int(item.max()) + 1
+    pairs, cnt = np.unique(ia[keep] * base + ib[keep], return_counts=True)
+    hot = cnt >= 3
+    pairs, cnt = pairs[hot], cnt[hot].astype(np.int64)
+    out = _top_by_count(cnt, pairs // base, pairs % base,
+                        ("item_a", "item_b"), n)
+    out["join_rows"] = len(a_idx)
+    return out
+
+
+def numpy_bb_q05(tables, n: int = 1000) -> dict:
+    """Click features in numpy: per identified user, clicks per category
+    0-5 and in all, the label 1 when the user bought (web sales) an item
+    of category 3, the first ``n`` users in key order."""
+    wcs = tables["web_clickstreams"]
+    it = tables["item"].columns
+    ws = tables["web_sales"].columns
+    ident = wcs.validity["wcs_user_sk"]
+    hit, row = _lookup(it["i_item_sk"], wcs.columns["wcs_item_sk"])
+    m = ident & hit
+    users, inv = np.unique(wcs.columns["wcs_user_sk"][m],
+                           return_inverse=True)
+    cat = it["i_category_id"][row[m]]
+    out = {"wcs_user_sk": users}
+    for c in range(6):
+        out[f"f{c}"] = np.bincount(inv[cat == c], minlength=len(users)
+                                   ).astype(np.int64)
+    out["total_clicks"] = np.bincount(inv, minlength=len(users)
+                                      ).astype(np.int64)
+    bhit, brow = _lookup(it["i_item_sk"], ws["ws_item_sk"])
+    bought = bhit & (it["i_category_id"][brow] == 3)
+    buyers = np.unique(ws["ws_bill_customer_sk"][bought])
+    out["label"] = np.isin(users, buyers).astype(np.int32)
+    return {k: v[:n] for k, v in out.items()}
+
+
+def numpy_bb_q30(tables, n: int = 100) -> dict:
+    """Category affinity inside sessions in numpy: identified clicks
+    lexsorted by (user, time); a session starts at a user's first click
+    and after every gap over ``SESSION_GAP`` s; each session's set of item
+    categories as a bit mask; every category pair ``a < b`` counted over
+    the sessions holding both; the top ``n`` by count then categories."""
+    wcs = tables["web_clickstreams"]
+    it = tables["item"].columns
+    c = wcs.columns
+    ident = wcs.validity["wcs_user_sk"]
+    user = c["wcs_user_sk"][ident]
+    ts = c["wcs_click_date_sk"][ident] * 86400 + c["wcs_click_time_sk"][ident]
+    order = np.lexsort((ts, user))
+    user, ts = user[order], ts[order]
+    hit, row = _lookup(it["i_item_sk"], c["wcs_item_sk"][ident][order])
+    boundary = np.r_[True, (user[1:] != user[:-1])
+                     | (ts[1:] - ts[:-1] > SESSION_GAP)]
+    session = np.cumsum(boundary) - 1
+    n_cat = int(it["i_category_id"].max()) + 1
+    # the rows of a session are adjacent: OR their category bits
+    bits = np.where(hit, np.left_shift(1, it["i_category_id"][row]), 0)
+    masks = np.bitwise_or.reduceat(bits, np.flatnonzero(boundary)) \
+        if len(bits) else np.zeros(0, np.int64)
+    a, b, cnt = [], [], []
+    for x in range(n_cat):
+        for y in range(x + 1, n_cat):
+            k = int(np.count_nonzero((masks >> x) & (masks >> y) & 1))
+            if k:
+                a.append(x)
+                b.append(y)
+                cnt.append(k)
+    out = _top_by_count(np.array(cnt, dtype=np.int64),
+                        np.array(a, dtype=np.int64),
+                        np.array(b, dtype=np.int64), ("cat_a", "cat_b"), n)
+    out["sessions"] = len(masks)
+    return out
+
+
+XBB_REFS = {"q01": numpy_bb_q01, "q05": numpy_bb_q05, "q30": numpy_bb_q30}
+
+
+#: One worker process's generated tables, by (workload, size, seed).
+_WORKER_TABLES = {}
+
+
+def reference_answer(task):
+    """One numpy reference answer, computed in a worker process from the
+    tables it generates itself (the same seed gives the same tables):
+    ``task`` is (workload, size, seed, query). Returns (task, answer)."""
+    workload, size, seed, q = task
+    key = (workload, size, seed)
+    if key not in _WORKER_TABLES:
+        if workload == "tpch":
+            from spark_rapids_tpu_torch.workloads import tpch as wl
+        else:
+            from spark_rapids_tpu_torch.workloads import tpcxbb as wl
+        _WORKER_TABLES.clear()
+        _WORKER_TABLES[key] = wl.gen_tables(size, seed=seed)
+    tables = _WORKER_TABLES[key]
+    if workload == "tpch":
+        fn = numpy_q3 if q == "q3" else NUMPY_REFS[q]
+    else:
+        fn = XBB_REFS[q]
+    return task, fn(tables)
+
+
+def start_references(args):
+    """Every numpy reference of phase 3, started in worker processes
+    while the kernels build and phase 2 runs: (the executor, ``{task:
+    future}``)."""
+    ex = ProcessPoolExecutor(max_workers=4,
+                             mp_context=multiprocessing.get_context("spawn"))
+    atexit.register(ex.shutdown, wait=False, cancel_futures=True)
+    tasks = [("tpch", args.lineitem_rows, args.seed, q)
+             for q in ["q3"] + list(NUMPY_REFS)]
+    tasks += [("xbb", clicks, args.seed, q)
+              for clicks in (args.xbb_clicks, BENCH_XBB_CLICKS)
+              for q in XBB_REFS]
+    return ex, {t: ex.submit(reference_answer, t) for t in tasks}
+
+
+def reference(futures, workload: str, size: int, seed: int, q: str):
+    """The answer of one started reference (waits for it)."""
+    return futures[(workload, size, seed, q)].result()[1]
+
+
+def check_exact(q: str, got, ref) -> None:
+    """Every column equal to the reference's, row for row (the answers
+    are integers), no nulls."""
+    want = {k: v for k, v in ref.items() if k in got.columns}
+    check(set(got.columns) == set(want),
+          f"{q}: columns {sorted(got.columns)} vs {sorted(want)}")
+    for name, w in want.items():
+        g = np.asarray(got.columns[name])
+        check(bool(np.all(got.validity[name])), f"{q}: null in {name}")
+        check(len(g) == len(w) and np.array_equal(g, w),
+              f"{q}: {name} ({len(g)} rows) {g.tolist()[:8]} vs "
+              f"({len(w)} rows) {np.asarray(w).tolist()[:8]}")
+
+
+class LeftJoinWatch:
+    """Counts the direct-address LEFT joins (``KJ.dense_join`` with
+    ``jt="left"``) and the launches that ``probe``, the ``joinProbe``
+    wrapper, counts inside them."""
+
+    def __init__(self, KJ, probe):
+        self.KJ, self.probe = KJ, probe
+        self.joins = self.launches = 0
+
+    def __enter__(self):
+        self.fn = self.KJ.dense_join
+
+        def wrapper(*args, **kwargs):
+            jt = kwargs.get("jt", args[5] if len(args) > 5 else "inner")
+            before = self.probe.launches
+            out = self.fn(*args, **kwargs)
+            if jt == "left":
+                self.joins += 1
+                self.launches += self.probe.launches - before
+            return out
+        self.KJ.dense_join = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        self.KJ.dense_join = self.fn
+
+
+def run_tpcxbb(torch, ctx, session, wrappers, xbb_clicks: int, seed: int,
+               pq_dir: str, profile: bool, futures: dict):
+    """The bench suite's TPCxBB entries: ``bb_q01``, ``bb_q05`` and
+    ``bb_q30`` over tables uploaded from ``tpcxbb.gen_tables(xbb_clicks)``,
+    then ``pq_bb_*`` over bench.py's ``BENCH_XBB_CLICKS`` tables written by
+    the port's writer (the scan in every run). Each answer exact against
+    its numpy reference; ``joinProbe`` launched in ``bb_q05`` (its dense
+    LEFT join included) and ``bb_q30``; ``bb_q01`` not empty. Returns
+    (summaries, launches, captured calls, the dense left joins' calls
+    of one warm ``bb_q05`` run)."""
+    tpcxbb, KJ, JP = ctx.tpcxbb, ctx.KJ, ctx.JP
+    summaries, launches, calls = {}, {}, {k: [] for k in wrappers.mods}
+    left_calls = []
+    need = {"q01": (), "q05": ("joinProbe",), "q30": ("joinProbe",)}
+    for label, clicks in (("bb", xbb_clicks), ("pq_bb", BENCH_XBB_CLICKS)):
+        t0 = time.perf_counter()
+        tables = tpcxbb.gen_tables(clicks, seed=seed)
+        t_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        refs = {q: dict(reference(futures, "xbb", clicks, seed, q))
+                for q in XBB_REFS}
+        t_ref = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if label == "bb":
+            dfs = {k: session.create_dataframe(tables[k])
+                   for k in XBB_TABLES}
+            torch.cuda.synchronize()
+            nbytes = sum(c.validity.numel() + (
+                c.data.numel() * c.data.element_size() if c.data is not None
+                else c.codes.numel() * 4)
+                for k in XBB_TABLES for c in dfs[k]._plan.batch.columns)
+            where = f"uploaded {nbytes / 1e9:.3f} GB"
+        else:
+            up = {k: session.create_dataframe(v) for k, v in tables.items()}
+            written = write_sf1_parquet(torch, ctx.PE, ctx.ColumnarBatch,
+                                        tables, up, pq_dir, "TPCxBB")
+            dfs = {k: session.read.parquet(d)
+                   for k, d in written["dirs"].items()}
+            where = f"written to {len(written['files'])} parquet files"
+        print(f"  TPCxBB tables at {clicks} clicks: generated {t_gen:.1f} s, "
+              f"{where} in {time.perf_counter() - t0:.1f} s; waited "
+              f"{t_ref:.1f} s for the numpy references; rows " + ", ".join(
+                  f"{k}={tables[k].num_rows}" for k in XBB_TABLES)
+              + f"; q01's self-join {refs['q01'].pop('join_rows')} rows, "
+              f"q30's sessions {refs['q30'].pop('sessions')}")
+        for q in ("q01", "q05", "q30"):
+            cell = f"{label}_{q}"
+            build = (lambda q=q, dfs=dfs: tpcxbb.QUERIES[q](dfs))
+            with LeftJoinWatch(KJ, wrappers.fns["joinProbe"]) as watch:
+                got_launches, got_calls, summaries[cell], mid = run_query(
+                    torch, session, wrappers, cell.upper(), build,
+                    lambda got, q=q, cell=cell: check_exact(
+                        cell, got, refs[q]), need[q])
+            n_rows = len(refs[q]["cnt" if q != "q05" else "label"])
+            check(q != "q01" or n_rows > 0, f"{cell} returned no pair")
+            summaries[cell]["rows"] = n_rows
+            sorted_aggs = got_launches["segmented"] > 0
+            print(f"  {cell.upper()}: {n_rows} rows, equal to numpy; "
+                  f"segmented (sort-path aggregates) "
+                  f"{'launched' if sorted_aggs else 'not launched'}"
+                  + (f"; {watch.joins} dense left join(s) in its 5 runs, "
+                     f"over {watch.launches} joinProbe launch(es)"
+                     if q == "q05" else ""))
+            if q == "q05":
+                check(watch.joins > 0 and watch.launches >= watch.joins,
+                      f"{cell}: the left join did not launch joinProbe")
+            if label == "pq_bb":
+                print_scan(cell.upper(), summaries[cell])
+            for k in wrappers.mods:
+                launches[k] = launches.get(k, 0) + got_launches[k]
+                calls[k] += got_calls[k]
+            if profile:
+                profile_query(torch, cell, build, mid)
+        if label == "bb":
+            with Capture(KJ, "dense_join") as dj:
+                tpcxbb.q05(dfs).collect()
+            left_calls = [c for c in dj.calls if len(c) > 5
+                          and c[5] == "left"]
+    return summaries, launches, calls, left_calls
+
+
 def check_answer(q: str, got, ref) -> None:
     """Keys, strings and counts exact, in the order the query sets (Q1,
     with no ORDER BY, in key order, which its dictionary group-by gives);
@@ -1416,7 +1716,7 @@ def run_query(torch, session, wrappers, name, build, check_fn, need,
     cold_ms, launches, peak_gib, warm_launches, calls, runs, infos = \
         drive_runs(torch, wrappers, lambda: build().collect(), verify)
     info = infos[0]
-    print(f"  {name} cold run: {cold_ms:.1f} ms, {info.attempts} "
+    print(f"  {name} {at()} cold run: {cold_ms:.1f} ms, {info.attempts} "
           f"attempt(s), path {info.path} over {info.shards} shard(s), "
           f"sites {info.site_kinds}, modes {info.dense_modes}; "
           f"kernel launches {launches}; peak device memory "
@@ -1644,6 +1944,30 @@ def time_q3_joins(torch, KJ, JP, dfs, flush) -> list:
               f"call {whole:.4f} ms, slot preparation {prep:.4f} ms, "
               f"joinProbe {kern:.4f} ms")
         out.append({"swapped": swapped, "table_rows": slot.numel(),
+                    "other_rows": oslot.numel(), "whole_ms": whole,
+                    "slot_prep_ms": prep, "joinprobe_ms": kern})
+    return out
+
+
+def time_left_joins(torch, KJ, JP, left_calls, flush) -> list:
+    """``bb_q05``'s direct-address LEFT joins (one warm run captured):
+    each whole ``dense_join`` call, its slot preparation and its
+    ``joinProbe`` call, with the L2 flushed."""
+    out = []
+    for args in left_calls:
+        probe, build, pk, bk = args[:4]
+        slot, oslot, tbl = join_slots(torch, False, probe, build, pk, bk)
+        whole = median_ms(torch, lambda: KJ.dense_join(*args), flush)
+        prep = median_ms(torch, lambda: join_slots(torch, False, probe,
+                                                   build, pk, bk), flush)
+        kern = median_ms(torch, lambda: JP.dense_build_probe(slot, oslot,
+                                                             tbl), flush)
+        live = int(((slot >= 0) & (slot < tbl)).sum())
+        print(f"  BB_Q05 dense left join, table side {slot.numel()} rows "
+              f"({live} live), probe side {oslot.numel()}: whole call "
+              f"{whole:.4f} ms, slot preparation {prep:.4f} ms, joinProbe "
+              f"{kern:.4f} ms")
+        out.append({"table_rows": slot.numel(), "live_b": live,
                     "other_rows": oslot.numel(), "whole_ms": whole,
                     "slot_prep_ms": prep, "joinprobe_ms": kern})
     return out
@@ -2056,16 +2380,16 @@ def device_rows(torch, ColumnarBatch, batch, a: int, b: int):
 
 
 def write_sf1_parquet(torch, PE, ColumnarBatch, tables, dfs,
-                      out_dir: str) -> dict:
-    """Every SF1 table through the port's writer (SNAPPY, one row group
-    a file, ``PQ_ROWS_PER_FILE`` rows a file) into ``out_dir/<table>/``,
-    from the tables already uploaded to the card. Returns the
-    directories and what was written."""
+                      out_dir: str, label: str = "SF1") -> dict:
+    """Every table through the port's writer (SNAPPY, one row group a
+    file, ``PQ_ROWS_PER_FILE`` rows a file) into
+    ``out_dir/<label>/<table>/``, from the tables already uploaded to
+    the card. Returns the directories and what was written."""
     t0 = time.perf_counter()
     dirs, files, nbytes = {}, [], 0
     for name, hb in tables.items():
-        d = Path(out_dir) / name
-        d.mkdir()
+        d = Path(out_dir) / label / name
+        d.mkdir(parents=True)
         dirs[name] = str(d)
         batch = dfs[name]._plan.batch
         for i, a in enumerate(range(0, max(hb.num_rows, 1),
@@ -2076,7 +2400,7 @@ def write_sf1_parquet(torch, PE, ColumnarBatch, tables, dfs,
             nbytes += PE.write_device_batch(part, path)
             files.append(path)
     secs = time.perf_counter() - t0
-    print(f"  wrote the SF1 tables with the port's writer (SNAPPY): "
+    print(f"  wrote the {label} tables with the port's writer (SNAPPY): "
           f"{len(files)} files, {nbytes / 1e6:.1f} MB in {secs:.1f} s")
     return {"dirs": dirs, "files": files, "bytes": nbytes, "seconds": secs}
 
@@ -2216,6 +2540,9 @@ def main() -> int:
     ap.add_argument("--lineitem-rows", type=int, default=6_001_215,
                     help="TPC-H lineitem rows (SF1 = 6,001,215)")
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--xbb-clicks", type=int, default=1 << 22,
+                    help="clicks of the TPCxBB tables the bb_* cells "
+                         "upload (the pq_bb_* cells keep bench.py's 2^17)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace two warm runs of each query and "
                          "entry stage with torch.profiler (tables in "
@@ -2249,12 +2576,14 @@ def main() -> int:
     from spark_rapids_tpu_torch.session import TorchSession
     from spark_rapids_tpu_torch.shuffle import partitioning as PN
     from spark_rapids_tpu_torch.workloads import tpch
+    from spark_rapids_tpu_torch.workloads import tpcxbb
     from spark_rapids_tpu_torch.io import parquet_device as PD
     from spark_rapids_tpu_torch.io import parquet_encode as PE
     from spark_rapids_tpu_torch.io import parquet_meta as M
     from spark_rapids_tpu_torch.io import snappy as SN
     from spark_rapids_tpu_torch.io import snappy_cases as SC
 
+    ref_workers, futures = start_references(args)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2278,7 +2607,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
 
     # -- phase 2: edge cases ---------------------------------------------
-    print("phase 2: kernels vs plain versions on edge cases")
+    print(f"phase 2 {at()}: kernels vs plain versions on edge cases")
     rng = np.random.default_rng(args.seed)
     joinprobe_edge_cases(torch, JP, rng, dev)
     segmented_edge_cases(torch, SEG, rng, dev)
@@ -2293,10 +2622,12 @@ def main() -> int:
     fixture = check_fixture_decode(PD, M, HostBatch)
 
     # -- phase 3: the queries at SF1 -------------------------------------
-    print(f"phase 3: TPC-H Q3, Q1, Q4, Q6, Q22, lineitem sorted by "
+    print(f"phase 3 {at()}: TPC-H Q3, Q1, Q4, Q6, Q22, lineitem sorted by "
           f"l_shipdate, Q1 over two hash repartitions of lineitem, Q5, "
           f"Q12, Q14, Q19, xbb_score, Q10, Q18, the nine bench queries "
-          f"over SF1 parquet, the entry stage, "
+          f"over SF1 parquet, the TPCxBB entries bb_q01, bb_q05 and bb_q30 "
+          f"at {args.xbb_clicks} clicks and over parquet at "
+          f"{BENCH_XBB_CLICKS}, the entry stage, "
           f"group_ids over two string keys, Q1, Q3, Q4 and Q6 over a "
           f"4-shard mesh on the card, distributed_sum_by_key, "
           f"lineitem_rows={args.lineitem_rows}")
@@ -2304,8 +2635,9 @@ def main() -> int:
     tables = tpch.gen_tables(args.lineitem_rows, seed=args.seed)
     t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ref3 = numpy_q3(tables)
-    refs = {q: fn(tables) for q, fn in NUMPY_REFS.items()}
+    ref3 = reference(futures, "tpch", args.lineitem_rows, args.seed, "q3")
+    refs = {q: reference(futures, "tpch", args.lineitem_rows, args.seed, q)
+            for q in NUMPY_REFS}
     t_ref = time.perf_counter() - t0
     session = TorchSession(device="cuda")
     t0 = time.perf_counter()
@@ -2313,7 +2645,8 @@ def main() -> int:
     torch.cuda.synchronize()
     t_load = time.perf_counter() - t0
     print(f"  tables: generated {t_gen:.1f} s, uploaded {t_load:.1f} s; "
-          f"numpy references {t_ref:.1f} s; rows "
+          f"waited {t_ref:.1f} s for the numpy references (4 worker "
+          f"processes, started before phase 1); rows "
           + ", ".join(f"{k}={v.num_rows}" for k, v in tables.items()))
 
     wrappers = Wrappers(JP, SEG, SS, SG, HK)
@@ -2433,6 +2766,19 @@ def main() -> int:
         if args.profile:
             profile_query(torch, cell, build, mid)
 
+    # The bench suite's TPCxBB entries, on uploaded tables and over the
+    # port's parquet files.
+    xbb_ctx = types.SimpleNamespace(tpcxbb=tpcxbb, KJ=KJ, JP=JP, PE=PE,
+                                    ColumnarBatch=ColumnarBatch)
+    xbb_summaries, xbb_launches, xbb_calls, left_calls = run_tpcxbb(
+        torch, xbb_ctx, session, wrappers, args.xbb_clicks, args.seed,
+        pq_dir, args.profile, futures)
+    ref_workers.shutdown()
+    summaries.update(xbb_summaries)
+    for k in launches:
+        launches[k] += xbb_launches[k]
+        calls[k] += xbb_calls[k]
+
     # The engine's entry stage (filter -> aggregate on the sort path): at
     # entry()'s defaults, then at SF1's lineitem rows with entry()'s 50
     # keys and with orders' 1,500,000.
@@ -2528,13 +2874,15 @@ def main() -> int:
         calls["hash"] += cap.calls
 
     # -- phase 4: kernels at the queries' shapes ---------------------------
-    print("phase 4: kernels at the shapes the queries gave them")
+    print(f"phase 4 {at()}: kernels at the shapes the queries gave them")
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
     rows = []
     row, jp_calls = time_joinprobe(torch, JP, calls["joinProbe"],
                                    launches["joinProbe"], flush)
     rows.append(row)
     q3_joins = time_q3_joins(torch, KJ, JP, dfs, flush)
+    left_joins = time_left_joins(torch, KJ, JP, left_calls, flush)
+    del left_calls
 
     sg = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "lib": 0.0, "err": 0}
     for x, gid, capacity, op in calls["segmented"]:
@@ -2677,7 +3025,8 @@ def main() -> int:
         "flat_gathers": flat_gathers,
         "group_ids": group_ids_runs,
         "hash_partition_step": no_matrix, "joinProbe_calls": jp_calls,
-        "q3_dense_joins": q3_joins,
+        "q3_dense_joins": q3_joins, "bb_q05_left_joins": left_joins,
+        "xbb_clicks": args.xbb_clicks,
         "distributed_sum_by_key": distributed,
         "q6_default_mesh_ms": default_ms, "entry_stage": entry_runs,
         "xbb_score_max_score_ulps": max(xbb_ulps),
@@ -2686,6 +3035,7 @@ def main() -> int:
                               if k in ("bytes", "seconds")},
                     "files": len(written["files"]),
                     "snappy": snappy_row}}}))
+    print(f"phase 5 {at()}: results")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,8 +1,9 @@
 """Physical operators — port of ``spark_rapids_tpu/exec/execs.py``, cut to
 what TPC-H Q1, Q3, Q4, Q6 and Q22 run, over a hash exchange or not:
 device source, filter, project, hash aggregate (grouped and global,
-partial per batch plus merge), shuffled hash join (inner, semi and anti;
-direct-address modes and the exact binary-search path), top-k, sort,
+partial per batch plus merge), shuffled hash join (inner, left outer,
+semi and anti; direct-address modes, the exact binary-search path and
+the general multi-key matcher), top-k, sort,
 limit, and the device-to-host transition. The nested-loop joins are in
 :mod:`.joins`, the shuffle exchange in :mod:`..shuffle.exchange`.
 
@@ -405,12 +406,14 @@ def aggregate_batch(batch: ColumnarBatch, key_exprs: List[Expression],
 
 
 class ShuffledHashJoinExec(TorchExec):
-    """Equi join (inner, left_semi or left_anti), left = probe, right =
-    build. A single integer key tries the direct-address table first
-    (mode 1: table over the build side; mode 2, inner joins only: over
-    the probe side), each escalated by its fail flag; mode 3, and every
-    other key, takes the exact binary-search path. Semi and anti joins
-    keep the probe's columns and mark its kept rows live."""
+    """Equi join (inner, left outer, left_semi or left_anti), left =
+    probe, right = build. A single integer key tries the direct-address
+    table first (mode 1: table over the build side; mode 2, inner joins
+    only: over the probe side), each escalated by its fail flag; mode 3,
+    and every other key set, takes the exact path (:func:`join_exact`).
+    Semi and anti joins keep the probe's columns and mark its kept rows
+    live; a left join keeps every probe row, with a null build side
+    where it found no match."""
 
     def __init__(self, left: TorchExec, right: TorchExec, join_type: str,
                  left_keys: List[Expression], right_keys: List[Expression],
@@ -460,35 +463,40 @@ class ShuffledHashJoinExec(TorchExec):
 def join_exact(join_type: str, probe: ColumnarBatch, build: ColumnarBatch,
                pk, bk, out_schema: T.Schema, out_cap: Optional[int] = None):
     """The exact local equi join (the reference's ``hash_join_kernel``
-    without a dense mode): sort the build keys, binary-search every probe
-    key, and expand the match ranges (inner), or keep the matched or
-    unmatched probe rows live (semi, anti). Returns ``(batch, total)``.
-    An inner join's output holds ``out_cap`` rows, or, with no
-    ``out_cap``, the ladder rung of the exact match total, read on the
-    host (one sync); ``total`` is the match count on the device, which
-    may exceed ``out_cap`` (the caller re-runs bigger), and None for
-    semi and anti joins."""
-    if len(bk) != 1 or not (KJ.binsearch_joinable(bk[0])
-                            and KJ.binsearch_joinable(pk[0])):
-        raise NotImplementedError(
-            "multi-key, string and float join keys need the general "
-            "matcher, which is not ported yet")
+    without a dense mode): match ranges from the build-side binary search
+    (one integer key) or the general matcher (several keys, string or
+    float keys), then expand them into output rows (inner; left, where an
+    unmatched live probe row emits one row with a null build side), or
+    keep the matched or unmatched probe rows live (semi, anti). Returns
+    ``(batch, total)``. An inner or left join's output holds ``out_cap``
+    rows, or, with no ``out_cap``, the ladder rung of the exact total,
+    read on the host (one sync); ``total`` is the output row count on the
+    device, which may exceed ``out_cap`` (the caller re-runs bigger), and
+    None for semi and anti joins."""
     live_p = probe.row_mask()
-    lo, counts, build_at_rank = KJ.join_match_binsearch(
-        bk[0], pk[0], build.row_mask(), live_p)
+    if len(bk) == 1 and KJ.binsearch_joinable(bk[0]) \
+            and KJ.binsearch_joinable(pk[0]):
+        lo, counts, build_at_rank = KJ.join_match_binsearch(
+            bk[0], pk[0], build.row_mask(), live_p)
+    else:
+        lo, counts, build_at_rank = KJ.join_match(
+            bk, pk, build.row_mask(), live_p)
     counts = torch.where(live_p, counts, 0)
     if join_type in ("left_semi", "left_anti"):
         keep = counts > 0 if join_type == "left_semi" \
             else live_p & (counts == 0)
         return ColumnarBatch(probe.columns, keep.sum(), out_schema,
                              live=keep), None
+    matched = counts > 0
+    if join_type == "left":
+        counts = KJ.left_outer_counts(counts, live_p)
     if out_cap is None:
         out_cap = bucket_capacity(max(int(counts.sum()), 1))
     p_idx, b_idx, n_out, total = KJ.expand_matches_binsearch(
         lo, counts, build_at_rank, out_cap)
     out_live = torch.arange(out_cap, device=probe.device) < n_out
     pcols = KR.gather_columns(probe.columns, p_idx, out_live)
-    bcols = KR.gather_columns(build.columns, b_idx, out_live)
+    bcols = KR.gather_columns(build.columns, b_idx, out_live & matched[p_idx])
     return ColumnarBatch(pcols + bcols, n_out, out_schema), total
 
 

@@ -27,7 +27,7 @@ overflow flag, the program reads them all in one host transfer, and the
 session re-runs an overflowed query with larger buckets. A node this
 module has no story for raises :class:`NotMeshCapable`, and the query
 runs on the single-device path: the cross join, outer joins, the
-shuffle exchange, multi-key, string and float join keys.
+shuffle exchange, multi-key, string and float join keys, and windows.
 """
 
 from __future__ import annotations

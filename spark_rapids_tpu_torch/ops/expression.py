@@ -72,6 +72,10 @@ class Expression:
             return None
         return self.transform(rewrite)
 
+    def alias(self, name: str) -> "Alias":
+        """This expression under the output name ``name``."""
+        return Alias(self, name)
+
     def __str__(self) -> str:
         args = ", ".join(str(c) for c in self.children)
         return f"{type(self).__name__}({args})"

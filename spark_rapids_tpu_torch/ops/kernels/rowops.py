@@ -119,15 +119,18 @@ def sort_operands(keys: Sequence[DeviceColumn], ascending: Sequence[bool],
     return operands
 
 
-def sort_permutation(keys: Sequence[DeviceColumn], n_rows: torch.Tensor
+def sort_permutation(keys: Sequence[DeviceColumn], n_rows: torch.Tensor,
+                     ascending: Optional[Sequence[bool]] = None,
+                     nulls_first: Optional[Sequence[bool]] = None
                      ) -> torch.Tensor:
     """Stable permutation ordering the live rows ``[0, n_rows)`` by
-    ``keys`` (ascending, nulls first); dead rows sink to the end. Returns
-    int64[capacity]."""
+    ``keys`` (ascending and nulls first unless given); dead rows sink to
+    the end. Returns int64[capacity]."""
     capacity = keys[0].capacity
     up = [True] * len(keys)
     dead = torch.arange(capacity, device=keys[0].device) >= n_rows
-    return lexsort([dead.to(torch.int8)] + sort_operands(keys, up, up))
+    return lexsort([dead.to(torch.int8)] + sort_operands(
+        keys, ascending or up, nulls_first or up))
 
 
 def gather_column(col: DeviceColumn, indices: torch.Tensor,
@@ -227,6 +230,29 @@ def sorted_dictionary(col: DeviceColumn) -> DeviceColumn:
     return dictionary_column(codes, col.validity,
                              np.array([b.decode("utf-8") for b in entries],
                                       dtype=object), dict_sorted=True)
+
+
+def merged_dictionary_codes(cols: Sequence[DeviceColumn]
+                            ) -> Tuple[np.ndarray, List[torch.Tensor]]:
+    """One sorted, unique dictionary over the entries of several
+    dictionary string columns, and each column's codes remapped into it
+    (zero under a null): codes of different dictionaries then compare
+    as their strings do. The entries merge on the host, O(dictionary);
+    the remap is one device gather a column."""
+    entries = np.unique(np.concatenate(
+        [np.asarray(c.dictionary, dtype=object).astype(str)
+         for c in cols] + [np.zeros(0, dtype=str)]))
+    out = []
+    for c in cols:
+        if c.dict_size:
+            rank = np.searchsorted(entries, np.asarray(
+                c.dictionary, dtype=object).astype(str))
+            remap = torch.from_numpy(rank.astype(np.int32)).to(c.device)
+            codes = remap[c.codes.long().clamp(0, c.dict_size - 1)]
+        else:
+            codes = torch.zeros_like(c.codes)
+        out.append(torch.where(c.validity, codes, 0).to(torch.int32))
+    return entries.astype(object), out
 
 
 def packed_sort_lane(batch: ColumnarBatch, keys: Sequence[DeviceColumn],

@@ -1,10 +1,11 @@
 """Logical plans and the DataFrame API — port of
 ``spark_rapids_tpu/plan/logical.py``, cut to what the TPC-H queries run:
-a device table or a parquet scan, ``select``, ``where``, ``with_column``, equi ``join``
-(inner, left_semi, left_anti), ``cross_join`` (a keyless inner join is
-one, with its condition), ``group_by(...).agg`` (no keys: a global
-aggregate), ``sort``, ``limit``, ``repartition`` (hash on columns, or
-round-robin) and ``collect``.
+a device table or a parquet scan, ``select``, ``where``, ``with_column``
+(a window expression appends a window column), ``with_windows``, equi
+``join`` (inner, left, left_semi, left_anti), ``cross_join`` (a keyless
+inner join is one, with its condition), ``group_by(...).agg`` (no keys:
+a global aggregate), ``distinct``, ``sort``, ``limit``, ``repartition``
+(hash on columns, or round-robin) and ``collect``.
 
 Analysis is eager, as in the reference: every node resolves attribute
 types against its child's schema and inserts numeric coercion casts when
@@ -175,11 +176,12 @@ class Aggregate(LogicalPlan):
 
 
 class Join(LogicalPlan):
-    """Equi join (inner, left_semi, left_anti) or cross join (no keys, an
-    optional condition over both sides' columns): left is the probe
-    side, right the build side."""
+    """Equi join (inner, left, left_semi, left_anti) or cross join (no
+    keys, an optional condition over both sides' columns): left is the
+    probe side, right the build side. A left join's build-side fields
+    are nullable."""
 
-    TYPES = ("inner", "left_semi", "left_anti", "cross")
+    TYPES = ("inner", "left", "left_semi", "left_anti", "cross")
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  join_type: str, left_keys: List[Expression],
@@ -214,12 +216,49 @@ class Join(LogicalPlan):
         left, right = self.children
         if self.join_type in ("left_semi", "left_anti"):
             return left.schema
-        return T.Schema(list(left.schema) + list(right.schema))
+        rf = [T.StructField(f.name, f.data_type,
+                            f.nullable or self.join_type == "left")
+              for f in right.schema]
+        return T.Schema(list(left.schema) + rf)
 
     def describe(self):
         keys = ", ".join(f"{l}={r}" for l, r in
                          zip(self.left_keys, self.right_keys))
         return f"Join {self.join_type} [{keys}]"
+
+
+class WindowOp(LogicalPlan):
+    """Append window-expression columns (Spark's Window node; planned as
+    :class:`~..exec.window_exec.WindowExec`). ``window_exprs`` is a list
+    of ``(name, WindowExpression)``; functions, partition keys and order
+    keys resolve against the child's schema."""
+
+    def __init__(self, child: LogicalPlan, window_exprs):
+        from ..ops import windows as W
+        self.children = [child]
+        resolved = []
+        for name, we in window_exprs:
+            func = we.func
+            if func.children:
+                func = func.with_children(
+                    [resolve(c, child.schema) for c in func.children])
+            spec = W.WindowSpec(
+                tuple(resolve(e, child.schema) for e in we.spec.partition_by),
+                tuple(SortOrder(resolve(o.child, child.schema), o.ascending,
+                                o.nulls_first) for o in we.spec.order_by),
+                we.spec.frame)
+            resolved.append((name, W.WindowExpression(func, spec)))
+        self.window_exprs = resolved
+
+    @property
+    def schema(self) -> T.Schema:
+        fields = list(self.children[0].schema)
+        fields += [T.StructField(name, we.data_type, we.nullable)
+                   for name, we in self.window_exprs]
+        return T.Schema(fields)
+
+    def describe(self):
+        return "Window [" + ", ".join(n for n, _ in self.window_exprs) + "]"
 
 
 class Sort(LogicalPlan):
@@ -345,9 +384,25 @@ class DataFrame:
         return DataFrame(Filter(self._plan, condition), self._session)
 
     def with_column(self, name: str, expr) -> "DataFrame":
+        """Add or replace the column ``name``. A window expression appends
+        a window column, whose name must be new."""
+        from ..ops.windows import WindowExpression
+        e = _as_expr(expr)
+        if isinstance(e, WindowExpression):
+            if name in self.columns:
+                raise ValueError(
+                    f"window column '{name}' must introduce a new name")
+            return DataFrame(WindowOp(self._plan, [(name, e)]),
+                             self._session)
         exprs = [col(n) for n in self.columns if n != name]
-        exprs.append(Alias(_as_expr(expr), name))
+        exprs.append(Alias(e, name))
         return DataFrame(Project(self._plan, exprs), self._session)
+
+    def with_windows(self, **name_to_window_expr) -> "DataFrame":
+        """Append several window columns in one Window node."""
+        return DataFrame(WindowOp(self._plan,
+                                  list(name_to_window_expr.items())),
+                         self._session)
 
     def group_by(self, *keys) -> GroupedData:
         return GroupedData(self, [_as_expr(k) for k in keys])
@@ -371,6 +426,13 @@ class DataFrame:
     def cross_join(self, other: "DataFrame") -> "DataFrame":
         return DataFrame(Join(self._plan, other._plan, "cross", [], []),
                          self._session)
+
+    def distinct(self) -> "DataFrame":
+        """The distinct rows: an aggregate over every column with no
+        aggregate expressions."""
+        return DataFrame(
+            Aggregate(self._plan, [col(n) for n in self.columns], []),
+            self._session)
 
     def sort(self, *orders) -> "DataFrame":
         so = [o if isinstance(o, SortOrder) else SortOrder(_as_expr(o))

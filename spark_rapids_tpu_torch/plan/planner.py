@@ -10,7 +10,8 @@ plans as the nested-loop join (``planner.py:_plan_join``,
 below ``spark.rapids.tpu.sort.topKThreshold`` plans as a top-k, as the
 reference's limit-into-sort rule does; a repartition plans as the
 shuffle exchange (``planner.py:140-146`` plans it on the CPU and
-``overrides`` moves it to the device).
+``overrides`` moves it to the device); a window node plans as
+:class:`~..exec.window_exec.WindowExec` (``overrides.py:518``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from ..config import PARQUET_REBASE_READ, TOPK_THRESHOLD, TorchConf
 from ..exec import execs as E
 from ..io.parquet_device import ParquetScanExec
 from ..exec.joins import NestedLoopJoinExec
+from ..exec.window_exec import WindowExec
 from ..shuffle.exchange import ShuffleExchangeExec
 from ..shuffle.partitioners import partitioner_factory
 from . import logical as L
@@ -51,6 +53,9 @@ def plan_physical(plan: L.LogicalPlan, conf: TorchConf) -> E.TorchExec:
             plan_physical(plan.children[0], conf),
             plan_physical(plan.children[1], conf), plan.join_type,
             plan.left_keys, plan.right_keys, plan.schema)
+    if isinstance(plan, L.WindowOp):
+        return WindowExec(plan_physical(plan.children[0], conf),
+                          plan.window_exprs, plan.schema)
     if isinstance(plan, L.Repartition):
         return ShuffleExchangeExec(
             plan_physical(plan.children[0], conf),

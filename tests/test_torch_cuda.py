@@ -709,3 +709,99 @@ def test_cuda_read_parquet_defaults_to_the_card(cuda_device):
     got = df.collect()
     assert SN.decompress_pages.launches > before
     assert got.num_rows == 4 * 4096
+
+
+def _host_rows(hb) -> list:
+    """A collected result's rows as tuples, None under a null."""
+    names = list(hb.columns)
+    cols = [[v if ok else None for v, ok in zip(hb.columns[n],
+                                                  hb.validity[n])]
+            for n in names]
+    return list(zip(*cols))
+
+
+def _join_frames(session, seed: int = 5):
+    """A probe side with a two-key (int64, int32) reference into a build
+    side whose single key ``b`` is unique, with null and unmatched keys."""
+    rng = np.random.default_rng(seed)
+    n_p, n_b = 50_000, 20_000
+    pk = rng.integers(0, 25_000, n_p).astype(np.int64)
+    probe = HostBatch.from_numpy(
+        {"pk": pk, "pk2": (pk % 7).astype(np.int32),
+         "pv": rng.integers(0, 1000, n_p).astype(np.int64)},
+        validity={"pk": rng.random(n_p) > 0.05})
+    bk = rng.permutation(n_b).astype(np.int64)
+    build = HostBatch.from_numpy(
+        {"b": bk, "b2": (bk % 7).astype(np.int64),
+         "bv": rng.integers(0, 1000, n_b).astype(np.int64)},
+        validity={"b2": rng.random(n_b) > 0.05})
+    return session.create_dataframe(probe), session.create_dataframe(build)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys", ["one key (dense left join)",
+                                  "two keys of mixed width (exact)"])
+def test_cuda_left_and_multi_key_joins_match_cpu(cuda_device, keys):
+    from spark_rapids_tpu_torch.ops import predicates as P
+    from spark_rapids_tpu_torch.ops.expression import col
+    from spark_rapids_tpu_torch.ops.kernels import join as KJ
+    from spark_rapids_tpu_torch.session import TorchSession
+    on = P.EqualTo(col("pk"), col("b"))
+    if keys.startswith("two"):
+        on = P.And(on, P.EqualTo(col("pk2"), col("b2")))
+    results, calls = {}, {"dense": 0, "general": 0}
+    dense, general = KJ.dense_join, KJ.join_match
+
+    def count(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    KJ.dense_join = count("dense", dense)
+    KJ.join_match = count("general", general)
+    try:
+        for dev in ("cuda", "cpu"):
+            p, b = _join_frames(TorchSession(device=dev))
+            before = JP.dense_build_probe.launches
+            for how in ("left", "inner"):
+                results[dev, how] = sorted(
+                    _host_rows(p.join(b, on=on, how=how).collect()),
+                    key=repr)
+            if dev == "cuda" and keys.startswith("one"):
+                assert JP.dense_build_probe.launches > before
+    finally:
+        KJ.dense_join, KJ.join_match = dense, general
+    for how in ("left", "inner"):
+        assert results["cuda", how] == results["cpu", how], how
+    assert len(results["cpu", "left"]) == 50_000
+    assert calls["dense" if keys.startswith("one") else "general"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_window_query_matches_cpu(cuda_device):
+    from spark_rapids_tpu_torch.ops import aggregates as A
+    from spark_rapids_tpu_torch.ops.expression import col
+    from spark_rapids_tpu_torch.ops.windows import (DenseRank, RowNumber,
+                                                    Window, over)
+    from spark_rapids_tpu_torch.plan.logical import SortOrder
+    from spark_rapids_tpu_torch.session import TorchSession
+    rng = np.random.default_rng(11)
+    n = 100_000
+    data = {"k": rng.integers(0, 900, n).astype(np.int64),
+            "t": rng.integers(0, 5_000, n).astype(np.int64),
+            "v": rng.integers(-100, 100, n).astype(np.int64)}
+    valid = {"k": rng.random(n) > 0.02, "v": rng.random(n) > 0.1}
+    w = Window.partition_by("k").order_by(SortOrder(col("t")))
+    results = {}
+    for dev in ("cuda", "cpu"):
+        df = TorchSession(device=dev).create_dataframe(
+            HostBatch.from_numpy(data, validity=valid))
+        results[dev] = _host_rows(df.with_windows(
+            rn=RowNumber().over(w), dr=DenseRank().over(w),
+            run=over(A.Sum(col("v")),
+                     w.rows_between(Window.unbounded_preceding,
+                                    Window.current_row)),
+            near=over(A.Max(col("v")), w.range_between(-50, 50)),
+            cnt=over(A.Count(col("v")), w)).collect())
+    assert results["cuda"] == results["cpu"]
