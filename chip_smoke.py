@@ -50,10 +50,14 @@ Phases; each one passes or the script exits non-zero:
    every tag kind (literals with 0-4 extra length bytes, copies with 1-,
    2- and 4-byte offsets, overlapping copies) decompressed as one page
    list, every malformed block refused, the compressor byte for byte the
-   plain one's; and the committed pyarrow file
+   plain one's; the host C++ run slicer (``csrc/parquet_runs.cpp``)
+   against the plain ``parse_hybrid`` on 400 hand-made hybrid streams
+   (bit widths 0-24, runs of count 0, capped and padded counts, malformed
+   streams raising in both); and the committed pyarrow file
    ``tests/data/lineitem_fixture.parquet`` (mixed dictionary/PLAIN
    chunks, nulls, several pages and row groups, an empty one) decoded on
-   the card equal to its CPU decode;
+   the card equal to its CPU decode, and its run tables equal between the
+   two slicers;
 3. TPC-H Q3, Q1, Q4, Q6 and Q22 at SF1 (6,001,215 lineitem rows by
    default), all of lineitem sorted by ``l_shipdate``, and Q1 over
    ``lineitem.repartition(16, l_returnflag, l_linestatus)`` (``q1_hash_str``)
@@ -70,16 +74,25 @@ Phases; each one passes or the script exits non-zero:
    numpy implementation here (``xbb_score``'s ``max_score`` within 4 units
    in the last place, the largest difference printed; Q10's top 20 with
    runs of tied revenues compared as sets), ``joinProbe`` launched in all
-   but ``xbb_score``. Then the SF1 tables written by the port's parquet
-   writer (SNAPPY, 1,048,576 rows a file, into a temporary directory
-   removed at exit), every page of them decompressed by the C++ routine
-   and by the plain version (worker processes) and equal, and the bench
-   suite's nine TPC-H queries over ``session.read.parquet`` frames
-   (``pq_q1`` ... ``pq_xbb_score``): the scan inside every run, each
-   answer against the same numpy references, the C++ snappy and the
-   queries' kernels launched, the scan's breakdown printed (file read,
-   footer and page-header parse, snappy, run tables, upload, device
-   decode, rows and bytes). Then the bench suite's three TPCxBB entries,
+   but ``xbb_score``. Then the other eleven TPC-H queries, Q2, Q7, Q8,
+   Q9, Q11, Q13, Q15, Q16, Q17, Q20 and Q21, each against its own numpy
+   implementation here (Q11, by a float value, as a top-n), ``joinProbe``
+   launched in all but Q13. Then the SF1 tables written by the port's
+   parquet writer (SNAPPY, 1,048,576 rows a file, into a temporary
+   directory removed at exit), every page of them decompressed by the C++
+   routine and by the plain version (worker processes) and equal, and the
+   bench suite's nine TPC-H queries over ``session.read.parquet`` frames
+   (``pq_q1`` ... ``pq_xbb_score``) with the scan's decode-ahead pipeline
+   on (the default): the scan inside every run, each answer against the
+   same numpy references, the C++ snappy and the queries' kernels
+   launched, the scan's breakdown printed (file read, footer and
+   page-header parse, snappy, run tables, upload, device decode, the
+   run's wall, the consumer's ``stall`` and the workers' ``busy`` time,
+   rows and bytes); ``pq_q1`` once more in a session with
+   ``spark.rapids.tpu.pipeline.enabled`` false, its answer equal to the
+   pipeline-on one bit for bit; every level and index stream of the SF1
+   files through the C++ run slicer and the plain one, equal, with both
+   times printed. Then the bench suite's three TPCxBB entries,
    ``bb_q01`` (a self-join on the store ticket, a two-key count, top
    100), ``bb_q05`` (click features and a dense LEFT join to the buyers)
    and ``bb_q30`` (sessions by windows and a two-key left self-join,
@@ -88,7 +101,9 @@ Phases; each one passes or the script exits non-zero:
    ``pq_bb_*`` over bench.py's 2^17-click tables written by the port's
    writer: every answer equal to its numpy implementation here, row for
    row, ``bb_q01`` not empty, ``joinProbe`` launched in ``bb_q05`` (its
-   left join too) and ``bb_q30``. Then the engine's entry stage
+   left join too) and ``bb_q30``; ``pq_bb_q30`` with the pipeline off
+   equal to it on, bit for bit, and the ``pq_bb`` files' run tables
+   equal between the two slicers. Then the engine's entry stage
    (``spark_rapids_tpu_torch.entry.entry``: filter, then the sort-path
    aggregate of sum, count, min and max) at its defaults (1,000 rows) and
    at SF1's 6,001,215 rows with 50 and with 1,500,000 keys: every group
@@ -1010,6 +1025,289 @@ def numpy_sort(tables):
             "l_shipdate": li["l_shipdate"][order]}
 
 
+D_1996_01_01 = 9496
+D_1996_04_01 = 9587
+D_1996_12_31 = 9861
+
+
+def _year(days):
+    """The proleptic Gregorian year of each day number (numpy's
+    ``datetime64`` calendar)."""
+    return days.astype("datetime64[D]").astype("datetime64[Y]").astype(
+        np.int64) + 1970
+
+
+def _order(*keys):
+    """The permutation that sorts by ``keys``, the first the most
+    significant (``np.lexsort`` takes them the other way round)."""
+    return np.lexsort(tuple(reversed(keys)))
+
+
+def _cols(d: dict, rows) -> dict:
+    return {k: np.asarray(v)[rows] for k, v in d.items()}
+
+
+def numpy_q2(tables):
+    """The cheapest European suppliers of size-15/25/35/45 BRUSHED parts,
+    the top 100 by account balance, then nation, supplier and part."""
+    s, n, r = (tables[t].columns for t in ("supplier", "nation", "region"))
+    ps, p = tables["partsupp"].columns, tables["part"].columns
+    hit_n, nrow = _lookup(n["n_nationkey"], s["s_nationkey"])
+    hit_r, rrow = _lookup(r["r_regionkey"], n["n_regionkey"][nrow])
+    europe = hit_n & hit_r & (r["r_name"][rrow] == "EUROPE")
+    hit_s, srow = _lookup(s["s_suppkey"], ps["ps_suppkey"])
+    m = hit_s & europe[srow]
+    pk, cost, srow = ps["ps_partkey"][m], ps["ps_supplycost"][m], srow[m]
+    (keys,), _ = _group_sums([pk], np.zeros(len(pk)))
+    order = _order(pk, cost)
+    first = np.flatnonzero(np.r_[True, pk[order][1:] != pk[order][:-1]])
+    min_cost = cost[order][first]
+    is_min = cost == min_cost[np.searchsorted(keys, pk)]
+    hit_p, prow = _lookup(p["p_partkey"], pk)
+    size = p["p_size"][prow]
+    keep = hit_p & is_min & np.isin(size, [15, 25, 35, 45]) & np.char.endswith(
+        p["p_type"][prow].astype(str), "BRUSHED")
+    out = {"s_acctbal": s["s_acctbal"][srow][keep],
+           "s_name": s["s_name"][srow][keep],
+           "n_name": n["n_name"][nrow[srow]][keep],
+           "p_partkey": pk[keep], "p_mfgr": p["p_mfgr"][prow][keep],
+           "ps_supplycost": cost[keep]}
+    top = _order(-out["s_acctbal"], out["n_name"], out["s_name"],
+                 out["p_partkey"])[:100]
+    return _cols(out, top)
+
+
+def numpy_q7(tables):
+    """Shipping volume between FRANCE and GERMANY by supplier nation,
+    customer nation and ship year (1995-1996)."""
+    s, li, o, c, n = (tables[t].columns for t in (
+        "supplier", "lineitem", "orders", "customer", "nation"))
+    sd = li["l_shipdate"]
+    m = (sd >= D_1995_01_01) & (sd <= D_1996_12_31)
+    hit_s, srow = _lookup(s["s_suppkey"], li["l_suppkey"])
+    hit_o, orow = _lookup(o["o_orderkey"], li["l_orderkey"])
+    hit_c, crow = _lookup(c["c_custkey"], o["o_custkey"][orow])
+    hit_n1, n1 = _lookup(n["n_nationkey"], s["s_nationkey"][srow])
+    hit_n2, n2 = _lookup(n["n_nationkey"], c["c_nationkey"][crow])
+    supp, cust = n["n_name"][n1], n["n_name"][n2]
+    m &= hit_s & hit_o & hit_c & hit_n1 & hit_n2 & (
+        ((supp == "FRANCE") & (cust == "GERMANY"))
+        | ((supp == "GERMANY") & (cust == "FRANCE")))
+    keys, (rev,) = _group_sums([supp[m], cust[m], _year(sd[m])],
+                               _rev(li, m))
+    return {"supp_nation": keys[0], "cust_nation": keys[1],
+            "l_year": keys[2], "revenue": rev}
+
+
+def numpy_q8(tables):
+    """BRAZIL's share of AMERICA's STANDARD POLISHED volume per order
+    year (1995-1996)."""
+    p, li, s, o, c, n, r = (tables[t].columns for t in (
+        "part", "lineitem", "supplier", "orders", "customer", "nation",
+        "region"))
+    hit_p, prow = _lookup(p["p_partkey"], li["l_partkey"])
+    hit_s, srow = _lookup(s["s_suppkey"], li["l_suppkey"])
+    hit_o, orow = _lookup(o["o_orderkey"], li["l_orderkey"])
+    od = o["o_orderdate"][orow]
+    hit_c, crow = _lookup(c["c_custkey"], o["o_custkey"][orow])
+    hit_n1, n1 = _lookup(n["n_nationkey"], c["c_nationkey"][crow])
+    hit_r, rrow = _lookup(r["r_regionkey"], n["n_regionkey"][n1])
+    hit_n2, n2 = _lookup(n["n_nationkey"], s["s_nationkey"][srow])
+    m = hit_p & hit_s & hit_o & hit_c & hit_n1 & hit_r & hit_n2 \
+        & (p["p_type"][prow] == "STANDARD POLISHED") \
+        & (od >= D_1995_01_01) & (od <= D_1996_12_31) \
+        & (r["r_name"][rrow] == "AMERICA")
+    rev = _rev(li, m)
+    brazil = np.where(n["n_name"][n2][m] == "BRAZIL", rev, 0.0)
+    (years,), (b, total) = _group_sums([_year(od[m])], brazil, rev)
+    return {"o_year": years, "mkt_share": b / total}
+
+
+def _pair_ranges(build_a, build_b, probe_a, probe_b):
+    """Each probe pair's rows in the build side, which may repeat a pair
+    (non-negative keys): (the build side's sorting permutation, each
+    probe pair's first position in it, its number of rows)."""
+    base = int(max(build_b.max(initial=0), probe_b.max(initial=0))) + 1
+    bkey = build_a.astype(np.int64) * base + build_b
+    pkey = probe_a.astype(np.int64) * base + probe_b
+    order = np.argsort(bkey, kind="stable")
+    lo = np.searchsorted(bkey[order], pkey)
+    return order, lo, np.searchsorted(bkey[order], pkey, "right") - lo
+
+
+def _expand(lo, cnt):
+    """The positions ``lo[i] .. lo[i] + cnt[i] - 1`` of every i, in
+    order."""
+    first = np.cumsum(cnt) - cnt
+    return np.repeat(lo, cnt) + np.arange(int(cnt.sum())) \
+        - np.repeat(first, cnt)
+
+
+def numpy_q9(tables):
+    """Profit on "green" parts by supplier nation and order year."""
+    p, li, s, ps, o, n = (tables[t].columns for t in (
+        "part", "lineitem", "supplier", "partsupp", "orders", "nation"))
+    green = np.flatnonzero(np.char.find(p["p_name"].astype(str),
+                                        "green") >= 0)
+    hit_p, _ = _lookup(p["p_partkey"][green], li["l_partkey"])
+    rows = np.flatnonzero(hit_p)
+    hit_s, srow = _lookup(s["s_suppkey"], li["l_suppkey"][rows])
+    hit_o, orow = _lookup(o["o_orderkey"], li["l_orderkey"][rows])
+    hit_n, nrow = _lookup(n["n_nationkey"], s["s_nationkey"][srow])
+    keep = hit_s & hit_o & hit_n
+    rows, srow, orow, nrow = rows[keep], srow[keep], orow[keep], nrow[keep]
+    order, lo, cnt = _pair_ranges(ps["ps_partkey"], ps["ps_suppkey"],
+                                  li["l_partkey"][rows],
+                                  li["l_suppkey"][rows])
+    rep = np.repeat(np.arange(len(rows)), cnt)
+    psrow = order[_expand(lo, cnt)]
+    r = rows[rep]
+    amount = li["l_extendedprice"][r] * (1.0 - li["l_discount"][r]) \
+        - ps["ps_supplycost"][psrow] * li["l_quantity"][r]
+    name, year = n["n_name"][nrow[rep]], _year(o["o_orderdate"][orow[rep]])
+    keys, (profit,) = _group_sums([name, year], amount)
+    out = {"n_name": keys[0], "o_year": keys[1], "sum_profit": profit}
+    return _cols(out, _order(out["n_name"], -out["o_year"]))
+
+
+def numpy_q11(tables):
+    """GERMANY's parts whose stock value exceeds 0.0001 of the total, by
+    value descending, then part key."""
+    ps, s, n = (tables[t].columns for t in ("partsupp", "supplier",
+                                            "nation"))
+    hit_s, srow = _lookup(s["s_suppkey"], ps["ps_suppkey"])
+    hit_n, nrow = _lookup(n["n_nationkey"], s["s_nationkey"][srow])
+    m = hit_s & hit_n & (n["n_name"][nrow] == "GERMANY")
+    value = ps["ps_supplycost"][m] * ps["ps_availqty"][m]
+    threshold = value.sum() * 0.0001
+    (parts,), (by_part,) = _group_sums([ps["ps_partkey"][m]], value)
+    keep = by_part > threshold
+    out = {"ps_partkey": parts[keep], "value": by_part[keep]}
+    return _cols(out, _order(-out["value"], out["ps_partkey"]))
+
+
+def numpy_q13(tables):
+    """How many customers have each count of orders whose comment is not
+    "special ... requests"."""
+    c, o = tables["customer"].columns, tables["orders"].columns
+    comment = o["o_comment"].astype(str)
+    special = (np.char.find(comment, "special") >= 0) \
+        & (np.char.find(comment, "requests") >= 0)
+    hit, crow = _lookup(c["c_custkey"], o["o_custkey"][~special])
+    per_cust = np.bincount(crow[hit], minlength=len(c["c_custkey"]))
+    counts, dist = np.unique(per_cust, return_counts=True)
+    out = {"c_count": counts.astype(np.int64),
+           "custdist": dist.astype(np.int64)}
+    return _cols(out, _order(-out["custdist"], -out["c_count"]))
+
+
+def numpy_q15(tables):
+    """The suppliers with the largest revenue of 1996's first quarter."""
+    li, s = tables["lineitem"].columns, tables["supplier"].columns
+    sd = li["l_shipdate"]
+    m = (sd >= D_1996_01_01) & (sd < D_1996_04_01)
+    (supp,), (rev,) = _group_sums([li["l_suppkey"][m]], _rev(li, m))
+    top = rev == rev.max()
+    hit, srow = _lookup(s["s_suppkey"], supp[top])
+    out = {"s_suppkey": supp[top][hit], "s_name": s["s_name"][srow][hit],
+           "total_revenue": rev[top][hit]}
+    return _cols(out, np.argsort(out["s_suppkey"], kind="stable"))
+
+
+def numpy_q16(tables):
+    """Suppliers without complaints per brand, type and size of the
+    qualifying parts, counted once each."""
+    p, ps, s = (tables[t].columns for t in ("part", "partsupp",
+                                            "supplier"))
+    hit, prow = _lookup(p["p_partkey"], ps["ps_partkey"])
+    ptype = p["p_type"][prow].astype(str)
+    complained = s["s_suppkey"][np.char.find(
+        s["s_comment"].astype(str), "Complaints") >= 0]
+    m = hit & (p["p_brand"][prow] != "Brand#45") \
+        & ~np.char.startswith(ptype, "MEDIUM") \
+        & np.isin(p["p_size"][prow], [3, 9, 14, 19, 23, 36, 45, 49]) \
+        & ~np.isin(ps["ps_suppkey"], complained)
+    distinct, _ = _group_sums([p["p_brand"][prow][m], p["p_type"][prow][m],
+                               p["p_size"][prow][m], ps["ps_suppkey"][m]],
+                              np.zeros(int(m.sum())))
+    (brand, ptype, size), (cnt,) = _group_sums(
+        distinct[:3], np.ones(len(distinct[0]), np.int64))
+    out = {"p_brand": brand, "p_type": ptype, "p_size": size,
+           "supplier_cnt": cnt}
+    return _cols(out, _order(-out["supplier_cnt"], out["p_brand"],
+                             out["p_type"], out["p_size"]))
+
+
+def numpy_q17(tables):
+    """The yearly average price of Brand#23 MED BOX lines with a quantity
+    below 0.2 of their part's average."""
+    p, li = tables["part"].columns, tables["lineitem"].columns
+    pk, qty = li["l_partkey"], li["l_quantity"]
+    (parts,), (total, cnt) = _group_sums([pk], qty,
+                                         np.ones(len(pk), np.int64))
+    limit = 0.2 * (total / cnt)
+    hit_p, prow = _lookup(p["p_partkey"], pk)
+    m = hit_p & (p["p_brand"][prow] == "Brand#23") \
+        & (p["p_container"][prow] == "MED BOX")
+    m &= qty < limit[np.searchsorted(parts, pk)]
+    return {"avg_yearly": np.array([li["l_extendedprice"][m].sum() / 7.0])}
+
+
+def numpy_q20(tables):
+    """Suppliers of five nations with forest-part stock above half their
+    1994-1995 shipments, by name."""
+    p, ps, li, s, n = (tables[t].columns for t in (
+        "part", "partsupp", "lineitem", "supplier", "nation"))
+    sd = li["l_shipdate"]
+    m = (sd >= D_1994_01_01) & (sd < D_1996_01_01)
+    (sp, ss), (qty,) = _group_sums([li["l_partkey"][m],
+                                    li["l_suppkey"][m]], li["l_quantity"][m])
+    forest = p["p_partkey"][np.char.startswith(p["p_name"].astype(str),
+                                               "forest")]
+    f = np.flatnonzero(np.isin(ps["ps_partkey"], forest))
+    order, lo, cnt = _pair_ranges(sp, ss, ps["ps_partkey"][f],
+                                  ps["ps_suppkey"][f])
+    found = cnt > 0
+    half = 0.5 * qty[order[np.minimum(lo, max(len(order) - 1, 0))]]
+    good = found & (ps["ps_availqty"][f] > half)
+    qualifying = ps["ps_suppkey"][f][good]
+    hit_n, nrow = _lookup(n["n_nationkey"], s["s_nationkey"])
+    keep = hit_n & np.isin(n["n_name"][nrow], ["CANADA", "CHINA", "FRANCE",
+                                               "GERMANY", "RUSSIA"]) \
+        & np.isin(s["s_suppkey"], qualifying)
+    return {"s_name": np.sort(s["s_name"][keep])}
+
+
+def numpy_q21(tables):
+    """SAUDI ARABIA's suppliers that alone kept a multi-supplier F order
+    waiting: late lines per supplier, the top 100, then by name."""
+    s, n, li, o = (tables[t].columns for t in ("supplier", "nation",
+                                               "lineitem", "orders"))
+    ok, sk = li["l_orderkey"], li["l_suppkey"]
+    late = li["l_receiptdate"] > li["l_commitdate"]
+
+    def distinct_per_order(mask):
+        pairs = np.unique(ok[mask] * (int(sk.max()) + 1) + sk[mask])
+        orders, cnt = np.unique(pairs // (int(sk.max()) + 1),
+                                return_counts=True)
+        return orders, cnt
+
+    so, n_supp = distinct_per_order(np.ones(len(ok), bool))
+    lo_, n_late = distinct_per_order(late)
+    f_orders = o["o_orderkey"][o["o_orderstatus"] == "F"]
+    hit_s, srow = _lookup(s["s_suppkey"], sk)
+    hit_n, nrow = _lookup(n["n_nationkey"], s["s_nationkey"][srow])
+    m = late & hit_s & hit_n & (n["n_name"][nrow] == "SAUDI ARABIA") \
+        & np.isin(ok, f_orders)
+    hit_a, arow = _lookup(so, ok)
+    hit_b, brow = _lookup(lo_, ok)
+    m &= hit_a & hit_b & (n_supp[arow] > 1) & (n_late[brow] == 1)
+    (names,), (cnt,) = _group_sums([s["s_name"][srow][m]],
+                                   np.ones(int(m.sum()), np.int64))
+    out = {"s_name": names, "numwait": cnt}
+    return _cols(out, _order(-out["numwait"], out["s_name"])[:100])
+
+
 def sort_lineitem(dfs):
     """A sort exec over the fact table on one packable key: the path on
     which ``sortStep`` meets 2^23 lanes."""
@@ -1183,12 +1481,30 @@ ANSWERS = {
     "q18": (["c_custkey", "n_orders", "total_qty"], []),
     "q19": ([], ["revenue"]),
     "xbb_score": (["l_returnflag", "n"], ["avg_score"]),
+    "q2": (["s_acctbal", "s_name", "n_name", "p_partkey", "p_mfgr",
+            "ps_supplycost"], []),
+    "q7": (["supp_nation", "cust_nation", "l_year"], ["revenue"]),
+    "q8": (["o_year"], ["mkt_share"]),
+    "q9": (["n_name", "o_year"], ["sum_profit"]),
+    "q13": (["c_count", "custdist"], []),
+    "q15": (["s_suppkey", "s_name"], ["total_revenue"]),
+    "q16": (["p_brand", "p_type", "p_size", "supplier_cnt"], []),
+    "q17": ([], ["avg_yearly"]),
+    "q20": (["s_name"], []),
+    "q21": (["s_name", "numwait"], []),
 }
 NUMPY_REFS = {"q1": numpy_q1, "q4": numpy_q4, "q6": numpy_q6,
               "q22": numpy_q22, "sort": numpy_sort, "q5": numpy_q5,
               "q10": numpy_q10, "q12": numpy_q12, "q14": numpy_q14,
               "q18": numpy_q18, "q19": numpy_q19,
-              "xbb_score": numpy_xbb_score}
+              "xbb_score": numpy_xbb_score, "q2": numpy_q2, "q7": numpy_q7,
+              "q8": numpy_q8, "q9": numpy_q9, "q11": numpy_q11,
+              "q13": numpy_q13, "q15": numpy_q15, "q16": numpy_q16,
+              "q17": numpy_q17, "q20": numpy_q20, "q21": numpy_q21}
+#: The other eleven TPC-H queries (the reference's ``workloads/tpch.py``
+#: beyond the bench suite, Q10, Q18 and Q22).
+REST_QUERIES = ("q2", "q7", "q8", "q9", "q11", "q13", "q15", "q16", "q17",
+                "q20", "q21")
 
 
 # --------------------------------------------------------------------------
@@ -1399,11 +1715,14 @@ def run_tpcxbb(torch, ctx, session, wrappers, xbb_clicks: int, seed: int,
     then ``pq_bb_*`` over bench.py's ``BENCH_XBB_CLICKS`` tables written by
     the port's writer (the scan in every run). Each answer exact against
     its numpy reference; ``joinProbe`` launched in ``bb_q05`` (its dense
-    LEFT join included) and ``bb_q30``; ``bb_q01`` not empty. Returns
-    (summaries, launches, captured calls, the dense left joins' calls
-    of one warm ``bb_q05`` run)."""
+    LEFT join included) and ``bb_q30``; ``bb_q01`` not empty. Then
+    ``pq_bb_q30`` with the pipeline off (into ``ctx.pipeline_off``) and
+    the run tables of the ``pq_bb`` files through both slicers (into
+    ``ctx.runs_check``). Returns (summaries, launches, captured calls,
+    the dense left joins' calls of one warm ``bb_q05`` run)."""
     tpcxbb, KJ, JP = ctx.tpcxbb, ctx.KJ, ctx.JP
     summaries, launches, calls = {}, {}, {k: [] for k in wrappers.mods}
+    answers = {}
     left_calls = []
     need = {"q01": (), "q05": ("joinProbe",), "q30": ("joinProbe",)}
     for label, clicks in (("bb", xbb_clicks), ("pq_bb", BENCH_XBB_CLICKS)):
@@ -1443,8 +1762,8 @@ def run_tpcxbb(torch, ctx, session, wrappers, xbb_clicks: int, seed: int,
             with LeftJoinWatch(KJ, wrappers.fns["joinProbe"]) as watch:
                 got_launches, got_calls, summaries[cell], mid = run_query(
                     torch, session, wrappers, cell.upper(), build,
-                    lambda got, q=q, cell=cell: check_exact(
-                        cell, got, refs[q]), need[q])
+                    keep_answer(answers, cell, lambda got, q=q, cell=cell:
+                                check_exact(cell, got, refs[q])), need[q])
             n_rows = len(refs[q]["cnt" if q != "q05" else "label"])
             check(q != "q01" or n_rows > 0, f"{cell} returned no pair")
             summaries[cell]["rows"] = n_rows
@@ -1465,12 +1784,48 @@ def run_tpcxbb(torch, ctx, session, wrappers, xbb_clicks: int, seed: int,
                 calls[k] += got_calls[k]
             if profile:
                 profile_query(torch, cell, build, mid)
+        if label == "pq_bb":
+            # pq_bb_q30 once more with the pipeline off, and every level
+            # and index stream of these files through both run slicers
+            off_dfs = {k: ctx.off_session.read.parquet(d)
+                       for k, d in written["dirs"].items()}
+
+            def run_off_q30():
+                got = tpcxbb.q30(off_dfs).collect()
+                return got, ctx.off_session.last_query
+            ctx.pipeline_off["pq_bb_q30"] = pipeline_off_run(
+                torch, "PQ_BB_Q30", run_off_q30, answers["pq_bb_q30"],
+                summaries["pq_bb_q30"])
+            ctx.pipeline_off["pq_bb_scans"] = scans_on_off(
+                session, ctx.off_session, written["dirs"], XBB_TABLES,
+                "pq_bb")
+            ctx.runs_check["pq_bb"] = check_runs(
+                torch, ctx.E, ctx.PD, ctx.M, written["files"], "pq_bb")
         if label == "bb":
             with Capture(KJ, "dense_join") as dj:
                 tpcxbb.q05(dfs).collect()
             left_calls = [c for c in dj.calls if len(c) > 5
                           and c[5] == "left"]
     return summaries, launches, calls, left_calls
+
+
+def rest_check(q: str, refs: dict):
+    """The check of one of ``REST_QUERIES``: Q11 (by value descending,
+    whose sums may round apart from numpy's) as a top-n, the rest exact
+    keys with float sums to ``REV_RTOL``."""
+    if q == "q11":
+        return lambda got: check_top("q11", got, refs["q11"], ["ps_partkey"],
+                                     "value", len(refs["q11"]["value"]))
+    return lambda got: check_answer(q, got, refs[q])
+
+
+def keep_answer(answers: dict, cell: str, check_fn):
+    """``check_fn`` that also keeps every answer it checked, in
+    ``answers[cell]``."""
+    def keep(got):
+        check_fn(got)
+        answers.setdefault(cell, []).append(got)
+    return keep
 
 
 def check_answer(q: str, got, ref) -> None:
@@ -2328,22 +2683,27 @@ def snappy_edge_cases(SN, SC) -> None:
           "plain version's and round trip")
 
 
+def _column_bits_equal(a, b, name: str) -> bool:
+    """Column ``name`` of two HostBatches: equal validity, and equal
+    values where valid (floats bit for bit)."""
+    va, vb = a.validity[name], b.validity[name]
+    if not np.array_equal(va, vb):
+        return False
+    x, y = np.asarray(a.columns[name]), np.asarray(b.columns[name])
+    if x.dtype == object:
+        return list(x[va]) == list(y[vb])
+    if x.dtype.kind == "f":
+        return np.array_equal(x[va].view(f"i{x.itemsize}"),
+                              y[vb].view(f"i{y.itemsize}"))
+    return np.array_equal(x[va], y[vb])
+
+
 def host_columns_equal(a, b, what: str) -> None:
     """Two HostBatches with equal validity and equal values where valid
     (floats bit for bit)."""
     check(list(a.columns) == list(b.columns), f"{what}: columns differ")
     for name in a.columns:
-        va, vb = a.validity[name], b.validity[name]
-        check(np.array_equal(va, vb), f"{what}: {name} validity differs")
-        x, y = np.asarray(a.columns[name]), np.asarray(b.columns[name])
-        if x.dtype == object:
-            ok = list(x[va]) == list(y[vb])
-        elif x.dtype.kind == "f":
-            ok = np.array_equal(x[va].view(f"i{x.itemsize}"),
-                                y[vb].view(f"i{y.itemsize}"))
-        else:
-            ok = np.array_equal(x[va], y[vb])
-        check(ok, f"{what}: {name} differs")
+        check(_column_bits_equal(a, b, name), f"{what}: {name} differs")
 
 
 def check_fixture_decode(PD, M, HostBatch) -> dict:
@@ -2464,21 +2824,222 @@ def check_sf1_pages(SN, PD, M, files) -> dict:
 
 
 def print_scan(name: str, summary: dict) -> None:
-    """A parquet cell's scan breakdown (median run)."""
+    """A parquet cell's scan breakdown (median run), with the run's wall
+    time, the consumer's wait for row groups (``stall``) and the decode
+    workers' time (``busy``, summed over threads, as the host-phase
+    timers are)."""
     ms = summary["per_exec_ms"]
     c = summary["counters"]
     part = {k: ms.get(f"ParquetScanExec.{k}", 0.0) for k in (
-        "read", "parse", "decompress", "runs", "upload", "decode")}
+        "read", "parse", "decompress", "runs", "upload", "decode", "stall",
+        "busy")}
     print(f"  {name} scan (median run): file read {part['read']:.3f} ms, "
           f"footer and page-header parse {part['parse']:.3f} ms, snappy "
           f"{part['decompress']:.3f} ms, run tables {part['runs']:.3f} ms "
-          f"(host clock); upload {part['upload']:.3f} ms, device decode "
-          f"{part['decode']:.3f} ms (CUDA events); "
+          f"(host clock, summed over threads); upload {part['upload']:.3f} "
+          f"ms, device decode {part['decode']:.3f} ms (CUDA events); wall "
+          f"{summary['warm_median_ms']:.3f} ms, stall {part['stall']:.3f} "
+          f"ms, decode workers busy {part['busy']:.3f} ms; "
           f"{c.get('ParquetScanExec.rows', 0)} rows, "
           f"{c.get('ParquetScanExec.read_bytes', 0)} bytes read, "
           f"{c.get('ParquetScanExec.bytes', 0)} bytes decompressed, "
           f"{c.get('ParquetScanExec.snappy_chunks', 0)} snappy calls")
     summary["scan_ms"] = part
+
+
+def same_bits(a, b) -> bool:
+    """Whether two answers are equal bit for bit (floats included)."""
+    return list(a.columns) == list(b.columns) and all(
+        _column_bits_equal(a, b, name) for name in a.columns)
+
+
+def answers_match(got, want, what: str, floats=()) -> None:
+    """``got`` equal to ``want``: bit for bit, except the ``floats``
+    columns (sums the card adds in atomic order), which must have the
+    same validity and agree to ``REV_RTOL``."""
+    exact = [k for k in want.columns if k not in floats]
+    pick = lambda hb, ks: types.SimpleNamespace(  # noqa: E731
+        columns={k: hb.columns[k] for k in ks},
+        validity={k: hb.validity[k] for k in ks})
+    host_columns_equal(pick(got, exact), pick(want, exact), what)
+    for k in floats:
+        check(np.array_equal(got.validity[k], want.validity[k]),
+              f"{what}: {k} validity differs")
+        g, w = (np.asarray(x.columns[k], np.float64) for x in (got, want))
+        check(bool(np.all(np.abs(g - w) <= REV_RTOL * np.abs(w))),
+              f"{what}: {k} {g.tolist()} vs {w.tolist()}")
+
+
+def pipeline_off_run(torch, name: str, run_off, on_answers, on_summary,
+                     floats=()) -> dict:
+    """A parquet cell again with ``spark.rapids.tpu.pipeline.enabled``
+    false: ``run_off()`` collects it in a session of that conf (a cold
+    run that learns its modes, then a timed warm one). Both answers must
+    equal the pipeline-on ones: bit for bit, but for the ``floats``
+    columns (sums in atomic order, whose last bits vary from run to run
+    with the pipeline on or off), which agree to ``REV_RTOL``; whether
+    the pipeline-on runs themselves agreed bit for bit is printed. Prints
+    the warm run's wall and scan breakdown beside the pipeline-on
+    median."""
+    outs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, info = run_off()
+        outs.append(((time.perf_counter() - t0) * 1e3, info, got))
+        answers_match(got, on_answers[-1], f"{name} with the pipeline off",
+                      floats)
+    wall, info, got = outs[1]
+    on_same = all(same_bits(a, on_answers[0]) for a in on_answers)
+    off_same = same_bits(got, on_answers[-1])
+    summary = {"warm_median_ms": wall, "per_exec_ms": info.exec_ms,
+               "counters": info.counters, "attempts": info.attempts,
+               "cold_ms": outs[0][0], "bits_equal_to_on": off_same,
+               "on_runs_bits_equal": on_same}
+    on_ms = on_summary["warm_median_ms"]
+    print(f"  {name} with the pipeline off: cold {outs[0][0]:.1f} ms, warm "
+          f"{wall:.3f} ms (pipeline on: median {on_ms:.3f} ms); answers "
+          f"equal to the pipeline-on answer ("
+          + ("bit for bit" if off_same else
+             f"{', '.join(floats)} to rtol {REV_RTOL}, the rest bit for "
+             "bit") + f"); the {len(on_answers)} pipeline-on answers "
+          + ("equal bit for bit" if on_same else
+             "differ among themselves in the last bits of their sums"))
+    print_scan(name + " (pipeline off)", summary)
+    return {k: v for k, v in summary.items() if k != "per_exec_ms"}
+
+
+def scans_on_off(on_session, off_session, dirs: dict, names, label: str
+                 ) -> dict:
+    """The tables ``names`` of ``dirs`` collected straight from the scan
+    with the pipeline on and off: equal bit for bit."""
+    rows = 0
+    t0 = time.perf_counter()
+    for name in names:
+        on = on_session.read.parquet(dirs[name]).collect()
+        off = off_session.read.parquet(dirs[name]).collect()
+        host_columns_equal(on, off, f"{label} {name} scan, pipeline on vs "
+                           "off")
+        rows += on.num_rows
+    print(f"  {label} scans of {', '.join(names)} ({rows} rows) with the "
+          f"pipeline on and off: equal bit for bit "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return {"tables": list(names), "rows": rows}
+
+
+def _uvarint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def parquet_runs_edge_cases(PD, seed: int) -> None:
+    """The C++ run slicer (``csrc/parquet_runs.cpp``) against the plain
+    ``parse_hybrid`` on hand-made hybrid streams at bit widths 0-24: RLE
+    and bit-packed runs, runs of count 0, streams longer than the page's
+    values (counts capped) and shorter (an RLE tail of zeros), streams at
+    odd staging offsets; equal run tables, and the width-1 streams' ones
+    equal to the plain non-null count. Truncated streams (a bit-packed
+    run or an RLE value past the end, a header past the end) must raise
+    in both."""
+    rng = np.random.default_rng(seed)
+    n_cases = n_bad = 0
+    for case in range(400):
+        bw = int(rng.integers(0, 25)) if case % 4 else 1
+        byte_w = (bw + 7) // 8
+        stream, total = bytearray(), 0
+        for _ in range(int(rng.integers(1, 12))):
+            if rng.random() < 0.5:
+                count = int(rng.integers(0, 70))
+                stream += _uvarint(count << 1)
+                stream += int(rng.integers(0, 1 << max(bw, 1))).to_bytes(
+                    4, "little")[:byte_w]
+            else:
+                groups = int(rng.integers(0, 9))
+                count = 8 * groups
+                stream += _uvarint((groups << 1) | 1)
+                stream += rng.integers(0, 256, groups * bw,
+                                       dtype=np.uint8).tobytes()
+            total += count
+        n_values = max(total + int(rng.integers(-12, 13)), 0)
+        if case % 10 == 9:
+            # malformed: more values wanted than the stream holds, and it
+            # ends inside a run header or inside its last run
+            n_values = total + 1 + int(rng.integers(0, 12))
+            stream = stream + b"\x80" if case % 20 == 9 else stream[:-1]
+        pos = int(rng.integers(0, 9))
+        staged = np.zeros(pos + len(stream) + 8, np.uint8)
+        staged[pos:pos + len(stream)] = np.frombuffer(bytes(stream),
+                                                      np.uint8)
+        end = pos + len(stream)
+        plain, native = PD.HybridRuns(), PD.HybridRuns()
+        errors = []
+        try:
+            PD.parse_hybrid(staged[pos:end].tobytes(), 0, end - pos, bw,
+                            n_values, plain, pos)
+        except Exception as e:  # noqa: BLE001 - compared below
+            errors.append(type(e).__name__)
+        try:
+            ones = PD.parse_hybrid_native(staged, pos, end, bw, n_values,
+                                          native)
+        except Exception as e:  # noqa: BLE001 - compared below
+            errors.append(type(e).__name__)
+        if errors:
+            check(len(errors) == 2, f"parse_hybrid case {case}: only one "
+                  f"version raised ({errors})")
+            n_bad += 1
+            continue
+        check(np.array_equal(plain.array(), native.array()),
+              f"parse_hybrid case {case} (width {bw}, {n_values} values): "
+              f"C++ runs {native.array().tolist()} vs plain "
+              f"{plain.array().tolist()}")
+        if bw == 1:
+            check(ones == plain.non_null_count(0, staged),
+                  f"parse_hybrid case {case}: ones {ones}")
+        n_cases += 1
+    check(n_bad >= 20, f"only {n_bad} malformed parse_hybrid cases")
+    print(f"  parse_hybrid (host C++) equal to the plain version on "
+          f"{n_cases} hand-made streams; {n_bad} malformed ones raise in "
+          "both")
+
+
+def check_runs(torch, E, PD, M, files, label: str, dev="cuda") -> dict:
+    """Every definition-level and dictionary-index stream of ``files``
+    sliced by the C++ routine and by the plain ``parse_hybrid`` (each row
+    group's host phase twice): the packed run tables equal, byte for
+    byte. Prints the ``.runs`` time of both (host clock, one thread)."""
+    ms = {False: 0.0, True: 0.0}
+    before = PD.parse_hybrid_native.launches
+    groups = runs = 0
+    for path in files:
+        meta = M.read_footer(path)
+        schema = M.schema_from_parquet(meta, path)
+        for rg in range(meta.num_row_groups):
+            got = {}
+            for native in (False, True):
+                ctx = E.ExecContext(torch.device(dev))
+                got[native] = PD.read_row_group_host(
+                    path, rg, schema, meta, ctx=ctx, native_runs=native)
+                ms[native] += ctx.exec_ms()["ParquetScanExec.runs"]
+            a, b = got[False], got[True]
+            check(a.handles == b.handles and torch.equal(a.tables, b.tables),
+                  f"{label} {path} row group {rg}: C++ and plain run "
+                  "tables differ")
+            runs += sum(len(r) for p in b.plans for r in (p.def_runs,
+                                                           p.idx_runs)
+                        if r is not None)
+            groups += 1
+    streams = PD.parse_hybrid_native.launches - before
+    print(f"  run tables of the {label} files: {streams} level and index "
+          f"streams ({runs} runs, {groups} row groups) equal between the "
+          f"C++ routine and the plain version; .runs {ms[False]:.3f} ms "
+          f"plain, {ms[True]:.3f} ms C++ (host clock, one thread)")
+    return {"streams": streams, "runs": runs, "row_groups": groups,
+            "plain_ms": ms[False], "native_ms": ms[True]}
 
 
 def time_snappy(SN, PD, M, files) -> dict:
@@ -2619,13 +3180,18 @@ def main() -> int:
     ragged_hash_edge_cases(torch, HK, T, DeviceColumn, PN, rng, dev)
     row_equal_edge_cases(torch, SG, rng, dev)
     snappy_edge_cases(SN, SC)
+    parquet_runs_edge_cases(PD, args.seed)
     fixture = check_fixture_decode(PD, M, HostBatch)
+    runs_check = {"fixture": check_runs(torch, E, PD, M, [str(FIXTURE)],
+                                        "fixture")}
 
     # -- phase 3: the queries at SF1 -------------------------------------
     print(f"phase 3 {at()}: TPC-H Q3, Q1, Q4, Q6, Q22, lineitem sorted by "
           f"l_shipdate, Q1 over two hash repartitions of lineitem, Q5, "
-          f"Q12, Q14, Q19, xbb_score, Q10, Q18, the nine bench queries "
-          f"over SF1 parquet, the TPCxBB entries bb_q01, bb_q05 and bb_q30 "
+          f"Q12, Q14, Q19, xbb_score, Q10, Q18, Q2, Q7, Q8, Q9, Q11, Q13, "
+          f"Q15, Q16, Q17, Q20, Q21, the nine bench queries over SF1 "
+          f"parquet (pq_q1 also with the pipeline off), the TPCxBB "
+          f"entries bb_q01, bb_q05 and bb_q30 "
           f"at {args.xbb_clicks} clicks and over parquet at "
           f"{BENCH_XBB_CLICKS}, the entry stage, "
           f"group_ids over two string keys, Q1, Q3, Q4 and Q6 over a "
@@ -2699,6 +3265,11 @@ def main() -> int:
                 lambda got: check_answer("q18", got, refs["q18"]),
                 ("joinProbe",)),
     }
+    # the other eleven TPC-H queries; Q13's one join (a left join whose
+    # build side repeats its key) settles on the exact path
+    for q in REST_QUERIES:
+        queries[q] = (lambda q=q: tpch.QUERIES[q](dfs), rest_check(q, refs),
+                      () if q == "q13" else ("joinProbe",))
     xbb_ulps = []
     launches = {k: 0 for k in wrappers.mods}
     calls = {k: [] for k in wrappers.mods}
@@ -2746,14 +3317,15 @@ def main() -> int:
                "q4": ("joinProbe", "sortStep"), "q5": ("joinProbe",),
                "q12": ("joinProbe",), "q14": ("joinProbe",),
                "q19": ("joinProbe",)}
+    pq_answers = {}
     for q in ("q1", "q3", "q4", "q5", "q6", "q12", "q14", "q19",
               "xbb_score"):
         cell = f"pq_{q}"
         build = (lambda q=q: tpch.QUERIES[q](pq_dfs))
         sn_before = SN.decompress_pages.launches
         got_launches, got_calls, summaries[cell], mid = run_query(
-            torch, session, wrappers, cell.upper(), build, pq_check(q),
-            pq_need.get(q, ()))
+            torch, session, wrappers, cell.upper(), build,
+            keep_answer(pq_answers, cell, pq_check(q)), pq_need.get(q, ()))
         sn_calls = SN.decompress_pages.launches - sn_before
         check(sn_calls > 0 and summaries[cell]["counters"].get(
             "ParquetScanExec.snappy_chunks", 0) > 0,
@@ -2765,11 +3337,30 @@ def main() -> int:
             calls[k] += got_calls[k]
         if args.profile:
             profile_query(torch, cell, build, mid)
+    # pq_q1 once more with the pipeline off, and every level and index
+    # stream of the SF1 files through both run slicers
+    off_session = TorchSession({"spark.rapids.tpu.pipeline.enabled": False},
+                               device="cuda")
+    off_dfs = {name: off_session.read.parquet(d)
+               for name, d in written["dirs"].items()}
+
+    def run_off_q1():
+        got = tpch.q1(off_dfs).collect()
+        return got, off_session.last_query
+    pipeline_off = {"pq_q1": pipeline_off_run(
+        torch, "PQ_Q1", run_off_q1, pq_answers["pq_q1"], summaries["pq_q1"],
+        ANSWERS["q1"][1])}
+    pipeline_off["sf1_scans"] = scans_on_off(
+        session, off_session, written["dirs"], ("lineitem", "orders"), "SF1")
+    runs_check["sf1"] = check_runs(torch, E, PD, M, written["files"], "SF1")
 
     # The bench suite's TPCxBB entries, on uploaded tables and over the
     # port's parquet files.
     xbb_ctx = types.SimpleNamespace(tpcxbb=tpcxbb, KJ=KJ, JP=JP, PE=PE,
-                                    ColumnarBatch=ColumnarBatch)
+                                    ColumnarBatch=ColumnarBatch, E=E, PD=PD,
+                                    M=M, off_session=off_session,
+                                    pipeline_off=pipeline_off,
+                                    runs_check=runs_check)
     xbb_summaries, xbb_launches, xbb_calls, left_calls = run_tpcxbb(
         torch, xbb_ctx, session, wrappers, args.xbb_clicks, args.seed,
         pq_dir, args.profile, futures)
@@ -3030,6 +3621,7 @@ def main() -> int:
         "distributed_sum_by_key": distributed,
         "q6_default_mesh_ms": default_ms, "entry_stage": entry_runs,
         "xbb_score_max_score_ulps": max(xbb_ulps),
+        "pipeline_off": pipeline_off, "run_tables": runs_check,
         "parquet": {"fixture": fixture, "sf1_pages": sf1_pages,
                     "write": {k: v for k, v in written.items()
                               if k in ("bytes", "seconds")},

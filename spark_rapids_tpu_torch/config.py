@@ -63,6 +63,25 @@ MESH_ENABLED = conf_bool(
     "run on the single-device path.")
 
 
+PIPELINE_ENABLED = conf_bool(
+    "spark.rapids.tpu.pipeline.enabled", True,
+    "Decode the scans' units ahead on a shared pool of host threads "
+    "(exec/pipeline.py): the parquet scan's next row groups read, parse "
+    "and decompress while the query runs the current one. Results are "
+    "bit for bit the same with the pipeline on or off.")
+
+PIPELINE_DECODE_THREADS = conf_int(
+    "spark.rapids.tpu.pipeline.decodeThreads", 0,
+    "Units the pipeline decodes at once across the process. 0 = auto "
+    "(min(4, cpu count), at least 2). Each unit in flight holds its row "
+    "group's decompressed pages in host memory.")
+
+PIPELINE_PREFETCH_DEPTH = conf_int(
+    "spark.rapids.tpu.pipeline.prefetchDepth", 2,
+    "Look-ahead of the scans: the units in flight from the one the "
+    "consumer reads, that one included.")
+
+
 PARQUET_REBASE_READ = conf_str(
     "spark.sql.legacy.parquet.datetimeRebaseModeInRead", "EXCEPTION",
     "Dates and timestamps of parquet files written with the legacy hybrid "

@@ -8,8 +8,10 @@ limit, and the device-to-host transition. The nested-loop joins are in
 :mod:`.joins`, the shuffle exchange in :mod:`..shuffle.exchange`.
 
 Execution model, the reference's: every operator's ``execute(ctx)``
-returns a list of partitions, each a list of :class:`ColumnarBatch` on
-the device. Narrow operators (project, filter) map each batch; the
+returns a list of partitions, each an iterable of :class:`ColumnarBatch`
+on the device that a consumer reads once, partitions in order (a scan's
+partitions are generators, decoded ahead by :mod:`.pipeline`). Narrow
+operators (project, filter) map each batch lazily; the
 aggregate reduces every batch to partial buffers and merges them; joins,
 sort, top-k and limit accumulate their child into one batch first
 (:func:`accumulate`, the reference's ``_accumulate_spillable`` without
@@ -28,12 +30,14 @@ and re-runs the query with the tripped sites escalated
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
 from .. import types as T
+from ..config import TorchConf
 from ..data.batch import ColumnarBatch, HostBatch, empty_batch
 from ..data.column import bucket_capacity
 from ..ops import aggregates as AGG
@@ -45,12 +49,17 @@ from ..ops.kernels import rowops as KR
 
 
 class ExecContext:
-    """Per-attempt state: the learned dense mode of each optimistic site,
-    the fail flags this attempt raised, and per-operator timings."""
+    """Per-attempt state: the session's conf, the learned dense mode of
+    each optimistic site, the fail flags this attempt raised,
+    per-operator timings and counters, and the cleanups the session runs
+    when the attempt ends. Timings and counters take a lock: the scan's
+    host work on the pipeline's workers adds to them too."""
 
     def __init__(self, device: torch.device,
-                 dense_modes: Optional[Dict[int, int]] = None):
+                 dense_modes: Optional[Dict[int, int]] = None,
+                 conf: Optional[TorchConf] = None):
         self.device = device
+        self.conf = conf if conf is not None else TorchConf()
         self.dense_modes = dict(dense_modes or {})
         self.dense_fails: List[Tuple[int, torch.Tensor]] = []
         self.site_kinds: List[str] = []
@@ -61,6 +70,10 @@ class ExecContext:
         self.shuffle_catalog = None
         #: name -> count (the scan's rows and decompressed bytes).
         self.counters: Dict[str, int] = {}
+        self._lock = threading.Lock()
+        self._cleanups: List[Callable[[], None]] = []
+        #: :class:`ReusedExec` -> its partitions, made at its first read.
+        self.reused: Dict[int, List[List[ColumnarBatch]]] = {}
 
     def next_site(self, kind: str) -> int:
         self.site_kinds.append(kind)
@@ -71,7 +84,27 @@ class ExecContext:
 
     def count(self, name: str, n: int) -> None:
         """Add ``n`` to the counter ``name``."""
-        self.counters[name] = self.counters.get(name, 0) + int(n)
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0) + int(n)
+
+    def host_interval(self, name: str, t0: float, t1: float) -> None:
+        """Add the host-clock interval ``[t0, t1]`` (seconds) to ``name``'s
+        time."""
+        with self._lock:
+            self._marks.append((name, t0, t1))
+
+    def add_cleanup(self, fn: Callable[[], None]) -> None:
+        """Have :meth:`run_cleanups` call ``fn`` when the attempt ends."""
+        with self._lock:
+            self._cleanups.append(fn)
+
+    def run_cleanups(self) -> None:
+        """Call the registered cleanups once each, newest first (the
+        scan's look-ahead cancels what it has not started)."""
+        with self._lock:
+            fns, self._cleanups = self._cleanups[::-1], []
+        for fn in fns:
+            fn()
 
     def report(self, site: int, fail) -> None:
         """Record an optimistic site's device-side fail flag."""
@@ -91,18 +124,21 @@ class ExecContext:
                 start.record()
                 yield
                 end.record()
-                self._marks.append((name, start, end))
+                with self._lock:
+                    self._marks.append((name, start, end))
             else:
                 t0 = time.perf_counter()
                 yield
-                self._marks.append((name, t0, time.perf_counter()))
+                self.host_interval(name, t0, time.perf_counter())
 
     def exec_ms(self) -> Dict[str, float]:
         """Milliseconds per operator (summed by name); synchronises."""
         out: Dict[str, float] = {}
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        for name, a, b in self._marks:
+        with self._lock:
+            marks = list(self._marks)
+        for name, a, b in marks:
             ms = a.elapsed_time(b) if isinstance(a, torch.cuda.Event) \
                 else (b - a) * 1e3
             out[name] = out.get(name, 0.0) + ms
@@ -133,8 +169,9 @@ class TorchExec:
             out += c.tree_string(indent + 1)
         return out
 
-    def execute(self, ctx: ExecContext) -> List[List[ColumnarBatch]]:
-        """The output partitions, each a list of device batches."""
+    def execute(self, ctx: ExecContext) -> List[Iterable[ColumnarBatch]]:
+        """The output partitions, each an iterable of device batches, to
+        be read once, in order."""
         raise NotImplementedError
 
 
@@ -176,6 +213,30 @@ class DeviceSourceExec(TorchExec):
         return [[self.batch]]
 
 
+class ReusedExec(TorchExec):
+    """A subplan that the query references more than once: it runs at
+    its first read in an attempt, and every read gets its batches (the
+    planner puts one of these where a logical node has several
+    parents)."""
+
+    def __init__(self, child: TorchExec):
+        self.children = [child]
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def describe(self):
+        return "Reused"
+
+    def execute(self, ctx):
+        parts = ctx.reused.get(id(self))
+        if parts is None:
+            parts = [list(p) for p in self.children[0].execute(ctx)]
+            ctx.reused[id(self)] = parts
+        return [list(p) for p in parts]
+
+
 class ProjectExec(TorchExec):
     def __init__(self, child: TorchExec, exprs: List[Expression]):
         self.children = [child]
@@ -197,7 +258,7 @@ class ProjectExec(TorchExec):
             with ctx.timed(self.name):
                 cols = [e.eval_device(batch) for e in bound]
                 return batch.with_columns(cols, self.schema)
-        return [[project(b) for b in part] for part in parts]
+        return [(project(b) for b in part) for part in parts]
 
 
 class FilterExec(TorchExec):
@@ -222,7 +283,7 @@ class FilterExec(TorchExec):
             with ctx.timed(self.name):
                 m = cond.eval_device(batch)
                 return KR.compact(batch, m.data & m.validity)
-        return [[keep(b) for b in part] for part in parts]
+        return [(keep(b) for b in part) for part in parts]
 
 
 class HashAggregateExec(TorchExec):

@@ -11,11 +11,15 @@ The work splits as in the reference (and as cuDF's reader does):
   routine for a scan on the card, one call per column chunk), and the
   RLE/bit-packed hybrid streams (definition levels, dictionary indices)
   sliced into RUN TABLES — (kind, count, value, bit offset, width) per
-  run — without expanding a value. Every page of a row group lands,
-  decompressed, in one staging buffer (pinned on the card) at an 8-byte
-  aligned offset, and the run tables of all its columns in a second;
-  each goes to the device in one copy.
-* DEVICE, data-sized, in torch: each output finds its run by
+  run — without expanding a value (the C++ routine
+  ``csrc/parquet_runs.cpp`` on the card, one call per stream). Every
+  page of a row group lands, decompressed, in one staging buffer (pinned
+  on the card) at an 8-byte aligned offset, and the run tables of all
+  its columns in a second; each goes to the device in one copy. This
+  phase (:func:`read_row_group_host`) touches no device, and the scan
+  runs it ahead on the pipeline's workers.
+* DEVICE, data-sized, in torch (:func:`decode_row_group_device`, on the
+  thread that reads the partition): each output finds its run by
   ``searchsorted`` over the run ends; an RLE run broadcasts its value, a
   bit-packed run gathers the 4 bytes around the value's bit offset in
   the uploaded pages and shifts and masks; definition levels become the
@@ -38,10 +42,12 @@ booleans, and codecs other than UNCOMPRESSED and SNAPPY.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import datetime as _dt
 import os
 import struct
+import threading
 from typing import List, Optional
 
 import numpy as np
@@ -51,6 +57,8 @@ from .. import types as T
 from ..data.batch import ColumnarBatch
 from ..data.column import DeviceColumn, bucket_capacity, dictionary_column
 from ..exec.execs import ExecContext, TorchExec
+from ..exec.pipeline import unit_partitions
+from ..ops.kernels.cuda import _build
 from . import snappy
 from .parquet_meta import (ColumnChunkMeta, FileMeta, ParquetFormatError,
                            read_footer, schema_from_parquet)
@@ -111,7 +119,8 @@ class HybridRuns:
     """Run table of RLE/bit-packed hybrid streams: per run its kind (1
     RLE, 0 bit-packed), count, value (RLE) and bit offset into the
     staging buffer (bit-packed), and its bit width (a dictionary's width
-    grows across pages as it fills)."""
+    grows across pages as it fills). The plain parse adds runs one by
+    one; the C++ one adds a stream's runs as one block."""
 
     def __init__(self):
         self.kinds: List[int] = []
@@ -119,9 +128,12 @@ class HybridRuns:
         self.values: List[int] = []
         self.bit_starts: List[int] = []
         self.widths: List[int] = []
+        #: int64 [5, k] blocks ahead of the runs in the lists
+        self._blocks: List[np.ndarray] = []
+        self._in_blocks = 0
 
     def __len__(self) -> int:
-        return len(self.kinds)
+        return self._in_blocks + len(self.kinds)
 
     def add(self, kind: int, count: int, value: int, bit_start: int,
             width: int) -> None:
@@ -131,12 +143,28 @@ class HybridRuns:
         self.bit_starts.append(bit_start)
         self.widths.append(width)
 
+    def _lists(self) -> np.ndarray:
+        return np.array([self.kinds, self.counts, self.values,
+                         self.bit_starts, self.widths],
+                        dtype=np.int64).reshape(5, -1)
+
+    def extend(self, table: np.ndarray) -> None:
+        """Append a block of runs (int64 ``[5, k]``)."""
+        if self.kinds:
+            self._blocks.append(self._lists())
+            self._in_blocks += len(self.kinds)
+            for lane in (self.kinds, self.counts, self.values,
+                         self.bit_starts, self.widths):
+                lane.clear()
+        self._blocks.append(table)
+        self._in_blocks += table.shape[1]
+
     def non_null_count(self, start_run: int, staged: np.ndarray) -> int:
-        """Ones in a bit-width-1 (definition level) run suffix: the
-        non-null values of a page, which is how many entries its value
-        stream holds."""
+        """Ones in a bit-width-1 (definition level) run suffix of the
+        plain parse's runs: the non-null values of a page, which is how
+        many entries its value stream holds."""
         total = 0
-        for i in range(start_run, len(self.kinds)):
+        for i in range(start_run - self._in_blocks, len(self.kinds)):
             if self.kinds[i] == 1:
                 total += self.counts[i] * (self.values[i] & 1)
             else:
@@ -149,9 +177,15 @@ class HybridRuns:
     def array(self) -> np.ndarray:
         """int64 ``[5, runs]``: kinds, counts, values, bit starts,
         widths."""
-        return np.array([self.kinds, self.counts, self.values,
-                         self.bit_starts, self.widths],
-                        dtype=np.int64).reshape(5, -1)
+        if not self._blocks:
+            return self._lists()
+        return np.concatenate(self._blocks + [self._lists()], axis=1)
+
+    def all_valid(self) -> bool:
+        """Whether every run is an RLE run of ones (definition levels
+        that mark every row valid)."""
+        a = self.array()
+        return bool(np.all((a[0] == 1) & (a[2] == 1)))
 
 
 def parse_hybrid(buf: bytes, pos: int, end: int, bit_width: int,
@@ -161,7 +195,9 @@ def parse_hybrid(buf: bytes, pos: int, end: int, bit_width: int,
     the byte offset of ``buf`` in the staging buffer, which bit-packed
     runs point into. Counts cap at the page's ``n_values``, so the
     padded last bit-packed group never leaks positions into the next
-    page's runs; a stream that stops short ends in implicit zeros."""
+    page's runs; a stream that stops short ends in implicit zeros. The
+    plain version of :func:`parse_hybrid_native`, which a CPU scan
+    runs."""
     produced = 0
     t = Thrift(buf, pos)
     byte_w = (bit_width + 7) // 8
@@ -186,6 +222,60 @@ def parse_hybrid(buf: bytes, pos: int, end: int, bit_width: int,
         produced += count
     if pad_tail and produced < n_values:
         runs.add(1, n_values - produced, 0, 0, bit_width)
+
+
+_RUNS_COUNT_LOCK = threading.Lock()
+_MORE_RUNS = 4  # csrc/parquet_runs.cpp kMoreRuns
+#: Runs the first C++ call has room for.
+_FIRST_RUNS = 4096
+
+
+def _runs_lib():
+    lib = _build.load("parquet_runs")
+    if lib.srt_parse_hybrid.argtypes is None:
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+        lib.srt_parse_hybrid.argtypes = [p, i64, i64, i64, i32, i64, i64,
+                                         i32, p, i64, p, p]
+        lib.srt_parse_hybrid.restype = ctypes.c_int
+    return lib
+
+
+def parse_hybrid_native(staged: np.ndarray, pos: int, end: int,
+                        bit_width: int, n_values: int,
+                        runs: HybridRuns) -> int:
+    """:func:`parse_hybrid` of the stream ``staged[pos:end]`` through the
+    host C++ routine (``csrc/parquet_runs.cpp``), which the scan on the
+    card runs: the same runs, appended to ``runs`` as one block, without
+    the GIL. Returns the stream's values equal to 1 when ``bit_width`` is
+    1 (a page's non-null rows), else 0."""
+    if staged.dtype != np.uint8 or not staged.flags.c_contiguous:
+        raise ValueError("parse_hybrid_native takes a contiguous uint8 "
+                         "staging buffer")
+    lib = _runs_lib()
+    n_runs, ones = ctypes.c_int64(0), ctypes.c_int64(0)
+    # Room for a typical stream's runs first; a longer one parses again
+    # into room for one run a value (plus the padded tail), then, past
+    # runs of count 0, one run a byte of the stream.
+    for cap in (min(end - pos, n_values, _FIRST_RUNS),
+                min(end - pos, n_values), end - pos):
+        out = np.empty((5, cap + 1), np.int64)
+        rc = lib.srt_parse_hybrid(
+            staged.ctypes.data, min(end, len(staged)), pos, end, bit_width,
+            n_values, 0, 1, out.ctypes.data, out.shape[1],
+            ctypes.byref(n_runs), ctypes.byref(ones))
+        if rc != _MORE_RUNS:
+            break
+    if rc != 0:
+        raise ParquetFormatError(lib.srt_error_string(rc).decode())
+    with _RUNS_COUNT_LOCK:
+        parse_hybrid_native.launches += 1
+    runs.extend(out[:, :n_runs.value].copy())
+    return ones.value
+
+
+#: C++ calls since the last reset (a CPU scan takes the plain version and
+#: does not count).
+parse_hybrid_native.launches = 0
 
 
 # -- host phase: one column chunk ----------------------------------------------
@@ -298,9 +388,12 @@ def _string_dictionary(payload: bytes, n: int, path: str, column: str):
     return strings, rank.astype(np.int64)
 
 
-def _plan_chunk(path: str, ch: _Chunk, staged: np.ndarray) -> ColumnChunkPlan:
+def _plan_chunk(path: str, ch: _Chunk, staged: np.ndarray,
+                native: bool = False) -> ColumnChunkPlan:
     """Host phase for one decompressed column chunk: page payloads ->
-    run tables (the reference's ``plan_column_chunk``)."""
+    run tables (the reference's ``plan_column_chunk``), through the C++
+    run slicer when ``native`` (a scan on the card), else the plain
+    :func:`parse_hybrid`."""
     field, cm, name = ch.field, ch.meta, ch.field.name
     phys = cm.physical_type
     is_string = phys == "BYTE_ARRAY"
@@ -352,11 +445,15 @@ def _plan_chunk(path: str, ch: _Chunk, staged: np.ndarray) -> ColumnChunkPlan:
                 raise ParquetFormatError(f"{path}: column {name!r}: "
                                          "definition levels run past the "
                                          "page")
-            first = len(def_runs)
-            parse_hybrid(staged[p:p + def_len].tobytes(), 0, def_len, 1,
-                         ph.num_values, def_runs, p)
+            if native:
+                non_null = _native_runs(path, name, staged, p, p + def_len,
+                                        1, ph.num_values, def_runs)
+            else:
+                first = len(def_runs)
+                parse_hybrid(staged[p:p + def_len].tobytes(), 0, def_len, 1,
+                             ph.num_values, def_runs, p)
+                non_null = def_runs.non_null_count(first, staged)
             p += def_len
-            non_null = def_runs.non_null_count(first, staged)
         else:
             non_null = ph.num_values
         if ph.encoding in (PLAIN_DICTIONARY, RLE_DICTIONARY):
@@ -373,8 +470,12 @@ def _plan_chunk(path: str, ch: _Chunk, staged: np.ndarray) -> ColumnChunkPlan:
                 raise _refuse(path, name, f"dictionary bit width {bw} is "
                               "over 24")
             p += 1
-            parse_hybrid(staged[p:end].tobytes(), 0, end - p, bw, non_null,
-                         idx_runs, p)
+            if native:
+                _native_runs(path, name, staged, p, end, bw, non_null,
+                             idx_runs)
+            else:
+                parse_hybrid(staged[p:end].tobytes(), 0, end - p, bw,
+                             non_null, idx_runs, p)
             plan.pages.append((1, non_null, 0))
         elif ph.encoding == PLAIN:
             if is_string:
@@ -392,6 +493,16 @@ def _plan_chunk(path: str, ch: _Chunk, staged: np.ndarray) -> ColumnChunkPlan:
         raise ParquetFormatError(f"{path}: column {name!r}: indices into "
                                  "an empty dictionary")
     return plan
+
+
+def _native_runs(path: str, column: str, staged: np.ndarray, pos: int,
+                 end: int, bit_width: int, n_values: int,
+                 runs: HybridRuns) -> int:
+    try:
+        return parse_hybrid_native(staged, pos, end, bit_width, n_values,
+                                   runs)
+    except ParquetFormatError as e:
+        raise ParquetFormatError(f"{path}: column {column!r}: {e}") from e
 
 
 class _TablePack:
@@ -422,8 +533,7 @@ class _TablePack:
 
 def _all_valid(runs: Optional[HybridRuns]) -> bool:
     """Definition levels that mark every row valid (or none at all)."""
-    return runs is None or all(k == 1 and v == 1 for k, v in
-                               zip(runs.kinds, runs.values))
+    return runs is None or runs.all_valid()
 
 
 def expand_hybrid(table: torch.Tensor, staged: torch.Tensor,
@@ -536,22 +646,47 @@ def _no_timer(name: str, host: bool = False):
     return contextlib.nullcontext()
 
 
-def decode_row_group(path: str, row_group: int, schema: T.Schema,
-                     meta: Optional[FileMeta] = None, device=None,
-                     ctx: Optional[ExecContext] = None) -> ColumnarBatch:
-    """Decode one row group of a parquet file into a batch on ``device``
-    (the card by default; ``ctx``'s device when a context is given, whose
-    timers then split the work into ``ParquetScanExec.read``, ``.parse``,
-    ``.decompress``, ``.runs`` (host clock), ``.upload`` and ``.decode``
-    (CUDA events on the card), and whose counters take the rows, the
-    decompressed and the read bytes, and the SNAPPY chunks, one
-    :func:`~.snappy.decompress_pages` call each). Every column of
-    ``schema`` is decoded."""
+@dataclasses.dataclass
+class HostRowGroup:
+    """A row group after the host phase (:func:`read_row_group_host`):
+    its decompressed pages in one staging buffer (pinned for a scan on
+    the card), the run tables of all its columns in a second, and the
+    plans the device decode follows."""
+    path: str
+    row_group: int
+    schema: T.Schema
+    n_rows: int
+    staging: torch.Tensor
+    tables: torch.Tensor
+    plans: List[ColumnChunkPlan]
+    #: per column, where its tables lie in ``tables``
+    handles: List[dict]
+    decompressed_bytes: int
+    read_bytes: int
+    snappy_chunks: int
+
+
+def _timers(ctx: Optional[ExecContext], device):
     if ctx is not None:
-        device, timed = ctx.device, ctx.timed
-    else:
-        device = torch.device("cuda" if device is None else device)
-        timed = _no_timer
+        return ctx.device, ctx.timed
+    return torch.device("cuda" if device is None else device), _no_timer
+
+
+def read_row_group_host(path: str, row_group: int, schema: T.Schema,
+                        meta: Optional[FileMeta] = None, device=None,
+                        ctx: Optional[ExecContext] = None,
+                        native_runs: Optional[bool] = None) -> HostRowGroup:
+    """The host phase of :func:`decode_row_group`: read the row group's
+    column chunks, walk their page headers, decompress every page into
+    one staging buffer (the C++ snappy for a scan on the card) and slice
+    the hybrid streams into run tables (the C++ slicer on the card, or
+    as ``native_runs`` says). Touches no device, so the pipeline's
+    workers run it; the timers are ``ParquetScanExec.read``, ``.parse``,
+    ``.decompress`` and ``.runs`` (host clock, summed over threads)."""
+    device, timed = _timers(ctx, device)
+    on_card = device.type == "cuda"
+    if native_runs is None:
+        native_runs = on_card
     if meta is None:
         with timed(SCAN + ".parse", host=True):
             meta = read_footer(path)
@@ -580,7 +715,6 @@ def decode_row_group(path: str, row_group: int, schema: T.Schema,
         for ph in ch.headers:
             ch.dst.append(total)
             total += _aligned(ph.uncompressed_size)
-    on_card = device.type == "cuda"
     staging = torch.empty(max(total, _ALIGN), dtype=torch.uint8,
                           pin_memory=on_card)
     host = staging.numpy()
@@ -598,7 +732,7 @@ def decode_row_group(path: str, row_group: int, schema: T.Schema,
     pack = _TablePack()
     handles = []
     with timed(SCAN + ".runs", host=True):
-        plans = [_plan_chunk(path, ch, host) for ch in chunks]
+        plans = [_plan_chunk(path, ch, host, native_runs) for ch in chunks]
         for plan in plans:
             if plan.n_rows != rgm.num_rows:
                 raise ParquetFormatError(
@@ -616,25 +750,62 @@ def decode_row_group(path: str, row_group: int, schema: T.Schema,
                     [[k for k, _, _ in plan.pages],
                      [n for _, n, _ in plan.pages]]))
             handles.append(h)
-        tables_host = torch.from_numpy(pack.host())
-    with timed(SCAN + ".upload"):
+        tables = torch.from_numpy(pack.host())
         if on_card:
-            staged = staging.to(device, non_blocking=True)
-            tables = tables_host.pin_memory().to(device, non_blocking=True)
-        else:
-            staged, tables = staging.to(device), tables_host.to(device)
-    capacity = bucket_capacity(max(rgm.num_rows, 1))
+            tables = tables.pin_memory()
+    return HostRowGroup(path, row_group, schema, rgm.num_rows, staging,
+                        tables, plans, handles, total,
+                        sum(len(ch.raw) for ch in chunks),
+                        sum(ch.meta.codec == "SNAPPY" for ch in chunks))
+
+
+def decode_row_group_device(host: HostRowGroup, device=None,
+                            ctx: Optional[ExecContext] = None
+                            ) -> ColumnarBatch:
+    """The device phase of :func:`decode_row_group`: upload the staging
+    buffer and the run tables (one copy each, ``non_blocking`` from
+    pinned memory on the card) and decode every column in torch, on the
+    calling thread's current stream. Timers ``ParquetScanExec.upload``
+    and ``.decode`` (CUDA events on the card); counters ``.rows``,
+    ``.bytes`` (decompressed), ``.read_bytes`` and ``.snappy_chunks``.
+
+    The pinned buffers may be freed as soon as this returns: a
+    ``non_blocking`` copy from pinned memory records an event with
+    PyTorch's caching host allocator, which reuses the block only after
+    the copy has run."""
+    device, timed = _timers(ctx, device)
+    with timed(SCAN + ".upload"):
+        non_blocking = device.type == "cuda"
+        staged = host.staging.to(device, non_blocking=non_blocking)
+        tables = host.tables.to(device, non_blocking=non_blocking)
+    capacity = bucket_capacity(max(host.n_rows, 1))
     with timed(SCAN + ".decode"):
         cols = [decode_chunk(plan, staged, tables, h, capacity)
-                for plan, h in zip(plans, handles)]
-        n_rows = torch.tensor(rgm.num_rows, dtype=torch.int64, device=device)
+                for plan, h in zip(host.plans, host.handles)]
+        n_rows = torch.tensor(host.n_rows, dtype=torch.int64, device=device)
     if ctx is not None:
-        ctx.count(SCAN + ".rows", rgm.num_rows)
-        ctx.count(SCAN + ".bytes", total)
-        ctx.count(SCAN + ".read_bytes", sum(len(ch.raw) for ch in chunks))
-        ctx.count(SCAN + ".snappy_chunks", sum(
-            ch.meta.codec == "SNAPPY" for ch in chunks))
-    return ColumnarBatch(tuple(cols), n_rows, schema)
+        ctx.count(SCAN + ".rows", host.n_rows)
+        ctx.count(SCAN + ".bytes", host.decompressed_bytes)
+        ctx.count(SCAN + ".read_bytes", host.read_bytes)
+        ctx.count(SCAN + ".snappy_chunks", host.snappy_chunks)
+    return ColumnarBatch(tuple(cols), n_rows, host.schema)
+
+
+def decode_row_group(path: str, row_group: int, schema: T.Schema,
+                     meta: Optional[FileMeta] = None, device=None,
+                     ctx: Optional[ExecContext] = None) -> ColumnarBatch:
+    """Decode one row group of a parquet file into a batch on ``device``
+    (the card by default; ``ctx``'s device when a context is given, whose
+    timers then split the work into ``ParquetScanExec.read``, ``.parse``,
+    ``.decompress``, ``.runs`` (host clock), ``.upload`` and ``.decode``
+    (CUDA events on the card), and whose counters take the rows, the
+    decompressed and the read bytes, and the SNAPPY chunks, one
+    :func:`~.snappy.decompress_pages` call each). Every column of
+    ``schema`` is decoded. It is :func:`read_row_group_host` then
+    :func:`decode_row_group_device` on the calling thread."""
+    return decode_row_group_device(
+        read_row_group_host(path, row_group, schema, meta, device, ctx),
+        device, ctx)
 
 
 # -- datetime rebase -----------------------------------------------------------
@@ -699,9 +870,14 @@ def rebase_guard(meta: FileMeta, schema: T.Schema, mode: str,
 class ParquetScanExec(TorchExec):
     """The parquet scan (the reference's ``TpuParquetScanExec``): one
     partition per (file, row group) in file order, each one batch decoded
-    on the context's device. Every column of the files' schema is
+    on the context's device. With ``spark.rapids.tpu.pipeline.enabled``
+    (the default) the host phase of the next ``prefetchDepth`` row groups
+    runs ahead on the pipeline's shared pool (:mod:`..exec.pipeline`);
+    the wait for a row group is ``ParquetScanExec.stall``, the workers'
+    time ``ParquetScanExec.busy``. Every column of the files' schema is
     decoded; a project above drops what the query does not read. There
-    is no fallback: a file the decoder does not take raises."""
+    is no fallback: a file the decoder does not take raises, from the
+    worker unchanged."""
 
     def __init__(self, files: List[str], schema: T.Schema,
                  rebase_mode: str = "EXCEPTION"):
@@ -732,8 +908,18 @@ class ParquetScanExec(TorchExec):
             rebase_guard(meta, self._schema, self.rebase_mode, path)
             units.extend((path, meta, rg)
                          for rg in range(meta.num_row_groups))
-        return [[decode_row_group(path, rg, self._schema, meta, ctx=ctx)]
-                for path, meta, rg in units]
+
+        def read_unit(unit):
+            path, meta, rg = unit
+            return read_row_group_host(path, rg, self._schema, meta,
+                                       ctx=ctx)
+
+        # The host phase of the next row groups runs on the pipeline's
+        # workers; the device phase runs here, on the thread that reads
+        # the partition, so device work keeps one thread and one stream,
+        # in partition order.
+        return [(decode_row_group_device(h, ctx=ctx) for h in part)
+                for part in unit_partitions(read_unit, units, ctx, SCAN)]
 
 
 def _list_dir(d: str) -> List[str]:

@@ -20,6 +20,7 @@ them on the host after decompression.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 
@@ -231,7 +232,8 @@ def decompress_pages(src: np.ndarray, pages: np.ndarray, dst: np.ndarray,
     if rc != 0:
         raise SnappyError(f"page {bad.value}: "
                           f"{lib.srt_error_string(rc).decode()}")
-    _COUNTED["decompress_pages"].launches += 1
+    with _COUNT_LOCK:  # the scan's pipeline calls from several threads
+        _COUNTED["decompress_pages"].launches += 1
 
 
 def compress(data, device) -> bytes:
@@ -249,7 +251,8 @@ def compress(data, device) -> bytes:
                                  cap, ctypes.byref(n))
     if rc != 0:
         raise SnappyError(lib.srt_error_string(rc).decode())
-    _COUNTED["compress"].launches += 1
+    with _COUNT_LOCK:
+        _COUNTED["compress"].launches += 1
     return out[:n.value].tobytes()
 
 
@@ -259,3 +262,4 @@ def compress(data, device) -> bytes:
 decompress_pages.launches = 0
 compress.launches = 0
 _COUNTED = {"decompress_pages": decompress_pages, "compress": compress}
+_COUNT_LOCK = threading.Lock()

@@ -3,9 +3,9 @@ library per source, with a plain C interface, loaded through ``ctypes``.
 
 Sources live in ``csrc/``: the kernels (``<name>.cu``) and the host
 routines (``<name>.cpp``, plain C++ that ``nvcc`` hands to the host
-compiler: the parquet scan's snappy codec). Libraries go to ``spark_rapids_tpu_torch/
-_build/`` (listed in ``.gitignore``), named by a digest of the source and
-the flags so an edited source rebuilds. The build runs at first use, or
+compiler: the parquet scan's snappy codec and run tables). Libraries go
+to ``spark_rapids_tpu_torch/_build/`` (listed in ``.gitignore``), named
+by a digest of the source and the flags so an edited source rebuilds. The build runs at first use, or
 up front through :func:`build_all`, which starts one ``nvcc`` per source
 at once. Nothing here runs at import time.
 """
@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "_build"
 #: The kernel sources (``csrc/<name>.cu``).
 KERNELS = ("join_probe", "segmented", "sort_steps", "strings", "hashing")
 #: The host routines (``csrc/<name>.cpp``).
-HOST_ROUTINES = ("snappy",)
+HOST_ROUTINES = ("snappy", "parquet_runs")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,7 +1,8 @@
 """String expressions — port of ``spark_rapids_tpu/ops/strings.py``, cut
 to ``Substring`` with literal position and length, the form TPC-H Q22's
-country code takes, and ``StartsWith`` with a literal needle (Q14, Q19).
-Byte semantics, as the reference's device path.
+country code takes, and ``StartsWith``, ``EndsWith`` and ``Contains``
+with a literal needle (the reference's ``_FixMatch``: Q2, Q9, Q13, Q14,
+Q16, Q19, Q20). Byte semantics, as the reference's device path.
 """
 
 from __future__ import annotations
@@ -58,15 +59,14 @@ class Substring(Expression):
                                    string_max_bytes(out_w))
 
 
-class StartsWith(Expression):
-    """``startswith(str, needle)`` with a literal needle: true where the
-    string's first bytes are the needle's (the reference's ``_FixMatch``
-    semantics). An empty needle matches every row; a needle longer than
+class _FixMatch(Expression):
+    """A match of a literal needle (the reference's ``_FixMatch``
+    semantics): an empty needle matches every row; a needle longer than
     the column's ``max_bytes`` matches none; a null string gives null.
 
-    A dictionary column tests each entry once and gathers the answers by
-    code. A flat column reads only the needle's ``k`` bytes at each row's
-    offset, with the row's length at least ``k``: no char matrix."""
+    A dictionary column tests each entry once (:func:`lift_dict`) and
+    gathers the answers by code. A flat column is read from its offsets
+    and payload (:meth:`match_flat`): no char matrix."""
 
     def __init__(self, child: Expression, needle: str):
         self.children = [child]
@@ -77,7 +77,7 @@ class StartsWith(Expression):
         return T.BOOLEAN
 
     def with_children(self, children):
-        return StartsWith(children[0], self.needle)
+        return type(self)(children[0], self.needle)
 
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         c = self.children[0].eval_device(batch)
@@ -89,13 +89,93 @@ class StartsWith(Expression):
                               device=dev)
         elif c.is_dict:
             needle = torch.tensor(list(raw), dtype=torch.int16, device=dev)
-            data = lift_dict(
-                c, lambda m, _: (m[:, :k] == needle[None, :]).all(1))
+            data = lift_dict(c, lambda m, ln: self.match_matrix(m, ln,
+                                                                needle))
         else:
             needle = torch.tensor(list(raw), dtype=torch.uint8, device=dev)
-            starts = c.offsets[:-1].long()
-            long_enough = c.offsets[1:].long() - starts >= k
-            pos = starts[:, None] + torch.arange(k, device=dev)[None, :]
-            chars = c.data[pos.clamp(0, c.data.shape[0] - 1)]
-            data = long_enough & (chars == needle[None, :]).all(1)
+            data = self.match_flat(c.data, c.offsets[:-1].long(),
+                                   c.offsets[1:].long(), needle)
         return make_column(data, c.validity, T.BOOLEAN)
+
+    def match_matrix(self, m: torch.Tensor, lengths: torch.Tensor,
+                     needle: torch.Tensor) -> torch.Tensor:
+        """Per row of a ``[n, W]`` char matrix (``PAD`` past each end,
+        ``W`` at least the needle's length)."""
+        raise NotImplementedError
+
+    def match_flat(self, payload: torch.Tensor, starts: torch.Tensor,
+                   ends: torch.Tensor, needle: torch.Tensor) -> torch.Tensor:
+        """Per row ``payload[starts:ends]`` of a flat layout."""
+        raise NotImplementedError
+
+
+def _window_equal(payload: torch.Tensor, pos: torch.Tensor,
+                  needle: torch.Tensor) -> torch.Tensor:
+    """Whether ``payload[pos:pos + k]`` is the needle, per position (reads
+    past the payload's end compare unequal)."""
+    k = needle.shape[0]
+    idx = pos[:, None] + torch.arange(k, device=pos.device)[None, :]
+    size = payload.shape[0]
+    chars = payload[idx.clamp(0, max(size - 1, 0))]
+    return ((chars == needle[None, :]) & (idx < size)).all(1)
+
+
+class StartsWith(_FixMatch):
+    """``startswith(str, needle)``: true where the string's first bytes
+    are the needle's. A flat column reads the needle's ``k`` bytes at
+    each row's offset, with the row's length at least ``k``."""
+
+    def match_matrix(self, m, lengths, needle):
+        return (m[:, :needle.shape[0]] == needle[None, :]).all(1)
+
+    def match_flat(self, payload, starts, ends, needle):
+        return (ends - starts >= needle.shape[0]) \
+            & _window_equal(payload, starts, needle)
+
+
+class EndsWith(_FixMatch):
+    """``endswith(str, needle)``: true where the string's last bytes are
+    the needle's. A flat column reads the needle's ``k`` bytes at each
+    row's end minus ``k``."""
+
+    def match_matrix(self, m, lengths, needle):
+        k = needle.shape[0]
+        start = lengths.long() - k
+        idx = start[:, None] + torch.arange(k, device=m.device)[None, :]
+        chars = torch.gather(m, 1, idx.clamp(0, m.shape[1] - 1))
+        return (start >= 0) & (chars == needle[None, :]).all(1)
+
+    def match_flat(self, payload, starts, ends, needle):
+        k = needle.shape[0]
+        return (ends - starts >= k) & _window_equal(payload, ends - k,
+                                                    needle)
+
+
+class Contains(_FixMatch):
+    """``contains(str, needle)``: true where the needle occurs in the
+    string. A flat column marks, in one pass of ``k`` shifted compares
+    over the payload, each byte where the needle starts; a row matches
+    when a mark lies in ``[start, end - k]`` (a match that runs into the
+    next row's bytes does not count), which a prefix sum of the marks
+    read at the offsets gives."""
+
+    def match_matrix(self, m, lengths, needle):
+        k = needle.shape[0]
+        windows = m.unfold(1, k, 1)  # [n, W - k + 1, k]
+        return (windows == needle[None, None, :]).all(2).any(1)
+
+    def match_flat(self, payload, starts, ends, needle):
+        k = needle.shape[0]
+        size = payload.shape[0]
+        dev = payload.device
+        n_pos = max(size - k + 1, 0)
+        marks = torch.ones(n_pos, dtype=torch.bool, device=dev)
+        for j in range(k):
+            marks &= payload[j:j + n_pos] == needle[j]
+        # before[i]: marks at byte positions below i, for i in [0, size]
+        before = torch.zeros(size + 1, dtype=torch.int64, device=dev)
+        before[1:marks.shape[0] + 1] = torch.cumsum(marks, 0)
+        before[marks.shape[0] + 1:] = before[marks.shape[0]]
+        lo = starts.clamp(0, size)
+        hi = (ends - k + 1).clamp(0, size)
+        return (ends - starts >= k) & (before[hi] > before[lo])

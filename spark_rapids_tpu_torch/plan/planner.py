@@ -12,9 +12,21 @@ reference's limit-into-sort rule does; a repartition plans as the
 shuffle exchange (``planner.py:140-146`` plans it on the CPU and
 ``overrides`` moves it to the device); a window node plans as
 :class:`~..exec.window_exec.WindowExec` (``overrides.py:518``).
+
+A subplan that the query references more than once (Q15's revenue
+view, Q22's filtered customers) plans once, as one
+:class:`~..exec.execs.ReusedExec` that every reference reads (Spark's
+exchange and subquery reuse): on the card its float sums add in atomic
+order, so two evaluations could differ in their last bits, and a query
+that compares one with the other (Q15's ``total_revenue =
+max_revenue``) would lose rows. Tables and scans are read where they
+are referenced.
 """
 
 from __future__ import annotations
+
+from collections import Counter
+from typing import Dict
 
 from ..config import PARQUET_REBASE_READ, TOPK_THRESHOLD, TorchConf
 from ..exec import execs as E
@@ -27,6 +39,30 @@ from . import logical as L
 
 
 def plan_physical(plan: L.LogicalPlan, conf: TorchConf) -> E.TorchExec:
+    refs: Counter = Counter()
+
+    def count(node):
+        refs[id(node)] += 1
+        if refs[id(node)] == 1:
+            for c in node.children:
+                count(c)
+    count(plan)
+    memo: Dict[int, E.TorchExec] = {}
+
+    def build(node):
+        if id(node) not in memo:
+            ex = _plan_node(node, conf, build)
+            if refs[id(node)] > 1 and not isinstance(
+                    node, (L.DeviceRelation, L.Scan)):
+                ex = E.ReusedExec(ex)
+            memo[id(node)] = ex
+        return memo[id(node)]
+    return build(plan)
+
+
+def _plan_node(plan: L.LogicalPlan, conf: TorchConf, sub) -> E.TorchExec:
+    """One logical node's exec, its children planned by
+    ``sub(child)``."""
     if isinstance(plan, L.DeviceRelation):
         return E.DeviceSourceExec(plan.batch)
     if isinstance(plan, L.Scan):
@@ -35,39 +71,39 @@ def plan_physical(plan: L.LogicalPlan, conf: TorchConf) -> E.TorchExec:
         return ParquetScanExec(plan.files, plan.schema,
                                conf.get(PARQUET_REBASE_READ))
     if isinstance(plan, L.Project):
-        return E.ProjectExec(plan_physical(plan.children[0], conf),
+        return E.ProjectExec(sub(plan.children[0]),
                              plan.exprs)
     if isinstance(plan, L.Filter):
-        return E.FilterExec(plan_physical(plan.children[0], conf),
+        return E.FilterExec(sub(plan.children[0]),
                             plan.condition)
     if isinstance(plan, L.Aggregate):
-        return E.HashAggregateExec(plan_physical(plan.children[0], conf),
+        return E.HashAggregateExec(sub(plan.children[0]),
                                    plan.groupings, plan.aggregates)
     if isinstance(plan, L.Join) and plan.join_type == "cross":
         return NestedLoopJoinExec(
-            plan_physical(plan.children[0], conf),
-            plan_physical(plan.children[1], conf), plan.condition,
+            sub(plan.children[0]),
+            sub(plan.children[1]), plan.condition,
             plan.schema)
     if isinstance(plan, L.Join):
         return E.ShuffledHashJoinExec(
-            plan_physical(plan.children[0], conf),
-            plan_physical(plan.children[1], conf), plan.join_type,
+            sub(plan.children[0]),
+            sub(plan.children[1]), plan.join_type,
             plan.left_keys, plan.right_keys, plan.schema)
     if isinstance(plan, L.WindowOp):
-        return WindowExec(plan_physical(plan.children[0], conf),
+        return WindowExec(sub(plan.children[0]),
                           plan.window_exprs, plan.schema)
     if isinstance(plan, L.Repartition):
         return ShuffleExchangeExec(
-            plan_physical(plan.children[0], conf),
+            sub(plan.children[0]),
             partitioner_factory(plan.mode, plan.n_parts, keys=plan.keys),
             plan.n_parts)
     if isinstance(plan, L.Sort):
-        return E.SortExec(plan_physical(plan.children[0], conf), plan.orders)
+        return E.SortExec(sub(plan.children[0]), plan.orders)
     if isinstance(plan, L.Limit):
         child = plan.children[0]
         threshold = conf.get(TOPK_THRESHOLD)
         if isinstance(child, L.Sort) and 0 < plan.n <= threshold:
-            return E.TopKExec(plan_physical(child.children[0], conf),
+            return E.TopKExec(sub(child.children[0]),
                               child.orders, plan.n)
-        return E.LimitExec(plan_physical(child, conf), plan.n)
+        return E.LimitExec(sub(child), plan.n)
     raise NotImplementedError(f"no physical plan for {type(plan).__name__}")

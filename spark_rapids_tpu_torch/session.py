@@ -22,6 +22,7 @@ the single-device path (the reference's non-learning growth escalation,
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, List, Optional
 
 import torch
@@ -31,6 +32,7 @@ from .config import MESH_ENABLED, TorchConf
 from .data.batch import HostBatch
 from .exec import execs as E
 from .exec import mesh as MX
+from .exec import pipeline
 from .io import parquet_device as PQ
 from .io.parquet_meta import read_footer, schema_from_parquet
 from .parallel.mesh import Mesh, make_mesh
@@ -104,11 +106,19 @@ class TorchSession:
     def __init__(self, conf: Optional[dict] = None, device=None,
                  mesh: Optional[Mesh] = None):
         self.conf = TorchConf(conf)
+        pipeline.configure(self.conf)
         self.device = resolve_device(device)
         self._mesh = mesh
         self._learned: Dict[tuple, Dict[int, int]] = {}
         self._mesh_capable: Dict[tuple, bool] = {}
         self.last_query: Optional[QueryInfo] = None
+
+    def close(self) -> List[threading.Thread]:
+        """Join every worker of the scans' shared pool
+        (:func:`.exec.pipeline.shutdown`). Returns the threads that did
+        not stop in time (none, normally). The pool is made anew at its
+        next use, so the session keeps working after ``close``."""
+        return pipeline.shutdown()
 
     @property
     def mesh(self) -> Mesh:
@@ -147,20 +157,24 @@ class TorchSession:
         attempts = rounds = 0
         while True:
             attempts += 1
-            ctx = E.ExecContext(self.device, modes)
-            if mesh is not None:
-                result, overflowed = MX.mesh_collect(physical, ctx, mesh,
-                                                     growth)
-                if overflowed:
-                    if growth >= _MAX_MESH_GROWTH:
-                        mesh = None
-                        sig = (sig[0], False)
-                        modes = dict(self._learned.get(sig, {}))
-                    else:
-                        growth *= 8.0
-                    continue
-            else:
-                result = E.collect(physical, ctx)
+            ctx = E.ExecContext(self.device, modes, self.conf)
+            try:
+                if mesh is not None:
+                    result, overflowed = MX.mesh_collect(physical, ctx, mesh,
+                                                         growth)
+                else:
+                    result, overflowed = E.collect(physical, ctx), False
+            finally:
+                # every attempt's look-ahead ends with it, re-runs included
+                ctx.run_cleanups()
+            if overflowed:
+                if growth >= _MAX_MESH_GROWTH:
+                    mesh = None
+                    sig = (sig[0], False)
+                    modes = dict(self._learned.get(sig, {}))
+                else:
+                    growth *= 8.0
+                continue
             tripped = []
             if ctx.dense_fails:
                 flags = torch.stack([f.reshape(()) for _, f in

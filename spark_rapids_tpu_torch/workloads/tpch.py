@@ -1,9 +1,9 @@
 """TPC-H-shaped tables and queries — port of
-``spark_rapids_tpu/workloads/tpch.py``: ``gen_tables``, the bench suite's
-queries (``q1``, ``q3``, ``q4``, ``q5``, ``q6``, ``q12``, ``q14``,
-``q19`` and ``xbb_score``), ``q10``, ``q18`` and ``q22``, each copied node
-for node from the reference, and :data:`QUERIES` under the reference's
-names.
+``spark_rapids_tpu/workloads/tpch.py``: ``gen_tables``, the 22 TPC-H
+queries (the bench suite's ``q1``, ``q3``, ``q4``, ``q5``, ``q6``,
+``q12``, ``q14`` and ``q19`` among them) and ``xbb_score``, each copied
+node for node from the reference, and :data:`QUERIES` under the
+reference's names.
 
 :func:`gen_tables` is a numpy-only copy of the reference generator: the
 same seed draws the same values in the same order, so both packages see
@@ -23,9 +23,10 @@ from ..ops import aggregates as A
 from ..ops import predicates as P
 from ..ops.arithmetic import Add, Divide, Multiply, Subtract, UnaryMinus
 from ..ops.conditional import If
+from ..ops.datetime import Year
 from ..ops.expression import col, lit
 from ..ops.math import Exp
-from ..ops.strings import StartsWith, Substring
+from ..ops.strings import Contains, EndsWith, StartsWith, Substring
 from ..plan.logical import SortOrder
 
 # days since the epoch of the queries' date literals
@@ -34,6 +35,9 @@ D_1995_01_01 = 9131
 D_1995_03_15 = 9204
 D_1995_09_01 = 9374
 D_1995_10_01 = 9404
+D_1996_01_01 = 9496
+D_1996_04_01 = 9587
+D_1996_12_31 = 9861
 D_1998_09_02 = 10471
 
 #: Q22's country codes.
@@ -453,6 +457,367 @@ def Divide_safe(z):
 
 
 #: The ported queries under the reference's names.
-QUERIES = {"q1": q1, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q10": q10,
-           "q12": q12, "q14": q14, "q18": q18, "q19": q19, "q22": q22,
-           "xbb_score": xbb_score}
+def q2(t):
+    """Minimum cost supplier (Q2): the correlated min(ps_supplycost)
+    subquery becomes an aggregate + equi-join (TpchLikeSpark.scala Q2 uses
+    the same DataFrame rewrite)."""
+    europe_supp = (t["supplier"]
+                   .join(t["nation"],
+                         on=P.EqualTo(col("s_nationkey"),
+                                      col("n_nationkey")), how="inner")
+                   .join(t["region"].where(P.EqualTo(col("r_name"),
+                                                     lit("EUROPE"))),
+                         on=P.EqualTo(col("n_regionkey"),
+                                      col("r_regionkey")), how="inner"))
+    ps = t["partsupp"].join(
+        europe_supp, on=P.EqualTo(col("ps_suppkey"), col("s_suppkey")),
+        how="inner")
+    min_cost = (ps.group_by(col("ps_partkey"))
+                .agg(A.AggregateExpression(A.Min(col("ps_supplycost")),
+                                           "min_cost"))
+                .select(col("ps_partkey").alias("mc_partkey"),
+                        col("min_cost")))
+    parts = t["part"].where(P.And(P.In(col("p_size"), [15, 25, 35, 45]),
+                                  EndsWith(col("p_type"), "BRUSHED")))
+    return (ps
+            .join(parts, on=P.EqualTo(col("ps_partkey"), col("p_partkey")),
+                  how="inner")
+            .join(min_cost,
+                  on=P.And(P.EqualTo(col("ps_partkey"), col("mc_partkey")),
+                           P.EqualTo(col("ps_supplycost"), col("min_cost"))),
+                  how="inner")
+            .select(col("s_acctbal"), col("s_name"), col("n_name"),
+                    col("p_partkey"), col("p_mfgr"), col("ps_supplycost"))
+            .sort(SortOrder(col("s_acctbal"), ascending=False),
+                  SortOrder(col("n_name")), SortOrder(col("s_name")),
+                  SortOrder(col("p_partkey")))
+            .limit(100))
+
+
+def q7(t):
+    """Volume shipping (Q7): nation-pair disjunction over a 6-way join,
+    grouped by supplier/customer nation and ship year."""
+    n1 = t["nation"].select(col("n_nationkey").alias("n1_key"),
+                            col("n_name").alias("supp_nation"))
+    n2 = t["nation"].select(col("n_nationkey").alias("n2_key"),
+                            col("n_name").alias("cust_nation"))
+    li = t["lineitem"].where(P.And(
+        P.GreaterThanOrEqual(col("l_shipdate"), lit(D_1995_01_01, T.DATE)),
+        P.LessThanOrEqual(col("l_shipdate"), lit(D_1996_12_31, T.DATE))))
+    df = (t["supplier"]
+          .join(li, on=P.EqualTo(col("s_suppkey"), col("l_suppkey")),
+                how="inner")
+          .join(t["orders"],
+                on=P.EqualTo(col("l_orderkey"), col("o_orderkey")),
+                how="inner")
+          .join(t["customer"],
+                on=P.EqualTo(col("o_custkey"), col("c_custkey")),
+                how="inner")
+          .join(n1, on=P.EqualTo(col("s_nationkey"), col("n1_key")),
+                how="inner")
+          .join(n2, on=P.EqualTo(col("c_nationkey"), col("n2_key")),
+                how="inner")
+          .where(P.Or(
+              P.And(P.EqualTo(col("supp_nation"), lit("FRANCE")),
+                    P.EqualTo(col("cust_nation"), lit("GERMANY"))),
+              P.And(P.EqualTo(col("supp_nation"), lit("GERMANY")),
+                    P.EqualTo(col("cust_nation"), lit("FRANCE"))))))
+    return (df.with_column("l_year", Year(col("l_shipdate")))
+            .with_column("volume", _rev())
+            .group_by(col("supp_nation"), col("cust_nation"), col("l_year"))
+            .agg(A.AggregateExpression(A.Sum(col("volume")), "revenue"))
+            .sort(SortOrder(col("supp_nation")),
+                  SortOrder(col("cust_nation")), SortOrder(col("l_year"))))
+
+
+def q8(t):
+    """National market share (Q8): 8-way join, share = conditional sum over
+    total per order year."""
+    region = t["region"].where(P.EqualTo(col("r_name"), lit("AMERICA")))
+    n1 = t["nation"].select(col("n_nationkey").alias("n1_key"),
+                            col("n_regionkey").alias("n1_region"))
+    n2 = t["nation"].select(col("n_nationkey").alias("n2_key"),
+                            col("n_name").alias("supp_nation"))
+    parts = t["part"].where(P.EqualTo(col("p_type"),
+                                      lit("STANDARD POLISHED")))
+    orders = t["orders"].where(P.And(
+        P.GreaterThanOrEqual(col("o_orderdate"), lit(D_1995_01_01, T.DATE)),
+        P.LessThanOrEqual(col("o_orderdate"), lit(D_1996_12_31, T.DATE))))
+    df = (parts
+          .join(t["lineitem"],
+                on=P.EqualTo(col("p_partkey"), col("l_partkey")),
+                how="inner")
+          .join(t["supplier"],
+                on=P.EqualTo(col("l_suppkey"), col("s_suppkey")),
+                how="inner")
+          .join(orders, on=P.EqualTo(col("l_orderkey"), col("o_orderkey")),
+                how="inner")
+          .join(t["customer"],
+                on=P.EqualTo(col("o_custkey"), col("c_custkey")),
+                how="inner")
+          .join(n1, on=P.EqualTo(col("c_nationkey"), col("n1_key")),
+                how="inner")
+          .join(region, on=P.EqualTo(col("n1_region"), col("r_regionkey")),
+                how="inner")
+          .join(n2, on=P.EqualTo(col("s_nationkey"), col("n2_key")),
+                how="inner"))
+    brazil_vol = If(P.EqualTo(col("supp_nation"), lit("BRAZIL")),
+                    _rev(), lit(0.0))
+    return (df.with_column("o_year", Year(col("o_orderdate")))
+            .with_column("volume", _rev())
+            .with_column("brazil_volume", brazil_vol)
+            .group_by(col("o_year"))
+            .agg(A.AggregateExpression(A.Sum(col("brazil_volume")),
+                                       "brazil"),
+                 A.AggregateExpression(A.Sum(col("volume")), "total"))
+            .with_column("mkt_share", Divide(col("brazil"), col("total")))
+            .select(col("o_year"), col("mkt_share"))
+            .sort(SortOrder(col("o_year"))))
+
+
+def q9(t):
+    """Product type profit (Q9): LIKE filter, 6-way join incl. the
+    two-column partsupp key, profit grouped by nation and year."""
+    parts = t["part"].where(Contains(col("p_name"), "green"))
+    df = (parts
+          .join(t["lineitem"],
+                on=P.EqualTo(col("p_partkey"), col("l_partkey")),
+                how="inner")
+          .join(t["supplier"],
+                on=P.EqualTo(col("l_suppkey"), col("s_suppkey")),
+                how="inner")
+          .join(t["partsupp"],
+                on=P.And(P.EqualTo(col("l_suppkey"), col("ps_suppkey")),
+                         P.EqualTo(col("l_partkey"), col("ps_partkey"))),
+                how="inner")
+          .join(t["orders"],
+                on=P.EqualTo(col("l_orderkey"), col("o_orderkey")),
+                how="inner")
+          .join(t["nation"],
+                on=P.EqualTo(col("s_nationkey"), col("n_nationkey")),
+                how="inner"))
+    amount = Subtract(_rev(),
+                      Multiply(col("ps_supplycost"), col("l_quantity")))
+    return (df.with_column("o_year", Year(col("o_orderdate")))
+            .with_column("amount", amount)
+            .group_by(col("n_name"), col("o_year"))
+            .agg(A.AggregateExpression(A.Sum(col("amount")), "sum_profit"))
+            .sort(SortOrder(col("n_name")),
+                  SortOrder(col("o_year"), ascending=False)))
+
+
+def q11(t):
+    """Important stock identification (Q11): scalar subquery (global sum *
+    fraction) as a cross join against the per-part aggregate."""
+    german_ps = (t["partsupp"]
+                 .join(t["supplier"],
+                       on=P.EqualTo(col("ps_suppkey"), col("s_suppkey")),
+                       how="inner")
+                 .join(t["nation"].where(P.EqualTo(col("n_name"),
+                                                   lit("GERMANY"))),
+                       on=P.EqualTo(col("s_nationkey"), col("n_nationkey")),
+                       how="inner")
+                 .with_column("value", Multiply(col("ps_supplycost"),
+                                                col("ps_availqty"))))
+    total = (german_ps.group_by()
+             .agg(A.AggregateExpression(A.Sum(col("value")), "total"))
+             .select(Multiply(col("total"),
+                              lit(0.0001)).alias("threshold")))
+    by_part = (german_ps.group_by(col("ps_partkey"))
+               .agg(A.AggregateExpression(A.Sum(col("value")), "value")))
+    return (by_part.cross_join(total)
+            .where(P.GreaterThan(col("value"), col("threshold")))
+            .select(col("ps_partkey"), col("value"))
+            .sort(SortOrder(col("value"), ascending=False),
+                  SortOrder(col("ps_partkey"))))
+
+
+def q13(t):
+    """Customer distribution (Q13): left outer join + NOT LIKE, two-level
+    aggregation (count per customer, then histogram of counts)."""
+    orders = (t["orders"]
+              .where(P.Not(P.And(Contains(col("o_comment"), "special"),
+                                 Contains(col("o_comment"), "requests"))))
+              .select(col("o_custkey"), col("o_orderkey")))
+    per_cust = (t["customer"].select(col("c_custkey"))
+                .join(orders,
+                      on=P.EqualTo(col("c_custkey"), col("o_custkey")),
+                      how="left")
+                .group_by(col("c_custkey"))
+                .agg(A.AggregateExpression(A.Count(col("o_orderkey")),
+                                           "c_count")))
+    return (per_cust.group_by(col("c_count"))
+            .agg(A.AggregateExpression(A.Count(), "custdist"))
+            .sort(SortOrder(col("custdist"), ascending=False),
+                  SortOrder(col("c_count"), ascending=False)))
+
+
+def q15(t):
+    """Top supplier (Q15): the max-revenue view becomes an aggregate +
+    cross-join equality filter."""
+    li = t["lineitem"].where(P.And(
+        P.GreaterThanOrEqual(col("l_shipdate"), lit(D_1996_01_01, T.DATE)),
+        P.LessThan(col("l_shipdate"), lit(D_1996_04_01, T.DATE))))
+    revenue = (li.with_column("rev", _rev())
+               .group_by(col("l_suppkey"))
+               .agg(A.AggregateExpression(A.Sum(col("rev")),
+                                          "total_revenue")))
+    top = revenue.group_by().agg(
+        A.AggregateExpression(A.Max(col("total_revenue")), "max_revenue"))
+    return (revenue.cross_join(top)
+            .where(P.EqualTo(col("total_revenue"), col("max_revenue")))
+            .join(t["supplier"],
+                  on=P.EqualTo(col("l_suppkey"), col("s_suppkey")),
+                  how="inner")
+            .select(col("s_suppkey"), col("s_name"), col("total_revenue"))
+            .sort(SortOrder(col("s_suppkey"))))
+
+
+def q16(t):
+    """Parts/supplier relationship (Q16): NOT IN subquery as an anti join,
+    count(distinct) as distinct + count."""
+    complained = (t["supplier"]
+                  .where(Contains(col("s_comment"), "Complaints"))
+                  .select(col("s_suppkey")))
+    parts = t["part"].where(P.And(
+        P.And(P.NotEqual(col("p_brand"), lit("Brand#45")),
+              P.Not(StartsWith(col("p_type"), "MEDIUM"))),
+        P.In(col("p_size"), [3, 9, 14, 19, 23, 36, 45, 49])))
+    ps = (parts
+          .join(t["partsupp"],
+                on=P.EqualTo(col("p_partkey"), col("ps_partkey")),
+                how="inner")
+          .join(complained,
+                on=P.EqualTo(col("ps_suppkey"), col("s_suppkey")),
+                how="left_anti"))
+    return (ps.select(col("p_brand"), col("p_type"), col("p_size"),
+                      col("ps_suppkey"))
+            .distinct()
+            .group_by(col("p_brand"), col("p_type"), col("p_size"))
+            .agg(A.AggregateExpression(A.Count(), "supplier_cnt"))
+            .sort(SortOrder(col("supplier_cnt"), ascending=False),
+                  SortOrder(col("p_brand")), SortOrder(col("p_type")),
+                  SortOrder(col("p_size"))))
+
+
+def q17(t):
+    """Small-quantity-order revenue (Q17): correlated avg(l_quantity)
+    subquery as a per-part aggregate joined back."""
+    parts = t["part"].where(P.And(
+        P.EqualTo(col("p_brand"), lit("Brand#23")),
+        P.EqualTo(col("p_container"), lit("MED BOX"))))
+    avg_qty = (t["lineitem"].group_by(col("l_partkey"))
+               .agg(A.AggregateExpression(A.Average(col("l_quantity")),
+                                          "avg_qty"))
+               .select(col("l_partkey").alias("a_partkey"),
+                       Multiply(lit(0.2), col("avg_qty")).alias(
+                           "qty_limit")))
+    return (parts
+            .join(t["lineitem"],
+                  on=P.EqualTo(col("p_partkey"), col("l_partkey")),
+                  how="inner")
+            .join(avg_qty,
+                  on=P.EqualTo(col("p_partkey"), col("a_partkey")),
+                  how="inner")
+            .where(P.LessThan(col("l_quantity"), col("qty_limit")))
+            .group_by()
+            .agg(A.AggregateExpression(A.Sum(col("l_extendedprice")),
+                                       "sum_price"))
+            .select(Divide(col("sum_price"), lit(7.0)).alias("avg_yearly")))
+
+
+def q20(t):
+    """Potential part promotion (Q20): nested IN subqueries as a semi join
+    (forest parts) + an aggregate join (half the shipped quantity)."""
+    forest_parts = (t["part"].where(StartsWith(col("p_name"), "forest"))
+                    .select(col("p_partkey")))
+    shipped = (t["lineitem"]
+               .where(P.And(P.GreaterThanOrEqual(col("l_shipdate"),
+                                                 lit(D_1994_01_01, T.DATE)),
+                            P.LessThan(col("l_shipdate"),
+                                       lit(D_1996_01_01, T.DATE))))
+               .group_by(col("l_partkey"), col("l_suppkey"))
+               .agg(A.AggregateExpression(A.Sum(col("l_quantity")),
+                                          "sum_qty"))
+               .select(col("l_partkey"), col("l_suppkey"),
+                       Multiply(lit(0.5), col("sum_qty")).alias(
+                           "half_qty")))
+    qualifying = (t["partsupp"]
+                  .join(forest_parts,
+                        on=P.EqualTo(col("ps_partkey"), col("p_partkey")),
+                        how="left_semi")
+                  .join(shipped,
+                        on=P.And(P.EqualTo(col("ps_partkey"),
+                                           col("l_partkey")),
+                                 P.EqualTo(col("ps_suppkey"),
+                                           col("l_suppkey"))),
+                        how="inner")
+                  .where(P.GreaterThan(col("ps_availqty"),
+                                       col("half_qty")))
+                  .select(col("ps_suppkey")))
+    return (t["supplier"]
+            .join(t["nation"].where(P.In(col("n_name"),
+                                         ["CANADA", "CHINA", "FRANCE",
+                                          "GERMANY", "RUSSIA"])),
+                  on=P.EqualTo(col("s_nationkey"), col("n_nationkey")),
+                  how="inner")
+            .join(qualifying,
+                  on=P.EqualTo(col("s_suppkey"), col("ps_suppkey")),
+                  how="left_semi")
+            .select(col("s_name"))
+            .sort(SortOrder(col("s_name"))))
+
+
+def q21(t):
+    """Suppliers who kept orders waiting (Q21): the correlated EXISTS /
+    NOT EXISTS pair becomes per-order distinct-supplier counts (exists
+    another supplier <=> n_supp > 1; not exists another LATE supplier <=>
+    n_late == 1)."""
+    li = t["lineitem"]
+    supp_per_order = (li.select(col("l_orderkey"), col("l_suppkey"))
+                      .distinct()
+                      .group_by(col("l_orderkey"))
+                      .agg(A.AggregateExpression(A.Count(), "n_supp"))
+                      .select(col("l_orderkey").alias("so_orderkey"),
+                              col("n_supp")))
+    late = li.where(P.GreaterThan(col("l_receiptdate"),
+                                  col("l_commitdate")))
+    late_per_order = (late.select(col("l_orderkey"), col("l_suppkey"))
+                      .distinct()
+                      .group_by(col("l_orderkey"))
+                      .agg(A.AggregateExpression(A.Count(), "n_late"))
+                      .select(col("l_orderkey").alias("lo_orderkey"),
+                              col("n_late")))
+    f_orders = (t["orders"]
+                .where(P.EqualTo(col("o_orderstatus"), lit("F")))
+                .select(col("o_orderkey")))
+    return (t["supplier"]
+            .join(t["nation"].where(P.EqualTo(col("n_name"),
+                                              lit("SAUDI ARABIA"))),
+                  on=P.EqualTo(col("s_nationkey"), col("n_nationkey")),
+                  how="inner")
+            .join(late, on=P.EqualTo(col("s_suppkey"), col("l_suppkey")),
+                  how="inner")
+            .join(f_orders,
+                  on=P.EqualTo(col("l_orderkey"), col("o_orderkey")),
+                  how="left_semi")
+            .join(supp_per_order,
+                  on=P.EqualTo(col("l_orderkey"), col("so_orderkey")),
+                  how="inner")
+            .join(late_per_order,
+                  on=P.EqualTo(col("l_orderkey"), col("lo_orderkey")),
+                  how="inner")
+            .where(P.And(P.GreaterThan(col("n_supp"), lit(1)),
+                         P.EqualTo(col("n_late"), lit(1))))
+            .group_by(col("s_name"))
+            .agg(A.AggregateExpression(A.Count(), "numwait"))
+            .sort(SortOrder(col("numwait"), ascending=False),
+                  SortOrder(col("s_name")))
+            .limit(100))
+
+
+QUERIES = {"q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6,
+           "q7": q7, "q8": q8, "q9": q9, "q10": q10, "q11": q11,
+           "q12": q12, "q13": q13, "q14": q14, "q15": q15, "q16": q16,
+           "q17": q17, "q18": q18, "q19": q19, "q20": q20, "q21": q21,
+           "q22": q22, "xbb_score": xbb_score}

@@ -1,6 +1,7 @@
 """The CUDA kernels of ``spark_rapids_tpu_torch`` against their plain
-PyTorch versions, on the card, and the parquet scan's host snappy
-routine and card decode against their plain and CPU versions. Every test here needs an NVIDIA GPU and
+PyTorch versions, on the card, and the parquet scan's host snappy and
+run-table routines and card decode against their plain and CPU versions
+(and the scan with its decode-ahead pipeline on against it off). Every test here needs an NVIDIA GPU and
 skips without one; the module imports neither JAX nor the JAX package,
 so it runs on a machine that has only PyTorch:
 
@@ -11,6 +12,7 @@ case builders here are shared with ``tests/test_torch_kernels.py``, which
 holds the same plain versions against the JAX package's Pallas kernels.
 """
 
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -805,3 +807,48 @@ def test_cuda_window_query_matches_cpu(cuda_device):
             near=over(A.Max(col("v")), w.range_between(-50, 50)),
             cnt=over(A.Count(col("v")), w)).collect())
     assert results["cuda"] == results["cpu"]
+
+
+@pytest.mark.cuda
+def test_cuda_read_parquet_pipeline_on_equals_off(cuda_device):
+    """The fixture's four row groups scanned on the card with the
+    pipeline on (host phases on the pool, pinned staging handed to the
+    consumer's stream) equal the same scan with it off, bit for bit, and
+    the pool leaves no worker after ``close``."""
+    from spark_rapids_tpu_torch.exec import pipeline as PL
+    from spark_rapids_tpu_torch.session import TorchSession
+    got = {}
+    for on in (True, False):
+        s = TorchSession({"spark.rapids.tpu.pipeline.enabled": on})
+        got[on] = s.read.parquet(str(FIXTURE)).collect()
+        assert ("ParquetScanExec.busy" in s.last_query.exec_ms) == on
+        assert s.close() == []
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith(PL.THREAD_PREFIX) and t.is_alive()]
+    a, b = got[True], got[False]
+    assert list(a.columns) == list(b.columns) and a.num_rows == b.num_rows
+    for name in a.columns:
+        assert np.array_equal(a.validity[name], b.validity[name]), name
+        x, y = np.asarray(a.columns[name]), np.asarray(b.columns[name])
+        if x.dtype.kind == "f":  # bit for bit
+            x, y = x.view(f"i{x.itemsize}"), y.view(f"i{y.itemsize}")
+        valid = a.validity[name]
+        assert list(x[valid]) == list(y[valid]), name
+
+
+@pytest.mark.cuda
+def test_cuda_parse_hybrid_matches_plain_on_the_fixture(cuda_device):
+    """Every level and index stream of the fixture sliced by the host C++
+    routine equals the plain ``parse_hybrid``'s run tables."""
+    path = str(FIXTURE)
+    meta = M.read_footer(path)
+    schema = M.schema_from_parquet(meta, path)
+    before = PD.parse_hybrid_native.launches
+    for rg in range(meta.num_row_groups):
+        a = PD.read_row_group_host(path, rg, schema, meta, device="cuda",
+                                   native_runs=False)
+        b = PD.read_row_group_host(path, rg, schema, meta, device="cuda",
+                                   native_runs=True)
+        assert a.handles == b.handles
+        assert torch.equal(a.tables, b.tables)
+    assert PD.parse_hybrid_native.launches > before

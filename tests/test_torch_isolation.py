@@ -79,6 +79,42 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     assert int(out.stdout.strip().splitlines()[-1]) >= 20
 
 
+#: Modules added with the scan's decode-ahead pipeline and the rest of
+#: TPC-H, and the host routine they load.
+SLICE_MODULES = ["spark_rapids_tpu_torch.exec.pipeline",
+                 "spark_rapids_tpu_torch.ops.datetime",
+                 "spark_rapids_tpu_torch.ops.strings",
+                 "spark_rapids_tpu_torch.io.parquet_device",
+                 "spark_rapids_tpu_torch.workloads.tpch"]
+
+_QUIET_IMPORT = """
+import importlib, sys, threading
+sys.path.insert(0, {root!r})
+for name in {names!r}:
+    importlib.import_module(name)
+from spark_rapids_tpu_torch.ops.kernels.cuda import _build
+print(len(threading.enumerate()), sorted(_build._LOADED),
+      sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r}))
+"""
+
+
+def test_new_modules_are_scanned_and_start_nothing_on_import():
+    """The pipeline, datetime and matching modules are among the sources
+    scanned above; importing them starts no thread (the pool is made at
+    its first use) and loads no library (the run slicer is built at its
+    first call), and pulls in nothing of JAX or the reference."""
+    for name in SLICE_MODULES:
+        rel = Path(*name.split(".")).with_suffix(".py")
+        assert ROOT / rel in SOURCES, rel
+    code = _QUIET_IMPORT.format(root=str(ROOT), names=SLICE_MODULES,
+                                blocked=BLOCKED)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-2000:]
+    # one thread (the main one), no library loaded, nothing blocked
+    assert out.stdout.split() == ["1", "[]", "[]"], out.stdout
+
+
 def test_session_needs_cuda_unless_cpu_is_asked():
     if torch.cuda.is_available():
         assert TorchSession().device.type == "cuda"

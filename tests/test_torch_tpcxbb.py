@@ -134,9 +134,10 @@ def test_query_path_calls_the_kernel_wrappers(q, port_results):
     join build direct-address tables; q01's self-join on a repeated
     ticket number leaves them for the exact search, and at this scale its
     pair table fits the dense aggregate, so no aggregate takes the sort
-    path's kernel."""
+    path's kernel. q30's two sides read one evaluation of its sessionized
+    clicks (the planner's ``ReusedExec``), so its item join builds once."""
     calls = port_results[q][1]
-    assert calls["joinProbe"] == {"q01": 2, "q05": 3, "q30": 2}[q]
+    assert calls["joinProbe"] == {"q01": 2, "q05": 3, "q30": 1}[q]
     assert calls["segmented"] == 0
 
 
