@@ -92,18 +92,25 @@ Phases; each one passes or the script exits non-zero:
    ``spark.rapids.tpu.pipeline.enabled`` false, its answer equal to the
    pipeline-on one bit for bit; every level and index stream of the SF1
    files through the C++ run slicer and the plain one, equal, with both
-   times printed. Then the bench suite's three TPCxBB entries,
-   ``bb_q01`` (a self-join on the store ticket, a two-key count, top
-   100), ``bb_q05`` (click features and a dense LEFT join to the buyers)
-   and ``bb_q30`` (sessions by windows and a two-key left self-join,
-   then a two-key self-join), over ``tpcxbb.gen_tables`` at 2^22 clicks
-   by default (``--xbb-clicks``) uploaded to the card, and as
-   ``pq_bb_*`` over bench.py's 2^17-click tables written by the port's
-   writer: every answer equal to its numpy implementation here, row for
-   row, ``bb_q01`` not empty, ``joinProbe`` launched in ``bb_q05`` (its
-   left join too) and ``bb_q30``; ``pq_bb_q30`` with the pipeline off
-   equal to it on, bit for bit, and the ``pq_bb`` files' run tables
-   equal between the two slicers. Then the engine's entry stage
+   times printed. Then all 30 TPCxBB queries, ``bb_q01`` ...
+   ``bb_q30`` (among them the bench suite's three entries: ``bb_q01``, a
+   self-join on the store ticket, a two-key count, top 100; ``bb_q05``,
+   click features and a dense LEFT join to the buyers; ``bb_q30``,
+   sessions by windows and a two-key left self-join, then a two-key
+   self-join), over ``tpcxbb.gen_tables`` at 2^22 clicks by default
+   (``--xbb-clicks``) uploaded to the card, and ``bb_q02_pivot``, q02
+   over a copy of the clicks with a click on item 10 beside every
+   1,000th identified one; the three entries also as ``pq_bb_*`` over
+   bench.py's 2^17-click tables written by the port's writer: every
+   answer equal to its numpy implementation here, row for row (float
+   columns to 1e-9 relative), every cell's rows printed and not empty
+   but ``bb_q02``'s, its device busy share from one traced warm run,
+   ``joinProbe`` launched in ``bb_q05`` (its left join too) and
+   ``bb_q30``, ``bb_q03``'s and ``bb_q12``'s residual joins through the
+   equi matcher (their pair counts equal to numpy's, no nested-loop join
+   in their plans); ``pq_bb_q30`` with the pipeline off equal to it on,
+   bit for bit, and the ``pq_bb`` files' run tables equal between the
+   two slicers. Then the engine's entry stage
    (``spark_rapids_tpu_torch.entry.entry``: filter, then the sort-path
    aggregate of sum, count, min and max) at its defaults (1,000 rows) and
    at SF1's 6,001,215 rows with 50 and with 1,500,000 keys: every group
@@ -1517,6 +1524,15 @@ BENCH_XBB_CLICKS = 1 << 17
 #: The TPCxBB tables the three entries read, plus customer.
 XBB_TABLES = ("item", "customer", "web_clickstreams", "store_sales",
               "web_sales")
+#: The bench suite's TPCxBB entries (``bench.py``), the ``pq_bb_*`` cells.
+BENCH_XBB = ("q01", "q05", "q30")
+#: The kernels a ``bb_*`` cell's cold run must launch.
+XBB_NEED = {"q05": ("joinProbe",), "q30": ("joinProbe",)}
+#: Counts a TPCxBB reference returns beside its answer: q01's self-join
+#: rows, q30's sessions, and the equi pairs of q03's and q12's joins
+#: with a residual condition.
+XBB_AUX = {"q01": "join_rows", "q30": "sessions", "q03": "pairs",
+           "q12": "pairs"}
 SESSION_GAP = 3600
 
 
@@ -1619,7 +1635,703 @@ def numpy_bb_q30(tables, n: int = 100) -> dict:
     return out
 
 
-XBB_REFS = {"q01": numpy_bb_q01, "q05": numpy_bb_q05, "q30": numpy_bb_q30}
+
+
+def _xbb_sessions(tables):
+    """The identified clicks lexsorted by (user, time), as the
+    sessionization's row numbers order them: (user, session ordinal over
+    all users, item, whether the click has a sale). A session starts at
+    a user's first click and after every gap over ``SESSION_GAP`` s; a
+    tie in time puts no boundary between its clicks, so the sessions do
+    not depend on how ties order."""
+    wcs = tables["web_clickstreams"]
+    c = wcs.columns
+    ident = wcs.validity["wcs_user_sk"]
+    user = c["wcs_user_sk"][ident]
+    ts = c["wcs_click_date_sk"][ident] * 86400 + c["wcs_click_time_sk"][ident]
+    order = np.lexsort((ts, user))
+    user, ts = user[order], ts[order]
+    boundary = np.r_[True, (user[1:] != user[:-1])
+                     | (ts[1:] - ts[:-1] > SESSION_GAP)] if len(user) \
+        else np.zeros(0, bool)
+    return (user, np.cumsum(boundary) - 1, c["wcs_item_sk"][ident][order],
+            wcs.validity["wcs_sales_sk"][ident][order])
+
+
+def _key_ids(*keys):
+    """One int64 id per row of the key tuples, equal exactly where every
+    key is equal (mixed radix over each key's ``np.unique`` ranks)."""
+    out = np.zeros(len(keys[0]), np.int64)
+    for k in keys:
+        u, inv = np.unique(k, return_inverse=True)
+        out = out * max(len(u), 1) + inv.reshape(-1)
+    return out
+
+
+def _eq_join(lkeys, rkeys):
+    """(left rows, right rows) of every pair whose key tuples are equal:
+    left-major, each left row's partners in right-table order."""
+    nl = len(lkeys[0])
+    ids = _key_ids(*[np.concatenate([a, b]) for a, b in zip(lkeys, rkeys)])
+    lid, rid = ids[:nl], ids[nl:]
+    order = np.argsort(rid, kind="stable")
+    lo = np.searchsorted(rid[order], lid)
+    cnt = np.searchsorted(rid[order], lid, "right") - lo
+    return np.repeat(np.arange(nl), cnt), order[_expand(lo, cnt)]
+
+
+def _sorted_rows(d: dict, keys, n=None) -> dict:
+    """The columns of ``d`` with rows in the order of ``keys`` (the first
+    the most significant; negate a number for descending), the first
+    ``n``."""
+    rows = _order(*keys)[:n]
+    return {k: np.asarray(v)[rows] for k, v in d.items()}
+
+
+def _slopes(group, x, y):
+    """Least squares per group, the queries' inlined formula over
+    float64 sums: (groups, n, sx, sy, sxy, sxx, slope, has_slope); the
+    slope is null (``has_slope`` false) where its divisor is 0."""
+    keys, (n, sx, sy, sxy, sxx) = _group_sums(
+        [group], np.ones(len(x), np.int64), x, y, x * y, x * x)
+    nn = n.astype(np.float64)
+    den = nn * sxx - sx * sx
+    with np.errstate(divide="ignore", invalid="ignore"):
+        slope = (nn * sxy - sx * sy) / np.where(den == 0, 1.0, den)
+    return keys[0], n, sx, sy, slope, den != 0
+
+
+def numpy_bb_q02(tables, n: int = 30, pivot: int = 10) -> dict:
+    """Items clicked in the sessions that also hold a click of ``pivot``:
+    clicks per item (the pivot's own left out), the top ``n`` by count
+    then item."""
+    _, session, item, _ = _xbb_sessions(tables)
+    has = np.zeros(int(session.max(initial=-1)) + 1, bool)
+    has[session[item == pivot]] = True
+    m = has[session] & (item != pivot)
+    items, cnt = np.unique(item[m], return_counts=True)
+    return _sorted_rows({"item": items, "cnt": cnt.astype(np.int64)},
+                        (-cnt, items), n)
+
+
+def q02_pivot_clicks(tables, pivot: int = 10, every: int = 1000) -> dict:
+    """``tables`` with web_clickstreams extended by a click on ``pivot``
+    beside every ``every``-th identified click: the same user, date and
+    time, no sale. A click at an existing click's time joins its
+    session and moves no boundary, so q02 then has pivot sessions."""
+    from spark_rapids_tpu_torch.data.batch import HostBatch
+    wcs = tables["web_clickstreams"]
+    src = np.flatnonzero(wcs.validity["wcs_user_sk"])[::every]
+    cols = {k: np.concatenate([v, v[src]]) for k, v in wcs.columns.items()}
+    cols["wcs_item_sk"][len(wcs.validity["wcs_user_sk"]):] = pivot
+    valid = {k: np.concatenate([v, v[src]]) for k, v in wcs.validity.items()}
+    valid["wcs_sales_sk"][len(wcs.validity["wcs_sales_sk"]):] = False
+    cols["wcs_sales_sk"] = np.where(valid["wcs_sales_sk"],
+                                    cols["wcs_sales_sk"], 0)
+    out = dict(tables)
+    out["web_clickstreams"] = HostBatch.from_numpy(cols, wcs.schema, valid)
+    return out
+
+
+def numpy_bb_q02_pivot(tables) -> dict:
+    """q02 over :func:`q02_pivot_clicks`'s tables."""
+    return numpy_bb_q02(q02_pivot_clicks(tables))
+
+
+def numpy_bb_q03(tables, n: int = 100) -> dict:
+    """Items an identified user clicked in the 10 days up to a store
+    purchase of a category-3 item (click date in [sale date - 9, sale
+    date]): one view per (sale, click) pair, the top ``n`` items by views
+    then item. Also the equi join's pair count (``pairs``: sales x clicks
+    of one user, before the date band)."""
+    ss, it = tables["store_sales"].columns, tables["item"].columns
+    hit, row = _lookup(it["i_item_sk"], ss["ss_item_sk"])
+    m = hit & (it["i_category_id"][row] == 3)
+    buyer, sd = ss["ss_customer_sk"][m], ss["ss_sold_date_sk"][m]
+    wcs = tables["web_clickstreams"]
+    ident = wcs.validity["wcs_user_sk"]
+    clicker = wcs.columns["wcs_user_sk"][ident]
+    cd = wcs.columns["wcs_click_date_sk"][ident]
+    viewed = wcs.columns["wcs_item_sk"][ident]
+    base = int(max(cd.max(initial=0), sd.max(initial=0))) + 1
+    key = clicker * base + cd
+    order = np.argsort(key, kind="stable")
+    lo = np.searchsorted(key[order], buyer * base + np.maximum(sd - 9, 0))
+    hi = np.searchsorted(key[order], buyer * base + sd, "right")
+    views = np.bincount(viewed[order][_expand(lo, hi - lo)])
+    items = np.flatnonzero(views)
+    cnt = views[items].astype(np.int64)
+    out = _sorted_rows({"viewed": items, "views_before_purchase": cnt},
+                       (-cnt, items), n)
+    per_user = np.bincount(clicker)
+    out["pairs"] = int(per_user[buyer[buyer < len(per_user)]].sum())
+    return out
+
+
+def numpy_bb_q04(tables) -> dict:
+    """Sessions, the ones with no converting click, and clicks per
+    session."""
+    _, session, _, sold = _xbb_sessions(tables)
+    n_sess = int(session.max(initial=-1)) + 1
+    conv = np.bincount(session, weights=sold.astype(np.float64),
+                       minlength=n_sess)
+    return {"sessions": np.array([n_sess]),
+            "abandoned": np.array([int(np.count_nonzero(conv == 0))]),
+            "avg_clicks": np.array([len(session) / n_sess])}
+
+
+def _period_sums(cols, cust, date, paid, lo, hi):
+    m = (cols[date] >= lo) & (cols[date] < hi)
+    keys, (s,) = _group_sums([cols[cust][m]], cols[paid][m])
+    return keys[0], s
+
+
+def _at(keys, values, want):
+    """``values`` of the sorted unique ``keys`` at ``want`` (all present)."""
+    return values[np.searchsorted(keys, want)]
+
+
+def numpy_bb_q06(tables, n: int = 100) -> dict:
+    """Customers with store and web spend in both years whose web growth
+    beats their store growth, the top ``n`` by web growth then
+    customer."""
+    ss, ws = tables["store_sales"].columns, tables["web_sales"].columns
+    parts = [_period_sums(ss, "ss_customer_sk", "ss_sold_date_sk",
+                          "ss_net_paid", 0, 365),
+             _period_sums(ss, "ss_customer_sk", "ss_sold_date_sk",
+                          "ss_net_paid", 365, 730),
+             _period_sums(ws, "ws_bill_customer_sk", "ws_sold_date_sk",
+                          "ws_net_paid", 0, 365),
+             _period_sums(ws, "ws_bill_customer_sk", "ws_sold_date_sk",
+                          "ws_net_paid", 365, 730)]
+    cust = parts[0][0]
+    for k, _ in parts[1:]:
+        cust = np.intersect1d(cust, k)
+    s1, s2, w1, w2 = (_at(k, v, cust) for k, v in parts)
+    m = (s1 > 0) & (w1 > 0)
+    cust, s1, s2, w1, w2 = cust[m], s1[m], s2[m], w1[m], w2[m]
+    m = w2 / w1 > s2 / s1
+    growth = (w2 / w1)[m]
+    return _sorted_rows({"customer": cust[m], "web_growth": growth},
+                        (-growth, cust[m]), n)
+
+
+def numpy_bb_q07(tables, n: int = 100) -> dict:
+    """Categories with at least 10 items priced above 1.2 times their
+    category's average price, by that count then name."""
+    it = tables["item"].columns
+    cat, price = it["i_category_id"], it["i_current_price"]
+    (cats,), (total, cnt) = _group_sums([cat], price,
+                                        np.ones(len(cat), np.int64))
+    avg = _at(cats, total / cnt, cat)
+    names, pricey = np.unique(it["i_category"][price > 1.2 * avg],
+                              return_counts=True)
+    keep = pricey >= 10
+    return _sorted_rows({"i_category": names[keep],
+                         "pricey_items": pricey[keep].astype(np.int64)},
+                        (-pricey[keep], names[keep]), n)
+
+
+def numpy_bb_q08(tables) -> dict:
+    """Web spend and orders of reviewers and of everyone else."""
+    ws = tables["web_sales"].columns
+    readers = np.isin(ws["ws_bill_customer_sk"],
+                      tables["product_reviews"].columns["pr_user_sk"])
+    paid = ws["ws_net_paid"]
+    return {"reader_paid": np.array([paid[readers].sum()]),
+            "reader_orders": np.array([int(readers.sum())]),
+            "nonreader_paid": np.array([paid[~readers].sum()]),
+            "nonreader_orders": np.array([int((~readers).sum())])}
+
+
+def numpy_bb_q09(tables) -> dict:
+    """Store revenue and rows under the demographic and price
+    disjunction."""
+    ss, c = tables["store_sales"].columns, tables["customer"].columns
+    hit, row = _lookup(c["c_customer_sk"], ss["ss_customer_sk"])
+    age, inc = c["c_age"][row], c["c_income"][row]
+    ok = hit & (((age >= 40) & (inc > 1e5))
+                | ((age < 30) & (ss["ss_quantity"] > 10))
+                | (ss["ss_net_paid"] > 900.0))
+    return {"revenue": np.array([ss["ss_net_paid"][ok].sum()]),
+            "rows": np.array([int(ok.sum())])}
+
+
+def numpy_bb_q10(tables, n: int = 100) -> dict:
+    """Items with at least 3 reviews rated more than 0.5 below their
+    category's average item rating, by rating then item."""
+    pr, it = tables["product_reviews"].columns, tables["item"].columns
+    rating = pr["pr_review_rating"]
+    (items,), (rsum, rcnt) = _group_sums(
+        [pr["pr_item_sk"]], rating.astype(np.float64),
+        np.ones(len(rating), np.int64))
+    hit, row = _lookup(it["i_item_sk"], items)
+    items, rsum, rcnt, row = items[hit], rsum[hit], rcnt[hit], row[hit]
+    item_rating = rsum / rcnt
+    cat = it["i_category_id"][row]
+    (cats,), (csum, ccnt) = _group_sums([cat], item_rating,
+                                        np.ones(len(cat), np.int64))
+    cat_rating = _at(cats, csum / ccnt, cat)
+    m = (rcnt >= 3) & (item_rating < cat_rating - 0.5)
+    return _sorted_rows({"pr_item_sk": items[m],
+                         "i_category": it["i_category"][row][m],
+                         "item_rating": item_rating[m],
+                         "cat_rating": cat_rating[m]},
+                        (item_rating[m], items[m]), n)
+
+
+def numpy_bb_q11(tables) -> dict:
+    """The correlation feed over items with reviews and web sales: count
+    and the sums of x (reviews), y (revenue), xy, xx and yy."""
+    pr, ws = tables["product_reviews"].columns, tables["web_sales"].columns
+    ritems, nrev = np.unique(pr["pr_item_sk"], return_counts=True)
+    (sitems,), (rev,) = _group_sums([ws["ws_item_sk"]], ws["ws_net_paid"])
+    common = np.intersect1d(ritems, sitems)
+    x = _at(ritems, nrev, common).astype(np.float64)
+    y = _at(sitems, rev, common)
+    return {"n": np.array([len(common)]), "sum_x": np.array([x.sum()]),
+            "sum_y": np.array([y.sum()]), "sum_xy": np.array([(x * y).sum()]),
+            "sum_xx": np.array([(x * x).sum()]),
+            "sum_yy": np.array([(y * y).sum()])}
+
+
+def numpy_bb_q12(tables, n: int = 100) -> dict:
+    """Users who clicked an item of category 1, 3 or 5 and bought one of
+    the same category in the store 1-90 days later, counted per
+    category. Also the equi join's pair count (``pairs``: clicks x sales
+    of one user and category)."""
+    it = tables["item"].columns
+    wcs = tables["web_clickstreams"]
+    ss = tables["store_sales"].columns
+
+    def side(item_sk, m):
+        hit, row = _lookup(it["i_item_sk"], item_sk)
+        cat = it["i_category_id"][row]
+        return m & hit & np.isin(cat, [1, 3, 5]), cat
+    cm, ccat = side(wcs.columns["wcs_item_sk"], wcs.validity["wcs_user_sk"])
+    u, cd, ccat = wcs.columns["wcs_user_sk"][cm], \
+        wcs.columns["wcs_click_date_sk"][cm], ccat[cm]
+    sm, scat = side(ss["ss_item_sk"], np.ones(len(ss["ss_item_sk"]), bool))
+    b, sd, scat = ss["ss_customer_sk"][sm], ss["ss_sold_date_sk"][sm], \
+        scat[sm]
+    base = 1 << 11  # above every date + 90
+    ckey, skey = u * 16 + ccat, b * 16 + scat
+    sk = np.sort(skey * base + sd)
+    lo = np.searchsorted(sk, ckey * base + cd + 1)
+    hi = np.searchsorted(sk, ckey * base + cd + 90, "right")
+    conv = np.unique(ckey[hi > lo])
+    cats, users = np.unique(conv % 16, return_counts=True)
+    out = _sorted_rows({"cat": cats, "converting_users":
+                        users.astype(np.int64)}, (cats,), n)
+    keys, kcnt = np.unique(ckey, return_counts=True)
+    skeys, scnt = np.unique(skey, return_counts=True)
+    both, ia, ib = np.intersect1d(keys, skeys, return_indices=True)
+    out["pairs"] = int((kcnt[ia] * scnt[ib]).sum())
+    return out
+
+
+def numpy_bb_q13(tables, n: int = 100) -> dict:
+    """Customers with first-year spend in both channels whose web
+    year-over-year ratio beats their store one, by web ratio then
+    customer."""
+    def channel(cols, cust, date, paid):
+        first = cols[date] < 365
+        keys, (y1, y2) = _group_sums(
+            [cols[cust]], np.where(first, cols[paid], 0.0),
+            np.where(~first, cols[paid], 0.0))
+        m = y1 > 0
+        return keys[0][m], y1[m], y2[m]
+    sc, s1, s2 = channel(tables["store_sales"].columns, "ss_customer_sk",
+                         "ss_sold_date_sk", "ss_net_paid")
+    wc, w1, w2 = channel(tables["web_sales"].columns, "ws_bill_customer_sk",
+                         "ws_sold_date_sk", "ws_net_paid")
+    cust = np.intersect1d(np.intersect1d(sc, wc),
+                          tables["customer"].columns["c_customer_sk"])
+    rs = _at(sc, s2, cust) / _at(sc, s1, cust)
+    rw = _at(wc, w2, cust) / _at(wc, w1, cust)
+    m = rw > rs
+    return _sorted_rows({"c_customer_sk": cust[m], "store_ratio": rs[m],
+                         "web_ratio": rw[m]}, (-rw[m], cust[m]), n)
+
+
+def numpy_bb_q14(tables) -> dict:
+    """Morning over evening web sales to households with 5 dependants
+    on pages of 5,000-6,000 characters (-1 without evening sales)."""
+    ws = tables["web_sales"].columns
+    hd = tables["household_demographics"].columns
+    wp, td = tables["web_page"].columns, tables["time_dim"].columns
+    h_hit, hrow = _lookup(hd["hd_demo_sk"], ws["ws_ship_hdemo_sk"])
+    p_hit, prow = _lookup(wp["wp_web_page_sk"], ws["ws_web_page_sk"])
+    t_hit, trow = _lookup(td["t_time_sk"], ws["ws_sold_time_sk"])
+    chars = wp["wp_char_count"][prow]
+    hour = td["t_hour"][trow]
+    m = h_hit & (hd["hd_dep_count"][hrow] == 5) & p_hit & (chars >= 5000) \
+        & (chars <= 6000) & t_hit & np.isin(hour, [7, 8, 19, 20])
+    amc = int(np.count_nonzero(m & (hour <= 8)))
+    pmc = int(np.count_nonzero(m & (hour >= 19)))
+    return {"am_pm_ratio": np.array([amc / pmc if pmc > 0 else -1.0])}
+
+
+def numpy_bb_q15(tables) -> dict:
+    """Categories whose daily revenue in store 10 (days 180-545) has a
+    least-squares slope at or below 0: slope and intercept by
+    category."""
+    ss, it = tables["store_sales"].columns, tables["item"].columns
+    date = ss["ss_sold_date_sk"]
+    hit, row = _lookup(it["i_item_sk"], ss["ss_item_sk"])
+    m = (ss["ss_store_sk"] == 10) & (date >= 180) & (date <= 545) & hit
+    (cat, day), (y,) = _group_sums([it["i_category_id"][row][m], date[m]],
+                                   ss["ss_net_paid"][m])
+    cats, n, sx, sy, slope, ok = _slopes(cat, day.astype(np.float64), y)
+    m = ok & (slope <= 0.0)
+    return {"cat": cats[m], "slope": slope[m],
+            "intercept": (sy[m] - slope[m] * sx[m]) / n[m].astype(np.float64)}
+
+
+def numpy_bb_q16(tables, n: int = 100) -> dict:
+    """Web sales of days 335-395 less their refunds (every matching
+    return a row; none: refund 0) before and after day 365, by warehouse
+    state and item."""
+    ws, wr = tables["web_sales"].columns, tables["web_returns"].columns
+    it, wh = tables["item"].columns, tables["warehouse"].columns
+    date = ws["ws_sold_date_sk"]
+    sel = np.flatnonzero((date >= 335) & (date <= 395))
+    li, ri = _eq_join([ws["ws_order_number"][sel], ws["ws_item_sk"][sel]],
+                      [wr["wr_order_number"], wr["wr_item_sk"]])
+    alone = np.setdiff1d(np.arange(len(sel)), li)
+    rows = np.concatenate([sel[li], sel[alone]])
+    refund = np.concatenate([wr["wr_refunded_cash"][ri],
+                             np.zeros(len(alone))])
+    i_hit, irow = _lookup(it["i_item_sk"], ws["ws_item_sk"][rows])
+    w_hit, wrow = _lookup(wh["w_warehouse_sk"], ws["ws_warehouse_sk"][rows])
+    m = i_hit & w_hit
+    net = (ws["ws_sales_price"][rows] - refund)[m]
+    before = date[rows][m] < 365
+    (state, item), (sb, sa) = _group_sums(
+        [wh["w_state"][wrow][m], it["i_item_sk"][irow][m]],
+        np.where(before, net, 0.0), np.where(~before, net, 0.0))
+    return {"w_state": state[:n], "i_item_sk": item[:n],
+            "sales_before": sb[:n], "sales_after": sa[:n]}
+
+
+def numpy_bb_q17(tables) -> dict:
+    """Promotional (even ticket) and total store revenue of days 330-360
+    in categories 0 and 5, and the promotional percentage."""
+    ss, it = tables["store_sales"].columns, tables["item"].columns
+    date = ss["ss_sold_date_sk"]
+    hit, row = _lookup(it["i_item_sk"], ss["ss_item_sk"])
+    m = (date >= 330) & (date <= 360) & hit \
+        & np.isin(it["i_category_id"][row], [0, 5])
+    paid = ss["ss_net_paid"]
+    promo = paid[m & (ss["ss_ticket_number"] % 2 == 0)].sum()
+    total = paid[m].sum()
+    return {"promotional": np.array([promo]), "total": np.array([total]),
+            "promo_percent": np.array([100.0 * promo / total
+                                       if total > 0 else 0.0])}
+
+
+def _contains(values, needle: str):
+    return np.char.find(values.astype(str), needle) >= 0
+
+
+def numpy_bb_q18(tables, n: int = 100) -> dict:
+    """Stores whose daily revenue slopes down: per store, the reviews
+    mentioning "terrible" of the items it sold."""
+    ss, pr = tables["store_sales"].columns, tables["product_reviews"].columns
+    (store, day), (y,) = _group_sums([ss["ss_store_sk"],
+                                      ss["ss_sold_date_sk"]],
+                                     ss["ss_net_paid"])
+    stores, _, _, _, slope, ok = _slopes(store, day.astype(np.float64), y)
+    declining = stores[ok & (slope < 0.0)]
+    neg = np.bincount(pr["pr_item_sk"][_contains(pr["pr_review_content"],
+                                                 "terrible")],
+                      minlength=int(ss["ss_item_sk"].max(initial=0)) + 1)
+    (item, sold_at), _ = _group_sums([ss["ss_item_sk"], ss["ss_store_sk"]])
+    m = np.isin(sold_at, declining) & (item < len(neg))
+    (st,), (cnt,) = _group_sums([sold_at[m]], neg[item[m]])
+    keep = cnt > 0
+    return {"sold_store": st[keep][:n],
+            "negative_reviews": cnt[keep][:n].astype(np.int64)}
+
+
+def numpy_bb_q19(tables, n: int = 100) -> dict:
+    """Reviews mentioning "terrible" or "awful" of items returned at
+    least 10 times: count and average rating by item."""
+    sr, pr = tables["store_returns"].columns, tables["product_reviews"].columns
+    (ritems,), (qty,) = _group_sums([sr["sr_item_sk"]],
+                                    sr["sr_return_quantity"])
+    content = pr["pr_review_content"]
+    m = (_contains(content, "terrible") | _contains(content, "awful")) \
+        & np.isin(pr["pr_item_sk"], ritems[qty >= 10])
+    (items,), (cnt, rsum) = _group_sums(
+        [pr["pr_item_sk"][m]], np.ones(int(m.sum()), np.int64),
+        pr["pr_review_rating"][m].astype(np.float64))
+    return {"pr_item_sk": items[:n], "neg_reviews": cnt[:n],
+            "avg_rating": (rsum / cnt)[:n]}
+
+
+def numpy_bb_q20(tables, n: int = 1000) -> dict:
+    """Per store customer: returned tickets over tickets, returned items
+    over items, refunds over spend (0 without returns), and returned
+    tickets."""
+    ss, sr = tables["store_sales"].columns, tables["store_returns"].columns
+    pairs = np.unique(np.stack([ss["ss_customer_sk"],
+                                ss["ss_ticket_number"]], 1), axis=0)
+    cust, orders = np.unique(pairs[:, 0], return_counts=True)
+    (_,), (items, money) = _group_sums(
+        [ss["ss_customer_sk"]], np.ones(len(ss["ss_customer_sk"]), np.int64),
+        ss["ss_net_paid"])
+    rpairs = np.unique(np.stack([sr["sr_customer_sk"],
+                                 sr["sr_ticket_number"]], 1), axis=0)
+    rcust, rorders = np.unique(rpairs[:, 0], return_counts=True)
+    (rc2,), (ritems, rmoney) = _group_sums(
+        [sr["sr_customer_sk"]], np.ones(len(sr["sr_customer_sk"]), np.int64),
+        sr["sr_return_amt"])
+    has = np.isin(cust, rcust)
+    pos = np.searchsorted(rcust, cust).clip(0, max(len(rcust) - 1, 0))
+    pos2 = np.searchsorted(rc2, cust).clip(0, max(len(rc2) - 1, 0))
+    ro = np.where(has, rorders[pos] if len(rcust) else 0, 0)
+    ri = np.where(has, ritems[pos2] if len(rc2) else 0, 0)
+    rm = np.where(has, rmoney[pos2] if len(rc2) else 0.0, 0.0)
+    out = {"user_sk": cust,
+           "orderRatio": np.where(has, ro / orders, 0.0),
+           "itemsRatio": np.where(has, ri / items, 0.0),
+           "monetaryRatio": np.where(has, rm / money, 0.0),
+           "frequency": ro.astype(np.int64)}
+    return {k: v[:n] for k, v in out.items()}
+
+
+def numpy_bb_q21(tables, n: int = 100) -> dict:
+    """Store purchases of days 0-90, returned by day 270 and bought again
+    on the web by the same customer: quantities by item and store."""
+    ss, sr = tables["store_sales"].columns, tables["store_returns"].columns
+    ws = tables["web_sales"].columns
+    s_sel = np.flatnonzero(ss["ss_sold_date_sk"] <= 90)
+    r_sel = np.flatnonzero(sr["sr_returned_date_sk"] <= 270)
+    ri, wi = _eq_join([sr["sr_item_sk"][r_sel], sr["sr_customer_sk"][r_sel]],
+                      [ws["ws_item_sk"], ws["ws_bill_customer_sk"]])
+    ri = r_sel[ri]
+    ji, si = _eq_join([sr["sr_ticket_number"][ri], sr["sr_item_sk"][ri],
+                       sr["sr_customer_sk"][ri]],
+                      [ss["ss_ticket_number"][s_sel], ss["ss_item_sk"][s_sel],
+                       ss["ss_customer_sk"][s_sel]])
+    si = s_sel[si]
+    (item, store), (q_ss, q_sr, q_ws) = _group_sums(
+        [ss["ss_item_sk"][si], ss["ss_store_sk"][si]], ss["ss_quantity"][si],
+        sr["sr_return_quantity"][ri[ji]], ws["ws_quantity"][wi[ji]])
+    return {"ss_item_sk": item[:n], "ss_store_sk": store[:n],
+            "store_sales_quantity": q_ss[:n],
+            "store_returns_quantity": q_sr[:n],
+            "web_sales_quantity": q_ws[:n]}
+
+
+def numpy_bb_q22(tables, n: int = 100) -> dict:
+    """Inventory of items priced 20-80 before and after day 365 (days
+    305-425), by warehouse name and item, kept where after/before lies in
+    [2/3, 1.5]."""
+    inv, it = tables["inventory"].columns, tables["item"].columns
+    wh = tables["warehouse"].columns
+    date = inv["inv_date_sk"]
+    i_hit, irow = _lookup(it["i_item_sk"], inv["inv_item_sk"])
+    w_hit, wrow = _lookup(wh["w_warehouse_sk"], inv["inv_warehouse_sk"])
+    price = it["i_current_price"][irow]
+    m = (date >= 305) & (date <= 425) & i_hit & (price >= 20.0) \
+        & (price <= 80.0) & w_hit
+    qoh = inv["inv_quantity_on_hand"][m]
+    before = date[m] < 365
+    (name, item), (b, a) = _group_sums(
+        [wh["w_warehouse_name"][wrow][m], inv["inv_item_sk"][m]],
+        np.where(before, qoh, 0), np.where(~before, qoh, 0))
+    keep = b > 0
+    ratio = a[keep].astype(np.float64) / b[keep].astype(np.float64)
+    ok = (ratio >= 2.0 / 3.0) & (ratio <= 1.5)
+    return {k: v[keep][ok][:n] for k, v in (
+        ("w_warehouse_name", name), ("inv_item_sk", item),
+        ("inv_before", b), ("inv_after", a))}
+
+
+def numpy_bb_q23(tables, n: int = 100) -> dict:
+    """Inventory cells (warehouse, item, 90-day bucket of days 0-360) with
+    a coefficient of variation of at least 0.4, each joined to the same
+    item's next bucket, by warehouse, item and bucket. The float math is
+    the query's, operation for operation."""
+    inv = tables["inventory"].columns
+    date = inv["inv_date_sk"]
+    m = (date >= 0) & (date <= 360)
+    q = inv["inv_quantity_on_hand"][m]
+    qf = q.astype(np.float64)
+    (wh, item, moy), (cnt, s_int, sumsq) = _group_sums(
+        [inv["inv_warehouse_sk"][m], inv["inv_item_sk"][m], date[m] // 90],
+        np.ones(len(q), np.int64), qf, qf * qf)
+    nn = cnt.astype(np.float64)
+    mean = s_int / nn
+    with np.errstate(invalid="ignore", divide="ignore"):
+        var = (sumsq - nn * (mean * mean)) / (nn - 1.0)
+        cov = np.sqrt(var) / mean
+    keep = (cnt > 1) & (mean > 0.0)
+    keep[keep] = cov[keep] >= 0.4
+    wh, item, moy, cov = wh[keep], item[keep], moy[keep], cov[keep]
+    li, ri = _eq_join([wh, item, moy + 1], [wh, item, moy])
+    out = {"wh1": wh[li], "it1": item[li], "moy1": moy[li], "cov1": cov[li],
+           "wh2": wh[ri], "it2": item[ri], "moy2": moy[ri], "cov2": cov[ri]}
+    return _sorted_rows(out, (out["wh1"], out["it1"], out["moy1"]), n)
+
+
+def numpy_bb_q24(tables) -> dict:
+    """Cross-price elasticity of items 0-7 over both channels: for each
+    competitor price (item, imp), the quantities in its window and the
+    window before, summed per channel; the average over an item's
+    prices."""
+    imp, it = tables["item_marketprices"].columns, tables["item"].columns
+    hit, row = _lookup(it["i_item_sk"], imp["imp_item_sk"])
+    m = hit & (it["i_item_sk"][row] < 8)
+    tsk = it["i_item_sk"][row][m]
+    cur_price = it["i_current_price"][row][m]
+    pc = (imp["imp_competitor_price"][m] - cur_price) / cur_price
+    start = imp["imp_start_date"][m]
+    ndays = imp["imp_end_date"][m] - start
+
+    def quant(fact, item_col, date_col, qty_col):
+        cols = tables[fact].columns
+        fi, ci = _eq_join([cols[item_col]], [tsk])
+        d, qty = cols[date_col][fi], cols[qty_col][fi]
+        s, nd = start[ci], ndays[ci]
+        cur = np.where((d >= s) & (d < s + nd), qty, 0)
+        prev = np.where((d >= s - nd) & (d < s), qty, 0)
+        return (np.bincount(ci, minlength=len(tsk)) > 0,
+                np.bincount(ci, weights=cur, minlength=len(tsk)),
+                np.bincount(ci, weights=prev, minlength=len(tsk)))
+    w_has, w_cur, w_prev = quant("web_sales", "ws_item_sk",
+                                 "ws_sold_date_sk", "ws_quantity")
+    s_has, s_cur, s_prev = quant("store_sales", "ss_item_sk",
+                                 "ss_sold_date_sk", "ss_quantity")
+    prev = (s_prev + w_prev).astype(np.int64)
+    m = w_has & s_has & (prev > 0)
+    num = ((s_cur + w_cur).astype(np.int64) - prev).astype(np.float64)
+    den = prev.astype(np.float64) * pc
+    m &= den != 0
+    (items,), (esum, ecnt) = _group_sums(
+        [tsk[m]], num[m] / den[m], np.ones(int(m.sum()), np.int64))
+    return {"w_sk": items, "cross_price_elasticity": esum / ecnt}
+
+
+def numpy_bb_q25(tables, n: int = 1000) -> dict:
+    """RFM over both channels after day 500: per customer the latest
+    purchase (recency 1.0 within 60 days of day 730), distinct orders
+    summed over the channels, and spend."""
+    def channel(cols, cust, order, date, paid):
+        m = cols[date] > 500
+        pairs = np.unique(np.stack([cols[cust][m], cols[order][m]], 1),
+                          axis=0)
+        keys, freq = np.unique(pairs[:, 0], return_counts=True)
+        order_ = np.lexsort((cols[date][m], cols[cust][m]))
+        c_sorted = cols[cust][m][order_]
+        last_row = np.r_[c_sorted[1:] != c_sorted[:-1], True] \
+            if len(c_sorted) else np.zeros(0, bool)
+        latest = cols[date][m][order_][last_row]
+        (_,), (amount,) = _group_sums([cols[cust][m]], cols[paid][m])
+        return keys, freq, latest, amount
+    parts = [channel(tables["store_sales"].columns, "ss_customer_sk",
+                     "ss_ticket_number", "ss_sold_date_sk", "ss_net_paid"),
+             channel(tables["web_sales"].columns, "ws_bill_customer_sk",
+                     "ws_order_number", "ws_sold_date_sk", "ws_net_paid")]
+    cid = np.concatenate([p[0] for p in parts])
+    freq = np.concatenate([p[1] for p in parts]).astype(np.int64)
+    latest = np.concatenate([p[2] for p in parts])
+    amount = np.concatenate([p[3] for p in parts])
+    (keys,), (f, a) = _group_sums([cid], freq, amount)
+    last = np.full(len(keys), -1, np.int64)
+    np.maximum.at(last, np.searchsorted(keys, cid), latest)
+    recency = np.where(730 - last < 60, 1.0, 0.0)
+    return {"cid": keys[:n], "recency": recency[:n], "frequency": f[:n],
+            "totalspend": a[:n]}
+
+
+def numpy_bb_q26(tables, n: int = 1000) -> dict:
+    """Store customers with more than 5 purchases of "Books" items:
+    purchases per class id 1-15 and in all."""
+    ss, it = tables["store_sales"].columns, tables["item"].columns
+    hit, row = _lookup(it["i_item_sk"], ss["ss_item_sk"])
+    m = hit & (it["i_category"][row] == "Books")
+    cls = it["i_class_id"][row][m]
+    lanes = [(cls == k).astype(np.int64) for k in range(1, 16)]
+    (cust,), sums = _group_sums([ss["ss_customer_sk"][m]], *lanes,
+                                np.ones(len(cls), np.int64))
+    keep = sums[-1] > 5
+    out = {"ss_customer_sk": cust[keep][:n]}
+    for k in range(1, 16):
+        out[f"id{k}"] = sums[k - 1][keep][:n]
+    out["n_items"] = sums[-1][keep][:n]
+    return out
+
+
+def numpy_bb_q27(tables, n: int = 200) -> dict:
+    """Reviews naming a competitor ("acme" first, else "zenith"),
+    counted by item and competitor."""
+    pr = tables["product_reviews"].columns
+    content = pr["pr_review_content"]
+    acme, zenith = _contains(content, "acme"), _contains(content, "zenith")
+    m = acme | zenith
+    comp = np.where(acme, "acme", "zenith")[m]
+    (items, names), (cnt,) = _group_sums(
+        [pr["pr_item_sk"][m], comp], np.ones(int(m.sum()), np.int64))
+    return {"pr_item_sk": items[:n], "competitor": names[:n],
+            "mentions": cnt[:n]}
+
+
+def numpy_bb_q28(tables) -> dict:
+    """Reviews per split ("test": review key divisible by 10, else
+    "train") and rating."""
+    pr = tables["product_reviews"].columns
+    split = np.where(pr["pr_review_sk"] % 10 == 0, "test", "train")
+    (s, rating), (cnt,) = _group_sums(
+        [split, pr["pr_review_rating"]],
+        np.ones(len(split), np.int64))
+    return {"split": s, "pr_review_rating": rating, "n_reviews": cnt}
+
+
+def numpy_bb_q29(tables, n: int = 100) -> dict:
+    """Category pairs ``a < b`` bought in one web order, counted over the
+    orders, the top ``n`` by count then categories."""
+    ws, it = tables["web_sales"].columns, tables["item"].columns
+    hit, row = _lookup(it["i_item_sk"], ws["ws_item_sk"])
+    orders, inv = np.unique(ws["ws_order_number"][hit], return_inverse=True)
+    masks = np.zeros(len(orders), np.int64)
+    np.bitwise_or.at(masks, inv.reshape(-1),
+                     np.left_shift(1, it["i_category_id"][row[hit]]))
+    n_cat = int(it["i_category_id"].max()) + 1
+    a, b, cnt = [], [], []
+    for x in range(n_cat):
+        for y in range(x + 1, n_cat):
+            k = int(np.count_nonzero((masks >> x) & (masks >> y) & 1))
+            if k:
+                a.append(x)
+                b.append(y)
+                cnt.append(k)
+    return _top_by_count(np.array(cnt, dtype=np.int64),
+                         np.array(a, dtype=np.int64),
+                         np.array(b, dtype=np.int64), ("cat_a", "cat_b"), n)
+
+
+#: Every TPCxBB query's numpy reference, and q02 over
+#: :func:`q02_pivot_clicks`'s tables (``q02_pivot``).
+XBB_REFS = {q: globals()[f"numpy_bb_{q}"] for q in
+            [f"q{i:02d}" for i in range(1, 31)]}
+XBB_REFS["q02_pivot"] = numpy_bb_q02_pivot
+#: The float columns of each TPCxBB answer (held to ``REV_RTOL``); every
+#: other column is exact.
+XBB_FLOATS = {
+    "q04": ["avg_clicks"], "q06": ["web_growth"],
+    "q08": ["reader_paid", "nonreader_paid"], "q09": ["revenue"],
+    "q10": ["item_rating", "cat_rating"],
+    "q11": ["sum_x", "sum_y", "sum_xy", "sum_xx", "sum_yy"],
+    "q13": ["store_ratio", "web_ratio"], "q14": ["am_pm_ratio"],
+    "q15": ["slope", "intercept"], "q16": ["sales_before", "sales_after"],
+    "q17": ["promotional", "total", "promo_percent"],
+    "q19": ["avg_rating"],
+    "q20": ["orderRatio", "itemsRatio", "monetaryRatio"],
+    "q23": ["cov1", "cov2"], "q24": ["cross_price_elasticity"],
+    "q25": ["recency", "totalspend"]}
 
 
 #: One worker process's generated tables, by (workload, size, seed).
@@ -1656,9 +2368,8 @@ def start_references(args):
     atexit.register(ex.shutdown, wait=False, cancel_futures=True)
     tasks = [("tpch", args.lineitem_rows, args.seed, q)
              for q in ["q3"] + list(NUMPY_REFS)]
-    tasks += [("xbb", clicks, args.seed, q)
-              for clicks in (args.xbb_clicks, BENCH_XBB_CLICKS)
-              for q in XBB_REFS]
+    tasks += [("xbb", args.xbb_clicks, args.seed, q) for q in XBB_REFS]
+    tasks += [("xbb", BENCH_XBB_CLICKS, args.seed, q) for q in BENCH_XBB]
     return ex, {t: ex.submit(reference_answer, t) for t in tasks}
 
 
@@ -1667,18 +2378,31 @@ def reference(futures, workload: str, size: int, seed: int, q: str):
     return futures[(workload, size, seed, q)].result()[1]
 
 
-def check_exact(q: str, got, ref) -> None:
-    """Every column equal to the reference's, row for row (the answers
-    are integers), no nulls."""
+def check_exact(q: str, got, ref, floats=()) -> None:
+    """Every column equal to the reference's, row for row, but the
+    ``floats`` columns, which agree to ``REV_RTOL``; no nulls."""
     want = {k: v for k, v in ref.items() if k in got.columns}
     check(set(got.columns) == set(want),
           f"{q}: columns {sorted(got.columns)} vs {sorted(want)}")
     for name, w in want.items():
         g = np.asarray(got.columns[name])
+        w = np.asarray(w)
         check(bool(np.all(got.validity[name])), f"{q}: null in {name}")
-        check(len(g) == len(w) and np.array_equal(g, w),
-              f"{q}: {name} ({len(g)} rows) {g.tolist()[:8]} vs "
-              f"({len(w)} rows) {np.asarray(w).tolist()[:8]}")
+        if name in floats:
+            same = len(g) == len(w) and bool(np.all(
+                np.abs(g.astype(np.float64) - w) <= REV_RTOL * np.abs(w)))
+        else:
+            if w.dtype.kind == "U":
+                g = g.astype(str)
+            same = len(g) == len(w) and np.array_equal(g, w)
+        at_ = 0
+        if not same and len(g) == len(w):
+            at_ = int(np.argmax(g != w if name not in floats else
+                                np.abs(g - w) > REV_RTOL * np.abs(w)))
+        lo = max(at_ - 3, 0)
+        check(same, f"{q}: {name} ({len(g)} rows) rows {lo}.. "
+              f"{g.tolist()[lo:lo + 8]} vs ({len(w)} rows) "
+              f"{w.tolist()[lo:lo + 8]}")
 
 
 class LeftJoinWatch:
@@ -1710,38 +2434,47 @@ class LeftJoinWatch:
 
 def run_tpcxbb(torch, ctx, session, wrappers, xbb_clicks: int, seed: int,
                pq_dir: str, profile: bool, futures: dict):
-    """The bench suite's TPCxBB entries: ``bb_q01``, ``bb_q05`` and
-    ``bb_q30`` over tables uploaded from ``tpcxbb.gen_tables(xbb_clicks)``,
-    then ``pq_bb_*`` over bench.py's ``BENCH_XBB_CLICKS`` tables written by
-    the port's writer (the scan in every run). Each answer exact against
-    its numpy reference; ``joinProbe`` launched in ``bb_q05`` (its dense
-    LEFT join included) and ``bb_q30``; ``bb_q01`` not empty. Then
-    ``pq_bb_q30`` with the pipeline off (into ``ctx.pipeline_off``) and
-    the run tables of the ``pq_bb`` files through both slicers (into
-    ``ctx.runs_check``). Returns (summaries, launches, captured calls,
-    the dense left joins' calls of one warm ``bb_q05`` run)."""
+    """The TPCxBB cells: all 30 queries (``bb_q01`` ... ``bb_q30``) over
+    tables uploaded from ``tpcxbb.gen_tables(xbb_clicks)``, and q02 once
+    more over :func:`q02_pivot_clicks`'s clicks (``bb_q02_pivot``); then
+    the bench suite's three entries as ``pq_bb_*`` over bench.py's
+    ``BENCH_XBB_CLICKS`` tables written by the port's writer (the scan
+    in every run). Each answer against its numpy reference (exact, floats
+    to ``REV_RTOL``), its rows printed and not empty (but ``bb_q02``'s,
+    which holds no pivot session at the default scale); each cell's
+    device busy share from one traced warm run (two with ``profile``);
+    ``joinProbe`` launched in ``bb_q05`` (its dense LEFT join included)
+    and ``bb_q30``; q03's and q12's residual joins through the equi
+    matcher, their pair counts equal to numpy's, no nested-loop join in
+    their plans. Then ``pq_bb_q30`` with the pipeline off (into
+    ``ctx.pipeline_off``) and the run tables of the ``pq_bb`` files
+    through both slicers (into ``ctx.runs_check``). Returns (summaries,
+    launches, captured calls, the dense left joins' calls of one warm
+    ``bb_q05`` run)."""
     tpcxbb, KJ, JP = ctx.tpcxbb, ctx.KJ, ctx.JP
     summaries, launches, calls = {}, {}, {k: [] for k in wrappers.mods}
     answers = {}
     left_calls = []
-    need = {"q01": (), "q05": ("joinProbe",), "q30": ("joinProbe",)}
     for label, clicks in (("bb", xbb_clicks), ("pq_bb", BENCH_XBB_CLICKS)):
         t0 = time.perf_counter()
         tables = tpcxbb.gen_tables(clicks, seed=seed)
         t_gen = time.perf_counter() - t0
+        cells = list(XBB_REFS) if label == "bb" else list(BENCH_XBB)
         t0 = time.perf_counter()
         refs = {q: dict(reference(futures, "xbb", clicks, seed, q))
-                for q in XBB_REFS}
+                for q in cells}
+        aux = {q: refs[q].pop(XBB_AUX[q]) for q in cells if q in XBB_AUX}
         t_ref = time.perf_counter() - t0
         t0 = time.perf_counter()
         if label == "bb":
-            dfs = {k: session.create_dataframe(tables[k])
-                   for k in XBB_TABLES}
+            dfs = {k: session.create_dataframe(v) for k, v in tables.items()}
+            pivot = session.create_dataframe(
+                q02_pivot_clicks(tables)["web_clickstreams"])
             torch.cuda.synchronize()
             nbytes = sum(c.validity.numel() + (
                 c.data.numel() * c.data.element_size() if c.data is not None
                 else c.codes.numel() * 4)
-                for k in XBB_TABLES for c in dfs[k]._plan.batch.columns)
+                for df in dfs.values() for c in df._plan.batch.columns)
             where = f"uploaded {nbytes / 1e9:.3f} GB"
         else:
             up = {k: session.create_dataframe(v) for k, v in tables.items()}
@@ -1753,19 +2486,25 @@ def run_tpcxbb(torch, ctx, session, wrappers, xbb_clicks: int, seed: int,
         print(f"  TPCxBB tables at {clicks} clicks: generated {t_gen:.1f} s, "
               f"{where} in {time.perf_counter() - t0:.1f} s; waited "
               f"{t_ref:.1f} s for the numpy references; rows " + ", ".join(
-                  f"{k}={tables[k].num_rows}" for k in XBB_TABLES)
-              + f"; q01's self-join {refs['q01'].pop('join_rows')} rows, "
-              f"q30's sessions {refs['q30'].pop('sessions')}")
-        for q in ("q01", "q05", "q30"):
+                  f"{k}={v.num_rows}" for k, v in tables.items())
+              + f"; q01's self-join {aux['q01']} rows, q30's sessions "
+              f"{aux['q30']}")
+        for q in cells:
             cell = f"{label}_{q}"
-            build = (lambda q=q, dfs=dfs: tpcxbb.QUERIES[q](dfs))
+            qdfs = dict(dfs, web_clickstreams=pivot) \
+                if q == "q02_pivot" else dfs
+            query = tpcxbb.QUERIES[q[:3]]
+            build = (lambda query=query, qdfs=qdfs: query(qdfs))
+            floats = XBB_FLOATS.get(q[:3], ())
             with LeftJoinWatch(KJ, wrappers.fns["joinProbe"]) as watch:
                 got_launches, got_calls, summaries[cell], mid = run_query(
                     torch, session, wrappers, cell.upper(), build,
-                    keep_answer(answers, cell, lambda got, q=q, cell=cell:
-                                check_exact(cell, got, refs[q])), need[q])
-            n_rows = len(refs[q]["cnt" if q != "q05" else "label"])
-            check(q != "q01" or n_rows > 0, f"{cell} returned no pair")
+                    keep_answer(answers, cell, lambda got, q=q, cell=cell,
+                                floats=floats: check_exact(
+                                    cell, got, refs[q], floats)),
+                    XBB_NEED.get(q, ()))
+            n_rows = len(next(iter(refs[q].values())))
+            check(q == "q02" or n_rows > 0, f"{cell} returned no row")
             summaries[cell]["rows"] = n_rows
             sorted_aggs = got_launches["segmented"] > 0
             print(f"  {cell.upper()}: {n_rows} rows, equal to numpy; "
@@ -1777,13 +2516,29 @@ def run_tpcxbb(torch, ctx, session, wrappers, xbb_clicks: int, seed: int,
             if q == "q05":
                 check(watch.joins > 0 and watch.launches >= watch.joins,
                       f"{cell}: the left join did not launch joinProbe")
+            if q in ("q03", "q12"):
+                plan = session.explain(build()._plan)
+                pairs = summaries[cell]["counters"].get(
+                    "ShuffledHashJoinExec.pairs")
+                check("NestedLoopJoin" not in plan,
+                      f"{cell} planned a nested-loop join:\n{plan}")
+                check(pairs == aux[q], f"{cell}: the residual join "
+                      f"expanded {pairs} pairs, numpy counts {aux[q]}")
+                summaries[cell]["residual_pairs"] = pairs
+                print(f"  {cell.upper()}: the residual join expanded "
+                      f"{pairs} equi pairs (numpy {aux[q]}) through the "
+                      "equi matcher; no nested-loop join in the plan")
             if label == "pq_bb":
                 print_scan(cell.upper(), summaries[cell])
             for k in wrappers.mods:
                 launches[k] = launches.get(k, 0) + got_launches[k]
                 calls[k] += got_calls[k]
             if profile:
-                profile_query(torch, cell, build, mid)
+                summaries[cell]["busy"] = profile_query(torch, cell, build,
+                                                        mid)
+            elif label == "bb":
+                summaries[cell]["busy"] = busy_share(torch, cell.upper(),
+                                                     build, mid)
         if label == "pq_bb":
             # pq_bb_q30 once more with the pipeline off, and every level
             # and index stream of these files through both run slicers
@@ -1806,6 +2561,7 @@ def run_tpcxbb(torch, ctx, session, wrappers, xbb_clicks: int, seed: int,
                 tpcxbb.q05(dfs).collect()
             left_calls = [c for c in dj.calls if len(c) > 5
                           and c[5] == "left"]
+            del dfs, pivot
     return summaries, launches, calls, left_calls
 
 
@@ -1939,22 +2695,42 @@ def trace_run(torch, build, labels):
     return wall_us, kernels, prof
 
 
-def profile_query(torch, name, build, exec_ms) -> None:
-    """Trace two warm runs of a query: device time by kernel and by
-    operator, and the device's busy share of the run's wall time, from
-    the trace that holds more device spans. A trace can lose spans (one
-    of Q6 showed 37 launches where the next showed 137), so both counts
-    are printed and a gap of more than 1 % is named."""
-    labels = set(exec_ms)
-    traces = [trace_run(torch, build, labels) for _ in range(2)]
-    counts = [len(t[1]) for t in traces]
-    wall_us, kernels, prof = max(traces, key=lambda t: len(t[1]))
+def _busy_us(kernels) -> float:
+    """Device-busy microseconds of a trace: its kernel and copy spans
+    merged where they overlap."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
             busy += b - max(a, end)
             end = b
+    return busy
+
+
+def busy_share(torch, name, build, exec_ms) -> dict:
+    """One traced warm run of a query: its wall time, the device's busy
+    time and share of it, and its launches."""
+    wall_us, kernels, _ = trace_run(torch, build, set(exec_ms))
+    busy = _busy_us(kernels)
+    print(f"  {name} traced warm run: wall {wall_us / 1e3:.3f} ms, device "
+          f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
+          f"{len(kernels)} launches")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "share": busy / wall_us, "launches": len(kernels)}
+
+
+def profile_query(torch, name, build, exec_ms) -> dict:
+    """Trace two warm runs of a query: device time by kernel and by
+    operator, and the device's busy share of the run's wall time, from
+    the trace that holds more device spans. A trace can lose spans (one
+    of Q6 showed 37 launches where the next showed 137), so both counts
+    are printed and a gap of more than 1 % is named. Returns what
+    :func:`busy_share` does."""
+    labels = set(exec_ms)
+    traces = [trace_run(torch, build, labels) for _ in range(2)]
+    counts = [len(t[1]) for t in traces]
+    wall_us, kernels, prof = max(traces, key=lambda t: len(t[1]))
+    busy = _busy_us(kernels)
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
@@ -1971,6 +2747,8 @@ def profile_query(torch, name, build, exec_ms) -> None:
           f"{len(kernels)} kernel launches (traces: {counts[0]}, "
           f"{counts[1]}{'; one trace lost spans' if lost else ''}); top: "
           + "; ".join(f"{n[:60]} {us / 1e3:.3f} ms" for n, us in top))
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "share": busy / wall_us, "launches": len(kernels)}
 
 
 # --------------------------------------------------------------------------
@@ -3190,10 +3968,10 @@ def main() -> int:
           f"l_shipdate, Q1 over two hash repartitions of lineitem, Q5, "
           f"Q12, Q14, Q19, xbb_score, Q10, Q18, Q2, Q7, Q8, Q9, Q11, Q13, "
           f"Q15, Q16, Q17, Q20, Q21, the nine bench queries over SF1 "
-          f"parquet (pq_q1 also with the pipeline off), the TPCxBB "
-          f"entries bb_q01, bb_q05 and bb_q30 "
-          f"at {args.xbb_clicks} clicks and over parquet at "
-          f"{BENCH_XBB_CLICKS}, the entry stage, "
+          f"parquet (pq_q1 also with the pipeline off), the 30 TPCxBB "
+          f"queries bb_q01 ... bb_q30 and bb_q02_pivot "
+          f"at {args.xbb_clicks} clicks, bb_q01, bb_q05 and bb_q30 over "
+          f"parquet at {BENCH_XBB_CLICKS}, the entry stage, "
           f"group_ids over two string keys, Q1, Q3, Q4 and Q6 over a "
           f"4-shard mesh on the card, distributed_sum_by_key, "
           f"lineitem_rows={args.lineitem_rows}")

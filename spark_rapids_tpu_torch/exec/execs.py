@@ -3,8 +3,8 @@ what TPC-H Q1, Q3, Q4, Q6 and Q22 run, over a hash exchange or not:
 device source, filter, project, hash aggregate (grouped and global,
 partial per batch plus merge), shuffled hash join (inner, left outer,
 semi and anti; direct-address modes, the exact binary-search path and
-the general multi-key matcher), top-k, sort,
-limit, and the device-to-host transition. The nested-loop joins are in
+the general multi-key matcher; a residual condition), union, top-k,
+sort, limit, and the device-to-host transition. The nested-loop joins are in
 :mod:`.joins`, the shuffle exchange in :mod:`..shuffle.exchange`.
 
 Execution model, the reference's: every operator's ``execute(ctx)``
@@ -235,6 +235,31 @@ class ReusedExec(TorchExec):
             parts = [list(p) for p in self.children[0].execute(ctx)]
             ctx.reused[id(self)] = parts
         return [list(p) for p in parts]
+
+
+class UnionExec(TorchExec):
+    """``UNION ALL``: every child's partitions in turn, their batches
+    relabelled to the union's schema (the reference's
+    ``TpuUnionExec``). A consumer that accumulates them concatenates
+    their dictionaries (:mod:`..ops.kernels.concat`)."""
+
+    def __init__(self, children: List[TorchExec], schema: T.Schema):
+        self.children = list(children)
+        self._schema = schema
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def describe(self):
+        return "Union"
+
+    def execute(self, ctx):
+        def relabel(part):
+            for b in part:
+                yield ColumnarBatch(b.columns, b.n_rows, self._schema,
+                                    live=b.live)
+        return [relabel(p) for c in self.children for p in c.execute(ctx)]
 
 
 class ProjectExec(TorchExec):
@@ -474,16 +499,24 @@ class ShuffledHashJoinExec(TorchExec):
     and every other key set, takes the exact path (:func:`join_exact`).
     Semi and anti joins keep the probe's columns and mark its kept rows
     live; a left join keeps every probe row, with a null build side
-    where it found no match."""
+    where it found no match.
+
+    A residual ``condition`` (the join's non-equi terms, over the probe's
+    then the build's columns) must also hold for a pair to match. An
+    inner join filters its output by it, from the build-table mode or
+    the exact path; every other type takes :func:`join_residual`, which
+    evaluates it on the expanded pairs during matching. The pair count
+    adds to the ``<name>.pairs`` counter."""
 
     def __init__(self, left: TorchExec, right: TorchExec, join_type: str,
                  left_keys: List[Expression], right_keys: List[Expression],
-                 schema: T.Schema):
+                 schema: T.Schema, condition: Optional[Expression] = None):
         self.children = [left, right]
         self.join_type = join_type
         self.left_keys = left_keys
         self.right_keys = right_keys
         self._schema = schema
+        self.condition = condition
 
     @property
     def schema(self):
@@ -492,7 +525,8 @@ class ShuffledHashJoinExec(TorchExec):
     def describe(self):
         keys = ", ".join(f"{l}={r}" for l, r in
                          zip(self.left_keys, self.right_keys))
-        return f"ShuffledHashJoin {self.join_type} [{keys}]"
+        cond = "" if self.condition is None else f" ({self.condition})"
+        return f"ShuffledHashJoin {self.join_type} [{keys}]{cond}"
 
     def execute(self, ctx):
         left, right = self.children
@@ -501,24 +535,47 @@ class ShuffledHashJoinExec(TorchExec):
         site = ctx.next_site("join")
         lkeys = _bind_all(self.left_keys, left.schema)
         rkeys = _bind_all(self.right_keys, right.schema)
+        jt = self.join_type
+        cond = None
+        if self.condition is not None:
+            cond = self.condition.bind(
+                T.Schema(list(left.schema) + list(right.schema)))
         mode = 1 + ctx.mode(site)
-        if mode == 2 and self.join_type != "inner":
-            mode = 3  # the swapped table exists for inner joins only
+        if cond is not None and jt != "inner":
+            mode = 3  # the residual applies during matching
+        elif mode == 2 and (jt != "inner" or cond is not None):
+            # the swapped table exists for inner joins only, and its
+            # build-order output would reorder a residual join's rows
+            mode = 3
         with ctx.timed(self.name):
             pk = [e.eval_device(probe) for e in lkeys]
             bk = [e.eval_device(build) for e in rkeys]
-            if KJ.dense_joinable(self.join_type, rkeys) and mode <= 2:
+            if KJ.dense_joinable(jt, rkeys) and mode <= 2:
                 if mode == 1:
                     out, fail = KJ.dense_join(probe, build, pk[0], bk[0],
-                                              self._schema, self.join_type)
+                                              self._schema, jt)
                 else:
                     out, fail = KJ.dense_join_swapped(probe, build, pk[0],
                                                       bk[0], self._schema)
                 ctx.report(site, fail)
+                return [[_post_filter(out, cond)]]
+            if cond is not None:
+                out, n_pairs = join_residual(jt, probe, build, pk, bk,
+                                             self._schema, cond)
+                ctx.count(self.name + ".pairs", n_pairs)
                 return [[out]]
-            out, _ = join_exact(self.join_type, probe, build, pk, bk,
-                                self._schema)
+            out, _ = join_exact(jt, probe, build, pk, bk, self._schema)
             return [[out]]
+
+
+def _post_filter(batch: ColumnarBatch, cond: Optional[Expression]
+                 ) -> ColumnarBatch:
+    """An inner join's output kept where the residual holds (lazy; the
+    reference's ``join_post_filter``)."""
+    if cond is None:
+        return batch
+    m = cond.eval_device(batch)
+    return KR.compact(batch, m.data & m.validity)
 
 
 def join_exact(join_type: str, probe: ColumnarBatch, build: ColumnarBatch,
@@ -535,14 +592,7 @@ def join_exact(join_type: str, probe: ColumnarBatch, build: ColumnarBatch,
     device, which may exceed ``out_cap`` (the caller re-runs bigger), and
     None for semi and anti joins."""
     live_p = probe.row_mask()
-    if len(bk) == 1 and KJ.binsearch_joinable(bk[0]) \
-            and KJ.binsearch_joinable(pk[0]):
-        lo, counts, build_at_rank = KJ.join_match_binsearch(
-            bk[0], pk[0], build.row_mask(), live_p)
-    else:
-        lo, counts, build_at_rank = KJ.join_match(
-            bk, pk, build.row_mask(), live_p)
-    counts = torch.where(live_p, counts, 0)
+    lo, counts, build_at_rank = _match_ranges(probe, build, pk, bk)
     if join_type in ("left_semi", "left_anti"):
         keep = counts > 0 if join_type == "left_semi" \
             else live_p & (counts == 0)
@@ -559,6 +609,76 @@ def join_exact(join_type: str, probe: ColumnarBatch, build: ColumnarBatch,
     pcols = KR.gather_columns(probe.columns, p_idx, out_live)
     bcols = KR.gather_columns(build.columns, b_idx, out_live & matched[p_idx])
     return ColumnarBatch(pcols + bcols, n_out, out_schema), total
+
+
+def _match_ranges(probe: ColumnarBatch, build: ColumnarBatch, pk, bk):
+    """``(lo, counts, build_at_rank)`` of every probe row (no matches for
+    a dead one): the binary search for one integer key, else the general
+    matcher."""
+    live_p = probe.row_mask()
+    if len(bk) == 1 and KJ.binsearch_joinable(bk[0]) \
+            and KJ.binsearch_joinable(pk[0]):
+        lo, counts, build_at_rank = KJ.join_match_binsearch(
+            bk[0], pk[0], build.row_mask(), live_p)
+    else:
+        lo, counts, build_at_rank = KJ.join_match(
+            bk, pk, build.row_mask(), live_p)
+    return lo, torch.where(live_p, counts, 0), build_at_rank
+
+
+def join_residual(join_type: str, probe: ColumnarBatch, build: ColumnarBatch,
+                  pk, bk, out_schema: T.Schema, cond: Expression):
+    """An equi join whose pairs must also pass ``cond`` (bound to the
+    probe's then the build's columns). The equi keys give every probe row
+    its match range; the ranges expand into (probe, build) pairs at the
+    ladder rung of their exact count (one host read); ``cond`` runs on
+    the gathered pairs; a scatter-add then counts each probe row's
+    passing pairs. The rows come in the order of the reference's
+    nested-loop join: an inner join's passing pairs, probe-major (build
+    rows in their order); a semi join's probe rows with a passing pair,
+    an anti join's live probe rows with none (both in place, lazy); a
+    left join's passing pairs, then each live probe row with none,
+    null-extended, in probe order. Returns ``(batch, pairs)``."""
+    dev = probe.device
+    live_p = probe.row_mask()
+    lo, counts, build_at_rank = _match_ranges(probe, build, pk, bk)
+    n_pairs = int(counts.sum())
+    cap = bucket_capacity(max(n_pairs, 1))
+    p_idx, b_idx, n_out, _ = KJ.expand_matches_binsearch(
+        lo, counts, build_at_rank, cap)
+    pair_live = torch.arange(cap, device=dev) < n_out
+    pair_schema = T.Schema(list(probe.schema) + list(build.schema))
+    pairs = ColumnarBatch(
+        KR.gather_columns(probe.columns, p_idx, pair_live)
+        + KR.gather_columns(build.columns, b_idx, pair_live),
+        n_out, pair_schema)
+    m = cond.eval_device(pairs)
+    ok = m.data & m.validity & pair_live
+    if join_type == "inner":
+        return ColumnarBatch(pairs.columns, ok.sum(), out_schema,
+                             live=ok), n_pairs
+    passed = torch.zeros(probe.capacity, dtype=torch.int32, device=dev)
+    passed = passed.index_add_(0, p_idx, ok.to(torch.int32)) > 0
+    if join_type in ("left_semi", "left_anti"):
+        keep = passed & live_p if join_type == "left_semi" \
+            else live_p & ~passed
+        return ColumnarBatch(probe.columns, keep.sum(), out_schema,
+                             live=keep), n_pairs
+    if join_type != "left":
+        raise NotImplementedError(f"{join_type} join with a residual")
+    sel = torch.nonzero(ok).squeeze(1)
+    alone = torch.nonzero(live_p & ~passed).squeeze(1)
+    n = sel.numel() + alone.numel()
+    out_cap = bucket_capacity(max(n, 1))
+    pad = torch.zeros(out_cap - n, dtype=torch.int64, device=dev)
+    p_rows = torch.cat([p_idx[sel], alone, pad])
+    b_rows = torch.cat([b_idx[sel], torch.zeros_like(alone), pad])
+    live = torch.arange(out_cap, device=dev) < n
+    b_live = torch.arange(out_cap, device=dev) < sel.numel()
+    cols = KR.gather_columns(probe.columns, p_rows, live) \
+        + KR.gather_columns(build.columns, b_rows, b_live)
+    return ColumnarBatch(cols, torch.tensor(n, device=dev), out_schema), \
+        n_pairs
 
 
 class TopKExec(TorchExec):

@@ -313,6 +313,8 @@ def _compile_join(node: E.ShuffledHashJoinExec,
              f"{jt} join over the mesh")
     _require(len(node.left_keys) == 1,
              "multi-key join over the mesh")
+    _require(node.condition is None,
+             "join with a residual condition over the mesh")
     for k in node.left_keys + node.right_keys:
         _require(k.data_type is not T.STRING and not k.data_type.is_floating,
                  "string or float join key over the mesh")

@@ -19,7 +19,8 @@ from typing import List, Optional
 
 from .. import types as T
 from .arithmetic import Divide
-from .expression import Cast, Expression
+from .cast import Cast
+from .expression import Expression
 
 
 @dataclasses.dataclass(frozen=True)

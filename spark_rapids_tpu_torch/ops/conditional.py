@@ -1,9 +1,10 @@
 """Conditional expressions — port of ``spark_rapids_tpu/ops/conditional.py``,
-cut to ``If`` over fixed-width branches (numbers, dates, bools), the form
-TPC-H Q12 and Q14 take, and ``Coalesce`` over fixed-width or dictionary
-string branches (TPCxBB q05). A flat string branch raises: the
-reference builds it through the char matrix, and the port moves strings
-by their layout. ``CaseWhen`` is not ported yet.
+cut to ``If`` over fixed-width branches (numbers, dates, bools: TPC-H
+Q12 and Q14) or dictionary string branches (TPCxBB q27, q28), and
+``Coalesce`` over fixed-width or dictionary string branches (TPCxBB
+q05). A flat string branch raises: the reference builds it through the
+char matrix, and the port moves strings by their layout; it comes with
+``CaseWhen`` (queue A4 of ``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -20,7 +21,11 @@ from .kernels.rowops import merged_dictionary_codes
 class If(Expression):
     """``IF(predicate, true_value, false_value)``: SQL's three-valued
     logic sends a null predicate to the false branch. The result has the
-    true branch's type, as in the reference."""
+    true branch's type, as in the reference. String branches must be
+    dictionary columns (a string literal is a one-entry one): their
+    dictionaries merge on the host into one sorted, unique dictionary,
+    as ``Coalesce``'s do, and each row takes its branch's remapped
+    code."""
 
     def __init__(self, predicate: Expression, true_value: Expression,
                  false_value: Expression):
@@ -35,10 +40,17 @@ class If(Expression):
 
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         p, t, f = (c.eval_device(batch) for c in self.children)
-        if t.is_string or f.is_string:
-            raise NotImplementedError(
-                "IF with string branches is not ported yet")
         take_true = p.data & p.validity
+        if t.is_string or f.is_string:
+            if not (t.is_dict and f.is_dict):
+                raise NotImplementedError(
+                    "IF with a flat string branch is not ported yet "
+                    "(with CaseWhen, ROADMAP A4)")
+            entries, (ct, cf) = merged_dictionary_codes([t, f])
+            codes = torch.where(take_true, ct, cf)
+            validity = torch.where(take_true, t.validity, f.validity)
+            return dictionary_column(torch.where(validity, codes, 0),
+                                     validity, entries, dict_sorted=True)
         data = torch.where(take_true, t.data, f.data)
         validity = torch.where(take_true, t.validity, f.validity)
         return make_column(data, validity, self.data_type)

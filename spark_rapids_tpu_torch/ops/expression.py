@@ -277,29 +277,10 @@ class BinaryExpression(Expression):
         raise NotImplementedError
 
 
-class Cast(UnaryExpression):
-    """Numeric widening cast (the coercion the analyzer inserts)."""
-
-    def __init__(self, child: Expression, to: T.DataType):
-        super().__init__(child)
-        self.to = to
-
-    @property
-    def data_type(self) -> T.DataType:
-        return self.to
-
-    def with_children(self, children):
-        return Cast(children[0], self.to)
-
-    def do_device(self, data):
-        return data.to(self.to.torch_dtype), None
-
-    def __str__(self) -> str:
-        return f"cast({self.child} as {self.to})"
-
-
 def coerce_binary(l: Expression, r: Expression):
-    """Cast both numeric sides to their promoted type."""
+    """Cast both numeric sides to their promoted type
+    (:class:`.cast.Cast`)."""
+    from .cast import Cast
     lt, rt = l.data_type, r.data_type
     if lt is rt or not (lt.is_numeric and rt.is_numeric):
         return l, r

@@ -1,11 +1,14 @@
 """String expressions — port of ``spark_rapids_tpu/ops/strings.py``, cut
 to ``Substring`` with literal position and length, the form TPC-H Q22's
-country code takes, and ``StartsWith``, ``EndsWith`` and ``Contains``
-with a literal needle (the reference's ``_FixMatch``: Q2, Q9, Q13, Q14,
-Q16, Q19, Q20). Byte semantics, as the reference's device path.
+country code takes, ``StartsWith``, ``EndsWith`` and ``Contains`` with a
+literal needle (the reference's ``_FixMatch``: Q2, Q9, Q13, Q14, Q16,
+Q19, Q20), and SQL ``LIKE`` (TPCxBB q18, q19, q27). Byte semantics, as
+the reference's device path.
 """
 
 from __future__ import annotations
+
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -179,3 +182,148 @@ class Contains(_FixMatch):
         lo = starts.clamp(0, size)
         hi = (ends - k + 1).clamp(0, size)
         return (ends - starts >= k) & (before[hi] > before[lo])
+
+
+#: Token kinds of a LIKE pattern (:meth:`Like.tokens`).
+_LIT, _ONE, _ANY = 0, 1, 2
+
+
+def _like_dp(n: int, w: int,
+             byte_at: Callable[[int], Tuple[torch.Tensor, torch.Tensor]],
+             toks: List[Tuple[int, int]], device) -> torch.Tensor:
+    """The reference's wildcard walk (``_like_dp``) over ``n`` strings of
+    at most ``w`` bytes: ``byte_at(j)`` gives every string's byte at
+    position ``j`` (int) and whether the string has one there. State
+    ``i`` holds "the first ``i`` tokens matched the bytes read so far";
+    a string's answer is the last state after its last byte (positions
+    past a string's end leave its states as they are).
+
+    ``_`` is UTF-8-aware: it takes one lead byte, and continuation bytes
+    (``10xxxxxx``) then extend the same state, so it matches one
+    character. ``%`` needs no such care: the literal after it starts
+    with a lead byte and never matches inside a character."""
+    p = len(toks)
+    dp = [torch.ones(n, dtype=torch.bool, device=device)]
+    for i in range(1, p + 1):
+        dp.append(dp[i - 1] & (toks[i - 1][0] == _ANY))
+    for j in range(w):
+        c, valid = byte_at(j)
+        cont = (c & 0xC0) == 0x80
+        ndp = [torch.zeros(n, dtype=torch.bool, device=device)]
+        for i in range(1, p + 1):
+            kind, lit = toks[i - 1]
+            if kind == _ANY:
+                nd = ndp[i - 1] | dp[i] | dp[i - 1]
+            elif kind == _ONE:
+                nd = (dp[i - 1] & ~cont) | (dp[i] & cont)
+            else:
+                nd = dp[i - 1] & (c == lit)
+            ndp.append(nd)
+        dp = [torch.where(valid, a, b) for a, b in zip(ndp, dp)]
+    return dp[p]
+
+
+class Like(Expression):
+    """``str LIKE pattern`` with ``%`` (any run of characters) and ``_``
+    (one character); ``escape`` makes the next pattern byte literal. A
+    null string gives null.
+
+    The simple forms go to the port's own matchers, as in the reference:
+    ``%x%`` to :class:`Contains`, ``x%`` to :class:`StartsWith`, ``%x``
+    to :class:`EndsWith` and ``x`` to ``EqualTo`` (a flat column, which
+    ``EqualTo`` does not take yet, walks the pattern instead). Any other
+    pattern walks :func:`_like_dp`: once over a dictionary's entries,
+    the rows gathering their entry's answer by code, or over a flat
+    column's own offsets and payload, one byte position at a time up to
+    its longest live string (no ``[capacity, W]`` char matrix)."""
+
+    def __init__(self, child: Expression, pattern: str, escape: str = "\\"):
+        self.children = [child]
+        self.pattern = pattern
+        self.escape = escape
+
+    @property
+    def data_type(self) -> T.DataType:
+        return T.BOOLEAN
+
+    def with_children(self, children):
+        return Like(children[0], self.pattern, self.escape)
+
+    def simple_form(self) -> Optional[Tuple[str, str]]:
+        """``(kind, literal)`` when the pattern is a simple form (kind
+        ``contains``, ``prefix``, ``suffix`` or ``exact``), else None."""
+        p = self.pattern
+        if "_" in p or self.escape in p:
+            return None
+        inner = p.strip("%")
+        if "%" in inner:
+            return None
+        if p.startswith("%") and p.endswith("%") and len(p) >= 2:
+            return ("contains", inner)
+        if p.endswith("%") and not p.startswith("%"):
+            return ("prefix", inner)
+        if p.startswith("%"):
+            return ("suffix", inner)
+        return ("exact", inner)
+
+    def tokens(self) -> List[Tuple[int, int]]:
+        """The pattern as byte tokens ``(kind, byte)``: a literal byte,
+        ``_`` or ``%`` (runs of ``%`` collapse); the escape byte makes
+        the next byte a literal (a trailing escape is a literal
+        itself)."""
+        pb = self.pattern.encode("utf-8")
+        esc = self.escape.encode("utf-8")[0] if self.escape else None
+        toks: List[Tuple[int, int]] = []
+        i = 0
+        while i < len(pb):
+            b = pb[i]
+            if esc is not None and b == esc and i + 1 < len(pb):
+                toks.append((_LIT, pb[i + 1]))
+                i += 2
+                continue
+            if b == 0x25:
+                if not toks or toks[-1] != (_ANY, 0):
+                    toks.append((_ANY, 0))
+            elif b == 0x5F:
+                toks.append((_ONE, 0))
+            else:
+                toks.append((_LIT, b))
+            i += 1
+        return toks
+
+    def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
+        form = self.simple_form()
+        child = self.children[0]
+        if form is not None and form[0] != "exact":
+            impl = {"contains": Contains, "prefix": StartsWith,
+                    "suffix": EndsWith}[form[0]]
+            return impl(child, form[1]).eval_device(batch)
+        c = child.eval_device(batch)
+        if form is not None and c.is_dict:
+            from .predicates import EqualTo
+            return EqualTo(child, Literal(form[1], T.STRING)
+                           ).eval_device(batch)
+        toks = self.tokens()
+        if c.is_dict:
+            data = lift_dict(c, lambda m, _: _like_dp(
+                m.shape[0], m.shape[1], lambda j: (m[:, j], m[:, j] != PAD),
+                toks, m.device))
+        else:
+            data = self._match_flat(c, toks)
+        return make_column(data & c.validity, c.validity, T.BOOLEAN)
+
+    @staticmethod
+    def _match_flat(c: DeviceColumn, toks) -> torch.Tensor:
+        starts = c.offsets[:-1].long()
+        ends = c.offsets[1:].long()
+        payload = c.data
+        size = payload.shape[0]
+        n_len = torch.where(c.validity, ends - starts, 0)
+        w = int(n_len.max()) if n_len.numel() else 0
+
+        def byte_at(j):
+            pos = starts + j
+            valid = pos < ends
+            b = payload[pos.clamp(0, max(size - 1, 0))].to(torch.int16)
+            return b, valid
+        return _like_dp(c.capacity, w, byte_at, toks, c.device)

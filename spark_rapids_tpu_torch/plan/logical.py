@@ -2,10 +2,12 @@
 ``spark_rapids_tpu/plan/logical.py``, cut to what the TPC-H queries run:
 a device table or a parquet scan, ``select``, ``where``, ``with_column``
 (a window expression appends a window column), ``with_windows``, equi
-``join`` (inner, left, left_semi, left_anti), ``cross_join`` (a keyless
-inner join is one, with its condition), ``group_by(...).agg`` (no keys:
-a global aggregate), ``distinct``, ``sort``, ``limit``, ``repartition``
-(hash on columns, or round-robin) and ``collect``.
+``join`` (inner, left, left_semi, left_anti; the terms of ``on`` that
+are not ``left = right`` stay as the join's residual condition),
+``cross_join`` (a keyless inner join is one, with its condition),
+``group_by(...).agg`` (no keys: a global aggregate), ``distinct``,
+``union``, ``sort``, ``limit``, ``repartition`` (hash on columns, or
+round-robin) and ``collect``.
 
 Analysis is eager, as in the reference: every node resolves attribute
 types against its child's schema and inserts numeric coercion casts when
@@ -177,9 +179,10 @@ class Aggregate(LogicalPlan):
 
 class Join(LogicalPlan):
     """Equi join (inner, left, left_semi, left_anti) or cross join (no
-    keys, an optional condition over both sides' columns): left is the
-    probe side, right the build side. A left join's build-side fields
-    are nullable."""
+    keys): left is the probe side, right the build side. ``condition``,
+    over both sides' columns, is a cross join's filter or an equi join's
+    residual, which a matching pair must also pass. A left join's
+    build-side fields are nullable."""
 
     TYPES = ("inner", "left", "left_semi", "left_anti", "cross")
 
@@ -193,9 +196,6 @@ class Join(LogicalPlan):
         if (join_type == "cross") != (not left_keys):
             raise ValueError("a cross join takes no keys; every other join "
                              "needs them")
-        if condition is not None and join_type != "cross":
-            raise NotImplementedError(
-                "residual conditions on equi joins are not ported yet")
         self.children = [left, right]
         self.join_type = join_type
         lk, rk = [], []
@@ -225,6 +225,27 @@ class Join(LogicalPlan):
         keys = ", ".join(f"{l}={r}" for l, r in
                          zip(self.left_keys, self.right_keys))
         return f"Join {self.join_type} [{keys}]"
+
+
+class Union(LogicalPlan):
+    """``UNION ALL`` of children with the same column types: the first
+    child's names, each field nullable when it is in any child."""
+
+    def __init__(self, children: List[LogicalPlan]):
+        self.children = list(children)
+        s0 = self.children[0].schema
+        for c in self.children[1:]:
+            if [f.data_type.name for f in c.schema] != \
+                    [f.data_type.name for f in s0]:
+                raise TypeError("union requires matching column types")
+
+    @property
+    def schema(self) -> T.Schema:
+        first = self.children[0].schema
+        nullable = [any(c.schema[i].nullable for c in self.children)
+                    for i in range(len(first))]
+        return T.Schema([T.StructField(f.name, f.data_type, n)
+                         for f, n in zip(first, nullable)])
 
 
 class WindowOp(LogicalPlan):
@@ -409,8 +430,9 @@ class DataFrame:
 
     def join(self, other: "DataFrame", on: Optional[Expression] = None,
              how: str = "inner") -> "DataFrame":
-        """Equi join on the ``left = right`` terms of ``on``. An inner join
-        with no equi term is a cross join filtered by ``on``."""
+        """Equi join on the ``left = right`` terms of ``on``; its other
+        terms are the join's residual condition. An inner join with no
+        equi term is a cross join filtered by ``on``."""
         if on is None:
             jt = "cross" if how in ("inner", "cross") else how
             return DataFrame(Join(self._plan, other._plan, jt, [], []),
@@ -433,6 +455,10 @@ class DataFrame:
         return DataFrame(
             Aggregate(self._plan, [col(n) for n in self.columns], []),
             self._session)
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """``UNION ALL``: this frame's rows, then ``other``'s."""
+        return DataFrame(Union([self._plan, other._plan]), self._session)
 
     def sort(self, *orders) -> "DataFrame":
         so = [o if isinstance(o, SortOrder) else SortOrder(_as_expr(o))

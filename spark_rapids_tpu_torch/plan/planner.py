@@ -11,7 +11,13 @@ below ``spark.rapids.tpu.sort.topKThreshold`` plans as a top-k, as the
 reference's limit-into-sort rule does; a repartition plans as the
 shuffle exchange (``planner.py:140-146`` plans it on the CPU and
 ``overrides`` moves it to the device); a window node plans as
-:class:`~..exec.window_exec.WindowExec` (``overrides.py:518``).
+:class:`~..exec.window_exec.WindowExec` (``overrides.py:518``); a union
+as :class:`~..exec.execs.UnionExec`. An equi join with a residual
+condition keeps its keys and takes the condition into the hash join
+(:func:`~..exec.execs.join_exact`), whatever its type: the reference
+plans a non-inner one as a nested-loop join on the CPU
+(``planner.py:52-70``), whose pair grid a TPCxBB click-to-sale join
+makes too large to run.
 
 A subplan that the query references more than once (Q15's revenue
 view, Q22's filtered customers) plans once, as one
@@ -88,7 +94,9 @@ def _plan_node(plan: L.LogicalPlan, conf: TorchConf, sub) -> E.TorchExec:
         return E.ShuffledHashJoinExec(
             sub(plan.children[0]),
             sub(plan.children[1]), plan.join_type,
-            plan.left_keys, plan.right_keys, plan.schema)
+            plan.left_keys, plan.right_keys, plan.schema, plan.condition)
+    if isinstance(plan, L.Union):
+        return E.UnionExec([sub(c) for c in plan.children], plan.schema)
     if isinstance(plan, L.WindowOp):
         return WindowExec(sub(plan.children[0]),
                           plan.window_exprs, plan.schema)

@@ -103,9 +103,12 @@ def test_minus_keeps_signed_zero_and_wraps_the_minimum():
 
 
 def test_if_refuses_string_branches(both):
+    """A flat string branch raises (dictionary branches are taken, see
+    ``tests/test_torch_like_if.py``)."""
     _, pb = both
-    e = C.If(P.GreaterThan(col("k"), lit(3)), col("s"), lit("x"))
-    with pytest.raises(NotImplementedError, match="string"):
+    e = C.If(P.GreaterThan(col("k"), lit(3)),
+             S.Substring(col("s"), lit(1), lit(2)), lit("x"))
+    with pytest.raises(NotImplementedError, match="flat string"):
         L.resolve(e, pb.schema).bind(pb.schema).eval_device(pb)
 
 
