@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``spark_rapids_tpu_torch``) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py [--lineitem-rows N] [--xbb-clicks N] [--seed S]
-                          [--profile]
+    python3 chip_smoke.py [--lineitem-rows N] [--xbb-clicks N]
+                          [--ds-ss-rows N] [--seed S] [--profile]
 
 Phases; each one passes or the script exits non-zero:
 
@@ -110,7 +110,23 @@ Phases; each one passes or the script exits non-zero:
    equi matcher (their pair counts equal to numpy's, no nested-loop join
    in their plans); ``pq_bb_q30`` with the pipeline off equal to it on,
    bit for bit, and the ``pq_bb`` files' run tables equal between the
-   two slicers. Then the engine's entry stage
+   two slicers. Then the TPC-DS cells: the port's 33 queries
+   (``ds_q1`` ... ``ds_q98``: star joins, q5's three unioned channels,
+   the rollups q18, q22, q36 and q86 through Expand with ``Rank`` over
+   the grouping id, the full outer joins of q51 and q97, q44's global
+   ranks, q88's eight cross-joined counts) over
+   ``tpcds.gen_tables(2,880,404)`` (TPC-DS SF1's store_sales rows,
+   ``--ds-ss-rows``) uploaded to the card, and q1 and q68 once more over
+   stores moved to Oak Grove, TN (``ds_q1_tn``, ``ds_q68_tn``: at this
+   seed no store is in TN, Centerville or Oak Grove, and both return no
+   row): every answer equal to its numpy implementation here (the
+   ORDER BY's runs of equal keys compared as sets, floats to 1e-9
+   relative), its rows, warm and cold times, peak memory, two largest
+   execs and a traced warm run's busy share printed; an ``ExpandExec``
+   in every rollup's run, a full join in q51's and q97's plans;
+   ``joinProbe``, ``segmented`` and the ``strings`` gather launched over
+   the cells (``sortStep`` is not on their path: every sort is a
+   top-k). Then the engine's entry stage
    (``spark_rapids_tpu_torch.entry.entry``: filter, then the sort-path
    aggregate of sum, count, min and max) at its defaults (1,000 rows) and
    at SF1's 6,001,215 rows with 50 and with 1,500,000 keys: every group
@@ -2334,6 +2350,916 @@ XBB_FLOATS = {
     "q25": ["recency", "totalspend"]}
 
 
+# --------------------------------------------------------------------------
+# TPC-DS numpy references: each query's answer as ``{column: list}``
+# (``None`` for a null), every row of it in the query's ORDER BY (Spark's
+# null order), before its LIMIT; ``check_ds`` cuts and compares.
+# --------------------------------------------------------------------------
+
+
+def _ds_rows(cols: dict, keys) -> dict:
+    """The columns as lists (``None`` for a null), rows sorted by
+    ``keys`` (``(name, ascending)``, the first the most significant)
+    with Spark's null order: first when ascending, last when
+    descending."""
+    lists = {k: (v.tolist() if isinstance(v, np.ndarray) else list(v))
+             for k, v in cols.items()}
+    idx = list(range(len(next(iter(lists.values())))))
+    for name, asc in reversed(keys):
+        v = lists[name]
+        idx.sort(key=lambda i: (0, 0) if v[i] is None else (1, v[i]),
+                 reverse=not asc)
+    return {k: [v[i] for i in idx] for k, v in lists.items()}
+
+
+def _groups(keys, *values):
+    """``_group_sums`` with a row count last."""
+    n = len(keys[0])
+    return _group_sums(keys, *values, np.ones(n, np.int64))
+
+
+def _ds_dims(tables):
+    return {t: tables[t].columns for t in tables}
+
+
+def _between(x, lo, hi):
+    return (x >= lo) & (x <= hi)
+
+
+def numpy_ds_q3(tables):
+    c = _ds_dims(tables)
+    ss, d, it = c["store_sales"], c["date_dim"], c["item"]
+    dk, ik = ss["ss_sold_date_sk"], ss["ss_item_sk"]
+    m = (d["d_moy"][dk] == 11) & _between(it["i_manufact_id"][ik], 20, 45)
+    (yr, bid, br), (s,) = _group_sums(
+        [d["d_year"][dk][m], it["i_brand_id"][ik][m], it["i_brand"][ik][m]],
+        ss["ss_ext_sales_price"][m])
+    return _ds_rows({"d_year": yr, "i_brand_id": bid, "i_brand": br,
+                     "sum_agg": s},
+                    [("d_year", True), ("sum_agg", False),
+                     ("i_brand_id", True)])
+
+
+def _q5_channel(fact, ret, dim_ids, channel):
+    """One channel of q5: sales and returns in days 400-413 by the
+    dimension's id."""
+    fk, fd, fs, fp = fact
+    rk, rd, ra, rl = ret
+    mf = _between(fd, 400, 413)
+    mr = _between(rd, 400, 413)
+    ids = np.concatenate([dim_ids[fk[mf]], dim_ids[rk[mr]]])
+    zf, zr = np.zeros(mf.sum()), np.zeros(mr.sum())
+    sales = np.concatenate([fs[mf], zr])
+    returns = np.concatenate([zf, ra[mr]])
+    profit = np.concatenate([fp[mf], -rl[mr]])
+    (u,), (s, r, p) = _group_sums([ids], sales, returns, profit)
+    return {"channel": [channel] * len(u), "id": u.tolist(),
+            "sales": s.tolist(), "returns_": r.tolist(),
+            "profit": p.tolist()}
+
+
+def numpy_ds_q5(tables):
+    c = _ds_dims(tables)
+    ss, sr = c["store_sales"], c["store_returns"]
+    cs, cr = c["catalog_sales"], c["catalog_returns"]
+    ws, wr = c["web_sales"], c["web_returns"]
+    parts = [
+        _q5_channel((ss["ss_store_sk"], ss["ss_sold_date_sk"],
+                     ss["ss_ext_sales_price"], ss["ss_net_profit"]),
+                    (sr["sr_store_sk"], sr["sr_returned_date_sk"],
+                     sr["sr_return_amt"], sr["sr_net_loss"]),
+                    c["store"]["s_store_id"], "store channel"),
+        _q5_channel((cs["cs_catalog_page_sk"], cs["cs_sold_date_sk"],
+                     cs["cs_ext_sales_price"], cs["cs_net_profit"]),
+                    (cr["cr_catalog_page_sk"], cr["cr_returned_date_sk"],
+                     cr["cr_return_amount"], cr["cr_net_loss"]),
+                    c["catalog_page"]["cp_catalog_page_id"],
+                    "catalog channel"),
+        _q5_channel((ws["ws_web_site_sk"], ws["ws_sold_date_sk"],
+                     ws["ws_ext_sales_price"], ws["ws_net_profit"]),
+                    (wr["wr_web_site_sk"], wr["wr_returned_date_sk"],
+                     wr["wr_return_amt"], wr["wr_net_loss"]),
+                    c["web_site"]["web_site_id"], "web channel")]
+    cols = {k: sum((p[k] for p in parts), []) for k in parts[0]}
+    return _ds_rows(cols, [("channel", True), ("id", True)])
+
+
+def numpy_ds_q6(tables):
+    c = _ds_dims(tables)
+    ss, d, it = c["store_sales"], c["date_dim"], c["item"]
+    cat = it["i_category_id"]
+    (cats,), (tot, cnt) = _groups([cat], it["i_current_price"])
+    item_ok = it["i_current_price"] > 1.2 * _at(cats, tot / cnt, cat)
+    m = _between(d["d_month_seq"][ss["ss_sold_date_sk"]], 12, 18) \
+        & item_ok[ss["ss_item_sk"]]
+    addr = c["customer"]["c_current_addr_sk"][ss["ss_customer_sk"][m]]
+    st, n = np.unique(c["customer_address"]["ca_state"][addr],
+                      return_counts=True)
+    keep = n >= 3
+    return _ds_rows({"ca_state": st[keep], "cnt": n[keep].astype(np.int64)},
+                    [("cnt", True), ("ca_state", True)])
+
+
+def _demo_avgs(fact, prefix, m, keys, names):
+    """Averages of quantity, list price, coupon and sales price over the
+    rows ``m`` by ``keys`` (q7, q26, q27)."""
+    (*ks,), (q, lp, cp, sp, n) = _groups(
+        [k[m] for k in keys], fact[prefix + "quantity"][m].astype(np.int64),
+        fact[prefix + "list_price"][m], fact[prefix + "coupon_amt"][m],
+        fact[prefix + "sales_price"][m])
+    out = dict(zip(names, ks))
+    out.update(agg1=q / n, agg2=lp / n, agg3=cp / n, agg4=sp / n)
+    return out
+
+
+def _cd_ok(cd, gender, marital, edu):
+    return (cd["cd_gender"] == gender) & (cd["cd_marital_status"] == marital) \
+        & (cd["cd_education_status"] == edu)
+
+
+def numpy_ds_q7(tables):
+    c = _ds_dims(tables)
+    ss, d, it, p = c["store_sales"], c["date_dim"], c["item"], c["promotion"]
+    cd_ok = _cd_ok(c["customer_demographics"], "F", "W", "Primary")
+    promo_ok = (p["p_channel_email"] == "N") | (p["p_channel_event"] == "N")
+    pk = ss["ss_promo_sk"]
+    pv = tables["store_sales"].validity["ss_promo_sk"]
+    m = cd_ok[ss["ss_cdemo_sk"]] \
+        & (d["d_year"][ss["ss_sold_date_sk"]] == 1998) \
+        & pv & promo_ok[np.where(pv, pk, 0)]
+    out = _demo_avgs(ss, "ss_", m, [it["i_item_id"][ss["ss_item_sk"]]],
+                     ["i_item_id"])
+    return _ds_rows(out, [("i_item_id", True)])
+
+
+def _q13_q48_rows(c, year, cd_terms, ca_terms):
+    ss, d = c["store_sales"], c["date_dim"]
+    cd, ca = c["customer_demographics"], c["customer_address"]
+    ck, ak = ss["ss_cdemo_sk"], ss["ss_addr_sk"]
+    ms, es = cd["cd_marital_status"][ck], cd["cd_education_status"][ck]
+    price, profit = ss["ss_sales_price"], ss["ss_net_profit"]
+    state = ca["ca_state"][ak]
+    cd_ok = np.zeros(len(ck), bool)
+    for mar, edu, lo, hi in cd_terms:
+        cd_ok |= (ms == mar) & (es == edu) & _between(price, lo, hi)
+    ca_ok = np.zeros(len(ck), bool)
+    for states, lo, hi in ca_terms:
+        ca_ok |= np.isin(state, states) & _between(profit, lo, hi)
+    return (d["d_year"][ss["ss_sold_date_sk"]] == year) & cd_ok & ca_ok
+
+
+_CA_TERMS = [(["CA", "GA", "TX"], 0.0, 2000.0),
+             (["AL", "KY", "MN"], 150.0, 3000.0),
+             (["NC", "OH", "VA"], 50.0, 25000.0)]
+
+
+def numpy_ds_q13(tables):
+    c = _ds_dims(tables)
+    ss = c["store_sales"]
+    m = _q13_q48_rows(c, 2001, [("M", "College", 10.0, 60.0),
+                                ("S", "Primary", 20.0, 80.0),
+                                ("W", "2 yr Degree", 30.0, 100.0)],
+                      _CA_TERMS)
+    n = int(m.sum())
+    cost = ss["ss_ext_wholesale_cost"][m]
+
+    def avg(v):
+        return [float(v.sum()) / n if n else None]
+    return {"avg_qty": avg(ss["ss_quantity"][m]),
+            "avg_sales": avg(ss["ss_ext_sales_price"][m]),
+            "avg_cost": avg(cost),
+            "sum_cost": [float(cost.sum()) if n else None]}
+
+
+def numpy_ds_q15(tables):
+    c = _ds_dims(tables)
+    cs, d, ca = c["catalog_sales"], c["date_dim"], c["customer_address"]
+    addr = c["customer"]["c_current_addr_sk"][cs["cs_bill_customer_sk"]]
+    zp, st = ca["ca_zip"][addr], ca["ca_state"][addr]
+    dk = cs["cs_sold_date_sk"]
+    m = (d["d_qoy"][dk] == 2) & (d["d_year"][dk] == 2000) & (
+        np.isin(np.array([z[:2] for z in zp]), ["85", "86", "88"])
+        | np.isin(st, ["CA", "WA", "GA"]) | (cs["cs_sales_price"] > 500.0))
+    (z,), (s,) = _group_sums([zp[m]], cs["cs_sales_price"][m])
+    return _ds_rows({"ca_zip": z, "sum_sales": s}, [("ca_zip", True)])
+
+
+def _rollup(keys, names, values, finish, gid_name=None):
+    """Rows of a rollup over ``keys``: for each prefix of them (all down
+    to none) the groups of the present keys, the absent ones ``None``;
+    ``finish(sums)`` maps each group's sums of ``values`` to output
+    columns. With ``gid_name``, Spark's grouping id as a column."""
+    out = {nm: [] for nm in names + ([gid_name] if gid_name else [])}
+    k = len(keys)
+    for present in range(k, -1, -1):
+        if present:
+            ks, sums = _group_sums(list(keys[:present]), *values)
+            n_g = len(ks[0])
+        else:
+            ks, sums = [], [np.array([v.sum()]) for v in values]
+            n_g = 1 if len(values[0]) else 0
+        for i, nm in enumerate(names[:k]):
+            out[nm] += ks[i].tolist() if i < present else [None] * n_g
+        if gid_name:
+            out[gid_name] += [(1 << (k - present)) - 1] * n_g
+        for nm, v in finish(sums).items():
+            out[nm] += np.asarray(v).tolist()
+    return out
+
+
+def numpy_ds_q18(tables):
+    c = _ds_dims(tables)
+    cs, d, it = c["catalog_sales"], c["date_dim"], c["item"]
+    cu, ca = c["customer"], c["customer_address"]
+    cd_ok = ((c["customer_demographics"]["cd_gender"] == "F")
+             & (c["customer_demographics"]["cd_education_status"]
+                == "College"))
+    cust = cs["cs_bill_customer_sk"]
+    m = cd_ok[cs["cs_bill_cdemo_sk"]] \
+        & np.isin(cu["c_birth_month"][cust], [1, 3, 7, 11]) \
+        & (d["d_year"][cs["cs_sold_date_sk"]] == 1998)
+    addr = cu["c_current_addr_sk"][cust[m]]
+    keys = [it["i_item_id"][cs["cs_item_sk"][m]], ca["ca_country"][addr],
+            ca["ca_state"][addr], ca["ca_county"][addr]]
+    names = ["i_item_id", "ca_country", "ca_state", "ca_county",
+             "agg1", "agg2", "agg3", "agg4"]
+    vals = [cs["cs_quantity"][m].astype(np.int64), cs["cs_list_price"][m],
+            cs["cs_coupon_amt"][m], cs["cs_sales_price"][m],
+            np.ones(int(m.sum()), np.int64)]
+
+    def finish(s):
+        return {"agg1": s[0] / s[4], "agg2": s[1] / s[4],
+                "agg3": s[2] / s[4], "agg4": s[3] / s[4]}
+    return _ds_rows(_rollup(keys, names, vals, finish),
+                    [("ca_country", True), ("ca_state", True),
+                     ("ca_county", True), ("i_item_id", True)])
+
+
+def numpy_ds_q19(tables):
+    c = _ds_dims(tables)
+    ss, d, it = c["store_sales"], c["date_dim"], c["item"]
+    dk, ik = ss["ss_sold_date_sk"], ss["ss_item_sk"]
+    addr = c["customer"]["c_current_addr_sk"][ss["ss_customer_sk"]]
+    m = (d["d_moy"][dk] == 11) & (d["d_year"][dk] == 1999) \
+        & _between(it["i_manager_id"][ik], 1, 30) \
+        & (np.array([z[:5] for z in c["customer_address"]["ca_zip"]])[addr]
+           != np.array([z[:5] for z in c["store"]["s_zip"]])[
+               ss["ss_store_sk"]])
+    (bid, br, mf), (s,) = _group_sums(
+        [it["i_brand_id"][ik][m], it["i_brand"][ik][m],
+         it["i_manufact_id"][ik][m]], ss["ss_ext_sales_price"][m])
+    return _ds_rows({"i_brand_id": bid, "i_brand": br, "i_manufact_id": mf,
+                     "ext_price": s},
+                    [("ext_price", False), ("i_brand_id", True),
+                     ("i_manufact_id", True)])
+
+
+def _sale_return_rebuy(c, d1, d2, d3):
+    """q25 and q29's chain: (store sale rows, store return rows, catalog
+    sale rows) of every match, each leg's date in its set."""
+    ss, sr, cs = c["store_sales"], c["store_returns"], c["catalog_sales"]
+    s_rows = np.flatnonzero(d1[ss["ss_sold_date_sk"]])
+    r_rows = np.flatnonzero(d2[sr["sr_returned_date_sk"]])
+    c_rows = np.flatnonzero(d3[cs["cs_sold_date_sk"]])
+    li, ri = _eq_join(
+        [ss[k][s_rows] for k in ("ss_customer_sk", "ss_item_sk",
+                                 "ss_ticket_number")],
+        [sr[k][r_rows] for k in ("sr_customer_sk", "sr_item_sk",
+                                 "sr_ticket_number")])
+    s_rows, r_rows = s_rows[li], r_rows[ri]
+    li, ci = _eq_join([sr["sr_customer_sk"][r_rows], sr["sr_item_sk"][r_rows]],
+                      [cs["cs_bill_customer_sk"][c_rows],
+                       cs["cs_item_sk"][c_rows]])
+    return s_rows[li], r_rows[li], c_rows[ci]
+
+
+def _chain_sums(c, rows, values, names):
+    ss, st, it = c["store_sales"], c["store"], c["item"]
+    s_rows = rows[0]
+    ik, sk = ss["ss_item_sk"][s_rows], ss["ss_store_sk"][s_rows]
+    (iid, isk, sid, sname), sums = _group_sums(
+        [it["i_item_id"][ik], ik, st["s_store_id"][sk],
+         st["s_store_name"][sk]],
+        *[c[t][col][rows[leg]] for t, col, leg in values])
+    out = {"i_item_id": iid, "i_item_sk": isk, "s_store_id": sid,
+           "s_store_name": sname}
+    out.update(zip(names, sums))
+    return _ds_rows(out, [("i_item_id", True), ("i_item_sk", True),
+                          ("s_store_id", True), ("s_store_name", True)])
+
+
+def numpy_ds_q25(tables):
+    c = _ds_dims(tables)
+    d = c["date_dim"]
+    y2000 = d["d_year"] == 2000
+    rows = _sale_return_rebuy(c, y2000 & (d["d_moy"] == 4),
+                              y2000 & _between(d["d_moy"], 4, 10),
+                              y2000 & _between(d["d_moy"], 4, 10))
+    return _chain_sums(c, rows, [("store_sales", "ss_net_profit", 0),
+                                 ("store_returns", "sr_net_loss", 1),
+                                 ("catalog_sales", "cs_net_profit", 2)],
+                       ["store_sales_profit", "store_returns_loss",
+                        "catalog_sales_profit"])
+
+
+def numpy_ds_q26(tables):
+    c = _ds_dims(tables)
+    cs, d, it, p = c["catalog_sales"], c["date_dim"], c["item"], \
+        c["promotion"]
+    cd_ok = _cd_ok(c["customer_demographics"], "M", "S", "College")
+    promo_ok = (p["p_channel_email"] == "N") | (p["p_channel_event"] == "N")
+    m = cd_ok[cs["cs_bill_cdemo_sk"]] \
+        & (d["d_year"][cs["cs_sold_date_sk"]] == 2000) \
+        & promo_ok[cs["cs_promo_sk"]]
+    out = _demo_avgs(cs, "cs_", m, [it["i_item_id"][cs["cs_item_sk"]]],
+                     ["i_item_id"])
+    return _ds_rows(out, [("i_item_id", True)])
+
+
+def numpy_ds_q27(tables):
+    c = _ds_dims(tables)
+    ss, d, it, st = c["store_sales"], c["date_dim"], c["item"], c["store"]
+    cd_ok = _cd_ok(c["customer_demographics"], "F", "D", "Secondary")
+    state = st["s_state"][ss["ss_store_sk"]]
+    m = cd_ok[ss["ss_cdemo_sk"]] \
+        & (d["d_year"][ss["ss_sold_date_sk"]] == 1999) \
+        & np.isin(state, ["CA", "TX", "OH", "WA"])
+    out = _demo_avgs(ss, "ss_", m, [it["i_item_id"][ss["ss_item_sk"]], state],
+                     ["i_item_id", "s_state"])
+    return _ds_rows(out, [("i_item_id", True), ("s_state", True)])
+
+
+def numpy_ds_q29(tables):
+    c = _ds_dims(tables)
+    d = c["date_dim"]
+    y1999 = d["d_year"] == 1999
+    rows = _sale_return_rebuy(c, y1999 & (d["d_moy"] == 9),
+                              y1999 & _between(d["d_moy"], 9, 12),
+                              np.isin(d["d_year"], [1999, 2000, 2001]))
+    return _chain_sums(c, rows, [("store_sales", "ss_quantity", 0),
+                                 ("store_returns", "sr_return_quantity", 1),
+                                 ("catalog_sales", "cs_quantity", 2)],
+                       ["store_sales_quantity", "store_returns_quantity",
+                        "catalog_sales_quantity"])
+
+
+def numpy_ds_q34(tables):
+    c = _ds_dims(tables)
+    ss, d, st, hd = c["store_sales"], c["date_dim"], c["store"], \
+        c["household_demographics"]
+    dom = d["d_dom"]
+    d_ok = (_between(dom, 1, 3) | _between(dom, 25, 28)) \
+        & np.isin(d["d_year"], [1999, 2000, 2001])
+    hd_ok = np.isin(hd["hd_buy_potential"], [">10000", "Unknown"]) \
+        & (hd["hd_vehicle_count"] > 0)
+    m = d_ok[ss["ss_sold_date_sk"]] & hd_ok[ss["ss_hdemo_sk"]] \
+        & np.isin(st["s_state"][ss["ss_store_sk"]], ["CA", "TX", "OH", "WA"])
+    (tk, cust), (n,) = _group_sums(
+        [ss["ss_ticket_number"][m], ss["ss_customer_sk"][m]],
+        np.ones(int(m.sum()), np.int64))
+    keep = _between(n, 1, 20)
+    cu = c["customer"]
+    cust = cust[keep]
+    return _ds_rows({"c_last_name": cu["c_last_name"][cust],
+                     "c_first_name": cu["c_first_name"][cust],
+                     "ss_ticket_number": tk[keep], "cnt": n[keep]},
+                    [("c_last_name", True), ("c_first_name", True),
+                     ("cnt", False), ("ss_ticket_number", True)])
+
+
+def numpy_ds_q42(tables):
+    c = _ds_dims(tables)
+    ss, d, it = c["store_sales"], c["date_dim"], c["item"]
+    dk, ik = ss["ss_sold_date_sk"], ss["ss_item_sk"]
+    m = (d["d_moy"][dk] == 11) & (d["d_year"][dk] == 2000)
+    (yr, cid, cat), (s,) = _group_sums(
+        [d["d_year"][dk][m], it["i_category_id"][ik][m],
+         it["i_category"][ik][m]], ss["ss_ext_sales_price"][m])
+    return _ds_rows({"d_year": yr, "i_category_id": cid, "i_category": cat,
+                     "total_sales": s},
+                    [("total_sales", False), ("d_year", True),
+                     ("i_category_id", True), ("i_category", True)])
+
+
+def _city_tickets(c, m, values, names, out_names, keys):
+    """q46 and q68: per (ticket, customer, bought city) sums over the
+    rows ``m``, joined to the customer and their current address, kept
+    where the current city differs from the bought one."""
+    ss, ca, cu = c["store_sales"], c["customer_address"], c["customer"]
+    bought = ca["ca_city"][ss["ss_addr_sk"][m]]
+    (tk, cust, bc), sums = _group_sums(
+        [ss["ss_ticket_number"][m], ss["ss_customer_sk"][m], bought],
+        *[ss[v][m] for v in values])
+    city = ca["ca_city"][cu["c_current_addr_sk"][cust]]
+    keep = city != bc
+    out = {"c_last_name": cu["c_last_name"][cust][keep],
+           "c_first_name": cu["c_first_name"][cust][keep],
+           "ca_city": city[keep], "bought_city": bc[keep],
+           "ss_ticket_number": tk[keep]}
+    out.update({nm: s[keep] for nm, s in zip(names, sums)})
+    return _ds_rows({k: out[k] for k in out_names}, keys)
+
+
+def numpy_ds_q46(tables):
+    c = _ds_dims(tables)
+    ss, d, st, hd = c["store_sales"], c["date_dim"], c["store"], \
+        c["household_demographics"]
+    hd_ok = (hd["hd_dep_count"] == 4) | (hd["hd_vehicle_count"] == 3)
+    d_ok = np.isin(d["d_day_name"], ["Saturday", "Sunday"]) \
+        & np.isin(d["d_year"], [1999, 2000, 2001])
+    m = d_ok[ss["ss_sold_date_sk"]] & hd_ok[ss["ss_hdemo_sk"]] \
+        & np.isin(st["s_city"][ss["ss_store_sk"]], ["Fairview", "Midway"])
+    return _city_tickets(
+        c, m, ["ss_coupon_amt", "ss_net_profit"], ["amt", "profit"],
+        ["c_last_name", "c_first_name", "ca_city", "bought_city",
+         "ss_ticket_number", "amt", "profit"],
+        [("c_last_name", True), ("c_first_name", True), ("ca_city", True),
+         ("bought_city", True), ("ss_ticket_number", True)])
+
+
+def numpy_ds_q48(tables):
+    c = _ds_dims(tables)
+    m = _q13_q48_rows(c, 1999, [("M", "4 yr Degree", 10.0, 60.0),
+                                ("D", "Secondary", 20.0, 80.0),
+                                ("S", "College", 30.0, 100.0)], _CA_TERMS)
+    q = c["store_sales"]["ss_quantity"][m]
+    return {"total_qty": [int(q.sum()) if len(q) else None]}
+
+
+def _brand_month(c, moy, year, item_ok=None):
+    ss, d, it = c["store_sales"], c["date_dim"], c["item"]
+    dk, ik = ss["ss_sold_date_sk"], ss["ss_item_sk"]
+    m = (d["d_moy"][dk] == moy) & (d["d_year"][dk] == year)
+    if item_ok is not None:
+        m &= item_ok[ik]
+    return d["d_year"][dk][m], it["i_brand_id"][ik][m], \
+        it["i_brand"][ik][m], ss["ss_ext_sales_price"][m]
+
+
+def numpy_ds_q52(tables):
+    c = _ds_dims(tables)
+    yr, bid, br, price = _brand_month(c, 12, 1998)
+    (yr, bid, br), (s,) = _group_sums([yr, bid, br], price)
+    return _ds_rows({"d_year": yr, "i_brand_id": bid, "i_brand": br,
+                     "ext_price": s},
+                    [("d_year", True), ("ext_price", False),
+                     ("i_brand_id", True)])
+
+
+def numpy_ds_q55(tables):
+    c = _ds_dims(tables)
+    _, bid, br, price = _brand_month(
+        c, 11, 1999, _between(c["item"]["i_manager_id"], 28, 35))
+    (bid, br), (s,) = _group_sums([bid, br], price)
+    return _ds_rows({"i_brand_id": bid, "i_brand": br, "ext_price": s},
+                    [("ext_price", False), ("i_brand_id", True)])
+
+
+_DAYS = ["sun", "mon", "tue", "wed", "thu", "fri", "sat"]
+_DAY_NAMES = ["Sunday", "Monday", "Tuesday", "Wednesday", "Thursday",
+              "Friday", "Saturday"]
+
+
+def numpy_ds_q59(tables):
+    c = _ds_dims(tables)
+    ss, d = c["store_sales"], c["date_dim"]
+    dk = ss["ss_sold_date_sk"]
+    day = d["d_day_name"][dk]
+    price = ss["ss_sales_price"]
+    (wk, st), sums = _group_sums(
+        [d["d_week_seq"][dk], ss["ss_store_sk"]],
+        *[np.where(day == nm, price, 0.0) for nm in _DAY_NAMES])
+    y1 = np.flatnonzero(_between(wk, 1462, 1487))
+    y2 = np.flatnonzero(_between(wk, 1514, 1539))
+    li, ri = _eq_join([st[y1], wk[y1]], [st[y2], wk[y2] - 52])
+    a, b = y1[li], y2[ri]
+    out = {"s_store_name": c["store"]["s_store_name"][st[a]],
+           "week1": wk[a]}
+    for nm, s in zip(_DAYS, sums):
+        den = s[b]
+        out[f"r_{nm}"] = [x / y if y != 0 else None
+                          for x, y in zip(s[a].tolist(), den.tolist())]
+    return _ds_rows(out, [("s_store_name", True), ("week1", True)])
+
+
+def numpy_ds_q61(tables):
+    c = _ds_dims(tables)
+    ss, d, it, st = c["store_sales"], c["date_dim"], c["item"], c["store"]
+    ca, cu, p = c["customer_address"], c["customer"], c["promotion"]
+    dk = ss["ss_sold_date_sk"]
+    addr = cu["c_current_addr_sk"][ss["ss_customer_sk"]]
+    m = (st["s_gmt_offset"][ss["ss_store_sk"]] == -5.0) \
+        & (d["d_year"][dk] == 1998) & (d["d_moy"][dk] == 11) \
+        & (it["i_category"][ss["ss_item_sk"]] == "Jewelry") \
+        & (ca["ca_gmt_offset"][addr] == -5.0)
+    promo_ok = (p["p_channel_dmail"] == "Y") | (p["p_channel_email"] == "Y") \
+        | (p["p_channel_event"] == "Y")
+    pv = tables["store_sales"].validity["ss_promo_sk"]
+    mp = m & pv & promo_ok[np.where(pv, ss["ss_promo_sk"], 0)]
+    price = ss["ss_ext_sales_price"]
+    promos = float(price[mp].sum()) if mp.any() else None
+    total = float(price[m].sum()) if m.any() else None
+    pct = None if promos is None or total is None or total == 0 \
+        else promos / total * 100.0
+    return {"promotions": [promos], "total": [total], "pct": [pct]}
+
+
+def numpy_ds_q65(tables):
+    c = _ds_dims(tables)
+    ss, d = c["store_sales"], c["date_dim"]
+    m = _between(d["d_month_seq"][ss["ss_sold_date_sk"]], 24, 35)
+    (st, it), (rev,) = _group_sums([ss["ss_store_sk"][m],
+                                    ss["ss_item_sk"][m]],
+                                   ss["ss_sales_price"][m])
+    (sts,), (tot, n) = _groups([st], rev)
+    ave = _at(sts, tot / n, st)
+    keep = rev <= 0.1 * ave
+    return _ds_rows({"s_store_name": c["store"]["s_store_name"][st[keep]],
+                     "i_item_id": c["item"]["i_item_id"][it[keep]],
+                     "revenue": rev[keep], "ave": ave[keep]},
+                    [("s_store_name", True), ("i_item_id", True)])
+
+
+def numpy_ds_q68(tables):
+    c = _ds_dims(tables)
+    ss, d, st, hd = c["store_sales"], c["date_dim"], c["store"], \
+        c["household_demographics"]
+    hd_ok = (hd["hd_dep_count"] == 2) | (hd["hd_vehicle_count"] == 1)
+    d_ok = _between(d["d_dom"], 1, 2) \
+        & np.isin(d["d_year"], [1998, 1999, 2000])
+    m = d_ok[ss["ss_sold_date_sk"]] & hd_ok[ss["ss_hdemo_sk"]] \
+        & np.isin(st["s_city"][ss["ss_store_sk"]],
+                  ["Centerville", "Oak Grove"])
+    return _city_tickets(
+        c, m, ["ss_ext_sales_price", "ss_ext_list_price",
+               "ss_ext_discount_amt"],
+        ["extended_price", "list_price", "extended_tax"],
+        ["c_last_name", "c_first_name", "ca_city", "bought_city",
+         "ss_ticket_number", "extended_price", "extended_tax",
+         "list_price"],
+        [("c_last_name", True), ("ss_ticket_number", True)])
+
+
+def numpy_ds_q79(tables):
+    c = _ds_dims(tables)
+    ss, d, st, hd = c["store_sales"], c["date_dim"], c["store"], \
+        c["household_demographics"]
+    hd_ok = (hd["hd_dep_count"] == 6) | (hd["hd_vehicle_count"] > 2)
+    d_ok = (d["d_day_name"] == "Monday") \
+        & np.isin(d["d_year"], [1998, 1999, 2000])
+    m = d_ok[ss["ss_sold_date_sk"]] & hd_ok[ss["ss_hdemo_sk"]]
+    (tk, cust, city), (amt, profit) = _group_sums(
+        [ss["ss_ticket_number"][m], ss["ss_customer_sk"][m],
+         st["s_city"][ss["ss_store_sk"][m]]],
+        ss["ss_coupon_amt"][m], ss["ss_net_profit"][m])
+    cu = c["customer"]
+    return _ds_rows({"c_last_name": cu["c_last_name"][cust],
+                     "c_first_name": cu["c_first_name"][cust],
+                     "city30": np.array([s[:30] for s in city.tolist()]),
+                     "ss_ticket_number": tk, "amt": amt, "profit": profit},
+                    [("c_last_name", True), ("c_first_name", True),
+                     ("city30", True), ("profit", True),
+                     ("ss_ticket_number", True)])
+
+
+def numpy_ds_q96(tables):
+    c = _ds_dims(tables)
+    ss, hd, tm = c["store_sales"], c["household_demographics"], \
+        c["time_dim"]
+    tk = ss["ss_sold_time_sk"]
+    m = (hd["hd_dep_count"][ss["ss_hdemo_sk"]] == 7) \
+        & (tm["t_hour"][tk] == 20) & (tm["t_minute"][tk] >= 30)
+    return {"cnt": [int(m.sum())]}
+
+
+def numpy_ds_q98(tables):
+    c = _ds_dims(tables)
+    ss, it = c["store_sales"], c["item"]
+    ik = ss["ss_item_sk"]
+    m = _between(ss["ss_sold_date_sk"], 760, 790) \
+        & np.isin(it["i_category"][ik], ["Sports", "Books", "Home"])
+    ik = ik[m]
+    (iid, cat, cls, price), (rev,) = _group_sums(
+        [it["i_item_id"][ik], it["i_category"][ik], it["i_class"][ik],
+         it["i_current_price"][ik]], ss["ss_ext_sales_price"][m])
+    (classes,), (class_rev,) = _group_sums([cls], rev)
+    return _ds_rows({"i_item_id": iid, "i_category": cat, "i_class": cls,
+                     "i_current_price": price, "itemrevenue": rev,
+                     "revenueratio": rev * 100.0
+                     / _at(classes, class_rev, cls)},
+                    [("i_category", True), ("i_class", True),
+                     ("i_item_id", True), ("revenueratio", True)])
+
+
+def numpy_ds_q1(tables):
+    c = _ds_dims(tables)
+    sr, d = c["store_returns"], c["date_dim"]
+    m = d["d_year"][sr["sr_returned_date_sk"]] == 2000
+    (cust, st), (tot,) = _group_sums([sr["sr_customer_sk"][m],
+                                      sr["sr_store_sk"][m]],
+                                     sr["sr_return_amt"][m])
+    (sts,), (s, n) = _groups([st], tot)
+    keep = (tot > 1.2 * _at(sts, s / n, st)) \
+        & (c["store"]["s_state"][st] == "TN")
+    return _ds_rows({"c_customer_id":
+                     c["customer"]["c_customer_id"][cust[keep]]},
+                    [("c_customer_id", True)])
+
+
+def numpy_ds_q22(tables):
+    c = _ds_dims(tables)
+    inv, d, it = c["inventory"], c["date_dim"], c["item"]
+    m = _between(d["d_month_seq"][inv["inv_date_sk"]], 12, 23)
+    ik = inv["inv_item_sk"][m]
+    keys = [it[k][ik] for k in ("i_product_name", "i_brand", "i_class",
+                                "i_category")]
+    names = ["i_product_name", "i_brand", "i_class", "i_category", "qoh"]
+    vals = [inv["inv_quantity_on_hand"][m].astype(np.int64),
+            np.ones(int(m.sum()), np.int64)]
+    return _ds_rows(_rollup(keys, names, vals,
+                            lambda s: {"qoh": s[0] / s[1]}),
+                    [("qoh", True), ("i_product_name", True),
+                     ("i_brand", True), ("i_class", True),
+                     ("i_category", True)])
+
+
+def _rank_within_parent(rows, value, ascending):
+    """Spark's ``rank()`` over partitions (lochierarchy, the category when
+    lochierarchy is 1 else '') ordered by ``value``."""
+    part = [(g, cat if g == 1 else "")
+            for g, cat in zip(rows["lochierarchy"], rows["i_category"])]
+    rank = [0] * len(part)
+    by = {}
+    for i, p in enumerate(part):
+        by.setdefault(p, []).append(i)
+    for idx in by.values():
+        idx.sort(key=lambda i: value[i], reverse=not ascending)
+        for pos, i in enumerate(idx):
+            prev = idx[pos - 1] if pos else None
+            rank[i] = rank[prev] if pos and value[i] == value[prev] \
+                else pos + 1
+    return rank
+
+
+def numpy_ds_q36(tables):
+    c = _ds_dims(tables)
+    ss, d, it, st = c["store_sales"], c["date_dim"], c["item"], c["store"]
+    ik = ss["ss_item_sk"]
+    m = (d["d_year"][ss["ss_sold_date_sk"]] == 1998) \
+        & np.isin(st["s_state"][ss["ss_store_sk"]], ["TN", "CA", "TX", "OH"])
+    rows = _rollup([it["i_category"][ik][m], it["i_class"][ik][m]],
+                   ["i_category", "i_class", "profit", "sales"],
+                   [ss["ss_net_profit"][m], ss["ss_ext_sales_price"][m]],
+                   lambda s: {"profit": s[0], "sales": s[1]},
+                   gid_name="lochierarchy")
+    margin = [p / s for p, s in zip(rows["profit"], rows["sales"])]
+    out = {"gross_margin": margin, "i_category": rows["i_category"],
+           "i_class": rows["i_class"], "lochierarchy": rows["lochierarchy"],
+           "rank_within_parent": _rank_within_parent(rows, margin, True)}
+    return _ds_rows(out, [("lochierarchy", False), ("i_category", True),
+                          ("rank_within_parent", True)])
+
+
+def numpy_ds_q44(tables):
+    c = _ds_dims(tables)
+    ss, it = c["store_sales"], c["item"]
+    m = ss["ss_store_sk"] == 4
+    (items,), (s, n) = _groups([ss["ss_item_sk"][m]], ss["ss_net_profit"][m])
+    avg = s / n
+
+    def ranks(desc):
+        v = -avg if desc else avg
+        order = np.argsort(v, kind="stable")
+        sv = v[order]
+        first = np.searchsorted(sv, sv, "left") + 1
+        r = np.empty(len(v), np.int64)
+        r[order] = first
+        return r
+    best, worst = ranks(True), ranks(False)
+    bi, wi = np.flatnonzero(best <= 10), np.flatnonzero(worst <= 10)
+    li, ri = _eq_join([best[bi]], [worst[wi]])
+    name = it["i_product_name"]
+    return _ds_rows({"rnk": best[bi][li],
+                     "best_performing": name[items[bi][li]],
+                     "worst_performing": name[items[wi][ri]]},
+                    [("rnk", True)])
+
+
+def _running(fact, item, date, price, d_ok):
+    m = d_ok[fact[date]]
+    (it, dt), (s,) = _group_sums([fact[item][m], fact[date][m]],
+                                 fact[price][m])
+    run = np.cumsum(s)
+    start = np.r_[0, np.flatnonzero(it[1:] != it[:-1]) + 1]
+    base = np.repeat(run[start] - s[start], np.diff(np.r_[start, len(s)]))
+    return it, dt, run - base
+
+
+def numpy_ds_q51(tables):
+    c = _ds_dims(tables)
+    d_ok = _between(c["date_dim"]["d_month_seq"], 12, 18)
+    wi, wd, wc = _running(c["web_sales"], "ws_item_sk", "ws_sold_date_sk",
+                          "ws_sales_price", d_ok)
+    si, sd, sc = _running(c["store_sales"], "ss_item_sk", "ss_sold_date_sk",
+                          "ss_sales_price", d_ok)
+    keys = {}
+    for i, dd, v in zip(wi.tolist(), wd.tolist(), wc.tolist()):
+        keys[(i, dd)] = [v, 0.0]
+    for i, dd, v in zip(si.tolist(), sd.tolist(), sc.tolist()):
+        keys.setdefault((i, dd), [0.0, 0.0])[1] = v
+    rows = [(k[0], k[1], w, s) for k, (w, s) in keys.items() if w > s]
+    return _ds_rows({"item_sk": [r[0] for r in rows],
+                     "d_date": [r[1] for r in rows],
+                     "web_sales": [r[2] for r in rows],
+                     "store_sales": [r[3] for r in rows]},
+                    [("item_sk", True), ("d_date", True)])
+
+
+def numpy_ds_q86(tables):
+    c = _ds_dims(tables)
+    ws, it = c["web_sales"], c["item"]
+    m = _between(c["date_dim"]["d_month_seq"][ws["ws_sold_date_sk"]], 12, 23)
+    ik = ws["ws_item_sk"][m]
+    rows = _rollup([it["i_category"][ik], it["i_class"][ik]],
+                   ["i_category", "i_class", "total_sum"],
+                   [ws["ws_net_paid"][m]], lambda s: {"total_sum": s[0]},
+                   gid_name="lochierarchy")
+    out = {"i_category": rows["i_category"], "i_class": rows["i_class"],
+           "lochierarchy": rows["lochierarchy"],
+           "total_sum": rows["total_sum"],
+           "rank_within_parent": _rank_within_parent(
+               rows, rows["total_sum"], False)}
+    return _ds_rows(out, [("lochierarchy", False), ("i_category", True),
+                          ("rank_within_parent", True)])
+
+
+def numpy_ds_q88(tables):
+    c = _ds_dims(tables)
+    ss, hd, tm, st = c["store_sales"], c["household_demographics"], \
+        c["time_dim"], c["store"]
+    tk = ss["ss_sold_time_sk"]
+    m = ((hd["hd_dep_count"] == 3) | (hd["hd_vehicle_count"] == 1))[
+        ss["ss_hdemo_sk"]] & (st["s_store_name"] == "able0")[
+        ss["ss_store_sk"]]
+    out = {}
+    for i, (h, mi) in enumerate([(8, 30), (9, 0), (9, 30), (10, 0), (10, 30),
+                                 (11, 0), (11, 30), (12, 0)], 1):
+        slot = (tm["t_hour"][tk] == h) & _between(tm["t_minute"][tk], mi,
+                                                  mi + 29)
+        out[f"h{i}"] = [int((m & slot).sum())]
+    return out
+
+
+def numpy_ds_q97(tables):
+    c = _ds_dims(tables)
+    d_ok = _between(c["date_dim"]["d_month_seq"], 12, 23)
+
+    def pairs(t, date, cust, item):
+        f = c[t]
+        m = d_ok[f[date]]
+        return set(zip(f[cust][m].tolist(), f[item][m].tolist()))
+    s = pairs("store_sales", "ss_sold_date_sk", "ss_customer_sk",
+              "ss_item_sk")
+    k = pairs("catalog_sales", "cs_sold_date_sk", "cs_bill_customer_sk",
+              "cs_item_sk")
+    return {"store_only": [len(s - k)], "catalog_only": [len(k - s)],
+            "store_and_catalog": [len(s & k)]}
+
+
+def ds_tn_stores(tables) -> dict:
+    """The tables with every fourth store (0, 4, 8) in Oak Grove, TN: at
+    the card's scale and seed no store is in TN (q1) and none in
+    Centerville or Oak Grove (q68), so both queries return no row there;
+    over these stores they keep rows (the ``ds_q1_tn`` and ``ds_q68_tn``
+    cells)."""
+    st = tables["store"]
+    cols = dict(st.columns)
+    four = np.arange(len(cols["s_state"])) % 4 == 0
+    cols["s_state"] = np.where(four, "TN", cols["s_state"])
+    cols["s_city"] = np.where(four, "Oak Grove", cols["s_city"])
+    return dict(tables, store=type(st)(cols, st.schema, dict(st.validity)))
+
+
+DS_QUERIES = ("q1", "q3", "q5", "q6", "q7", "q13", "q15", "q18", "q19",
+              "q22", "q25", "q26", "q27", "q29", "q34", "q36", "q42", "q44",
+              "q46", "q48", "q51", "q52", "q55", "q59", "q61", "q65", "q68",
+              "q79", "q86", "q88", "q96", "q97", "q98")
+DS_REFS = {q: globals()[f"numpy_ds_{q}"] for q in DS_QUERIES}
+DS_REFS["q1_tn"] = lambda tables: numpy_ds_q1(ds_tn_stores(tables))
+DS_REFS["q68_tn"] = lambda tables: numpy_ds_q68(ds_tn_stores(tables))
+#: Each TPC-DS query's ORDER BY, as (column, ascending), and its LIMIT
+#: (None: none).
+DS_ORDER = {
+    "q1": ([("c_customer_id", True)], 100),
+    "q3": ([("d_year", True), ("sum_agg", False), ("i_brand_id", True)], 100),
+    "q5": ([("channel", True), ("id", True)], 100),
+    "q6": ([("cnt", True), ("ca_state", True)], 100),
+    "q7": ([("i_item_id", True)], 100),
+    "q13": ([], None),
+    "q15": ([("ca_zip", True)], 100),
+    "q18": ([("ca_country", True), ("ca_state", True), ("ca_county", True),
+             ("i_item_id", True)], 100),
+    "q19": ([("ext_price", False), ("i_brand_id", True),
+             ("i_manufact_id", True)], 100),
+    "q22": ([("qoh", True), ("i_product_name", True), ("i_brand", True),
+             ("i_class", True), ("i_category", True)], 100),
+    "q25": ([("i_item_id", True), ("i_item_sk", True), ("s_store_id", True),
+             ("s_store_name", True)], 100),
+    "q26": ([("i_item_id", True)], 100),
+    "q27": ([("i_item_id", True), ("s_state", True)], 100),
+    "q29": ([("i_item_id", True), ("i_item_sk", True), ("s_store_id", True),
+             ("s_store_name", True)], 100),
+    "q34": ([("c_last_name", True), ("c_first_name", True), ("cnt", False),
+             ("ss_ticket_number", True)], 100),
+    "q36": ([("lochierarchy", False), ("i_category", True),
+             ("rank_within_parent", True)], 100),
+    "q42": ([("total_sales", False), ("d_year", True),
+             ("i_category_id", True), ("i_category", True)], 100),
+    "q44": ([("rnk", True)], 100),
+    "q46": ([("c_last_name", True), ("c_first_name", True), ("ca_city", True),
+             ("bought_city", True), ("ss_ticket_number", True)], 100),
+    "q48": ([], None),
+    "q51": ([("item_sk", True), ("d_date", True)], 100),
+    "q52": ([("d_year", True), ("ext_price", False), ("i_brand_id", True)],
+            100),
+    "q55": ([("ext_price", False), ("i_brand_id", True)], 100),
+    "q59": ([("s_store_name", True), ("week1", True)], 100),
+    "q61": ([], None),
+    "q65": ([("s_store_name", True), ("i_item_id", True)], 100),
+    "q68": ([("c_last_name", True), ("ss_ticket_number", True)], 100),
+    "q79": ([("c_last_name", True), ("c_first_name", True), ("city30", True),
+             ("profit", True), ("ss_ticket_number", True)], 100),
+    "q86": ([("lochierarchy", False), ("i_category", True),
+             ("rank_within_parent", True)], 100),
+    "q88": ([], None),
+    "q96": ([], None),
+    "q97": ([], None),
+    "q98": ([("i_category", True), ("i_class", True), ("i_item_id", True),
+             ("revenueratio", True)], 100),
+}
+#: The float columns of each TPC-DS answer (held to ``REV_RTOL``).
+DS_FLOATS = {
+    "q3": ["sum_agg"], "q5": ["sales", "returns_", "profit"],
+    "q7": ["agg1", "agg2", "agg3", "agg4"],
+    "q13": ["avg_qty", "avg_sales", "avg_cost", "sum_cost"],
+    "q15": ["sum_sales"], "q18": ["agg1", "agg2", "agg3", "agg4"],
+    "q19": ["ext_price"], "q22": ["qoh"],
+    "q25": ["store_sales_profit", "store_returns_loss",
+            "catalog_sales_profit"],
+    "q26": ["agg1", "agg2", "agg3", "agg4"],
+    "q27": ["agg1", "agg2", "agg3", "agg4"], "q36": ["gross_margin"],
+    "q42": ["total_sales"], "q46": ["amt", "profit"],
+    "q51": ["web_sales", "store_sales"], "q52": ["ext_price"],
+    "q55": ["ext_price"],
+    "q59": [f"r_{d}" for d in _DAYS], "q61": ["promotions", "total", "pct"],
+    "q65": ["revenue", "ave"],
+    "q68": ["extended_price", "extended_tax", "list_price"],
+    "q79": ["amt", "profit"], "q86": ["total_sum"],
+    "q98": ["i_current_price", "itemrevenue", "revenueratio"]}
+
+
+def check_ds(cell: str, got: dict, ref: dict, q: str) -> int:
+    """A TPC-DS answer against its numpy reference, both ``{column: list}``
+    with ``None`` for a null: the same columns; as many rows as the
+    query's LIMIT leaves of the reference's; and, in every run of rows
+    whose ORDER BY keys are equal (floats to ``REV_RTOL``), the same rows
+    in any order (a run that the LIMIT cuts: rows of the reference's
+    run). Keys, strings, counts and dates exact; ``DS_FLOATS`` to
+    ``REV_RTOL``. Returns the rows."""
+    keys, limit = DS_ORDER[q.split("_")[0]]
+    floats = set(DS_FLOATS.get(q.split("_")[0], ()))
+    names = list(ref)
+    check(list(got) == names, f"{cell}: columns {list(got)} vs {names}")
+    n_ref = len(ref[names[0]])
+    n = n_ref if limit is None else min(limit, n_ref)
+    n_got = len(got[names[0]])
+    check(n_got == n, f"{cell}: {n_got} rows, expected {n}")
+
+    def same(a, b, name):
+        if a is None or b is None:
+            return a is None and b is None
+        if name in floats:
+            return a == b or abs(a - b) <= REV_RTOL * abs(b)
+        return a == b
+    i = 0
+    while i < n:
+        j = i + 1
+        while j < n_ref and all(same(ref[k][j], ref[k][j - 1], k)
+                                for k, _ in keys):
+            j += 1
+        pool = [[ref[k][r] for k in names] for r in range(i, j)]
+        for r in range(i, min(j, n)):
+            row = [got[k][r] for k in names]
+            hit = next((p for p, want in enumerate(pool)
+                        if all(same(a, b, k)
+                               for a, b, k in zip(row, want, names))), None)
+            check(hit is not None, f"{cell} row {r}: {row} is not among the "
+                  f"reference's rows {i}..{j - 1} ({pool[:2]})")
+            pool.pop(hit)
+        i = j
+    return n
+
+
 #: One worker process's generated tables, by (workload, size, seed).
 _WORKER_TABLES = {}
 
@@ -2347,6 +3273,8 @@ def reference_answer(task):
     if key not in _WORKER_TABLES:
         if workload == "tpch":
             from spark_rapids_tpu_torch.workloads import tpch as wl
+        elif workload == "ds":
+            from spark_rapids_tpu_torch.workloads import tpcds as wl
         else:
             from spark_rapids_tpu_torch.workloads import tpcxbb as wl
         _WORKER_TABLES.clear()
@@ -2354,6 +3282,8 @@ def reference_answer(task):
     tables = _WORKER_TABLES[key]
     if workload == "tpch":
         fn = numpy_q3 if q == "q3" else NUMPY_REFS[q]
+    elif workload == "ds":
+        fn = DS_REFS[q]
     else:
         fn = XBB_REFS[q]
     return task, fn(tables)
@@ -2370,6 +3300,7 @@ def start_references(args):
              for q in ["q3"] + list(NUMPY_REFS)]
     tasks += [("xbb", args.xbb_clicks, args.seed, q) for q in XBB_REFS]
     tasks += [("xbb", BENCH_XBB_CLICKS, args.seed, q) for q in BENCH_XBB]
+    tasks += [("ds", args.ds_ss_rows, args.seed, q) for q in DS_REFS]
     return ex, {t: ex.submit(reference_answer, t) for t in tasks}
 
 
@@ -2563,6 +3494,95 @@ def run_tpcxbb(torch, ctx, session, wrappers, xbb_clicks: int, seed: int,
                           and c[5] == "left"]
             del dfs, pivot
     return summaries, launches, calls, left_calls
+
+
+#: The TPC-DS cells whose plan must hold an Expand (rollups) and a full
+#: outer join.
+DS_EXPAND = ("q18", "q22", "q36", "q86")
+DS_FULL = ("q51", "q97")
+#: The kernels the TPC-DS cells together must launch (no cell sorts on
+#: one key without a LIMIT, so none reaches ``sortStep``).
+DS_NEED = ("joinProbe", "segmented", "strings")
+
+
+def ds_host_rows(hb) -> dict:
+    """A collected answer as ``{column: list}``, ``None`` for a null."""
+    return {n: [v if ok else None for v, ok in zip(
+        np.asarray(hb.columns[n]).tolist(),
+        np.asarray(hb.validity[n]).tolist())] for n in hb.columns}
+
+
+def run_tpcds(torch, tpcds, session, wrappers, ss_rows: int, seed: int,
+              profile: bool, futures: dict):
+    """The TPC-DS cells: the port's 33 queries (``ds_q1`` ... ``ds_q98``)
+    over tables uploaded from ``tpcds.gen_tables(ss_rows)``, and q1 and
+    q68 once more over :func:`ds_tn_stores`'s stores (``ds_q1_tn``,
+    ``ds_q68_tn``). Each answer against its numpy reference
+    (:func:`check_ds`), its rows printed and not empty (but those of q1
+    and q68, whose ``_tn`` cells keep rows); each cell's device busy
+    share from one traced warm run (two with ``profile``); an Expand in
+    the rollups' per-exec times, a full join in q51's and q97's plans;
+    ``DS_NEED`` launched over the cells. Returns (summaries, launches,
+    captured calls)."""
+    summaries, launches = {}, {k: 0 for k in wrappers.mods}
+    calls = {k: [] for k in wrappers.mods}
+    t0 = time.perf_counter()
+    tables = tpcds.gen_tables(ss_rows, seed=seed)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refs = {q: reference(futures, "ds", ss_rows, seed, q) for q in DS_REFS}
+    t_ref = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dfs = tpcds.load(session, tables)
+    tn_dfs = dict(dfs, store=session.create_dataframe(
+        ds_tn_stores(tables)["store"]))
+    torch.cuda.synchronize()
+    nbytes = sum(c.validity.numel() + (
+        c.data.numel() * c.data.element_size() if c.data is not None
+        else c.codes.numel() * 4)
+        for df in dfs.values() for c in df._plan.batch.columns)
+    print(f"  TPC-DS tables at {ss_rows} store_sales rows: generated "
+          f"{t_gen:.1f} s, uploaded {nbytes / 1e9:.3f} GB in "
+          f"{time.perf_counter() - t0:.1f} s; waited {t_ref:.1f} s for the "
+          f"numpy references; rows " + ", ".join(
+              f"{k}={v.num_rows}" for k, v in tables.items()))
+    del tables
+    for q in DS_REFS:
+        cell = f"ds_{q}"
+        base = q.split("_")[0]
+        query = tpcds.QUERIES[base]
+        qdfs = tn_dfs if q.endswith("_tn") else dfs
+        build = (lambda query=query, qdfs=qdfs: query(qdfs))
+        got_launches, got_calls, summaries[cell], mid = run_query(
+            torch, session, wrappers, cell.upper(), build,
+            lambda got, q=q, cell=cell: check_ds(cell, ds_host_rows(got),
+                                                 refs[q], q), ())
+        keys, limit = DS_ORDER[base]
+        n_ref = len(next(iter(refs[q].values())))
+        n_rows = n_ref if limit is None else min(limit, n_ref)
+        check(n_rows > 0 or f"{q}_tn" in DS_REFS, f"{cell} returned no row")
+        top = sorted(mid.items(), key=lambda kv: -kv[1])[:2]
+        summaries[cell].update(rows=n_rows, top_execs=top)
+        print(f"  {cell.upper()}: {n_rows} rows, equal to numpy; largest "
+              "execs " + ", ".join(f"{k} {v:.3f} ms" for k, v in top))
+        if base in DS_EXPAND:
+            check("ExpandExec" in mid, f"{cell}: no ExpandExec ran")
+        if base in DS_FULL:
+            plan = session.explain(build()._plan)
+            check("ShuffledHashJoin full" in plan,
+                  f"{cell} planned no full join:\n{plan}")
+        for k in wrappers.mods:
+            launches[k] += got_launches[k]
+            calls[k] += got_calls[k]
+        if profile:
+            summaries[cell]["busy"] = profile_query(torch, cell, build, mid)
+        else:
+            summaries[cell]["busy"] = busy_share(torch, cell.upper(), build,
+                                                 mid)
+    for k in DS_NEED:
+        check(launches[k] > 0, f"{k} was not launched by the TPC-DS cells")
+    print(f"  TPC-DS cells' kernel launches (cold runs): {launches}")
+    return summaries, launches, calls
 
 
 def rest_check(q: str, refs: dict):
@@ -3882,6 +4902,9 @@ def main() -> int:
     ap.add_argument("--xbb-clicks", type=int, default=1 << 22,
                     help="clicks of the TPCxBB tables the bb_* cells "
                          "upload (the pq_bb_* cells keep bench.py's 2^17)")
+    ap.add_argument("--ds-ss-rows", type=int, default=2_880_404,
+                    help="store_sales rows of the TPC-DS tables the ds_* "
+                         "cells upload (SF1 = 2,880,404)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace two warm runs of each query and "
                          "entry stage with torch.profiler (tables in "
@@ -3915,6 +4938,7 @@ def main() -> int:
     from spark_rapids_tpu_torch.session import TorchSession
     from spark_rapids_tpu_torch.shuffle import partitioning as PN
     from spark_rapids_tpu_torch.workloads import tpch
+    from spark_rapids_tpu_torch.workloads import tpcds
     from spark_rapids_tpu_torch.workloads import tpcxbb
     from spark_rapids_tpu_torch.io import parquet_device as PD
     from spark_rapids_tpu_torch.io import parquet_encode as PE
@@ -3971,7 +4995,9 @@ def main() -> int:
           f"parquet (pq_q1 also with the pipeline off), the 30 TPCxBB "
           f"queries bb_q01 ... bb_q30 and bb_q02_pivot "
           f"at {args.xbb_clicks} clicks, bb_q01, bb_q05 and bb_q30 over "
-          f"parquet at {BENCH_XBB_CLICKS}, the entry stage, "
+          f"parquet at {BENCH_XBB_CLICKS}, the 33 TPC-DS queries ds_q1 "
+          f"... ds_q98 with ds_q1_tn and ds_q68_tn at {args.ds_ss_rows} "
+          f"store_sales rows, the entry stage, "
           f"group_ids over two string keys, Q1, Q3, Q4 and Q6 over a "
           f"4-shard mesh on the card, distributed_sum_by_key, "
           f"lineitem_rows={args.lineitem_rows}")
@@ -4142,11 +5168,20 @@ def main() -> int:
     xbb_summaries, xbb_launches, xbb_calls, left_calls = run_tpcxbb(
         torch, xbb_ctx, session, wrappers, args.xbb_clicks, args.seed,
         pq_dir, args.profile, futures)
-    ref_workers.shutdown()
     summaries.update(xbb_summaries)
     for k in launches:
         launches[k] += xbb_launches[k]
         calls[k] += xbb_calls[k]
+
+    # The TPC-DS queries at SF1's store_sales rows, on uploaded tables.
+    ds_summaries, ds_launches, ds_calls = run_tpcds(
+        torch, tpcds, session, wrappers, args.ds_ss_rows, args.seed,
+        args.profile, futures)
+    ref_workers.shutdown()
+    summaries.update(ds_summaries)
+    for k in launches:
+        launches[k] += ds_launches[k]
+        calls[k] += ds_calls[k]
 
     # The engine's entry stage (filter -> aggregate on the sort path): at
     # entry()'s defaults, then at SF1's lineitem rows with entry()'s 50
@@ -4395,7 +5430,8 @@ def main() -> int:
         "group_ids": group_ids_runs,
         "hash_partition_step": no_matrix, "joinProbe_calls": jp_calls,
         "q3_dense_joins": q3_joins, "bb_q05_left_joins": left_joins,
-        "xbb_clicks": args.xbb_clicks,
+        "xbb_clicks": args.xbb_clicks, "ds_ss_rows": args.ds_ss_rows,
+        "ds_launches": ds_launches,
         "distributed_sum_by_key": distributed,
         "q6_default_mesh_ms": default_ms, "entry_stage": entry_runs,
         "xbb_score_max_score_ulps": max(xbb_ulps),

@@ -1,10 +1,11 @@
 """Physical operators — port of ``spark_rapids_tpu/exec/execs.py``, cut to
-what TPC-H Q1, Q3, Q4, Q6 and Q22 run, over a hash exchange or not:
-device source, filter, project, hash aggregate (grouped and global,
-partial per batch plus merge), shuffled hash join (inner, left outer,
-semi and anti; direct-address modes, the exact binary-search path and
-the general multi-key matcher; a residual condition), union, top-k,
-sort, limit, and the device-to-host transition. The nested-loop joins are in
+what the TPC-H, TPCxBB and TPC-DS queries run, over a hash exchange or
+not: device source, filter, project, expand, hash aggregate (grouped
+and global, partial per batch plus merge), shuffled hash join (inner,
+left, right and full outer, semi and anti; direct-address modes, the
+exact binary-search path and the general multi-key matcher; a residual
+condition), union, top-k, sort, limit, and the device-to-host
+transition. The nested-loop joins are in
 :mod:`.joins`, the shuffle exchange in :mod:`..shuffle.exchange`.
 
 Execution model, the reference's: every operator's ``execute(ctx)``
@@ -41,7 +42,9 @@ from ..config import TorchConf
 from ..data.batch import ColumnarBatch, HostBatch, empty_batch
 from ..data.column import bucket_capacity
 from ..ops import aggregates as AGG
-from ..ops.expression import BoundReference, Expression, make_column
+from ..ops.cast import cast_values
+from ..ops.expression import (BoundReference, Expression, Literal,
+                              make_column)
 from ..ops.kernels import concat as KC
 from ..ops.kernels import groupby as KG
 from ..ops.kernels import join as KJ
@@ -286,6 +289,64 @@ class ProjectExec(TorchExec):
         return [(project(b) for b in part) for part in parts]
 
 
+class ExpandExec(TorchExec):
+    """Every input batch once per projection (rollup, cube and grouping
+    sets; the reference's ``TpuExpandExec``): one output batch each, in
+    projection order, lazy as its input. A projected column whose type
+    differs from its field's is cast to the field's type. A null string
+    literal (a grouping set's absent key) takes the dictionary of the
+    same field in another projection, so the batches' key columns share
+    one dictionary and the aggregate above merges them by codes
+    (:mod:`..ops.kernels.concat`)."""
+
+    def __init__(self, child: TorchExec, projections, schema: T.Schema):
+        self.children = [child]
+        self.projections = projections
+        self._schema = schema
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def describe(self):
+        return f"Expand [{len(self.projections)} projections]"
+
+    def execute(self, ctx):
+        parts = self.children[0].execute(ctx)
+        bound = [_bind_all(p, self.children[0].schema)
+                 for p in self.projections]
+
+        def expand(batch):
+            with ctx.timed(self.name):
+                outs = []
+                for proj in bound:
+                    cols = []
+                    for e, f in zip(proj, self._schema):
+                        c = e.eval_device(batch)
+                        if c.dtype.name != f.data_type.name:
+                            c = make_column(cast_values(c.data, c.dtype,
+                                                        f.data_type),
+                                            c.validity, f.data_type)
+                        cols.append(c)
+                    outs.append(cols)
+                for i in range(len(self._schema)):
+                    real = next((o[i] for p, o in zip(bound, outs)
+                                 if o[i].is_dict and not _null_literal(p[i])),
+                                None)
+                    for p, o in zip(bound, outs):
+                        if real is not None and _null_literal(p[i]):
+                            o[i] = real.replace_rows(
+                                torch.zeros_like(real.validity),
+                                torch.zeros_like(real.codes))
+            return [batch.with_columns(o, self._schema) for o in outs]
+        return [(b for batch in part for b in expand(batch))
+                for part in parts]
+
+
+def _null_literal(e: Expression) -> bool:
+    return isinstance(e, Literal) and e.value is None
+
+
 class FilterExec(TorchExec):
     """Lazy filter: the kept rows become the batch's ``live`` mask."""
 
@@ -492,14 +553,19 @@ def aggregate_batch(batch: ColumnarBatch, key_exprs: List[Expression],
 
 
 class ShuffledHashJoinExec(TorchExec):
-    """Equi join (inner, left outer, left_semi or left_anti), left =
-    probe, right = build. A single integer key tries the direct-address
-    table first (mode 1: table over the build side; mode 2, inner joins
-    only: over the probe side), each escalated by its fail flag; mode 3,
-    and every other key set, takes the exact path (:func:`join_exact`).
-    Semi and anti joins keep the probe's columns and mark its kept rows
-    live; a left join keeps every probe row, with a null build side
-    where it found no match.
+    """Equi join (inner, left, right or full outer, left_semi or
+    left_anti), left = probe, right = build. A single integer key tries
+    the direct-address table first (mode 1: table over the build side;
+    mode 2, inner joins only: over the probe side), each escalated by its
+    fail flag; mode 3, and every other key set, takes the exact path
+    (:func:`join_exact`). Semi and anti joins keep the probe's columns and
+    mark its kept rows live; a left join keeps every probe row, with a
+    null build side where it found no match. A right join is the left
+    join with the sides swapped, its columns swapped back. A full join
+    takes the general matcher, which also marks the build rows that
+    matched (:func:`join_full`): the left join's rows, then, as a batch
+    of their own, the unmatched build rows in build order with a null
+    probe side.
 
     A residual ``condition`` (the join's non-equi terms, over the probe's
     then the build's columns) must also hold for a pair to match. An
@@ -530,6 +596,8 @@ class ShuffledHashJoinExec(TorchExec):
 
     def execute(self, ctx):
         left, right = self.children
+        if self.join_type == "right":
+            return self._mirrored_left(ctx)
         probe = accumulate(left, ctx)
         build = accumulate(right, ctx)
         site = ctx.next_site("join")
@@ -550,6 +618,8 @@ class ShuffledHashJoinExec(TorchExec):
         with ctx.timed(self.name):
             pk = [e.eval_device(probe) for e in lkeys]
             bk = [e.eval_device(build) for e in rkeys]
+            if jt == "full":
+                return [join_full(probe, build, pk, bk, self._schema)]
             if KJ.dense_joinable(jt, rkeys) and mode <= 2:
                 if mode == 1:
                     out, fail = KJ.dense_join(probe, build, pk[0], bk[0],
@@ -566,6 +636,22 @@ class ShuffledHashJoinExec(TorchExec):
                 return [[out]]
             out, _ = join_exact(jt, probe, build, pk, bk, self._schema)
             return [[out]]
+
+    def _mirrored_left(self, ctx):
+        """A right join: the left join of the build side against the
+        probe side, its columns swapped back into this join's order."""
+        left, right = self.children
+        n_left, n_right = len(left.schema), len(right.schema)
+        fields = list(self._schema)
+        mirror = ShuffledHashJoinExec(
+            right, left, "left", self.right_keys, self.left_keys,
+            T.Schema(fields[n_left:] + fields[:n_left]), self.condition)
+
+        def reorder(part):
+            for b in part:
+                yield ColumnarBatch(b.columns[n_right:] + b.columns[:n_right],
+                                    b.n_rows, self._schema, live=b.live)
+        return [reorder(p) for p in mirror.execute(ctx)]
 
 
 def _post_filter(batch: ColumnarBatch, cond: Optional[Expression]
@@ -598,9 +684,20 @@ def join_exact(join_type: str, probe: ColumnarBatch, build: ColumnarBatch,
             else live_p & (counts == 0)
         return ColumnarBatch(probe.columns, keep.sum(), out_schema,
                              live=keep), None
+    return _expand_pairs(join_type, probe, build, lo, counts, build_at_rank,
+                         out_schema, out_cap)
+
+
+def _expand_pairs(join_type: str, probe: ColumnarBatch, build: ColumnarBatch,
+                  lo, counts, build_at_rank, out_schema: T.Schema,
+                  out_cap: Optional[int]):
+    """An inner, left or full join's matched pairs in probe order, each
+    probe row's matches in build rank order; a left or full join's
+    unmatched live probe row once, with a null build side. Returns
+    ``(batch, total)`` as :func:`join_exact` does."""
     matched = counts > 0
-    if join_type == "left":
-        counts = KJ.left_outer_counts(counts, live_p)
+    if join_type in ("left", "full"):
+        counts = KJ.left_outer_counts(counts, probe.row_mask())
     if out_cap is None:
         out_cap = bucket_capacity(max(int(counts.sum()), 1))
     p_idx, b_idx, n_out, total = KJ.expand_matches_binsearch(
@@ -609,6 +706,29 @@ def join_exact(join_type: str, probe: ColumnarBatch, build: ColumnarBatch,
     pcols = KR.gather_columns(probe.columns, p_idx, out_live)
     bcols = KR.gather_columns(build.columns, b_idx, out_live & matched[p_idx])
     return ColumnarBatch(pcols + bcols, n_out, out_schema), total
+
+
+def join_full(probe: ColumnarBatch, build: ColumnarBatch, pk, bk,
+              out_schema: T.Schema) -> List[ColumnarBatch]:
+    """A full outer join (the reference's hash join with
+    ``need_build_hits`` and ``unmatched_build_kernel``): the general
+    matcher's ranges and build hit mask, then two batches, the left
+    join's rows (every live probe row, with its matches or a null build
+    side) and the live build rows that matched no probe row, in build
+    order (lazy), with a null probe side. An empty build side leaves the
+    second batch without rows; an empty probe side the first."""
+    lo, counts, build_at_rank, hits = KJ.join_match(
+        bk, pk, build.row_mask(), probe.row_mask(), need_build_hits=True)
+    out, _ = _expand_pairs("full", probe, build, lo, counts, build_at_rank,
+                           out_schema, None)
+    keep = build.row_mask() & ~hits
+    row0 = torch.zeros(build.capacity, dtype=torch.int64,
+                       device=build.device)
+    null_probe = KR.gather_columns(probe.columns, row0,
+                                   torch.zeros_like(keep))
+    tail = ColumnarBatch(null_probe + tuple(build.columns), keep.sum(),
+                         out_schema, live=keep)
+    return [out, tail]
 
 
 def _match_ranges(probe: ColumnarBatch, build: ColumnarBatch, pk, bk):

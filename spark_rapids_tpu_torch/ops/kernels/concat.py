@@ -7,7 +7,9 @@ the earlier inputs' row counts, which stays on the device: no host sync.
 Dead rows scatter to a spare slot past the end, which is dropped.
 Dictionary strings append their dictionaries WITHOUT dedupe (codes shift
 by the earlier dictionaries' sizes), so the result is not
-``dict_sorted``; flat strings concatenate through the char matrix.
+``dict_sorted``, unless every input holds the very same dictionary,
+whose codes and order then carry over; flat strings concatenate through
+the char matrix.
 """
 
 from __future__ import annotations
@@ -53,6 +55,14 @@ def _scatter_validity(cols, targets, out_capacity: int,
 
 def _concat_dict_columns(cols, targets, out_capacity: int,
                          out_valid: torch.Tensor) -> DeviceColumn:
+    if all(c.dictionary is cols[0].dictionary for c in cols):
+        # one dictionary (a table's column cut into batches, or Expand's
+        # projections): the codes carry over, and so does its order
+        lanes = [torch.where(live & c.validity, c.codes, 0)
+                 for c, (_, live) in zip(cols, targets)]
+        codes = _scatter(lanes, targets, out_capacity, 0, torch.int32)
+        return cols[0].replace_rows(out_valid,
+                                    torch.where(out_valid, codes, 0))
     lanes, base = [], 0
     for c, (_, live) in zip(cols, targets):
         lanes.append(torch.where(live & c.validity, c.codes + base, 0)

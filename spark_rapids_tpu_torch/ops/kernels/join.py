@@ -19,7 +19,9 @@ Three paths, as in the reference:
 
 Both exact paths end in :func:`expand_matches_binsearch`, which expands
 the ranges into (probe row, build row) pairs; :func:`left_outer_counts`
-gives a left join's unmatched probe rows their one null-extended row.
+gives a left (or full) join's unmatched probe rows their one
+null-extended row. A full join takes the general matcher, whose
+``need_build_hits`` also marks the build rows that found a probe row.
 """
 
 from __future__ import annotations
@@ -224,12 +226,9 @@ def join_match(build_keys: Sequence[DeviceColumn],
     Returns ``(lo, counts, build_at_rank)`` with the contract of
     :func:`join_match_binsearch`: a probe row's matches are build rows
     ``build_at_rank[lo : lo + count]``; null-keyed and dead rows match
-    nothing. ``need_build_hits`` (full and right outer joins) is not
-    ported and raises."""
-    if need_build_hits:
-        raise NotImplementedError(
-            "full and right outer joins (the build rows' hit mask) are not "
-            "ported yet")
+    nothing. With ``need_build_hits`` (a full outer join's unmatched
+    build rows) a fourth value follows: ``hits[cap_b]``, true for each
+    build row whose run of equal keys holds a usable probe row."""
     cap_b = build_keys[0].capacity
     cap_p = probe_keys[0].capacity
     total = cap_b + cap_p
@@ -275,4 +274,11 @@ def join_match(build_keys: Sequence[DeviceColumn],
     rank_pad = torch.zeros(cap_b + 1, dtype=torch.int64, device=dev)
     rank_pad.scatter_(0, rank, perm)
     build_at_rank = rank_pad[:cap_b]
-    return lo, counts, build_at_rank
+    if not need_build_hits:
+        return lo, counts, build_at_rank
+    probes_in_run = torch.zeros(total, dtype=torch.int64, device=dev)
+    probes_in_run.index_add_(0, run, probe_sorted.to(torch.int64))
+    hit_s = s_isbuild & usable_sorted & (probes_in_run[run] > 0)
+    hit_pad = torch.zeros(cap_b + 1, dtype=torch.bool, device=dev)
+    hit_pad.scatter_(0, torch.where(s_isbuild, perm, cap_b), hit_s)
+    return lo, counts, build_at_rank, hit_pad[:cap_b]

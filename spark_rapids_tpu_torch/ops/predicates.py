@@ -9,9 +9,13 @@ Strings compare through their dictionaries: the dictionaries are small
 and on the host, so the comparison runs once per (left entry, right
 entry) pair on the host, and each row gathers its pair's answer by codes
 on the device. This is the reference's dictionary fast path
-(``strings_util.device_string_compare``); comparisons of flat strings
-wait for a later slice. ``In`` over strings matches char rows through
-the dictionary (``strings_util.lift_dict``), for both layouts.
+(``strings_util.device_string_compare``). A flat string on either side,
+or two dictionaries whose entry pairs number more than 2^24 (TPC-DS
+customer and item ids), compare row by row over their char matrices at
+the wider side's width: the first byte that differs decides, and
+``PAD`` past a string's end orders it before its longer extensions.
+``In`` over strings matches char rows through the dictionary
+(``strings_util.lift_dict``), for both layouts.
 """
 
 from __future__ import annotations
@@ -26,28 +30,38 @@ from .. import types as T
 from ..data.batch import ColumnarBatch
 from ..data.column import DeviceColumn
 from .expression import BinaryExpression, Expression, make_column
-from .strings_util import PAD, lift_dict
+from .strings_util import PAD, char_matrix, lift_dict
 
 #: Entry-pair product above which a dictionary comparison is refused.
 _MAX_DICT_PAIRS = 1 << 24
 
 
 def dict_compare(op, l: DeviceColumn, r: DeviceColumn) -> torch.Tensor:
-    """``op(l, r)`` per row for two dictionary-encoded string columns."""
-    if not (l.is_dict and r.is_dict):
-        raise NotImplementedError(
-            "comparison of flat strings is not ported yet")
+    """``op(l, r)`` per row for two string columns: through the
+    dictionaries' entry pairs when both are dictionaries with at most
+    ``_MAX_DICT_PAIRS`` pairs, else :func:`row_compare`."""
+    if not (l.is_dict and r.is_dict) \
+            or l.dict_size * r.dict_size > _MAX_DICT_PAIRS:
+        return row_compare(op, l, r)
     if l.dict_size == 0 or r.dict_size == 0:
         return torch.zeros(l.capacity, dtype=torch.bool, device=l.device)
-    if l.dict_size * r.dict_size > _MAX_DICT_PAIRS:
-        raise NotImplementedError(
-            "string comparison of two large dictionaries needs the flat "
-            "string kernels, which are not ported yet")
     mat = op(l.dictionary[:, None], r.dictionary[None, :]).astype(bool)
     mat = torch.from_numpy(np.ascontiguousarray(mat)).to(l.device)
     li = l.codes.long().clamp(0, l.dict_size - 1)
     ri = r.codes.long().clamp(0, r.dict_size - 1)
     return mat[li, ri]
+
+
+def row_compare(op, l: DeviceColumn, r: DeviceColumn) -> torch.Tensor:
+    """``op(l, r)`` per row for two string columns of any layout: the
+    sign of the first byte that differs between their char matrices (0
+    where none does) against 0."""
+    w = max(l.max_bytes, r.max_bytes, 1)
+    lm, rm = char_matrix(l, w), char_matrix(r, w)
+    diff = lm != rm
+    first = diff.to(torch.uint8).argmax(1, keepdim=True)
+    sign = torch.sign(lm.gather(1, first).int() - rm.gather(1, first).int())
+    return op(torch.where(diff.any(1), sign[:, 0], 0), 0)
 
 
 class Comparison(BinaryExpression):

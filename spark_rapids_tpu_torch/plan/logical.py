@@ -2,12 +2,13 @@
 ``spark_rapids_tpu/plan/logical.py``, cut to what the TPC-H queries run:
 a device table or a parquet scan, ``select``, ``where``, ``with_column``
 (a window expression appends a window column), ``with_windows``, equi
-``join`` (inner, left, left_semi, left_anti; the terms of ``on`` that
-are not ``left = right`` stay as the join's residual condition),
-``cross_join`` (a keyless inner join is one, with its condition),
-``group_by(...).agg`` (no keys: a global aggregate), ``distinct``,
-``union``, ``sort``, ``limit``, ``repartition`` (hash on columns, or
-round-robin) and ``collect``.
+``join`` (inner, left, right, full, left_semi, left_anti; the terms of
+``on`` that are not ``left = right`` stay as the join's residual
+condition), ``cross_join`` (a keyless inner join is one, with its
+condition), ``group_by(...).agg`` (no keys: a global aggregate),
+``rollup``, ``cube`` and ``grouping_sets`` (Expand + Aggregate),
+``distinct``, ``union``, ``sort``, ``limit``, ``repartition`` (hash on
+columns, or round-robin) and ``collect``.
 
 Analysis is eager, as in the reference: every node resolves attribute
 types against its child's schema and inserts numeric coercion casts when
@@ -17,14 +18,14 @@ it is built, so every node knows its output schema.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 from .. import types as T
 from ..ops import aggregates as AGG
 from ..ops import arithmetic as ARITH
 from ..ops import predicates as PRED
-from ..ops.expression import (Alias, AttributeReference, Expression, col,
-                              coerce_binary, lit)
+from ..ops.expression import (Alias, AttributeReference, Expression,
+                              Literal, col, coerce_binary, lit)
 
 
 def resolve(expr: Expression, schema: T.Schema) -> Expression:
@@ -178,13 +179,15 @@ class Aggregate(LogicalPlan):
 
 
 class Join(LogicalPlan):
-    """Equi join (inner, left, left_semi, left_anti) or cross join (no
-    keys): left is the probe side, right the build side. ``condition``,
-    over both sides' columns, is a cross join's filter or an equi join's
-    residual, which a matching pair must also pass. A left join's
-    build-side fields are nullable."""
+    """Equi join (inner, left, right, full, left_semi, left_anti) or
+    cross join (no keys): left is the probe side, right the build side.
+    ``condition``, over both sides' columns, is a cross join's filter or
+    an equi join's residual, which a matching pair must also pass. An
+    outer join makes the other side's fields nullable (both sides' for a
+    full join)."""
 
-    TYPES = ("inner", "left", "left_semi", "left_anti", "cross")
+    TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti",
+             "cross")
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  join_type: str, left_keys: List[Expression],
@@ -193,6 +196,9 @@ class Join(LogicalPlan):
         if join_type not in self.TYPES:
             raise NotImplementedError(
                 f"{join_type} joins are not ported yet")
+        if join_type in ("right", "full") and not left_keys:
+            raise NotImplementedError(
+                f"non-equi {join_type} outer joins are not supported")
         if (join_type == "cross") != (not left_keys):
             raise ValueError("a cross join takes no keys; every other join "
                              "needs them")
@@ -216,10 +222,14 @@ class Join(LogicalPlan):
         left, right = self.children
         if self.join_type in ("left_semi", "left_anti"):
             return left.schema
+        jt = self.join_type
+        lf = [T.StructField(f.name, f.data_type,
+                            f.nullable or jt in ("right", "full"))
+              for f in left.schema]
         rf = [T.StructField(f.name, f.data_type,
-                            f.nullable or self.join_type == "left")
+                            f.nullable or jt in ("left", "full"))
               for f in right.schema]
-        return T.Schema(list(left.schema) + rf)
+        return T.Schema(lf + rf)
 
     def describe(self):
         keys = ", ".join(f"{l}={r}" for l, r in
@@ -246,6 +256,30 @@ class Union(LogicalPlan):
                     for i in range(len(first))]
         return T.Schema([T.StructField(f.name, f.data_type, n)
                          for f, n in zip(first, nullable)])
+
+
+class Expand(LogicalPlan):
+    """Several projections of every input row, one output row each (the
+    grouping sets of rollup, cube and ``grouping_sets``; Spark's Expand).
+    Field ``i`` takes the first projection's type and is nullable when
+    any projection's expression ``i`` is."""
+
+    def __init__(self, child: LogicalPlan,
+                 projections: List[List[Expression]], names: List[str]):
+        self.children = [child]
+        self.projections = [[resolve(e, child.schema) for e in proj]
+                            for proj in projections]
+        self.names = list(names)
+
+    @property
+    def schema(self) -> T.Schema:
+        return T.Schema([
+            T.StructField(name, self.projections[0][i].data_type,
+                          any(p[i].nullable for p in self.projections))
+            for i, name in enumerate(self.names)])
+
+    def describe(self):
+        return f"Expand [{len(self.projections)} projections]"
 
 
 class WindowOp(LogicalPlan):
@@ -368,15 +402,54 @@ def split_join_condition(cond: Expression, lschema: T.Schema,
 
 
 class GroupedData:
-    """``group_by(*keys)``; no keys makes ``agg`` a global aggregate."""
+    """``group_by(*keys)``; no keys makes ``agg`` a global aggregate.
+    With ``sets`` (each a tuple of key positions) it is GROUPING SETS:
+    an :class:`Expand` with one projection per set, the absent keys
+    null, and a grouping-id column, under an Aggregate over the keys and
+    that id. Spark's grouping id sets bit ``i`` when key ``i`` is absent,
+    the first key the most significant bit; ``gid_name`` keeps it as an
+    output column."""
 
-    def __init__(self, df: "DataFrame", keys: List[Expression]):
+    def __init__(self, df: "DataFrame", keys: List[Expression],
+                 sets: Optional[List[Tuple[int, ...]]] = None,
+                 gid_name: Optional[str] = None):
         self._df = df
         self._keys = keys
+        self._sets = sets
+        self._gid_name = gid_name
 
     def agg(self, *aggs: AGG.AggregateExpression) -> "DataFrame":
-        return DataFrame(Aggregate(self._df._plan, self._keys, list(aggs)),
-                         self._df._session)
+        if self._sets is None:
+            return DataFrame(Aggregate(self._df._plan, self._keys,
+                                       list(aggs)), self._df._session)
+        return self._agg_grouping_sets(list(aggs))
+
+    def _agg_grouping_sets(self, aggs) -> "DataFrame":
+        child = self._df._plan
+        keys = [resolve(k, child.schema) for k in self._keys]
+        key_names = [k.name for k in keys]
+        passthrough = [n for n in child.schema.names if n not in key_names]
+        gid_name = self._gid_name or "__grouping_id"
+        n = len(keys)
+        projections = []
+        for s in self._sets:
+            member = set(s)
+            proj = [k if i in member else Literal(None, k.data_type)
+                    for i, k in enumerate(keys)]
+            proj += [col(c) for c in passthrough]
+            gid = sum((0 if i in member else 1) << (n - 1 - i)
+                      for i in range(n))
+            proj.append(Literal(gid, T.INT))
+            projections.append(proj)
+        expanded = Expand(child, projections,
+                          key_names + passthrough + [gid_name])
+        plan = Aggregate(expanded, [col(c) for c in key_names + [gid_name]],
+                         aggs)
+        out = DataFrame(plan, self._df._session)
+        if self._gid_name is None:
+            out = out.select(*[col(c) for c in plan.schema.names
+                               if c != gid_name])
+        return out
 
 
 class DataFrame:
@@ -427,6 +500,31 @@ class DataFrame:
 
     def group_by(self, *keys) -> GroupedData:
         return GroupedData(self, [_as_expr(k) for k in keys])
+
+    def rollup(self, *keys, grouping_id: Optional[str] = None
+               ) -> GroupedData:
+        """GROUP BY ROLLUP: the grouping sets are every prefix of the
+        keys, from all of them down to the grand total."""
+        ks = [_as_expr(k) for k in keys]
+        sets = [tuple(range(i)) for i in range(len(ks), -1, -1)]
+        return GroupedData(self, ks, sets=sets, gid_name=grouping_id)
+
+    def cube(self, *keys, grouping_id: Optional[str] = None) -> GroupedData:
+        """GROUP BY CUBE: the grouping sets are every subset of the keys."""
+        ks = [_as_expr(k) for k in keys]
+        n = len(ks)
+        sets = [tuple(i for i in range(n) if mask & (1 << i))
+                for mask in range((1 << n) - 1, -1, -1)]
+        return GroupedData(self, ks, sets=sets, gid_name=grouping_id)
+
+    def grouping_sets(self, sets: List[List[str]], *keys,
+                      grouping_id: Optional[str] = None) -> GroupedData:
+        """GROUPING SETS over the named ``keys``; each set lists the key
+        names present in it."""
+        ks = [_as_expr(k) for k in keys]
+        idx = {resolve(k, self.schema).name: i for i, k in enumerate(ks)}
+        resolved = [tuple(sorted(idx[nm] for nm in s)) for s in sets]
+        return GroupedData(self, ks, sets=resolved, gid_name=grouping_id)
 
     def join(self, other: "DataFrame", on: Optional[Expression] = None,
              how: str = "inner") -> "DataFrame":

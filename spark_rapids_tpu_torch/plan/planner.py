@@ -6,15 +6,17 @@ plans as :class:`~..io.parquet_device.ParquetScanExec`, which decodes on
 the device (``planner.py:112`` and ``overrides`` in the reference); a
 keyless join
 plans as the nested-loop join (``planner.py:_plan_join``,
-``overrides.py:_make_nlj``); ``ORDER BY ... LIMIT n`` with ``n`` at or
-below ``spark.rapids.tpu.sort.topKThreshold`` plans as a top-k, as the
-reference's limit-into-sort rule does; a repartition plans as the
-shuffle exchange (``planner.py:140-146`` plans it on the CPU and
-``overrides`` moves it to the device); a window node plans as
+``overrides.py:_make_nlj``); an Expand (rollup, cube, grouping sets)
+plans as :class:`~..exec.execs.ExpandExec`; ``ORDER BY ... LIMIT n``
+with ``n`` at or below ``spark.rapids.tpu.sort.topKThreshold`` plans as
+a top-k, as the reference's limit-into-sort rule does; a repartition
+plans as the shuffle exchange (``planner.py:140-146`` plans it on the
+CPU and ``overrides`` moves it to the device); a window node plans as
 :class:`~..exec.window_exec.WindowExec` (``overrides.py:518``); a union
 as :class:`~..exec.execs.UnionExec`. An equi join with a residual
 condition keeps its keys and takes the condition into the hash join
-(:func:`~..exec.execs.join_exact`), whatever its type: the reference
+(:func:`~..exec.execs.join_exact`), whatever its type but right and
+full, which raise as the reference's planner does: the reference
 plans a non-inner one as a nested-loop join on the CPU
 (``planner.py:52-70``), whose pair grid a TPCxBB click-to-sale join
 makes too large to run.
@@ -91,12 +93,21 @@ def _plan_node(plan: L.LogicalPlan, conf: TorchConf, sub) -> E.TorchExec:
             sub(plan.children[1]), plan.condition,
             plan.schema)
     if isinstance(plan, L.Join):
+        if plan.join_type in ("right", "full") and \
+                plan.condition is not None:
+            # the reference plans a non-inner join with a residual as a
+            # nested-loop join, which takes no outer build side
+            raise NotImplementedError(
+                f"non-equi {plan.join_type} outer joins are not supported")
         return E.ShuffledHashJoinExec(
             sub(plan.children[0]),
             sub(plan.children[1]), plan.join_type,
             plan.left_keys, plan.right_keys, plan.schema, plan.condition)
     if isinstance(plan, L.Union):
         return E.UnionExec([sub(c) for c in plan.children], plan.schema)
+    if isinstance(plan, L.Expand):
+        return E.ExpandExec(sub(plan.children[0]), plan.projections,
+                            plan.schema)
     if isinstance(plan, L.WindowOp):
         return WindowExec(sub(plan.children[0]),
                           plan.window_exprs, plan.schema)

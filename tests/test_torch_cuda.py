@@ -852,3 +852,47 @@ def test_cuda_parse_hybrid_matches_plain_on_the_fixture(cuda_device):
         assert a.handles == b.handles
         assert torch.equal(a.tables, b.tables)
     assert PD.parse_hybrid_native.launches > before
+
+
+@pytest.mark.cuda
+def test_cuda_full_join_returns_unmatched_build_rows(cuda_device):
+    """A full outer join with 300,000 build rows (far past what a
+    direct-address table takes at once; a full join never takes one) on
+    the card: every output batch lies on the card, no ``joinProbe``
+    launches, the answer equals the CPU's row for row, and the build rows
+    that matched nothing come last, null on the probe side."""
+    from spark_rapids_tpu_torch.exec import execs as E
+    from spark_rapids_tpu_torch.ops import predicates as P
+    from spark_rapids_tpu_torch.ops.expression import col
+    from spark_rapids_tpu_torch.session import TorchSession
+    rng = np.random.default_rng(13)
+    n_p, n_b = 100_000, 300_000
+    probe = {"pk": rng.integers(0, 400_000, n_p).astype(np.int64),
+             "a": np.arange(n_p, dtype=np.int64)}
+    build = {"bk": rng.integers(0, 400_000, n_b).astype(np.int64),
+             "b": np.arange(n_b, dtype=np.int64)}
+    pvalid = {"pk": rng.random(n_p) > 0.05}
+    bvalid = {"bk": rng.random(n_b) > 0.05}
+    results = {}
+    for dev in ("cuda", "cpu"):
+        s = TorchSession(device=dev)
+        df = s.create_dataframe(HostBatch.from_numpy(probe, validity=pvalid)
+                                ).join(
+            s.create_dataframe(HostBatch.from_numpy(build, validity=bvalid)),
+            on=P.EqualTo(col("pk"), col("bk")), how="full")
+        if dev == "cuda":
+            before = JP.dense_build_probe.launches
+            [batches] = s.plan(df._plan).execute(E.ExecContext(cuda_device))
+            assert len(batches) == 2
+            assert all(c.validity.device.type == "cuda"
+                       for b in batches for c in b.columns)
+            assert JP.dense_build_probe.launches == before
+        results[dev] = _host_rows(df.collect())
+    assert results["cuda"] == results["cpu"]
+    rows = results["cuda"]  # (pk, a, bk, b)
+    tail = [i for i, r in enumerate(rows) if r[1] is None]
+    assert tail and tail == list(range(tail[0], len(rows)))
+    hit = set(np.asarray(probe["pk"])[pvalid["pk"]].tolist())
+    want = [int(b) for b, k, ok in zip(build["b"], build["bk"], bvalid["bk"])
+            if not (ok and int(k) in hit)]
+    assert [rows[i][3] for i in tail] == want

@@ -101,12 +101,21 @@ def test_join_match_matches_reference(name):
 
 
 def test_join_match_refuses_build_hits():
+    """``need_build_hits`` (full outer joins) no longer raises: a fourth
+    value, the build rows' hit mask, equals the reference's."""
     rng = np.random.default_rng(1)
-    rb, flat = _side(rng, 20, WORDS, 0, 5)
-    _, keys = _keys("two int keys", rb, flat)
-    live = torch.ones(rb.capacity, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="full and right"):
-        KJ.join_match(keys, keys, live, live, need_build_hits=True)
+    brb, bflat = _side(rng, 40, WORDS, 0, 5)
+    prb, pflat = _side(rng, 60, WORDS, 2, 9)
+    rbk, bk = _keys("two int keys", brb, bflat)
+    rpk, pk = _keys("two int keys", prb, pflat)
+    live_b = rng.random(brb.capacity) < 0.9
+    live_p = rng.random(prb.capacity) < 0.9
+    *_, hits = KJ.join_match(bk, pk, torch.as_tensor(live_b),
+                             torch.as_tensor(live_p), need_build_hits=True)
+    *_, rhits = RKJ.join_match(rbk, rpk, jnp.asarray(live_b),
+                               jnp.asarray(live_p), need_build_hits=True)
+    np.testing.assert_array_equal(hits.numpy(), np.asarray(rhits))
+    assert hits.any() and not hits.all()
 
 
 JOIN_CASES = ["one int key (dense)", "one int key (exact)",

@@ -270,7 +270,21 @@ def test_in_on_integers_matches_reference(values):
 
 
 def test_flat_string_comparison_is_refused():
-    _, pb = batches()
-    e = L.resolve(P.EqualTo(col("f"), lit("13")), pb.schema).bind(pb.schema)
-    with pytest.raises(NotImplementedError):
-        e.eval_device(pb)
+    """Flat string comparisons are no longer refused: a flat column
+    against a literal and against a dictionary column compares row by
+    row, and every live row's answer is the reference's."""
+    rb, pb = batches()
+    live = np.asarray(rb.row_mask())
+    for rop, op, right, rright in (
+            (RP.EqualTo, P.EqualTo, lit("13"), rlit("13")),
+            (RP.LessThan, P.LessThan, col("s"), rcol("s")),
+            (RP.GreaterThanOrEqual, P.GreaterThanOrEqual, lit("2"),
+             rlit("2"))):
+        want = rbind(rop(rcol("f"), rright), rb.schema).eval_device(rb)
+        got = L.resolve(op(col("f"), right),
+                        pb.schema).bind(pb.schema).eval_device(pb)
+        np.testing.assert_array_equal(got.validity.numpy()[live],
+                                      np.asarray(want.validity)[live])
+        ok = live & np.asarray(want.validity)
+        np.testing.assert_array_equal(got.data.numpy()[ok],
+                                      np.asarray(want.data)[ok])
