@@ -93,15 +93,37 @@ def _to_device(host: np.ndarray, device: torch.device) -> torch.Tensor:
 @dataclasses.dataclass
 class HostBatch:
     """Host rows: ``columns`` name -> numpy values (strings as a numpy
-    str/object array, dates as int32 days), ``validity`` name -> bool."""
+    str/object array, dates as int32 days), ``validity`` name -> bool.
+    Where the schema repeats a name (a ``USING`` join keeps both sides'
+    keys), ``columns`` and ``validity`` hold the first column of that
+    name, as ``col(name)`` reads it, and ``positional`` every column's
+    (values, validity) in schema order (:meth:`column_at`)."""
 
     columns: Dict[str, np.ndarray]
     schema: T.Schema
     validity: Dict[str, np.ndarray]
+    positional: Optional[list] = None
 
     @property
     def num_rows(self) -> int:
         return len(next(iter(self.columns.values()))) if self.columns else 0
+
+    def column_at(self, i: int):
+        """(values, validity) of the schema's ``i``-th column."""
+        if self.positional is not None:
+            return self.positional[i]
+        name = self.schema.names[i]
+        return self.columns[name], self.validity[name]
+
+    @staticmethod
+    def from_positional(schema: T.Schema, pairs: list) -> "HostBatch":
+        """A batch of (values, validity) ``pairs`` in ``schema``'s order."""
+        cols, valid = {}, {}
+        for f, (v, ok) in zip(schema, pairs):
+            cols.setdefault(f.name, v)
+            valid.setdefault(f.name, ok)
+        dup = len(cols) < len(pairs)
+        return HostBatch(cols, schema, valid, list(pairs) if dup else None)
 
     @staticmethod
     def from_numpy(data: Dict[str, np.ndarray],
@@ -160,9 +182,9 @@ class HostBatch:
     @staticmethod
     def empty(schema: T.Schema) -> "HostBatch":
         """No rows of ``schema``."""
-        return HostBatch({f.name: np.zeros(0, f.data_type.np_dtype)
-                          for f in schema}, schema,
-                         {f.name: np.zeros(0, bool) for f in schema})
+        return HostBatch.from_positional(
+            schema, [(np.zeros(0, f.data_type.np_dtype), np.zeros(0, bool))
+                     for f in schema])
 
     @staticmethod
     def concat(batches: Sequence["HostBatch"]) -> "HostBatch":
@@ -170,23 +192,20 @@ class HostBatch:
         first = batches[0]
         if len(batches) == 1:
             return first
-        names = first.schema.names
-        return HostBatch(
-            {n: np.concatenate([b.columns[n] for b in batches])
-             for n in names}, first.schema,
-            {n: np.concatenate([b.validity[n] for b in batches])
-             for n in names})
+        return HostBatch.from_positional(first.schema, [
+            tuple(np.concatenate(part) for part in zip(
+                *[b.column_at(i) for b in batches]))
+            for i in range(len(first.schema.names))])
 
     @staticmethod
     def from_device(batch: ColumnarBatch) -> "HostBatch":
         """Download the live rows in row order (one host sync per lane)."""
         mask = batch.row_mask()
-        cols, valid = {}, {}
-        for f, c in zip(batch.schema, batch.columns):
+        pairs = []
+        for c in batch.columns:
             v = c.validity[mask].cpu().numpy()
             if c.is_flat:
-                cols[f.name] = _flat_to_host(c, mask, v)
-                valid[f.name] = v
+                pairs.append((_flat_to_host(c, mask, v), v))
                 continue
             lane = c.lane[mask].cpu().numpy()
             if c.is_dict:
@@ -195,9 +214,8 @@ class HostBatch:
                 vals = np.where(v, vals, None)
             else:
                 vals = lane
-            cols[f.name] = vals
-            valid[f.name] = v
-        return HostBatch(cols, batch.schema, valid)
+            pairs.append((vals, v))
+        return HostBatch.from_positional(batch.schema, pairs)
 
 
 # --------------------------------------------------------------------------

@@ -4,11 +4,12 @@ a device table or a parquet scan, ``select``, ``where``, ``with_column``
 (a window expression appends a window column), ``with_windows``, equi
 ``join`` (inner, left, right, full, left_semi, left_anti; the terms of
 ``on`` that are not ``left = right`` stay as the join's residual
-condition), ``cross_join`` (a keyless inner join is one, with its
-condition), ``group_by(...).agg`` (no keys: a global aggregate),
-``rollup``, ``cube`` and ``grouping_sets`` (Expand + Aggregate),
-``distinct``, ``union``, ``sort``, ``limit``, ``repartition`` (hash on
-columns, or round-robin) and ``collect``.
+condition; column names are SQL's ``USING``), ``cross_join`` (a
+keyless inner join is one, with its condition), ``group_by(...).agg``
+(no keys: a global aggregate), ``rollup``, ``cube`` and
+``grouping_sets`` (Expand + Aggregate), ``distinct``, ``union``,
+``sort``, ``limit``, ``repartition`` (hash on columns, or round-robin)
+and ``collect``.
 
 Analysis is eager, as in the reference: every node resolves attribute
 types against its child's schema and inserts numeric coercion casts when
@@ -526,15 +527,29 @@ class DataFrame:
         resolved = [tuple(sorted(idx[nm] for nm in s)) for s in sets]
         return GroupedData(self, ks, sets=resolved, gid_name=grouping_id)
 
-    def join(self, other: "DataFrame", on: Optional[Expression] = None,
+    def join(self, other: "DataFrame", on=None,
              how: str = "inner") -> "DataFrame":
         """Equi join on the ``left = right`` terms of ``on``; its other
         terms are the join's residual condition. An inner join with no
-        equi term is a cross join filtered by ``on``."""
+        equi term is a cross join filtered by ``on``. A column name or a
+        list of them is SQL's ``USING``: each name is the key on both
+        sides, and both sides' key columns stay in the output (an inner,
+        outer or right join yields the name twice; a later ``col(name)``
+        reads the left one)."""
         if on is None:
             jt = "cross" if how in ("inner", "cross") else how
             return DataFrame(Join(self._plan, other._plan, jt, [], []),
                              self._session)
+        if isinstance(on, str):
+            on = [on]
+        if isinstance(on, (list, tuple)):
+            if not on or not all(isinstance(k, str) for k in on):
+                raise TypeError(f"join on: expected column names, got {on!r}")
+            keys = [col(k) for k in on]
+            return DataFrame(Join(self._plan, other._plan, how, keys, keys),
+                             self._session)
+        if not isinstance(on, Expression):
+            raise TypeError(f"unsupported join on: {on!r}")
         lk, rk, residual = split_join_condition(on, self.schema,
                                                 other.schema)
         if not lk and how == "inner":

@@ -896,3 +896,47 @@ def test_cuda_full_join_returns_unmatched_build_rows(cuda_device):
     want = [int(b) for b, k, ok in zip(build["b"], build["bk"], bvalid["bk"])
             if not (ok and int(k) in hit)]
     assert [rows[i][3] for i in tail] == want
+
+
+@pytest.mark.cuda
+def test_cuda_using_semi_and_anti_joins_on_three_keys_match_cpu(cuda_device):
+    """q38's and q87's joins on the card: ``distinct`` (last name, first
+    name, date) triples of two string dictionaries (different entries on
+    each side) and a DATE, left semi and left anti joined ``USING`` all
+    three (``join(on=[names])``), with null names; every output column
+    lies on the card and the rows equal the CPU's."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.exec import execs as E
+    from spark_rapids_tpu_torch.session import TorchSession
+    rng = np.random.default_rng(38)
+    last = np.array(["Smith", "Johnson", "Brown", "Jones", "Miller", "Davis"])
+    first = np.array(["James", "Mary", "John", "Linda", "Robert"])
+    schema = T.Schema([T.StructField("c_last_name", T.STRING),
+                       T.StructField("c_first_name", T.STRING),
+                       T.StructField("d_date", T.DATE)])
+
+    def side(n, names):
+        data = {"c_last_name": names[rng.integers(0, len(names), n)],
+                "c_first_name": first[rng.integers(0, len(first), n)],
+                "d_date": rng.integers(10_000, 10_365, n).astype(np.int32)}
+        valid = {"c_last_name": rng.random(n) > 0.02}
+        return HostBatch.from_numpy(data, schema, valid)
+    left, right = side(400_000, last), side(150_000, last[2:])
+    keys = ["c_last_name", "c_first_name", "d_date"]
+    results = {}
+    for dev in ("cuda", "cpu"):
+        s = TorchSession(device=dev)
+        a = s.create_dataframe(left).distinct()
+        b = s.create_dataframe(right).distinct()
+        for how in ("left_semi", "left_anti"):
+            df = a.join(b, on=keys, how=how)
+            if dev == "cuda":
+                parts = s.plan(df._plan).execute(E.ExecContext(cuda_device))
+                assert all(c.validity.device.type == "cuda"
+                           for part in parts for batch in part
+                           for c in batch.columns)
+            results[dev, how] = sorted(_host_rows(df.collect()), key=repr)
+    for how in ("left_semi", "left_anti"):
+        assert results["cuda", how] == results["cpu", how], how
+        assert results["cpu", how], how
+    assert any(r[0] is None for r in results["cpu", "left_anti"])

@@ -3,8 +3,10 @@ default-tier queries but q36 (q1, q3, q6, q44, q51, q88, q98), the port
 against the JAX package at the reference's own test scale, 2^13
 store_sales rows, seed 11 (``tests/test_tpcds.py``). The other parts
 are ``test_torch_tpcds_rollup.py`` and ``test_torch_tpcds_star1.py`` to
-``star3.py``, split so that ``--dist loadfile`` spreads them; this file
-holds the helpers.
+``star3.py``, and the second 33 queries' ``test_torch_tpcds_using.py``,
+``_empty.py``, ``_returns.py``, ``_q47.py``, ``_q57.py``,
+``_windows.py``, ``_q67.py``, ``_yoy.py`` and ``_exists.py``, split so
+that ``--dist loadfile`` spreads them; this file holds the helpers.
 
 The port's ``gen_tables`` equals the reference's bit for bit: every
 table's columns, types, values, validity and dates. Each query runs
@@ -19,7 +21,8 @@ of each query (``DS_REFS``) is held against the reference's answer by
 the card's own check (``check_ds``: the ORDER BY's runs of equal keys
 as sets), so a wrong numpy reference shows here and not on the card.
 q1 and q68 also run over ``chip_smoke.ds_tn_stores``'s stores, the
-card's ``ds_q1_tn`` and ``ds_q68_tn`` cells.
+card's ``ds_q1_tn`` and ``ds_q68_tn`` cells (``check_variant``, which
+the other ``chip_smoke.DS_VARIANTS`` take too).
 """
 
 import numpy as np
@@ -142,6 +145,25 @@ def check_wrapper_calls(ds: Ds) -> None:
     assert all(n for _, n in ds.port.values())
 
 
+def check_variant(ds: Ds, variant: str) -> None:
+    """The query of ``chip_smoke.DS_VARIANTS[variant]`` over that
+    variant's tables (the card's ``ds_<variant>`` cell): the port, the
+    reference (Pallas on) and the numpy reference agree, with rows."""
+    q, make = CS.DS_VARIANTS[variant]
+    port_tables = make(ds.port_tables)
+    ref_tables = dict(ds.ref_tables, **{
+        n: _to_arrow(hb) for n, hb in port_tables.items()
+        if hb is not ds.port_tables[n]})
+    got = CS.ds_host_rows(tpcds.QUERIES[q](tpcds.load(
+        TorchSession(device="cpu"), port_tables)).collect())
+    want = ref_rows(rds.QUERIES[q](rds.load(
+        ref_session(REF_CONFS["pallas on"]), ref_tables)).collect())
+    assert len(next(iter(want.values()))) > 0
+    assert_same_answer(got, want, q)
+    assert CS.check_ds(variant, want, CS.DS_REFS[variant](ds.port_tables),
+                       variant) > 0
+
+
 QUERIES = ["q1", "q3", "q6", "q44", "q51", "q88", "q98"]
 
 
@@ -192,7 +214,9 @@ def test_query_paths_call_the_kernel_wrappers(ds):
 
 def _to_arrow(hb) -> pa.RecordBatch:
     return pa.RecordBatch.from_arrays(
-        [pa.array(hb.columns[n], mask=~hb.validity[n]) for n in hb.columns],
+        [pa.array(hb.columns[n], mask=~hb.validity[n],
+                  type=pa.date32() if hb.schema[n].data_type is T.DATE
+                  else None) for n in hb.columns],
         names=list(hb.columns))
 
 
@@ -201,13 +225,4 @@ def test_query_over_tn_stores(q, ds):
     """q1 and q68 over stores 0, 4 and 8 moved to Oak Grove, TN (the
     card's ``ds_q1_tn`` and ``ds_q68_tn``): the port, the reference and
     the numpy reference agree, with rows."""
-    port_tables = CS.ds_tn_stores(ds.port_tables)
-    ref_tables = dict(ds.ref_tables, store=_to_arrow(port_tables["store"]))
-    got = CS.ds_host_rows(tpcds.QUERIES[q](tpcds.load(
-        TorchSession(device="cpu"), port_tables)).collect())
-    want = ref_rows(rds.QUERIES[q](rds.load(
-        ref_session(REF_CONFS["pallas on"]), ref_tables)).collect())
-    assert len(next(iter(want.values()))) > 0
-    assert_same_answer(got, want, q)
-    assert CS.check_ds(q, want, CS.DS_REFS[f"{q}_tn"](ds.port_tables),
-                       f"{q}_tn") > 0
+    check_variant(ds, f"{q}_tn")

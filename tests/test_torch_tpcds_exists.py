@@ -1,0 +1,39 @@
+"""The TPC-DS slice's second part, EXISTS and NOT EXISTS as semi and
+anti joins: q10 and q35 (a store customer who also bought on the web or
+by catalog), q16, q94 and q95 (orders shipped from two warehouses, with
+or without a return; one filtered subplan read for the totals and the
+order count), and q23 (frequent items and best customers,
+the latter against half the largest customer's spend from a scalar
+aggregate).
+
+The port against the JAX package at 2^13 store_sales rows, seed 11, and
+``chip_smoke.py``'s numpy reference of each query against the
+reference's answer, as ``tests/test_torch_tpcds_base.py`` (which holds
+the helpers) describes.
+"""
+
+import pytest
+
+from test_torch_tpcds_base import (Ds, check_numpy_reference, check_query,
+                                   check_wrapper_calls)
+
+QUERIES = ["q10", "q35", "q16", "q94", "q95", "q23"]
+
+
+@pytest.fixture(scope="module")
+def ds():
+    return Ds(QUERIES)
+
+
+@pytest.mark.parametrize("conf,q", [("pallas on", q) for q in QUERIES])
+def test_query_matches_reference(q, conf, ds):
+    check_query(ds, q, conf)
+
+
+@pytest.mark.parametrize("q", QUERIES)
+def test_numpy_reference_matches_reference(q, ds):
+    check_numpy_reference(ds, q)
+
+
+def test_query_paths_call_the_kernel_wrappers(ds):
+    check_wrapper_calls(ds)

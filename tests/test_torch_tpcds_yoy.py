@@ -1,0 +1,37 @@
+"""The TPC-DS slice's second part, year-over-year and quarter-over-quarter
+comparisons: q2 (weekly sums by day joined to the same weeks a year
+later, one aggregate read twice), q4, q11 and q74 (per-customer year
+totals of two or three channels joined, growth ratios compared with
+``>``) and q31 (county totals over three quarters).
+
+The port against the JAX package at 2^13 store_sales rows, seed 11, and
+``chip_smoke.py``'s numpy reference of each query against the
+reference's answer, as ``tests/test_torch_tpcds_base.py`` (which holds
+the helpers) describes.
+"""
+
+import pytest
+
+from test_torch_tpcds_base import (Ds, check_numpy_reference, check_query,
+                                   check_wrapper_calls)
+
+QUERIES = ["q2", "q4", "q11", "q31", "q74"]
+
+
+@pytest.fixture(scope="module")
+def ds():
+    return Ds(QUERIES)
+
+
+@pytest.mark.parametrize("conf,q", [("pallas on", q) for q in QUERIES])
+def test_query_matches_reference(q, conf, ds):
+    check_query(ds, q, conf)
+
+
+@pytest.mark.parametrize("q", QUERIES)
+def test_numpy_reference_matches_reference(q, ds):
+    check_numpy_reference(ds, q)
+
+
+def test_query_paths_call_the_kernel_wrappers(ds):
+    check_wrapper_calls(ds)
