@@ -4000,6 +4000,728 @@ def numpy_ds_q24(tables):
                      ("s_store_name", True), ("i_manufact", True)])
 
 
+# -- the last 33 TPC-DS queries ---------------------------------------------
+
+#: q9's quantity buckets: (low, high, the row count above which the
+#: bucket reports its average discount rather than its average net paid).
+_Q9_BUCKETS = [(1, 20, 74129), (21, 40, 122840), (41, 60, 56580),
+               (61, 80, 10097), (81, 100, 165306)]
+#: q28's bands: (quantity low, high, list price low, high).
+_Q28_BANDS = [(0, 5, 11, 16), (6, 10, 91, 96), (11, 15, 66, 71),
+              (16, 20, 142, 147), (21, 25, 135, 140), (26, 30, 28, 33)]
+
+
+def _mean(values):
+    """Spark's ``avg``: null over no row."""
+    return float(values.sum()) / len(values) if len(values) else None
+
+
+def numpy_ds_q9(tables):
+    ss = tables["store_sales"].columns
+    # the rows of reason 1, the one-row frame the buckets cross-join
+    anchor = int((tables["reason"].columns["r_reason_sk"] == 1).sum())
+    out = {}
+    for i, (lo, hi, above) in enumerate(_Q9_BUCKETS, 1):
+        m = _between(ss["ss_quantity"], lo, hi)
+        pick = "ss_ext_discount_amt" if m.sum() > above else "ss_net_paid"
+        out[f"bucket{i}"] = [_mean(ss[pick][m])] * anchor
+    return out
+
+
+def numpy_ds_q28(tables):
+    ss = tables["store_sales"].columns
+    lp = ss["ss_list_price"]
+    out = {}
+    for i, (qlo, qhi, plo, phi) in enumerate(_Q28_BANDS, 1):
+        m = _between(ss["ss_quantity"], qlo, qhi) & (
+            _between(lp, plo, phi)
+            | _between(ss["ss_coupon_amt"], plo * 10.0, plo * 10.0 + 1000.0)
+            | _between(ss["ss_wholesale_cost"], qlo, qlo + 20.0))
+        out.update({f"b{i}_lp": [_mean(lp[m])], f"b{i}_cnt": [int(m.sum())],
+                    f"b{i}_cntd": [len(np.unique(lp[m]))]})
+    return out
+
+
+def numpy_ds_q90(tables):
+    c = _ds_dims(tables)
+    ws = c["web_sales"]
+    hour = c["time_dim"]["t_hour"][ws["ws_sold_time_sk"]]
+    ok = (c["household_demographics"]["hd_dep_count"][
+        ws["ws_bill_hdemo_sk"]] == 3) & _between(
+        c["web_page"]["wp_char_count"][ws["ws_web_page_sk"]], 2500, 5500)
+    am = float((ok & _between(hour, 8, 9)).sum())
+    pm = float((ok & _between(hour, 19, 20)).sum())
+    return {"am_pm_ratio": [_ratio(am, pm)]}
+
+
+def _excess_discount(c, fact, p):
+    """q32 and q92: the discounts above 1.3 times their item's average
+    over the channel's sales in days 700-790 of manufacturers 20-40."""
+    f = c[fact]
+    ik = f[f"{p}_item_sk"]
+    m = _between(f[f"{p}_sold_date_sk"], 700, 790) \
+        & _between(c["item"]["i_manufact_id"][ik], 20, 40)
+    ik, disc = ik[m], f[f"{p}_ext_discount_amt"][m]
+    (items,), (s, n) = _groups([ik], disc)
+    keep = disc > 1.3 * _at(items, s / n, ik)
+    return {"excess_discount": [float(disc[keep].sum()) if keep.any()
+                                else None]}
+
+
+def numpy_ds_q32(tables):
+    return _excess_discount(_ds_dims(tables), "catalog_sales", "cs")
+
+
+def numpy_ds_q92(tables):
+    return _excess_discount(_ds_dims(tables), "web_sales", "ws")
+
+
+def numpy_ds_q41(tables):
+    it = tables["item"].columns
+    siblings = it["i_manufact"][np.isin(it["i_category"],
+                                        ["Women", "Men", "Shoes"])]
+    m = _between(it["i_manufact_id"], 40, 80) \
+        & np.isin(it["i_manufact"], siblings)
+    return _ds_rows({"i_product_name": np.unique(it["i_product_name"][m])},
+                    [("i_product_name", True)])
+
+
+def numpy_ds_q84(tables):
+    c = _ds_dims(tables)
+    cu, ib = c["customer"], c["income_band"]
+    band = c["household_demographics"]["hd_income_band_sk"][
+        cu["c_current_hdemo_sk"]]
+    m = (c["customer_address"]["ca_city"][cu["c_current_addr_sk"]]
+         == "Midway") & (ib["ib_lower_bound"][band] >= 20000) \
+        & (ib["ib_upper_bound"][band] <= 70000) \
+        & np.isin(cu["c_customer_sk"], c["store_returns"]["sr_customer_sk"])
+    return _ds_rows({k: cu[k][m] for k in ("c_customer_id", "c_first_name",
+                                           "c_last_name")},
+                    [("c_customer_id", True)])
+
+
+def numpy_ds_q43(tables):
+    c = _ds_dims(tables)
+    ss, d, st = c["store_sales"], c["date_dim"], c["store"]
+    dk = ss["ss_sold_date_sk"]
+    m = d["d_year"][dk] == 1998
+    day, price = d["d_day_name"][dk[m]], ss["ss_sales_price"][m]
+    (sk,), sums = _group_sums([ss["ss_store_sk"][m]], *[
+        np.where(day == name, price, 0.0) for name in _DAY_NAMES])
+    out = {"s_store_name": st["s_store_name"][sk],
+           "s_store_id": st["s_store_id"][sk]}
+    out.update({f"{d}_sales": s for d, s in zip(_DAYS, sums)})
+    return _ds_rows(out, [("s_store_name", True), ("s_store_id", True)])
+
+
+def _latency_buckets(lat):
+    """q50, q62 and q99's day counts: up to 30, 31-60, 61-90, 91-120 and
+    more than 120."""
+    return [(lat <= 30).astype(np.int64),
+            ((lat > 30) & (lat <= 60)).astype(np.int64),
+            ((lat > 60) & (lat <= 90)).astype(np.int64),
+            ((lat > 90) & (lat <= 120)).astype(np.int64),
+            (lat > 120).astype(np.int64)]
+
+
+_LATENCY = ["d30", "d60", "d90", "d120", "d120plus"]
+
+
+def numpy_ds_q50(tables):
+    c = _ds_dims(tables)
+    ss, sr, d, st = c["store_sales"], c["store_returns"], c["date_dim"], \
+        c["store"]
+    rd = sr["sr_returned_date_sk"]
+    rm = np.flatnonzero((d["d_year"][rd] == 2000) & (d["d_moy"][rd] == 8))
+    ri, si = _eq_join([sr[k][rm] for k in ("sr_ticket_number", "sr_item_sk",
+                                           "sr_customer_sk")],
+                      [ss[k] for k in ("ss_ticket_number", "ss_item_sk",
+                                       "ss_customer_sk")])
+    lat = rd[rm][ri] - ss["ss_sold_date_sk"][si]
+    (sk,), counts = _group_sums([ss["ss_store_sk"][si]],
+                                *_latency_buckets(lat))
+    out = {k: st[k][sk] for k in ("s_store_name", "s_store_id", "s_city",
+                                  "s_county", "s_state", "s_zip")}
+    out.update(zip(_LATENCY, counts))
+    return _ds_rows(out, [("s_store_name", True), ("s_store_id", True)])
+
+
+def _shipping_latency(c, fact, p, site_col, site_table, name_col):
+    """q62 and q99: the channel's sales shipped in months 12-23, their
+    latency buckets by warehouse, ship mode type and site or center."""
+    f, d = c[fact], c["date_dim"]
+    m = _between(d["d_month_seq"][f[f"{p}_ship_date_sk"]], 12, 23)
+    lat = f[f"{p}_ship_date_sk"][m] - f[f"{p}_sold_date_sk"][m]
+    (wh, sm, site), counts = _group_sums(
+        [c["warehouse"]["w_warehouse_name"][f[f"{p}_warehouse_sk"][m]],
+         c["ship_mode"]["sm_type"][f[f"{p}_ship_mode_sk"][m]],
+         c[site_table][name_col][f[site_col][m]]], *_latency_buckets(lat))
+    out = {"wh": wh, "sm_type": sm, name_col: site}
+    out.update(zip(_LATENCY, counts))
+    return _ds_rows(out, [("wh", True), ("sm_type", True),
+                          (name_col, True)])
+
+
+def numpy_ds_q62(tables):
+    return _shipping_latency(_ds_dims(tables), "web_sales", "ws",
+                             "ws_web_site_sk", "web_site", "web_name")
+
+
+def numpy_ds_q99(tables):
+    return _shipping_latency(_ds_dims(tables), "catalog_sales", "cs",
+                             "cs_call_center_sk", "call_center", "cc_name")
+
+
+def numpy_ds_q45(tables):
+    c = _ds_dims(tables)
+    ws, d, ca = c["web_sales"], c["date_dim"], c["customer_address"]
+    dk = ws["ws_sold_date_sk"]
+    addr = c["customer"]["c_current_addr_sk"][ws["ws_bill_customer_sk"]]
+    zip5 = np.array([z[:5] for z in ca["ca_zip"].tolist()])
+    m = (d["d_qoy"][dk] == 2) & (d["d_year"][dk] == 2000) & (
+        np.isin(zip5, ["85669", "86197", "88274", "83405", "86475"])[addr]
+        | np.isin(ws["ws_item_sk"], [2, 3, 5, 7, 11, 13, 17, 19, 23, 29]))
+    (z, city), (s,) = _group_sums([ca["ca_zip"][addr[m]],
+                                   ca["ca_city"][addr[m]]],
+                                  ws["ws_sales_price"][m])
+    return _ds_rows({"ca_zip": z, "ca_city": city, "web_sales": s},
+                    [("ca_zip", True), ("ca_city", True)])
+
+
+def numpy_ds_q73(tables):
+    c = _ds_dims(tables)
+    ss, d, hd, cu = c["store_sales"], c["date_dim"], \
+        c["household_demographics"], c["customer"]
+    hk = ss["ss_hdemo_sk"]
+    m = np.isin(d["d_year"][ss["ss_sold_date_sk"]], [1998, 1999]) \
+        & np.isin(hd["hd_buy_potential"][hk], [">10000", "Unknown"]) \
+        & (hd["hd_vehicle_count"][hk] > 0) \
+        & np.isin(c["store"]["s_county"][ss["ss_store_sk"]],
+                  ["Fairview County", "Midway County", "Riverside County"])
+    (tick, cust), (n,) = _groups([ss["ss_ticket_number"][m],
+                                  ss["ss_customer_sk"][m]])
+    keep = _between(n, 1, 5)
+    ck = cust[keep]
+    out = {k: cu[k][ck] for k in ("c_last_name", "c_first_name",
+                                  "c_salutation", "c_preferred_cust_flag")}
+    out.update(ss_ticket_number=tick[keep], cnt=n[keep])
+    return _ds_rows(out, [("cnt", False), ("c_last_name", True),
+                          ("ss_ticket_number", True)])
+
+
+def _stocked_items(c, sold, price_lo, price_hi, mf_lo, mf_hi):
+    """q37 and q82: items of a price and manufacturer band with 100-500
+    on hand in days 700-760 that a channel sold (``sold``: its item
+    keys), at their price."""
+    it, inv = c["item"], c["inventory"]
+    stocked = inv["inv_item_sk"][
+        _between(inv["inv_quantity_on_hand"], 100, 500)
+        & _between(inv["inv_date_sk"], 700, 760)]
+    m = _between(it["i_current_price"], price_lo, price_hi) \
+        & _between(it["i_manufact_id"], mf_lo, mf_hi) \
+        & np.isin(it["i_item_sk"], stocked) & np.isin(it["i_item_sk"], sold)
+    return _ds_rows({"i_item_id": it["i_item_id"][m],
+                     "min_price": it["i_current_price"][m]},
+                    [("i_item_id", True)])
+
+
+def numpy_ds_q37(tables):
+    c = _ds_dims(tables)
+    return _stocked_items(c, c["catalog_sales"]["cs_item_sk"], 20.0, 50.0,
+                          30, 70)
+
+
+def numpy_ds_q82(tables):
+    c = _ds_dims(tables)
+    return _stocked_items(c, c["store_sales"]["ss_item_sk"], 30.0, 60.0,
+                          10, 50)
+
+
+def numpy_ds_q85(tables):
+    c = _ds_dims(tables)
+    ws, wr, cd = c["web_sales"], c["web_returns"], c["customer_demographics"]
+    si, ri = _eq_join([ws["ws_order_number"], ws["ws_item_sk"]],
+                      [wr["wr_order_number"], wr["wr_item_sk"]])
+    c1, c2 = wr["wr_refunded_cdemo_sk"][ri], wr["wr_returning_cdemo_sk"][ri]
+    keep = (c["date_dim"]["d_year"][ws["ws_sold_date_sk"][si]] == 1998) \
+        & np.isin(c["customer_address"]["ca_state"][
+            wr["wr_refunded_addr_sk"][ri]], ["CA", "TX", "OH"]) \
+        & (cd["cd_marital_status"][c1] == cd["cd_marital_status"][c2]) \
+        & (cd["cd_education_status"][c1] == cd["cd_education_status"][c2])
+    si, ri = si[keep], ri[keep]
+    (reason,), (q, cash, fee, n) = _groups(
+        [c["reason"]["r_reason_desc"][wr["wr_reason_sk"][ri]]],
+        ws["ws_quantity"][si], wr["wr_refunded_cash"][ri], wr["wr_fee"][ri])
+    return _ds_rows({"r_reason_desc": reason, "avg_qty": q / n,
+                     "avg_refund": cash / n, "avg_fee": fee / n},
+                    [("r_reason_desc", True)])
+
+
+def _left_join(lkeys, rkeys):
+    """(left rows, right rows) of a left join: the pairs whose key tuples
+    are equal, then every left row with none, its right row -1."""
+    li, ri = _eq_join(lkeys, rkeys)
+    lone = np.setdiff1d(np.arange(len(lkeys[0])), li)
+    return np.concatenate([li, lone]), \
+        np.concatenate([ri, np.full(len(lone), -1)])
+
+
+def _returns_above_state_avg(c, ret, p, amount, addr_col, names):
+    """q30 and q81: each returning customer's year-2000 returns by the
+    return address's state, kept above 1.2 times the state's average."""
+    r, d, ca, cu = c[ret], c["date_dim"], c["customer_address"], \
+        c["customer"]
+    m = d["d_year"][r[f"{p}_returned_date_sk"]] == 2000
+    (cust, state), (tot,) = _group_sums(
+        [r[f"{p}_returning_customer_sk"][m], ca["ca_state"][r[addr_col][m]]],
+        r[amount][m])
+    (states,), (s, n) = _groups([state], tot)
+    keep = tot > 1.2 * _at(states, s / n, state)
+    out = {k: cu[k][cust[keep]] for k in names}
+    out["ctr_total"] = tot[keep]
+    return _ds_rows(out, [("c_customer_id", True), ("ctr_total", True)])
+
+
+def numpy_ds_q30(tables):
+    return _returns_above_state_avg(
+        _ds_dims(tables), "web_returns", "wr", "wr_return_amt",
+        "wr_refunded_addr_sk",
+        ["c_customer_id", "c_salutation", "c_first_name", "c_last_name"])
+
+
+def numpy_ds_q81(tables):
+    return _returns_above_state_avg(
+        _ds_dims(tables), "catalog_returns", "cr", "cr_return_amount",
+        "cr_returning_addr_sk",
+        ["c_customer_id", "c_first_name", "c_last_name"])
+
+
+def _stdev(n, mean, sumsq):
+    """The queries' sample deviation from the sums, null for one row:
+    ``sqrt((sumsq - n * (mean * mean)) / (n - 1))``."""
+    nf = n.astype(np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sd = np.sqrt((sumsq - nf * (mean * mean)) / (nf - 1.0))
+    return [None if k == 1 else v for k, v in zip(n.tolist(), sd.tolist())]
+
+
+def numpy_ds_q17(tables):
+    c = _ds_dims(tables)
+    ss, sr, cs, d = c["store_sales"], c["store_returns"], \
+        c["catalog_sales"], c["date_dim"]
+    sm = np.flatnonzero((d["d_year"][ss["ss_sold_date_sk"]] == 1998)
+                        & (d["d_qoy"][ss["ss_sold_date_sk"]] == 1))
+    si, ri = _eq_join([ss[k][sm] for k in ("ss_ticket_number", "ss_item_sk",
+                                           "ss_customer_sk")],
+                      [sr[k] for k in ("sr_ticket_number", "sr_item_sk",
+                                       "sr_customer_sk")])
+    si = sm[si]
+    rd = sr["sr_returned_date_sk"][ri]
+    keep = (d["d_year"][rd] == 1998) & (d["d_qoy"][rd] <= 3)
+    si, ri = si[keep], ri[keep]
+    pi, ci = _eq_join([sr["sr_customer_sk"][ri], sr["sr_item_sk"][ri]],
+                      [cs["cs_bill_customer_sk"], cs["cs_item_sk"]])
+    si, ri = si[pi], ri[pi]
+    qty = [ss["ss_quantity"][si], sr["sr_return_quantity"][ri],
+           cs["cs_quantity"][ci]]
+    lanes = []
+    for q in qty:
+        qd = q.astype(np.float64)
+        lanes += [q, qd * qd]
+    (item, state), sums = _groups(
+        [c["item"]["i_item_id"][ss["ss_item_sk"][si]],
+         c["store"]["s_state"][ss["ss_store_sk"][si]]], *lanes)
+    n = sums[-1]
+    out = {"i_item_id": item, "s_state": state}
+    for k, p in enumerate(("ss", "sr", "cs")):
+        mean = sums[2 * k] / n
+        out.update({f"{p}_count": n, f"{p}_mean": mean,
+                    f"{p}_stdev": _stdev(n, mean, sums[2 * k + 1])})
+    return _ds_rows(out, [("i_item_id", True), ("s_state", True)])
+
+
+def numpy_ds_q39(tables):
+    c = _ds_dims(tables)
+    inv, d = c["inventory"], c["date_dim"]
+    moy = d["d_moy"][inv["inv_date_sk"]]
+    m = moy <= 5
+    q = inv["inv_quantity_on_hand"][m]
+    qd = q.astype(np.float64)
+    (wh, it, mo), (s, sq, n) = _groups(
+        [inv["inv_warehouse_sk"][m], inv["inv_item_sk"][m], moy[m]], q,
+        qd * qd)
+    mean = s / n
+    keep = (n > 1) & (mean > 0.0)
+    wh, it, mo, n, mean, sq = (a[keep] for a in (wh, it, mo, n, mean, sq))
+    nf = n.astype(np.float64)
+    cov = np.sqrt((sq - nf * (mean * mean)) / (nf - 1.0)) / mean
+    keep = cov > 0.5
+    wh, it, mo, cov = wh[keep], it[keep], mo[keep], cov[keep]
+    a, b = _eq_join([wh, it, mo + 1], [wh, it, mo])
+    return _ds_rows({"wh1": wh[a], "it1": it[a], "moy1": mo[a],
+                     "cov1": cov[a], "moy2": mo[b], "cov2": cov[b]},
+                    [("wh1", True), ("it1", True), ("moy1", True)])
+
+
+def numpy_ds_q21(tables):
+    c = _ds_dims(tables)
+    inv, it = c["inventory"], c["item"]
+    dk, ik = inv["inv_date_sk"], inv["inv_item_sk"]
+    m = _between(it["i_current_price"][ik], 5.0, 25.0) \
+        & _between(dk, 550, 910)
+    q, before = inv["inv_quantity_on_hand"][m], dk[m] < 730
+    (wh, item), (b, a) = _group_sums(
+        [c["warehouse"]["w_warehouse_name"][inv["inv_warehouse_sk"][m]],
+         it["i_item_id"][ik[m]]], np.where(before, q, 0),
+        np.where(before, 0, q))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio = a.astype(np.float64) / b.astype(np.float64)
+    keep = (b > 0) & (ratio >= 2.0 / 3.0) & (ratio <= 1.5)
+    return _ds_rows({"w_warehouse_name": wh[keep], "i_item_id": item[keep],
+                     "inv_before": b[keep], "inv_after": a[keep]},
+                    [("w_warehouse_name", True), ("i_item_id", True)])
+
+
+def numpy_ds_q40(tables):
+    c = _ds_dims(tables)
+    cs, cr, it = c["catalog_sales"], c["catalog_returns"], c["item"]
+    dk = cs["cs_sold_date_sk"]
+    sm = np.flatnonzero(_between(it["i_current_price"][cs["cs_item_sk"]],
+                                 0.99, 1.49) & _between(dk, 700, 760))
+    si, ri = _left_join([cs["cs_order_number"][sm], cs["cs_item_sk"][sm]],
+                        [cr["cr_order_number"], cr["cr_item_sk"]])
+    si = sm[si]
+    cash = np.where(ri >= 0, cr["cr_refunded_cash"][ri], 0.0)
+    net = cs["cs_sales_price"][si] - cash
+    before = dk[si] < 730
+    (state, item), (b, a) = _group_sums(
+        [c["warehouse"]["w_state"][cs["cs_warehouse_sk"][si]],
+         it["i_item_id"][cs["cs_item_sk"][si]]],
+        np.where(before, net, 0.0), np.where(before, 0.0, net))
+    return _ds_rows({"w_state": state, "i_item_id": item,
+                     "sales_before": b, "sales_after": a},
+                    [("w_state", True), ("i_item_id", True)])
+
+
+def numpy_ds_q93(tables):
+    c = _ds_dims(tables)
+    ss, sr = c["store_sales"], c["store_returns"]
+    rm = np.flatnonzero(c["reason"]["r_reason_desc"][sr["sr_reason_sk"]]
+                        == "reason 28")
+    si, ri = _left_join([ss["ss_ticket_number"], ss["ss_item_sk"]],
+                        [sr["sr_ticket_number"][rm], sr["sr_item_sk"][rm]])
+    qty = ss["ss_quantity"][si]
+    left = np.where(ri >= 0, qty - sr["sr_return_quantity"][rm][ri], qty)
+    (cust,), (s,) = _group_sums([ss["ss_customer_sk"][si]],
+                                left.astype(np.float64)
+                                * ss["ss_sales_price"][si])
+    return _ds_rows({"ss_customer_sk": cust, "sumsales": s},
+                    [("sumsales", True), ("ss_customer_sk", True)])
+
+
+def _channel_item_sales(c, d_ok, item_ok, addr_ok=None):
+    """q33, q56 and q60: (item rows, extended sales price) of the three
+    channels' sales on the days ``d_ok`` of the items ``item_ok`` (and
+    to the addresses ``addr_ok``: store, bill and ship address)."""
+    items, prices = [], []
+    for fact, p, addr in (("store_sales", "ss", "ss_addr_sk"),
+                          ("catalog_sales", "cs", "cs_bill_addr_sk"),
+                          ("web_sales", "ws", "ws_ship_addr_sk")):
+        f = c[fact]
+        ik = f[f"{p}_item_sk"]
+        m = d_ok[f[f"{p}_sold_date_sk"]] & item_ok[ik]
+        if addr_ok is not None:
+            m &= addr_ok[f[addr]]
+        items.append(ik[m])
+        prices.append(f[f"{p}_ext_sales_price"][m])
+    return np.concatenate(items), np.concatenate(prices)
+
+
+def _month(d, year, moy):
+    return (d["d_year"] == year) & (d["d_moy"] == moy)
+
+
+def numpy_ds_q33(tables):
+    c = _ds_dims(tables)
+    it = c["item"]
+    ik, price = _channel_item_sales(c, _month(c["date_dim"], 1998, 5),
+                                    it["i_category"] == "Books")
+    (mf,), (s,) = _group_sums([it["i_manufact_id"][ik]], price)
+    return _ds_rows({"i_manufact_id": mf, "total": s},
+                    [("total", True), ("i_manufact_id", True)])
+
+
+def numpy_ds_q56(tables):
+    c = _ds_dims(tables)
+    it = c["item"]
+    ids = it["i_item_id"][np.isin(it["i_class"],
+                                  ["bedding", "classical", "football"])]
+    ik, price = _channel_item_sales(
+        c, _month(c["date_dim"], 1999, 2), np.isin(it["i_item_id"], ids),
+        c["customer_address"]["ca_gmt_offset"] == -5.0)
+    (iid,), (s,) = _group_sums([it["i_item_id"][ik]], price)
+    return _ds_rows({"i_item_id": iid, "total": s},
+                    [("total", True), ("i_item_id", True)])
+
+
+def numpy_ds_q60(tables):
+    c = _ds_dims(tables)
+    it = c["item"]
+    ik, price = _channel_item_sales(c, _month(c["date_dim"], 1998, 9),
+                                    it["i_category"] == "Music")
+    (iid,), (s,) = _group_sums([it["i_item_id"][ik]], price)
+    return _ds_rows({"i_item_id": iid, "total": s},
+                    [("i_item_id", True), ("total", True)])
+
+
+_WAREHOUSE = ["w_warehouse_name", "w_warehouse_sq_ft", "w_city", "w_county",
+              "w_state", "w_country"]
+
+
+def numpy_ds_q66(tables):
+    c = _ds_dims(tables)
+    d, wh = c["date_dim"], c["warehouse"]
+    sm_ok = np.isin(c["ship_mode"]["sm_carrier"], ["UPS", "DHL"])
+    hour_ok = _between(c["time_dim"]["t_hour"], 8, 16)
+    whs, moys, values = [], [], []
+    for fact, p in (("web_sales", "ws"), ("catalog_sales", "cs")):
+        f = c[fact]
+        dk = f[f"{p}_sold_date_sk"]
+        m = (d["d_year"][dk] == 1998) & hour_ok[f[f"{p}_sold_time_sk"]] \
+            & sm_ok[f[f"{p}_ship_mode_sk"]]
+        whs.append(f[f"{p}_warehouse_sk"][m])
+        moys.append(d["d_moy"][dk[m]])
+        values.append(f[f"{p}_quantity"][m].astype(np.float64)
+                      * f[f"{p}_ext_sales_price"][m])
+    moy, v = np.concatenate(moys), np.concatenate(values)
+    (wk,), sums = _group_sums([np.concatenate(whs)], *[
+        np.where(moy == k, v, 0.0) for k in range(1, 13)])
+    out = {k: wh[k][wk] for k in _WAREHOUSE}
+    out.update({f"tot_m{k}": s for k, s in enumerate(sums, 1)})
+    return _ds_rows(out, [("w_warehouse_name", True)])
+
+
+def numpy_ds_q76(tables):
+    c = _ds_dims(tables)
+    d, it = c["date_dim"], c["item"]
+    parts = []
+    for fact, p, null_col, channel in (
+            ("store_sales", "ss", "ss_promo_sk", "store"),
+            ("web_sales", "ws", "ws_ship_customer_sk", "web"),
+            ("catalog_sales", "cs", "cs_ship_addr_sk", "catalog")):
+        f = c[fact]
+        m = ~tables[fact].validity[null_col]
+        dk = f[f"{p}_sold_date_sk"][m]
+        n = int(m.sum())
+        parts.append((np.full(n, channel), np.full(n, null_col),
+                      d["d_year"][dk], d["d_qoy"][dk],
+                      it["i_category"][f[f"{p}_item_sk"][m]],
+                      f[f"{p}_ext_sales_price"][m]))
+    cols = [np.concatenate(k) for k in zip(*parts)]
+    (ch, cn, yr, qoy, cat), (s, n) = _groups(cols[:5], cols[5])
+    keys = ["channel", "col_name", "d_year", "d_qoy", "i_category"]
+    out = dict(zip(keys, (ch, cn, yr, qoy, cat)))
+    out.update(sales_cnt=n, sales_amt=s)
+    return _ds_rows(out, [(k, True) for k in keys])
+
+
+def numpy_ds_q54(tables):
+    c = _ds_dims(tables)
+    d, it, ss = c["date_dim"], c["item"], c["store_sales"]
+    sold = _month(d, 1999, 3)
+    target = (it["i_category"] == "Women") & (it["i_class"] == "dresses")
+    custs = [c[f][cust][sold[c[f][date]] & target[c[f][item]]]
+             for f, date, item, cust in (
+                 ("catalog_sales", "cs_sold_date_sk", "cs_item_sk",
+                  "cs_bill_customer_sk"),
+                 ("web_sales", "ws_sold_date_sk", "ws_item_sk",
+                  "ws_bill_customer_sk"))]
+    mine = np.zeros(len(c["customer"]["c_customer_sk"]), bool)
+    mine[np.concatenate(custs)] = True
+    state_ok = np.isin(c["customer_address"]["ca_state"][
+        c["customer"]["c_current_addr_sk"]], c["store"]["s_state"])
+    ck = ss["ss_customer_sk"]
+    m = mine[ck] & state_ok[ck] \
+        & _between(d["d_month_seq"][ss["ss_sold_date_sk"]], 15, 17)
+    _, (revenue,) = _group_sums([ck[m]], ss["ss_ext_sales_price"][m])
+    seg, n = np.unique(np.trunc(revenue / 50.0).astype(np.int64),
+                       return_counts=True)
+    return _ds_rows({"segment": seg, "num_customers": n.astype(np.int64),
+                     "segment_base": seg * 50},
+                    [("segment", True), ("num_customers", True)])
+
+
+def _unreturned_year_sums(c, fact, p, cust_col, order_col, ret, r_order,
+                          r_item):
+    """q78: the channel's 1998 sales of lines with no return, by customer
+    and item: (customer, item, quantity, wholesale cost, sales price)
+    sums."""
+    f, rt = c[fact], c[ret]
+    li, _ = _eq_join([f[order_col], f[f"{p}_item_sk"]],
+                     [rt[r_order], rt[r_item]])
+    m = c["date_dim"]["d_year"][f[f"{p}_sold_date_sk"]] == 1998
+    m[li] = False
+    (cust, item), sums = _group_sums(
+        [f[cust_col][m], f[f"{p}_item_sk"][m]],
+        f[f"{p}_quantity"][m].astype(np.float64),
+        f[f"{p}_wholesale_cost"][m], f[f"{p}_sales_price"][m])
+    return cust, item, sums
+
+
+def numpy_ds_q78(tables):
+    c = _ds_dims(tables)
+    s_cust, s_item, (s_qty, s_wc, s_sp) = _unreturned_year_sums(
+        c, "store_sales", "ss", "ss_customer_sk", "ss_ticket_number",
+        "store_returns", "sr_ticket_number", "sr_item_sk")
+    w_cust, w_item, (w_qty, _, _) = _unreturned_year_sums(
+        c, "web_sales", "ws", "ws_bill_customer_sk", "ws_order_number",
+        "web_returns", "wr_order_number", "wr_item_sk")
+    a, b = _eq_join([s_cust, s_item], [w_cust, w_item])
+    keep = w_qty[b] > 0.0
+    a, b = a[keep], b[keep]
+    return _ds_rows({"ss_cust": s_cust[a], "ss_item": s_item[a],
+                     "ratio": s_qty[a] / w_qty[b], "ss_qty": s_qty[a],
+                     "ss_wc": s_wc[a], "ss_sp": s_sp[a]},
+                    [("ss_qty", False), ("ss_wc", True), ("ss_cust", True),
+                     ("ss_item", True)])
+
+
+_Q75_ATTRS = ["i_brand_id", "i_class_id", "i_category_id", "i_manufact_id"]
+
+
+def numpy_ds_q75(tables):
+    c = _ds_dims(tables)
+    it, d = c["item"], c["date_dim"]
+    books = it["i_category"] == "Books"
+    parts = []
+    for fact, p, order, ret, r, r_order, r_qty in (
+            ("store_sales", "ss", "ss_ticket_number", "store_returns", "sr",
+             "sr_ticket_number", "sr_return_quantity"),
+            ("catalog_sales", "cs", "cs_order_number", "catalog_returns",
+             "cr", "cr_order_number", "cr_return_quantity"),
+            ("web_sales", "ws", "ws_order_number", "web_returns", "wr",
+             "wr_order_number", "wr_return_quantity")):
+        f, rt = c[fact], c[ret]
+        sm = np.flatnonzero(books[f[f"{p}_item_sk"]])
+        si, ri = _left_join([f[f"{p}_item_sk"][sm], f[order][sm]],
+                            [rt[f"{r}_item_sk"], rt[r_order]])
+        si = sm[si]
+        hit = ri >= 0
+        ik = f[f"{p}_item_sk"][si]
+        parts.append(
+            [d["d_year"][f[f"{p}_sold_date_sk"][si]]]
+            + [it[a][ik] for a in _Q75_ATTRS]
+            + [f[f"{p}_quantity"][si].astype(np.float64)
+               - np.where(hit, rt[r_qty][ri], 0).astype(np.float64)])
+    cols = [np.concatenate(k) for k in zip(*parts)]
+    (year, *attrs), (cnt,) = _group_sums(cols[:5], cols[5])
+    cur, prev = np.flatnonzero(year == 1999), np.flatnonzero(year == 1998)
+    a, b = _eq_join([k[cur] for k in attrs], [k[prev] for k in attrs])
+    a, b = cur[a], prev[b]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio = cnt[a] / cnt[b]
+    keep = (cnt[b] != 0) & (ratio < 0.9)
+    a, b = a[keep], b[keep]
+    out = {k: v[a] for k, v in zip(_Q75_ATTRS, attrs)}
+    out.update(prev_cnt=cnt[b], curr_cnt=cnt[a],
+               sales_cnt_diff=cnt[a] - cnt[b])
+    return _ds_rows(out, [("sales_cnt_diff", True), ("i_brand_id", True)])
+
+
+def _q64_year(c, ui_ok, year, suffix):
+    """One year of q64's cross sales: store sales with a return, of items
+    whose catalog sales clear their refunds, to customers whose current
+    marital status differs from the sale's, by product, item, store and
+    zip."""
+    ss, sr, cd = c["store_sales"], c["store_returns"], \
+        c["customer_demographics"]
+    it = c["item"]
+    sm = np.flatnonzero(
+        ui_ok[ss["ss_item_sk"]]
+        & (c["date_dim"]["d_year"][ss["ss_sold_date_sk"]] == year)
+        & _between(it["i_current_price"][ss["ss_item_sk"]], 5.0, 85.0)
+        & (cd["cd_marital_status"][ss["ss_cdemo_sk"]]
+           != cd["cd_marital_status"][c["customer"]["c_current_cdemo_sk"][
+               ss["ss_customer_sk"]]]))
+    si, _ = _eq_join([ss["ss_ticket_number"][sm], ss["ss_item_sk"][sm]],
+                     [sr["sr_ticket_number"], sr["sr_item_sk"]])
+    si = sm[si]
+    ik, sk = ss["ss_item_sk"][si], ss["ss_store_sk"][si]
+    st = c["store"]
+    (pn, isk, sn, z), (s1, s2, s3, n) = _groups(
+        [it["i_product_name"][ik], ik, st["s_store_name"][sk],
+         st["s_zip"][sk]],
+        ss["ss_wholesale_cost"][si], ss["ss_list_price"][si],
+        ss["ss_coupon_amt"][si])
+    return {f"pn{suffix}": pn, f"isk{suffix}": isk, f"sn{suffix}": sn,
+            f"zip{suffix}": z, f"cnt{suffix}": n, f"s1{suffix}": s1,
+            f"s2{suffix}": s2, f"s3{suffix}": s3}
+
+
+def numpy_ds_q64(tables):
+    c = _ds_dims(tables)
+    cs, cr = c["catalog_sales"], c["catalog_returns"]
+    si, ri = _eq_join([cs["cs_item_sk"], cs["cs_order_number"]],
+                      [cr["cr_item_sk"], cr["cr_order_number"]])
+    (items,), (sale, refund) = _group_sums(
+        [cs["cs_item_sk"][si]], cs["cs_ext_list_price"][si],
+        cr["cr_refunded_cash"][ri] + cr["cr_net_loss"][ri])
+    ui_ok = np.zeros(len(c["item"]["i_item_sk"]), bool)
+    ui_ok[items[sale > refund]] = True
+    y1, y2 = _q64_year(c, ui_ok, 1998, "_1"), _q64_year(c, ui_ok, 1999, "_2")
+    a, b = _eq_join([y1["isk_1"], y1["sn_1"], y1["zip_1"]],
+                    [y2["isk_2"], y2["sn_2"], y2["zip_2"]])
+    keep = y2["cnt_2"][b] <= y1["cnt_1"][a]
+    a, b = a[keep], b[keep]
+    out = {k: y1[k][a] for k in ("pn_1", "isk_1", "sn_1", "zip_1", "cnt_1",
+                                 "s1_1", "s2_1", "s3_1")}
+    out.update({k: y2[k][b] for k in ("cnt_2", "s1_2", "s2_2", "s3_2")})
+    return _ds_rows(out, [("pn_1", True), ("isk_1", True), ("sn_1", True),
+                          ("cnt_2", True)])
+
+
+def q72_pairs(tables):
+    """q72's catalog sales (1999, shipped more than 5 days after the
+    sale, households with more than 10000 to spend, divorced buyers)
+    against the inventory of their item: (sales rows, inventory rows) of
+    every equi pair, the inventory join's pairs."""
+    c = _ds_dims(tables)
+    cs, d, inv = c["catalog_sales"], c["date_dim"], c["inventory"]
+    dk = cs["cs_sold_date_sk"]
+    sm = np.flatnonzero(
+        (d["d_year"][dk] == 1999)
+        & (d["d_date"][cs["cs_ship_date_sk"]] > d["d_date"][dk] + 5)
+        & (c["household_demographics"]["hd_buy_potential"][
+            cs["cs_bill_hdemo_sk"]] == ">10000")
+        & (c["customer_demographics"]["cd_marital_status"][
+            cs["cs_bill_cdemo_sk"]] == "D"))
+    si, vi = _eq_join([cs["cs_item_sk"][sm]], [inv["inv_item_sk"]])
+    return sm[si], vi
+
+
+def numpy_ds_q72(tables):
+    c = _ds_dims(tables)
+    cs, d, inv = c["catalog_sales"], c["date_dim"], c["inventory"]
+    si, vi = q72_pairs(tables)
+    week = d["d_week_seq"][cs["cs_sold_date_sk"][si]]
+    keep = (week == d["d_week_seq"][inv["inv_date_sk"][vi]]) \
+        & (inv["inv_quantity_on_hand"][vi] < cs["cs_quantity"][si])
+    si, vi, week = si[keep], vi[keep], week[keep]
+    cr = c["catalog_returns"]
+    pi, _ = _left_join([cs["cs_item_sk"][si], cs["cs_order_number"][si]],
+                       [cr["cr_item_sk"], cr["cr_order_number"]])
+    promo = np.isin(cs["cs_promo_sk"][si[pi]], c["promotion"]["p_promo_sk"])
+    (name, wh, wk), (no_promo, with_promo, n) = _groups(
+        [c["item"]["i_product_name"][cs["cs_item_sk"][si[pi]]],
+         c["warehouse"]["w_warehouse_name"][inv["inv_warehouse_sk"][vi[pi]]],
+         week[pi]], (~promo).astype(np.int64), promo.astype(np.int64))
+    return _ds_rows({"i_product_name": name, "w_warehouse_name": wh,
+                     "d1_week": wk, "no_promo": no_promo,
+                     "promo": with_promo, "total_cnt": n},
+                    [("total_cnt", False), ("i_product_name", True),
+                     ("w_warehouse_name", True), ("d1_week", True)])
+
+
 def _with(tables, name, **cols) -> dict:
     """The tables with ``name``'s columns ``cols`` replaced."""
     hb = tables[name]
@@ -4127,7 +4849,11 @@ DS_QUERIES = ("q1", "q3", "q5", "q6", "q7", "q13", "q15", "q18", "q19",
               "q38", "q87", "q14", "q8", "q58", "q71", "q83", "q91", "q47",
               "q57", "q53", "q63", "q89", "q12", "q20", "q49", "q67", "q70",
               "q77", "q80", "q2", "q4", "q11", "q31", "q74", "q10", "q16",
-              "q35", "q69", "q94", "q95", "q23", "q24")
+              "q35", "q69", "q94", "q95", "q23", "q24",
+              "q9", "q28", "q90", "q32", "q92", "q41", "q84", "q43", "q50",
+              "q62", "q99", "q45", "q73", "q37", "q82", "q85", "q30", "q81",
+              "q17", "q39", "q21", "q40", "q93", "q33", "q56", "q60", "q66",
+              "q76", "q54", "q78", "q75", "q64", "q72")
 #: The queries that return no row over the generator's tables at the
 #: tests' or the card's scale, once more over tables that give them rows:
 #: cell suffix -> (query, the function that makes those tables).
@@ -4240,6 +4966,40 @@ DS_ORDER = {
     "q94": ([], None), "q95": ([], None), "q23": ([], None),
     "q24": ([("c_last_name", True), ("c_first_name", True),
              ("s_store_name", True), ("i_manufact", True)], None),
+    "q9": ([], None), "q28": ([], None), "q90": ([], None),
+    "q32": ([], None), "q92": ([], None),
+    "q41": ([("i_product_name", True)], 100),
+    "q84": ([("c_customer_id", True)], 100),
+    "q43": ([("s_store_name", True), ("s_store_id", True)], 100),
+    "q50": ([("s_store_name", True), ("s_store_id", True)], 100),
+    "q62": ([("wh", True), ("sm_type", True), ("web_name", True)], 100),
+    "q99": ([("wh", True), ("sm_type", True), ("cc_name", True)], 100),
+    "q45": ([("ca_zip", True), ("ca_city", True)], 100),
+    "q73": ([("cnt", False), ("c_last_name", True),
+             ("ss_ticket_number", True)], 100),
+    "q37": ([("i_item_id", True)], 100), "q82": ([("i_item_id", True)], 100),
+    "q85": ([("r_reason_desc", True)], 100),
+    "q30": ([("c_customer_id", True), ("ctr_total", True)], 100),
+    "q81": ([("c_customer_id", True), ("ctr_total", True)], 100),
+    "q17": ([("i_item_id", True), ("s_state", True)], 100),
+    "q39": ([("wh1", True), ("it1", True), ("moy1", True)], 100),
+    "q21": ([("w_warehouse_name", True), ("i_item_id", True)], 100),
+    "q40": ([("w_state", True), ("i_item_id", True)], 100),
+    "q93": ([("sumsales", True), ("ss_customer_sk", True)], 100),
+    "q33": ([("total", True), ("i_manufact_id", True)], 100),
+    "q56": ([("total", True), ("i_item_id", True)], 100),
+    "q60": ([("i_item_id", True), ("total", True)], 100),
+    "q66": ([("w_warehouse_name", True)], 100),
+    "q76": ([("channel", True), ("col_name", True), ("d_year", True),
+             ("d_qoy", True), ("i_category", True)], 100),
+    "q54": ([("segment", True), ("num_customers", True)], 100),
+    "q78": ([("ss_qty", False), ("ss_wc", True), ("ss_cust", True),
+             ("ss_item", True)], 100),
+    "q75": ([("sales_cnt_diff", True), ("i_brand_id", True)], 100),
+    "q64": ([("pn_1", True), ("isk_1", True), ("sn_1", True),
+             ("cnt_2", True)], None),
+    "q72": ([("total_cnt", False), ("i_product_name", True),
+             ("w_warehouse_name", True), ("d1_week", True)], 100),
 }
 #: The float columns of each TPC-DS answer (held to ``REV_RTOL``).
 DS_FLOATS = {
@@ -4278,7 +5038,23 @@ DS_FLOATS = {
     "q16": ["total_ship", "total_profit"],
     "q94": ["total_ship", "total_profit"],
     "q95": ["total_ship", "total_profit"], "q23": ["total"],
-    "q24": ["netpaid"]}
+    "q24": ["netpaid"],
+    "q9": [f"bucket{i}" for i in range(1, 6)],
+    "q28": [f"b{i}_lp" for i in range(1, 7)], "q90": ["am_pm_ratio"],
+    "q32": ["excess_discount"], "q92": ["excess_discount"],
+    "q43": [f"{d}_sales" for d in _DAYS], "q45": ["web_sales"],
+    "q37": ["min_price"], "q82": ["min_price"],
+    "q85": ["avg_qty", "avg_refund", "avg_fee"],
+    "q30": ["ctr_total"], "q81": ["ctr_total"],
+    "q17": [f"{p}_{k}" for p in ("ss", "sr", "cs") for k in ("mean",
+                                                            "stdev")],
+    "q39": ["cov1", "cov2"], "q40": ["sales_before", "sales_after"],
+    "q93": ["sumsales"], "q33": ["total"], "q56": ["total"],
+    "q60": ["total"], "q66": [f"tot_m{k}" for k in range(1, 13)],
+    "q76": ["sales_amt"],
+    "q78": ["ratio", "ss_qty", "ss_wc", "ss_sp"],
+    "q75": ["prev_cnt", "curr_cnt", "sales_cnt_diff"],
+    "q64": ["s1_1", "s2_1", "s3_1", "s1_2", "s2_2", "s3_2"]}
 
 
 def check_ds(cell: str, got: dict, ref: dict, q: str) -> int:
@@ -4581,7 +5357,9 @@ DS_EXPAND = ("q18", "q22", "q36", "q86", "q14", "q67", "q70", "q77", "q80")
 DS_FULL = ("q51", "q97")
 #: The TPC-DS cells that read one subplan from several places, which the
 #: planner must plan once (``ReusedExec``).
-DS_REUSE = ("q2", "q16", "q23", "q24", "q47", "q57", "q94", "q95")
+DS_REUSE = ("q2", "q16", "q23", "q24", "q47", "q57", "q94", "q95", "q28",
+            "q90", "q32", "q92", "q30", "q81", "q39", "q56", "q66", "q54",
+            "q78", "q75", "q64")
 #: The kernels the TPC-DS cells together must launch (no cell sorts on
 #: one key without a LIMIT, so none reaches ``sortStep``).
 DS_NEED = ("joinProbe", "segmented", "strings")
@@ -4615,7 +5393,7 @@ def reused_subplans(plan) -> int:
 
 def run_tpcds(torch, ctx, session, wrappers, ss_rows: int, seed: int,
               pq_dir: str, profile: bool, futures: dict):
-    """The TPC-DS cells: the port's 66 queries (``ds_q1`` ... ``ds_q98``)
+    """The TPC-DS cells: the port's 99 queries (``ds_q1`` ... ``ds_q99``)
     over tables uploaded from ``tpcds.gen_tables(ss_rows)``, and the
     queries of ``DS_VARIANTS`` once more over their variant tables
     (``ds_q1_tn`` ... ``ds_q91_returners``: only the tables a variant
@@ -4624,12 +5402,17 @@ def run_tpcds(torch, ctx, session, wrappers, ss_rows: int, seed: int,
     (but those of a query with a variant, whose variant keeps rows);
     each cell's device busy share from one traced warm run (two with
     ``profile``); an Expand in the rollups' per-exec times, a full join
-    in q51's and q97's plans, a shared subplan in ``DS_REUSE``'s;
-    ``DS_NEED`` launched over the cells. Then ``pq_ds_q5``: q5 over the
+    in q51's and q97's plans, a shared subplan in ``DS_REUSE``'s; q72's
+    inventory join's equi pairs (``ShuffledHashJoinExec.equi_pairs``)
+    against numpy's count; ``DS_NEED`` launched over the cells; the
+    geometric means of the 99 query cells' warm medians and cold times
+    (the ``DS_GEOMEAN`` line). Then ``pq_ds_q5``: q5 over the
     ten tables it reads, written by the port's writer into ``pq_dir``
     and scanned with the pipeline on, against the same reference, with
     its scan lines. Returns (summaries, launches, captured calls)."""
     tpcds = ctx.tpcds
+    check(sorted(DS_QUERIES) == sorted(tpcds.QUERIES),
+          "DS_QUERIES is not the port's TPC-DS suite")
     summaries, launches = {}, {k: 0 for k in wrappers.mods}
     calls = {k: [] for k in wrappers.mods}
     t0 = time.perf_counter()
@@ -4692,6 +5475,16 @@ def run_tpcds(torch, ctx, session, wrappers, ss_rows: int, seed: int,
                   f"{cell} planned no full join:\n{plan}")
         if base in DS_REUSE:
             check(reused > 0, f"{cell} planned its shared subplan twice")
+        if q == "q72":
+            pairs = summaries[cell]["counters"].get(
+                "ShuffledHashJoinExec.equi_pairs")
+            want = len(q72_pairs(tables)[0])
+            check(pairs == want, f"{cell}: the inventory join expanded "
+                  f"{pairs} equi pairs, numpy counts {want}")
+            summaries[cell]["equi_pairs"] = pairs
+            print(f"  {cell.upper()}: the inventory join expanded {pairs} "
+                  f"equi pairs (numpy {want}) before its week and "
+                  "quantity filter")
         record(got_launches, got_calls)
         if profile:
             summaries[cell]["busy"] = profile_query(torch, cell, build, mid)
@@ -4703,6 +5496,12 @@ def run_tpcds(torch, ctx, session, wrappers, ss_rows: int, seed: int,
     for k in DS_NEED:
         check(launches[k] > 0, f"{k} was not launched by the TPC-DS cells")
     print(f"  TPC-DS cells' kernel launches (cold runs): {launches}")
+    geomean = {"queries": len(DS_QUERIES)}
+    for key, name in (("warm_median_ms", "warm_ms"), ("cold_ms", "cold_ms")):
+        geomean[name] = float(np.exp(np.mean(np.log(
+            [summaries[f"ds_{q}"][key] for q in DS_QUERIES]))))
+    summaries["ds_geomean"] = geomean
+    print("DS_GEOMEAN " + json.dumps(geomean))
 
     # q5 over parquet (BASELINE configuration 1): the ten tables it reads
     # through the port's writer, every collect scanning them.

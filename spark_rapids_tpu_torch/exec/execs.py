@@ -572,7 +572,9 @@ class ShuffledHashJoinExec(TorchExec):
     inner join filters its output by it, from the build-table mode or
     the exact path; every other type takes :func:`join_residual`, which
     evaluates it on the expanded pairs during matching. The pair count
-    adds to the ``<name>.pairs`` counter."""
+    adds to the ``<name>.pairs`` counter; an inner join on the exact path
+    adds its pairs to ``<name>.equi_pairs`` (read on the host to size
+    the output, so counting costs no sync)."""
 
     def __init__(self, left: TorchExec, right: TorchExec, join_type: str,
                  left_keys: List[Expression], right_keys: List[Expression],
@@ -634,7 +636,9 @@ class ShuffledHashJoinExec(TorchExec):
                                              self._schema, cond)
                 ctx.count(self.name + ".pairs", n_pairs)
                 return [[out]]
-            out, _ = join_exact(jt, probe, build, pk, bk, self._schema)
+            out, total = join_exact(jt, probe, build, pk, bk, self._schema)
+            if jt == "inner":
+                ctx.count(self.name + ".equi_pairs", total)
             return [[out]]
 
     def _mirrored_left(self, ctx):
@@ -674,9 +678,10 @@ def join_exact(join_type: str, probe: ColumnarBatch, build: ColumnarBatch,
     keep the matched or unmatched probe rows live (semi, anti). Returns
     ``(batch, total)``. An inner or left join's output holds ``out_cap``
     rows, or, with no ``out_cap``, the ladder rung of the exact total,
-    read on the host (one sync); ``total`` is the output row count on the
-    device, which may exceed ``out_cap`` (the caller re-runs bigger), and
-    None for semi and anti joins."""
+    read on the host (one sync); ``total`` is the output row count: that
+    host count when no ``out_cap`` was given, else on the device, where it
+    may exceed ``out_cap`` (the caller re-runs bigger); None for semi and
+    anti joins."""
     live_p = probe.row_mask()
     lo, counts, build_at_rank = _match_ranges(probe, build, pk, bk)
     if join_type in ("left_semi", "left_anti"):
@@ -698,14 +703,17 @@ def _expand_pairs(join_type: str, probe: ColumnarBatch, build: ColumnarBatch,
     matched = counts > 0
     if join_type in ("left", "full"):
         counts = KJ.left_outer_counts(counts, probe.row_mask())
+    n_host = None
     if out_cap is None:
-        out_cap = bucket_capacity(max(int(counts.sum()), 1))
+        n_host = int(counts.sum())
+        out_cap = bucket_capacity(max(n_host, 1))
     p_idx, b_idx, n_out, total = KJ.expand_matches_binsearch(
         lo, counts, build_at_rank, out_cap)
     out_live = torch.arange(out_cap, device=probe.device) < n_out
     pcols = KR.gather_columns(probe.columns, p_idx, out_live)
     bcols = KR.gather_columns(build.columns, b_idx, out_live & matched[p_idx])
-    return ColumnarBatch(pcols + bcols, n_out, out_schema), total
+    return ColumnarBatch(pcols + bcols, n_out, out_schema), \
+        total if n_host is None else n_host
 
 
 def join_full(probe: ColumnarBatch, build: ColumnarBatch, pk, bk,
