@@ -3,7 +3,8 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py [--lineitem-rows N] [--xbb-clicks N]
-                          [--ds-ss-rows N] [--seed S] [--profile]
+                          [--ds-ss-rows N] [--mort-perf-rows N]
+                          [--seed S] [--profile]
 
 Phases; each one passes or the script exits non-zero:
 
@@ -132,12 +133,27 @@ Phases; each one passes or the script exits non-zero:
    rollup's run, a full join in q51's and q97's plans, a shared subplan
    (``ReusedExec``) in ``DS_REUSE``'s; ``joinProbe``, ``segmented`` and
    the ``strings`` gather launched over the cells (``sortStep`` is not
-   on their path: every sort is a top-k or on several keys). Then
+   on their path: every sort is a top-k or on several keys). Then the
+   ``expr_*`` cells over the same uploaded tables: each family of the
+   expression library (``CaseWhen``/``NaNvl``/``If``/``Coalesce``, the
+   predicates, bitwise, ``ops/strings.py``, the string casts, the Unix
+   time functions, ``ops/strings2.py``, string min/max/first/last on
+   the dictionary, dense and sort group-by paths) over store_sales
+   joined to customer and customer_address, with dictionary strings and
+   flat strings built on the card (``CAST(ss_ticket_number AS
+   STRING)`` and a concatenation) at the fact table's length, reduced to
+   a few rows, each equal to its numpy reference. Then
    ``pq_ds_q5`` (BASELINE configuration 1): q5 over the ten tables it
    reads, written by the port's writer and scanned through
    ``session.read.parquet`` with the pipeline on, its answer equal to
    the same numpy reference and its scan lines printed as the ``pq_*``
-   cells print theirs. Then the engine's entry stage
+   cells print theirs. Then Mortgage's ``mort_etl`` and
+   ``mort_features`` over ``mortgage.gen_tables`` at 2^24 performance
+   records (``--mort-perf-rows``; 699,050 loans, the generator's seed
+   7), each equal to its numpy reference (``np.bincount`` per loan, the
+   join, the band), its rows, the path each join takes and a traced
+   run's busy share printed; ``joinProbe`` launched in
+   ``mort_features``. Then the engine's entry stage
    (``spark_rapids_tpu_torch.entry.entry``: filter, then the sort-path
    aggregate of sum, count, min and max) at its defaults (1,000 rows) and
    at SF1's 6,001,215 rows with 50 and with 1,500,000 keys: every group
@@ -2366,6 +2382,519 @@ XBB_FLOATS = {
 # (``None`` for a null), every row of it in the query's ORDER BY (Spark's
 # null order), before its LIMIT; ``check_ds`` cuts and compares.
 # --------------------------------------------------------------------------
+
+
+# --------------------------------------------------------------------------
+# Mortgage (``workloads/mortgage.py``): numpy references of ``etl`` and
+# ``ml_features``
+# --------------------------------------------------------------------------
+
+#: The generator's own seed and the default scale of the mort_* cells
+#: (2^24 performance records, about 24 a loan: 699,050 loans).
+MORT_SEED = 7
+MORT_PERF_ROWS = 1 << 24
+#: ``_score_band``'s bands, in the sorted order of their names.
+MORT_BANDS = np.array(["EXCELLENT", "FAIR", "GOOD", "SUBPRIME"])
+MORT_QUERIES = ("etl", "features")
+
+
+def _mort_loans(tables) -> dict:
+    """Per loan with a cleaned performance record (the inner join): its
+    acquisition attributes, ``np.bincount`` aggregates of its records and
+    its score band's index into ``MORT_BANDS``."""
+    a, p = tables["acquisition"], tables["performance"]
+    n = a.num_rows
+    upb = p.values("current_upb")
+    keep = upb > 0
+    loan = p.values("loan_id")[keep]
+    status = p.values("delinq_status")[keep]
+    n_records = np.bincount(loan, minlength=n)
+    has = n_records > 0
+    seller = a.columns[a.schema.index_of("seller")].codes
+    score = a.values("credit_score")
+    band = np.select([score < 580, score < 670, score < 740], [3, 1, 2], 0)
+    out = {
+        "loan_id": a.values("loan_id"), "seller": seller, "band": band,
+        "n_records": n_records,
+        "months_delinq": np.bincount(loan, weights=status >= 1,
+                                     minlength=n).astype(np.int64),
+        "months_serious": np.bincount(loan, weights=status >= 3,
+                                      minlength=n).astype(np.int64),
+        "recent_upb": np.bincount(loan, weights=np.where(
+            p.values("month")[keep] >= 36, upb[keep], 0.0), minlength=n),
+        "orig_rate": a.values("orig_rate"), "orig_upb": a.values("orig_upb"),
+        "credit_score": score}
+    return {k: v[has] for k, v in out.items()}
+
+
+def numpy_mort_etl(tables) -> dict:
+    """``mortgage.etl``: per (seller, score band) in key order, the loan
+    count, the delinquent months, the risk UPB (the loans with a
+    seriously delinquent month) and the average rate."""
+    lo = _mort_loans(tables)
+    key = lo["seller"] * len(MORT_BANDS) + lo["band"]
+    size = len(mortgage_sellers()) * len(MORT_BANDS)
+    cnt = np.bincount(key, minlength=size)
+    risk = np.where(lo["months_serious"] > 0, lo["orig_upb"], 0)
+    g = np.flatnonzero(cnt)
+    return {"seller": mortgage_sellers()[g // len(MORT_BANDS)].astype(str),
+            "score_band": MORT_BANDS[g % len(MORT_BANDS)],
+            "n_loans": cnt[g].astype(np.int64),
+            "total_delinq_months": np.bincount(
+                key, weights=lo["months_delinq"], minlength=size)[g]
+            .astype(np.int64),
+            "risk_upb": np.bincount(key, weights=risk.astype(np.float64),
+                                    minlength=size)[g],
+            "avg_rate": np.bincount(key, weights=lo["orig_rate"],
+                                    minlength=size)[g] / cnt[g]}
+
+
+def numpy_mort_features(tables) -> dict:
+    """``mortgage.ml_features``: one row per loan in ``loan_id`` order."""
+    lo = _mort_loans(tables)
+    return {"loan_id": lo["loan_id"],
+            "seller": mortgage_sellers()[lo["seller"]].astype(str),
+            "score_band": MORT_BANDS[lo["band"]],
+            "n_records": lo["n_records"].astype(np.int64),
+            "months_delinq": lo["months_delinq"],
+            "recent_upb": lo["recent_upb"], "orig_rate": lo["orig_rate"],
+            "orig_upb": lo["orig_upb"], "credit_score": lo["credit_score"],
+            "serious_flag": (lo["months_serious"] > 0).astype(np.int32)}
+
+
+def mortgage_sellers() -> np.ndarray:
+    from spark_rapids_tpu_torch.workloads import mortgage
+    return mortgage._SELLERS
+
+
+MORT_REFS = {"etl": numpy_mort_etl, "features": numpy_mort_features}
+#: Float columns held to ``REV_RTOL`` (sums in atomic order on the card).
+MORT_FLOATS = {"etl": ("risk_upb", "avg_rate"), "features": ("recent_upb",)}
+
+
+# --------------------------------------------------------------------------
+# The expression cells (``expr_*``): each family of the scalar expression
+# library over the SF1 TPC-DS tables, at store_sales' length. Every cell
+# joins store_sales to customer (and customer_address), so the dictionary
+# strings c_first_name, c_last_name, c_birth_country and ca_zip come at
+# the fact table's length, and builds the flat strings tix =
+# CAST(ss_ticket_number AS STRING) and tag = tix || '-' ||
+# CAST(ss_sold_date_sk AS STRING) on the card; then it reduces to a few
+# rows, each against its numpy reference.
+# --------------------------------------------------------------------------
+
+EXPR_CELLS = ("conditional", "predicates", "bitwise", "strings", "casts",
+              "datetime", "strings2", "string_aggs_dict",
+              "string_aggs_dense", "string_aggs_sort")
+#: cell -> the columns its rows are ordered by (none: one row)
+EXPR_KEYS = {"conditional": ["band"], "bitwise": ["k"], "strings": ["len"],
+             "strings2": ["country"], "string_aggs_dict": ["country"],
+             "string_aggs_dense": ["store"], "string_aggs_sort": ["head"]}
+#: cell -> float columns, held to ``REV_RTOL``
+EXPR_FLOATS = {"conditional": ("nv",), "casts": ("half",)}
+#: 10,000 days before the epoch, the first day of the cells' dates
+EXPR_DAY0 = -10_000
+
+
+def expr_queries(M, dfs) -> dict:
+    """``{cell: build()}``: the port's query of each expression cell.
+    ``M`` holds the port's modules (``C``, ``P``, ``B``, ``S``, ``S2``,
+    ``CA``, ``D``, ``A``, ``AR``, ``MA``, ``T``) and ``col``, ``lit``."""
+    C, P, B, S, S2, CA, D, A, AR, T = (M.C, M.P, M.B, M.S, M.S2, M.CA, M.D,
+                                       M.A, M.AR, M.T)
+    col, lit = M.col, M.lit
+
+    def agg(fn, e, name):
+        return A.AggregateExpression(fn(e), name)
+
+    def count_true(e, name):
+        return agg(A.Sum, CA.Cast(e, T.LONG), name)
+
+    def base():
+        ss = dfs["store_sales"].join(dfs["customer"], on=P.EqualTo(
+            col("ss_customer_sk"), col("c_customer_sk"))).join(
+            dfs["customer_address"], on=P.EqualTo(col("c_current_addr_sk"),
+                                                  col("ca_address_sk")))
+        tix = CA.Cast(col("ss_ticket_number"), T.STRING)
+        return ss.with_column("tix", tix).with_column(
+            "tag", S.ConcatStrings(col("tix"), lit("-"), CA.Cast(
+                col("ss_sold_date_sk"), T.STRING)))
+
+    promo = P.IsNotNull(col("ss_promo_sk"))
+    nan_root = M.MA.Sqrt(AR.Subtract(col("ss_net_paid"), lit(500.0)))
+    day = D.DateAdd(lit(EXPR_DAY0, T.DATE),
+                    CA.Cast(col("ss_sold_date_sk"), T.INT))
+    dtext = CA.Cast(day, T.STRING)
+    stamp = S.ConcatStrings(dtext, lit(" 12:34:56"))
+
+    def conditional():
+        band = C.CaseWhen([
+            (P.LessThan(col("ss_net_paid"), lit(100.0)), lit("low")),
+            (P.LessThan(col("ss_net_paid"), lit(1000.0)), lit("mid")),
+            (P.LessThan(col("ss_net_paid"), lit(5000.0)), lit("high"))],
+            lit("top"))
+        cw = C.CaseWhen([
+            (P.GreaterThan(col("ss_quantity"), lit(90)), col("tag")),
+            (P.LessThan(col("ss_quantity"), lit(10)), col("c_first_name"))])
+        return base().with_column("band", band).group_by(col("band")).agg(
+            A.AggregateExpression(A.Count(), "n"),
+            agg(A.Sum, C.NaNvl(nan_root, lit(-1.0)), "nv"),
+            agg(A.Sum, S.Length(C.If(P.GreaterThan(col("ss_quantity"),
+                                                   lit(50)), col("tix"),
+                                     col("c_last_name"))), "fl"),
+            agg(A.Count, cw, "cw"),
+            agg(A.Sum, S.Length(C.Coalesce(cw, lit("none"))), "co"))
+
+    def predicates():
+        return base().group_by().agg(
+            A.AggregateExpression(A.Count(), "n"),
+            count_true(P.EqualNullSafe(col("ss_promo_sk"), lit(5)), "a"),
+            count_true(P.EqualNullSafe(
+                C.CaseWhen([(promo, col("ss_quantity"))]),
+                C.CaseWhen([(P.GreaterThan(col("ss_quantity"), lit(50)),
+                             col("ss_quantity"))])), "b"),
+            count_true(P.EqualNullSafe(
+                S.ConcatStrings(col("c_first_name"), lit("")),
+                C.CaseWhen([(P.GreaterThan(col("ss_quantity"), lit(20)),
+                             col("c_first_name"))])), "c"),
+            count_true(P.IsNaN(nan_root), "d"),
+            count_true(P.AtLeastNNonNulls(
+                2, col("ss_promo_sk"),
+                C.CaseWhen([(P.GreaterThan(col("ss_quantity"), lit(50)),
+                             col("tix"))]),
+                C.CaseWhen([(P.LessThan(col("ss_quantity"), lit(30)),
+                             col("c_last_name"))])), "e"))
+
+    def bitwise():
+        t = col("ss_ticket_number")
+        return base().with_column("k", B.BitwiseAnd(t, lit(7))).group_by(
+            col("k")).agg(
+            agg(A.Sum, B.BitwiseXor(t, col("ss_customer_sk")), "s1"),
+            agg(A.Sum, B.ShiftLeft(col("ss_item_sk"), lit(40)), "s2"),
+            agg(A.Sum, B.ShiftRightUnsigned(AR.UnaryMinus(t), lit(33)),
+                "s3"),
+            agg(A.Sum, B.ShiftRight(col("ss_customer_sk"), lit(64)), "s4"),
+            agg(A.Sum, B.ShiftLeft(CA.Cast(t, T.INT), lit(29)), "s5"),
+            agg(A.Sum, B.BitwiseNot(B.BitwiseOr(col("ss_item_sk"), lit(1))),
+                "s6"))
+
+    def strings():
+        return base().with_column("len", S.Length(col("tag"))).group_by(
+            col("len")).agg(
+            A.AggregateExpression(A.Count(), "n"),
+            agg(A.Sum, S.Length(S.Upper(S.ConcatStrings(
+                lit("x"), col("c_last_name"), col("tag")))), "up"),
+            agg(A.Max, S.Lower(col("c_last_name")), "lo"),
+            agg(A.Sum, S.Length(S.StringTrim(S.ConcatStrings(
+                lit("  "), col("tag"), lit(" ")))), "tr"),
+            agg(A.Min, S.StringTrimLeft(S.ConcatStrings(
+                lit(" "), col("c_first_name"))), "lt"),
+            agg(A.Max, S.StringTrimRight(S.ConcatStrings(
+                col("tag"), lit("  "))), "rt"),
+            agg(A.Max, S.Upper(S.StringTrim(S.ConcatStrings(
+                lit(" "), col("c_first_name"), lit(" ")))), "uf"))
+
+    def casts():
+        return base().group_by().agg(
+            agg(A.Sum, CA.Cast(col("tix"), T.LONG), "tl"),
+            agg(A.Sum, CA.Cast(S.ConcatStrings(lit(" "), col("tix"),
+                                               lit("\t")), T.INT), "ti"),
+            agg(A.Count, CA.Cast(col("tag"), T.LONG), "bad"),
+            agg(A.Sum, CA.Cast(CA.Cast(dtext, T.DATE), T.LONG), "days"),
+            agg(A.Max, CA.Cast(CA.Cast(dtext, T.TIMESTAMP), T.STRING), "ts"),
+            count_true(CA.Cast(CA.Cast(P.GreaterThan(
+                col("ss_quantity"), lit(50)), T.STRING), T.BOOLEAN), "yes"),
+            agg(A.Sum, CA.Cast(S.ConcatStrings(col("tix"), lit(".5")),
+                               T.DOUBLE), "half"),
+            agg(A.Sum, CA.Cast(col("ca_zip"), T.INT), "zip"),
+            agg(A.Max, CA.Cast(CA.Cast(col("ca_zip"), T.SHORT), T.STRING),
+                "zs"))
+
+    def datetime():
+        secs = D.UnixTimestamp(stamp)
+        dict_stamp = C.CaseWhen(
+            [(P.LessThan(col("ss_quantity"), lit(50)),
+              lit("2001-02-03 04:05:06"))], lit("1969-12-31 23:59:59"))
+        return base().group_by().agg(
+            agg(A.Sum, secs, "secs"),
+            agg(A.Sum, D.UnixTimestamp(day), "day_secs"),
+            agg(A.Sum, D.UnixTimestamp(dict_stamp), "dict_secs"),
+            agg(A.Max, D.FromUnixTime(secs), "mx"),
+            agg(A.Min, D.FromUnixTime(secs, "dd.MM.yyyy"), "mn"),
+            agg(A.Sum, D.UnixTimestamp(D.FromUnixTime(secs, "yyyy/MM/dd"),
+                                       "yyyy/MM/dd"), "round"))
+
+    def strings2():
+        return base().group_by(col("c_birth_country").alias("country")).agg(
+            A.AggregateExpression(A.Count(), "n"),
+            agg(A.Sum, S.Length(S2.StringReplace(col("tag"), "1", "<>")),
+                "rep"),
+            agg(A.Max, S2.StringReplace(col("c_last_name"), "a", "4"),
+                "rep_d"),
+            agg(A.Max, S2.RegExpReplace(col("c_first_name"), "e", "3"), "rx"),
+            agg(A.Min, S2.LPad(col("tix"), 8, "0"), "lp"),
+            agg(A.Max, S2.RPad(col("c_first_name"), 12, "*"), "rp"),
+            agg(A.Sum, S2.StringLocate("-", col("tag")), "loc"),
+            agg(A.Sum, S2.StringLocate("a", col("c_last_name"), 2), "loc_d"),
+            agg(A.Max, S2.InitCap(S.Lower(S.ConcatStrings(
+                col("c_first_name"), lit(" "), col("c_last_name")))), "ic"),
+            agg(A.Max, S2.SubstringIndex(col("tag"), "-", -1), "si"),
+            agg(A.Min, S2.Reverse(col("tix")), "rv"),
+            agg(A.Sum, S.Length(S2.StringRepeat(col("c_first_name"), 3)),
+                "rr"))
+
+    def string_aggs(key):
+        def build():
+            frame = base()
+            if key == "head":
+                frame = frame.with_column("head", M.S.Substring(
+                    col("tag"), lit(1), lit(2)))
+            elif key == "store":
+                frame = frame.with_column("store", col("ss_store_sk"))
+            else:
+                frame = frame.with_column("country", col("c_birth_country"))
+            return frame.group_by(col(key)).agg(
+                agg(A.Min, C.CaseWhen([(promo, col("c_last_name"))]), "mn"),
+                agg(A.Max, col("tag"), "mx"),
+                agg(A.First, C.CaseWhen([(promo, col("tix"))]), "fi"),
+                agg(A.Last, col("c_first_name"), "la"))
+        return build
+
+    return {"conditional": conditional, "predicates": predicates,
+            "bitwise": bitwise, "strings": strings, "casts": casts,
+            "datetime": datetime, "strings2": strings2,
+            "string_aggs_dict": string_aggs("country"),
+            "string_aggs_dense": string_aggs("store"),
+            "string_aggs_sort": string_aggs("head")}
+
+
+def _expr_base(tables) -> dict:
+    """The numpy side of the cells' base frame, at store_sales' length."""
+    ss, cu, ca = (tables[n] for n in ("store_sales", "customer",
+                                      "customer_address"))
+    cust = ss.columns["ss_customer_sk"]
+    addr = cu.columns["c_current_addr_sk"][cust]
+    tix = ss.columns["ss_ticket_number"].astype(str)
+    date_sk = ss.columns["ss_sold_date_sk"]
+    return {"cust": cust, "promo": ss.validity["ss_promo_sk"],
+            "promo_sk": ss.columns["ss_promo_sk"],
+            "qty": ss.columns["ss_quantity"], "paid": ss.columns["ss_net_paid"],
+            "ticket": ss.columns["ss_ticket_number"],
+            "item": ss.columns["ss_item_sk"], "store": ss.columns["ss_store_sk"],
+            "date_sk": date_sk, "tix": tix,
+            "tag": np.char.add(np.char.add(tix, "-"), date_sk.astype(str)),
+            "first": cu.columns["c_first_name"][cust].astype(str),
+            "last": cu.columns["c_last_name"][cust].astype(str),
+            "country": cu.columns["c_birth_country"][cust].astype(str),
+            "zip": ca.columns["ca_zip"][addr].astype(str)}
+
+
+def _slen(a) -> np.ndarray:
+    """Byte lengths of a numpy string array (UTF-8)."""
+    return np.char.str_len(np.char.encode(a, "utf-8")).astype(np.int64)
+
+
+def _by_group(keys, values, reduce):
+    """``{key: reduce(values of the key's rows)}`` over sorted keys."""
+    order = np.argsort(keys, kind="stable")
+    k, v = keys[order], values[order]
+    bounds = np.flatnonzero(np.r_[True, k[1:] != k[:-1], True])
+    return {k[a]: reduce(v[a:b]) for a, b in zip(bounds[:-1], bounds[1:])}
+
+
+def _str_extreme(values, pick):
+    """The byte-order max or min of a numpy string array."""
+    raw = np.sort(np.char.encode(values, "utf-8"))
+    return (raw[-1] if pick == "max" else raw[0]).decode("utf-8")
+
+
+def numpy_expr_conditional(tables) -> dict:
+    b = _expr_base(tables)
+    paid, qty = b["paid"], b["qty"]
+    band = np.select([paid < 100.0, paid < 1000.0, paid < 5000.0],
+                     ["low", "mid", "high"], "top")
+    with np.errstate(invalid="ignore"):
+        nv = np.where(paid >= 500.0, np.sqrt(paid - 500.0), -1.0)
+    fl = np.where(qty > 50, _slen(b["tix"]), _slen(b["last"]))
+    cw_valid = (qty > 90) | (qty < 10)
+    cw_len = np.where(qty > 90, _slen(b["tag"]),
+                      np.where(qty < 10, _slen(b["first"]), 4))
+    keys = np.unique(band)
+    idx = np.searchsorted(keys, band)
+    size = len(keys)
+    return {"band": keys, "n": np.bincount(idx, minlength=size),
+            "nv": np.bincount(idx, weights=nv, minlength=size),
+            "fl": np.bincount(idx, weights=fl, minlength=size)
+            .astype(np.int64),
+            "cw": np.bincount(idx, weights=cw_valid, minlength=size)
+            .astype(np.int64),
+            "co": np.bincount(idx, weights=cw_len, minlength=size)
+            .astype(np.int64)}
+
+
+def numpy_expr_predicates(tables) -> dict:
+    b = _expr_base(tables)
+    qty, promo = b["qty"], b["promo"]
+    with np.errstate(invalid="ignore"):
+        nan = np.isnan(np.sqrt(b["paid"] - 500.0))
+    big = qty > 50
+    return {"n": np.array([len(qty)]),
+            "a": np.array([np.sum(promo & (b["promo_sk"] == 5))]),
+            "b": np.array([np.sum((promo & big) | (~promo & ~big))]),
+            "c": np.array([np.sum(qty > 20)]),
+            "d": np.array([np.sum(nan)]),
+            "e": np.array([np.sum(promo.astype(int) + big + (qty < 30)
+                                  >= 2)])}
+
+
+def numpy_expr_bitwise(tables) -> dict:
+    b = _expr_base(tables)
+    t, cust, item = b["ticket"], b["cust"], b["item"]
+    k = t & 7
+    with np.errstate(over="ignore"):
+        lanes = {
+            "s1": t ^ cust, "s2": item << 40,
+            "s3": ((-t).view(np.uint64) >> np.uint64(33)).view(np.int64),
+            "s4": cust,
+            "s5": ((t << 29) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+            .astype(np.int64),
+            "s6": ~(item | 1)}
+    keys = np.unique(k)
+    out = {"k": keys}
+    for name, v in lanes.items():
+        sums = np.zeros(len(keys), dtype=np.int64)
+        np.add.at(sums, np.searchsorted(keys, k), v)
+        out[name] = sums
+    return out
+
+
+def numpy_expr_strings(tables) -> dict:
+    b = _expr_base(tables)
+    tag, last, first = b["tag"], b["last"], b["first"]
+    ln = _slen(tag)
+    keys = np.unique(ln)
+    idx = np.searchsorted(keys, ln)
+    size = len(keys)
+
+    def per(values, pick):
+        got = _by_group(idx, values, lambda v: _str_extreme(v, pick))
+        return np.array([got[i] for i in range(size)])
+    upper_len = 1 + _slen(last) + ln
+    return {"len": keys.astype(np.int32),
+            "n": np.bincount(idx, minlength=size),
+            "up": np.bincount(idx, weights=upper_len, minlength=size)
+            .astype(np.int64),
+            "lo": per(np.char.lower(last), "max"),
+            "tr": np.bincount(idx, weights=ln, minlength=size)
+            .astype(np.int64),
+            "lt": per(first, "min"), "rt": per(tag, "max"),
+            "uf": per(np.char.upper(first), "max")}
+
+
+def _days_text(days) -> np.ndarray:
+    return np.datetime_as_string(days.astype("datetime64[D]"), unit="D")
+
+
+def numpy_expr_casts(tables) -> dict:
+    b = _expr_base(tables)
+    t = b["ticket"]
+    days = EXPR_DAY0 + b["date_sk"]
+    zips = b["zip"].astype(np.int64)
+    return {"tl": np.array([t.sum()]), "ti": np.array([t.sum()]),
+            "bad": np.array([0]), "days": np.array([days.sum()]),
+            "ts": np.array([_days_text(np.array([days.max()]))[0]
+                            + " 00:00:00"]),
+            "yes": np.array([np.sum(b["qty"] > 50)]),
+            "half": np.array([np.sum(t + 0.5)]),
+            "zip": np.array([zips.sum()]),
+            "zs": np.array([str(zips[zips <= 32767].max())])}
+
+
+def numpy_expr_datetime(tables) -> dict:
+    b = _expr_base(tables)
+    days = EXPR_DAY0 + b["date_sk"]
+    secs = days * 86400 + 12 * 3600 + 34 * 60 + 56
+    latest = np.datetime_as_string(np.datetime64(int(secs.max()), "s"),
+                                   unit="s").replace("T", " ")
+    # dd.MM.yyyy orders by day of month first: over every day's text
+    dd = [f"{t[8:10]}.{t[5:7]}.{t[:4]}" for t in _days_text(np.unique(days))]
+    return {"secs": np.array([secs.sum()]),
+            "day_secs": np.array([(days * 86400).sum()]),
+            "dict_secs": np.array([np.where(b["qty"] < 50, 981173106,
+                                            -1).sum()]),
+            "mx": np.array([latest]), "mn": np.array([min(dd)]),
+            "round": np.array([(days * 86400).sum()])}
+
+
+def numpy_expr_strings2(tables) -> dict:
+    b = _expr_base(tables)
+    country = b["country"]
+    keys = np.unique(country)
+    idx = np.searchsorted(keys, country)
+    size = len(keys)
+    tag, tix, first, last = b["tag"], b["tix"], b["first"], b["last"]
+
+    def per(values, pick):
+        got = _by_group(idx, values, lambda v: _str_extreme(v, pick))
+        return np.array([got[i] for i in range(size)])
+
+    def sums(values):
+        return np.bincount(idx, weights=values, minlength=size).astype(
+            np.int64)
+    loc_d = np.char.find(np.char.encode(last, "utf-8"), b"a", 1)
+    initcap = np.array([" ".join(w[:1].upper() + w[1:] for w in s.split(" "))
+                        for s in np.char.lower(np.char.add(
+                            np.char.add(first, " "), last)).tolist()])
+    return {"country": keys, "n": np.bincount(idx, minlength=size),
+            "rep": sums(_slen(np.char.replace(tag, "1", "<>"))),
+            "rep_d": per(np.char.replace(last, "a", "4"), "max"),
+            "rx": per(np.char.replace(first, "e", "3"), "max"),
+            "lp": per(np.char.rjust(tix, 8, "0"), "min"),
+            "rp": per(np.array([s[:12] if len(s.encode()) >= 12
+                                else s + "*" * (12 - len(s.encode()))
+                                for s in first.tolist()]), "max"),
+            "loc": sums(np.char.find(tag, "-") + 1),
+            "loc_d": sums(np.where(loc_d >= 0, loc_d + 1, 0)),
+            "ic": per(initcap, "max"),
+            "si": per(b["date_sk"].astype(str), "max"),
+            "rv": per(np.array([s[::-1] for s in tix.tolist()]), "min"),
+            "rr": sums(3 * _slen(first))}
+
+
+def _numpy_string_aggs(tables, key: str) -> dict:
+    b = _expr_base(tables)
+    if key == "head":
+        k = np.array([s[:2] for s in b["tag"].tolist()])
+    elif key == "store":
+        k = b["store"]
+    else:
+        k = b["country"]
+    keys = np.unique(k)
+    idx = np.searchsorted(keys, k)
+    rows = np.arange(len(idx))
+    promo = b["promo"]
+    mn = _by_group(idx[promo], b["last"][promo],
+                   lambda v: _str_extreme(v, "min"))
+    mx = _by_group(idx, b["tag"], lambda v: _str_extreme(v, "max"))
+    fi = _by_group(idx[promo], rows[promo], lambda v: v.min())
+    la = _by_group(idx, rows, lambda v: v.max())
+    size = len(keys)
+    return {key: keys, "mn": np.array([mn[i] for i in range(size)]),
+            "mx": np.array([mx[i] for i in range(size)]),
+            "fi": b["tix"][[fi[i] for i in range(size)]],
+            "la": b["first"][[la[i] for i in range(size)]]}
+
+
+EXPR_REFS = {
+    "conditional": numpy_expr_conditional,
+    "predicates": numpy_expr_predicates,
+    "bitwise": numpy_expr_bitwise, "strings": numpy_expr_strings,
+    "casts": numpy_expr_casts, "datetime": numpy_expr_datetime,
+    "strings2": numpy_expr_strings2,
+    "string_aggs_dict": lambda t: _numpy_string_aggs(t, "country"),
+    "string_aggs_dense": lambda t: _numpy_string_aggs(t, "store"),
+    "string_aggs_sort": lambda t: _numpy_string_aggs(t, "head"),
+}
 
 
 def _ds_rows(cols: dict, keys) -> dict:
@@ -5130,6 +5659,8 @@ def reference_answer(task):
             from spark_rapids_tpu_torch.workloads import tpch as wl
         elif workload == "ds":
             from spark_rapids_tpu_torch.workloads import tpcds as wl
+        elif workload == "mort":
+            from spark_rapids_tpu_torch.workloads import mortgage as wl
         else:
             from spark_rapids_tpu_torch.workloads import tpcxbb as wl
         _WORKER_TABLES.clear()
@@ -5138,7 +5669,9 @@ def reference_answer(task):
     if workload == "tpch":
         fn = numpy_q3 if q == "q3" else NUMPY_REFS[q]
     elif workload == "ds":
-        fn = DS_REFS[q]
+        fn = EXPR_REFS[q[5:]] if q.startswith("expr_") else DS_REFS[q]
+    elif workload == "mort":
+        fn = MORT_REFS[q]
     else:
         fn = XBB_REFS[q]
     return task, fn(tables)
@@ -5156,6 +5689,10 @@ def start_references(args):
     tasks += [("xbb", args.xbb_clicks, args.seed, q) for q in XBB_REFS]
     tasks += [("xbb", BENCH_XBB_CLICKS, args.seed, q) for q in BENCH_XBB]
     tasks += [("ds", args.ds_ss_rows, args.seed, q) for q in DS_REFS]
+    tasks += [("ds", args.ds_ss_rows, args.seed, f"expr_{c}")
+              for c in EXPR_CELLS]
+    tasks += [("mort", args.mort_perf_rows, MORT_SEED, q)
+              for q in MORT_QUERIES]
     return ex, {t: ex.submit(reference_answer, t) for t in tasks}
 
 
@@ -5503,6 +6040,12 @@ def run_tpcds(torch, ctx, session, wrappers, ss_rows: int, seed: int,
     summaries["ds_geomean"] = geomean
     print("DS_GEOMEAN " + json.dumps(geomean))
 
+    # the expression library's cells over the same uploaded tables
+    expr_summaries, expr_launches, expr_calls = run_exprs(
+        torch, ctx, session, wrappers, ss_rows, seed, dfs, profile, futures)
+    summaries.update(expr_summaries)
+    record(expr_launches, expr_calls)
+
     # q5 over parquet (BASELINE configuration 1): the ten tables it reads
     # through the port's writer, every collect scanning them.
     t0 = time.perf_counter()
@@ -5532,6 +6075,146 @@ def run_tpcds(torch, ctx, session, wrappers, ss_rows: int, seed: int,
         summaries[cell]["busy"] = profile_query(torch, cell, build, mid)
     else:
         summaries[cell]["busy"] = busy_share(torch, cell.upper(), build, mid)
+    return summaries, launches, calls
+
+
+def rows_in_order(got, keys):
+    """The rows of ``got`` sorted by the ``keys`` columns, each by its own
+    values (numbers as numbers); without keys, as they are."""
+    if not keys:
+        return got
+    cols = [np.asarray(got.columns[k]) for k in keys]
+    order = np.lexsort([c.astype(str) if c.dtype == object else c
+                        for c in reversed(cols)])
+    return types.SimpleNamespace(
+        columns={k: np.asarray(v)[order] for k, v in got.columns.items()},
+        validity={k: np.asarray(v)[order] for k, v in got.validity.items()})
+
+
+def cell_report(torch, session, cell, build, summary, mid, n_rows, profile,
+                extra=""):
+    """Print a cell's rows, two largest execs and a traced warm run's
+    busy share (two traces with ``profile``), into ``summary``."""
+    top = sorted(mid.items(), key=lambda kv: -kv[1])[:2]
+    summary.update(rows=n_rows, top_execs=top)
+    print(f"  {cell.upper()}: {n_rows} rows, equal to numpy; largest "
+          "execs " + ", ".join(f"{k} {v:.3f} ms" for k, v in top) + extra)
+    if profile:
+        summary["busy"] = profile_query(torch, cell, build, mid)
+    else:
+        summary["busy"] = busy_share(torch, cell.upper(), build, mid)
+
+
+def run_exprs(torch, ctx, session, wrappers, ss_rows: int, seed: int, dfs,
+              profile: bool, futures: dict):
+    """The ``expr_*`` cells (:data:`EXPR_CELLS`) over the uploaded TPC-DS
+    tables ``dfs``: each family of the expression library at store_sales'
+    length over dictionary and flat strings, reduced to a few rows held
+    to its numpy reference (exact; ``EXPR_FLOATS`` to ``REV_RTOL``).
+    Returns (summaries, launches, captured calls)."""
+    queries = expr_queries(ctx.M, dfs)
+    summaries, launches = {}, {k: 0 for k in wrappers.mods}
+    calls = {k: [] for k in wrappers.mods}
+    for name in EXPR_CELLS:
+        cell = f"expr_{name}"
+        ref = reference(futures, "ds", ss_rows, seed, cell)
+        keys = EXPR_KEYS.get(name, [])
+        floats = EXPR_FLOATS.get(name, ())
+        got_launches, got_calls, summaries[cell], mid = run_query(
+            torch, session, wrappers, cell.upper(), queries[name],
+            lambda got, cell=cell, ref=ref, keys=keys, floats=floats:
+            check_exact(cell, rows_in_order(got, keys), ref, floats), ())
+        for k in wrappers.mods:
+            launches[k] += got_launches[k]
+            calls[k] += got_calls[k]
+        cell_report(torch, session, cell, queries[name], summaries[cell],
+                    mid, len(next(iter(ref.values()))), profile)
+    print(f"  expression cells' kernel launches (cold runs): {launches}")
+    return summaries, launches, calls
+
+
+class JoinPaths:
+    """Records the path each join of a run takes: the direct-address
+    table (``joinProbe``, built over either side), the binary search or
+    the general matcher (``join_match``)."""
+
+    PATHS = (("dense_join", "joinProbe"),
+             ("dense_join_swapped", "joinProbe (swapped)"),
+             ("join_match_binsearch", "binary search"),
+             ("join_match", "join_match"))
+
+    def __init__(self, KJ):
+        self.KJ = KJ
+        self.taken = []
+
+    def __enter__(self):
+        self.fns = {a: getattr(self.KJ, a) for a, _ in self.PATHS}
+        for attr, label in self.PATHS:
+            def wrapper(*args, fn=self.fns[attr], label=label, **kwargs):
+                self.taken.append(label)
+                return fn(*args, **kwargs)
+            setattr(self.KJ, attr, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for attr, fn in self.fns.items():
+            setattr(self.KJ, attr, fn)
+
+
+def run_mortgage(torch, ctx, session, wrappers, perf_rows: int,
+                 profile: bool, futures: dict):
+    """The Mortgage cells ``mort_etl`` and ``mort_features`` over
+    ``mortgage.gen_tables(perf_rows, MORT_SEED)`` uploaded to the card:
+    each against its numpy reference (keys, strings and counts exact,
+    floats to ``REV_RTOL``), its rows, two largest execs and a traced
+    run's busy share printed, and the path each of its joins takes;
+    ``mort_features``' join on ``EqualTo(loan_id, _fl_id)`` must launch
+    ``joinProbe``. Returns (summaries, launches, captured calls)."""
+    mortgage = ctx.mortgage
+    t0 = time.perf_counter()
+    tables = mortgage.gen_tables(perf_rows, seed=MORT_SEED)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refs = {q: reference(futures, "mort", perf_rows, MORT_SEED, q)
+            for q in MORT_QUERIES}
+    t_ref = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dfs = mortgage.load(session, tables)
+    torch.cuda.synchronize()
+    nbytes = sum(c.validity.numel() + (
+        c.data.numel() * c.data.element_size() if c.data is not None
+        else c.codes.numel() * 4)
+        for df in dfs.values() for c in df._plan.batch.columns)
+    print(f"  Mortgage tables at {perf_rows} performance rows (seed "
+          f"{MORT_SEED}): generated {t_gen:.1f} s, uploaded "
+          f"{nbytes / 1e9:.3f} GB in {time.perf_counter() - t0:.1f} s; "
+          f"waited {t_ref:.1f} s for the numpy references; rows "
+          + ", ".join(f"{k}={v.num_rows}" for k, v in tables.items()))
+    builds = {"etl": lambda: mortgage.etl(dfs),
+              "features": lambda: mortgage.ml_features(dfs)}
+    keys = {"etl": ["seller", "score_band"], "features": ["loan_id"]}
+    summaries, launches = {}, {k: 0 for k in wrappers.mods}
+    calls = {k: [] for k in wrappers.mods}
+    for q in MORT_QUERIES:
+        cell = f"mort_{q}"
+        got_launches, got_calls, summaries[cell], mid = run_query(
+            torch, session, wrappers, cell.upper(), builds[q],
+            lambda got, q=q, cell=cell: check_exact(
+                cell, rows_in_order(got, keys[q]), refs[q], MORT_FLOATS[q]),
+            ("joinProbe",) if q == "features" else ())
+        for k in wrappers.mods:
+            launches[k] += got_launches[k]
+            calls[k] += got_calls[k]
+        with JoinPaths(ctx.KJ) as paths:
+            builds[q]().collect()
+        summaries[cell]["join_paths"] = paths.taken
+        summaries[cell]["joinProbe_launches"] = got_launches["joinProbe"]
+        kind = "USING loan_id" if q == "etl" else "EqualTo(loan_id, _fl_id)"
+        cell_report(torch, session, cell, builds[q], summaries[cell], mid,
+                    len(next(iter(refs[q].values()))), profile,
+                    f"; its join ({kind}) took {paths.taken}, joinProbe "
+                    f"launched {got_launches['joinProbe']} time(s) in the "
+                    "cold run")
     return summaries, launches, calls
 
 
@@ -6855,6 +7538,9 @@ def main() -> int:
     ap.add_argument("--ds-ss-rows", type=int, default=2_880_404,
                     help="store_sales rows of the TPC-DS tables the ds_* "
                          "cells upload (SF1 = 2,880,404)")
+    ap.add_argument("--mort-perf-rows", type=int, default=MORT_PERF_ROWS,
+                    help="performance records of the Mortgage tables the "
+                         "mort_* cells upload (2^24: 699,050 loans)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace two warm runs of each query and "
                          "entry stage with torch.profiler (tables in "
@@ -6890,6 +7576,17 @@ def main() -> int:
     from spark_rapids_tpu_torch.workloads import tpch
     from spark_rapids_tpu_torch.workloads import tpcds
     from spark_rapids_tpu_torch.workloads import tpcxbb
+    from spark_rapids_tpu_torch.workloads import mortgage
+    from spark_rapids_tpu_torch.ops import aggregates as A
+    from spark_rapids_tpu_torch.ops import arithmetic as AR
+    from spark_rapids_tpu_torch.ops import bitwise as B
+    from spark_rapids_tpu_torch.ops import cast as CA
+    from spark_rapids_tpu_torch.ops import conditional as C
+    from spark_rapids_tpu_torch.ops import datetime as DT
+    from spark_rapids_tpu_torch.ops import math as MA
+    from spark_rapids_tpu_torch.ops import predicates as P
+    from spark_rapids_tpu_torch.ops import strings as S
+    from spark_rapids_tpu_torch.ops import strings2 as S2
     from spark_rapids_tpu_torch.io import parquet_device as PD
     from spark_rapids_tpu_torch.io import parquet_encode as PE
     from spark_rapids_tpu_torch.io import parquet_meta as M
@@ -7126,16 +7823,29 @@ def main() -> int:
         calls[k] += xbb_calls[k]
 
     # The TPC-DS queries at SF1's store_sales rows, on uploaded tables.
+    expr_mods = types.SimpleNamespace(C=C, P=P, B=B, S=S, S2=S2, CA=CA,
+                                      D=DT, A=A, AR=AR, MA=MA, T=T, col=col,
+                                      lit=lit)
     ds_ctx = types.SimpleNamespace(tpcds=tpcds, PE=PE, SN=SN,
-                                   ColumnarBatch=ColumnarBatch)
+                                   ColumnarBatch=ColumnarBatch, M=expr_mods)
     ds_summaries, ds_launches, ds_calls = run_tpcds(
         torch, ds_ctx, session, wrappers, args.ds_ss_rows, args.seed,
         pq_dir, args.profile, futures)
-    ref_workers.shutdown()
     summaries.update(ds_summaries)
     for k in launches:
         launches[k] += ds_launches[k]
         calls[k] += ds_calls[k]
+
+    # Mortgage's ETL and feature table at 2^24 performance records.
+    mort_ctx = types.SimpleNamespace(mortgage=mortgage, KJ=KJ)
+    mort_summaries, mort_launches, mort_calls = run_mortgage(
+        torch, mort_ctx, session, wrappers, args.mort_perf_rows,
+        args.profile, futures)
+    ref_workers.shutdown()
+    summaries.update(mort_summaries)
+    for k in launches:
+        launches[k] += mort_launches[k]
+        calls[k] += mort_calls[k]
 
     # The engine's entry stage (filter -> aggregate on the sort path): at
     # entry()'s defaults, then at SF1's lineitem rows with entry()'s 50
@@ -7386,6 +8096,8 @@ def main() -> int:
         "q3_dense_joins": q3_joins, "bb_q05_left_joins": left_joins,
         "xbb_clicks": args.xbb_clicks, "ds_ss_rows": args.ds_ss_rows,
         "ds_launches": ds_launches,
+        "mort_perf_rows": args.mort_perf_rows,
+        "mort_launches": mort_launches,
         "distributed_sum_by_key": distributed,
         "q6_default_mesh_ms": default_ms, "entry_stage": entry_runs,
         "xbb_score_max_score_ulps": max(xbb_ulps),

@@ -112,7 +112,9 @@ def dictionary_column(codes: torch.Tensor, validity: torch.Tensor,
     codes' device; ``max_bytes`` comes from the entries, and
     ``dict_sorted`` is checked on the host when not given."""
     dictionary = np.asarray(dictionary, dtype=object)
-    raw = [str(s).encode("utf-8") for s in dictionary]
+    # bytes that are not UTF-8 (a byte-wise transform of an entry) ride
+    # in the host string as surrogates and come back unchanged
+    raw = [str(s).encode("utf-8", "surrogateescape") for s in dictionary]
     if dict_sorted is None:
         dict_sorted = all(a < b for a, b in zip(raw, raw[1:]))
     raw = raw or [b""]  # an empty dictionary keeps one (unused) entry

@@ -31,6 +31,7 @@ and re-runs the query with the tripped sites escalated
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 import time
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
@@ -40,7 +41,7 @@ import torch
 from .. import types as T
 from ..config import TorchConf
 from ..data.batch import ColumnarBatch, HostBatch, empty_batch
-from ..data.column import bucket_capacity
+from ..data.column import DeviceColumn, bucket_capacity
 from ..ops import aggregates as AGG
 from ..ops.cast import cast_values
 from ..ops.expression import (BoundReference, Expression, Literal,
@@ -49,6 +50,7 @@ from ..ops.kernels import concat as KC
 from ..ops.kernels import groupby as KG
 from ..ops.kernels import join as KJ
 from ..ops.kernels import rowops as KR
+from ..ops import strings_util as SU
 
 
 class ExecContext:
@@ -507,6 +509,7 @@ def aggregate_batch(batch: ColumnarBatch, key_exprs: List[Expression],
     live = batch.row_mask()
     keys = [e.eval_device(batch) for e in key_exprs]
     inputs = []
+    decoders = {}  # input index -> the string column of its result lane
     bi = n_keys
     for a in aggs:
         specs = a.func.buffers()
@@ -527,8 +530,14 @@ def aggregate_batch(batch: ColumnarBatch, key_exprs: List[Expression],
                     # byte payload
                     values = torch.ones(capacity, dtype=torch.int64,
                                         device=dev)
-                else:
+                elif spec.dtype is not T.STRING:
+                    if c.is_string:
+                        raise NotImplementedError(
+                            f"{type(a.func).__name__} of a string column")
                     values = c.data.to(spec.dtype.torch_dtype)
+            if spec.dtype is T.STRING:
+                values, decode = string_agg_lane(c, op)
+                decoders[len(inputs)] = decode
             inputs.append((values, validity, op, spec))
         bi += len(specs)
     triples = [(v, val, op) for v, val, op, _ in inputs]
@@ -540,16 +549,54 @@ def aggregate_batch(batch: ColumnarBatch, key_exprs: List[Expression],
             capacity, live, triples)
         fail = False
     out_cols = list(key_cols)
-    for (_, _, op, spec), (result, counts) in zip(inputs, results):
+    for i, ((_, _, op, spec), (result, counts)) in enumerate(
+            zip(inputs, results)):
         if spec.from_count:
             data = counts if op == "count" else result
             validity_out = group_live
         else:
             data = result
             validity_out = (counts > 0) & group_live
-        out_cols.append(make_column(data, validity_out, spec.dtype))
+        if i in decoders:
+            out_cols.append(decoders[i](data, validity_out))
+        else:
+            out_cols.append(make_column(data, validity_out, spec.dtype))
     return ColumnarBatch(tuple(out_cols), n_groups, buf_schema), \
         (None if fail is False else fail)
+
+
+def string_agg_lane(c: DeviceColumn, op: str):
+    """A string column as the int64 lane a min, max, first or last
+    reduces, and ``decode(lane values, validity)``, which turns the
+    reduced lane back into a string column of the group rows. ``min`` /
+    ``max`` reduce a sorted dictionary's codes (the dictionary sorted
+    first when it is not) or a flat column's byte-order ranks
+    (:func:`..ops.strings_util.string_ranks`), each rank decoding to a
+    row that holds its string; ``first`` / ``last`` reduce a dictionary's
+    codes or a flat column's row numbers."""
+    if c.is_dict:
+        if op in ("min", "max") and not c.dict_sorted:
+            c = KR.sorted_dictionary(c)
+
+        def decode_codes(lane, validity):
+            codes = torch.where(validity, lane, 0).to(torch.int32)
+            return dataclasses.replace(c, codes=codes, validity=validity)
+        return c.codes.long(), decode_codes
+    rows = torch.arange(c.capacity, device=c.device)
+    if op in ("min", "max"):
+        rank = SU.string_ranks(c)
+        # a valid row of each rank (a null row ranks as the empty string)
+        row_of_rank = torch.zeros(c.capacity + 1, dtype=rows.dtype,
+                                  device=c.device)
+        row_of_rank.scatter_(0, torch.where(c.validity, rank, c.capacity),
+                             rows)
+    else:
+        rank, row_of_rank = rows, rows
+
+    def decode_rows(lane, validity):
+        at = row_of_rank[lane.long().clamp(0, c.capacity - 1)]
+        return KR.gather_column(c, at, validity)
+    return rank, decode_rows
 
 
 class ShuffledHashJoinExec(TorchExec):

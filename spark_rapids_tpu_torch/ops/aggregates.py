@@ -7,9 +7,10 @@ buffers (``evaluate``). The ops name reductions of
 :mod:`..ops.kernels.groupby`.
 
 ``Min``, ``Max``, ``First`` and ``Last`` take fixed-width children
-(integers, dates, bools, floats with Spark's NaN order). A string child
-raises ``NotImplementedError``: string min and max need comparisons of
-flat strings, which the port does not have yet.
+(integers, dates, bools, floats with Spark's NaN order) and strings of
+either layout, which reduce as an int lane (``exec.execs.string_agg_lane``):
+a sorted dictionary's codes, a flat column's byte-order ranks, or the row
+numbers that first and last pick.
 """
 
 from __future__ import annotations
@@ -60,18 +61,12 @@ class _SameType(AggregateFunction):
     """An aggregate whose result and one buffer have the child's type."""
 
     op = ""
-    #: What a string child would need, which the port does not have yet.
-    string_needs = "comparisons of flat strings"
 
     @property
     def data_type(self) -> T.DataType:
         return self.child.data_type
 
     def buffers(self):
-        if self.child.data_type is T.STRING:
-            raise NotImplementedError(
-                f"{self.op} of a string column needs {self.string_needs}, "
-                "which are not ported yet")
         return [BufferSpec(self.op, self.op, self.op, self.data_type)]
 
 
@@ -88,8 +83,6 @@ class _Positional(_SameType):
     last contributing row. The group-by reduces over valid rows only, so
     that row is the first or last non-null one whatever the flag, as in
     the reference, which keeps the flag for the plan's sake."""
-
-    string_needs = "gathers of string rows into group rows"
 
     def __init__(self, child: Optional[Expression] = None,
                  ignore_nulls: bool = True):

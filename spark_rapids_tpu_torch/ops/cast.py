@@ -8,16 +8,26 @@ non-string types, with Spark's non-ANSI (Java) conversions:
 * number to boolean: ``x != 0``; boolean to number: 1 or 0;
 * date to timestamp: midnight UTC; timestamp to date: floor to the day.
 
-A cast from or to a string is the reference's ``cast_string.py`` (queue
-A4 of ``ROADMAP.md``) and raises here.
+Casts from and to strings are the reference's (``cast.py:155-227`` with
+``cast_string.py``): text parses into long, int, short, byte, double,
+float, date, timestamp and boolean (invalid text and integral overflow
+give null), and integers, dates, timestamps and booleans format into
+text. A float formats only on the reference's CPU path, so float to
+string raises here. A dictionary column parses its entries once and
+gathers the answers by code.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import types as T
-from .expression import Expression, UnaryExpression
+from ..data.column import dictionary_column, string_max_bytes
+from . import cast_string as CS
+from .expression import Expression, UnaryExpression, make_column
+from .kernels.rowops import strings_from_matrix
+from .strings_util import PAD, lift_rows
 
 #: (MIN, MAX) of each integral type, by type name.
 INT_BOUNDS = {
@@ -83,14 +93,59 @@ class Cast(UnaryExpression):
 
     def eval_device(self, batch):
         src = self.child.data_type
-        if (src is T.STRING) != (self.to is T.STRING):
-            raise NotImplementedError(
-                f"cast {src} -> {self.to}: string casts are the "
-                "reference's cast_string.py, not ported yet (ROADMAP A4)")
+        if src is T.STRING and self.to is T.STRING:
+            return self.child.eval_device(batch)
+        if src is T.STRING:
+            return self._from_string(self.child.eval_device(batch))
+        if self.to is T.STRING:
+            return self._to_string(self.child.eval_device(batch), src)
         return super().eval_device(batch)
+
+    def _from_string(self, c):
+        parse = _PARSERS.get(self.to.name)
+        if parse is None:
+            raise NotImplementedError(f"cast string -> {self.to}")
+        vals, ok = lift_rows(c, parse)
+        to = self.to
+        if to.is_integral and to is not T.LONG:
+            # parsed at the target's width: out of range is null, not the
+            # numeric cast's wrap
+            lo, hi = INT_BOUNDS[to.name]
+            ok = ok & (vals >= lo) & (vals <= hi)
+        return make_column(vals.to(to.torch_dtype), c.validity & ok, to)
+
+    def _to_string(self, c, src):
+        if src is T.BOOLEAN:
+            return dictionary_column(
+                torch.where(c.validity, c.data.to(torch.int32), 0),
+                c.validity, np.array(["false", "true"], dtype=object),
+                dict_sorted=True)
+        if src.is_integral:
+            m = CS.format_long_matrix(c.data.to(torch.int64))
+        elif src is T.DATE:
+            m = CS.format_date_matrix(c.data)
+        elif src is T.TIMESTAMP:
+            m = CS.format_timestamp_matrix(c.data)
+        else:
+            raise NotImplementedError(
+                f"cast {src} -> string runs only on the reference's CPU "
+                "path (castFloatToString)")
+        m = torch.where(c.validity[:, None], m, PAD)
+        return strings_from_matrix(m, c.validity, string_max_bytes(
+            m.shape[1]))
 
     def do_device(self, data):
         return cast_values(data, self.child.data_type, self.to), None
 
     def __str__(self) -> str:
         return f"cast({self.child} as {self.to})"
+
+
+#: The parser of each target type (by name) of a cast from a string.
+_PARSERS = {
+    "bigint": CS.parse_long_matrix, "int": CS.parse_long_matrix,
+    "smallint": CS.parse_long_matrix, "tinyint": CS.parse_long_matrix,
+    "float": CS.parse_double_matrix, "double": CS.parse_double_matrix,
+    "date": CS.parse_date_matrix, "timestamp": CS.parse_timestamp_matrix,
+    "boolean": CS.parse_bool_matrix,
+}

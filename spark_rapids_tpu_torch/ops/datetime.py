@@ -1,7 +1,8 @@
 """Datetime expressions — port of ``spark_rapids_tpu/ops/datetime.py``:
 ``Year``, ``Month``, ``DayOfMonth``, ``Quarter``, ``DayOfYear``,
 ``DayOfWeek``, ``WeekDay``, ``Hour``, ``Minute``, ``Second``,
-``LastDay``, ``DateAdd``, ``DateSub`` and ``DateDiff``.
+``LastDay``, ``DateAdd``, ``DateSub``, ``DateDiff``, ``UnixTimestamp``
+and ``FromUnixTime``.
 
 Dates are int32 days since 1970-01-01, timestamps int64 microseconds
 (UTC), both on the proleptic Gregorian calendar. The civil date of a day
@@ -16,7 +17,8 @@ from __future__ import annotations
 import torch
 
 from .. import types as T
-from .expression import BinaryExpression, UnaryExpression
+from .expression import (BinaryExpression, Expression, UnaryExpression,
+                         make_column)
 
 _US_PER_DAY = 86_400_000_000
 
@@ -185,3 +187,90 @@ class DateDiff(BinaryExpression):
 
     def do_device(self, l, r):
         return (l.to(torch.int64) - r.to(torch.int64)).to(torch.int32), None
+
+
+_DEFAULT_TS_FMT = "yyyy-MM-dd HH:mm:ss"
+
+
+def _supported_format(fmt: str) -> bool:
+    from .cast_string import compile_ts_pattern
+    return fmt == _DEFAULT_TS_FMT or compile_ts_pattern(fmt) is not None
+
+
+class UnixTimestamp(Expression):
+    """``unix_timestamp(col[, fmt])``: seconds since the epoch, a BIGINT
+    (floor of a timestamp's micros; a date's midnight). A string parses
+    with the default pattern as a cast to timestamp does, or with a
+    fixed-width pattern (``cast_string.compile_ts_pattern``); any other
+    pattern raises ``NotImplementedError``, where the reference falls
+    back to its CPU path."""
+
+    def __init__(self, child: Expression, fmt: str = _DEFAULT_TS_FMT):
+        self.children = [child]
+        self.fmt = fmt
+
+    @property
+    def data_type(self) -> T.DataType:
+        return T.LONG
+
+    def with_children(self, children):
+        return UnixTimestamp(children[0], self.fmt)
+
+    def eval_device(self, batch):
+        from . import cast_string as CS
+        from .strings_util import lift_rows
+        src = self.children[0].data_type
+        c = self.children[0].eval_device(batch)
+        if src is T.TIMESTAMP:
+            return make_column(_fdiv(c.data, 1_000_000), c.validity, T.LONG)
+        if src is T.DATE:
+            return make_column(c.data.to(torch.int64) * 86400, c.validity,
+                               T.LONG)
+        if not _supported_format(self.fmt):
+            raise NotImplementedError(
+                f"unix_timestamp pattern {self.fmt!r} runs only on the "
+                "reference's CPU path")
+        if self.fmt == _DEFAULT_TS_FMT:
+            parse = CS.parse_timestamp_matrix
+        else:
+            def parse(m):
+                return CS.parse_timestamp_pattern(m, self.fmt)
+        us, ok = lift_rows(c, parse)
+        validity = c.validity & ok
+        return make_column(_fdiv(us, 1_000_000), validity, T.LONG)
+
+
+class FromUnixTime(Expression):
+    """``from_unixtime(seconds[, fmt])``: the UTC time as text, in the
+    default pattern or a fixed-width one (any other raises
+    ``NotImplementedError``)."""
+
+    def __init__(self, child: Expression, fmt: str = _DEFAULT_TS_FMT):
+        self.children = [child]
+        self.fmt = fmt
+
+    @property
+    def data_type(self) -> T.DataType:
+        return T.STRING
+
+    def with_children(self, children):
+        return FromUnixTime(children[0], self.fmt)
+
+    def eval_device(self, batch):
+        from ..data.column import string_max_bytes
+        from . import cast_string as CS
+        from .kernels.rowops import strings_from_matrix
+        from .strings_util import PAD
+        if not _supported_format(self.fmt):
+            raise NotImplementedError(
+                f"from_unixtime pattern {self.fmt!r} runs only on the "
+                "reference's CPU path")
+        c = self.children[0].eval_device(batch)
+        us = c.data.to(torch.int64) * 1_000_000
+        if self.fmt == _DEFAULT_TS_FMT:
+            m = CS.format_timestamp_matrix(us)
+        else:
+            m = CS.format_timestamp_pattern(us, self.fmt)
+        m = torch.where(c.validity[:, None], m, PAD)
+        return strings_from_matrix(m, c.validity, string_max_bytes(
+            m.shape[1]))

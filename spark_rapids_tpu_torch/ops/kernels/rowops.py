@@ -218,8 +218,8 @@ def sorted_dictionary(col: DeviceColumn) -> DeviceColumn:
     byte-ordered dictionary: the entries ranked on the host, the codes
     remapped on the device (what the parquet scan does for a page
     dictionary). For a dictionary a concatenation appended unsorted."""
-    raw = np.array([str(s).encode("utf-8") for s in col.dictionary],
-                   dtype=object)
+    raw = np.array([str(s).encode("utf-8", "surrogateescape")
+                    for s in col.dictionary], dtype=object)
     if not len(raw):
         return dictionary_column(torch.zeros_like(col.codes), col.validity,
                                  np.zeros(0, object), dict_sorted=True)
@@ -228,8 +228,9 @@ def sorted_dictionary(col: DeviceColumn) -> DeviceColumn:
     codes = torch.where(col.validity,
                         remap[col.codes.clamp(0, len(raw) - 1).long()], 0)
     return dictionary_column(codes, col.validity,
-                             np.array([b.decode("utf-8") for b in entries],
-                                      dtype=object), dict_sorted=True)
+                             np.array([b.decode("utf-8", "surrogateescape")
+                                       for b in entries], dtype=object),
+                             dict_sorted=True)
 
 
 def merged_dictionary_codes(cols: Sequence[DeviceColumn]

@@ -15,7 +15,9 @@ customer and item ids), compare row by row over their char matrices at
 the wider side's width: the first byte that differs decides, and
 ``PAD`` past a string's end orders it before its longer extensions.
 ``In`` over strings matches char rows through the dictionary
-(``strings_util.lift_dict``), for both layouts.
+(``strings_util.lift_dict``), for both layouts. ``EqualNullSafe`` over a
+flat string compares bytes from the two layouts
+(``strings_util.rows_equal``), with no char matrix.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from .. import types as T
 from ..data.batch import ColumnarBatch
 from ..data.column import DeviceColumn
 from .expression import BinaryExpression, Expression, make_column
-from .strings_util import PAD, char_matrix, lift_dict
+from .strings_util import PAD, char_matrix, lift_dict, rows_equal
 
 #: Entry-pair product above which a dictionary comparison is refused.
 _MAX_DICT_PAIRS = 1 << 24
@@ -223,3 +225,83 @@ class In(Expression):
                 found = found | (c.data == x)
         validity = c.validity & (found | (not has_null))
         return make_column(found, validity, T.BOOLEAN)
+
+
+class EqualNullSafe(BinaryExpression):
+    """``a <=> b``: equality where two nulls are equal and a null and a
+    value are not; never null (on live rows)."""
+
+    @property
+    def data_type(self) -> T.DataType:
+        return T.BOOLEAN
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
+        l = self.left.eval_device(batch)
+        r = self.right.eval_device(batch)
+        if l.is_dict and r.is_dict:
+            eq = dict_compare(operator.eq, l, r)
+        elif l.is_string or r.is_string:
+            eq = rows_equal(l, r)
+        else:
+            eq = l.data == r.data
+        both_valid = l.validity & r.validity
+        both_null = ~l.validity & ~r.validity
+        live = batch.row_mask()
+        data = torch.where(both_valid, eq, both_null) & live
+        return DeviceColumn(data, live, T.BOOLEAN)
+
+
+class IsNaN(Expression):
+    """``isnan(x)``: true for a NaN, false otherwise and for a null."""
+
+    def __init__(self, child: Expression):
+        self.children = [child]
+
+    @property
+    def data_type(self) -> T.DataType:
+        return T.BOOLEAN
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    def with_children(self, children):
+        return IsNaN(children[0])
+
+    def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
+        c = self.children[0].eval_device(batch)
+        live = batch.row_mask()
+        return DeviceColumn(torch.isnan(c.data) & c.validity & live, live,
+                            T.BOOLEAN)
+
+
+class AtLeastNNonNulls(Expression):
+    """``at_least_n_non_nulls(n, e1, e2, ...)`` (``df.na.drop``): true
+    where at least ``n`` of the arguments are not null. As the
+    reference's device path, a NaN counts as non-null."""
+
+    def __init__(self, n: int, *children: Expression):
+        self.n = int(n)
+        self.children = list(children)
+
+    @property
+    def data_type(self) -> T.DataType:
+        return T.BOOLEAN
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    def with_children(self, children):
+        return AtLeastNNonNulls(self.n, *children)
+
+    def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
+        count = torch.zeros(batch.capacity, dtype=torch.int32,
+                            device=batch.device)
+        for c in self.children:
+            count = count + c.eval_device(batch).validity.to(torch.int32)
+        return make_column(count >= self.n, batch.row_mask(), T.BOOLEAN)

@@ -1,9 +1,16 @@
-"""String expressions — port of ``spark_rapids_tpu/ops/strings.py``, cut
-to ``Substring`` with literal position and length, the form TPC-H Q22's
+"""String expressions — port of ``spark_rapids_tpu/ops/strings.py``:
+``Substring`` with literal position and length, the form TPC-H Q22's
 country code takes, ``StartsWith``, ``EndsWith`` and ``Contains`` with a
 literal needle (the reference's ``_FixMatch``: Q2, Q9, Q13, Q14, Q16,
-Q19, Q20), and SQL ``LIKE`` (TPCxBB q18, q19, q27). Byte semantics, as
-the reference's device path.
+Q19, Q20), SQL ``LIKE`` (TPCxBB q18, q19, q27), ``Length``, ``Upper``,
+``Lower``, ``ConcatStrings`` and the three trims. Byte semantics, as
+the reference's device path: ``Length`` counts bytes, and ``Upper`` and
+``Lower`` map ASCII letters only.
+
+The last five work from the columns' own layouts
+(:func:`.strings_util.row_layout`, :func:`.strings_util.flat_column`):
+a dictionary column's case map and trims transform its entries once and
+keep its codes (:func:`.strings_util.map_string_column`).
 """
 
 from __future__ import annotations
@@ -17,7 +24,9 @@ from ..data.batch import ColumnarBatch
 from ..data.column import DeviceColumn, string_max_bytes
 from .expression import Expression, Literal, make_column
 from .kernels.rowops import strings_from_matrix
-from .strings_util import PAD, char_matrix, lengths, lift_dict
+from .strings_util import (PAD, byte_stream, char_matrix, flat_column,
+                           lengths, lift_dict, map_string_column,
+                           read_bytes, row_layout)
 
 
 class Substring(Expression):
@@ -327,3 +336,144 @@ class Like(Expression):
             b = payload[pos.clamp(0, max(size - 1, 0))].to(torch.int16)
             return b, valid
         return _like_dp(c.capacity, w, byte_at, toks, c.device)
+
+
+# --------------------------------------------------------------------------
+# Length, case maps, concatenation, trims
+# --------------------------------------------------------------------------
+
+
+class _StringUnary(Expression):
+    """One string child."""
+
+    def __init__(self, child: Expression):
+        self.children = [child]
+
+    @property
+    def child(self) -> Expression:
+        return self.children[0]
+
+    @property
+    def data_type(self) -> T.DataType:
+        return T.STRING
+
+    def with_children(self, children):
+        return type(self)(children[0])
+
+
+class Length(_StringUnary):
+    """``length(str)`` in bytes, as the reference's device path counts."""
+
+    @property
+    def data_type(self) -> T.DataType:
+        return T.INT
+
+    def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
+        c = self.child.eval_device(batch)
+        return make_column(lengths(c), c.validity, T.INT)
+
+
+class _CaseMap(_StringUnary):
+    """ASCII letters in ``[lo, hi]`` shifted by ``delta``; every other
+    byte (non-ASCII ones too) kept. A flat column maps its payload in
+    place and keeps its offsets."""
+
+    lo, hi, delta = 0, 0, 0
+
+    def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
+        def xform(col: DeviceColumn) -> DeviceColumn:
+            b = col.data
+            hit = (b >= self.lo) & (b <= self.hi)
+            mapped = (b.to(torch.int16) + self.delta).to(torch.uint8)
+            return DeviceColumn(torch.where(hit, mapped, b), col.validity,
+                                T.STRING, offsets=col.offsets,
+                                max_bytes=col.max_bytes)
+        return map_string_column(self.child.eval_device(batch), xform)
+
+
+class Upper(_CaseMap):
+    lo, hi, delta = ord("a"), ord("z"), -32
+
+
+class Lower(_CaseMap):
+    lo, hi, delta = ord("A"), ord("Z"), 32
+
+
+class ConcatStrings(Expression):
+    """``concat(s1, s2, ...)``: null if any argument is null. Row i of
+    the result is the arguments' rows i one after another, read from
+    each argument's own layout."""
+
+    def __init__(self, *children: Expression):
+        self.children = list(children)
+
+    @property
+    def data_type(self) -> T.DataType:
+        return T.STRING
+
+    def with_children(self, children):
+        return ConcatStrings(*children)
+
+    def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
+        cols = [c.eval_device(batch) for c in self.children]
+        validity = cols[0].validity
+        for c in cols[1:]:
+            validity = validity & c.validity
+        layouts = [row_layout(c) for c in cols]
+        # before[k]: the bytes of the arguments ahead of argument k
+        before, total = [], torch.zeros_like(layouts[0][2])
+        for _, _, ln in layouts:
+            before.append(total)
+            total = total + ln
+
+        def byte_fn(row, j):
+            out = torch.zeros(row.shape[0], dtype=torch.int16,
+                              device=row.device)
+            for (p, s, ln), b in zip(layouts, before):
+                rel = j - b[row]
+                mine = (rel >= 0) & (rel < ln[row])
+                out = torch.where(mine, read_bytes(p, s[row] + rel), out)
+            return out
+        return flat_column(total, validity, byte_fn)
+
+
+class _Trim(_StringUnary):
+    """trim / ltrim / rtrim of spaces (byte 32 only, as the reference's
+    device path): a string of spaces becomes empty."""
+
+    trim_left = True
+    trim_right = True
+
+    def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
+        def xform(col: DeviceColumn) -> DeviceColumn:
+            payload, starts, lens = row_layout(col)
+            n = lens.shape[0]
+            row, j = byte_stream(lens)
+            solid = read_bytes(payload, starts[row] + j) != 32
+            first = torch.full((n,), 2 ** 62, dtype=torch.int64,
+                               device=lens.device)
+            last = torch.full((n,), -1, dtype=torch.int64,
+                              device=lens.device)
+            first.scatter_reduce_(0, row, torch.where(solid, j, 2 ** 62),
+                                  "amin")
+            last.scatter_reduce_(0, row, torch.where(solid, j, -1), "amax")
+            has = last >= 0
+            lo = first if self.trim_left else torch.zeros_like(first)
+            hi = last + 1 if self.trim_right else lens
+            out_len = torch.where(has, hi - lo, 0)
+            lo = torch.where(has, lo, 0)
+            return flat_column(out_len, col.validity, lambda r, k: read_bytes(
+                payload, starts[r] + lo[r] + k))
+        return map_string_column(self.child.eval_device(batch), xform)
+
+
+class StringTrim(_Trim):
+    pass
+
+
+class StringTrimLeft(_Trim):
+    trim_right = False
+
+
+class StringTrimRight(_Trim):
+    trim_left = False

@@ -23,8 +23,8 @@ batch, as in the reference.
 Not ported yet: retry and split of the map side, spill of blocks to
 disk, the network plane, replication, hedged fetches, lineage recompute,
 adaptive (AQE) read planning and the pipelined overlap of serialization
-with device work (ROADMAP A4, A6, A9). Blocks live in host memory for
-the one query that wrote them.
+with device work (ROADMAP.md A, items 4, 3 and 8). Blocks live in host
+memory for the one query that wrote them.
 """
 
 from __future__ import annotations

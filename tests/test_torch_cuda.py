@@ -940,3 +940,114 @@ def test_cuda_using_semi_and_anti_joins_on_three_keys_match_cpu(cuda_device):
         assert results["cuda", how] == results["cpu", how], how
         assert results["cpu", how], how
     assert any(r[0] is None for r in results["cpu", "left_anti"])
+
+
+# --------------------------------------------------------------------------
+# Mortgage and the expression library: the card against the port's CPU
+# path (the kernels' plain versions), the same tables on both.
+# --------------------------------------------------------------------------
+
+
+def _sorted_rows(hb, floats=()):
+    """Rows of a collected batch, floats rounded to 9 significant
+    digits (sums add in atomic order on the card), in a fixed order."""
+    names = list(hb.columns)
+    rows = []
+    for i in range(len(hb.columns[names[0]])):
+        row = []
+        for n in names:
+            v = hb.columns[n][i] if hb.validity[n][i] else None
+            v = v.item() if hasattr(v, "item") else v
+            if n in floats and v is not None:
+                v = float(f"{v:.9g}")
+            row.append(v)
+        rows.append(tuple(row))
+    return sorted(rows, key=repr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", ["etl", "ml_features"])
+def test_cuda_mortgage_matches_cpu(cuda_device, q):
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.workloads import mortgage
+    tables = mortgage.gen_tables(1 << 16, seed=7)
+    floats = ("risk_upb", "avg_rate", "recent_upb")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        dfs = mortgage.load(TorchSession(device=dev), tables)
+        got[dev] = _sorted_rows(getattr(mortgage, q)(dfs).collect(), floats)
+    assert got["cuda"] == got["cpu"] and got["cpu"]
+
+
+def _expression_frame(session):
+    from spark_rapids_tpu_torch.ops.expression import col, lit
+    from spark_rapids_tpu_torch.ops.strings import Substring
+    rng = np.random.default_rng(77)
+    n = 20_000
+    words = np.array(["  ab c ", "abc", "", "naïve café", "aaaa", "123",
+                      "2020-02-29 10:11:12", " -42 ", "x.y.z"])
+    data = {"s": words[rng.integers(0, len(words), n)],
+            "k": rng.integers(-50, 50, n),
+            "x": np.where(rng.random(n) < 0.1, np.nan, rng.normal(0, 9, n))}
+    valid = {"s": rng.random(n) > 0.1, "k": rng.random(n) > 0.05}
+    df = session.create_dataframe(HostBatch.from_numpy(data,
+                                                       validity=valid))
+    return df.with_column("f", Substring(col("s"), lit(1), lit(64)))
+
+
+def _family_exprs():
+    """One expression (or aggregate) of each family of the library."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.ops import aggregates as A
+    from spark_rapids_tpu_torch.ops import bitwise as B
+    from spark_rapids_tpu_torch.ops import cast as CA
+    from spark_rapids_tpu_torch.ops import conditional as C
+    from spark_rapids_tpu_torch.ops import datetime as D
+    from spark_rapids_tpu_torch.ops import predicates as P
+    from spark_rapids_tpu_torch.ops import strings as S
+    from spark_rapids_tpu_torch.ops import strings2 as S2
+    from spark_rapids_tpu_torch.ops.expression import col, lit
+    return {
+        "conditional": [C.CaseWhen([(P.LessThan(col("k"), lit(0)),
+                                     col("f")),
+                                    (P.LessThan(col("k"), lit(25)),
+                                     lit("mid"))], col("s")),
+                        C.NaNvl(col("x"), lit(-1.0))],
+        "predicates": [P.EqualNullSafe(col("f"), col("s")),
+                       P.AtLeastNNonNulls(2, col("s"), col("k"), col("x"))],
+        "bitwise": [B.ShiftRightUnsigned(col("k"), lit(33)),
+                    B.BitwiseXor(col("k"), lit(0x5A))],
+        "strings": [S.Upper(S.ConcatStrings(col("f"), lit("-"), col("s"))),
+                    S.StringTrim(col("f")), S.Length(col("s"))],
+        "casts": [CA.Cast(col("f"), T.LONG), CA.Cast(col("s"), T.DOUBLE),
+                  CA.Cast(col("k"), T.STRING)],
+        "datetime": [D.UnixTimestamp(col("f")),
+                     D.FromUnixTime(B.ShiftLeft(col("k"), lit(24)))],
+        "strings2": [S2.StringReplace(col("f"), "a", "<>"),
+                     S2.LPad(col("s"), 6, "xy"),
+                     S2.SubstringIndex(col("f"), ".", -2)],
+        "string_aggs": [A.AggregateExpression(A.Min(col("f")), "mn"),
+                        A.AggregateExpression(A.Max(col("s")), "mx"),
+                        A.AggregateExpression(A.First(col("f")), "fi"),
+                        A.AggregateExpression(A.Last(col("f")), "la")],
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["conditional", "predicates", "bitwise",
+                                    "strings", "casts", "datetime",
+                                    "strings2", "string_aggs"])
+def test_cuda_expression_family_matches_cpu(cuda_device, family):
+    from spark_rapids_tpu_torch.ops.expression import col
+    from spark_rapids_tpu_torch.session import TorchSession
+    got = {}
+    for dev in ("cuda", "cpu"):
+        df = _expression_frame(TorchSession(device=dev))
+        exprs = _family_exprs()[family]
+        if family == "string_aggs":
+            out = df.group_by(col("k")).agg(*exprs)
+        else:
+            out = df.select(col("k"), *[e.alias(f"e{i}")
+                                        for i, e in enumerate(exprs)])
+        got[dev] = _sorted_rows(out.collect())
+    assert got["cuda"] == got["cpu"] and got["cpu"]

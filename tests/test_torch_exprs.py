@@ -103,13 +103,19 @@ def test_minus_keeps_signed_zero_and_wraps_the_minimum():
 
 
 def test_if_refuses_string_branches(both):
-    """A flat string branch raises (dictionary branches are taken, see
-    ``tests/test_torch_like_if.py``)."""
-    _, pb = both
+    """A flat string branch, which this test once saw refused, now gives
+    the reference's strings: a flat column of the chosen rows' bytes
+    (dictionary branches, see ``tests/test_torch_like_if.py``)."""
+    from test_torch_casewhen import port_strings, ref_strings
+    rb, pb = both
     e = C.If(P.GreaterThan(col("k"), lit(3)),
              S.Substring(col("s"), lit(1), lit(2)), lit("x"))
-    with pytest.raises(NotImplementedError, match="flat string"):
-        L.resolve(e, pb.schema).bind(pb.schema).eval_device(pb)
+    want = RC.If(RP.GreaterThan(rcol("k"), rlit(3)),
+                 RS.Substring(rcol("s"), rlit(1), rlit(2)), rlit("x"))
+    got = L.resolve(e, pb.schema).bind(pb.schema).eval_device(pb)
+    want = RL.resolve(want, rb.schema).bind(rb.schema).eval_device(rb)
+    assert got.is_flat
+    assert port_strings(pb, got) == ref_strings(rb, want)
 
 
 # --------------------------------------------------------------------------

@@ -339,10 +339,21 @@ def test_float_to_long_saturates_and_nan_is_zero(both):
 
 
 def test_cast_to_or_from_string_raises(both):
-    _, pb, _, _ = both
-    for e in (CA.Cast(col("i"), T.STRING),
-              CA.Cast(lit("12"), T.LONG)):
-        with pytest.raises(NotImplementedError, match="cast_string"):
+    """Casts from and to strings, which this test once saw refused, now
+    give the reference's values (``tests/test_torch_cast_string.py``
+    holds them fully); only a float to a string still raises, as the
+    reference's device path does."""
+    rb, pb, _, _ = both
+    from test_torch_casewhen import fixed_values, port_strings, ref_strings
+    got = CA.Cast(col("i"), T.STRING).bind(pb.schema).eval_device(pb)
+    want = RCA.Cast(rcol("i"), RT.STRING).bind(rb.schema).eval_device(rb)
+    assert port_strings(pb, got) == ref_strings(rb, want)
+    back = CA.Cast(CA.Cast(col("i"), T.STRING), T.LONG).bind(pb.schema)
+    assert fixed_values(pb, back.eval_device(pb), False) == \
+        fixed_values(rb, RCA.Cast(rcol("i"), RT.LONG).bind(
+            rb.schema).eval_device(rb), True)
+    for e in (CA.Cast(col("x"), T.STRING), CA.Cast(col("y"), T.STRING)):
+        with pytest.raises(NotImplementedError, match="castFloatToString"):
             e.bind(pb.schema).eval_device(pb)
 
 

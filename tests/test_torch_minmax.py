@@ -257,11 +257,15 @@ def test_bool_min_max_match_numpy(path, batches):
 
 @pytest.mark.parametrize("fn", FUNCS)
 def test_string_child_raises(fn):
+    """A string child, which this test once saw refused, now declares a
+    string buffer reduced by the aggregate's own op (the reductions are
+    held against the reference in ``tests/test_torch_string_aggs.py``)."""
     schema = T.Schema([T.StructField("s", T.STRING)])
     agg = getattr(A, fn)(col("s")).bind(schema)
     assert agg.data_type is T.STRING
-    with pytest.raises(NotImplementedError, match="string"):
-        agg.buffers()
+    [spec] = agg.buffers()
+    assert spec.dtype is T.STRING
+    assert spec.update_op == spec.merge_op == fn.lower()
 
 
 # --------------------------------------------------------------------------

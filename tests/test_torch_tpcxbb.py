@@ -241,13 +241,21 @@ def test_coalesce_matches_reference(kind):
 
 
 def test_coalesce_refuses_flat_strings():
+    """``Coalesce`` over a flat string, which this test once saw refused,
+    now gives the reference's rows."""
+    from spark_rapids_tpu.ops.strings import Substring as RSubstring
     from spark_rapids_tpu_torch.ops.strings import Substring
+    rng = np.random.default_rng(5)
     data = {"a": np.array(["abc", "de", "f"] * 10)}
-    port, _ = _frames(data, {"a": T.STRING})
-    df = port.select(Coalesce(Substring(col("a"), lit(1), lit(2)),
-                              lit("z")).alias("c"))
-    with pytest.raises(NotImplementedError, match="flat strings"):
-        df.collect()
+    port, ref = _frames(data, {"a": T.STRING},
+                        {"a": rng.random(30) > 0.3})
+    got = _port_rows(port.select(Coalesce(
+        Substring(col("a"), lit(1), lit(2)), lit("z")).alias("c")
+    ).collect())
+    want = _ref_rows(ref.select(RC.Coalesce(
+        RSubstring(rcol("a"), rlit(1), rlit(2)), rlit("z")).alias("c")
+    ).collect())
+    assert got == want and "z" in got["c"]
 
 
 def test_alias_names_the_expression():
