@@ -564,6 +564,36 @@ def gather_strings_edge_cases(torch, SG, bucket_byte_capacity, seed, dev):
           "plain version")
 
 
+def generate_edge_case(torch, E, GC, TorchSession, SG) -> None:
+    """``posexplode_outer`` over a table with a flat string column and a
+    struct with a flat string field, across tile boundaries (the lane
+    bound lowered so 3,000 rows take three tiles), on the card against
+    the same plan on the CPU, bit for bit; the parents must move with the
+    ragged ``strings`` gather."""
+    bound = E.GenerateExec.TILE_LANES
+    E.GenerateExec.TILE_LANES = GC.TILE_LANES
+    try:
+        table = GC.generate_table()
+        before = SG.gather_strings.launches
+        got = GC.generate_query(TorchSession(device="cuda"), table).collect()
+        launched = SG.gather_strings.launches - before
+        want = GC.generate_query(TorchSession(device="cpu"), table).collect()
+    finally:
+        E.GenerateExec.TILE_LANES = bound
+    check(launched > 0, "the explode edge case launched no strings gather")
+    check(got.schema.names == want.schema.names,
+          f"explode edge case: columns {got.schema.names}")
+    for name in got.schema.names:
+        same = np.array_equal(got.validity[name], want.validity[name]) and \
+            [repr(v) for v in got.columns[name].tolist()] == \
+            [repr(v) for v in want.columns[name].tolist()]
+        check(same, f"explode edge case: {name} differs between the card "
+              "and the CPU")
+    print(f"  explode edge case: {got.num_rows} rows from {GC.ROWS} across "
+          f"tiles of {GC.TILE_LANES} lanes, card equal to the CPU bit for "
+          f"bit; {launched} strings gathers")
+
+
 def row_equal_pair(rng, n: int, w: int):
     """(a, b) int16 [n, W] char matrices of one rowwise-compare case:
     PAD-ended rows of bytes over the whole 0-255 range (chars above 127
@@ -2895,6 +2925,344 @@ EXPR_REFS = {
     "string_aggs_dense": lambda t: _numpy_string_aggs(t, "store"),
     "string_aggs_sort": lambda t: _numpy_string_aggs(t, "head"),
 }
+
+
+# --------------------------------------------------------------------------
+# The complex-type, Generate, nondeterministic and input-file cells over
+# the same tables: ``expr_complex`` (a struct and an array through a
+# filter, a union, the item join and both repartitions, reduced per
+# store; 1,000 top-k rows of the raw columns), ``expr_explode`` (the
+# price array posexploded beside the flat ``tag``; an uploaded
+# per-customer array joined and explode_outer-ed), ``expr_nondeterministic``
+# (rand, monotonic ids and partition ids after an 8-way hash
+# repartition; an order-sensitive rand filter) and ``pq_input_file``
+# (input_file_name() and the block family over pq_ds_q5's store_sales
+# files).
+# --------------------------------------------------------------------------
+
+#: The cells' numpy references that run in the reference workers (each as
+#: an ``("ds", n, seed, "expr_<name>")`` task).
+COMPLEX_REFS = ("complex", "complex_topk", "explode", "explode_outer",
+                "nondeterministic", "nondet_filter", "input_file")
+#: The references that take ``--seed`` beside the tables.
+SEEDED_REFS = ("explode_outer",)
+PRICES = ("ss_wholesale_cost", "ss_list_price", "ss_sales_price",
+          "ss_coupon_amt")
+#: Rows the ``expr_complex`` top-k keeps.
+COMPLEX_TOPK = 1000
+#: The per-customer arrays: up to 8 elements in [0, 64).
+CUST_ARRAY_LEN = 8
+CUST_ARRAY_VALUES = 64
+_U64 = (1 << 64) - 1
+
+
+def customer_arrays(n_cust: int, seed: int):
+    """The per-customer arrays of ``expr_explode``'s part (b), from
+    ``seed``: (lengths, elements ``[n, 8]``, element valid, array valid),
+    0-8 elements, about 5 % null arrays, 5 % empty ones and 5 % null
+    elements."""
+    rng = np.random.default_rng(seed + 17)
+    lens = rng.integers(0, CUST_ARRAY_LEN + 1, n_cust)
+    lens[rng.random(n_cust) < 0.05] = 0
+    valid = rng.random(n_cust) >= 0.05
+    elems = rng.integers(0, CUST_ARRAY_VALUES, (n_cust, CUST_ARRAY_LEN))
+    ev = (rng.random((n_cust, CUST_ARRAY_LEN)) >= 0.05) \
+        & (np.arange(CUST_ARRAY_LEN)[None, :] < lens[:, None]) \
+        & valid[:, None]
+    return np.where(valid, lens, 0), elems, ev, valid
+
+
+def customer_array_table(HostBatch, T, n_cust: int, seed: int):
+    """:func:`customer_arrays` as a table ``(ca_c, ca_arr)`` to upload."""
+    lens, elems, ev, valid = customer_arrays(n_cust, seed)
+    arrays = np.empty(n_cust, dtype=object)
+    el = elems.tolist()
+    evl = ev.tolist()
+    for i in range(n_cust):
+        arrays[i] = [v if ok else None for v, ok in
+                     zip(el[i][:lens[i]], evl[i][:lens[i]])] \
+            if valid[i] else None
+    schema = T.Schema([T.StructField("ca_c", T.LONG, False),
+                       T.StructField("ca_arr", T.ArrayType(T.LONG))])
+    return HostBatch.from_numpy({"ca_c": np.arange(n_cust, dtype=np.int64),
+                                 "ca_arr": arrays}, schema)
+
+
+def np_rand(seed: int, pid: int, n: int) -> np.ndarray:
+    """The port's (and the reference's) ``rand(seed)`` of rows ``[0, n)``
+    of partition ``pid``: splitmix64 of the row index XOR the salt, top
+    53 bits over 2^53."""
+    salt = (seed * 0x9E3779B97F4A7C15 + pid * 0xD1B54A32D192ED03) & _U64
+    with np.errstate(over="ignore"):
+        x = np.arange(n, dtype=np.uint64) ^ np.uint64(salt)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        x = x ^ (x >> np.uint64(31))
+    return (x >> np.uint64(11)).astype(np.float64) / float(1 << 53)
+
+
+def complex_queries(M, dfs, cust_arrays) -> dict:
+    """``{name: build()}``: the port's queries of the complex cells over
+    the uploaded TPC-DS tables ``dfs`` and the uploaded per-customer
+    arrays. ``M`` holds the port's modules (as for
+    :func:`expr_queries`, plus ``CPX``, ``ND`` and ``SortOrder``)."""
+    A, P, S, CA, C, T, CPX, ND = (M.A, M.P, M.S, M.CA, M.C, M.T, M.CPX,
+                                  M.ND)
+    col, lit = M.col, M.lit
+
+    def agg(fn, e, name):
+        return A.AggregateExpression(fn(e), name)
+
+    def count_true(e, name):
+        return agg(A.Sum, CA.Cast(e, T.LONG), name)
+
+    def tagged(frame):
+        tix = CA.Cast(col("ss_ticket_number"), T.STRING)
+        return frame.with_column("tag", S.ConcatStrings(
+            tix, lit("-"), CA.Cast(col("ss_sold_date_sk"), T.STRING)))
+
+    def prices():
+        return CPX.array(*[col(c) for c in PRICES])
+
+    def complex_frame():
+        base = tagged(dfs["store_sales"].join(dfs["customer"], on=P.EqualTo(
+            col("ss_customer_sk"), col("c_customer_sk"))).join(
+            dfs["customer_address"], on=P.EqualTo(col("c_current_addr_sk"),
+                                                  col("ca_address_sk"))))
+        return base.select(
+            col("ss_store_sk").alias("store"),
+            col("ss_ticket_number").alias("ticket"),
+            col("ss_item_sk").alias("item"),
+            CPX.struct(item=col("ss_item_sk"), city=col("ca_city"),
+                       tag=col("tag")).alias("st"),
+            prices().alias("arr"))
+
+    def complex_():
+        x = complex_frame()
+        odd = P.EqualTo(M.AR.Remainder(col("ticket"), lit(2)), lit(1))
+        halves = x.where(odd).union(x.where(P.Not(odd)))
+        joined = halves.join(dfs["item"].select(col("i_item_sk"),
+                                                col("i_brand_id")),
+                             on=P.EqualTo(col("item"), col("i_item_sk")))
+        moved = joined.repartition(8, col("arr")).select(
+            col("store"), col("st"), col("arr"), col("i_brand_id"))
+        moved = moved.repartition(8, col("st"))
+        return moved.group_by(col("store")).agg(
+            A.AggregateExpression(A.Count(), "n"),
+            agg(A.Sum, CPX.GetArrayItem(col("arr"), 1), "e1"),
+            count_true(CPX.ArrayContains(col("arr"), lit(0.0)), "zero"),
+            agg(A.Count, CPX.GetArrayItem(col("arr"), 7), "e7"),
+            agg(A.Sum, CPX.Size(col("arr")), "size"),
+            agg(A.Sum, CPX.GetStructField(col("st"), "item"), "items"),
+            agg(A.Count, CPX.GetStructField(col("st"), "city"), "cities"),
+            agg(A.Max, CPX.GetStructField(col("st"), "tag"), "tag"),
+            agg(A.Sum, col("i_brand_id"), "brands"))
+
+    def complex_topk():
+        return complex_frame().sort(
+            M.SortOrder(col("ticket"), False),
+            M.SortOrder(col("item"))).limit(COMPLEX_TOPK)
+
+    def explode():
+        frame = tagged(dfs["store_sales"]).select(
+            col("ss_store_sk").alias("store"), col("tag"),
+            prices().alias("arr"))
+        return frame.explode(col("arr"), name="x", pos=True).group_by(
+            col("pos"), col("store")).agg(
+            agg(A.Sum, col("x"), "s"), agg(A.Count, col("x"), "n"),
+            agg(A.Max, col("tag"), "tag"))
+
+    def explode_outer():
+        joined = dfs["store_sales"].join(cust_arrays, on=P.EqualTo(
+            col("ss_customer_sk"), col("ca_c")))
+        return joined.explode(col("ca_arr"), name="e", outer=True).group_by(
+            C.Coalesce(col("e"), lit(-1, T.LONG)).alias("e")).agg(
+            A.AggregateExpression(A.Count(), "n"),
+            agg(A.Sum, col("ss_quantity"), "qty"))
+
+    def nondeterministic():
+        frame = dfs["store_sales"].repartition(8, col("ss_ticket_number"))
+        frame = frame.with_column("r", ND.Rand(42)).with_column(
+            "m", ND.MonotonicallyIncreasingID()).with_column(
+            "p", ND.SparkPartitionID())
+        return frame.group_by(col("p")).agg(
+            A.AggregateExpression(A.Count(), "n"),
+            agg(A.Min, col("m"), "lo"), agg(A.Max, col("m"), "hi"),
+            agg(A.Sum, col("r"), "r"),
+            count_true(P.LessThan(col("r"), lit(0.1)), "few"))
+
+    def nondet_filter():
+        frame = dfs["store_sales"].with_column("r", ND.Rand(7))
+        return frame.where(P.LessThan(col("r"), lit(0.01))).group_by().agg(
+            A.AggregateExpression(A.Count(), "n"),
+            agg(A.Sum, col("ss_net_profit"), "profit"))
+
+    return {"complex": complex_, "complex_topk": complex_topk,
+            "explode": explode, "explode_outer": explode_outer,
+            "nondeterministic": nondeterministic,
+            "nondet_filter": nondet_filter}
+
+
+def input_file_query(M, scan):
+    """``pq_input_file``: the three input-file columns over a store_sales
+    scan, grouped by file: rows and ``sum(ss_net_profit)``."""
+    A, ND, col = M.A, M.ND, M.col
+    return scan.select(ND.InputFileName().alias("f"),
+                       ND.InputFileBlockStart().alias("start"),
+                       ND.InputFileBlockLength().alias("length"),
+                       col("ss_net_profit")).group_by(
+        col("f"), col("start"), col("length")).agg(
+        A.AggregateExpression(A.Count(), "n"),
+        A.AggregateExpression(A.Sum(col("ss_net_profit")), "profit"))
+
+
+def _tags(ss) -> np.ndarray:
+    tix = ss.columns["ss_ticket_number"].astype(str)
+    return np.char.add(np.char.add(tix, "-"),
+                       ss.columns["ss_sold_date_sk"].astype(str))
+
+
+def _by_key_max(keys, values) -> dict:
+    """``{key: byte-order max of values}``."""
+    order = np.lexsort((np.char.encode(values, "utf-8"), keys))
+    k, v = keys[order], values[order]
+    last = np.flatnonzero(np.r_[k[1:] != k[:-1], True])
+    return dict(zip(k[last].tolist(), v[last].tolist()))
+
+
+def numpy_expr_complex(tables) -> dict:
+    ss, it = tables["store_sales"], tables["item"]
+    store = ss.columns["ss_store_sk"]
+    item = ss.columns["ss_item_sk"]
+    keys = np.unique(store)
+    idx = np.searchsorted(keys, store)
+    m = len(keys)
+    p = np.stack([ss.columns[c] for c in PRICES], axis=1)
+    tag = _by_key_max(store, _tags(ss))
+    return {"store": keys,
+            "n": np.bincount(idx, minlength=m),
+            "e1": np.bincount(idx, p[:, 1], minlength=m),
+            "zero": np.bincount(idx, (p == 0.0).any(1), minlength=m)
+            .astype(np.int64),
+            "e7": np.zeros(m, np.int64),
+            "size": 4 * np.bincount(idx, minlength=m),
+            "items": np.bincount(idx, item, minlength=m).astype(np.int64),
+            "cities": np.bincount(idx, minlength=m),
+            "tag": np.array([tag[k] for k in keys.tolist()]),
+            "brands": np.bincount(idx, it.columns["i_brand_id"][item],
+                                  minlength=m).astype(np.int64)}
+
+
+def numpy_expr_complex_topk(tables) -> dict:
+    """The top-k rows of the raw columns, as python values."""
+    ss, cu, ca = (tables[n] for n in ("store_sales", "customer",
+                                      "customer_address"))
+    ticket = ss.columns["ss_ticket_number"]
+    item = ss.columns["ss_item_sk"]
+    order = np.lexsort((item, -ticket))[:COMPLEX_TOPK]
+    addr = cu.columns["c_current_addr_sk"][ss.columns["ss_customer_sk"]]
+    city = ca.columns["ca_city"][addr]
+    tag = _tags(ss)
+    p = np.stack([ss.columns[c] for c in PRICES], axis=1)
+    return {"store": ss.columns["ss_store_sk"][order].tolist(),
+            "ticket": ticket[order].tolist(), "item": item[order].tolist(),
+            "st": [{"item": int(item[r]), "city": str(city[r]),
+                    "tag": str(tag[r])} for r in order],
+            "arr": p[order].tolist()}
+
+
+def numpy_expr_explode(tables) -> dict:
+    ss = tables["store_sales"]
+    store = ss.columns["ss_store_sk"]
+    keys = np.unique(store)
+    idx = np.searchsorted(keys, store)
+    m = len(keys)
+    tag = _by_key_max(store, _tags(ss))
+    out = {"pos": [], "store": [], "s": [], "n": [], "tag": []}
+    for pos, c in enumerate(PRICES):
+        out["pos"] += [pos] * m
+        out["store"] += keys.tolist()
+        out["s"] += np.bincount(idx, ss.columns[c], minlength=m).tolist()
+        out["n"] += np.bincount(idx, minlength=m).tolist()
+        out["tag"] += [tag[k] for k in keys.tolist()]
+    return {k: np.array(v) for k, v in out.items()}
+
+
+def numpy_expr_explode_outer(tables, seed: int) -> dict:
+    ss, cu = tables["store_sales"], tables["customer"]
+    n_cust = cu.num_rows
+    lens, elems, ev, valid = customer_arrays(n_cust, seed)
+    cust = ss.columns["ss_customer_sk"]
+    rows = np.bincount(cust, minlength=n_cust)
+    qty = np.bincount(cust, ss.columns["ss_quantity"], minlength=n_cust)
+    # a null element, and a null or empty array's one outer row, count
+    # under -1
+    value = np.where(ev, elems, -1)
+    in_len = np.arange(CUST_ARRAY_LEN)[None, :] < lens[:, None]
+    outer = lens == 0
+    keys = np.concatenate([value[in_len], np.full(int(outer.sum()), -1)])
+    w_rows = np.concatenate([np.broadcast_to(rows[:, None], value.shape)[
+        in_len], rows[outer]])
+    w_qty = np.concatenate([np.broadcast_to(qty[:, None], value.shape)[
+        in_len], qty[outer]])
+    uniq = np.unique(keys)
+    at = np.searchsorted(uniq, keys)
+    n = np.bincount(at, w_rows, minlength=len(uniq)).astype(np.int64)
+    q = np.bincount(at, w_qty, minlength=len(uniq))
+    keep = n > 0
+    return {"e": uniq[keep], "n": n[keep],
+            "qty": np.round(q[keep]).astype(np.int64)}
+
+
+def _ss_partitions(tables, n_parts: int) -> np.ndarray:
+    """Each store_sales row's partition under ``repartition(n_parts,
+    ss_ticket_number)``: Spark's murmur3, seed 42, pmod n."""
+    t = tables["store_sales"].columns["ss_ticket_number"]
+    return np_pmod(np_hash_longs(t, np.full(len(t), SPARK_SEED, np.uint32)),
+                   n_parts)
+
+
+def numpy_expr_nondeterministic(tables) -> dict:
+    part = _ss_partitions(tables, 8)
+    out = {"p": [], "n": [], "lo": [], "hi": [], "r": [], "few": []}
+    for p in range(8):
+        n = int((part == p).sum())
+        if not n:
+            continue
+        r = np_rand(42, p, n)
+        out["p"].append(p)
+        out["n"].append(n)
+        out["lo"].append(p << 33)
+        out["hi"].append((p << 33) + n - 1)
+        out["r"].append(float(r.sum()))
+        out["few"].append(int((r < 0.1).sum()))
+    return {k: np.array(v) for k, v in out.items()}
+
+
+def numpy_expr_nondet_filter(tables) -> dict:
+    ss = tables["store_sales"]
+    keep = np_rand(7, 0, ss.num_rows) < 0.01
+    return {"n": np.array([int(keep.sum())]),
+            "profit": np.array([ss.columns["ss_net_profit"][keep].sum()])}
+
+
+def numpy_expr_input_file(tables) -> dict:
+    """Rows and ``sum(ss_net_profit)`` of each store_sales file the
+    writer makes (``PQ_ROWS_PER_FILE`` rows a file, in order)."""
+    profit = tables["store_sales"].columns["ss_net_profit"]
+    starts = range(0, len(profit), PQ_ROWS_PER_FILE)
+    return {"n": np.array([len(profit[a:a + PQ_ROWS_PER_FILE])
+                           for a in starts]),
+            "profit": np.array([profit[a:a + PQ_ROWS_PER_FILE].sum()
+                                for a in starts])}
+
+
+EXPR_REFS.update({
+    "complex": numpy_expr_complex, "complex_topk": numpy_expr_complex_topk,
+    "explode": numpy_expr_explode, "explode_outer": numpy_expr_explode_outer,
+    "nondeterministic": numpy_expr_nondeterministic,
+    "nondet_filter": numpy_expr_nondet_filter,
+    "input_file": numpy_expr_input_file})
 
 
 def _ds_rows(cols: dict, keys) -> dict:
@@ -5670,6 +6038,8 @@ def reference_answer(task):
         fn = numpy_q3 if q == "q3" else NUMPY_REFS[q]
     elif workload == "ds":
         fn = EXPR_REFS[q[5:]] if q.startswith("expr_") else DS_REFS[q]
+        if q[5:] in SEEDED_REFS:
+            return task, fn(tables, seed)
     elif workload == "mort":
         fn = MORT_REFS[q]
     else:
@@ -5690,7 +6060,7 @@ def start_references(args):
     tasks += [("xbb", BENCH_XBB_CLICKS, args.seed, q) for q in BENCH_XBB]
     tasks += [("ds", args.ds_ss_rows, args.seed, q) for q in DS_REFS]
     tasks += [("ds", args.ds_ss_rows, args.seed, f"expr_{c}")
-              for c in EXPR_CELLS]
+              for c in EXPR_CELLS + COMPLEX_REFS]
     tasks += [("mort", args.mort_perf_rows, MORT_SEED, q)
               for q in MORT_QUERIES]
     return ex, {t: ex.submit(reference_answer, t) for t in tasks}
@@ -6045,6 +6415,11 @@ def run_tpcds(torch, ctx, session, wrappers, ss_rows: int, seed: int,
         torch, ctx, session, wrappers, ss_rows, seed, dfs, profile, futures)
     summaries.update(expr_summaries)
     record(expr_launches, expr_calls)
+    cx_summaries, cx_launches, cx_calls = run_complex_cells(
+        torch, ctx, session, wrappers, ss_rows, seed, dfs,
+        tables["customer"].num_rows, profile, futures)
+    summaries.update(cx_summaries)
+    record(cx_launches, cx_calls)
 
     # q5 over parquet (BASELINE configuration 1): the ten tables it reads
     # through the port's writer, every collect scanning them.
@@ -6075,6 +6450,27 @@ def run_tpcds(torch, ctx, session, wrappers, ss_rows: int, seed: int,
         summaries[cell]["busy"] = profile_query(torch, cell, build, mid)
     else:
         summaries[cell]["busy"] = busy_share(torch, cell.upper(), build, mid)
+
+    # input_file_name() and the block family over the same store_sales
+    # files, grouped by file
+    cell = "pq_input_file"
+    ss_dir = written["dirs"]["store_sales"]
+    paths = sorted(str(p) for p in Path(ss_dir).glob("*.parquet"))
+    split = reference(futures, "ds", ss_rows, seed, "expr_input_file")
+    want = {"f": np.array(paths), "start": np.zeros(len(paths), np.int64),
+            "length": np.array([os.path.getsize(p) for p in paths]),
+            **split}
+    build = (lambda: input_file_query(ctx.M, session.read.parquet(ss_dir)))
+    got_launches, got_calls, summaries[cell], mid = run_query(
+        torch, session, wrappers, cell.upper(), build,
+        lambda got: check_exact(cell, rows_in_order(got, ["f"]), want,
+                                ("profit",)), ())
+    record(got_launches, got_calls)
+    print_scan(cell.upper(), summaries[cell])
+    cell_report(torch, session, cell, build, summaries[cell], mid,
+                len(paths), profile,
+                extra=f"; {len(paths)} files, block lengths "
+                      f"{want['length'].tolist()}")
     return summaries, launches, calls
 
 
@@ -6130,6 +6526,122 @@ def run_exprs(torch, ctx, session, wrappers, ss_rows: int, seed: int, dfs,
         cell_report(torch, session, cell, queries[name], summaries[cell],
                     mid, len(next(iter(ref.values()))), profile)
     print(f"  expression cells' kernel launches (cold runs): {launches}")
+    return summaries, launches, calls
+
+
+def check_topk_rows(cell: str, got, ref: dict) -> int:
+    """The top-k rows of raw columns against the reference's python
+    values, row for row: arrays element by element, structs field by
+    field, floats exact. Returns the rows."""
+    names = list(ref)
+    check(list(got.columns) == names, f"{cell}: columns "
+          f"{list(got.columns)} vs {names}")
+    n = len(ref[names[0]])
+    for name in names:
+        vals, ok = got.columns[name], got.validity[name]
+        check(len(vals) == n and bool(np.all(ok)),
+              f"{cell}: {name} has {len(vals)} rows or nulls, expected {n}")
+        for r, (g, w) in enumerate(zip(vals.tolist(), ref[name])):
+            check(g == w, f"{cell} row {r} {name}: {g!r} vs {w!r}")
+    return n
+
+
+def check_refusals(M, dfs, session) -> list:
+    """On the card's session: an array grouping, join or sort key and
+    ``split`` raise ``NotImplementedError`` with the reference's reason
+    (nothing falls back). Returns the reasons."""
+    A, P, CPX, col = M.A, M.P, M.CPX, M.col
+    frame = dfs["store_sales"].select(
+        col("ss_item_sk"), CPX.array(col("ss_quantity")).alias("arr"))
+    other = frame.select(col("arr").alias("arr2"))
+    cases = {
+        "grouping key": lambda: frame.group_by(col("arr")).agg(
+            A.AggregateExpression(A.Count(), "n")),
+        "join key": lambda: frame.join(other, on=P.EqualTo(col("arr"),
+                                                           col("arr2"))),
+        "sort key": lambda: frame.sort(col("arr")),
+        "split": lambda: dfs["customer"].select(M.StringSplit(
+            col("c_first_name"), "a").alias("parts"))}
+    reasons = []
+    for what, build in cases.items():
+        try:
+            build().collect()
+        except NotImplementedError as e:
+            reasons.append(str(e))
+            check(("_no_complex_keys" in str(e)) if what != "split"
+                  else "ARRAY<STRING>" in str(e),
+                  f"an array {what} raised without the reference's reason: "
+                  f"{e}")
+        else:
+            fail(f"an array {what} ran on the card instead of raising")
+    check(session.device.type == "cuda", "the refusals ran off the card")
+    print(f"  refusals on the card: {len(reasons)} NotImplementedError with "
+          "the reference's reason (an array grouping, join and sort key, "
+          "split)")
+    return reasons
+
+
+def run_complex_cells(torch, ctx, session, wrappers, ss_rows: int,
+                      seed: int, dfs, n_cust: int, profile: bool,
+                      futures: dict):
+    """The ``expr_complex``, ``expr_explode`` (parts a and b) and
+    ``expr_nondeterministic`` cells over the uploaded TPC-DS tables, each
+    against its numpy reference (exact; float sums to ``REV_RTOL``), and
+    their one-run companions: ``expr_complex``'s 1,000 top-k rows of the
+    raw array and struct, and ``expr_nondeterministic``'s order-sensitive
+    ``rand(7)`` filter. Returns (summaries, launches, captured calls:
+    one of each shape a cell, since ``expr_complex`` repeats its gathers
+    over 64 exchanged blocks)."""
+    M = ctx.M
+    t0 = time.perf_counter()
+    cust = session.create_dataframe(customer_array_table(
+        M.HostBatch, M.T, n_cust, seed))
+    print(f"  per-customer arrays: {n_cust} rows uploaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    queries = complex_queries(M, dfs, cust)
+    refs = {c: reference(futures, "ds", ss_rows, seed, f"expr_{c}")
+            for c in COMPLEX_REFS if c != "input_file"}
+    summaries, launches = {}, {k: 0 for k in wrappers.mods}
+    calls = {k: [] for k in wrappers.mods}
+    cells = (("expr_complex", "complex", ["store"], ("e1",),
+              ("joinProbe", "strings", "hash")),
+             ("expr_explode", "explode", ["pos", "store"], ("s",),
+              ("strings",)),
+             ("expr_explode_outer", "explode_outer", ["e"], (),
+              ("joinProbe",)),
+             ("expr_nondeterministic", "nondeterministic", ["p"], ("r",),
+              ()))
+    for cell, name, keys, floats, need in cells:
+        ref = refs[name]
+        got_launches, got_calls, summaries[cell], mid = run_query(
+            torch, session, wrappers, cell.upper(), queries[name],
+            lambda got, cell=cell, ref=ref, keys=keys, floats=floats:
+            check_exact(cell, rows_in_order(got, keys), ref, floats), need,
+            distinct=True)
+        for k in wrappers.mods:
+            launches[k] += got_launches[k]
+            calls[k] += got_calls[k]
+        cell_report(torch, session, cell, queries[name], summaries[cell],
+                    mid, len(next(iter(ref.values()))), profile)
+    for cell, name, check_fn in (
+            ("expr_complex_topk", "complex_topk",
+             lambda got: check_topk_rows("expr_complex_topk", got,
+                                         refs["complex_topk"])),
+            ("expr_nondet_filter", "nondet_filter",
+             lambda got: check_exact("expr_nondet_filter", got,
+                                     refs["nondet_filter"], ("profit",)))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = queries[name]().collect()
+        ms = (time.perf_counter() - t0) * 1e3
+        check_fn(got)
+        summaries[cell] = {"cold_ms": ms, "rows": got.num_rows}
+        print(f"  {cell.upper()}: {got.num_rows} rows equal to numpy, one "
+              f"run {ms:.1f} ms")
+    summaries["refusals"] = {"reasons": check_refusals(M, dfs, session)}
+    print(f"  complex cells' kernel launches (cold runs): {launches}; "
+          "calls of distinct shapes captured for phase 4: "
+          f"{ {k: len(v) for k, v in calls.items()} }")
     return summaries, launches, calls
 
 
@@ -6314,17 +6826,29 @@ def in_key_order(got, keys):
 
 class Capture:
     """Wraps a kernel wrapper to keep a copy of every call's inputs
-    (the launch count stays with the wrapped function)."""
+    (the launch count stays with the wrapped function); with
+    ``distinct``, of the first call of each shape (tensor shapes and
+    dtypes, other arguments by value)."""
 
-    def __init__(self, module, attr: str):
+    def __init__(self, module, attr: str, distinct: bool = False):
         self.module, self.attr = module, attr
         self.fn = getattr(module, attr)
         self.calls = []
+        self.distinct = distinct
+        self.shapes = set()
 
     def __enter__(self):
         def wrapper(*args):
-            self.calls.append(tuple(a.clone() if hasattr(a, "clone") else a
-                                    for a in args))
+            if self.distinct:
+                key = tuple((tuple(a.shape), str(a.dtype))
+                            if hasattr(a, "shape") else a for a in args)
+                keep = key not in self.shapes
+                self.shapes.add(key)
+            else:
+                keep = True
+            if keep:
+                self.calls.append(tuple(a.clone() if hasattr(a, "clone")
+                                        else a for a in args))
             return self.fn(*args)
         setattr(self.module, self.attr, wrapper)
         return self
@@ -6442,11 +6966,12 @@ def check_path(session, name: str, shards: int) -> None:
           f"expected {want[0]} over {want[1]}")
 
 
-def drive_runs(torch, wrappers, run, verify):
+def drive_runs(torch, wrappers, run, verify, distinct: bool = False):
     """The measured sequence of a query or stage: a cold ``run()`` with
     the launch counts set to 0 just before and read just after (and the
     peak device memory reset), one warm run capturing every wrapper's
-    calls, then 3 timed warm runs; ``verify`` checks every run's result
+    calls (with ``distinct``, the first of each shape), then 3 timed warm
+    runs; ``verify`` checks every run's result
     and returns what the caller keeps of it. Returns (cold ms, cold
     launch counts, peak GiB, launches per warm run, captured calls by
     kernel, the 3 warm ms, ``verify``'s values: the cold run's first,
@@ -6460,7 +6985,8 @@ def drive_runs(torch, wrappers, run, verify):
     launches = wrappers.counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     kept = [verify(got)]
-    caps = {k: Capture(*wrappers.mods[k]) for k in wrappers.mods}
+    caps = {k: Capture(*wrappers.mods[k], distinct=distinct)
+            for k in wrappers.mods}
     for c in caps.values():
         c.__enter__()
     try:
@@ -6483,7 +7009,7 @@ def drive_runs(torch, wrappers, run, verify):
 
 
 def run_query(torch, session, wrappers, name, build, check_fn, need,
-              shards: int = 0):
+              shards: int = 0, distinct: bool = False):
     """A query through :func:`drive_runs`: every run on the mesh path
     over ``shards`` shards when that is given, else on the single path,
     and checked by ``check_fn``; each kernel of ``need`` must launch in
@@ -6500,7 +7026,8 @@ def run_query(torch, session, wrappers, name, build, check_fn, need,
         return info
 
     cold_ms, launches, peak_gib, warm_launches, calls, runs, infos = \
-        drive_runs(torch, wrappers, lambda: build().collect(), verify)
+        drive_runs(torch, wrappers, lambda: build().collect(), verify,
+                   distinct)
     info = infos[0]
     print(f"  {name} {at()} cold run: {cold_ms:.1f} ms, {info.attempts} "
           f"attempt(s), path {info.path} over {info.shards} shard(s), "
@@ -7554,6 +8081,7 @@ def main() -> int:
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.data.batch import ColumnarBatch, HostBatch
     from spark_rapids_tpu_torch.exec import execs as E
+    from spark_rapids_tpu_torch.exec import generate_cases as GC
     from spark_rapids_tpu_torch.ops.expression import col, lit
     from spark_rapids_tpu_torch.ops.kernels import groupby as KG
     from spark_rapids_tpu_torch.ops.kernels import rowops as KR
@@ -7587,6 +8115,8 @@ def main() -> int:
     from spark_rapids_tpu_torch.ops import predicates as P
     from spark_rapids_tpu_torch.ops import strings as S
     from spark_rapids_tpu_torch.ops import strings2 as S2
+    from spark_rapids_tpu_torch.ops import complex as CPX
+    from spark_rapids_tpu_torch.ops import nondeterministic as ND
     from spark_rapids_tpu_torch.io import parquet_device as PD
     from spark_rapids_tpu_torch.io import parquet_encode as PE
     from spark_rapids_tpu_torch.io import parquet_meta as M
@@ -7628,6 +8158,7 @@ def main() -> int:
     hash_edge_cases(torch, HK, rng, dev)
     ragged_hash_edge_cases(torch, HK, T, DeviceColumn, PN, rng, dev)
     row_equal_edge_cases(torch, SG, rng, dev)
+    generate_edge_case(torch, E, GC, TorchSession, SG)
     snappy_edge_cases(SN, SC)
     parquet_runs_edge_cases(PD, args.seed)
     fixture = check_fixture_decode(PD, M, HostBatch)
@@ -7825,7 +8356,10 @@ def main() -> int:
     # The TPC-DS queries at SF1's store_sales rows, on uploaded tables.
     expr_mods = types.SimpleNamespace(C=C, P=P, B=B, S=S, S2=S2, CA=CA,
                                       D=DT, A=A, AR=AR, MA=MA, T=T, col=col,
-                                      lit=lit)
+                                      lit=lit, CPX=CPX, ND=ND,
+                                      SortOrder=L.SortOrder,
+                                      HostBatch=HostBatch,
+                                      StringSplit=S2.StringSplit)
     ds_ctx = types.SimpleNamespace(tpcds=tpcds, PE=PE, SN=SN,
                                    ColumnarBatch=ColumnarBatch, M=expr_mods)
     ds_summaries, ds_launches, ds_calls = run_tpcds(

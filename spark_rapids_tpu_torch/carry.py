@@ -6,7 +6,8 @@ states. These functions build the port's :class:`DeviceColumn` and
 :class:`ColumnarBatch` from the reference's fields, handed over as numpy
 arrays: the reference's ``DeviceColumn`` / ``ColumnarBatch`` fields
 ``data``, ``validity``, ``offsets``, ``codes``, ``max_bytes``,
-``dict_sorted``, ``n_rows`` and ``live``, with a dictionary string
+``dict_sorted``, ``elem_validity``, ``lengths``, ``children``,
+``n_rows`` and ``live``, with a dictionary string
 column's entries decoded to a numpy array. Nothing here imports the
 reference.
 
@@ -23,7 +24,7 @@ import torch
 
 from . import types as T
 from .data.batch import ColumnarBatch
-from .data.column import DeviceColumn, dictionary_column
+from .data.column import DeviceColumn, array_column, dictionary_column
 from .session import resolve_device
 
 
@@ -33,10 +34,25 @@ def column_from_reference(fields: Mapping[str, Optional[np.ndarray]],
     either ``data`` (fixed width), ``codes`` and ``dictionary`` (a
     dictionary string column; ``dict_sorted`` when given, else checked),
     or ``offsets``, ``data`` (the payload) and ``max_bytes`` (a flat
-    string column). Data under nulls is zeroed, the port's invariant."""
+    string column), or ``data`` (``[capacity, max_len]``),
+    ``elem_validity`` and ``lengths`` (an array), or ``children`` (a
+    struct: one such mapping a field). Data under nulls is zeroed, the
+    port's invariant."""
     device = resolve_device(device)
     valid_np = np.asarray(fields["validity"], dtype=bool)
     validity = torch.tensor(valid_np, device=device)
+    if isinstance(dtype, T.StructType):
+        return DeviceColumn(None, validity, dtype, children=tuple(
+            column_from_reference(k, f.data_type, device)
+            for k, f in zip(fields["children"], dtype.fields)))
+    if isinstance(dtype, T.ArrayType):
+        return array_column(
+            torch.tensor(np.asarray(fields["data"]).astype(dtype.np_dtype),
+                         device=device),
+            torch.tensor(np.asarray(fields["elem_validity"], dtype=bool),
+                         device=device),
+            torch.tensor(np.asarray(fields["lengths"], dtype=np.int32),
+                         device=device), validity, dtype)
     codes = fields.get("codes")
     if codes is not None:
         codes = np.where(valid_np, np.asarray(codes), 0).astype(np.int32)

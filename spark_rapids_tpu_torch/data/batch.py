@@ -12,7 +12,10 @@ Liveness has two forms, as in the reference:
 
 :class:`HostBatch` is the host side: a dict of numpy arrays, a schema
 and per-column validity. It is what users hand in and what ``collect``
-returns.
+returns. An array column is a numpy object array of lists (``None`` for
+a null array or element), a struct column an object array of dicts
+keyed by field name (``None`` for a null struct), as the reference's
+``to_pylist()`` gives them.
 """
 
 from __future__ import annotations
@@ -24,8 +27,8 @@ import numpy as np
 import torch
 
 from .. import types as T
-from .column import (DeviceColumn, bucket_byte_capacity, bucket_capacity,
-                     dictionary_column)
+from .column import (DeviceColumn, array_column, bucket_byte_capacity,
+                     bucket_capacity, dictionary_column, pow2_len)
 
 
 @dataclasses.dataclass
@@ -81,6 +84,100 @@ def _flat_to_host(c: DeviceColumn, mask: torch.Tensor,
     return out
 
 
+def _host_values(c: DeviceColumn, mask: torch.Tensor) -> tuple:
+    """(values, validity) of a column's live rows on the host: numpy
+    lanes for fixed-width columns, object arrays (``None`` under a null)
+    for strings, arrays and structs."""
+    v = c.validity[mask].cpu().numpy()
+    if c.is_struct:
+        kids = [(kv.tolist() if kv.dtype != object else kv, kok)
+                for kv, kok in (_host_values(k, mask) for k in c.children)]
+        names = [f.name for f in c.dtype.fields]
+        out = np.empty(len(v), dtype=object)
+        for i, ok in enumerate(v):
+            out[i] = {nm: (kv[i] if kok[i] else None)
+                      for nm, (kv, kok) in zip(names, kids)} if ok else None
+        return out, v
+    if c.is_array:
+        data = c.data[mask].cpu().numpy().tolist()
+        ev = c.elem_validity[mask].cpu().numpy().tolist()
+        lens = c.lengths[mask].cpu().numpy().tolist()
+        out = np.empty(len(v), dtype=object)
+        for i, ok in enumerate(v):
+            out[i] = [x if e else None for x, e in
+                      zip(data[i][:lens[i]], ev[i][:lens[i]])] if ok else None
+        return out, v
+    if c.is_flat:
+        return _flat_to_host(c, mask, v), v
+    lane = c.lane[mask].cpu().numpy()
+    if c.is_dict:
+        vals = c.dictionary[np.clip(lane, 0, c.dict_size - 1)] \
+            if c.dict_size else np.full(len(lane), "", object)
+        return np.where(v, vals, None), v
+    return lane, v
+
+
+def _nulls_of(arr: np.ndarray) -> np.ndarray:
+    return np.array([x is None for x in arr], dtype=bool)
+
+
+def _array_lanes(values: np.ndarray, valid: np.ndarray,
+                 dtype: "T.ArrayType", capacity: int):
+    """(data, elem_validity, lengths) numpy lanes of an array column at
+    ``capacity`` from lists (``None`` for a null element)."""
+    lens = np.array([len(x) if ok and x is not None else 0
+                     for x, ok in zip(values, valid)], dtype=np.int64)
+    width = pow2_len(int(lens.max()) if len(lens) else 1)
+    flat = [x for lst, n in zip(values, lens) if n for x in lst]
+    fnull = np.array([x is None for x in flat], dtype=bool)
+    et = dtype.element_type.np_dtype
+    fvals = np.array([0 if x is None else x for x in flat]).astype(et) \
+        if flat else np.zeros(0, et)
+    rows = np.repeat(np.arange(len(lens)), lens)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]) if len(lens) \
+        else np.zeros(0, np.int64)
+    cols = np.arange(len(flat)) - np.repeat(starts, lens)
+    data = np.zeros((capacity, width), dtype=et)
+    ev = np.zeros((capacity, width), dtype=bool)
+    data[rows, cols] = np.where(fnull, np.zeros((), et), fvals)
+    ev[rows, cols] = ~fnull
+    return data, ev, _pad(lens.astype(np.int32), capacity)
+
+
+def _column_to_device(arr: np.ndarray, valid: np.ndarray,
+                      dtype: T.DataType, cap: int,
+                      device: torch.device) -> DeviceColumn:
+    """One host column (values and validity) as a device column at
+    ``cap``; strings dictionary-encoded with a sorted ``np.unique``."""
+    valid_dev = _to_device(_pad(valid, cap), device)
+    if isinstance(dtype, T.StructType):
+        kids = []
+        for f in dtype.fields:
+            vals = np.empty(len(arr), dtype=object)
+            vals[:] = [x.get(f.name) if ok and x is not None else None
+                       for x, ok in zip(arr, valid)]
+            kids.append(_column_to_device(vals, ~_nulls_of(vals),
+                                          f.data_type, cap, device))
+        return DeviceColumn(None, valid_dev, dtype, children=tuple(kids))
+    if isinstance(dtype, T.ArrayType):
+        data, ev, lens = _array_lanes(arr, valid, dtype, cap)
+        return array_column(_to_device(data, device), _to_device(ev, device),
+                            _to_device(lens, device), valid_dev, dtype)
+    if dtype is T.STRING:
+        text = np.where(_nulls_of(arr), "", arr) if arr.dtype == object \
+            else arr
+        dictionary, codes = np.unique(text.astype(str), return_inverse=True)
+        codes = np.where(valid, codes, 0)
+        lane = _to_device(_pad(codes.astype(np.int32), cap), device)
+        return dictionary_column(lane, valid_dev, dictionary.astype(object),
+                                 dict_sorted=True)
+    if arr.dtype == object:
+        arr = np.where(valid, arr, 0)
+    vals = np.where(valid, arr.astype(dtype.np_dtype),
+                    np.zeros((), dtype.np_dtype))
+    return DeviceColumn(_to_device(_pad(vals, cap), device), valid_dev, dtype)
+
+
 def _to_device(host: np.ndarray, device: torch.device) -> torch.Tensor:
     t = torch.from_numpy(host)
     if device.type == "cuda":
@@ -131,16 +228,23 @@ class HostBatch:
                    validity: Optional[Dict[str, np.ndarray]] = None
                    ) -> "HostBatch":
         """Wrap numpy arrays. Without a schema, types come from the numpy
-        dtypes (int32 -> INT; pass a schema for DATE). A ``None`` entry in
-        an object array is a null."""
+        dtypes (int32 -> INT; pass a schema for DATE, arrays and structs).
+        A ``None`` entry in an object array is a null."""
         cols, valid = {}, {}
         for name, arr in data.items():
-            arr = np.asarray(arr)
+            f = None if schema is None else schema.field_maybe(name)
+            if f is not None and T.is_complex(f.data_type):
+                vals = np.empty(len(arr), dtype=object)
+                vals[:] = list(arr)
+                arr = vals
+            else:
+                arr = np.asarray(arr)
             v = None if validity is None else validity.get(name)
             if arr.dtype == object:
-                nulls = np.array([x is None for x in arr], dtype=bool)
+                nulls = _nulls_of(arr)
                 if nulls.any():
-                    arr = np.where(nulls, "", arr)
+                    if f is None or not T.is_complex(f.data_type):
+                        arr = np.where(nulls, "", arr)
                     v = ~nulls if v is None else (v & ~nulls)
             cols[name] = arr
             valid[name] = np.ones(len(arr), dtype=bool) if v is None \
@@ -158,24 +262,9 @@ class HostBatch:
         device = torch.device(device)
         n = self.num_rows
         cap = capacity or bucket_capacity(n)
-        cols = []
-        for f in self.schema:
-            arr = self.columns[f.name]
-            valid = _to_device(_pad(self.validity[f.name], cap), device)
-            if f.data_type is T.STRING:
-                dictionary, codes = np.unique(arr.astype(str),
-                                              return_inverse=True)
-                codes = np.where(self.validity[f.name], codes, 0)
-                lane = _to_device(_pad(codes.astype(np.int32), cap), device)
-                cols.append(dictionary_column(lane, valid,
-                                              dictionary.astype(object),
-                                              dict_sorted=True))
-            else:
-                vals = np.where(self.validity[f.name],
-                                arr.astype(f.data_type.np_dtype),
-                                np.zeros((), f.data_type.np_dtype))
-                lane = _to_device(_pad(vals, cap), device)
-                cols.append(DeviceColumn(lane, valid, f.data_type))
+        cols = [_column_to_device(self.columns[f.name], self.validity[f.name],
+                                  f.data_type, cap, device)
+                for f in self.schema]
         n_rows = torch.tensor(n, dtype=torch.int64, device=device)
         return ColumnarBatch(tuple(cols), n_rows, self.schema)
 
@@ -183,7 +272,8 @@ class HostBatch:
     def empty(schema: T.Schema) -> "HostBatch":
         """No rows of ``schema``."""
         return HostBatch.from_positional(
-            schema, [(np.zeros(0, f.data_type.np_dtype), np.zeros(0, bool))
+            schema, [(np.zeros(0, object if T.is_complex(f.data_type)
+                               else f.data_type.np_dtype), np.zeros(0, bool))
                      for f in schema])
 
     @staticmethod
@@ -201,20 +291,7 @@ class HostBatch:
     def from_device(batch: ColumnarBatch) -> "HostBatch":
         """Download the live rows in row order (one host sync per lane)."""
         mask = batch.row_mask()
-        pairs = []
-        for c in batch.columns:
-            v = c.validity[mask].cpu().numpy()
-            if c.is_flat:
-                pairs.append((_flat_to_host(c, mask, v), v))
-                continue
-            lane = c.lane[mask].cpu().numpy()
-            if c.is_dict:
-                vals = c.dictionary[np.clip(lane, 0, c.dict_size - 1)] \
-                    if c.dict_size else np.full(len(lane), "", object)
-                vals = np.where(v, vals, None)
-            else:
-                vals = lane
-            pairs.append((vals, v))
+        pairs = [_host_values(c, mask) for c in batch.columns]
         return HostBatch.from_positional(batch.schema, pairs)
 
 
@@ -233,9 +310,11 @@ class HostColumn:
     """One column's lanes on the host, in the device layout: ``validity``
     (bool ``[n]``) and either ``data`` (fixed width ``[n]``), ``codes``
     (int32 ``[n]``) plus ``dictionary`` (a dictionary string column; the
-    dictionary travels whole, codes unchanged), or ``offsets`` (int32
+    dictionary travels whole, codes unchanged), ``offsets`` (int32
     ``[n + 1]`` from 0) plus a uint8 payload in ``data`` (a flat string
-    column). Data under a null is zero, as on the device."""
+    column), ``data`` ``[n, max_len]`` with ``elem_validity`` and
+    ``lengths`` (an array), or ``children`` (a struct's fields). Data
+    under a null is zero, as on the device."""
 
     dtype: T.DataType
     validity: np.ndarray
@@ -245,6 +324,9 @@ class HostColumn:
     dict_sorted: bool = False
     offsets: Optional[np.ndarray] = None
     max_bytes: int = 0
+    elem_validity: Optional[np.ndarray] = None
+    lengths: Optional[np.ndarray] = None
+    children: Optional[list] = None
 
     @property
     def num_rows(self) -> int:
@@ -258,23 +340,52 @@ class HostColumn:
     def is_flat(self) -> bool:
         return self.offsets is not None
 
+    @property
+    def is_array(self) -> bool:
+        return self.lengths is not None
+
+    @property
+    def is_struct(self) -> bool:
+        return self.children is not None
+
     def slice(self, start: int, stop: int) -> "HostColumn":
         """Rows ``[start, stop)`` (numpy views; a flat column's offsets are
         rebased to 0)."""
+        validity = self.validity[start:stop]
+        if self.is_struct:
+            return dataclasses.replace(self, validity=validity, children=[
+                c.slice(start, stop) for c in self.children])
+        if self.is_array:
+            return dataclasses.replace(
+                self, validity=validity, data=self.data[start:stop],
+                elem_validity=self.elem_validity[start:stop],
+                lengths=self.lengths[start:stop])
         if self.is_flat:
             off = self.offsets[start:stop + 1]
             return dataclasses.replace(
-                self, validity=self.validity[start:stop],
+                self, validity=validity,
                 data=self.data[off[0]:off[-1]], offsets=off - off[0])
         if self.is_dict:
-            return dataclasses.replace(self, validity=self.validity[start:stop],
+            return dataclasses.replace(self, validity=validity,
                                        codes=self.codes[start:stop])
-        return dataclasses.replace(self, validity=self.validity[start:stop],
+        return dataclasses.replace(self, validity=validity,
                                    data=self.data[start:stop])
 
 
 def _aligned(nbytes: int) -> int:
     return -(-nbytes // _ALIGN) * _ALIGN
+
+
+def _flat_columns(columns) -> list:
+    """The flat string columns among ``columns`` and their struct
+    children."""
+    out = []
+    for c in columns:
+        if c.is_struct:
+            out += _flat_columns(c.children)
+        elif c.is_flat:
+            out.append(c)
+    return out
 
 
 def download_columns(batch: ColumnarBatch, n: int,
@@ -286,22 +397,29 @@ def download_columns(batch: ColumnarBatch, n: int,
     in pinned memory. Returns ``(columns, extra host arrays)``."""
     assert batch.live is None, "download_columns takes a physical batch"
     dev = batch.device
-    flat = [c for c in batch.columns if c.is_flat]
+    flat = _flat_columns(batch.columns)
     ends = {}
     if flat:  # payload spans of the flat columns: one host read
         bounds = torch.stack([torch.stack([c.offsets[0], c.offsets[n]])
                               for c in flat]).tolist()
         ends = {id(c): b for c, b in zip(flat, bounds)}
-    lanes: list = []  # device tensors in transfer order
+    lanes: list = []  # device tensors in transfer order, flattened
+    shapes: list = []
 
     def add(t: torch.Tensor) -> int:
-        lanes.append(t.contiguous())
+        shapes.append(tuple(t.shape))
+        lanes.append(t.contiguous().reshape(-1))
         return len(lanes) - 1
 
-    layout = []
-    for c in batch.columns:
+    def plan(c: DeviceColumn) -> dict:
         entry = {"validity": add(c.validity[:n])}
-        if c.is_flat:
+        if c.is_struct:
+            entry["children"] = [plan(k) for k in c.children]
+        elif c.is_array:
+            entry["data"] = add(c.data[:n])
+            entry["elem_validity"] = add(c.elem_validity[:n])
+            entry["lengths"] = add(c.lengths[:n])
+        elif c.is_flat:
             a, b = ends[id(c)]
             entry["offsets"] = add(c.offsets[:n + 1] - a)
             entry["data"] = add(c.data[a:b])
@@ -309,7 +427,9 @@ def download_columns(batch: ColumnarBatch, n: int,
             entry["codes"] = add(c.codes[:n])
         else:
             entry["data"] = add(c.data[:n])
-        layout.append(entry)
+        return entry
+
+    layout = [plan(c) for c in batch.columns]
     extra_at = [add(t[:n]) for t in extra]
     sizes = [t.numel() * t.element_size() for t in lanes]
     starts, total = [], 0
@@ -324,12 +444,19 @@ def download_columns(batch: ColumnarBatch, n: int,
                        pin_memory=dev.type == "cuda")
     host.copy_(packed)
     buf = host.numpy()
-    views = [buf[s:s + nb].view(_np_of(t.dtype))
-             for t, s, nb in zip(lanes, starts, sizes)]
-    cols = []
-    for c, entry in zip(batch.columns, layout):
+    views = [buf[s:s + nb].view(_np_of(t.dtype)).reshape(shape)
+             for t, s, nb, shape in zip(lanes, starts, sizes, shapes)]
+
+    def build(c: DeviceColumn, entry: dict) -> HostColumn:
         hc = HostColumn(c.dtype, views[entry["validity"]])
-        if c.is_flat:
+        if c.is_struct:
+            hc.children = [build(k, e)
+                           for k, e in zip(c.children, entry["children"])]
+        elif c.is_array:
+            hc.data = views[entry["data"]]
+            hc.elem_validity = views[entry["elem_validity"]]
+            hc.lengths = views[entry["lengths"]]
+        elif c.is_flat:
             hc.offsets = views[entry["offsets"]]
             hc.data = views[entry["data"]]
             hc.max_bytes = c.max_bytes
@@ -339,7 +466,9 @@ def download_columns(batch: ColumnarBatch, n: int,
             hc.dict_sorted = c.dict_sorted
         else:
             hc.data = views[entry["data"]]
-        cols.append(hc)
+        return hc
+
+    cols = [build(c, e) for c, e in zip(batch.columns, layout)]
     return cols, [views[i] for i in extra_at]
 
 
@@ -353,44 +482,65 @@ def upload_columns(cols: Sequence[HostColumn], schema: T.Schema, device,
     the ladder rung of the row count): each lane is copied from its
     numpy array straight into the front of its padded device lane. A
     dictionary column keeps its codes and its dictionary (no
-    re-encoding); a flat column keeps its offsets and payload."""
+    re-encoding); a flat column keeps its offsets and payload; an array
+    keeps its ``max_len``."""
     device = torch.device(device)
     n = cols[0].num_rows if cols else 0
     cap = capacity or bucket_capacity(n)
 
     def lane(a: np.ndarray, pad_to: int, fill=0) -> torch.Tensor:
         host = torch.from_numpy(np.ascontiguousarray(a))
-        out = torch.full((pad_to,), fill, dtype=host.dtype, device=device)
+        out = torch.full((pad_to,) + tuple(host.shape[1:]), fill,
+                         dtype=host.dtype, device=device)
         out[:len(a)].copy_(host)
         return out
 
-    out_cols = []
-    for c in cols:
+    def column(c: HostColumn) -> DeviceColumn:
         valid = lane(c.validity, cap, False)
+        if c.is_struct:
+            return DeviceColumn(None, valid, c.dtype, children=tuple(
+                column(k) for k in c.children))
+        if c.is_array:
+            return DeviceColumn(lane(c.data, cap), valid, c.dtype,
+                                elem_validity=lane(c.elem_validity, cap,
+                                                   False),
+                                lengths=lane(c.lengths, cap))
         if c.is_flat:
             end = int(c.offsets[-1]) if len(c.offsets) else 0
-            out_cols.append(DeviceColumn(
+            return DeviceColumn(
                 lane(c.data, bucket_byte_capacity(max(end, 1))), valid,
                 T.STRING, offsets=lane(c.offsets, cap + 1, end),
-                max_bytes=c.max_bytes))
-        elif c.is_dict:
-            out_cols.append(dictionary_column(lane(c.codes, cap), valid,
-                                              c.dictionary,
-                                              dict_sorted=c.dict_sorted))
-        else:
-            out_cols.append(DeviceColumn(lane(c.data, cap), valid, c.dtype))
+                max_bytes=c.max_bytes)
+        if c.is_dict:
+            return dictionary_column(lane(c.codes, cap), valid, c.dictionary,
+                                     dict_sorted=c.dict_sorted)
+        return DeviceColumn(lane(c.data, cap), valid, c.dtype)
+
+    out_cols = [column(c) for c in cols]
     n_rows = torch.tensor(n, dtype=torch.int64, device=device)
     return ColumnarBatch(tuple(out_cols), n_rows, schema)
+
+
+def empty_host_column(dtype: T.DataType) -> HostColumn:
+    """A :class:`HostColumn` of ``dtype`` with no rows (a string as an
+    empty dictionary, an array of width 1)."""
+    none = np.zeros(0, bool)
+    if isinstance(dtype, T.StructType):
+        return HostColumn(dtype, none, children=[
+            empty_host_column(f.data_type) for f in dtype.fields])
+    if isinstance(dtype, T.ArrayType):
+        return HostColumn(dtype, none,
+                          data=np.zeros((0, 1), dtype.np_dtype),
+                          elem_validity=np.zeros((0, 1), bool),
+                          lengths=np.zeros(0, np.int32))
+    if dtype is T.STRING:
+        return HostColumn(dtype, none, codes=np.zeros(0, np.int32),
+                          dictionary=np.zeros(0, object), dict_sorted=True)
+    return HostColumn(dtype, none, data=np.zeros(0, dtype.np_dtype))
 
 
 def empty_batch(schema: T.Schema, device) -> ColumnarBatch:
     """A batch of ``schema`` with no live rows, at the smallest capacity
     (strings as empty dictionaries)."""
-    cols = [HostColumn(f.data_type, np.zeros(0, bool),
-                       codes=np.zeros(0, np.int32),
-                       dictionary=np.zeros(0, object), dict_sorted=True)
-            if f.data_type is T.STRING else
-            HostColumn(f.data_type, np.zeros(0, bool),
-                       data=np.zeros(0, f.data_type.np_dtype))
-            for f in schema]
-    return upload_columns(cols, schema, device)
+    return upload_columns([empty_host_column(f.data_type) for f in schema],
+                          schema, device)

@@ -20,6 +20,17 @@ Strings come in the reference's two layouts:
   ``bucket_byte_capacity`` bytes. Only expressions build flat strings
   (``Substring``); ``max_bytes`` bounds one row's length and sets the
   char-matrix width ``W`` (at least 128, the ladder's floor).
+
+Complex columns take the reference's layouts:
+
+* **array** (``lengths`` set): ``data`` is the ``[capacity, max_len]``
+  element matrix, ``elem_validity`` its bool mask and ``lengths`` the
+  int32 length of each row; ``max_len`` is a power of two, as the
+  reference's ``array_from_arrow`` buckets it. Elements past a row's
+  length, and every element of a null row, are zero and invalid.
+* **struct** (``children`` set): one child column per field, at the
+  struct's capacity, plus the struct's own ``validity``; ``data`` is
+  None. A null struct keeps its children's values.
 """
 
 from __future__ import annotations
@@ -57,6 +68,12 @@ class DeviceColumn:
     #: (uint8 payload, int32[dict_size + 1] offsets) of the dictionary's
     #: entries on the device (dictionary strings only).
     dict_bytes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    #: bool[capacity, max_len] element mask (arrays only).
+    elem_validity: Optional[torch.Tensor] = None
+    #: int32[capacity] element counts, 0 under a null (arrays only).
+    lengths: Optional[torch.Tensor] = None
+    #: One column per field (structs only).
+    children: tuple = ()
 
     @property
     def capacity(self) -> int:
@@ -79,6 +96,23 @@ class DeviceColumn:
         return self.offsets is not None and self.codes is None
 
     @property
+    def is_array(self) -> bool:
+        return self.lengths is not None
+
+    @property
+    def is_struct(self) -> bool:
+        return isinstance(self.dtype, T.StructType)
+
+    @property
+    def is_complex(self) -> bool:
+        return self.is_array or self.is_struct
+
+    @property
+    def max_len(self) -> int:
+        assert self.is_array
+        return self.data.shape[1]
+
+    @property
     def dict_size(self) -> int:
         return 0 if self.dictionary is None else len(self.dictionary)
 
@@ -88,6 +122,7 @@ class DeviceColumn:
         strings; flat strings have none and move through
         :func:`..ops.kernels.rowops.gather_column`)."""
         assert not self.is_flat, "a flat string column has no single lane"
+        assert not self.is_complex, "a complex column has no single lane"
         return self.codes if self.codes is not None else self.data
 
     def replace_rows(self, validity: torch.Tensor,
@@ -95,8 +130,52 @@ class DeviceColumn:
         """Same type and dictionary, new rows (not for flat strings)."""
         if self.is_dict:
             return dataclasses.replace(self, validity=validity, codes=lane)
-        assert not self.is_flat
+        assert not self.is_flat and not self.is_complex
         return DeviceColumn(lane, validity, self.dtype)
+
+
+def pow2_len(n: int) -> int:
+    """An array column's ``max_len``: the power of two at or above ``n``
+    (at least 1), the reference's ``_pow2``."""
+    out = 1
+    while out < n:
+        out <<= 1
+    return out
+
+
+def array_column(data: torch.Tensor, elem_validity: torch.Tensor,
+                 lengths: torch.Tensor, validity: torch.Tensor,
+                 dtype: "T.ArrayType") -> DeviceColumn:
+    """An array column with the port's invariant restored: a null row has
+    length 0, and an element past its row's length or under a null is
+    invalid and zero."""
+    lengths = torch.where(validity, lengths.to(torch.int32), 0)
+    in_len = torch.arange(data.shape[1], device=data.device)[None, :] \
+        < lengths[:, None]
+    ev = elem_validity & in_len & validity[:, None]
+    data = torch.where(ev, data, torch.zeros((), dtype=data.dtype,
+                                             device=data.device))
+    return DeviceColumn(data, validity, dtype, elem_validity=ev,
+                        lengths=lengths)
+
+
+def null_column(dtype: T.DataType, capacity: int,
+                device: torch.device) -> DeviceColumn:
+    """An all-null column of ``dtype`` (the reference's ``null_column``:
+    an array of width 1, a struct of all-null children, a one-entry
+    dictionary string)."""
+    off = torch.zeros(capacity, dtype=torch.bool, device=device)
+    if isinstance(dtype, T.ArrayType):
+        return DeviceColumn(
+            torch.zeros((capacity, 1), dtype=dtype.torch_dtype,
+                        device=device), off, dtype,
+            elem_validity=torch.zeros((capacity, 1), dtype=torch.bool,
+                                      device=device),
+            lengths=torch.zeros(capacity, dtype=torch.int32, device=device))
+    if isinstance(dtype, T.StructType):
+        return DeviceColumn(None, off, dtype, children=tuple(
+            null_column(f.data_type, capacity, device) for f in dtype.fields))
+    return scalar_column(None, dtype, capacity, off)
 
 
 def string_max_bytes(longest: int) -> int:

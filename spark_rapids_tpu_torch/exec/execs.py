@@ -43,6 +43,7 @@ from ..config import TorchConf
 from ..data.batch import ColumnarBatch, HostBatch, empty_batch
 from ..data.column import DeviceColumn, bucket_capacity
 from ..ops import aggregates as AGG
+from ..ops import nondeterministic as ND
 from ..ops.cast import cast_values
 from ..ops.expression import (BoundReference, Expression, Literal,
                               make_column)
@@ -283,12 +284,30 @@ class ProjectExec(TorchExec):
     def execute(self, ctx):
         parts = self.children[0].execute(ctx)
         bound = _bind_all(self.exprs, self.children[0].schema)
+        if any(ND.has_nondeterministic(e) for e in bound):
+            return [self._numbered(ctx, bound, part, pid)
+                    for pid, part in enumerate(parts)]
 
         def project(batch):
             with ctx.timed(self.name):
                 cols = [e.eval_device(batch) for e in bound]
                 return batch.with_columns(cols, self.schema)
         return [(project(b) for b in part) for part in parts]
+
+    def _numbered(self, ctx, bound, part, pid: int):
+        """The nondeterministic route (the reference's ``project_nd``):
+        each batch made physical first, so positional expressions number
+        its logical rows, and evaluated with the partition's index and
+        the rows before it in the partition (a device count, no sync)."""
+        row_base = torch.zeros((), dtype=torch.int64, device=ctx.device)
+        for batch in part:
+            with ctx.timed(self.name):
+                batch = KR.physical(batch)
+                with ND.eval_context(pid, row_base):
+                    cols = [e.eval_device(batch) for e in bound]
+                out = batch.with_columns(cols, self.schema)
+                row_base = row_base + batch.n_rows
+            yield out
 
 
 class ExpandExec(TorchExec):
@@ -345,6 +364,96 @@ class ExpandExec(TorchExec):
                 for part in parts]
 
 
+class GenerateExec(TorchExec):
+    """``explode`` / ``posexplode`` and their ``_outer`` forms over the
+    padded array layout (the reference's ``TpuGenerateExec``): the
+    ``[rows, max_len]`` element matrix flattens to ``rows x max_len``
+    output lanes, one gather repeats every parent column by lane (``row =
+    lane // max_len``), and the output is compacted on the lanes that hold
+    an element (plus, ``outer``, the first lane of a null or empty
+    array's row, whose element is null). Output columns: the child's, then
+    ``pos`` (``pos``), then the element.
+
+    At most :attr:`TILE_LANES` output lanes an invocation: a batch whose
+    ``capacity x max_len`` is larger explodes in tiles of rows, each its
+    own output batch, the loop bounded by the live rows (one host read).
+    A flat string parent's payload is sized from its longest gathered
+    row (``lanes x`` that length rounded up to 8 bytes), not from ``lanes
+    x max_bytes``, whose floor is 128."""
+
+    #: Output lanes bound per invocation (the reference's).
+    TILE_LANES = 1 << 22
+
+    def __init__(self, child: TorchExec, generator: Expression,
+                 outer: bool, pos: bool, schema: T.Schema):
+        self.children = [child]
+        self.generator = generator
+        self.outer = outer
+        self.pos = pos
+        self._schema = schema
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def describe(self):
+        kind = "posexplode" if self.pos else "explode"
+        return f"Generate [{kind}{'_outer' if self.outer else ''}" \
+               f"({self.generator})]"
+
+    def _explode(self, db: ColumnarBatch, arr: DeviceColumn, offset: int,
+                 tile_rows: int) -> ColumnarBatch:
+        """Rows ``[offset, offset + tile_rows)`` of ``db`` exploded."""
+        cap, w = arr.data.shape
+        dev = db.device
+        lane = torch.arange(tile_rows * w, device=dev)
+        flat_r = offset + torch.div(lane, w, rounding_mode="floor")
+        flat_j = lane % w
+        live = flat_r < db.n_rows
+        src = flat_r.clamp(max=cap - 1)
+        lens = arr.lengths[src]
+        keep_elem = live & (flat_j < lens)
+        keep = keep_elem
+        if self.outer:
+            keep = keep | (live & (flat_j == 0)
+                           & (~arr.validity[src] | (lens == 0)))
+        cols = list(KR.gather_columns(db.columns, src, keep, sized=True))
+        if self.pos:
+            cols.append(make_column(flat_j, keep_elem, T.INT))
+        rows = slice(offset, offset + tile_rows)
+        elem_dt = self._schema[len(self._schema) - 1].data_type
+        data = arr.data[rows].reshape(-1)
+        ev = arr.elem_validity[rows].reshape(-1)
+        if data.shape[0] < lane.shape[0]:  # a tile past the capacity
+            pad = lane.shape[0] - data.shape[0]
+            data = torch.cat([data, data.new_zeros(pad)])
+            ev = torch.cat([ev, ev.new_zeros(pad)])
+        cols.append(make_column(data, ev & keep_elem, elem_dt))
+        return ColumnarBatch(tuple(cols), keep.sum(), self._schema,
+                             live=keep)
+
+    def execute(self, ctx):
+        parts = self.children[0].execute(ctx)
+        bound = self.generator.bind(self.children[0].schema)
+
+        def run(part):
+            for db in part:
+                with ctx.timed(self.name):
+                    # explode liveness is positional (lane row < n_rows)
+                    db = KR.physical(db)
+                    arr = bound.eval_device(db)
+                    cap, w = arr.data.shape
+                    tile_rows = cap if cap * w <= self.TILE_LANES else \
+                        bucket_capacity(max(self.TILE_LANES // w, 128))
+                    live_rows = cap if tile_rows == cap else \
+                        max(int(db.n_rows), 1)
+                for off in range(0, live_rows, tile_rows):
+                    with ctx.timed(self.name):
+                        out = self._explode(db, arr, off, tile_rows)
+                    yield out
+        return [run(p) for p in parts]
+
+
 def _null_literal(e: Expression) -> bool:
     return isinstance(e, Literal) and e.value is None
 
@@ -384,8 +493,9 @@ class HashAggregateExec(TorchExec):
     compacted first (:func:`..ops.kernels.rowops.shrink_sparse`). The
     dense grouping path is optimistic: the fail flags of every partial
     and merge report under this one site, which escalates to the sort
-    path. Without grouping keys it is the global aggregate: one output
-    row, also for no input."""
+    path. A partial whose groups fill at most a quarter of its capacity
+    is cut to their ladder rung before it merges. Without grouping keys
+    it is the global aggregate: one output row, also for no input."""
 
     def __init__(self, child: TorchExec, groupings: List[Expression],
                  aggregates: List[AGG.AggregateExpression]):
@@ -450,7 +560,11 @@ class HashAggregateExec(TorchExec):
             return out
 
         def merge(batches):
-            batch = _coalesce_device(batches)
+            # a partial holds its groups at the front of its input's
+            # capacity: concatenating whole capacities would size the
+            # merge (and a flat string key's char matrix) by the input
+            batch = _coalesce_device([KR.shrink_sparse(b, physical=True)
+                                      for b in batches])
             with ctx.timed(self.name + ".merge"):
                 out, fail = aggregate_batch(batch, key_refs, aggs,
                                             buf_schema, n_keys, False,

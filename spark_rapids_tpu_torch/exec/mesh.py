@@ -42,6 +42,7 @@ from .. import types as T
 from ..data.batch import ColumnarBatch, HostBatch
 from ..data.column import DeviceColumn, bucket_capacity
 from ..ops.expression import Alias, AttributeReference, BoundReference
+from ..ops import nondeterministic as ND
 from ..ops.kernels import rowops as KR
 from ..ops.kernels.groupby import _max_value, _min_value
 from ..parallel import mesh as PM
@@ -155,6 +156,9 @@ def _compile(node: E.TorchExec, sources: List[E.DeviceSourceExec]
     without a mesh story."""
     if isinstance(node, E.DeviceSourceExec):
         for c, f in zip(node.batch.columns, node.schema):
+            _require(not T.is_complex(f.data_type),
+                     f"{f.data_type} column in a mesh source (the "
+                     "reference's mesh has no array or struct layout)")
             if f.data_type is T.STRING:
                 _require(c.is_dict, "flat (non-dictionary) string column "
                                     "in a mesh source")
@@ -164,6 +168,12 @@ def _compile(node: E.TorchExec, sources: List[E.DeviceSourceExec]
 
     if isinstance(node, E.ProjectExec):
         for e in node.exprs:
+            _require(not T.is_complex(e.data_type),
+                     f"{e.data_type} expression over the mesh")
+            _require(not ND.has_nondeterministic(e),
+                     "nondeterministic expression over the mesh (its "
+                     "partition ids and row numbers are the single "
+                     "path's)")
             if e.data_type is T.STRING:
                 _require(_is_column_ref(e), "string-producing expression "
                                             "over the mesh")

@@ -55,7 +55,8 @@ import torch
 
 from .. import types as T
 from ..data.batch import ColumnarBatch
-from ..data.column import DeviceColumn, bucket_capacity, dictionary_column
+from ..data.column import (DeviceColumn, bucket_capacity, dictionary_column,
+                           scalar_column)
 from ..exec.execs import ExecContext, TorchExec
 from ..exec.pipeline import unit_partitions
 from ..ops.kernels.cuda import _build
@@ -875,16 +876,20 @@ class ParquetScanExec(TorchExec):
     runs ahead on the pipeline's shared pool (:mod:`..exec.pipeline`);
     the wait for a row group is ``ParquetScanExec.stall``, the workers'
     time ``ParquetScanExec.busy``. Every column of the files' schema is
-    decoded; a project above drops what the query does not read. There
+    decoded; a project above drops what the query does not read. With
+    ``emit_file_meta`` (set by the input-file rewrite) the schema ends in
+    the three hidden per-file columns, appended after the decode. There
     is no fallback: a file the decoder does not take raises, from the
     worker unchanged."""
 
     def __init__(self, files: List[str], schema: T.Schema,
-                 rebase_mode: str = "EXCEPTION"):
+                 rebase_mode: str = "EXCEPTION",
+                 emit_file_meta: bool = False):
         self.children = []
         self.files = list(files)
         self._schema = schema
         self.rebase_mode = rebase_mode
+        self.emit_file_meta = emit_file_meta
 
     @property
     def schema(self):
@@ -896,30 +901,60 @@ class ParquetScanExec(TorchExec):
 
     def execute(self, ctx):
         units = []
+        n_meta = 3 if self.emit_file_meta else 0
+        data_schema = T.Schema(list(self._schema)[:len(self._schema)
+                                                  - n_meta])
         for path in self.files:
             with ctx.timed(SCAN + ".parse", host=True):
                 meta = read_footer(path)
             got = schema_from_parquet(meta, path)
-            if got != self._schema:
+            if got != data_schema:
                 raise ValueError(f"{path}: schema {got} differs from the "
-                                 f"scan's {self._schema}")
+                                 f"scan's {data_schema}")
             # outside the row-group loop: the ambiguity error is raised
             # before any decode
-            rebase_guard(meta, self._schema, self.rebase_mode, path)
+            rebase_guard(meta, data_schema, self.rebase_mode, path)
             units.extend((path, meta, rg)
                          for rg in range(meta.num_row_groups))
 
         def read_unit(unit):
             path, meta, rg = unit
-            return read_row_group_host(path, rg, self._schema, meta,
+            return read_row_group_host(path, rg, data_schema, meta,
                                        ctx=ctx)
+
+        def decode(part, path):
+            for h in part:
+                batch = decode_row_group_device(h, ctx=ctx)
+                yield self._with_file_meta(batch, path) if n_meta else batch
 
         # The host phase of the next row groups runs on the pipeline's
         # workers; the device phase runs here, on the thread that reads
         # the partition, so device work keeps one thread and one stream,
         # in partition order.
-        return [(decode_row_group_device(h, ctx=ctx) for h in part)
-                for part in unit_partitions(read_unit, units, ctx, SCAN)]
+        return [decode(part, unit[0]) for part, unit in zip(
+            unit_partitions(read_unit, units, ctx, SCAN), units)]
+
+    def _with_file_meta(self, batch: ColumnarBatch,
+                        path: str) -> ColumnarBatch:
+        """``batch`` with the input-file rewrite's three hidden columns
+        (``plan/input_file.py``), constant for the file: its path as a
+        one-entry dictionary, block start 0 and block length the file's
+        size, as the reference's host scan gives them (the split is the
+        whole file)."""
+        live = batch.row_mask()
+        try:
+            size = os.path.getsize(path)
+        except OSError:
+            size = -1
+        cols = batch.columns + (
+            dictionary_column(torch.zeros(batch.capacity, dtype=torch.int32,
+                                          device=live.device), live,
+                              np.array([path], dtype=object),
+                              dict_sorted=True),
+            scalar_column(0, T.LONG, batch.capacity, live),
+            scalar_column(size, T.LONG, batch.capacity, live))
+        return ColumnarBatch(cols, batch.n_rows, self._schema,
+                             live=batch.live)
 
 
 def _list_dir(d: str) -> List[str]:

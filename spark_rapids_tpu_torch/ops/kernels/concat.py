@@ -9,7 +9,8 @@ Dictionary strings append their dictionaries WITHOUT dedupe (codes shift
 by the earlier dictionaries' sizes), so the result is not
 ``dict_sorted``, unless every input holds the very same dictionary,
 whose codes and order then carry over; flat strings concatenate through
-the char matrix.
+the char matrix. An array column re-pads to the widest input's
+``max_len``; a struct concatenates field by field.
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ from typing import List, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ...data.batch import ColumnarBatch
-from ...data.column import DeviceColumn, dictionary_column
+from ...data.column import DeviceColumn, array_column, dictionary_column
 from ..strings_util import PAD, char_matrix
 from .rowops import physical, strings_from_matrix
 
@@ -75,6 +77,27 @@ def _concat_dict_columns(cols, targets, out_capacity: int,
     return dictionary_column(codes, out_valid, dictionary, dict_sorted=False)
 
 
+def _concat_array_columns(cols, targets, out_capacity: int,
+                          out_valid: torch.Tensor) -> DeviceColumn:
+    """Array columns re-padded to the widest ``max_len`` and scattered
+    row-wise, as the reference's concatenation does."""
+    w = max(c.max_len for c in cols)
+    dev = cols[0].device
+    data = torch.zeros((out_capacity + 1, w), dtype=cols[0].data.dtype,
+                       device=dev)
+    ev = torch.zeros((out_capacity + 1, w), dtype=torch.bool, device=dev)
+    lengths = torch.zeros(out_capacity + 1, dtype=torch.int32, device=dev)
+    for c, (target, live) in zip(cols, targets):
+        pad = w - c.max_len
+        data.index_copy_(0, target, F.pad(c.data, (0, pad)))
+        ev.index_copy_(0, target, F.pad(c.elem_validity, (0, pad))
+                       & live[:, None])
+        lengths.index_copy_(0, target, torch.where(live & c.validity,
+                                                   c.lengths, 0))
+    return array_column(data[:out_capacity], ev[:out_capacity],
+                        lengths[:out_capacity], out_valid, cols[0].dtype)
+
+
 def concat_columns(cols: List[DeviceColumn], n_rows_list, out_capacity: int,
                    total_rows) -> DeviceColumn:
     """One column of the concatenation of physical batches."""
@@ -82,6 +105,13 @@ def concat_columns(cols: List[DeviceColumn], n_rows_list, out_capacity: int,
     live_out = torch.arange(out_capacity, device=dev) < total_rows
     targets = _targets(cols, n_rows_list, out_capacity)
     out_valid = _scatter_validity(cols, targets, out_capacity, live_out)
+    if cols[0].is_struct:
+        return DeviceColumn(None, out_valid, cols[0].dtype, children=tuple(
+            concat_columns([c.children[k] for c in cols], n_rows_list,
+                           out_capacity, total_rows)
+            for k in range(len(cols[0].children))))
+    if cols[0].is_array:
+        return _concat_array_columns(cols, targets, out_capacity, out_valid)
     if cols[0].is_string and all(c.is_dict for c in cols):
         return _concat_dict_columns(cols, targets, out_capacity, out_valid)
     if cols[0].is_string:

@@ -134,19 +134,43 @@ def sort_permutation(keys: Sequence[DeviceColumn], n_rows: torch.Tensor,
 
 
 def gather_column(col: DeviceColumn, indices: torch.Tensor,
-                  index_valid: Optional[torch.Tensor] = None) -> DeviceColumn:
+                  index_valid: Optional[torch.Tensor] = None,
+                  sized: bool = False) -> DeviceColumn:
     """Rows of ``col`` at ``indices``; fixed-width and dictionary columns
     both move one lane (a dictionary rides along untouched). Flat strings
     move with the ragged ``strings`` gather, which reads the column's
     offsets and payload and writes the gathered ones (each row clipped at
-    the column's width, as its char matrix would be)."""
+    the column's width, as its char matrix would be); its payload holds
+    ``rows x width`` bytes, or, with ``sized``, ``rows x`` the longest
+    valid row rounded up to 8 bytes (one host read; the gather then
+    clips at that width, which clips no row). An array moves its
+    element matrix, mask and lengths by one row gather each (a null row
+    keeps no element); a struct gathers each child with the same
+    indices, so its children keep their own validity, as the
+    reference's do."""
     safe = indices.clamp(0, col.capacity - 1).long()
     validity = col.validity[safe]
     if index_valid is not None:
         validity = validity & index_valid
+    if col.is_struct:
+        return DeviceColumn(None, validity, col.dtype, children=tuple(
+            gather_column(c, indices, index_valid, sized)
+            for c in col.children))
+    if col.is_array:
+        ev = col.elem_validity[safe] & validity[:, None]
+        data = torch.where(ev, col.data[safe], torch.zeros(
+            (), dtype=col.data.dtype, device=col.device))
+        return DeviceColumn(data, validity, col.dtype, elem_validity=ev,
+                            lengths=torch.where(validity, col.lengths[safe],
+                                                0))
     if col.is_flat:
         w = max(col.max_bytes, 1)
         m = safe.shape[0]
+        if sized:
+            # the longest valid row, rounded up to 8 bytes, clips no row
+            lens = (col.offsets[safe + 1] - col.offsets[safe]).clamp(0, w)
+            longest = int(torch.where(validity, lens, 0).max()) if m else 0
+            w = min(w, max(-(-longest // 8) * 8, 8))
         payload, offsets = SG.gather_strings(
             col.data, col.offsets, safe.to(torch.int32), validity, w,
             bucket_byte_capacity(m * w))
@@ -170,8 +194,10 @@ def strings_from_matrix(m: torch.Tensor, validity: torch.Tensor,
 
 
 def gather_columns(columns, indices: torch.Tensor,
-                   index_valid: Optional[torch.Tensor] = None) -> tuple:
-    return tuple(gather_column(c, indices, index_valid) for c in columns)
+                   index_valid: Optional[torch.Tensor] = None,
+                   sized: bool = False) -> tuple:
+    return tuple(gather_column(c, indices, index_valid, sized)
+                 for c in columns)
 
 
 def compact(batch: ColumnarBatch, keep: torch.Tensor) -> ColumnarBatch:
@@ -195,20 +221,26 @@ def physical(batch: ColumnarBatch) -> ColumnarBatch:
     return ColumnarBatch(cols, batch.n_rows, batch.schema)
 
 
-def shrink_sparse(batch: ColumnarBatch) -> ColumnarBatch:
+def shrink_sparse(batch: ColumnarBatch,
+                  physical: bool = False) -> ColumnarBatch:
     """A lazy batch whose live rows fill at most a quarter of it, moved
     to the front of a batch at their own ladder rung, in row order (the
-    reference's streaming-mode shrink of sparse join outputs). Costs one
-    host read of the live count; any other batch comes back unchanged."""
-    if batch.live is None or batch.capacity < 4 * 128:
+    reference's streaming-mode shrink of sparse join outputs); with
+    ``physical``, a physical batch so sparse too (its first rows). Costs
+    one host read of the live count; any other batch comes back
+    unchanged."""
+    if (batch.live is None and not physical) or batch.capacity < 4 * 128:
         return batch
     n = int(batch.n_rows)
     cap = bucket_capacity(max(n, 1))
     if cap * 4 > batch.capacity:
         return batch
-    src = torch.zeros(cap, dtype=torch.int64, device=batch.device)
-    src[:n] = torch.nonzero(batch.live).squeeze(1)
     iota = torch.arange(cap, device=batch.device)
+    if batch.live is None:
+        src = iota
+    else:
+        src = torch.zeros(cap, dtype=torch.int64, device=batch.device)
+        src[:n] = torch.nonzero(batch.live).squeeze(1)
     cols = gather_columns(batch.columns, src, iota < n)
     return ColumnarBatch(cols, batch.n_rows, batch.schema)
 

@@ -1,9 +1,10 @@
-"""String functions, part 2 — port of ``spark_rapids_tpu/ops/strings2.py``
-without ``StringSplit`` (its ARRAY result has no column layout in the
-port yet): ``StringReplace``, ``RegExpReplace`` (literal patterns only,
+"""String functions, part 2 — port of ``spark_rapids_tpu/ops/strings2.py``:
+``StringReplace``, ``RegExpReplace`` (literal patterns only,
 lowered to a replace as in the reference), ``LPad``, ``RPad``,
 ``StringLocate``, ``InitCap``, ``SubstringIndex``, ``Reverse`` and
-``StringRepeat``. Byte semantics, as the reference's device path
+``StringRepeat``; ``StringSplit`` plans nowhere, since its ARRAY<STRING>
+result has no device layout (arrays hold fixed-width elements) and the
+reference evaluates it on its host path. Byte semantics, as the reference's device path
 (``Reverse`` reverses bytes; ``InitCap`` maps ASCII letters).
 
 Every function works from the column's own layout, with no char matrix:
@@ -333,3 +334,37 @@ class StringRepeat(_StringFn):
                            lambda r, k: read_bytes(
                                payload, starts[r] + k % lens[r].clamp(
                                    min=1)))
+
+
+class StringSplit(Expression):
+    """``split(str, delimiter[, limit])``: its ARRAY<STRING> result has no
+    device layout, so the reference's rule sends it to the host path
+    (``plan/overrides.py:164-170``). The port has no host path: the
+    planner raises :attr:`REASON`, and so does evaluation."""
+
+    REASON = ("ARRAY<STRING> has no device layout; split(str, delim) "
+              "evaluates on the host path (the reference's "
+              "plan/overrides.py _string_split_tag), which the port does "
+              "not have")
+
+    def __init__(self, child: Expression, delimiter: str, limit: int = -1):
+        self.children = [child]
+        self.delimiter = delimiter
+        self.limit = limit
+
+    def with_children(self, children):
+        return StringSplit(children[0], self.delimiter, self.limit)
+
+    @property
+    def data_type(self):
+        return T.ArrayType(T.STRING, contains_null=False)
+
+    @property
+    def name(self):
+        return f"split({self.children[0]}, {self.delimiter!r})"
+
+    def __str__(self):
+        return self.name
+
+    def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
+        raise NotImplementedError(self.REASON)

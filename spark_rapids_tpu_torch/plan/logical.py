@@ -8,8 +8,8 @@ condition; column names are SQL's ``USING``), ``cross_join`` (a
 keyless inner join is one, with its condition), ``group_by(...).agg``
 (no keys: a global aggregate), ``rollup``, ``cube`` and
 ``grouping_sets`` (Expand + Aggregate), ``distinct``, ``union``,
-``sort``, ``limit``, ``repartition`` (hash on columns, or round-robin)
-and ``collect``.
+``sort``, ``limit``, ``repartition`` (hash on columns, or round-robin),
+``explode`` (Generate) and ``collect``.
 
 Analysis is eager, as in the reference: every node resolves attribute
 types against its child's schema and inserts numeric coercion casts when
@@ -42,6 +42,9 @@ def resolve(expr: Expression, schema: T.Schema) -> Expression:
         return None
 
     def coerce(e):
+        from ..ops import complex as CPX
+        if isinstance(e, CPX.CreateArray):
+            return _coerce_array_elements(e)
         if isinstance(e, (ARITH.BinaryArithmetic, PRED.Comparison)):
             l, r = e.children
             if l.data_type.is_numeric and r.data_type.is_numeric \
@@ -50,6 +53,28 @@ def resolve(expr: Expression, schema: T.Schema) -> Expression:
         return None
 
     return expr.transform(fill).transform(coerce)
+
+
+def _coerce_array_elements(e):
+    """``array(...)`` of mixed numeric elements with each cast to their
+    promoted type (the reference's ``logical.py`` coercion); an element
+    type without a device layout raises with the reference's reason."""
+    from ..ops import complex as CPX
+    from ..ops.cast import Cast
+    types = [c.data_type for c in e.children]
+    if any(not T.device_supported(T.ArrayType(t)) for t in types):
+        raise NotImplementedError(
+            f"array of {types[0]}: arrays hold fixed-width elements only "
+            "(the reference's types.device_supported)")
+    if len({t.name for t in types}) == 1:
+        return None
+    if not all(t.is_numeric for t in types):
+        raise TypeError(f"array elements must share one type, got {types}")
+    common = types[0]
+    for t in types[1:]:
+        common = T.numeric_promote(common, t)
+    return CPX.CreateArray(*[c if c.data_type.name == common.name
+                             else Cast(c, common) for c in e.children])
 
 
 def _as_expr(c) -> Expression:
@@ -116,6 +141,9 @@ class Scan(LogicalPlan):
         self.fmt = fmt
         self.files = list(files)
         self._schema = schema
+        #: Set by the input-file rewrite (``plan/input_file.py``): the
+        #: schema ends in its three hidden per-file columns.
+        self.emit_file_meta = False
 
     @property
     def schema(self) -> T.Schema:
@@ -315,6 +343,40 @@ class WindowOp(LogicalPlan):
 
     def describe(self):
         return "Window [" + ", ".join(n for n, _ in self.window_exprs) + "]"
+
+
+class Generate(LogicalPlan):
+    """One input row to zero or more output rows from an array generator
+    (``explode`` / ``posexplode``, the reference's ``Generate``): the
+    child's columns, then ``pos`` when asked, then the element."""
+
+    def __init__(self, child: LogicalPlan, generator: Expression,
+                 elem_name: str = "col", outer: bool = False,
+                 pos: bool = False, pos_name: str = "pos"):
+        self.children = [child]
+        self.generator = resolve(generator, child.schema)
+        if not isinstance(self.generator.data_type, T.ArrayType):
+            raise TypeError(f"explode needs an array column, got "
+                            f"{self.generator.data_type}")
+        self.elem_name = elem_name
+        self.outer = outer
+        self.pos = pos
+        self.pos_name = pos_name
+
+    @property
+    def schema(self) -> T.Schema:
+        fields = list(self.children[0].schema)
+        if self.pos:
+            fields.append(T.StructField(self.pos_name, T.INT, self.outer))
+        at = self.generator.data_type
+        fields.append(T.StructField(self.elem_name, at.element_type,
+                                    at.contains_null or self.outer))
+        return T.Schema(fields)
+
+    def describe(self):
+        kind = "posexplode" if self.pos else "explode"
+        return f"Generate [{kind}{'_outer' if self.outer else ''}" \
+               f"({self.generator})]"
 
 
 class Sort(LogicalPlan):
@@ -589,6 +651,16 @@ class DataFrame:
         else:
             plan = Repartition(self._plan, n_parts, "round_robin")
         return DataFrame(plan, self._session)
+
+    def explode(self, column, name: str = "col", outer: bool = False,
+                pos: bool = False) -> "DataFrame":
+        """One output row per array element (explode / posexplode, and
+        their ``_outer`` forms); the other columns repeat. ``outer`` keeps
+        a null or empty array's row with a null element; ``pos`` adds the
+        element's position as ``pos``."""
+        return DataFrame(Generate(self._plan, _as_expr(column),
+                                  elem_name=name, outer=outer, pos=pos),
+                         self._session)
 
     def collect(self):
         """Run the query; returns a :class:`~..data.batch.HostBatch`

@@ -21,6 +21,13 @@ plans a non-inner one as a nested-loop join on the CPU
 (``planner.py:52-70``), whose pair grid a TPCxBB click-to-sale join
 makes too large to run.
 
+A Generate (``explode``) plans as :class:`~..exec.execs.GenerateExec`.
+An array or struct grouping, join, sort or window key raises
+``NotImplementedError`` with the reference's reason
+(``overrides.py _no_complex_keys``), as does ``split`` (ARRAY<STRING>
+has no device layout; ``overrides.py:164-170`` sends it to the host
+path, which the port does not have).
+
 A subplan that the query references more than once (Q15's revenue
 view, Q22's filtered customers) plans once, as one
 :class:`~..exec.execs.ReusedExec` that every reference reads (Spark's
@@ -36,6 +43,7 @@ from __future__ import annotations
 from collections import Counter
 from typing import Dict
 
+from .. import types as T
 from ..config import PARQUET_REBASE_READ, TOPK_THRESHOLD, TorchConf
 from ..exec import execs as E
 from ..io.parquet_device import ParquetScanExec
@@ -68,16 +76,61 @@ def plan_physical(plan: L.LogicalPlan, conf: TorchConf) -> E.TorchExec:
     return build(plan)
 
 
+def _no_complex_keys(exprs, what: str) -> None:
+    """Raise for an array or struct key, with the reference's reason
+    (``plan/overrides.py _no_complex_keys``): its device path has no
+    operator for one, and the port has no host path to hand it to."""
+    for e in exprs:
+        if T.is_complex(e.data_type):
+            raise NotImplementedError(
+                f"{what} of type {e.data_type} is not supported on the "
+                "device (the reference's plan/overrides.py "
+                "_no_complex_keys tags it off the device)")
+
+
+def _no_string_split(exprs) -> None:
+    """Raise for ``split``, whose ARRAY<STRING> has no device layout."""
+    from ..ops.strings2 import StringSplit
+    for e in exprs:
+        if isinstance(e, StringSplit):
+            raise NotImplementedError(StringSplit.REASON)
+        _no_string_split(e.children)
+
+
+def _node_keys(plan: L.LogicalPlan) -> None:
+    """The key checks of one logical node (see :func:`_no_complex_keys`)."""
+    if isinstance(plan, L.Aggregate):
+        _no_complex_keys(plan.groupings, "grouping key")
+    elif isinstance(plan, L.Join):
+        _no_complex_keys(list(plan.left_keys) + list(plan.right_keys),
+                         "join key")
+    elif isinstance(plan, L.Sort):
+        _no_complex_keys([o.child for o in plan.orders], "sort key")
+    elif isinstance(plan, L.Limit) and isinstance(plan.children[0], L.Sort):
+        _node_keys(plan.children[0])
+    elif isinstance(plan, L.WindowOp):
+        for _, we in plan.window_exprs:
+            _no_complex_keys(we.spec.partition_by, "window partition key")
+            _no_complex_keys([o.child for o in we.spec.order_by],
+                             "window order-by key")
+    elif isinstance(plan, L.Project):
+        _no_string_split(plan.exprs)
+    elif isinstance(plan, L.Filter):
+        _no_string_split([plan.condition])
+
+
 def _plan_node(plan: L.LogicalPlan, conf: TorchConf, sub) -> E.TorchExec:
     """One logical node's exec, its children planned by
     ``sub(child)``."""
+    _node_keys(plan)
     if isinstance(plan, L.DeviceRelation):
         return E.DeviceSourceExec(plan.batch)
     if isinstance(plan, L.Scan):
         if plan.fmt != "parquet":
             raise NotImplementedError(f"{plan.fmt} scans are not ported")
         return ParquetScanExec(plan.files, plan.schema,
-                               conf.get(PARQUET_REBASE_READ))
+                               conf.get(PARQUET_REBASE_READ),
+                               emit_file_meta=plan.emit_file_meta)
     if isinstance(plan, L.Project):
         return E.ProjectExec(sub(plan.children[0]),
                              plan.exprs)
@@ -103,6 +156,9 @@ def _plan_node(plan: L.LogicalPlan, conf: TorchConf, sub) -> E.TorchExec:
             sub(plan.children[0]),
             sub(plan.children[1]), plan.join_type,
             plan.left_keys, plan.right_keys, plan.schema, plan.condition)
+    if isinstance(plan, L.Generate):
+        return E.GenerateExec(sub(plan.children[0]), plan.generator,
+                              plan.outer, plan.pos, plan.schema)
     if isinstance(plan, L.Union):
         return E.UnionExec([sub(c) for c in plan.children], plan.schema)
     if isinstance(plan, L.Expand):

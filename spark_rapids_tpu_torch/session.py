@@ -37,6 +37,7 @@ from .io import parquet_device as PQ
 from .io.parquet_meta import read_footer, schema_from_parquet
 from .parallel.mesh import Mesh, make_mesh
 from .plan import logical as L
+from .plan.input_file import rewrite_input_file_exprs
 from .plan.planner import plan_physical
 
 #: Escalation rounds before a query gives up. Every site has at most
@@ -140,7 +141,9 @@ class TorchSession:
                            self)
 
     def plan(self, logical: L.LogicalPlan) -> E.TorchExec:
-        return plan_physical(logical, self.conf)
+        """The physical plan, after the input-file rewrite
+        (:mod:`.plan.input_file`)."""
+        return plan_physical(rewrite_input_file_exprs(logical), self.conf)
 
     def explain(self, logical: L.LogicalPlan) -> str:
         return self.plan(logical).tree_string()

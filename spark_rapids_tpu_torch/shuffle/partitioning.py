@@ -196,24 +196,44 @@ def spark_hash_columns_device(cols: Sequence[DeviceColumn],
                               seed: int = SPARK_SEED) -> torch.Tensor:
     """Spark's row hash over device columns, int32 bits ``[capacity]``:
     the running hash starts at ``seed`` and each column folds in turn; a
-    null keeps the running hash. A string column hashes from its own
-    layout through the ``hash`` kernel's ragged entry, as wide as its
-    char matrix would be."""
-    from ..ops.kernels.cuda import hashing as HK
+    null keeps the running hash. A string column (a struct's string
+    field too) hashes from its own layout through the ``hash`` kernel's
+    ragged entry, as wide as its char matrix would be."""
     n = cols[0].capacity
     h = torch.full((n,), seed & _M32, dtype=torch.int64,
                    device=cols[0].device)
     for c in cols:
-        if c.is_string:
-            payload, offsets = c.dict_bytes if c.is_dict \
-                else (c.data, c.offsets)
-            nh = HK.murmur3_string_rows(payload, offsets, c.codes,
-                                        max(c.max_bytes, 1),
-                                        to_int32_bits(h))
-            h = torch.where(c.validity, u32(nh), h)
-        else:
-            h = hash_column(c.data, c.validity, c.dtype, h)
+        h = _hash_device_column(c, h)
     return to_int32_bits(h)
+
+
+def _hash_device_column(c: DeviceColumn, h: torch.Tensor) -> torch.Tensor:
+    """One column folded into the running u32 hash ``h``, Spark's
+    ``HashExpression.computeHash``: a null keeps ``h``; a struct folds
+    its fields in order and an array its live elements in order, a null
+    field or element keeping the running hash (the reference's
+    ``_hash_device_column``)."""
+    from ..ops.kernels.cuda import hashing as HK
+    if c.is_struct:
+        hh = h
+        for kid in c.children:
+            hh = _hash_device_column(kid, hh)
+        return torch.where(c.validity, hh, h)
+    if c.is_array:
+        hh = h
+        in_len = torch.arange(c.max_len, device=c.device)[None, :] \
+            < c.lengths[:, None]
+        et = c.dtype.element_type
+        for j in range(c.max_len):
+            live = in_len[:, j] & c.elem_validity[:, j]
+            hh = hash_column(c.data[:, j], live, et, hh)
+        return torch.where(c.validity, hh, h)
+    if c.is_string:
+        payload, offsets = c.dict_bytes if c.is_dict else (c.data, c.offsets)
+        nh = HK.murmur3_string_rows(payload, offsets, c.codes,
+                                    max(c.max_bytes, 1), to_int32_bits(h))
+        return torch.where(c.validity, u32(nh), h)
+    return hash_column(c.data, c.validity, c.dtype, h)
 
 
 def pmod_partition(hash32: torch.Tensor, n_parts: int) -> torch.Tensor:

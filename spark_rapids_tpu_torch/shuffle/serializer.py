@@ -15,7 +15,11 @@ moves columns in their device layout (:class:`..data.batch.HostColumn`):
 
 A dictionary column travels as its int32 code lane plus its dictionary
 (entry offsets and bytes), so the read side rebuilds the column without
-re-encoding its rows, and it keeps ``dict_sorted``.
+re-encoding its rows, and it keeps ``dict_sorted``. An array travels as
+its lengths, element matrix and element mask (its ``max_len`` in the
+field's ``max_bytes`` slot); a struct as its validity, then each field
+in turn, the fields' header entries following the struct's (their count
+in its ``max_bytes`` slot).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from .codec import CopyCodec, get_codec
 _MAGIC = b"TRCS"
 _VERSION = 1
 _ALIGN = 8
-_FIXED, _DICT, _FLAT = 0, 1, 2
+_FIXED, _DICT, _FLAT, _ARRAY, _STRUCT = 0, 1, 2, 3, 4
 
 
 def _pad(n: int) -> int:
@@ -48,12 +52,31 @@ def _dictionary_lanes(dictionary: np.ndarray) -> Tuple[np.ndarray,
 
 
 def _column_lanes(c: HostColumn) -> Tuple[int, List[np.ndarray]]:
+    if c.is_struct:
+        return _STRUCT, [c.validity]
+    if c.is_array:
+        return _ARRAY, [c.validity, c.lengths.astype(np.int32), c.data,
+                        c.elem_validity]
     if c.is_flat:
         return _FLAT, [c.validity, c.offsets.astype(np.int32), c.data]
     if c.is_dict:
         return _DICT, [c.validity, c.codes.astype(np.int32),
                        *_dictionary_lanes(c.dictionary)]
     return _FIXED, [c.validity, c.data]
+
+
+def _entries(cols: Sequence[HostColumn], fields) -> list:
+    """(field, column, kind, lanes, slot) in header order: a struct, then
+    its fields' entries. ``slot`` is the header's ``max_bytes`` value."""
+    out = []
+    for f, c in zip(fields, cols):
+        kind, lanes = _column_lanes(c)
+        slot = len(c.children) if kind == _STRUCT else \
+            c.data.shape[1] if kind == _ARRAY else c.max_bytes
+        out.append((f, c, kind, lanes, slot))
+        if kind == _STRUCT:
+            out += _entries(c.children, c.dtype.fields)
+    return out
 
 
 def serialize_block(cols: Sequence[HostColumn],
@@ -64,21 +87,18 @@ def serialize_block(cols: Sequence[HostColumn],
     writable, so the read side's lane views are too. The body goes
     through the pass-through codec, the only one ported."""
     n_rows = cols[0].num_rows if cols else 0
-    kinds, lanes = [], []
-    for c in cols:
-        kind, ls = _column_lanes(c)
-        kinds.append(kind)
-        lanes += [np.ascontiguousarray(a).reshape(-1).view(np.uint8)
-                  for a in ls]
+    entries = _entries(cols, schema)
+    lanes = [np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+             for e in entries for a in e[3]]
     body_size = sum(_pad(a.nbytes) for a in lanes)
     head = [_MAGIC, struct.pack("<HqH", _VERSION, n_rows, len(cols))]
     codec_b = CopyCodec.name.encode()
     head += [struct.pack("<H", len(codec_b)), codec_b,
              struct.pack("<qq", body_size, body_size)]
-    for f, c, kind in zip(schema, cols, kinds):
+    for f, c, kind, _, slot in entries:
         nb, tb = f.name.encode(), f.data_type.name.encode()
         head += [struct.pack("<HHBBBq", len(nb), len(tb), int(f.nullable),
-                             kind, int(c.dict_sorted), c.max_bytes), nb, tb]
+                             kind, int(c.dict_sorted), slot), nb, tb]
     head.append(struct.pack("<H", len(lanes)))
     head.append(struct.pack(f"<{len(lanes)}q", *(a.nbytes for a in lanes)))
     header = np.frombuffer(b"".join(head), np.uint8)
@@ -112,16 +132,27 @@ def deserialize_block(payload) -> Tuple[T.Schema, List[HostColumn]]:
     pos += codec_len
     csize, usize = struct.unpack_from("<qq", payload, pos)
     pos += 16
-    fields, metas = [], []
-    for _ in range(n_fields):
+    at_head = [pos]
+
+    def field_entry():
+        """One header entry and, for a struct, its fields' entries:
+        (field, kind, dict_sorted, max_bytes, children)."""
+        p = at_head[0]
         nl, tl, nullable, kind, dict_sorted, max_bytes = struct.unpack_from(
-            "<HHBBBq", payload, pos)
-        pos += struct.calcsize("<HHBBBq")
-        name = bytes(payload[pos:pos + nl]).decode()
-        dtype = T.from_name(bytes(payload[pos + nl:pos + nl + tl]).decode())
-        pos += nl + tl
-        fields.append(T.StructField(name, dtype, bool(nullable)))
-        metas.append((kind, bool(dict_sorted), max_bytes))
+            "<HHBBBq", payload, p)
+        p += struct.calcsize("<HHBBBq")
+        name = bytes(payload[p:p + nl]).decode()
+        dtype = T.from_name(bytes(payload[p + nl:p + nl + tl]).decode())
+        at_head[0] = p + nl + tl
+        kids = [field_entry() for _ in range(max_bytes)] \
+            if kind == _STRUCT else []
+        if kids:
+            dtype = T.StructType([k[0] for k in kids])
+        return (T.StructField(name, dtype, bool(nullable)), kind,
+                bool(dict_sorted), max_bytes, kids)
+
+    entries = [field_entry() for _ in range(n_fields)]
+    pos = at_head[0]
     (n_lanes,) = struct.unpack_from("<H", payload, pos)
     pos += 2
     sizes = struct.unpack_from(f"<{n_lanes}q", payload, pos)
@@ -136,26 +167,34 @@ def deserialize_block(payload) -> Tuple[T.Schema, List[HostColumn]]:
         return np.frombuffer(body, dtype, nb // np.dtype(dtype).itemsize,
                              start)
 
-    cols = []
-    for f, (kind, dict_sorted, max_bytes) in zip(fields, metas):
+    def column(entry) -> HostColumn:
+        f, kind, dict_sorted, max_bytes, kids = entry
         validity = lane(np.bool_)
+        if kind == _STRUCT:
+            return HostColumn(f.data_type, validity,
+                              children=[column(k) for k in kids])
+        if kind == _ARRAY:
+            lengths = lane(np.int32)
+            shape = (len(validity), max_bytes)
+            return HostColumn(f.data_type, validity, lengths=lengths,
+                              data=lane(f.data_type.np_dtype).reshape(shape),
+                              elem_validity=lane(np.bool_).reshape(shape))
         if kind == _FLAT:
-            cols.append(HostColumn(f.data_type, validity,
-                                   offsets=lane(np.int32),
-                                   data=lane(np.uint8), max_bytes=max_bytes))
-        elif kind == _DICT:
+            return HostColumn(f.data_type, validity, offsets=lane(np.int32),
+                              data=lane(np.uint8), max_bytes=max_bytes)
+        if kind == _DICT:
             codes = lane(np.int32)
             offsets, raw = lane(np.int64), lane(np.uint8).tobytes()
             dictionary = np.array(
                 [raw[a:b].decode("utf-8") for a, b in
                  zip(offsets[:-1], offsets[1:])], dtype=object)
-            cols.append(HostColumn(f.data_type, validity, codes=codes,
-                                   dictionary=dictionary,
-                                   dict_sorted=dict_sorted))
-        else:
-            cols.append(HostColumn(f.data_type, validity,
-                                   data=lane(f.data_type.np_dtype)))
+            return HostColumn(f.data_type, validity, codes=codes,
+                              dictionary=dictionary, dict_sorted=dict_sorted)
+        return HostColumn(f.data_type, validity,
+                          data=lane(f.data_type.np_dtype))
+
+    cols = [column(e) for e in entries]
     if any(c.num_rows != n_rows for c in cols):
         raise ValueError(f"shuffle block of {n_rows} rows holds a column "
                          "of another length")
-    return T.Schema(fields), cols
+    return T.Schema([e[0] for e in entries]), cols

@@ -8,7 +8,9 @@ short, float and timestamp types come from parquet files (the scan,
 ``io/``). Uploaded strings are dictionary-encoded on
 the device (int32 codes) with the dictionary kept on the host, so their
 device lane is int32; expressions may build flat strings (offsets and
-a byte payload, ``data/column.py``).
+a byte payload, ``data/column.py``). ``ArrayType`` (fixed-width
+elements) and ``StructType`` (scalar fields) are the reference's complex
+types, with its ``device_supported`` rule.
 """
 
 from __future__ import annotations
@@ -109,6 +111,55 @@ class StringType(DataType):
     torch_dtype = torch.int32
 
 
+@dataclasses.dataclass(frozen=True)
+class ArrayType(DataType):
+    """ARRAY<element>. Device layout is padded-ragged, the reference's: a
+    ``[capacity, max_len]`` element matrix, a matching element mask and
+    an int32 length lane (``data/column.py``), so rows move like fixed
+    width rows. Elements are fixed width (:func:`device_supported`)."""
+
+    element_type: DataType = None
+    contains_null: bool = True
+
+    @property
+    def name(self) -> str:  # type: ignore[override]
+        return f"array<{self.element_type.name}>"
+
+    @property
+    def np_dtype(self) -> np.dtype:  # type: ignore[override]
+        return self.element_type.np_dtype
+
+    @property
+    def torch_dtype(self) -> torch.dtype:  # type: ignore[override]
+        return self.element_type.torch_dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class StructType(DataType):
+    """STRUCT<f1: t1, ...>. Device layout is column-shredded: one child
+    column per field plus a struct-level validity lane."""
+
+    fields: tuple = None  # tuple[StructField]
+
+    def __init__(self, fields):
+        object.__setattr__(self, "fields", tuple(fields))
+
+    @property
+    def name(self) -> str:  # type: ignore[override]
+        inner = ",".join(f"{f.name}:{f.data_type.name}" for f in self.fields)
+        return f"struct<{inner}>"
+
+    def field_index(self, name: str) -> int:
+        for i, f in enumerate(self.fields):
+            if f.name == name:
+                return i
+        raise KeyError(name)
+
+
+def is_complex(dt: DataType) -> bool:
+    return isinstance(dt, (ArrayType, StructType))
+
+
 BOOLEAN = BooleanType()
 BYTE = ByteType()
 SHORT = ShortType()
@@ -125,8 +176,47 @@ _BY_NAME = {t.name: t for t in (BOOLEAN, BYTE, SHORT, INT, LONG, FLOAT,
                                 DOUBLE, DATE, TIMESTAMP, STRING)}
 
 
+#: Types every operator takes, the reference's ``DEFAULT_DEVICE_TYPES``.
+DEFAULT_DEVICE_TYPES = frozenset(_BY_NAME.values())
+
+
+def device_supported(dt: DataType) -> bool:
+    """The reference's ``types.device_supported``: arrays of fixed-width
+    elements, structs of non-nested fields, and the scalar types."""
+    if dt in DEFAULT_DEVICE_TYPES:
+        return True
+    if isinstance(dt, ArrayType):
+        return dt.element_type in DEFAULT_DEVICE_TYPES \
+            and dt.element_type is not STRING
+    if isinstance(dt, StructType):
+        return all(f.data_type in DEFAULT_DEVICE_TYPES for f in dt.fields)
+    return False
+
+
+def _split_top(inner: str):
+    """``inner`` cut at the commas outside angle brackets."""
+    parts, depth, start = [], 0, 0
+    for i, ch in enumerate(inner):
+        depth += ch == "<"
+        depth -= ch == ">"
+        if ch == "," and depth == 0:
+            parts.append(inner[start:i])
+            start = i + 1
+    parts.append(inner[start:])
+    return parts
+
+
 def from_name(name: str) -> DataType:
-    """The type whose ``name`` this is (the shuffle block header's)."""
+    """The type whose ``name`` this is (the shuffle block header's);
+    an array's elements and a struct's fields come back nullable."""
+    if name.startswith("array<"):
+        return ArrayType(from_name(name[6:-1]))
+    if name.startswith("struct<"):
+        fields = []
+        for part in _split_top(name[7:-1]):
+            fname, tname = part.split(":", 1)
+            fields.append(StructField(fname, from_name(tname)))
+        return StructType(fields)
     return _BY_NAME[name]
 
 

@@ -1051,3 +1051,27 @@ def test_cuda_expression_family_matches_cpu(cuda_device, family):
                                         for i, e in enumerate(exprs)])
         got[dev] = _sorted_rows(out.collect())
     assert got["cuda"] == got["cpu"] and got["cpu"]
+
+
+@pytest.mark.cuda
+def test_cuda_generate_matches_cpu(cuda_device, monkeypatch):
+    """``posexplode_outer`` over a batch with a flat string column and a
+    struct with a flat string field, across tile boundaries (the lane
+    bound lowered so 3,000 rows take three tiles): on the card, bit for
+    bit the same plan on the CPU, the parents through the ragged
+    ``strings`` gather."""
+    from spark_rapids_tpu_torch.exec import execs as E
+    from spark_rapids_tpu_torch.exec import generate_cases as GC
+    from spark_rapids_tpu_torch.session import TorchSession
+    monkeypatch.setattr(E.GenerateExec, "TILE_LANES", GC.TILE_LANES)
+    table = GC.generate_table()
+    before = SG.gather_strings.launches
+    got = GC.generate_query(TorchSession(device="cuda"), table).collect()
+    assert SG.gather_strings.launches > before
+    want = GC.generate_query(TorchSession(device="cpu"), table).collect()
+    assert got.schema.names == want.schema.names
+    for name in got.schema.names:
+        g, w = got.columns[name], want.columns[name]
+        assert np.array_equal(got.validity[name], want.validity[name])
+        assert len(g) == len(w) and all(
+            repr(a) == repr(b) for a, b in zip(g.tolist(), w.tolist())), name
