@@ -6342,6 +6342,10 @@ def run_tpcds(torch, ctx, session, wrappers, ss_rows: int, seed: int,
               f"{k}={v.num_rows}" for k, v in tables.items()))
     with_variant = {base for base, _ in DS_VARIANTS.values()}
     empty = []
+    # the metrics phase's star-join cell, over these resident tables
+    ctx.metrics_cells["ds_q3"] = (
+        tpcds.QUERIES["q3"](dfs), lambda got: check_ds(
+            "ds_q3", ds_host_rows(got), refs["q3"], "q3"), None)
 
     def record(got_launches, got_calls):
         for k in wrappers.mods:
@@ -7156,6 +7160,285 @@ def run_entry_stage(torch, ENTRY, HostBatch, wrappers, name, profile,
         "groups": groups, "cold_ms": cold_ms, "warm_runs_ms": runs,
         "warm_median_ms": statistics.median(runs), "peak_gib": peak_gib,
         "launches": launches, "segmented_ops": ops}
+
+
+# ---------------------------------------------------------------------------
+# The metrics phase: the query-profile and tracing layer over resident cells
+# ---------------------------------------------------------------------------
+
+#: cell -> (the kernel family it must launch, or None; span names its
+#: trace must hold beyond the session's; whether its float columns are
+#: sums the card adds in atomic order, whose last bits may vary from run
+#: to run whatever the metrics level, and which are then held to
+#: ``REV_RTOL``, as pq_q1's with the pipeline on and off).
+METRICS_CELLS = {
+    "ds_q3": ("joinProbe", (), True),
+    "entry_sf1": ("segmented", (), False),
+    "sort": ("sortStep", (), False),
+    "q22": ("strings", (), True),
+    "q1_hash_str": ("hash", ("shuffle.map",), True),
+    "pq_q1": (None, ("pipeline.boundary", "pipeline.decode",
+                     "pipeline.wait"), True),
+}
+#: The three levels the phase compares, run interleaved.
+METRICS_LEVELS = ("none", "default", "essential")
+#: Warm runs at each level (after one cold run each).
+METRICS_RUNS = 5
+#: Spans every traced query holds.
+SESSION_SPANS = {"session.query", "session.plan", "session.dispatch"}
+
+
+class SyncCounter:
+    """Counts the calls of ``torch.cuda.synchronize`` while open (it wraps
+    the function; ``QueryInfo.exec_ms`` calls it once a query)."""
+
+    def __init__(self, torch):
+        self.torch, self.n = torch, 0
+
+    def __enter__(self):
+        self.orig = self.torch.cuda.synchronize
+
+        def counting(*a, **k):
+            self.n += 1
+            return self.orig(*a, **k)
+        self.torch.cuda.synchronize = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.synchronize = self.orig
+
+
+def metrics_sessions(TorchSession, log_dir: str) -> dict:
+    """The phase's three sessions: metrics level NONE; the defaults
+    (MODERATE, no trace); ESSENTIAL with tracing, device timing, the event
+    log and the trace files in ``log_dir``."""
+    return {
+        "none": TorchSession({"spark.rapids.tpu.metrics.level": "NONE"},
+                             device="cuda"),
+        "default": TorchSession(device="cuda"),
+        "essential": TorchSession({
+            "spark.rapids.tpu.metrics.level": "ESSENTIAL",
+            "spark.rapids.tpu.metrics.deviceTiming": True,
+            "spark.rapids.tpu.metrics.eventLog.dir": log_dir,
+            "spark.rapids.tpu.trace.enabled": True,
+            "spark.rapids.tpu.trace.dir": log_dir}, device="cuda")}
+
+
+def same_answer(cell: str, got, want, atomic: bool) -> bool:
+    """``got`` equals ``want`` column for column: validity, integers,
+    dates and strings bit for bit, floats bit for bit or, in a cell whose
+    float sums run in atomic order, to ``REV_RTOL``. Returns whether every
+    column was bit-identical."""
+    check(got.schema.names == want.schema.names,
+          f"{cell}: columns {got.schema.names} vs {want.schema.names}")
+    identical = True
+    for i, name in enumerate(want.schema.names):
+        g, g_ok = got.column_at(i)
+        w, w_ok = want.column_at(i)
+        check(len(g) == len(w) and np.array_equal(g_ok, w_ok),
+              f"{cell}: {name}'s rows or nulls differ between levels")
+        if w.dtype == object:
+            check(g.tolist() == w.tolist(), f"{cell}: {name} differs")
+        elif g.tobytes() != w.tobytes():
+            check(atomic and w.dtype.kind == "f" and bool(np.all(
+                np.abs(g - w) <= REV_RTOL * np.abs(w))),
+                f"{cell}: {name} differs between metrics levels")
+            identical = False
+    return identical
+
+
+def check_profile_tree(cell: str, node: dict, plan) -> int:
+    """The profile's tree is the physical plan node for node (names,
+    describe strings, children). Returns its nodes."""
+    check(node["name"] == plan.node_name()
+          and node["describe"] == plan.describe()
+          and len(node["children"]) == len(plan.children),
+          f"{cell}: profile node {node['name']} ({node['describe']}) does "
+          f"not match the plan's {plan.node_name()} ({plan.describe()})")
+    return 1 + sum(check_profile_tree(cell, c, p)
+                   for c, p in zip(node["children"], plan.children))
+
+
+def top_nodes(prof, n: int = 3) -> list:
+    """The profile's ``n`` nodes (tree and extras) with the most opTime,
+    as [name, ms]."""
+    times = {}
+
+    def walk(node):
+        t = node["metrics"].get("opTime", 0)
+        times[node["name"]] = max(times.get(node["name"], 0), t)
+        for c in node["children"]:
+            walk(c)
+    walk(prof.tree)
+    for name, m in prof.extras.items():
+        times[name] = m.get("opTime", 0)
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:n]
+    return [[k, round(v / 1e6, 3)] for k, v in top]
+
+
+def check_trace(cell: str, tracer, log_dir: str, spans) -> int:
+    """A traced run: its span tree balanced, holding the session's spans
+    and ``spans``, and its exported Chrome file loads back with one
+    complete event per span. Returns the spans."""
+    tracer.assert_balanced()
+    names = {s["name"] for s in tracer.spans}
+    missing = (SESSION_SPANS | set(spans)) - names
+    check(not missing, f"{cell}: the trace lacks {sorted(missing)}")
+    path = Path(log_dir) / f"trace_{tracer.trace_id}.json"
+    with open(path, encoding="utf-8") as f:
+        chrome = json.load(f)
+    xs = [e for e in chrome["traceEvents"] if e["ph"] == "X"]
+    check(len(xs) == len(tracer.spans) and chrome["otherData"]["trace_id"]
+          == tracer.trace_id, f"{cell}: {path.name} does not load back")
+    return len(tracer.spans)
+
+
+def metrics_cell(torch, TorchSession, eventlog, wrappers, cell, plan, verify,
+                 prepare, log_root: str) -> dict:
+    """One cell of the metrics phase: a cold run, then ``METRICS_RUNS``
+    warm runs, of each of :func:`metrics_sessions`' levels, interleaved.
+    Each level's cold answer passes ``verify``, and every run's equals the
+    level-NONE cold answer (:func:`same_answer`); at the profiled levels
+    the profile tree is the plan, and its ``cuda`` launches equal the
+    wrappers' counts over the run (set to 0 just before); at ESSENTIAL
+    the trace checks
+    (:func:`check_trace`), every launched family's device time above 0,
+    and one event-log line per query carrying the profile's plan hash;
+    the ``torch.cuda.synchronize`` calls equal at NONE and at the
+    defaults. Returns the warm medians and the last ESSENTIAL profile's
+    summary."""
+    kernel, spans, atomic = METRICS_CELLS[cell]
+    log_dir = os.path.join(log_root, cell)
+    sessions = metrics_sessions(TorchSession, log_dir)
+    if prepare is not None:
+        for s in sessions.values():
+            prepare(s, plan)
+    times = {lv: [] for lv in METRICS_LEVELS}
+    syncs = {lv: [] for lv in METRICS_LEVELS}
+    want, identical, n_spans, logged = None, True, 0, 0
+    for rep in range(1 + METRICS_RUNS):
+        for lv in METRICS_LEVELS:
+            s = sessions[lv]
+            torch.cuda.synchronize()
+            wrappers.reset()
+            with SyncCounter(torch) as sc:
+                t0 = time.perf_counter()
+                got = s.execute(plan)
+                ms = (time.perf_counter() - t0) * 1e3
+            counts = {k: n for k, n in wrappers.counts().items() if n}
+            if not rep:
+                verify(got)
+            if want is None:
+                want = got
+            identical &= same_answer(cell, got, want, atomic)
+            syncs[lv].append(sc.n)
+            if rep:
+                times[lv].append(ms)
+            prof = s.last_query_profile()
+            if lv == "none":
+                check(prof is None and s.last_trace() is None,
+                      f"{cell}: level NONE left a profile or a trace")
+                continue
+            launched = {k: v["launches"] for k, v in
+                        prof.engine["cuda"]["kernels"].items()}
+            check(launched == counts, f"{cell} ({lv}): the profile's cuda "
+                  f"launches {launched}, the wrappers' {counts}")
+            check(kernel is None or counts.get(kernel, 0) > 0,
+                  f"{cell}: {kernel} was not launched")
+            check_profile_tree(cell, prof.tree, s.plan(plan))
+            if lv != "essential":
+                continue
+            for fam, v in prof.engine["cuda"]["kernels"].items():
+                check(v.get("deviceTimeNs", 0) > 0,
+                      f"{cell}: {fam} has no device time: {v}")
+            n_spans = check_trace(cell, s.last_trace(), log_dir, spans)
+            logged += 1
+            lines = eventlog.read_all(log_dir)
+            check(len(lines) == logged
+                  and lines[-1]["plan_hash"] == prof.plan_hash
+                  and lines[-1]["query_id"] == prof.query_id,
+                  f"{cell}: {len(lines)} event-log lines after {logged} "
+                  "queries, or the last is not this query's")
+            last = prof
+    check(syncs["none"] == syncs["default"],
+          f"{cell}: torch.cuda.synchronize calls per run at NONE "
+          f"{syncs['none']}, at the defaults {syncs['default']}")
+    medians = {f"{lv}_ms": statistics.median(times[lv])
+               for lv in METRICS_LEVELS}
+    profile = {"top": top_nodes(last), "cuda": last.engine["cuda"]["kernels"],
+               "spans": n_spans, "bit_identical": identical}
+    print(f"PROFILE {cell} " + json.dumps(profile))
+    print(f"  {cell.upper()} at NONE / defaults / ESSENTIAL with trace and "
+          f"deviceTiming, warm runs (ms): "
+          + ", ".join(f"{lv} {[round(t, 3) for t in times[lv]]}"
+                      for lv in METRICS_LEVELS)
+          + f"; synchronize calls a run {syncs['none'][-1]} / "
+          f"{syncs['default'][-1]} / {syncs['essential'][-1]}; answers "
+          + ("bit-identical" if identical else
+             f"equal, float sums to {REV_RTOL} (atomic order)"))
+    for s in sessions.values():
+        s.close()
+    return {**medians, "profile": profile,
+            "synchronize_per_run": {lv: syncs[lv][-1]
+                                    for lv in METRICS_LEVELS}}
+
+
+def entry_stage_frame(ENTRY, T, HostBatch, A, P, col, lit, session, n: int,
+                      key_range: int):
+    """The entry stage as a query: the rows of ``entry_columns(n,
+    key_range)`` with ``q < 90``, grouped by ``k`` with ``sum(q)``,
+    ``count(*)``, ``min(p)`` and ``max(p)``, uploaded to ``session``'s
+    device. Returns (the DataFrame, a verify function against
+    ``entry_reference``)."""
+    cols = ENTRY.entry_columns(n=n, key_range=key_range)
+    schema = T.Schema([T.StructField(k, T.LONG) for k in cols])
+    df = session.create_dataframe(HostBatch.from_numpy(cols, schema)) \
+        .where(P.LessThan(col("q"), lit(90))).group_by("k").agg(
+            A.AggregateExpression(A.Sum(col("q")), "_buf0_sum"),
+            A.AggregateExpression(A.Count(), "_buf1_count"),
+            A.AggregateExpression(A.Min(col("p")), "_buf2_min"),
+            A.AggregateExpression(A.Max(col("p")), "_buf3_max"))
+    want = ENTRY.entry_reference(cols)
+
+    def verify(got):
+        order = np.argsort(got.columns["k"], kind="stable")
+        for name, w in want.items():
+            g = got.columns[name][order]
+            check(len(g) == len(w) and np.array_equal(g, w),
+                  f"entry_sf1: {name} {list(g[:6])} vs {list(w[:6])}")
+    return df, verify
+
+
+def sort_path(session, plan) -> None:
+    """Start ``plan``'s aggregate on the sort path, as ``entry()``'s
+    forward runs it (``dense_mode=1``): the session takes a site's
+    learned mode, so the only site is set to 1, as one escalation would
+    leave it."""
+    session._learned[session._signature(session.plan(plan))] = {0: 1}
+
+
+def run_metrics_phase(torch, TorchSession, eventlog, wrappers,
+                      cells: dict) -> dict:
+    """The metrics phase over ``cells`` (cell -> (DataFrame, verify,
+    prepare or None)), each through :func:`metrics_cell`; prints the
+    ``METRICS_OVERHEAD`` line of warm medians. Trace files and event
+    logs go to a temporary directory, removed at the end."""
+    check(sorted(cells) == sorted(METRICS_CELLS),
+          f"metrics cells {sorted(cells)}")
+    log_root = tempfile.mkdtemp(prefix="chip_smoke_metrics_")
+    out = {}
+    try:
+        for cell in METRICS_CELLS:
+            df, verify, prepare = cells[cell]
+            out[cell] = metrics_cell(torch, TorchSession, eventlog, wrappers,
+                                     cell, df._plan, verify, prepare,
+                                     log_root)
+    finally:
+        shutil.rmtree(log_root, True)
+    print("METRICS_OVERHEAD " + json.dumps(
+        {cell: {k: round(v, 3) for k, v in r.items() if k.endswith("_ms")}
+         for cell, r in out.items()}))
+    return out
 
 
 def check_distributed(torch, D, mesh, dfs, tables) -> dict:
@@ -8122,6 +8405,7 @@ def main() -> int:
     from spark_rapids_tpu_torch.io import parquet_meta as M
     from spark_rapids_tpu_torch.io import snappy as SN
     from spark_rapids_tpu_torch.io import snappy_cases as SC
+    from spark_rapids_tpu_torch.metrics import eventlog as EL
 
     ref_workers, futures = start_references(args)
     dev = torch.device("cuda")
@@ -8360,8 +8644,10 @@ def main() -> int:
                                       SortOrder=L.SortOrder,
                                       HostBatch=HostBatch,
                                       StringSplit=S2.StringSplit)
+    metrics_cells = {}
     ds_ctx = types.SimpleNamespace(tpcds=tpcds, PE=PE, SN=SN,
-                                   ColumnarBatch=ColumnarBatch, M=expr_mods)
+                                   ColumnarBatch=ColumnarBatch, M=expr_mods,
+                                   metrics_cells=metrics_cells)
     ds_summaries, ds_launches, ds_calls = run_tpcds(
         torch, ds_ctx, session, wrappers, args.ds_ss_rows, args.seed,
         pq_dir, args.profile, futures)
@@ -8474,6 +8760,22 @@ def main() -> int:
         distributed = check_distributed(torch, D, mesh4, dfs, tables)
         launches["hash"] += wrappers.counts()["hash"]
         calls["hash"] += cap.calls
+
+    # The query-profile and tracing layer over resident cells: the
+    # answers, profiles, launches, traces, event log and synchronisations
+    # at metrics level NONE, at the defaults and at ESSENTIAL with tracing
+    # and device timing.
+    print(f"metrics phase {at()}: {', '.join(METRICS_CELLS)} at NONE, the "
+          "defaults and ESSENTIAL with trace and deviceTiming")
+    metrics_cells["entry_sf1"] = entry_stage_frame(
+        ENTRY, T, HostBatch, A, P, col, lit, session, args.lineitem_rows,
+        1_500_000) + (sort_path,)
+    for q in ("sort", "q22", "q1_hash_str"):
+        metrics_cells[q] = (queries[q][0](), queries[q][1], None)
+    metrics_cells["pq_q1"] = (tpch.q1(pq_dfs), pq_check("q1"), None)
+    metrics = run_metrics_phase(torch, TorchSession, EL, wrappers,
+                                metrics_cells)
+    del metrics_cells
 
     # -- phase 4: kernels at the queries' shapes ---------------------------
     print(f"phase 4 {at()}: kernels at the shapes the queries gave them")
@@ -8634,6 +8936,7 @@ def main() -> int:
         "mort_launches": mort_launches,
         "distributed_sum_by_key": distributed,
         "q6_default_mesh_ms": default_ms, "entry_stage": entry_runs,
+        "metrics": metrics,
         "xbb_score_max_score_ulps": max(xbb_ulps),
         "pipeline_off": pipeline_off, "run_tables": runs_check,
         "parquet": {"fixture": fixture, "sf1_pages": sf1_pages,

@@ -90,6 +90,70 @@ PARQUET_REBASE_READ = conf_str(
     "LEGACY raises (the reader does not rebase).")
 
 
+METRICS_LEVEL = conf_str(
+    "spark.rapids.tpu.metrics.level", "MODERATE",
+    "Operator metrics level (metrics/registry.py): NONE turns the whole "
+    "query-profile layer off (no metric recording, no QueryProfile), "
+    "ESSENTIAL records the core taxonomy (rows, batches, bytes, opTime), "
+    "MODERATE adds build, sort and pipeline timings, DEBUG adds "
+    "serialization and concat internals. Answers are bit for bit the "
+    "same at every level, and no level below DEBUG adds a device "
+    "synchronisation.")
+
+METRICS_DEVICE_TIMING = conf_bool(
+    "spark.rapids.tpu.metrics.deviceTiming", False,
+    "Attribute device time per query: each exec's CUDA event pair becomes "
+    "its deviceTime metric, and a CUDA event pair around every kernel "
+    "launch becomes the profile's per-family deviceTimeNs, all read at "
+    "query end after the synchronisation the session does anyway.")
+
+METRICS_EVENT_LOG_DIR = conf_str(
+    "spark.rapids.tpu.metrics.eventLog.dir", None,
+    "Directory for the structured query event log: every executed query "
+    "appends its QueryProfile as one JSON line to query_profiles.jsonl "
+    "(crash-safe append; torn lines are skipped on read). Unset disables "
+    "the log.")
+
+METRICS_EVENT_LOG_MAX_BYTES = conf_int(
+    "spark.rapids.tpu.metrics.eventLog.maxBytes", 64 << 20,
+    "Size cap of the event log: when an append would push "
+    "query_profiles.jsonl past this many bytes, the file is renamed to "
+    "query_profiles.jsonl.1 (one prior generation kept) and the append "
+    "starts a fresh file. 0 disables rotation.")
+
+TRACE_ENABLED = conf_bool(
+    "spark.rapids.tpu.trace.enabled", False,
+    "Per-query span tracing (metrics/trace.py): a span tree over the "
+    "session's plan and dispatch attempts, the scans' pipeline workers "
+    "and the exchange's map side, exported per query as Chrome "
+    "trace-event JSON beside the event log. Off by default: the disabled "
+    "path is no-op spans and bit-identical results. Read per session.")
+
+TRACE_DIR = conf_str(
+    "spark.rapids.tpu.trace.dir", None,
+    "Directory for exported per-query trace files "
+    "(trace_<trace_id>.json). Unset: traces land beside the event log "
+    "(spark.rapids.tpu.metrics.eventLog.dir); with neither set, spans "
+    "still feed the in-memory flight recorder but no file is written.")
+
+TRACE_MAX_FILES = conf_int(
+    "spark.rapids.tpu.trace.maxFiles", 256,
+    "Retention bound on exported trace files: after each export the "
+    "oldest trace_*.json beyond this count are removed from the trace "
+    "directory. 0 disables pruning.")
+
+TRACE_FLIGHT_SPANS = conf_int(
+    "spark.rapids.tpu.trace.flightRecorder.spans", 4096,
+    "Bound on the in-memory flight recorder: the ring keeps this many "
+    "recent finished spans and engine events across all queries, dumped "
+    "to JSON by trace.flight_dump and on SIGTERM once tracing is on.")
+
+TRACE_FLIGHT_DIR = conf_str(
+    "spark.rapids.tpu.trace.flightRecorder.dir", "artifacts",
+    "Directory flight-recorder dumps are written to "
+    "(flight_<reason>_<pid>_<n>.json; bounded per reason).")
+
+
 class TorchConf:
     """Immutable snapshot of a conf dict with typed access."""
 
@@ -101,3 +165,7 @@ class TorchConf:
 
     def get(self, entry: ConfEntry) -> Any:
         return entry.get(self._conf)
+
+    @property
+    def metrics_event_log_dir(self) -> Optional[str]:
+        return self.get(METRICS_EVENT_LOG_DIR) or None

@@ -205,6 +205,14 @@ class HostBatch:
     def num_rows(self) -> int:
         return len(next(iter(self.columns.values()))) if self.columns else 0
 
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the value and validity arrays (an object array counts
+        its pointers)."""
+        pairs = self.positional if self.positional is not None else \
+            [(self.columns[n], self.validity[n]) for n in self.columns]
+        return sum(v.nbytes + ok.nbytes for v, ok in pairs)
+
     def column_at(self, i: int):
         """(values, validity) of the schema's ``i``-th column."""
         if self.positional is not None:
@@ -331,6 +339,15 @@ class HostColumn:
     @property
     def num_rows(self) -> int:
         return len(self.validity)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the lanes (the dictionary, kept on the host, not
+        counted)."""
+        lanes = (self.validity, self.data, self.codes, self.offsets,
+                 self.elem_validity, self.lengths)
+        return sum(a.nbytes for a in lanes if a is not None) + sum(
+            c.nbytes for c in self.children or ())
 
     @property
     def is_dict(self) -> bool:

@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import threading
 import time
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -42,6 +41,7 @@ from .. import types as T
 from ..config import TorchConf
 from ..data.batch import ColumnarBatch, HostBatch, empty_batch
 from ..data.column import DeviceColumn, bucket_capacity
+from ..metrics.registry import MetricsRegistry
 from ..ops import aggregates as AGG
 from ..ops import nondeterministic as ND
 from ..ops.cast import cast_values
@@ -52,18 +52,28 @@ from ..ops.kernels import groupby as KG
 from ..ops.kernels import join as KJ
 from ..ops.kernels import rowops as KR
 from ..ops import strings_util as SU
+from ..utils import lockdep
+from ..utils.tracing import trace_range
 
 
 class ExecContext:
     """Per-attempt state: the session's conf, the learned dense mode of
     each optimistic site, the fail flags this attempt raised,
-    per-operator timings and counters, and the cleanups the session runs
-    when the attempt ends. Timings and counters take a lock: the scan's
-    host work on the pipeline's workers adds to them too."""
+    per-operator timings and counters, the query's metrics registry and
+    span tracer, and the cleanups the session runs when the attempt
+    ends. Timings and counters take a lock: the scan's host work on the
+    pipeline's workers adds to them too.
+
+    ``registry`` is this attempt's :class:`~..metrics.registry.
+    MetricsRegistry` (``spark.rapids.tpu.metrics.level``; inert at NONE),
+    ``trace`` the query's :class:`~..metrics.trace.Tracer` or None, and
+    ``kernel_events`` the CUDA event pairs of this attempt's kernel
+    launches under ``spark.rapids.tpu.metrics.deviceTiming``
+    (:func:`..ops.kernels.cuda.device_timing`)."""
 
     def __init__(self, device: torch.device,
                  dense_modes: Optional[Dict[int, int]] = None,
-                 conf: Optional[TorchConf] = None):
+                 conf: Optional[TorchConf] = None, trace=None):
         self.device = device
         self.conf = conf if conf is not None else TorchConf()
         self.dense_modes = dict(dense_modes or {})
@@ -76,10 +86,13 @@ class ExecContext:
         self.shuffle_catalog = None
         #: name -> count (the scan's rows and decompressed bytes).
         self.counters: Dict[str, int] = {}
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("ExecContext._lock")
         self._cleanups: List[Callable[[], None]] = []
         #: :class:`ReusedExec` -> its partitions, made at its first read.
         self.reused: Dict[int, List[List[ColumnarBatch]]] = {}
+        self.registry = MetricsRegistry.for_conf(self.conf)
+        self.trace = trace
+        self.kernel_events: List[tuple] = []
 
     def next_site(self, kind: str) -> int:
         self.site_kinds.append(kind)
@@ -93,11 +106,20 @@ class ExecContext:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + int(n)
 
-    def host_interval(self, name: str, t0: float, t1: float) -> None:
+    def metric(self, node: str, name: str, value) -> None:
+        """Record ``value`` into metric ``name`` of ``node`` (a no-op when
+        the level gates it). ``value`` must already be on the host."""
+        self.registry.add(node, name, value)
+
+    def host_interval(self, name: str, t0: float, t1: float,
+                      metric: Optional[str] = "opTime") -> None:
         """Add the host-clock interval ``[t0, t1]`` (seconds) to ``name``'s
-        time."""
+        time, and to ``metric`` of the node ``name`` starts with."""
         with self._lock:
             self._marks.append((name, t0, t1))
+        if metric is not None:
+            self.registry.add(name.split(".", 1)[0], metric,
+                              int((t1 - t0) * 1e9))
 
     def add_cleanup(self, fn: Callable[[], None]) -> None:
         """Have :meth:`run_cleanups` call ``fn`` when the attempt ends."""
@@ -118,24 +140,33 @@ class ExecContext:
             self.dense_fails.append((site, fail))
 
     @contextlib.contextmanager
-    def timed(self, name: str, host: bool = False):
+    def timed(self, name: str, host: bool = False, metric: str = "opTime"):
         """Time an operator's own work (its children run before this),
-        labelled for ``torch.profiler``; ``host`` times host work (the
-        exchange's serialization) on the host clock. Times of one name
-        add up across batches."""
-        with torch.profiler.record_function(name):
-            if self.device.type == "cuda" and not host:
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                yield
-                end.record()
-                with self._lock:
-                    self._marks.append((name, start, end))
-            else:
-                t0 = time.perf_counter()
-                yield
-                self.host_interval(name, t0, time.perf_counter())
+        labelled for ``torch.profiler`` (and NVTX on the card); ``host``
+        times host work (the exchange's serialization) on the host clock.
+        Times of one name add up across batches. The host wall time also
+        goes to ``metric`` (``opTime`` unless named) of the node ``name``
+        starts with (``HashAggregateExec.merge`` -> ``HashAggregateExec``);
+        the CUDA events become its ``deviceTime`` at query end
+        (:meth:`record_device_time`, under deviceTiming only)."""
+        t_ns = time.perf_counter_ns()
+        try:
+            with trace_range(name):
+                if self.device.type == "cuda" and not host:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    yield
+                    end.record()
+                    with self._lock:
+                        self._marks.append((name, start, end))
+                else:
+                    t0 = time.perf_counter()
+                    yield
+                    self.host_interval(name, t0, time.perf_counter(), None)
+        finally:
+            self.registry.add(name.split(".", 1)[0], metric,
+                              time.perf_counter_ns() - t_ns)
 
     def exec_ms(self) -> Dict[str, float]:
         """Milliseconds per operator (summed by name); synchronises."""
@@ -149,6 +180,19 @@ class ExecContext:
                 else (b - a) * 1e3
             out[name] = out.get(name, 0.0) + ms
         return out
+
+    def record_device_time(self) -> None:
+        """Each exec's ``deviceTime`` from its CUDA event pairs, under
+        ``spark.rapids.tpu.metrics.deviceTiming`` only. Call after
+        :meth:`exec_ms`, whose synchronisation completed the events."""
+        if not self.registry.device_timing:
+            return
+        with self._lock:
+            marks = [m for m in self._marks
+                     if isinstance(m[1], torch.cuda.Event)]
+        for name, a, b in marks:
+            self.registry.add(name.split(".", 1)[0], "deviceTime",
+                              int(a.elapsed_time(b) * 1e6))
 
 
 def _bind_all(exprs: List[Expression], schema: T.Schema) -> List[Expression]:
@@ -165,6 +209,12 @@ class TorchExec:
     @property
     def name(self) -> str:
         return type(self).__name__
+
+    def node_name(self) -> str:
+        """The metrics registry's key for this exec: its type's name, so
+        repeated execs of one type share accumulators (the reference's
+        convention)."""
+        return self.name
 
     def describe(self) -> str:
         return self.name
@@ -191,13 +241,18 @@ def _coalesce_device(batches: List[ColumnarBatch]) -> ColumnarBatch:
     return KC.concat_batches(batches, cap)
 
 
-def accumulate(child: TorchExec, ctx: ExecContext) -> ColumnarBatch:
+def accumulate(child: TorchExec, ctx: ExecContext,
+               node: str = "Coalesce") -> ColumnarBatch:
     """All of a child's batches as one (an empty batch of its schema when
-    it has none): the input of joins, sort, top-k and limit."""
+    it has none): the input of joins, sort, top-k and limit. A
+    concatenation's time is ``node``'s ``concatTime`` (DEBUG)."""
     batches = [b for part in child.execute(ctx) for b in part]
     if not batches:
         return empty_batch(child.schema, ctx.device)
-    return _coalesce_device(batches)
+    if len(batches) == 1:
+        return batches[0]
+    with ctx.registry.timer(node, "concatTime"):
+        return _coalesce_device(batches)
 
 
 class DeviceSourceExec(TorchExec):
@@ -263,6 +318,7 @@ class UnionExec(TorchExec):
     def execute(self, ctx):
         def relabel(part):
             for b in part:
+                ctx.metric(self.name, "numOutputBatches", 1)
                 yield ColumnarBatch(b.columns, b.n_rows, self._schema,
                                     live=b.live)
         return [relabel(p) for c in self.children for p in c.execute(ctx)]
@@ -291,7 +347,9 @@ class ProjectExec(TorchExec):
         def project(batch):
             with ctx.timed(self.name):
                 cols = [e.eval_device(batch) for e in bound]
-                return batch.with_columns(cols, self.schema)
+                out = batch.with_columns(cols, self.schema)
+            ctx.metric(self.name, "numOutputBatches", 1)
+            return out
         return [(project(b) for b in part) for part in parts]
 
     def _numbered(self, ctx, bound, part, pid: int):
@@ -307,6 +365,7 @@ class ProjectExec(TorchExec):
                     cols = [e.eval_device(batch) for e in bound]
                 out = batch.with_columns(cols, self.schema)
                 row_base = row_base + batch.n_rows
+            ctx.metric(self.name, "numOutputBatches", 1)
             yield out
 
 
@@ -359,6 +418,7 @@ class ExpandExec(TorchExec):
                             o[i] = real.replace_rows(
                                 torch.zeros_like(real.validity),
                                 torch.zeros_like(real.codes))
+            ctx.metric(self.name, "numOutputBatches", len(outs))
             return [batch.with_columns(o, self._schema) for o in outs]
         return [(b for batch in part for b in expand(batch))
                 for part in parts]
@@ -450,6 +510,7 @@ class GenerateExec(TorchExec):
                 for off in range(0, live_rows, tile_rows):
                     with ctx.timed(self.name):
                         out = self._explode(db, arr, off, tile_rows)
+                    ctx.metric(self.name, "numOutputBatches", 1)
                     yield out
         return [run(p) for p in parts]
 
@@ -479,7 +540,9 @@ class FilterExec(TorchExec):
         def keep(batch):
             with ctx.timed(self.name):
                 m = cond.eval_device(batch)
-                return KR.compact(batch, m.data & m.validity)
+                out = KR.compact(batch, m.data & m.validity)
+            ctx.metric(self.name, "numOutputBatches", 1)
+            return out
         return [(keep(b) for b in part) for part in parts]
 
 
@@ -590,7 +653,9 @@ class HashAggregateExec(TorchExec):
         while stack:
             state = merge([stack.pop(), state])
         with ctx.timed(self.name):
-            return [[self.finalize(state)]]
+            out = self.finalize(state)
+        ctx.metric(self.name, "numOutputBatches", 1)
+        return [[out]]
 
     def finalize(self, b: ColumnarBatch) -> ColumnarBatch:
         """The aggregate's output from a buffer batch: the keys, then each
@@ -761,8 +826,9 @@ class ShuffledHashJoinExec(TorchExec):
         left, right = self.children
         if self.join_type == "right":
             return self._mirrored_left(ctx)
-        probe = accumulate(left, ctx)
-        build = accumulate(right, ctx)
+        probe = accumulate(left, ctx, self.name)
+        with ctx.registry.timer(self.name, "buildTime"):
+            build = accumulate(right, ctx, self.name)
         site = ctx.next_site("join")
         lkeys = _bind_all(self.left_keys, left.schema)
         rkeys = _bind_all(self.right_keys, right.schema)
@@ -782,7 +848,10 @@ class ShuffledHashJoinExec(TorchExec):
             pk = [e.eval_device(probe) for e in lkeys]
             bk = [e.eval_device(build) for e in rkeys]
             if jt == "full":
-                return [join_full(probe, build, pk, bk, self._schema)]
+                out = join_full(probe, build, pk, bk, self._schema)
+                ctx.metric(self.name, "numOutputBatches", len(out))
+                return [out]
+            ctx.metric(self.name, "numOutputBatches", 1)
             if KJ.dense_joinable(jt, rkeys) and mode <= 2:
                 if mode == 1:
                     out, fail = KJ.dense_join(probe, build, pk[0], bk[0],
@@ -988,18 +1057,20 @@ class TopKExec(TorchExec):
         return f"TopK n={self.n}"
 
     def execute(self, ctx):
-        batch = accumulate(self.children[0], ctx)
+        batch = accumulate(self.children[0], ctx, self.name)
         site = ctx.next_site("topk")
         key_exprs = [o.child.bind(self.schema) for o in self.orders]
         with ctx.timed(self.name):
             keys = [e.eval_device(batch) for e in key_exprs]
-            top, ok = KR.topk_batch_by_columns(
-                batch, keys, [o.ascending for o in self.orders],
-                [o.effective_nulls_first for o in self.orders], self.n,
-                allow_data_fallback=ctx.mode(site) == 0)
+            with ctx.registry.timer(self.name, "sortTime"):
+                top, ok = KR.topk_batch_by_columns(
+                    batch, keys, [o.ascending for o in self.orders],
+                    [o.effective_nulls_first for o in self.orders], self.n,
+                    allow_data_fallback=ctx.mode(site) == 0)
             if ok is not True:
                 ctx.report(site, ~ok)
-            return [[top]]
+        ctx.metric(self.name, "numOutputBatches", 1)
+        return [[top]]
 
 
 class SortExec(TorchExec):
@@ -1017,13 +1088,16 @@ class SortExec(TorchExec):
             for o in self.orders) + "]"
 
     def execute(self, ctx):
-        batch = accumulate(self.children[0], ctx)
+        batch = accumulate(self.children[0], ctx, self.name)
         key_exprs = [o.child.bind(self.schema) for o in self.orders]
         with ctx.timed(self.name):
             keys = [e.eval_device(batch) for e in key_exprs]
-            return [[KR.sort_batch_by_columns(
-                batch, keys, [o.ascending for o in self.orders],
-                [o.effective_nulls_first for o in self.orders])]]
+            with ctx.registry.timer(self.name, "sortTime"):
+                out = KR.sort_batch_by_columns(
+                    batch, keys, [o.ascending for o in self.orders],
+                    [o.effective_nulls_first for o in self.orders])
+        ctx.metric(self.name, "numOutputBatches", 1)
+        return [[out]]
 
 
 class LimitExec(TorchExec):
@@ -1041,20 +1115,28 @@ class LimitExec(TorchExec):
         return f"Limit {self.n}"
 
     def execute(self, ctx):
-        batch = accumulate(self.children[0], ctx)
+        batch = accumulate(self.children[0], ctx, self.name)
         with ctx.timed(self.name):
             b = KR.physical(batch)
             cap = min(b.capacity, bucket_capacity(max(self.n, 1)))
             iota = torch.arange(cap, device=b.device)
             n_out = torch.clamp(b.n_rows, max=self.n)
             cols = KR.gather_columns(b.columns, iota, iota < n_out)
-            return [[ColumnarBatch(cols, n_out, b.schema)]]
+        ctx.metric(self.name, "numOutputBatches", 1)
+        return [[ColumnarBatch(cols, n_out, b.schema)]]
 
 
 def collect(root: TorchExec, ctx: ExecContext) -> HostBatch:
     """Device-to-host transition: run the plan and download the live
-    rows of its result, partitions in order, each in row order."""
+    rows of its result, partitions in order, each in row order. The
+    root's ``numOutputRows`` is set to the answer's rows, and its
+    ``downloadBytes`` gets the host arrays' footprint (both known on the
+    host once downloaded)."""
     parts = root.execute(ctx)
     with ctx.timed("DeviceToHost"):
         hosts = [HostBatch.from_device(b) for part in parts for b in part]
-    return HostBatch.concat(hosts) if hosts else HostBatch.empty(root.schema)
+    out = HostBatch.concat(hosts) if hosts else HostBatch.empty(root.schema)
+    node = root.node_name()
+    ctx.registry.set_value(node, "numOutputRows", out.num_rows)
+    ctx.metric(node, "downloadBytes", sum(h.nbytes for h in hosts))
+    return out

@@ -46,8 +46,10 @@ class NestedLoopJoinExec(TorchExec):
 
     def execute(self, ctx):
         left, right = self.children
-        probe = accumulate(left, ctx)
-        build = accumulate(right, ctx)
+        probe = accumulate(left, ctx, self.name)
+        with ctx.registry.timer(self.name, "buildTime"):
+            build = accumulate(right, ctx, self.name)
+        ctx.metric(self.name, "numOutputBatches", 1)
         cond = None if self.condition is None \
             else self.condition.bind(self._schema)
         with ctx.timed(self.name):

@@ -602,4 +602,8 @@ def _mesh_core_collect(core: E.TorchExec, ctx: E.ExecContext,
             return None, True
     with ctx.timed("DeviceToHost"):
         hosts = [HostBatch.from_device(b) for b in outs]
-    return HostBatch.concat(hosts), False
+    out = HostBatch.concat(hosts)
+    ctx.registry.set_value(core.node_name(), "numOutputRows", out.num_rows)
+    ctx.metric(core.node_name(), "downloadBytes",
+               sum(h.nbytes for h in hosts))
+    return out, False

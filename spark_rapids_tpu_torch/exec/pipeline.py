@@ -16,11 +16,16 @@ limiter, ``ordered_map_iter`` and ``unit_partitions``).
 
 Results are bit for bit the same with the pipeline on or off: the pool
 changes when work runs, never what it computes, and the consumer takes
-the units in order. The reference's counters become the context's host
-timers: ``<node>.stall`` is the time the consumer waited on a unit that
-was not ready (``prefetchConsumerStallNs``), ``<node>.busy`` the time
-the workers spent in units (``decodeThreadBusyNs``; it sums thread
-time, so it can exceed the wall time).
+the units in order. The context's host timers ``<node>.stall`` (the
+time the consumer waited on a unit that was not ready) and
+``<node>.busy`` (the time the workers spent in units; it sums thread
+time, so it can exceed the wall time) are also the node's
+``prefetchConsumerStallNs`` and ``decodeThreadBusyNs`` metrics.
+
+Spans (with tracing on): ``pipeline.boundary`` for each unit the
+consumer takes (index ``i``), ``pipeline.wait`` inside it when the
+consumer blocks, and ``pipeline.decode`` for each unit on its worker
+thread, parented by a fork of the span that submitted it.
 
 Left for the modules they serve: ``materialize_boundaries`` (with the
 fusion layer) and ``submit_spill_io`` (with the spill catalog). The port
@@ -40,6 +45,8 @@ from typing import Callable, Iterator, List, Optional, Sequence
 
 from ..config import (PIPELINE_DECODE_THREADS, PIPELINE_ENABLED,
                       PIPELINE_PREFETCH_DEPTH)
+from ..metrics import trace as TR
+from ..utils import lockdep
 
 _STOP = object()
 
@@ -60,7 +67,7 @@ class PipelinePool:
     def __init__(self, name: str = THREAD_PREFIX):
         self._name = name
         self._tasks: "queue.Queue" = queue.Queue()
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("PipelinePool._lock")
         self._threads: List[threading.Thread] = []
         self._idle = 0
         self._seq = 0
@@ -151,7 +158,7 @@ class PipelinePool:
         return leaked
 
 
-_LOCK = threading.Lock()
+_LOCK = lockdep.lock("pipeline._LOCK")
 _POOL: Optional[PipelinePool] = None
 _DECODE_SLOTS: Optional[threading.BoundedSemaphore] = None
 #: The confs of the last :func:`configure`; the defaults are the confs'.
@@ -240,34 +247,43 @@ def _result_or_shutdown(f: Future):
         ) from None
 
 
-def _record(ctx, name: str, t0: float) -> None:
+def _record(ctx, name: str, t0: float, metric: str) -> None:
     if ctx is not None:
-        ctx.host_interval(name, t0, time.perf_counter())
+        ctx.host_interval(name, t0, time.perf_counter(), metric)
 
 
 def _stalled_result(f: Future, ctx, node: Optional[str]):
     """``f``'s result, the time spent waiting for it on ``<node>.stall``
-    (the sign that the workers are the bottleneck)."""
+    and ``prefetchConsumerStallNs`` (the sign that the workers are the
+    bottleneck), in a ``pipeline.wait`` span."""
     if f.done():
         return _result_or_shutdown(f)
     t0 = time.perf_counter()
     try:
-        return _result_or_shutdown(f)
+        with TR.span(getattr(ctx, "trace", None), "pipeline.wait",
+                     cat="pipeline", node=node or "prefetch"), \
+                lockdep.blocking("pipeline.future_wait"):
+            return _result_or_shutdown(f)
     finally:
         if node:
-            _record(ctx, node + ".stall", t0)
+            _record(ctx, node + ".stall", t0, "prefetchConsumerStallNs")
 
 
-def _decode_task(fn: Callable, item, ctx, node: Optional[str]):
+def _decode_task(fn: Callable, item, ctx, node: Optional[str],
+                 span_fork=None):
     """One unit on the pool: it holds one of the process's decode slots,
-    and its time goes on ``<node>.busy``."""
+    and its time goes on ``<node>.busy`` and ``decodeThreadBusyNs``, in a
+    ``pipeline.decode`` span parented by ``span_fork`` (the submitting
+    span; the trace root without one)."""
     with _decode_limiter(getattr(ctx, "conf", None)):
         t0 = time.perf_counter()
         try:
-            return fn(item)
+            with TR.span(span_fork, "pipeline.decode", cat="decode",
+                         node=node or "scan"):
+                return fn(item)
         finally:
             if node:
-                _record(ctx, node + ".busy", t0)
+                _record(ctx, node + ".busy", t0, "decodeThreadBusyNs")
 
 
 def ordered_map_iter(fn: Callable, items: Sequence, ctx=None,
@@ -286,7 +302,8 @@ def ordered_map_iter(fn: Callable, items: Sequence, ctx=None,
     futs: "collections.deque[Future]" = collections.deque()
     try:
         for item in items:
-            futs.append(pool.submit(_decode_task, fn, item, ctx, node))
+            futs.append(pool.submit(_decode_task, fn, item, ctx, node,
+                                    TR.fork(getattr(ctx, "trace", None))))
             if len(futs) >= max(depth, 1):
                 yield _stalled_result(futs.popleft(), ctx, node)
         while futs:
@@ -312,19 +329,20 @@ class _UnitScheduler:
         self._depth = prefetch_depth(getattr(ctx, "conf", None))
         self._pool = get_pool()
         self._futs: dict = {}
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("_UnitScheduler._lock")
         # An attempt that stops early (an error, an abandoned run) drops
         # its look-ahead when the session runs the context's cleanups.
         if hasattr(ctx, "add_cleanup"):
             ctx.add_cleanup(self._cancel_pending)
 
     def _ensure(self, i: int) -> Future:
+        span_fork = TR.fork(getattr(self._ctx, "trace", None))
         with self._lock:
             for j in range(i, min(i + self._depth, len(self._units))):
                 if j not in self._futs:
                     self._futs[j] = self._pool.submit(
                         _decode_task, self._fn, self._units[j], self._ctx,
-                        self._node)
+                        self._node, span_fork)
             return self._futs[i]
 
     def _cancel_pending(self) -> None:
@@ -333,11 +351,21 @@ class _UnitScheduler:
                 f.cancel()
 
     def partition(self, i: int) -> Iterator:
-        yield _stalled_result(self._ensure(i), self._ctx, self._node)
+        with _boundary_span(self._ctx, i, self._node):
+            out = _stalled_result(self._ensure(i), self._ctx, self._node)
+        yield out
 
 
-def _serial_unit(fn: Callable, unit) -> Iterator:
-    yield fn(unit)
+def _boundary_span(ctx, i: int, node: Optional[str]):
+    return TR.span(getattr(ctx, "trace", None), "pipeline.boundary",
+                   cat="pipeline", index=i, node=node or "scan")
+
+
+def _serial_unit(fn: Callable, unit, ctx, i: int,
+                 node: Optional[str]) -> Iterator:
+    with _boundary_span(ctx, i, node):
+        out = fn(unit)
+    yield out
 
 
 def unit_partitions(fn: Callable, units: Sequence, ctx,
@@ -348,6 +376,7 @@ def unit_partitions(fn: Callable, units: Sequence, ctx,
     partition once, in order."""
     units = list(units)
     if len(units) <= 1 or not parallel_active(ctx):
-        return [_serial_unit(fn, u) for u in units]
+        return [_serial_unit(fn, u, ctx, i, node)
+                for i, u in enumerate(units)]
     sched = _UnitScheduler(fn, units, ctx, node)
     return [sched.partition(i) for i in range(len(units))]

@@ -68,6 +68,7 @@ class WindowExec(TorchExec):
         batches = [b for part in self.children[0].execute(ctx) for b in part]
         if not batches:
             return [[]]
+        ctx.metric(self.name, "numOutputBatches", 1)
         with ctx.timed(self.name):
             # Evaluation is positional (run bounds over sorted rows): a
             # lazy batch moves its live rows to the front first.

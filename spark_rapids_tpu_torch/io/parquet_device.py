@@ -768,7 +768,8 @@ def decode_row_group_device(host: HostRowGroup, device=None,
     pinned memory on the card) and decode every column in torch, on the
     calling thread's current stream. Timers ``ParquetScanExec.upload``
     and ``.decode`` (CUDA events on the card); counters ``.rows``,
-    ``.bytes`` (decompressed), ``.read_bytes`` and ``.snappy_chunks``.
+    ``.bytes`` (decompressed), ``.read_bytes`` and ``.snappy_chunks``;
+    metrics ``uploadBytes``, ``numOutputRows`` and ``numOutputBatches``.
 
     The pinned buffers may be freed as soon as this returns: a
     ``non_blocking`` copy from pinned memory records an event with
@@ -789,6 +790,10 @@ def decode_row_group_device(host: HostRowGroup, device=None,
         ctx.count(SCAN + ".bytes", host.decompressed_bytes)
         ctx.count(SCAN + ".read_bytes", host.read_bytes)
         ctx.count(SCAN + ".snappy_chunks", host.snappy_chunks)
+        ctx.metric(SCAN, "uploadBytes",
+                   host.staging.nbytes + host.tables.nbytes)
+        ctx.metric(SCAN, "numOutputRows", host.n_rows)
+        ctx.metric(SCAN, "numOutputBatches", 1)
     return ColumnarBatch(tuple(cols), n_rows, host.schema)
 
 

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -34,6 +35,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
+#: Sources compiled by this process and the wall time of their builds
+#: (the profile's ``engine["compile"]``).
+_BUILDS = {"count": 0, "ns": 0}
+_STATS_LOCK = threading.Lock()
+
+
+def build_stats() -> Dict[str, int]:
+    """``{"count": sources compiled, "ns": wall time of those builds}``
+    over the process."""
+    with _STATS_LOCK:
+        return dict(_BUILDS)
 
 
 def nvcc() -> str:
@@ -66,6 +78,7 @@ def build_all(names: Iterable[str] = KERNELS + HOST_ROUTINES
     started together. Returns ``{name: ptxas report}`` for the sources
     compiled now; raises with the compiler output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter_ns()
     procs = {}
     for name in names:
         out = library_path(name)
@@ -84,6 +97,10 @@ def build_all(names: Iterable[str] = KERNELS + HOST_ROUTINES
             continue
         os.replace(tmp, out)
         reports[name] = log
+    if procs:
+        with _STATS_LOCK:
+            _BUILDS["count"] += len(reports)
+            _BUILDS["ns"] += time.perf_counter_ns() - t0
     if failed:
         raise RuntimeError("nvcc failed\n" + "\n".join(failed))
     return reports

@@ -27,7 +27,7 @@ from ....shuffle.partitioning import \
     murmur3_bytes_rows as murmur3_bytes_rows_plain  # noqa: F401
 from ....shuffle.partitioning import \
     murmur3_string_rows as murmur3_string_rows_plain  # noqa: F401
-from . import _build
+from . import _build, launch_events
 
 
 def _lib() -> ctypes.CDLL:
@@ -74,8 +74,10 @@ def murmur3_bytes_rows(mat: torch.Tensor, lengths: torch.Tensor,
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.srt_murmur3_rows(mat.data_ptr(), n, w, lengths.data_ptr(),
-                                  seed.data_ptr(), out.data_ptr(), stream)
+        with launch_events("hash"):
+            rc = lib.srt_murmur3_rows(mat.data_ptr(), n, w,
+                                      lengths.data_ptr(), seed.data_ptr(),
+                                      out.data_ptr(), stream)
     _build.check(lib, rc, "murmur3 launch")
     _COUNTED.launches += 1
     return out
@@ -120,10 +122,11 @@ def murmur3_string_rows(payload: torch.Tensor, offsets: torch.Tensor,
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.srt_murmur3_string_rows(
-            payload.data_ptr(), payload.shape[0], offsets.data_ptr(),
-            entries, None if codes is None else codes.data_ptr(), n, width,
-            seed.data_ptr(), out.data_ptr(), stream)
+        with launch_events("hash"):
+            rc = lib.srt_murmur3_string_rows(
+                payload.data_ptr(), payload.shape[0], offsets.data_ptr(),
+                entries, None if codes is None else codes.data_ptr(), n,
+                width, seed.data_ptr(), out.data_ptr(), stream)
     _build.check(lib, rc, "murmur3 string launch")
     _STRING_COUNTED.launches += 1
     return out

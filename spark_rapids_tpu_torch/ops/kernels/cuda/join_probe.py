@@ -16,7 +16,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, launch_events
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -88,10 +88,11 @@ def dense_build_probe(bslot: torch.Tensor, pslot: torch.Tensor, tbl: int
     max_out = torch.empty((), **i32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.srt_dense_build_probe(
-            bslot.data_ptr(), cap_b, pslot.data_ptr(), cap_p, tbl,
-            table.data_ptr(), cnt_out.data_ptr(), row_out.data_ptr(),
-            max_out.data_ptr(), stream)
+        with launch_events("joinProbe"):
+            rc = lib.srt_dense_build_probe(
+                bslot.data_ptr(), cap_b, pslot.data_ptr(), cap_p, tbl,
+                table.data_ptr(), cnt_out.data_ptr(), row_out.data_ptr(),
+                max_out.data_ptr(), stream)
     _build.check(lib, rc, "joinProbe launch")
     _COUNTED.launches += 1
     return cnt_out, row_out, max_out

@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, launch_events
 
 OPS = ("sum", "min", "max")
 _OP_CODES = {"sum": 0, "min": 1, "max": 2}
@@ -142,11 +142,12 @@ def segment_reduce_sorted(x: torch.Tensor, gid: torch.Tensor, capacity: int,
         if nbytes else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.srt_segment_reduce_sorted(
-            x.data_ptr(), _DTYPE_CODES[x.dtype], _OP_CODES[op], n, lanes,
-            gid.data_ptr(), capacity,
-            None if scratch is None else scratch.data_ptr(), nbytes,
-            out.data_ptr(), stream)
+        with launch_events("segmented"):
+            rc = lib.srt_segment_reduce_sorted(
+                x.data_ptr(), _DTYPE_CODES[x.dtype], _OP_CODES[op], n, lanes,
+                gid.data_ptr(), capacity,
+                None if scratch is None else scratch.data_ptr(), nbytes,
+                out.data_ptr(), stream)
     _build.check(lib, rc, "segmented launch")
     _COUNTED.launches += 1
     return out[:, 0] if x.dim() == 1 else out

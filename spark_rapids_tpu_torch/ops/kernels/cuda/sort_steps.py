@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, launch_events
 
 #: Bits of the packed lane that hold the row index (the reference's).
 INDEX_BITS = 27
@@ -75,9 +75,10 @@ def _launch(lane: torch.Tensor):
         if nbytes else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.srt_packed_argsort(
-            lane.data_ptr(), n, None if scratch is None else
-            scratch.data_ptr(), nbytes, out.data_ptr(), stream)
+        with launch_events("sortStep"):
+            rc = lib.srt_packed_argsort(
+                lane.data_ptr(), n, None if scratch is None else
+                scratch.data_ptr(), nbytes, out.data_ptr(), stream)
     _build.check(lib, rc, "sortStep launch")
     _COUNTED.launches += 1
     return out, scratch, lib

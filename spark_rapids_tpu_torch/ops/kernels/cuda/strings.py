@@ -33,7 +33,7 @@ from typing import Tuple
 import torch
 
 from ...strings_util import PAD, _matrix_from_offsets
-from . import _build
+from . import _build, launch_events
 
 def ragged_gather_plain(mat: torch.Tensor, idx: torch.Tensor,
                         valid: torch.Tensor) -> torch.Tensor:
@@ -147,10 +147,11 @@ def gather_strings(payload: torch.Tensor, offsets: torch.Tensor,
     out_offsets = torch.empty(m + 1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.srt_gather_strings(
-            payload.data_ptr(), payload.shape[0], offsets.data_ptr(), n,
-            idx.data_ptr(), valid.data_ptr(), m, width, buf.data_ptr(),
-            byte_cap, out_offsets.data_ptr(), stream)
+        with launch_events("strings"):
+            rc = lib.srt_gather_strings(
+                payload.data_ptr(), payload.shape[0], offsets.data_ptr(), n,
+                idx.data_ptr(), valid.data_ptr(), m, width, buf.data_ptr(),
+                byte_cap, out_offsets.data_ptr(), stream)
     _build.check(lib, rc, "strings gather launch")
     _GATHER_COUNTED.launches += 1
     return buf[:byte_cap], out_offsets
@@ -195,9 +196,10 @@ def ragged_gather(mat: torch.Tensor, idx: torch.Tensor,
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.srt_ragged_gather(mat.data_ptr(), n, w, idx.data_ptr(),
-                                   valid.data_ptr(), m, out.data_ptr(),
-                                   stream)
+        with launch_events("strings"):
+            rc = lib.srt_ragged_gather(mat.data_ptr(), n, w, idx.data_ptr(),
+                                       valid.data_ptr(), m, out.data_ptr(),
+                                       stream)
     _build.check(lib, rc, "strings gather launch")
     _COUNTED.launches += 1
     return out
@@ -232,8 +234,9 @@ def ragged_row_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.srt_row_equal(a.data_ptr(), b.data_ptr(), n, w, vec,
-                               out.data_ptr(), stream)
+        with launch_events("stringsEqual"):
+            rc = lib.srt_row_equal(a.data_ptr(), b.data_ptr(), n, w, vec,
+                                   out.data_ptr(), stream)
     _build.check(lib, rc, "strings compare launch")
     _COUNTED_EQUAL.launches += 1
     return out

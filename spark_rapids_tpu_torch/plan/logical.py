@@ -667,5 +667,10 @@ class DataFrame:
         (``columns`` and ``validity``, dicts of numpy arrays)."""
         return self._session.execute(self._plan)
 
-    def explain(self) -> str:
+    def explain(self, metrics: bool = False) -> str:
+        """The physical plan tree. ``metrics=True`` annotates every
+        operator with the metrics of this session's last run of the same
+        plan shape (run ``.collect()`` first)."""
+        if metrics:
+            return self._session.explain_metrics(self._plan)
         return self._session.explain(self._plan)

@@ -17,10 +17,21 @@ exchange buckets are bounded; when a run overflows one, the session
 re-runs it with buckets 8x larger, up to 64x, and then runs the query on
 the single-device path (the reference's non-learning growth escalation,
 ``session.py:523-529``).
+
+Observability (:mod:`.metrics`): above metrics level NONE every query
+leaves a :class:`~.metrics.profile.QueryProfile` of its final attempt
+(:meth:`TorchSession.last_query_profile`, :meth:`query_profile`,
+``df.explain(metrics=True)``), appended to the event log when
+``spark.rapids.tpu.metrics.eventLog.dir`` is set. With
+``spark.rapids.tpu.trace.enabled`` a query also leaves a span tree —
+``session.query`` over ``session.plan`` and one ``session.dispatch`` per
+attempt — exported as Chrome trace-event JSON
+(:meth:`last_trace`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import Dict, List, Optional
@@ -28,17 +39,22 @@ from typing import Dict, List, Optional
 import torch
 
 from . import types as T
-from .config import MESH_ENABLED, TorchConf
+from .config import MESH_ENABLED, METRICS_EVENT_LOG_MAX_BYTES, TorchConf
 from .data.batch import HostBatch
 from .exec import execs as E
 from .exec import mesh as MX
 from .exec import pipeline
 from .io import parquet_device as PQ
 from .io.parquet_meta import read_footer, schema_from_parquet
+from .metrics import trace as TR
+from .metrics.eventlog import EventLog
+from .metrics.profile import QueryProfile, QueryProfiler, plan_profile_hash
+from .ops.kernels import cuda as KCUDA
 from .parallel.mesh import Mesh, make_mesh
 from .plan import logical as L
 from .plan.input_file import rewrite_input_file_exprs
 from .plan.planner import plan_physical
+from .utils import lockdep
 
 #: Escalation rounds before a query gives up. Every site has at most
 #: three modes, so a query settles in at most three re-runs.
@@ -104,15 +120,25 @@ class TorchSession:
     the device mesh of the mesh path; by default every visible card
     (:func:`~.parallel.mesh.make_mesh`), made at the first mesh query."""
 
+    #: profiles kept per session before the oldest query ids are evicted
+    _MAX_PROFILES = 256
+
     def __init__(self, conf: Optional[dict] = None, device=None,
                  mesh: Optional[Mesh] = None):
         self.conf = TorchConf(conf)
         pipeline.configure(self.conf)
+        TR.configure(self.conf)
         self.device = resolve_device(device)
         self._mesh = mesh
         self._learned: Dict[tuple, Dict[int, int]] = {}
         self._mesh_capable: Dict[tuple, bool] = {}
         self.last_query: Optional[QueryInfo] = None
+        self._profiles_lock = lockdep.lock("TorchSession._profiles_lock")
+        self._profiles: Dict[int, QueryProfile] = {}
+        self._query_seq = 0
+        self._last_profile: Optional[QueryProfile] = None
+        self._last_tracer: Optional[TR.Tracer] = None
+        self._event_log: Optional[EventLog] = None
 
     def close(self) -> List[threading.Thread]:
         """Join every worker of the scans' shared pool
@@ -148,28 +174,59 @@ class TorchSession:
     def explain(self, logical: L.LogicalPlan) -> str:
         return self.plan(logical).tree_string()
 
+    def _signature(self, physical: E.TorchExec) -> tuple:
+        """The plan's ``(tree_string, mesh)`` key: the learned modes' and
+        the profile's ``plan_hash``."""
+        mesh = self.conf.get(MESH_ENABLED) and \
+            MX.mesh_capable(physical, self._mesh_capable)
+        return (physical.tree_string(), bool(mesh))
+
     def execute(self, logical: L.LogicalPlan) -> HostBatch:
-        physical = self.plan(logical)
-        mesh = self.mesh if self.conf.get(MESH_ENABLED) and \
-            MX.mesh_capable(physical, self._mesh_capable) else None
-        # Modes are learned per path: the mesh path numbers only the
-        # sites of its single-device tail.
-        sig = (physical.tree_string(), mesh is not None)
+        """Plan and run ``logical``, escalating tripped sites; a traced
+        query's span tree is exported at its end (best-effort)."""
+        tracer = TR.maybe_tracer(self.conf)
+        try:
+            with TR.span(tracer, "session.query", cat="session"):
+                return self._execute(logical, tracer)
+        finally:
+            if tracer is not None:
+                self._export_trace(tracer)
+
+    def _execute(self, logical: L.LogicalPlan, tracer) -> HostBatch:
+        with TR.span(tracer, "session.plan", cat="session"):
+            physical = self.plan(logical)
+            # Modes are learned per path: the mesh path numbers only the
+            # sites of its single-device tail.
+            sig = self._signature(physical)
+        mesh = self.mesh if sig[1] else None
+        profiler = QueryProfiler.maybe(self)
         modes = dict(self._learned.get(sig, {}))
         growth = 1.0
         attempts = rounds = 0
         while True:
             attempts += 1
-            ctx = E.ExecContext(self.device, modes, self.conf)
-            try:
-                if mesh is not None:
-                    result, overflowed = MX.mesh_collect(physical, ctx, mesh,
-                                                         growth)
-                else:
-                    result, overflowed = E.collect(physical, ctx), False
-            finally:
-                # every attempt's look-ahead ends with it, re-runs included
-                ctx.run_cleanups()
+            ctx = E.ExecContext(self.device, modes, self.conf, trace=tracer)
+            timing = KCUDA.device_timing(ctx.kernel_events) \
+                if ctx.registry.device_timing else contextlib.nullcontext()
+            with TR.span(tracer, "session.dispatch", cat="session",
+                         attempt=attempts - 1,
+                         path="single" if mesh is None else "mesh"), timing:
+                try:
+                    if mesh is not None:
+                        result, overflowed = MX.mesh_collect(
+                            physical, ctx, mesh, growth)
+                    else:
+                        result, overflowed = E.collect(physical, ctx), False
+                finally:
+                    # every attempt's look-ahead ends with it, re-runs
+                    # included
+                    ctx.run_cleanups()
+                tripped = []
+                if not overflowed and ctx.dense_fails:
+                    flags = torch.stack([f.reshape(()) for _, f in
+                                         ctx.dense_fails]).cpu().tolist()
+                    tripped = [s for (s, _), f in zip(ctx.dense_fails, flags)
+                               if f]
             if overflowed:
                 if growth >= _MAX_MESH_GROWTH:
                     mesh = None
@@ -178,12 +235,6 @@ class TorchSession:
                 else:
                     growth *= 8.0
                 continue
-            tripped = []
-            if ctx.dense_fails:
-                flags = torch.stack([f.reshape(()) for _, f in
-                                     ctx.dense_fails]).cpu().tolist()
-                tripped = [s for (s, _), f in zip(ctx.dense_fails, flags)
-                           if f]
             if not tripped:
                 self._learned[sig] = modes
                 self.last_query = QueryInfo(
@@ -195,6 +246,10 @@ class TorchSession:
                     path="single" if mesh is None else "mesh",
                     shards=1 if mesh is None else mesh.size,
                     counters=dict(ctx.counters))
+                if profiler is not None:
+                    # exec_ms synchronised: the events are complete
+                    ctx.record_device_time()
+                    self._note_profile(profiler, physical, ctx, sig, tracer)
                 return result
             rounds += 1
             if rounds >= _MAX_ATTEMPTS:
@@ -202,3 +257,71 @@ class TorchSession:
                                    f"{_MAX_ATTEMPTS} runs; modes {modes}")
             for s in set(tripped):
                 modes[s] = modes.get(s, 0) + 1
+
+    # -- query-profile layer (metrics/) ---------------------------------------
+
+    def _note_profile(self, profiler: QueryProfiler, physical, ctx, sig,
+                      tracer) -> None:
+        """Snapshot the finished query into the session's profile map, the
+        last-slot shim and the event log. Query ids are assigned under the
+        profile lock, so concurrent queries each get their own."""
+        with self._profiles_lock:
+            self._query_seq += 1
+            qid = self._query_seq
+        if tracer is not None:
+            # the profile's id in the trace header joins the two records
+            tracer.query_id = qid
+        prof = profiler.finish(physical, ctx, sig, qid)
+        log_dir = self.conf.metrics_event_log_dir
+        with self._profiles_lock:
+            self._profiles[qid] = prof
+            while len(self._profiles) > self._MAX_PROFILES:
+                self._profiles.pop(next(iter(self._profiles)))
+            self._last_profile = prof
+            log = None
+            if log_dir:
+                if self._event_log is None or self._event_log.dir != log_dir:
+                    self._event_log = EventLog(
+                        log_dir, int(self.conf.get(
+                            METRICS_EVENT_LOG_MAX_BYTES)))
+                log = self._event_log
+        if log is not None:
+            log.append(prof)
+
+    def _export_trace(self, tracer: TR.Tracer) -> None:
+        """Keep a session-made tracer as :meth:`last_trace` and export it
+        beside the event log (best-effort: an export failure never fails
+        the query)."""
+        self._last_tracer = tracer
+        TR.export_chrome(tracer, TR.export_dir(self.conf))
+
+    def query_profile(self, query_id: int) -> Optional[QueryProfile]:
+        """The profile recorded for ``query_id`` on this session, or None
+        (evicted, metrics level NONE, or never run)."""
+        with self._profiles_lock:
+            return self._profiles.get(query_id)
+
+    def last_query_profile(self) -> Optional[QueryProfile]:
+        """The profile of the most recent query this session ran, or None
+        (metrics level NONE, or nothing run yet). ``.render()`` draws it,
+        ``.to_dict()`` serialises it."""
+        with self._profiles_lock:
+            return self._last_profile
+
+    def last_trace(self) -> Optional[TR.Tracer]:
+        """The span tracer of the most recent traced query, or None."""
+        return self._last_tracer
+
+    def explain_metrics(self, logical: L.LogicalPlan) -> str:
+        """The metric-annotated EXPLAIN tree (``df.explain(metrics=True)``):
+        the last profile when it belongs to this plan's shape, else the
+        plain tree with a note."""
+        physical = self.plan(logical)
+        prof = self.last_query_profile()
+        if prof is not None and \
+                prof.plan_hash == plan_profile_hash(self._signature(physical)):
+            return prof.render()
+        return (physical.tree_string()
+                + "(no QueryProfile recorded for this plan shape yet — run "
+                ".collect() first, with spark.rapids.tpu.metrics.level "
+                "above NONE)\n")

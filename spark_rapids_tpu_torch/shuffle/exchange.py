@@ -20,6 +20,12 @@ deserialized (lanes viewed in place) and uploaded lane by lane as one
 batch (:func:`..data.batch.upload_columns`). An empty partition yields no
 batch, as in the reference.
 
+Metrics, at the reference's sites: the map side's ``downloadBytes``,
+``serializationTime`` and ``shuffleBytesWritten``; the read side's
+``shuffleBytesRead``, ``deserializationTime``, ``uploadBytes``,
+``numOutputRows`` and ``numOutputBatches`` (all host-known). Each map
+task is a ``shuffle.map`` span when the query is traced.
+
 Not ported yet: retry and split of the map side, spill of blocks to
 disk, the network plane, replication, hedged fetches, lineage recompute,
 adaptive (AQE) read planning and the pipelined overlap of serialization
@@ -36,6 +42,7 @@ import torch
 
 from ..data.batch import ColumnarBatch, download_columns, upload_columns
 from ..exec.execs import ExecContext, TorchExec
+from ..metrics import trace as TR
 from ..ops.kernels import rowops as KR
 from .partitioners import RoundRobinPartitioner
 from .serializer import deserialize_block, serialize_block
@@ -114,44 +121,61 @@ class ShuffleExchangeExec(TorchExec):
         shuffle_id = catalog.new_shuffle_id()
         n_parts = self.n_parts
         name = self.name
-        schema = self.schema
         map_id = 0
         try:
             for part in parts:
                 for batch in part:
-                    with ctx.timed(name + ".partition"):
-                        sorted_batch, ids = partition_sort(batch, partitioner,
-                                                           n_parts)
-                        # the live row count sizes the download: one host
-                        # read, which also leaves the card idle for the
-                        # host-clock timings below
-                        n = int(sorted_batch.n_rows)
-                    if n == 0:
-                        continue
-                    with ctx.timed(name + ".download", host=True):
-                        cols, (ids_np,) = download_columns(sorted_batch, n,
-                                                           [ids])
-                    with ctx.timed(name + ".serialize", host=True):
-                        bounds = np.searchsorted(ids_np,
-                                                 np.arange(n_parts + 1))
-                        for p in range(n_parts):
-                            a, b = int(bounds[p]), int(bounds[p + 1])
-                            if b > a:
-                                catalog.add_block(
-                                    shuffle_id, map_id, p, serialize_block(
-                                        [c.slice(a, b) for c in cols],
-                                        schema))
-                    map_id += 1
+                    with TR.span(ctx.trace, "shuffle.map", cat="shuffle",
+                                 shuffle=shuffle_id, map=map_id):
+                        written = self._map_task(ctx, catalog, batch,
+                                                 partitioner, shuffle_id,
+                                                 map_id)
+                    map_id += written
             out = []
             for p in range(n_parts):
                 batches = []
                 for payload in catalog.blocks_for_reduce(shuffle_id, p):
-                    with ctx.timed(name + ".read", host=True):
+                    ctx.metric(name, "shuffleBytesRead", len(payload))
+                    with ctx.timed(name + ".read", host=True,
+                                   metric="deserializationTime"):
                         block_schema, cols = deserialize_block(payload)
                     with ctx.timed(name + ".upload", host=True):
                         batches.append(upload_columns(cols, block_schema,
                                                       ctx.device))
+                    ctx.metric(name, "uploadBytes",
+                               sum(c.nbytes for c in cols))
+                    ctx.metric(name, "numOutputRows",
+                               cols[0].num_rows if cols else 0)
+                    ctx.metric(name, "numOutputBatches", 1)
                 out.append(batches)
             return out
         finally:
             catalog.unregister_shuffle(shuffle_id)
+
+    def _map_task(self, ctx: ExecContext, catalog, batch, partitioner,
+                  shuffle_id: int, map_id: int) -> int:
+        """One input batch into blocks (a map task). Returns 1 when it
+        wrote blocks, 0 for a batch with no live row."""
+        name, n_parts = self.name, self.n_parts
+        with ctx.timed(name + ".partition"):
+            sorted_batch, ids = partition_sort(batch, partitioner, n_parts)
+            # the live row count sizes the download: one host read, which
+            # also leaves the card idle for the host-clock timings below
+            n = int(sorted_batch.n_rows)
+        if n == 0:
+            return 0
+        with ctx.timed(name + ".download", host=True):
+            cols, (ids_np,) = download_columns(sorted_batch, n, [ids])
+        ctx.metric(name, "downloadBytes",
+                   sum(c.nbytes for c in cols) + ids_np.nbytes)
+        with ctx.timed(name + ".serialize", host=True,
+                       metric="serializationTime"):
+            bounds = np.searchsorted(ids_np, np.arange(n_parts + 1))
+            for p in range(n_parts):
+                a, b = int(bounds[p]), int(bounds[p + 1])
+                if b > a:
+                    payload = serialize_block(
+                        [c.slice(a, b) for c in cols], self.schema)
+                    ctx.metric(name, "shuffleBytesWritten", len(payload))
+                    catalog.add_block(shuffle_id, map_id, p, payload)
+        return 1

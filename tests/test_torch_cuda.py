@@ -1075,3 +1075,63 @@ def test_cuda_generate_matches_cpu(cuda_device, monkeypatch):
         assert np.array_equal(got.validity[name], want.validity[name])
         assert len(g) == len(w) and all(
             repr(a) == repr(b) for a, b in zip(g.tolist(), w.tolist())), name
+
+
+def _ds_q3_frames(session):
+    from spark_rapids_tpu_torch.workloads import tpcds
+    return tpcds.load(session, tpcds.gen_tables(1 << 16, seed=11))
+
+
+@pytest.mark.cuda
+def test_cuda_profile_counts_joinprobe_launches_and_device_time(cuda_device):
+    """TPC-DS q3 (dense dimension joins) profiled under deviceTiming: the
+    profile's ``joinProbe`` launches equal the wrapper's count over the
+    query, and their device time is over 0."""
+    from spark_rapids_tpu_torch.ops.kernels.cuda import FAMILIES, stats
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.workloads import tpcds
+    s = TorchSession({"spark.rapids.tpu.metrics.deviceTiming": True})
+    dfs = _ds_q3_frames(s)
+    before = stats()["launches"]
+    jp = JP._COUNTED.launches
+    tpcds.QUERIES["q3"](dfs).collect()
+    after = stats()["launches"]
+    kernels = s.last_query_profile().engine["cuda"]["kernels"]
+    assert kernels["joinProbe"]["launches"] == JP._COUNTED.launches - jp > 0
+    assert kernels["joinProbe"]["deviceTimeNs"] > 0
+    assert {k: v["launches"] for k, v in kernels.items()} == {
+        f: after[f] - before[f] for f in FAMILIES if after[f] > before[f]}
+
+
+@pytest.mark.cuda
+def test_cuda_traced_query_has_a_balanced_tree(cuda_device, tmp_path):
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.workloads import tpcds
+    s = TorchSession({"spark.rapids.tpu.trace.enabled": True,
+                      "spark.rapids.tpu.trace.dir": str(tmp_path)})
+    tpcds.QUERIES["q3"](_ds_q3_frames(s)).collect()
+    tr = s.last_trace()
+    tr.assert_balanced()
+    names = {sp["name"] for sp in tr.spans}
+    assert {"session.query", "session.plan", "session.dispatch"} <= names
+    assert list(tmp_path.glob("trace_*.json"))
+
+
+@pytest.mark.cuda
+def test_cuda_answers_equal_at_metrics_none_and_default(cuda_device):
+    """TPC-DS q3 at metrics level NONE and at the default: the same rows,
+    keys and strings equal, the float sums to rtol 1e-9, since the card
+    adds them in atomic order, whose last bits vary from run to run at
+    any level (``ROADMAP.md`` C)."""
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.workloads import tpcds
+    got = {}
+    for level in ("NONE", "MODERATE"):
+        s = TorchSession({"spark.rapids.tpu.metrics.level": level})
+        got[level] = _host_rows(tpcds.QUERIES["q3"](
+            _ds_q3_frames(s)).collect())
+        assert (s.last_query_profile() is None) == (level == "NONE")
+    assert len(got["NONE"]) == len(got["MODERATE"]) > 0
+    for a, b in zip(got["NONE"], got["MODERATE"]):
+        assert a[:3] == b[:3]
+        assert abs(a[3] - b[3]) <= 1e-9 * abs(b[3])

@@ -13,9 +13,12 @@ q86 here, so only q36 also runs with its Pallas gate off.
 import pytest
 
 from test_torch_tpcds_base import (Ds, check_numpy_reference, check_query,
-                                   check_wrapper_calls)
+                                   check_wrapper_calls, ref_cases, ref_conf)
 
 QUERIES = ["q18", "q22", "q36", "q86"]
+#: Held against the reference's device path (Pallas on); the others
+#: against its CPU-oracle session (``ref_conf``).
+DEVICE = ["q36"]
 #: The queries also held against the reference with its Pallas gate off.
 GATE_OFF = ["q36"]
 
@@ -25,7 +28,7 @@ def ds():
     return Ds(QUERIES)
 
 
-@pytest.mark.parametrize("conf,q", [("pallas on", q) for q in QUERIES]
+@pytest.mark.parametrize("conf,q", ref_cases(QUERIES, DEVICE)
                          + [("pallas off", q) for q in GATE_OFF])
 def test_query_matches_reference(q, conf, ds):
     check_query(ds, q, conf)
@@ -33,7 +36,7 @@ def test_query_matches_reference(q, conf, ds):
 
 @pytest.mark.parametrize("q", QUERIES)
 def test_numpy_reference_matches_reference(q, ds):
-    check_numpy_reference(ds, q)
+    check_numpy_reference(ds, q, ref_conf(q, DEVICE))
 
 
 def test_query_paths_call_the_kernel_wrappers(ds):

@@ -19,12 +19,16 @@ the port against the JAX package at 2^13 store_sales rows, seed 11.
 import pytest
 
 from test_torch_tpcds_base import (Ds, check_numpy_reference, check_query,
-                                   check_wrapper_calls)
+                                   check_wrapper_calls, ref_cases, ref_conf)
 
 QUERIES = ["q9", "q28", "q90", "q32", "q92", "q41", "q84"]
 #: Held against the reference's CPU-oracle session here, against its
 #: device path in the ``slow`` tier.
 ORACLE = ["q9", "q28"]
+#: Held against the reference's device path (Pallas on); the rest but
+#: ``ORACLE`` against its CPU-oracle session too (``ref_conf``), since
+#: its device path takes 9-23 s a query here.
+DEVICE = ["q32"]
 
 
 @pytest.fixture(scope="module")
@@ -33,7 +37,7 @@ def ds():
 
 
 @pytest.mark.parametrize(
-    "conf,q", [("pallas on", q) for q in QUERIES if q not in ORACLE]
+    "conf,q", ref_cases([q for q in QUERIES if q not in ORACLE], DEVICE)
     + [("cpu oracle", q) for q in ORACLE]
     + [pytest.param("pallas on", q, marks=pytest.mark.slow)
        for q in ORACLE])
@@ -43,8 +47,7 @@ def test_query_matches_reference(q, conf, ds):
 
 @pytest.mark.parametrize("q", QUERIES)
 def test_numpy_reference_matches_reference(q, ds):
-    check_numpy_reference(ds, q, "cpu oracle" if q in ORACLE
-                          else "pallas on")
+    check_numpy_reference(ds, q, ref_conf(q, DEVICE))
 
 
 def test_query_paths_call_the_kernel_wrappers(ds):

@@ -9,11 +9,18 @@ the helpers) describes.
 import pytest
 
 from test_torch_tpcds_base import (Ds, check_numpy_reference, check_query,
-                                   check_wrapper_calls)
+                                   check_wrapper_calls, gate_off_cases,
+                                   ref_cases, ref_conf)
 
 QUERIES = ["q61", "q65", "q68", "q79", "q96", "q97"]
+#: Held against the reference's device path (Pallas on); the others
+#: against its CPU-oracle session (``ref_conf``).
+DEVICE = ["q96"]
 #: The queries also held against the reference with its Pallas gate off.
 GATE_OFF = ["q61", "q65", "q68", "q79", "q96", "q97"]
+#: Their gate-off comparison against the numpy reference instead
+#: (``gate_off_cases``).
+NUMPY = ["q61", "q65", "q68", "q79", "q97"]
 
 
 @pytest.fixture(scope="module")
@@ -21,15 +28,15 @@ def ds():
     return Ds(QUERIES)
 
 
-@pytest.mark.parametrize("conf,q", [("pallas on", q) for q in QUERIES]
-                         + [("pallas off", q) for q in GATE_OFF])
+@pytest.mark.parametrize("conf,q", ref_cases(QUERIES, DEVICE)
+                         + gate_off_cases(GATE_OFF, NUMPY))
 def test_query_matches_reference(q, conf, ds):
     check_query(ds, q, conf)
 
 
 @pytest.mark.parametrize("q", QUERIES)
 def test_numpy_reference_matches_reference(q, ds):
-    check_numpy_reference(ds, q)
+    check_numpy_reference(ds, q, ref_conf(q, DEVICE))
 
 
 def test_query_paths_call_the_kernel_wrappers(ds):

@@ -17,9 +17,13 @@ the helpers) describes.
 import pytest
 
 from test_torch_tpcds_base import (Ds, check_numpy_reference, check_query,
-                                   check_variant, check_wrapper_calls)
+                                   check_variant, check_wrapper_calls,
+                                   ref_cases, ref_conf)
 
 QUERIES = ["q53", "q63", "q89", "q12", "q20", "q49", "q70"]
+#: Held against the reference's device path (Pallas on); the others
+#: against its CPU-oracle session (``ref_conf``).
+DEVICE = ["q20"]
 #: The queries also held against the reference with its Pallas gate off.
 GATE_OFF = ["q20"]
 #: ``chip_smoke.DS_VARIANTS`` run here.
@@ -31,7 +35,7 @@ def ds():
     return Ds(QUERIES)
 
 
-@pytest.mark.parametrize("conf,q", [("pallas on", q) for q in QUERIES]
+@pytest.mark.parametrize("conf,q", ref_cases(QUERIES, DEVICE)
                          + [("pallas off", q) for q in GATE_OFF])
 def test_query_matches_reference(q, conf, ds):
     check_query(ds, q, conf)
@@ -39,7 +43,7 @@ def test_query_matches_reference(q, conf, ds):
 
 @pytest.mark.parametrize("q", QUERIES)
 def test_numpy_reference_matches_reference(q, ds):
-    check_numpy_reference(ds, q)
+    check_numpy_reference(ds, q, ref_conf(q, DEVICE))
 
 
 def test_query_paths_call_the_kernel_wrappers(ds):

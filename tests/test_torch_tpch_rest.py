@@ -12,13 +12,19 @@ anti joins (Q16, Q20, Q21).
 The port runs on the CPU, so its kernels take their plain versions. The
 reference runs with ``variableFloatAgg`` on, so its float aggregates
 take its device path (see ``tests/test_torch_tpch_more.py``), with its
-Pallas gate on (interpret mode) and off. Keys, strings, counts and dates
+Pallas gate off, and on (interpret mode) for one query a file
+(``DEVICE``): the others are held against its CPU-oracle session there
+instead (``ref_cases``). Keys, strings, counts and dates
 must be equal, in the order the query sets (every one of these has an
 ORDER BY, or one row); float sums to rtol 1e-12.
 """
 
+import functools
+
 import numpy as np
 import pytest
+
+import chip_smoke as CS
 
 from spark_rapids_tpu.session import TpuSession
 from spark_rapids_tpu.workloads import tpch as rtpch
@@ -48,7 +54,25 @@ QUERIES = ["q2", "q7", "q8", "q9", "q11", "q13"]
 REF_CONFS = {
     "pallas on": {"spark.rapids.tpu.pallas.enabled": True},
     "pallas off": {"spark.rapids.tpu.pallas.enabled": False},
+    # the reference's CPU-oracle session (``spark.rapids.sql.enabled``
+    # off): the same answers, in a fraction of its device path's time
+    "cpu oracle": {"spark.rapids.sql.enabled": False},
 }
+#: The query of this file held against the reference's device path with
+#: its Pallas gate on and off; the others against its CPU oracle instead
+#: (its device path takes 14-60 s a query here once the gate-on path no
+#: longer compiles their pieces first), and against ``chip_smoke.py``'s
+#: numpy reference by the card's own check (``check_query``).
+DEVICE = ["q2"]
+
+
+def ref_cases(queries, device) -> list:
+    """``(q, conf)`` of each query's two comparisons: with the Pallas gate
+    on and off for ``device``, else the CPU oracle and the numpy
+    reference."""
+    return [(q, "pallas on" if q in device else "cpu oracle")
+            for q in queries] + [(q, "pallas off" if q in device else "numpy")
+                                 for q in queries]
 
 
 def load_reference():
@@ -107,9 +131,23 @@ def port_results():
     return run_port(QUERIES)
 
 
+@functools.lru_cache(maxsize=1)
+def port_tables() -> dict:
+    return tpch.gen_tables(ROWS)
+
+
 def check_query(q, conf, ref_dfs, port_results) -> None:
-    want = _ref_columns(rtpch.QUERIES[q](ref_dfs[conf]).collect())
+    """The port's answer against the reference's ``conf`` session, or,
+    for ``"numpy"``, against ``chip_smoke.py``'s numpy reference of the
+    query by the card's own check (``rest_check``: exact keys, float sums
+    to its 1e-9, Q11 as a top-n)."""
     got_batch = port_results[q][0]
+    if conf == "numpy":
+        ref = CS.NUMPY_REFS[q](port_tables())
+        assert len(next(iter(ref.values()))) > 0
+        CS.rest_check(q, {q: ref})(got_batch)
+        return
+    want = _ref_columns(rtpch.QUERIES[q](ref_dfs[conf]).collect())
     exact, floats = COLUMNS[q]
     assert set(got_batch.columns) == set(want) == set(exact + floats)
     n = len(next(iter(want.values())))
@@ -128,8 +166,7 @@ def check_query(q, conf, ref_dfs, port_results) -> None:
                                    atol=0, err_msg=name)
 
 
-@pytest.mark.parametrize("conf", list(REF_CONFS))
-@pytest.mark.parametrize("q", QUERIES)
+@pytest.mark.parametrize("q,conf", ref_cases(QUERIES, DEVICE))
 def test_query_matches_reference(q, conf, ref_dfs, port_results):
     check_query(q, conf, ref_dfs, port_results)
 

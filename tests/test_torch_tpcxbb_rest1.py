@@ -5,13 +5,16 @@ to ``rest4.py``, split so that ``--dist loadfile`` spreads them).
 
 Each query runs through ``TorchSession`` on the CPU (the kernels take
 their plain versions, their wrappers counted) and through the
-reference's ``TpuSession`` with ``variableFloatAgg`` on, its Pallas
-gate on (interpret mode) and, for the queries whose path calls a kernel
-wrapper, off. Integer, string and date columns are equal row for row in
-the query's order; float columns agree to rtol 1e-9. ``chip_smoke.py``'s
-numpy reference of each query is held against the reference's answer
-the same way, so a wrong numpy reference shows here and not on the
-card.
+reference's ``TpuSession`` with ``variableFloatAgg`` on: its device path
+with the Pallas gate on (interpret mode) for a file's ``DEVICE`` queries
+(those whose device path takes under about 5 s here, and one more),
+its CPU-oracle session (``spark.rapids.sql.enabled`` off) for the
+others, and its device path with the gate off for the queries whose path
+calls a kernel wrapper. Integer, string and date columns are equal row
+for row in the query's order; float columns agree to rtol 1e-9.
+``chip_smoke.py``'s numpy reference of each query is held against the
+same reference answer, so a wrong numpy reference shows here and not on
+the card.
 
 This part also runs q02 over ``chip_smoke.q02_pivot_clicks``'s tables
 (at this scale and seed q02 finds three rows; at 2^22 clicks, seed 42,
@@ -39,6 +42,9 @@ SEED = 23
 REF_CONFS = {
     "pallas on": {"spark.rapids.tpu.pallas.enabled": True},
     "pallas off": {"spark.rapids.tpu.pallas.enabled": False},
+    # the reference's CPU-oracle session (``spark.rapids.sql.enabled``
+    # off): the same answers in a fraction of its device path's time
+    "cpu oracle": {"spark.rapids.sql.enabled": False},
 }
 #: The kernel wrappers a query's path may call, by module and name.
 WRAPPERS = [(JP, "dense_build_probe"), (SEG, "segment_reduce_sorted"),
@@ -112,10 +118,12 @@ def numpy_rows(ref: dict, q: str) -> dict:
                 for v in np.asarray(c)] for n, c in out.items()}
 
 
-def assert_same_answer(got: dict, want: pa.Table, q: str) -> None:
+def assert_same_answer(got: dict, want, q: str) -> None:
     """Columns and rows in order: floats (``CS.XBB_FLOATS``) to
-    ``RTOL``, everything else equal."""
-    want = {n: want.column(n).to_pylist() for n in want.column_names}
+    ``RTOL``, everything else equal. ``want`` is a reference table or a
+    dict of row lists (:func:`numpy_rows`)."""
+    if not isinstance(want, dict):
+        want = {n: want.column(n).to_pylist() for n in want.column_names}
     assert list(got) == list(want)
     floats = CS.XBB_FLOATS.get(q, ())
     for n, w in want.items():
@@ -131,13 +139,35 @@ def assert_same_answer(got: dict, want: pa.Table, q: str) -> None:
 
 
 def check_query(xbb: Xbb, q: str, conf: str) -> None:
+    """The port's answer against the reference's ``conf`` session, or,
+    for ``"numpy"``, against ``chip_smoke.py``'s numpy reference."""
     answer, _ = xbb.port[q]
-    assert_same_answer(port_rows(answer), xbb.ref(q, conf), q)
+    want = numpy_rows(CS.XBB_REFS[q](xbb.port_tables), q) \
+        if conf == "numpy" else xbb.ref(q, conf)
+    assert_same_answer(port_rows(answer), want, q)
 
 
-def check_numpy_reference(xbb: Xbb, q: str) -> None:
+def check_numpy_reference(xbb: Xbb, q: str, conf: str = "pallas on") -> None:
     got = CS.XBB_REFS[q](xbb.port_tables)
-    assert_same_answer(numpy_rows(got, q), xbb.ref(q), q)
+    assert_same_answer(numpy_rows(got, q), xbb.ref(q, conf), q)
+
+
+def ref_conf(q: str, device) -> str:
+    """The reference session ``q`` is held against: its device path with
+    the Pallas gate on when ``q`` is one of ``device`` (the queries whose
+    device path takes under about 5 s here, and one more), else its CPU
+    oracle, which gives the same answers in a fraction of the time."""
+    return "pallas on" if q in device else "cpu oracle"
+
+
+def ref_cases(queries, device, gate_off, numpy=()) -> list:
+    """``(conf, q)`` of each query's comparisons (:func:`ref_conf`), and
+    with the Pallas gate off for ``gate_off``, but for the queries of
+    ``numpy`` (whose gate-off path takes over 5 s here once the gate-on
+    path no longer compiles their pieces first), held against the numpy
+    reference instead."""
+    return [(ref_conf(q, device), q) for q in queries] \
+        + [("numpy" if q in numpy else "pallas off", q) for q in gate_off]
 
 
 def check_wrapper_calls(xbb: Xbb, kernel_queries) -> None:
@@ -149,6 +179,11 @@ def check_wrapper_calls(xbb: Xbb, kernel_queries) -> None:
 
 QUERIES = ["q02", "q03", "q04", "q06", "q07", "q08", "q09"]
 KERNEL_QUERIES = ["q03", "q06", "q07", "q08", "q09"]
+#: Held against the reference's device path with its Pallas gate on; the
+#: others against its CPU oracle (``ref_conf``).
+DEVICE = ["q04", "q07", "q08", "q09"]
+#: Their gate-off comparison against the numpy reference instead.
+NUMPY = ["q03", "q06"]
 
 
 @pytest.fixture(scope="module")
@@ -156,15 +191,15 @@ def xbb():
     return Xbb(QUERIES)
 
 
-@pytest.mark.parametrize("conf,q", [("pallas on", q) for q in QUERIES]
-                         + [("pallas off", q) for q in KERNEL_QUERIES])
+@pytest.mark.parametrize("conf,q",
+                         ref_cases(QUERIES, DEVICE, KERNEL_QUERIES, NUMPY))
 def test_query_matches_reference(q, conf, xbb):
     check_query(xbb, q, conf)
 
 
 @pytest.mark.parametrize("q", QUERIES)
 def test_numpy_reference_matches_reference(q, xbb):
-    check_numpy_reference(xbb, q)
+    check_numpy_reference(xbb, q, ref_conf(q, DEVICE))
 
 
 def test_query_paths_call_the_kernel_wrappers(xbb):
@@ -180,14 +215,15 @@ def _to_arrow(hb) -> pa.RecordBatch:
 def test_q02_on_pivot_clicks(xbb):
     """q02 over clicks on item 10 added beside every 1,000th identified
     click (``chip_smoke.q02_pivot_clicks``, the card's ``bb_q02_pivot``):
-    the port, the reference and the numpy reference agree, with rows."""
+    the port, the reference's CPU oracle and the numpy reference agree,
+    with rows."""
     port_tables = CS.q02_pivot_clicks(xbb.port_tables)
     ref_tables = dict(xbb.ref_tables,
                       web_clickstreams=_to_arrow(
                           port_tables["web_clickstreams"]))
     got = tpcxbb.q02(tpcxbb.load(TorchSession(device="cpu"), port_tables)
                      ).collect()
-    want = rxbb.q02(rxbb.load(ref_session(REF_CONFS["pallas on"]),
+    want = rxbb.q02(rxbb.load(ref_session(REF_CONFS["cpu oracle"]),
                               ref_tables)).collect()
     assert want.num_rows > 3
     assert_same_answer(port_rows(got), want, "q02")
@@ -196,12 +232,13 @@ def test_q02_on_pivot_clicks(xbb):
 
 
 def test_q07_with_rows_at_2_17_clicks():
-    """q07 reads the item table alone; at 2^17 clicks it keeps rows."""
+    """q07 reads the item table alone; at 2^17 clicks it keeps rows (held
+    against the reference's CPU oracle)."""
     ref_item = rxbb.gen_tables(1 << 17, seed=SEED)["item"]
     port_tables = {"item": tpcxbb.gen_tables(1 << 17, seed=SEED)["item"]}
     got = tpcxbb.q07(tpcxbb.load(TorchSession(device="cpu"), port_tables)
                      ).collect()
-    want = rxbb.q07(rxbb.load(ref_session(REF_CONFS["pallas on"]),
+    want = rxbb.q07(rxbb.load(ref_session(REF_CONFS["cpu oracle"]),
                               {"item": ref_item})).collect()
     assert want.num_rows > 0
     assert_same_answer(port_rows(got), want, "q07")
