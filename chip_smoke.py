@@ -8331,6 +8331,646 @@ def time_snappy(SN, PD, M, files) -> dict:
             "bound_ms": bound}
 
 
+# --------------------------------------------------------------------------
+# the memory phase
+# --------------------------------------------------------------------------
+
+#: The pq_sort_ext cell's budgets: the device store holds fewer than three
+#: of lineitem's 1,048,576-row runs (about 90 MB each), the host tier
+#: about one, so runs and merge chunks reach both tiers.
+EXT_SPILL_BUDGET = 256 << 20
+EXT_SORT_THRESHOLD = 64 << 20
+EXT_HOST_STORAGE = 128 << 20
+#: Buffers of the CRC32C check: (count, largest size + 1).
+CRC_BUFFERS = (1000, 65_538)
+#: The window threshold of oom_inject_bb_q30 (its window input passes it).
+XBB_WINDOW_THRESHOLD = 1 << 22
+
+
+def _gbps(nbytes: int, ns: int) -> float:
+    return nbytes / ns if ns > 0 else 0.0
+
+
+def _flip_byte(path: str, offset: int) -> None:
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)
+        f.seek(offset)
+        f.write(bytes([b[0] ^ 0x20]))
+
+
+def memory_spill_roundtrip(torch, M, li_batch, spill_dir, smi) -> dict:
+    """``spill_roundtrip``: all of lineitem as one batch through a catalog
+    device -> host -> disk -> device, bit for bit, each transition's GB/s
+    printed; a flipped byte of its disk range raises ChecksumError."""
+    SP, CK, HostBatch = M.SP, M.CK, M.HostBatch
+    want = HostBatch.from_device(li_batch)
+    cat = SP.BufferCatalog(1 << 40, 1 << 40, spill_dir,
+                           device=li_batch.device)
+    bid = cat.register_batch(li_batch)
+    torch.cuda.synchronize()
+    # a first trip device -> host -> device: the cold copy (the pinned
+    # buffer's first allocation) and the host tier's restore
+    cat.spill_below(SP.ACTIVE_ON_DECK_PRIORITY)
+    check(cat.tier_of(bid) == SP.StorageTier.HOST,
+          "spill_roundtrip: the batch did not reach the host tier")
+    host_columns_equal(HostBatch.from_device(cat.acquire_batch(bid)), want,
+                       "spill_roundtrip device -> host -> device")
+    m0 = dict(cat.metrics)
+    out = {"device_bytes": SP.device_size_bytes(li_batch),
+           "device_to_host_cold_GBps": _gbps(m0["device_to_host_bytes"],
+                                             m0["device_to_host_ns"]),
+           "host_to_device_GBps": _gbps(m0["host_to_device_bytes"],
+                                        m0["host_to_device_ns"])}
+    # then device -> host -> disk -> device
+    cat.spill_below(SP.ACTIVE_ON_DECK_PRIORITY)
+    cat.host_budget = 0
+    cat.enforce_budgets()
+    check(cat.tier_of(bid) == SP.StorageTier.DISK,
+          "spill_roundtrip: the batch did not reach the disk tier")
+    offset, length = cat.disk_range_of(bid)
+    out["disk_bytes"] = length
+    # the spilled payload, for the CRC's rate
+    payload = np.fromfile(cat.spill_file.path, np.uint8, length, "", offset)
+    back = cat.acquire_batch(bid)
+    torch.cuda.synchronize()
+    host_columns_equal(HostBatch.from_device(back), want,
+                       "spill_roundtrip device -> host -> disk -> device")
+    del back
+    m = dict(cat.metrics)
+    for t in ("device_to_host", "host_to_disk", "disk_to_device"):
+        nbytes = m[t + "_bytes"] - m0[t + "_bytes"]
+        ns = m[t + "_ns"] - m0[t + "_ns"]
+        out[t + "_GBps"] = _gbps(nbytes, ns)
+        out[t + "_ms"] = ns / 1e6
+    cat.free(bid)
+    cat.close()
+    bad = SP.BufferCatalog(0, 0, spill_dir, device=li_batch.device)
+    bid = bad.register_batch(li_batch)
+    off, ln = bad.disk_range_of(bid)
+    _flip_byte(bad.spill_file.path, off + ln // 2)
+    try:
+        bad.acquire_batch(bid)
+        fail("spill_roundtrip: a flipped byte was read back without "
+             "ChecksumError")
+    except CK.ChecksumError as e:
+        out["checksum_error"] = str(e)[:120]
+    bad.free(bid)
+    bad.close()
+    print(f"  SPILL_ROUNDTRIP {at()}: lineitem's {len(li_batch.columns)} "
+          f"columns "
+          f"({out['device_bytes'] / 1e9:.3f} GB on the card, "
+          f"{length / 1e9:.3f} GB on disk) device -> host "
+          f"{out['device_to_host_GBps']:.2f} GB/s (pinned, side stream; "
+          f"{out['device_to_host_cold_GBps']:.2f} GB/s the first time), "
+          f"host -> disk {out['host_to_disk_GBps']:.2f} GB/s (serialize, "
+          f"CRC32C, append), disk -> device "
+          f"{out['disk_to_device_GBps']:.2f} GB/s (read, verify, upload), "
+          f"host -> device {out['host_to_device_GBps']:.2f} GB/s; bit for "
+          f"bit equal; a flipped byte raised ChecksumError; card {smi}")
+    return out, payload
+
+
+def memory_crc(M, payload, smi) -> dict:
+    """The C++ CRC32C against the plain version on CRC_BUFFERS random
+    buffers and the check vectors (its time there beside the plain
+    version's and the host's read rate), then its GB/s over the spilled
+    payload."""
+    CK = M.CK
+    rng = np.random.default_rng(7)
+    n_buf, top = CRC_BUFFERS
+    bufs = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+            for n in rng.integers(0, top, n_buf)]
+    vectors = {b"": 0, b"123456789": 0xE3069283, bytes(32): 0x8A9136AA,
+               bytes([0xFF] * 32): 0x62A8AB43,
+               bytes(range(32)): 0x46DD794E}
+    for data, crc in vectors.items():
+        check(CK.crc32c_native(data) == crc == CK.crc32c_plain(data),
+              f"crc32c check vector {data[:9]!r}")
+    for b in bufs:
+        check(CK.crc32c_native(b) == CK.crc32c_plain(b) ==
+              CK.crc32c_native(b, tables_only=True),
+              f"crc32c differs from the plain version at {len(b)} bytes")
+    # from 8 MiB up the routine cuts the buffer into pieces on threads
+    big = rng.integers(0, 256, 24_000_007, dtype=np.uint8)
+    check(CK.crc32c_native(big, 7) == CK.crc32c_plain(big, 7),
+          "crc32c differs from the plain version on 24,000,007 bytes")
+    total = sum(len(b) for b in bufs)
+    times, plain = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for b in bufs:
+            CK.crc32c_native(b)
+        times.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    for b in bufs:
+        CK.crc32c_plain(b)
+    plain.append((time.perf_counter() - t0) * 1e3)
+    big = np.ones(1 << 30, np.uint8)
+    reads = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        big.view(np.uint64).sum()
+        reads.append(time.perf_counter() - t0)
+    read_gbs = big.nbytes / min(reads) / 1e9
+    del big
+    out = {"buffers": n_buf, "bytes": total, "ms": statistics.median(times),
+           "plain_ms": plain[0], "read_GBps": read_gbs,
+           "bound_ms": total / (read_gbs * 1e9) * 1e3,
+           "sse42": CK.hardware_path()}
+    if payload is not None:
+        pt = []
+        for tables_only in (False, True):
+            t0 = time.perf_counter()
+            CK.crc32c_native(payload, tables_only=tables_only)
+            pt.append(time.perf_counter() - t0)
+        out["payload_bytes"] = int(payload.nbytes)
+        out["payload_GBps"] = payload.nbytes / pt[0] / 1e9
+        out["payload_tables_GBps"] = payload.nbytes / pt[1] / 1e9
+    print(f"  CRC32C (host C++, {'SSE4.2' if out['sse42'] else 'tables'}) "
+          f"equal to the plain version on {n_buf} buffers of 0-"
+          f"{top - 1} bytes, one of 24,000,007 (threads) and "
+          f"{len(vectors)} check vectors: "
+          f"{out['ms']:.3f} ms over {total / 1e6:.1f} MB (plain "
+          f"{out['plain_ms']:.1f} ms, bound {out['bound_ms']:.3f} ms at the "
+          f"host's one-thread read rate {read_gbs:.2f} GB/s); over the "
+          f"spilled payload ({out.get('payload_bytes', 0) / 1e9:.3f} GB, "
+          f"threads) {out.get('payload_GBps', 0):.2f} GB/s, slicing-by-8 "
+          f"on one thread {out.get('payload_tables_GBps', 0):.2f} GB/s; "
+          f"card {smi}")
+    return out
+
+
+def _node_metric(tree: dict, name: str, metric: str):
+    """``metric`` of the first node called ``name`` in a profile tree."""
+    if tree["name"] == name:
+        return tree["metrics"].get(metric)
+    for c in tree["children"]:
+        v = _node_metric(c, name, metric)
+        if v is not None:
+            return v
+    return None
+
+
+def _lineitem_row_order(cols) -> np.ndarray:
+    """lineitem's rows ordered by (l_shipdate, l_orderkey, l_partkey,
+    l_suppkey), two packed int64 keys (no l_linenumber is generated);
+    rows tied on those four fall back to every numeric column."""
+    a = {n: np.asarray(cols[n]).astype(np.int64) for n in
+         ("l_shipdate", "l_orderkey", "l_partkey", "l_suppkey")}
+    k1 = (a["l_shipdate"] << 32) | a["l_orderkey"]
+    k2 = (a["l_partkey"] << 32) | a["l_suppkey"]
+    order = np.lexsort([k2, k1])
+    tied = (np.diff(k1[order]) == 0) & (np.diff(k2[order]) == 0)
+    if not tied.any():
+        return order
+    numeric = [np.asarray(cols[n]) for n in cols
+               if np.asarray(cols[n]).dtype.kind in "iuf"]
+    return np.lexsort(numeric[::-1] + [k2, k1])
+
+
+def _check_lineitem_rows(got, li, want, cell: str) -> None:
+    """Every column of ``got`` equal to lineitem's (``li``) once both
+    sides are ordered by :func:`_lineitem_row_order` (``want``: lineitem's
+    columns in that order, made once): floats bit for bit, validity all
+    true; ``l_shipdate`` non-decreasing in ``got``'s own order."""
+    ship = np.asarray(got.columns["l_shipdate"])
+    check(len(ship) == li.num_rows and bool(np.all(ship[1:] >= ship[:-1])),
+          f"{cell}: l_shipdate decreases")
+    g_order = _lineitem_row_order(got.columns)
+    for n in li.columns:
+        g = np.asarray(got.columns[n])[g_order]
+        w = want[n]
+        if w.dtype.kind in "OU":
+            same = len(g) == len(w) and bool(np.all(g == w))
+        elif w.dtype.kind == "f":
+            same = np.array_equal(g.view(np.int64), w.view(np.int64))
+        else:
+            same = np.array_equal(g, w)
+        check(same and bool(np.all(got.validity[n])),
+              f"{cell}: column {n} differs from numpy's")
+
+
+def _lineitem_want(li) -> dict:
+    order = _lineitem_row_order(li.columns)
+    return {n: np.asarray(li.columns[n])[order] for n in li.columns}
+
+
+def memory_sort_ext(torch, M, wrappers, lineitem_dir, tables, spill_dir,
+                    smi) -> dict:
+    """``pq_sort_ext``: lineitem's parquet files (one run per row group)
+    ordered by l_shipdate through the external sort, runs spilled to host
+    and disk; equal to numpy's rows once both sides are ordered by
+    :func:`_lineitem_row_order`."""
+    conf = {"spark.rapids.memory.tpu.spillBudgetBytes": EXT_SPILL_BUDGET,
+            "spark.rapids.sql.sort.externalThresholdBytes":
+            EXT_SORT_THRESHOLD,
+            "spark.rapids.memory.host.spillStorageSize": EXT_HOST_STORAGE,
+            "spark.rapids.memory.tpu.spillDir": spill_dir}
+    s = M.TorchSession(conf, device=M.device)
+    li = tables["lineitem"]
+    want = _lineitem_want(li)
+    runs = []
+    for label in ("cold", "warm"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2 ** 30
+        wrappers.reset()
+        t0 = time.perf_counter()
+        got = s.read.parquet(lineitem_dir).sort("l_shipdate").collect()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = wrappers.counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = s.last_query_profile()
+        eng = prof.engine
+        n_runs = _node_metric(prof.tree, "SortExec", "sortRuns") or 0
+        check(_node_metric(prof.tree, "SortExec", "externalSort") == 1,
+              "pq_sort_ext did not take the external sort")
+        check(eng["spillBytes"] > 0 and eng["spillBytesToDisk"] > 0
+              and eng["spillBytesToHost"] > 0,
+              f"pq_sort_ext: runs did not reach host and disk: {eng}")
+        check(launches["sortStep"] >= n_runs > 1,
+              f"pq_sort_ext: sortStep launched {launches['sortStep']} "
+              f"times over {n_runs} runs")
+        _check_lineitem_rows(got, li, want, "pq_sort_ext")
+        runs.append({"ms": ms, "peak_gib": peak, "resident_gib": resident,
+                     "runs": n_runs,
+                     "merge_steps": _node_metric(prof.tree, "SortExec",
+                                                 "mergeSteps"),
+                     "sortStep_launches": launches["sortStep"],
+                     "spill_bytes_to_host": eng["spillBytesToHost"],
+                     "spill_bytes_to_disk": eng["spillBytesToDisk"],
+                     "transitions": eng["spillTransitions"],
+                     "retry": eng["retry"]})
+        print(f"  PQ_SORT_EXT {label} {at()}: {ms:.1f} ms, "
+              f"{li.num_rows} rows equal to numpy's, {n_runs} runs, "
+              f"{runs[-1]['merge_steps']} merge steps, sortStep "
+              f"{launches['sortStep']} launches, spilled "
+              f"{eng['spillBytesToHost'] / 1e9:.3f} GB to host and "
+              f"{eng['spillBytesToDisk'] / 1e9:.3f} GB to disk, peak "
+              f"device memory {peak:.2f} GiB ({peak - resident:.2f} above "
+              f"the {resident:.2f} GiB resident before it); transitions "
+              + json.dumps({k: round(v["GBps"], 3) for k, v in
+                            eng["spillTransitions"].items()}) + " GB/s")
+    print(f"  PQ_SORT_EXT budgets: spillBudgetBytes={EXT_SPILL_BUDGET}, "
+          f"externalThresholdBytes={EXT_SORT_THRESHOLD}, "
+          f"spillStorageSize={EXT_HOST_STORAGE}; card {smi}")
+    return {"cold": runs[0], "warm": runs[1],
+            "spillBudgetBytes": EXT_SPILL_BUDGET,
+            "externalThresholdBytes": EXT_SORT_THRESHOLD,
+            "spillStorageSize": EXT_HOST_STORAGE}
+
+
+INJECT = {"spark.rapids.tpu.test.faultInjection.sites": "*",
+          "spark.rapids.tpu.test.faultInjection.oomEveryN": -1}
+
+
+def memory_inject_cell(torch, M, wrappers, cell, conf, build, check_fn,
+                       need, split: bool = False) -> dict:
+    """One ``oom_inject_*`` cell: a session of its own (the injector
+    counts visits per session), one run with the kernel counts set to 0
+    just before and read just after; the answer checked, retries (and
+    splits) recorded, ``need`` launched."""
+    s = M.TorchSession(conf, device=M.device)
+    wrappers.reset()
+    t0 = time.perf_counter()
+    got = build(s).collect()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = wrappers.counts()
+    check_fn(got)
+    prof = s.last_query_profile()
+    retry = prof.engine["retry"]
+    visits = s._fault_injector.visits()
+    check(retry["retryCount"] > 0, f"{cell}: no retry was recorded")
+    check(not split or retry["splitAndRetryCount"] > 0,
+          f"{cell}: the probe never split")
+    for k in need:
+        check(launches[k] > 0, f"{cell}: {k} was not launched")
+    chunked = _node_metric(prof.tree, "WindowExec", "chunkedWindow") or 0
+    print(f"  {cell.upper()} {at()}: {ms:.1f} ms, answer equal to numpy's; "
+          f"{len(visits)} sites visited ({sum(visits.values())} visits, "
+          f"{s._fault_injector.injected['oom']} injected OOMs), retries "
+          f"{retry['retryCount']}, splits {retry['splitAndRetryCount']}, "
+          f"spilled {prof.engine['spillBytes']} bytes, chunked window "
+          f"pieces {chunked}; launches "
+          + json.dumps({k: v for k, v in launches.items() if v}))
+    return {"ms": ms, "sites": sorted(visits), "visits": sum(visits.values()),
+            "retry": retry, "launches": launches,
+            "spill_bytes": prof.engine["spillBytes"],
+            "chunked_windows": chunked}
+
+
+def memory_real_oom(torch, M, lineitem_dir, tables, spill_dir, smi) -> dict:
+    """``real_oom``: pq_sort_ext's external sort with a device budget that
+    never spills on its own, run once uncapped (its peak printed), then
+    again with a per-process allocator cap set when run generation
+    starts, at the memory reserved then plus one input batch: below the
+    uncapped peak and below what sorting that batch needs, so a real
+    torch.OutOfMemoryError is raised inside a retry site (no injection),
+    classified OOM and recovered by spilling the inputs. The cap is reset
+    to 1.0 in a ``finally``."""
+    R, SortExec = M.R, M.E.SortExec
+    conf = {"spark.rapids.memory.tpu.spillBudgetBytes": 1 << 40,
+            "spark.rapids.sql.sort.externalThresholdBytes":
+            EXT_SORT_THRESHOLD,
+            "spark.rapids.memory.host.spillStorageSize": 64 << 30,
+            "spark.rapids.memory.tpu.spillDir": spill_dir,
+            "spark.rapids.tpu.retry.backoffBaseMs": 0}
+    s = M.TorchSession(conf, device=M.device)
+    total = torch.cuda.mem_get_info()[1]
+    real = {"n": 0}
+    cap = {}
+    classify, generate = R.classify, SortExec._generate_run
+
+    def counting(exc):
+        if isinstance(exc, torch.OutOfMemoryError) \
+                and not isinstance(exc, M.FI.InjectedFault):
+            real["n"] += 1
+        return classify(exc)
+
+    def capped_generate(self, ctx, catalog, sorter, bid):
+        if not cap:
+            batch_bytes = M.SP.device_size_bytes(catalog.acquire_batch(bid))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            cap["reserved"] = torch.cuda.memory_reserved()
+            cap["batch"] = batch_bytes
+            cap["bytes"] = cap["reserved"] + batch_bytes
+            torch.cuda.set_per_process_memory_fraction(cap["bytes"] / total)
+        return generate(self, ctx, catalog, sorter, bid)
+
+    want = _lineitem_want(tables["lineitem"])
+
+    def run():
+        got = s.read.parquet(lineitem_dir).sort("l_shipdate").collect()
+        _check_lineitem_rows(got, tables["lineitem"], want, "real_oom")
+        return s.last_query_profile()
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_reserved()
+    run()
+    peak = torch.cuda.max_memory_reserved()
+    R.classify, SortExec._generate_run = counting, capped_generate
+    t0 = time.perf_counter()
+    try:
+        prof = run()
+    finally:
+        R.classify, SortExec._generate_run = classify, generate
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    ms = (time.perf_counter() - t0) * 1e3
+    retry = prof.engine["retry"]
+    spilled = prof.engine["spillBytes"]
+    # retries of the session's dispatch (a whole re-run) are not a site's
+    at_sites = retry["retryCount"] - prof.extras.get(
+        "TorchSession", {}).get("retryCount", 0)
+    check(cap["bytes"] < peak, f"real_oom: the cap {cap['bytes']} is not "
+          f"below the uncapped peak {peak}")
+    check(real["n"] > 0 and at_sites > 0 and spilled > 0,
+          f"real_oom: no real OOM was recovered at a retry site (OOMs "
+          f"{real['n']}, {retry}, spilled {spilled})")
+    print(f"  REAL_OOM {at()}: uncapped peak {peak / 2**30:.3f} GiB "
+          f"reserved (resident before {resident / 2**30:.3f}); cap "
+          f"{cap['bytes'] / 2**30:.3f} GiB = {cap['reserved'] / 2**30:.3f} "
+          f"reserved when run generation starts + one input batch "
+          f"({cap['batch'] / 2**30:.3f}): {real['n']} real "
+          f"torch.OutOfMemoryError(s) classified OOM and recovered, "
+          f"{at_sites} retries at the sort's retry sites "
+          f"({retry['retryCount']} in all), spilled {spilled / 1e9:.3f} GB, "
+          f"{ms:.1f} ms, answer sorted and equal to numpy's rows; card "
+          f"{smi}")
+    return {"uncapped_peak_reserved_bytes": peak,
+            "resident_reserved_bytes": resident, "cap_bytes": cap["bytes"],
+            "input_batch_bytes": cap["batch"], "real_ooms": real["n"],
+            "site_retries": at_sites,
+            "retry": retry, "spill_bytes": spilled, "ms": ms}
+
+
+def run_real_oom_process(lineitem_dir, tables, seed: int) -> dict:
+    """``real_oom`` in a process of its own (this script with
+    ``--real-oom``), so the cap meets an allocator that earlier phases
+    did not fragment; its report is the child's last line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--real-oom",
+         lineitem_dir, "--lineitem-rows", str(tables["lineitem"].num_rows),
+         "--seed", str(seed)], capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    check(proc.returncode == 0 and lines,
+          f"real_oom: the child exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    out = json.loads(lines[-1])
+    out["process_s"] = time.perf_counter() - t0
+    return out
+
+
+def real_oom_main(args) -> int:
+    """``--real-oom DIR``: the real_oom cell alone over lineitem's files
+    in DIR; its JSON report is the last line."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("CUDA is not available; this smoke run needs an NVIDIA GPU")
+    from spark_rapids_tpu_torch.workloads import tpch
+    M = memory_modules()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    tables = {"lineitem": tpch.gen_tables(
+        args.lineitem_rows, seed=args.seed)["lineitem"]}
+    spill_dir = tempfile.mkdtemp(prefix="chip_smoke_spill_")
+    try:
+        out = memory_real_oom(torch, M, args.real_oom, tables, spill_dir,
+                              smi)
+    finally:
+        shutil.rmtree(spill_dir, True)
+    print(json.dumps(out))
+    return 0
+
+
+def memory_modules():
+    """The port's modules the memory phase reads, as one namespace."""
+    from spark_rapids_tpu_torch.data.batch import HostBatch
+    from spark_rapids_tpu_torch.exec import execs as E
+    from spark_rapids_tpu_torch.memory import retry as MR
+    from spark_rapids_tpu_torch.memory import spill as MSP
+    from spark_rapids_tpu_torch.memory.semaphore import SemaphoreTimeoutError
+    from spark_rapids_tpu_torch.plan import logical as L
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.utils import checksum as MCK
+    from spark_rapids_tpu_torch.utils import deadline as MD
+    from spark_rapids_tpu_torch.utils import fault_injection as MFI
+    from spark_rapids_tpu_torch.workloads import tpch, tpcxbb
+    return types.SimpleNamespace(
+        SP=MSP, CK=MCK, R=MR, D=MD, FI=MFI, E=E, HostBatch=HostBatch,
+        TorchSession=TorchSession, tpch=tpch, tpcxbb=tpcxbb,
+        SemaphoreTimeoutError=SemaphoreTimeoutError, device="cuda",
+        rebind=lambda frames, s: {k: L.DataFrame(v._plan, s)
+                                  for k, v in frames.items()})
+
+
+def memory_deadline(torch, M, dfs, ref3) -> dict:
+    """``deadline``: Q3 with a deadline far below its time raises
+    QueryDeadlineExceeded naming a site within the deadline plus 1 s; the
+    same session then runs Q3 to numpy's answer."""
+    s = M.TorchSession({"spark.rapids.tpu.query.deadlineSecs": 0.002},
+                       device=M.device)
+    q3 = lambda: M.tpch.q3(M.rebind(dfs, s))  # noqa: E731
+    t0 = time.perf_counter()
+    try:
+        q3().collect()
+        fail("deadline: Q3 finished inside a 2 ms deadline")
+    except M.D.QueryDeadlineExceeded as e:
+        wall = time.perf_counter() - t0
+        err = e
+    check(wall <= 0.002 + 1.0 and err.site,
+          f"deadline: raised after {wall:.3f} s at {err.site!r}")
+    check(s.device_manager.semaphore.holders() == {},
+          "deadline: the cancelled query kept its semaphore slot")
+    s.set_conf("spark.rapids.tpu.query.deadlineSecs", 0.0)
+    got = q3().collect()
+    check_top("Q3", got, ref3, ["o_orderkey", "o_orderdate"], "revenue", 10)
+    print(f"  DEADLINE {at()}: Q3 under a 2 ms deadline raised "
+          f"QueryDeadlineExceeded after {wall * 1e3:.1f} ms at "
+          f"'{err.site}' (slowest site '{err.slowest_site}'); the same "
+          "session then answered Q3 equal to numpy's")
+    return {"wall_ms": wall * 1e3, "site": err.site,
+            "slowest_site": err.slowest_site}
+
+
+def memory_semaphore(torch, M, dfs, refs) -> dict:
+    """``semaphore``: two threads run Q6 through one slot, both correct,
+    a profile with semaphoreWaitNs > 0; an acquireTimeout of 0.05 s
+    against a held slot raises SemaphoreTimeoutError naming the
+    holder."""
+    import threading
+    s = M.TorchSession({"spark.rapids.sql.concurrentTpuTasks": 1},
+                       device=M.device)
+    q6 = M.rebind(dfs, s)
+    waits, errors = [], []
+    barrier = threading.Barrier(2)
+
+    def worker():
+        try:
+            barrier.wait()
+            for _ in range(4):
+                got = M.tpch.q6(q6).collect()
+                check_answer("q6", got, refs["q6"])
+                waits.append(s.last_query_profile().engine[
+                    "semaphoreWaitNs"])
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+    threads = [threading.Thread(target=worker, name=f"q6-{i}")
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, f"semaphore: {errors}")
+    check(max(waits) > 0, f"semaphore: no query waited: {waits}")
+    to = M.TorchSession({"spark.rapids.sql.concurrentTpuTasks": 1,
+                         "spark.rapids.tpu.concurrentTpuTasks."
+                         "acquireTimeout": 0.05}, device=M.device)
+    held, done = threading.Event(), threading.Event()
+
+    def holder():
+        with to.device_manager.semaphore:
+            held.set()
+            done.wait(30)
+    h = threading.Thread(target=holder, name="slot-holder")
+    h.start()
+    held.wait(30)
+    try:
+        M.tpch.q6(M.rebind(dfs, to)).collect()
+        fail("semaphore: a held slot did not time out")
+    except M.SemaphoreTimeoutError as e:
+        msg = str(e)
+    finally:
+        done.set()
+        h.join()
+    check("slot-holder" in msg, f"semaphore: the error names no holder: "
+          f"{msg}")
+    check_answer("q6", M.tpch.q6(M.rebind(dfs, to)).collect(), refs["q6"])
+    print(f"  SEMAPHORE {at()}: two threads ran Q6 4 times each through "
+          f"one slot, every answer equal to numpy's, waits "
+          f"{[round(w / 1e6, 3) for w in waits]} ms; acquireTimeout 0.05 s "
+          f"raised SemaphoreTimeoutError: {msg[:160]}")
+    return {"wait_ms": [w / 1e6 for w in waits], "timeout_error": msg}
+
+
+def run_memory_phase(torch, M, session, wrappers, dfs, tables, refs, ref3,
+                     lineitem_dir, futures, seed: int, smi: str) -> dict:
+    """The memory and robustness phase (see the module doc)."""
+    spill_dir = tempfile.mkdtemp(prefix="chip_smoke_spill_")
+    atexit.register(shutil.rmtree, spill_dir, True)
+    out = {}
+    t_phase = time.perf_counter()
+    out["spill_roundtrip"], payload = memory_spill_roundtrip(
+        torch, M, dfs["lineitem"]._plan.batch, spill_dir, smi)
+    out["crc32c"] = memory_crc(M, payload, smi)
+    del payload
+    # the C++ CRC32C's calls on the path: the external sort's spill traffic
+    crc0 = M.CK._COUNTED.launches
+    out["pq_sort_ext"] = memory_sort_ext(torch, M, wrappers, lineitem_dir,
+                                         tables, spill_dir, smi)
+    out["crc32c_launches"] = M.CK._COUNTED.launches - crc0
+    check(out["crc32c_launches"] > 0,
+          "pq_sort_ext: the C++ CRC32C never ran on the spill path")
+    cells = {
+        "oom_inject_q3": (lambda s: M.tpch.q3(M.rebind(dfs, s)),
+                          lambda got: check_top(
+                              "Q3", got, ref3, ["o_orderkey", "o_orderdate"],
+                              "revenue", 10), ("joinProbe", "segmented"),
+                          INJECT),
+        "oom_inject_q5": (lambda s: M.tpch.q5(M.rebind(dfs, s)),
+                          lambda got: check_answer("q5", got, refs["q5"]),
+                          ("joinProbe",), INJECT),
+        "oom_inject_q22": (lambda s: M.tpch.q22(M.rebind(dfs, s)),
+                           lambda got: check_answer("q22", got,
+                                                    refs["q22"]),
+                           ("strings",), INJECT),
+        "oom_inject_q1_hash_str": (
+            lambda s: M.tpch.q1(repartitioned(
+                M.rebind(dfs, s), 16, "l_returnflag", "l_linestatus")),
+            lambda got: check_answer("q1", got, refs["q1"]), ("hash",),
+            INJECT),
+    }
+    for cell, (build, check_fn, need, conf) in cells.items():
+        out[cell] = memory_inject_cell(torch, M, wrappers, cell, conf, build,
+                                       check_fn, need)
+    out["oom_inject_q3_split"] = memory_inject_cell(
+        torch, M, wrappers, "oom_inject_q3_split",
+        {"spark.rapids.tpu.test.faultInjection.sites":
+         "ShuffledHashJoinExec.probe",
+         "spark.rapids.tpu.test.faultInjection.oomEveryN": -4,
+         "spark.rapids.tpu.retry.maxRetries": 1},
+        cells["oom_inject_q3"][0], cells["oom_inject_q3"][1],
+        ("joinProbe",), split=True)
+    xbb = M.tpcxbb.gen_tables(BENCH_XBB_CLICKS, seed=seed)
+    xbb_ref = dict(reference(futures, "xbb", BENCH_XBB_CLICKS, seed, "q30"))
+    xbb_ref.pop(XBB_AUX["q30"], None)
+    xbb_up = {k: session.create_dataframe(v) for k, v in xbb.items()}
+    out["oom_inject_bb_q30"] = memory_inject_cell(
+        torch, M, wrappers, "oom_inject_bb_q30",
+        {**INJECT, "spark.rapids.sql.window.externalThresholdBytes":
+         XBB_WINDOW_THRESHOLD},
+        lambda s: M.tpcxbb.q30(M.rebind(xbb_up, s)),
+        lambda got: check_exact("oom_inject_bb_q30", got, xbb_ref,
+                                XBB_FLOATS.get("q30", ())), ("joinProbe",))
+    check(out["oom_inject_bb_q30"]["chunked_windows"] > 0,
+          "oom_inject_bb_q30: the window did not take _chunked_pieces")
+    del xbb, xbb_up
+    out["real_oom"] = run_real_oom_process(lineitem_dir, tables, seed)
+    out["deadline"] = memory_deadline(torch, M, dfs, ref3)
+    out["semaphore"] = memory_semaphore(torch, M, dfs, refs)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  memory phase: {out['seconds']:.1f} s")
+    return out
+
+
 
 # --------------------------------------------------------------------------
 # main
@@ -8355,7 +8995,13 @@ def main() -> int:
                     help="also trace two warm runs of each query and "
                          "entry stage with torch.profiler (tables in "
                          "chiprun_out/<query>_profile.txt)")
+    ap.add_argument("--real-oom", metavar="DIR",
+                    help="run only the memory phase's real_oom cell over "
+                         "lineitem's parquet files in DIR (the phase runs "
+                         "it this way, in a process of its own)")
     args = ap.parse_args()
+    if args.real_oom:
+        return real_oom_main(args)
 
     import torch
     if not torch.cuda.is_available():
@@ -8408,6 +9054,7 @@ def main() -> int:
     from spark_rapids_tpu_torch.metrics import eventlog as EL
 
     ref_workers, futures = start_references(args)
+    mem_mods = memory_modules()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -8777,6 +9424,16 @@ def main() -> int:
                                 metrics_cells)
     del metrics_cells
 
+    # The memory and robustness phase: the spill catalog's tiers, CRC32C,
+    # the external sort over parquet, OOM injection, a real OOM under an
+    # allocator cap, the query deadline and the task semaphore.
+    print(f"memory phase {at()}: spill_roundtrip, crc32c, pq_sort_ext, "
+          f"oom_inject_* (Q3, Q5, Q22, q1_hash_str, the Q3 split, bb_q30), "
+          f"real_oom, deadline, semaphore")
+    memory = run_memory_phase(
+        torch, mem_mods, session, wrappers, dfs, tables, refs, ref3,
+        written["dirs"]["lineitem"], futures, args.seed, smi)
+
     # -- phase 4: kernels at the queries' shapes ---------------------------
     print(f"phase 4 {at()}: kernels at the shapes the queries gave them")
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
@@ -8917,6 +9574,16 @@ def main() -> int:
     snappy_row = time_snappy(SN, PD, M, [
         f for f in written["files"]
         if Path(f).parent.name == "lineitem"])
+    crc = memory["crc32c"]
+    rows.append({"name": "crc32c", "route": "cuda",
+                 "source": "spark_rapids_tpu_torch/ops/kernels/cuda/csrc/"
+                           "crc32c.cpp",
+                 "replaces": "spark_rapids_tpu/utils/checksum.py:80 (host "
+                             "routine, not a TPU kernel)",
+                 "launches": memory["crc32c_launches"], "max_abs_err": 0,
+                 "ms": crc["ms"], "plain_ms": crc["plain_ms"],
+                 "bound_ms": crc["bound_ms"], "bound_by": "bytes",
+                 "library_ms": None})
 
     # -- phase 5: results --------------------------------------------------
     print(json.dumps({"queries_sf1": {
@@ -8936,7 +9603,7 @@ def main() -> int:
         "mort_launches": mort_launches,
         "distributed_sum_by_key": distributed,
         "q6_default_mesh_ms": default_ms, "entry_stage": entry_runs,
-        "metrics": metrics,
+        "metrics": metrics, "memory": memory,
         "xbb_score_max_score_ulps": max(xbb_ulps),
         "pipeline_off": pipeline_off, "run_tables": runs_check,
         "parquet": {"fixture": fixture, "sf1_pages": sf1_pages,

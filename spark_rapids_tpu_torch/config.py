@@ -154,6 +154,119 @@ TRACE_FLIGHT_DIR = conf_str(
     "(flight_<reason>_<pid>_<n>.json; bounded per reason).")
 
 
+
+def conf_float(key: str, default: float, doc: str) -> ConfEntry:
+    return _register(key, default, doc, float)
+
+
+# Memory and robustness (the reference's config.py, RapidsConf.scala:241-301)
+
+SORT_EXTERNAL_THRESHOLD = conf_int(
+    "spark.rapids.sql.sort.externalThresholdBytes", 0,
+    "Accumulated input bytes above which a global sort takes the external "
+    "merge sort (sorted runs through the spill catalog, a bounded device "
+    "footprint; exec/external_sort.py). 0 = a quarter of the device spill "
+    "budget.")
+
+WINDOW_EXTERNAL_THRESHOLD = conf_int(
+    "spark.rapids.sql.window.externalThresholdBytes", 0,
+    "Window inputs above this many device bytes evaluate in bounded "
+    "chunks: the input external-sorts by the shared partition-by keys "
+    "through the spill catalog and complete key groups evaluate one chunk "
+    "at a time. 0 = a quarter of the device spill budget. Chunked output "
+    "rows arrive sorted by the partition keys instead of in input order.")
+
+CONCURRENT_TPU_TASKS = conf_int(
+    "spark.rapids.sql.concurrentTpuTasks", 2,
+    "Queries that may hold the device at once (the task semaphore; the "
+    "reference's spark.rapids.sql.concurrentGpuTasks).")
+
+CONCURRENT_ACQUIRE_TIMEOUT = conf_float(
+    "spark.rapids.tpu.concurrentTpuTasks.acquireTimeout", 0.0,
+    "Seconds a query may wait for the task semaphore before failing with "
+    "SemaphoreTimeoutError naming the holding threads. 0 waits forever.")
+
+RETRY_MAX_RETRIES = conf_int(
+    "spark.rapids.tpu.retry.maxRetries", 3,
+    "In-place retries of an operator attempt after a classified OOM or "
+    "transient fault (memory/retry.py) before escalating: OOMs split the "
+    "input in half by rows (SplitAndRetryOOM at unsplittable sites), "
+    "transients re-raise. Each OOM retry first synchronizes the device "
+    "and spills every spillable buffer below on-deck priority.")
+
+RETRY_BACKOFF_BASE_MS = conf_float(
+    "spark.rapids.tpu.retry.backoffBaseMs", 10.0,
+    "Base delay of the capped exponential retry backoff (doubles per "
+    "attempt, deterministic jitter from the site name). 0 disables the "
+    "sleep.")
+
+RETRY_BACKOFF_MAX_MS = conf_float(
+    "spark.rapids.tpu.retry.backoffMaxMs", 1000.0,
+    "Ceiling on one retry backoff sleep, milliseconds.")
+
+FAULT_INJECTION_SITES = conf_str(
+    "spark.rapids.tpu.test.faultInjection.sites", "",
+    "For tests: comma-separated retry-site names or prefixes ('*' = every "
+    "site) where the deterministic fault injector raises synthetic faults "
+    "(utils/fault_injection.py). Empty disables injection.")
+
+FAULT_INJECTION_SEED = conf_int(
+    "spark.rapids.tpu.test.faultInjection.seed", 0,
+    "Phase and flavor seed of the fault injector: which visit of a site "
+    "faults and which transient flavor is raised. Same seed, same "
+    "schedule.")
+
+FAULT_INJECTION_OOM_EVERY_N = conf_int(
+    "spark.rapids.tpu.test.faultInjection.oomEveryN", 0,
+    "Raise an injected torch.OutOfMemoryError at every Nth visit of each "
+    "matched site; negative N faults the first |N| visits, then the site "
+    "heals. 0 disables.")
+
+FAULT_INJECTION_TRANSIENT_EVERY_N = conf_int(
+    "spark.rapids.tpu.test.faultInjection.transientEveryN", 0,
+    "Raise an injected transient fault (a helper race or a spill-disk "
+    "OSError, chosen from the seed) at every Nth visit of each matched "
+    "site; negative N faults the first |N| visits. 0 disables.")
+
+HBM_ALLOC_FRACTION = conf_float(
+    "spark.rapids.memory.tpu.allocFraction", 0.9,
+    "Fraction of the card's memory the spill catalog's device store may "
+    "hold (the reference's spark.rapids.memory.gpu.allocFraction).")
+
+HOST_SPILL_STORAGE_SIZE = conf_int(
+    "spark.rapids.memory.host.spillStorageSize", 1 << 30,
+    "Bytes of host memory (pinned on the card) that hold spilled device "
+    "buffers before they overflow to disk.")
+
+SPILL_DIR = conf_str(
+    "spark.rapids.memory.tpu.spillDir", None,
+    "Directory of the disk spill tier; a fresh temporary directory by "
+    "default.")
+
+DEVICE_SPILL_BUDGET = conf_int(
+    "spark.rapids.memory.tpu.spillBudgetBytes", 0,
+    "Explicit byte budget of the device store; 0 derives it from "
+    "allocFraction of the card's memory (torch.cuda.mem_get_info).")
+
+SPILL_IO_THREADS = conf_int(
+    "spark.rapids.tpu.spill.ioThreads", 2,
+    "Concurrency of the spill-IO lane on the shared pipeline pool: "
+    "device-host copies and spill-file appends run off the catalog lock "
+    "with up to this many in flight. 0 runs them inline on the "
+    "requesting thread (still off the lock).")
+
+QUERY_DEADLINE_SECS = conf_float(
+    "spark.rapids.tpu.query.deadlineSecs", 0.0,
+    "Wall-clock budget of one query, seconds: retry loops, pipeline waits "
+    "and the session's dispatch raise QueryDeadlineExceeded naming the "
+    "slowest site once it is spent (never retried). 0 disables.")
+
+SHUFFLE_CHECKSUM_ENABLED = conf_bool(
+    "spark.rapids.tpu.shuffle.checksum.enabled", True,
+    "Record a CRC32C of every shuffle block and verify it on every read, "
+    "in host memory and on disk, so a corrupt block raises ChecksumError "
+    "instead of becoming data.")
+
 class TorchConf:
     """Immutable snapshot of a conf dict with typed access."""
 
@@ -165,6 +278,10 @@ class TorchConf:
 
     def get(self, entry: ConfEntry) -> Any:
         return entry.get(self._conf)
+
+    def as_dict(self) -> Dict[str, Any]:
+        """The conf's keys and values as given."""
+        return dict(self._conf)
 
     @property
     def metrics_event_log_dir(self) -> Optional[str]:

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import types as T
+from ..utils import lockdep
 from .column import (DeviceColumn, array_column, bucket_byte_capacity,
                      bucket_capacity, dictionary_column, pow2_len)
 
@@ -408,10 +409,12 @@ def _flat_columns(columns) -> list:
 def download_columns(batch: ColumnarBatch, n: int,
                      extra: Sequence[torch.Tensor] = ()):
     """Rows ``[0, n)`` of a physical batch (and of each ``extra`` lane) as
-    :class:`HostColumn` s, in ONE device-to-host copy: every lane is
-    packed into one device byte buffer first, at 8-byte aligned offsets,
-    and the host side views its lanes in place. On the card the copy lands
-    in pinned memory. Returns ``(columns, extra host arrays)``."""
+    :class:`HostColumn` s viewing ONE host buffer: each lane is copied
+    straight into its range, at 8-byte aligned offsets, with no device
+    staging buffer (the spill runs when the card is out of memory). On
+    the card the buffer is pinned and the copies queue on the current
+    stream, which is waited on before the views are returned. Returns
+    ``(columns, extra host arrays)``."""
     assert batch.live is None, "download_columns takes a physical batch"
     dev = batch.device
     flat = _flat_columns(batch.columns)
@@ -453,13 +456,14 @@ def download_columns(batch: ColumnarBatch, n: int,
     for s in sizes:
         starts.append(total)
         total += _aligned(s)
-    packed = torch.zeros(max(total, 1), dtype=torch.uint8, device=dev)
+    on_card = dev.type == "cuda"
+    host = torch.empty(max(total, 1), dtype=torch.uint8, pin_memory=on_card)
     for t, s, nb in zip(lanes, starts, sizes):
         if nb:
-            packed[s:s + nb] = t.view(torch.uint8)
-    host = torch.empty(packed.shape, dtype=torch.uint8,
-                       pin_memory=dev.type == "cuda")
-    host.copy_(packed)
+            host[s:s + nb].copy_(t.view(torch.uint8), non_blocking=on_card)
+    if on_card:
+        with lockdep.blocking("download_columns.wait"):
+            torch.cuda.current_stream(dev).synchronize()
     buf = host.numpy()
     views = [buf[s:s + nb].view(_np_of(t.dtype)).reshape(shape)
              for t, s, nb, shape in zip(lanes, starts, sizes, shapes)]

@@ -15,10 +15,18 @@ partitions are generators, decoded ahead by :mod:`.pipeline`). Narrow
 operators (project, filter) map each batch lazily; the
 aggregate reduces every batch to partial buffers and merges them; joins,
 sort, top-k and limit accumulate their child into one batch first
-(:func:`accumulate`, the reference's ``_accumulate_spillable`` without
-its spill catalog). A plan without an exchange is one partition of one
-batch throughout, and :func:`_coalesce_device` hands a single batch on
-untouched, so such a plan does no extra copy.
+(:func:`accumulate`, the reference's ``_accumulate_spillable``: each
+batch is registered with the session's spill catalog while the child
+runs, and the assembly runs under the OOM retry). A plan without an
+exchange is one partition of one batch throughout, and
+:func:`_coalesce_device` hands a single batch on untouched, so such a
+plan does no extra copy.
+
+Memory and robustness (:mod:`..memory`): the join's probe runs under
+:func:`..memory.retry.with_retry` and splits in half by rows when
+retries alone cannot fit it; a sort above
+``spark.rapids.sql.sort.externalThresholdBytes`` takes the external
+merge sort (:mod:`.external_sort`).
 
 Optimistic operators (dense joins, the dense aggregate, the single-lane
 top-k) take a *site* ordinal from the context, run in the mode the
@@ -56,6 +64,10 @@ from ..utils import lockdep
 from ..utils.tracing import trace_range
 
 
+#: A bare context's catalog budget: no batch ever spills under it.
+_NO_BUDGET = 1 << 62
+
+
 class ExecContext:
     """Per-attempt state: the session's conf, the learned dense mode of
     each optimistic site, the fail flags this attempt raised,
@@ -69,11 +81,21 @@ class ExecContext:
     ``trace`` the query's :class:`~..metrics.trace.Tracer` or None, and
     ``kernel_events`` the CUDA event pairs of this attempt's kernel
     launches under ``spark.rapids.tpu.metrics.deviceTiming``
-    (:func:`..ops.kernels.cuda.device_timing`)."""
+    (:func:`..ops.kernels.cuda.device_timing`).
+
+    The session's memory layer rides along: ``catalog`` (the spill
+    catalog, :mod:`..memory.spill`; a bare context gets one of its own
+    with no budget, which never spills), ``fault_injector``
+    (:mod:`..utils.fault_injection`), ``semaphore``
+    (:mod:`..memory.semaphore`), ``deadline`` (:mod:`..utils.deadline`)
+    and ``qos`` (the query's :class:`~..memory.spill.QosTag`); the last
+    four are None in a bare context."""
 
     def __init__(self, device: torch.device,
                  dense_modes: Optional[Dict[int, int]] = None,
-                 conf: Optional[TorchConf] = None, trace=None):
+                 conf: Optional[TorchConf] = None, trace=None,
+                 catalog=None, fault_injector=None, semaphore=None,
+                 deadline=None, qos=None):
         self.device = device
         self.conf = conf if conf is not None else TorchConf()
         self.dense_modes = dict(dense_modes or {})
@@ -93,6 +115,14 @@ class ExecContext:
         self.registry = MetricsRegistry.for_conf(self.conf)
         self.trace = trace
         self.kernel_events: List[tuple] = []
+        if catalog is None:
+            from ..memory.spill import BufferCatalog
+            catalog = BufferCatalog(_NO_BUDGET, _NO_BUDGET, device=device)
+        self.catalog = catalog
+        self.fault_injector = fault_injector
+        self.semaphore = semaphore
+        self.deadline = deadline
+        self.qos = qos
 
     def next_site(self, kind: str) -> int:
         self.site_kinds.append(kind)
@@ -242,17 +272,69 @@ def _coalesce_device(batches: List[ColumnarBatch]) -> ColumnarBatch:
 
 
 def accumulate(child: TorchExec, ctx: ExecContext,
-               node: str = "Coalesce") -> ColumnarBatch:
+               node: str = "Coalesce", site: str = "assemble"
+               ) -> ColumnarBatch:
     """All of a child's batches as one (an empty batch of its schema when
-    it has none): the input of joins, sort, top-k and limit. A
+    it has none): the input of joins, sort, top-k and limit, the
+    reference's ``_accumulate_spillable``. Each batch is registered with
+    the spill catalog as it arrives, so memory pressure can push earlier
+    ones to host or disk, and the assembly (restore and concat,
+    :func:`_pinned_concat`) runs under the OOM retry at site
+    ``<node>.<site>`` without a split (its consumer takes ONE batch). A
+    single batch that never spilled comes back as it is. A
     concatenation's time is ``node``'s ``concatTime`` (DEBUG)."""
-    batches = [b for part in child.execute(ctx) for b in part]
-    if not batches:
-        return empty_batch(child.schema, ctx.device)
-    if len(batches) == 1:
-        return batches[0]
-    with ctx.registry.timer(node, "concatTime"):
-        return _coalesce_device(batches)
+    catalog = ctx.catalog
+    from ..memory import retry as R
+    ids: List[int] = []
+    try:
+        _register_all(child, ctx, catalog, ids)
+        if not ids:
+            return empty_batch(child.schema, ctx.device)
+        return R.with_retry(
+            ctx, f"{node}.{site}", ids,
+            lambda id_list: _pinned_concat(catalog, id_list, ctx, node),
+            node=node)[0]
+    finally:
+        # freed even when the child raises mid-stream: a leaked entry
+        # would shrink the session's budget
+        for b in ids:
+            catalog.free(b)
+
+
+def _register_all(child: TorchExec, ctx: ExecContext, catalog,
+                  ids: List[int]) -> int:
+    """Register every batch of ``child`` with the catalog (their ids
+    appended to ``ids``, so a failure mid-stream still frees them);
+    returns their device bytes. The child's generators end here, so no
+    frame keeps a batch alive past its spill."""
+    from ..memory import spill as SP
+    total = 0
+    for part in child.execute(ctx):
+        for b in part:
+            size = SP.device_size_bytes(b)
+            ids.append(catalog.register_batch(
+                b, SP.ACTIVE_BATCHING_PRIORITY, owner=ctx.qos, size=size))
+            total += size
+    return total
+
+
+def _pinned_concat(catalog, ids, ctx: ExecContext, node: str
+                   ) -> ColumnarBatch:
+    """Restore and concatenate catalog buffers, each pinned first so
+    restoring one cannot spill another of the set; unpinned in a
+    ``finally``, so a failed attempt leaves them spillable for the
+    retry's drain."""
+    for b in ids:
+        catalog.pin(b)
+    try:
+        batches = [catalog.acquire_batch(b) for b in ids]
+        if len(batches) == 1:
+            return batches[0]
+        with ctx.registry.timer(node, "concatTime"):
+            return _coalesce_device(batches)
+    finally:
+        for b in ids:
+            catalog.unpin(b)
 
 
 class DeviceSourceExec(TorchExec):
@@ -826,7 +908,7 @@ class ShuffledHashJoinExec(TorchExec):
         left, right = self.children
         if self.join_type == "right":
             return self._mirrored_left(ctx)
-        probe = accumulate(left, ctx, self.name)
+        probe = accumulate(left, ctx, self.name, "streamed")
         with ctx.registry.timer(self.name, "buildTime"):
             build = accumulate(right, ctx, self.name)
         site = ctx.next_site("join")
@@ -844,32 +926,51 @@ class ShuffledHashJoinExec(TorchExec):
             # the swapped table exists for inner joins only, and its
             # build-order output would reorder a residual join's rows
             mode = 3
-        with ctx.timed(self.name):
-            pk = [e.eval_device(probe) for e in lkeys]
-            bk = [e.eval_device(build) for e in rkeys]
-            if jt == "full":
-                out = join_full(probe, build, pk, bk, self._schema)
-                ctx.metric(self.name, "numOutputBatches", len(out))
-                return [out]
-            ctx.metric(self.name, "numOutputBatches", 1)
-            if KJ.dense_joinable(jt, rkeys) and mode <= 2:
-                if mode == 1:
-                    out, fail = KJ.dense_join(probe, build, pk[0], bk[0],
-                                              self._schema, jt)
-                else:
-                    out, fail = KJ.dense_join_swapped(probe, build, pk[0],
-                                                      bk[0], self._schema)
-                ctx.report(site, fail)
-                return [[_post_filter(out, cond)]]
-            if cond is not None:
-                out, n_pairs = join_residual(jt, probe, build, pk, bk,
-                                             self._schema, cond)
-                ctx.count(self.name + ".pairs", n_pairs)
-                return [[out]]
-            out, total = join_exact(jt, probe, build, pk, bk, self._schema)
-            if jt == "inner":
-                ctx.count(self.name + ".equi_pairs", total)
-            return [[out]]
+
+        def join_one(p: ColumnarBatch) -> List[ColumnarBatch]:
+            with ctx.timed(self.name):
+                return self._join(ctx, p, build, lkeys, rkeys, cond, mode,
+                                  site)
+
+        from ..memory import retry as R
+        # The probe splits in half by rows when retries alone cannot fit
+        # it: each half joins the same build side, in probe order. A full
+        # join's unmatched build rows need the whole probe, so it only
+        # retries.
+        outs = R.with_retry(ctx, f"{self.name}.probe", probe, join_one,
+                            split=None if jt == "full" else R.halve_by_rows,
+                            node=self.name)
+        return [[b for out in outs for b in out]]
+
+    def _join(self, ctx, probe, build, lkeys, rkeys, cond, mode: int,
+              site: int) -> List[ColumnarBatch]:
+        """One probe batch against the build side: the output batches."""
+        jt = self.join_type
+        pk = [e.eval_device(probe) for e in lkeys]
+        bk = [e.eval_device(build) for e in rkeys]
+        if jt == "full":
+            out = join_full(probe, build, pk, bk, self._schema)
+            ctx.metric(self.name, "numOutputBatches", len(out))
+            return list(out)
+        ctx.metric(self.name, "numOutputBatches", 1)
+        if KJ.dense_joinable(jt, rkeys) and mode <= 2:
+            if mode == 1:
+                out, fail = KJ.dense_join(probe, build, pk[0], bk[0],
+                                          self._schema, jt)
+            else:
+                out, fail = KJ.dense_join_swapped(probe, build, pk[0],
+                                                  bk[0], self._schema)
+            ctx.report(site, fail)
+            return [_post_filter(out, cond)]
+        if cond is not None:
+            out, n_pairs = join_residual(jt, probe, build, pk, bk,
+                                         self._schema, cond)
+            ctx.count(self.name + ".pairs", n_pairs)
+            return [out]
+        out, total = join_exact(jt, probe, build, pk, bk, self._schema)
+        if jt == "inner":
+            ctx.count(self.name + ".equi_pairs", total)
+        return [out]
 
     def _mirrored_left(self, ctx):
         """A right join: the left join of the build side against the
@@ -1074,6 +1175,17 @@ class TopKExec(TorchExec):
 
 
 class SortExec(TorchExec):
+    """Global sort (the reference's ``TpuSortExec``). With a spill catalog
+    the child's batches are registered as they arrive; up to
+    ``spark.rapids.sql.sort.externalThresholdBytes`` (0: a quarter of the
+    device budget) they are assembled and sorted as one batch under the
+    OOM retry (site ``SortExec.sort``, no split: two sorted halves are
+    not a sorted whole); above it the external merge sort takes over
+    (:mod:`.external_sort`): one sorted run per input batch, each
+    generated under the retry and split in half by rows when it cannot
+    fit (site ``SortExec.runGeneration``), then merged into a stream of
+    sorted chunks (``externalSort`` 1)."""
+
     def __init__(self, child: TorchExec, orders):
         self.children = [child]
         self.orders = orders
@@ -1087,17 +1199,78 @@ class SortExec(TorchExec):
             f"{o.child} {'ASC' if o.ascending else 'DESC'}"
             for o in self.orders) + "]"
 
-    def execute(self, ctx):
-        batch = accumulate(self.children[0], ctx, self.name)
+    def _sort_one(self, ctx, batch: ColumnarBatch) -> ColumnarBatch:
         key_exprs = [o.child.bind(self.schema) for o in self.orders]
         with ctx.timed(self.name):
             keys = [e.eval_device(batch) for e in key_exprs]
             with ctx.registry.timer(self.name, "sortTime"):
-                out = KR.sort_batch_by_columns(
+                return KR.sort_batch_by_columns(
                     batch, keys, [o.ascending for o in self.orders],
                     [o.effective_nulls_first for o in self.orders])
-        ctx.metric(self.name, "numOutputBatches", 1)
-        return [[out]]
+
+    def execute(self, ctx):
+        return [self._spillable(ctx)]
+
+    def _generate_run(self, ctx, catalog, sorter, bid: int) -> None:
+        """One input batch into a sorted run of the external sort. The
+        restore can OOM too; a run that cannot fit splits into two
+        runs, which the merge absorbs. (A function of its own, so the
+        batch dies with it.)"""
+        from ..memory import retry as R
+        name = self.name
+        batch = R.with_retry(ctx, f"{name}.runGeneration", bid,
+                             catalog.acquire_batch, node=name)[0]
+        with ctx.timed(name), ctx.registry.timer(name, "sortTime"):
+            R.with_retry(ctx, f"{name}.runGeneration", batch,
+                         sorter.add_batch, split=R.halve_by_rows, node=name)
+        catalog.free(bid)
+
+    def _spillable(self, ctx):
+        from ..config import SORT_EXTERNAL_THRESHOLD
+        from ..memory import retry as R
+        from .external_sort import ExternalSorter
+        name = self.name
+        catalog = ctx.catalog
+        threshold = ctx.conf.get(SORT_EXTERNAL_THRESHOLD) or \
+            catalog.device_budget // 4
+        ids, sorter = [], None
+        try:
+            total = _register_all(self.children[0], ctx, catalog, ids)
+            if not ids:
+                ctx.metric(name, "numOutputBatches", 1)
+                yield empty_batch(self.schema, ctx.device)
+                return
+            if total <= threshold:
+                out = R.with_retry(
+                    ctx, f"{name}.sort", ids,
+                    lambda id_list: self._sort_one(
+                        ctx, _pinned_concat(catalog, id_list, ctx, name)),
+                    node=name)[0]
+                ctx.metric(name, "numOutputBatches", 1)
+                yield out
+                return
+            key_exprs = [o.child.bind(self.schema) for o in self.orders]
+            # chunks of a quarter of the threshold bound a merge step's
+            # device footprint
+            sorter = ExternalSorter(self.orders, self.schema, catalog, ctx,
+                                    key_exprs,
+                                    chunk_bytes=max(threshold // 4, 1))
+            for bid in ids:
+                self._generate_run(ctx, catalog, sorter, bid)
+            ids = []
+            n_out = 0
+            for chunk in sorter.sorted_chunks():
+                n_out += 1
+                yield chunk
+            ctx.metric(name, "numOutputBatches", n_out)
+            ctx.metric(name, "externalSort", 1)
+            ctx.metric(name, "sortRuns", sorter.n_runs)
+            ctx.metric(name, "mergeSteps", sorter.n_merge_steps)
+        finally:
+            for bid in ids:
+                catalog.free(bid)
+            if sorter is not None:
+                sorter.release()
 
 
 class LimitExec(TorchExec):

@@ -8,6 +8,8 @@ first (as the reference does too), moved to the front of its batch, and
 its live row count read once on the host; the grid is probe capacity x
 build LIVE rows. TPC-H Q22 crosses ~150k customers with the one-row
 average, which makes a grid the probe's size instead of 128 times it.
+Both sides accumulate through the spill catalog under the OOM retry
+(sites ``NestedLoopJoinExec.streamed`` and ``.collect``).
 """
 
 from __future__ import annotations
@@ -46,9 +48,10 @@ class NestedLoopJoinExec(TorchExec):
 
     def execute(self, ctx):
         left, right = self.children
-        probe = accumulate(left, ctx, self.name)
+        probe = accumulate(left, ctx, self.name, "streamed")
         with ctx.registry.timer(self.name, "buildTime"):
-            build = accumulate(right, ctx, self.name)
+            # the build side must be ONE batch: spill and retry only
+            build = accumulate(right, ctx, self.name, "collect")
         ctx.metric(self.name, "numOutputBatches", 1)
         cond = None if self.condition is None \
             else self.condition.bind(self._schema)

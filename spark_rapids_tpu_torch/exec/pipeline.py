@@ -27,10 +27,13 @@ consumer takes (index ``i``), ``pipeline.wait`` inside it when the
 consumer blocks, and ``pipeline.decode`` for each unit on its worker
 thread, parented by a fork of the span that submitted it.
 
-Left for the modules they serve: ``materialize_boundaries`` (with the
-fusion layer) and ``submit_spill_io`` (with the spill catalog). The port
-has no fault injector and no query deadline, so :func:`parallel_active`
-reads only the conf and a wait on a unit is not bounded.
+:func:`submit_spill_io` is the spill catalog's IO lane
+(:mod:`..memory.spill`): its copies run on the same pool, bounded by
+the catalog's own slots. A live fault injector forces the serial path
+(:func:`parallel_active`), so which visit of a site faults does not
+depend on thread timing, and the query deadline bounds the consumer's
+wait on a unit (``pipeline.wait:<node>``). Left for the fusion layer:
+``materialize_boundaries``.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import queue
 import threading
 import time
 from concurrent.futures import CancelledError, Future
+from concurrent.futures import TimeoutError as FutureTimeout
 from typing import Callable, Iterator, List, Optional, Sequence
 
 from ..config import (PIPELINE_DECODE_THREADS, PIPELINE_ENABLED,
@@ -226,20 +230,34 @@ def prefetch_depth(conf=None) -> int:
     return max(1, _conf_int(conf, PIPELINE_PREFETCH_DEPTH, "prefetch_depth"))
 
 
+def submit_spill_io(fn: Callable, *args) -> Optional[Future]:
+    """Hand one spill copy or disk append to the shared pool (the
+    catalog bounds the lane with its own slots inside ``fn``). None when
+    the pool refuses it (a shutdown race): the caller runs it inline,
+    since a spill must land even while a session closes."""
+    try:
+        return get_pool().submit(fn, *args)
+    except PoolShutdownError:
+        return None
+
+
 def parallel_active(ctx) -> bool:
     """Whether the pipeline may run work on the pool for this execution:
-    ``spark.rapids.tpu.pipeline.enabled`` of the context's conf (on when
-    the context has none)."""
+    never under a live fault injector (the injection schedule is
+    deterministic per site), else ``spark.rapids.tpu.pipeline.enabled``
+    of the context's conf (on when the context has none)."""
+    if getattr(ctx, "fault_injector", None) is not None:
+        return False
     conf = getattr(ctx, "conf", None)
     return True if conf is None else bool(conf.get(PIPELINE_ENABLED))
 
 
-def _result_or_shutdown(f: Future):
-    """``f.result()``, with a cancellation by the pool's shutdown raised
-    as :class:`PoolShutdownError` (``CancelledError`` would pass every
-    ``except Exception``)."""
+def _result_or_shutdown(f: Future, timeout: Optional[float] = None):
+    """``f.result(timeout)``, with a cancellation by the pool's shutdown
+    raised as :class:`PoolShutdownError` (``CancelledError`` would pass
+    every ``except Exception``)."""
     try:
-        return f.result()
+        return f.result(timeout)
     except CancelledError:
         raise PoolShutdownError(
             "pipeline pool shut down while this unit was awaited (a "
@@ -255,15 +273,29 @@ def _record(ctx, name: str, t0: float, metric: str) -> None:
 def _stalled_result(f: Future, ctx, node: Optional[str]):
     """``f``'s result, the time spent waiting for it on ``<node>.stall``
     and ``prefetchConsumerStallNs`` (the sign that the workers are the
-    bottleneck), in a ``pipeline.wait`` span."""
+    bottleneck), in a ``pipeline.wait`` span. The query deadline bounds
+    the wait: once it passes, the wait raises
+    :class:`~..utils.deadline.QueryDeadlineExceeded` (the unit itself
+    runs on and is dropped)."""
     if f.done():
         return _result_or_shutdown(f)
+    deadline = getattr(ctx, "deadline", None)
     t0 = time.perf_counter()
     try:
         with TR.span(getattr(ctx, "trace", None), "pipeline.wait",
                      cat="pipeline", node=node or "prefetch"), \
                 lockdep.blocking("pipeline.future_wait"):
-            return _result_or_shutdown(f)
+            if deadline is None:
+                return _result_or_shutdown(f)
+            while True:
+                try:
+                    return _result_or_shutdown(
+                        f, timeout=max(deadline.remaining(), 0.0))
+                except FutureTimeout:
+                    if f.done():  # the unit itself raised TimeoutError
+                        return _result_or_shutdown(f)
+                    deadline.check(f"pipeline.wait:{node or 'prefetch'}",
+                                   ctx, node)
     finally:
         if node:
             _record(ctx, node + ".stall", t0, "prefetchConsumerStallNs")
@@ -353,6 +385,10 @@ class _UnitScheduler:
     def partition(self, i: int) -> Iterator:
         with _boundary_span(self._ctx, i, self._node):
             out = _stalled_result(self._ensure(i), self._ctx, self._node)
+        # the future goes with its result: a scheduler that outlives the
+        # read must not keep every unit's device batch alive
+        with self._lock:
+            self._futs.pop(i, None)
         yield out
 
 

@@ -8,10 +8,15 @@ a binary search, reductions by prefix sums or sparse tables, and a
 scatter of the results back to input row order. The output is the
 input's columns followed by one column a window expression.
 
-The reference's bounded-memory route (``_chunked_pieces``: an external
-sort by the partition keys through the spill catalog, evaluated group
-by group) waits for the port's spill catalog; the whole input is one
-batch here, as in the reference below its threshold.
+The evaluation runs under the OOM retry (site
+``WindowExec.evaluate``, no split: a piece must hold whole partitions).
+When every window expression shares one non-empty partition-by list and
+the input passes ``spark.rapids.sql.window.externalThresholdBytes`` (0:
+a quarter of the device budget), the bounded-memory route takes over
+(:func:`_chunked_pieces`, the reference's): the input external-sorts by
+the partition keys through the spill catalog and complete key groups
+evaluate one piece at a time (``chunkedWindow``); rows then come out
+sorted by the partition keys instead of in input order.
 """
 
 from __future__ import annotations
@@ -22,12 +27,13 @@ import torch
 
 from .. import types as T
 from ..data.batch import ColumnarBatch
-from ..data.column import DeviceColumn
+from ..data.column import DeviceColumn, bucket_capacity
 from ..ops import aggregates as AGG
 from ..ops import windows as W
 from ..ops.expression import Expression
 from ..ops.kernels import rowops as KR
 from ..ops.kernels import window as KW
+from ..ops.strings_util import char_matrix
 from .execs import TorchExec, _coalesce_device
 
 
@@ -63,12 +69,7 @@ class WindowExec(TorchExec):
             bound.append((name, func, part, orders, spec.effective_frame()))
         return bound
 
-    def execute(self, ctx):
-        bound = self.bind()
-        batches = [b for part in self.children[0].execute(ctx) for b in part]
-        if not batches:
-            return [[]]
-        ctx.metric(self.name, "numOutputBatches", 1)
+    def _window_all(self, ctx, bound, batches) -> ColumnarBatch:
         with ctx.timed(self.name):
             # Evaluation is positional (run bounds over sorted rows): a
             # lazy batch moves its live rows to the front first.
@@ -76,7 +77,115 @@ class WindowExec(TorchExec):
             cols = list(batch.columns)
             for _, func, part, orders, frame in bound:
                 cols.append(eval_window(batch, func, part, orders, frame))
-            return [[ColumnarBatch(tuple(cols), batch.n_rows, self._schema)]]
+            return ColumnarBatch(tuple(cols), batch.n_rows, self._schema)
+
+    def execute(self, ctx):
+        bound = self.bind()
+        batches = [b for part in self.children[0].execute(ctx) for b in part]
+        if not batches:
+            return [[]]
+        catalog = ctx.catalog
+        from ..config import WINDOW_EXTERNAL_THRESHOLD
+        from ..memory import retry as R
+        from ..memory.spill import device_size_bytes
+        name = self.name
+        parts = {tuple(str(e) for e in pt) for _, _, pt, _, _ in bound}
+        common = bound[0][2] if len(parts) == 1 and bound[0][2] else None
+        threshold = ctx.conf.get(WINDOW_EXTERNAL_THRESHOLD) or \
+            catalog.device_budget // 4
+        total = sum(device_size_bytes(b) for b in batches)
+        if common is None or total <= threshold:
+            ctx.metric(name, "numOutputBatches", 1)
+            return [R.with_retry(
+                ctx, f"{name}.evaluate", batches,
+                lambda bs: self._window_all(ctx, bound, bs), node=name)]
+
+        def chunked():
+            for piece in _chunked_pieces(batches, common,
+                                         self.children[0].schema, catalog,
+                                         ctx, threshold):
+                ctx.metric(name, "chunkedWindow", 1)
+                ctx.metric(name, "numOutputBatches", 1)
+                yield R.with_retry(
+                    ctx, f"{name}.evaluate", [piece],
+                    lambda bs: self._window_all(ctx, bound, bs),
+                    node=name)[0]
+        return [chunked()]
+
+
+def _chunked_pieces(batches, part_exprs, child_schema, catalog, ctx,
+                    threshold: int):
+    """Complete partition-key groups under a bounded device footprint:
+    the input external-sorted by the partition keys (its runs spill
+    through the catalog), the sorted chunks walked with the last,
+    possibly incomplete, key group carried into the next. Every piece
+    but the last holds only complete groups."""
+    from ..memory.spill import device_size_bytes
+    from ..plan.logical import SortOrder
+    from .external_sort import ExternalSorter, slice_rows
+    orders = [SortOrder(e) for e in part_exprs]
+    sorter = ExternalSorter(orders, child_schema, catalog, ctx,
+                            key_exprs=list(part_exprs))
+    try:
+        for b in batches:
+            # an oversized batch is re-sliced, so the runs (and the merged
+            # chunks) stay within the threshold
+            per_row = max(device_size_bytes(b) // max(b.capacity, 1), 1)
+            rows_per = bucket_capacity(max(int(threshold // per_row), 128))
+            if b.capacity <= rows_per:
+                sorter.add_batch(b)
+                continue
+            b = KR.physical(b)
+            n = int(b.n_rows)
+            for off in range(0, n, rows_per):
+                sorter.add_batch(slice_rows(b, off, min(rows_per, n - off)))
+
+        carry = None
+        chunks = iter(sorter.sorted_chunks())
+        chunk = next(chunks, None)
+        while chunk is not None:
+            piece = _coalesce_device([carry, chunk]) \
+                if carry is not None else chunk
+            piece = KR.physical(piece)
+            nxt = next(chunks, None)
+            if nxt is None:
+                yield piece
+                return
+            n = int(piece.n_rows)
+            n_c = n - _last_group_rows(piece, part_exprs)
+            if n_c > 0:
+                yield slice_rows(piece, 0, n_c)
+                carry = slice_rows(piece, n_c, n - n_c) if n > n_c \
+                    else None
+            else:
+                carry = piece
+            chunk = nxt
+        if carry is not None:
+            yield carry
+    finally:
+        sorter.release()
+
+
+def _last_group_rows(piece: ColumnarBatch, part_exprs) -> int:
+    """Rows of a physical, key-sorted piece whose partition keys equal
+    its last row's, as :func:`..ops.kernels.window.change_flags` groups
+    them (nulls equal nulls, NaN equals NaN, -0.0 equals 0.0)."""
+    n = int(piece.n_rows)
+    last = max(n - 1, 0)
+    same = torch.arange(piece.capacity, device=piece.device) < n
+    for e in part_exprs:
+        k = e.eval_device(piece)
+        vsame = k.validity == k.validity[last]
+        if k.is_dict:
+            dsame = k.codes == k.codes[last]
+        elif k.is_string:
+            m = char_matrix(k)
+            dsame = (m == m[last]).all(1)
+        else:
+            data = KR.orderable_values(k.data, k.dtype.is_floating)
+            dsame = data == data[last]
+        same = same & vsame & (dsame | ~k.validity[last])
+    return int(same.sum())
 
 
 def eval_window(batch: ColumnarBatch, func: Expression,

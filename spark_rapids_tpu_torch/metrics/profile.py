@@ -15,8 +15,20 @@ A :class:`QueryProfile` snapshots, at query end:
   ``nvcc`` builds the query paid for (``engine["compile"]``, the
   reference's kernel-cache misses).
 
-The reference's spill, semaphore, HBM-watermark, ``ml`` and
-``durability`` sections are left out: their subsystems are not ported.
+* the memory sections (:mod:`..memory`), under the reference's key
+  names: ``semaphoreWaitNs``, ``spillBytes`` (``spillBytesToHost`` +
+  ``spillBytesToDisk``), ``diskSpillFileBytes``,
+  ``spillThroughputBytesPerSec``, ``spillQueueDepth``,
+  ``spillLockWaitNs``, ``deviceStoreBytes`` and the HBM watermarks
+  (``hbmBytesInUse``, ``hbmPeakBytesInUse``: the caching allocator's
+  bytes); ``spillTransitions`` (bytes and ns of each tier transition);
+  ``retry`` (the retry metrics summed over the query's nodes); and
+  ``durability`` (``checksumVerified``, ``checksumFailures``, from the
+  process-wide checksum counters, and ``deadlineCancels``).
+
+The reference's ``ml`` section and the durability counters of the
+network plane (refetches, recomputes, hedges, replicas, mesh failovers)
+are left out: their subsystems are not ported.
 
 Profiles serialize to one JSON line in the event log (:mod:`.eventlog`),
 render as a metric-annotated EXPLAIN tree (``df.explain(metrics=True)``,
@@ -38,6 +50,7 @@ from typing import Dict, List, Optional
 
 from ..config import METRICS_LEVEL
 from ..ops.kernels import cuda as _cuda
+from ..utils import checksum as _checksum
 from .registry import NONE, MetricsRegistry, level_name, parse_level
 
 #: Profile schema version (the reference's; the event-log layout is
@@ -96,6 +109,14 @@ class QueryProfile:
         comp = self.engine.get("compile")
         if comp:
             lines.append(f"+ compile  {_fmt_metrics(comp)}")
+        for section in ("retry", "durability"):
+            vals = self.engine.get(section) or {}
+            if any(vals.values()):
+                lines.append(f"+ {section}  {_fmt_metrics(vals)}")
+        if self.engine.get("spillBytes"):
+            lines.append("+ spill  " + _fmt_metrics(
+                {k: v for k, v in self.engine.items()
+                 if k.startswith("spill") and not isinstance(v, dict)}))
         kernels = (self.engine.get("cuda") or {}).get("kernels") or {}
         if kernels:
             parts = []
@@ -155,16 +176,21 @@ class QueryProfiler:
     completed (the session synchronised for ``QueryInfo.exec_ms``
     before), so it adds no device synchronisation."""
 
-    def __init__(self):
+    def __init__(self, session=None):
         self._t0 = time.perf_counter_ns()
         self._cuda0 = _cuda.stats()
+        self._ck0 = _checksum.stats()
+        self._dm = getattr(session, "device_manager", None)
+        if self._dm is not None:
+            self._spill0 = dict(self._dm.catalog.metrics)
+            self._sem0 = self._dm.semaphore.wait_ns
 
     @classmethod
     def maybe(cls, session) -> Optional["QueryProfiler"]:
         """A profiler for a query of ``session``, or None at level NONE."""
         if parse_level(session.conf.get(METRICS_LEVEL)) == NONE:
             return None
-        return cls()
+        return cls(session)
 
     def finish(self, physical, ctx, plan_sig: tuple,
                query_id: int) -> QueryProfile:
@@ -177,6 +203,8 @@ class QueryProfiler:
                   for node in registry.node_names()
                   if node not in tree_names}
         now = _cuda.stats()
+        snapshot = registry.snapshot()
+        ck = _checksum.stats()
         # the final attempt's launch events, complete since the session's
         # synchronisation for QueryInfo.exec_ms
         device_ns = _cuda.device_ns(ctx.kernel_events) \
@@ -192,7 +220,17 @@ class QueryProfiler:
             },
             "cuda": {"kernels": _kernel_section(
                 self._cuda0["launches"], now["launches"], device_ns)},
+            "retry": {name: _registry_total(snapshot, name)
+                      for name in RETRY_METRICS},
+            "durability": {
+                "checksumVerified": _delta(ck, self._ck0, "verified"),
+                "checksumFailures": _delta(ck, self._ck0, "failures"),
+                "deadlineCancels": _registry_total(snapshot,
+                                                   "deadlineCancels"),
+            },
         }
+        if self._dm is not None:
+            engine.update(self._memory_sections())
         return QueryProfile(
             query_id=query_id,
             plan_hash=plan_profile_hash(plan_sig),
@@ -204,6 +242,52 @@ class QueryProfiler:
             timestamp=datetime.datetime.now(datetime.timezone.utc)
             .isoformat(timespec="seconds"),
         )
+
+
+    def _memory_sections(self) -> dict:
+        """The spill, semaphore and HBM sections: per-query deltas of the
+        device manager's process-wide counters."""
+        dm = self._dm
+        spill = dict(dm.catalog.metrics)
+        base = self._spill0
+        transitions = {}
+        for t in ("device_to_host", "host_to_disk", "disk_to_device",
+                  "host_to_device"):
+            nbytes = _delta(spill, base, t + "_bytes")
+            ns = _delta(spill, base, t + "_ns")
+            if nbytes:
+                transitions[t] = {"bytes": nbytes, "ns": ns,
+                                  "GBps": nbytes / max(ns, 1)}
+        return {
+            "semaphoreWaitNs": dm.semaphore.wait_ns - self._sem0,
+            "spillBytes": _delta(spill, base, "spill_bytes_to_host")
+            + _delta(spill, base, "spill_bytes_to_disk"),
+            "spillBytesToHost": _delta(spill, base, "spill_bytes_to_host"),
+            "spillBytesToDisk": _delta(spill, base, "spill_bytes_to_disk"),
+            "diskSpillFileBytes": int(spill.get("disk_spill_file_bytes", 0)),
+            "spillThroughputBytesPerSec": _rate_per_sec(
+                _delta(spill, base, "spill_io_bytes"),
+                _delta(spill, base, "spill_io_ns")),
+            "spillQueueDepth": int(spill.get("spill_queue_peak", 0)),
+            "spillLockWaitNs": _delta(spill, base, "spill_lock_wait_ns"),
+            "deviceStoreBytes": dm.catalog.device_bytes,
+            "spillTransitions": transitions,
+            **dm.hbm_watermarks(),
+        }
+
+
+#: The retry metrics the profile's ``retry`` section sums over nodes.
+RETRY_METRICS = ("retryCount", "splitAndRetryCount", "retryBlockTimeNs",
+                 "retryWastedComputeNs")
+
+
+def _rate_per_sec(nbytes: int, ns: int) -> int:
+    return int(nbytes * 1e9 / ns) if ns > 0 else 0
+
+
+def _registry_total(snapshot: Dict[str, dict], name: str) -> int:
+    """``name`` summed over every node of a registry snapshot."""
+    return int(sum(m.get(name, 0) or 0 for m in snapshot.values()))
 
 
 def _delta(now: dict, base: dict, key: str) -> int:

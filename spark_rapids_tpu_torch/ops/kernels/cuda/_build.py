@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "_build"
 #: The kernel sources (``csrc/<name>.cu``).
 KERNELS = ("join_probe", "segmented", "sort_steps", "strings", "hashing")
 #: The host routines (``csrc/<name>.cpp``).
-HOST_ROUTINES = ("snappy", "parquet_runs")
+HOST_ROUTINES = ("snappy", "parquet_runs", "crc32c")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

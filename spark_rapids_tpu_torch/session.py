@@ -18,6 +18,20 @@ re-runs it with buckets 8x larger, up to 64x, and then runs the query on
 the single-device path (the reference's non-learning growth escalation,
 ``session.py:523-529``).
 
+Memory and robustness (:mod:`.memory`, the reference's
+``_run_with_retries``, ``session.py:345-470``): every attempt's
+``ExecContext`` carries the session's spill catalog, fault injector, task
+semaphore, the query's :class:`~.utils.deadline.Deadline` (one for the
+whole query, its re-runs included) and its QoS tag. Each dispatch checks
+the deadline, visits the ``session.dispatch`` injection site and holds
+the task semaphore (``spark.rapids.sql.concurrentTpuTasks``). A fault
+that escaped every operator-level retry is classified
+(:func:`.memory.retry.classify`): a transient one re-runs the attempt in
+place after the backoff; an OOM synchronizes the card, spills every
+spillable buffer and re-runs; anything else raises. The port has no
+write plans, so every plan may re-run. Retries of discarded attempts are
+carried into the surviving attempt's profile under ``TorchSession``.
+
 Observability (:mod:`.metrics`): above metrics level NONE every query
 leaves a :class:`~.metrics.profile.QueryProfile` of its final attempt
 (:meth:`TorchSession.last_query_profile`, :meth:`query_profile`,
@@ -34,6 +48,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+import time
 from typing import Dict, List, Optional
 
 import torch
@@ -46,6 +61,9 @@ from .exec import mesh as MX
 from .exec import pipeline
 from .io import parquet_device as PQ
 from .io.parquet_meta import read_footer, schema_from_parquet
+from .memory import retry as R
+from .memory.device_manager import DeviceManager
+from .memory.spill import QosTag
 from .metrics import trace as TR
 from .metrics.eventlog import EventLog
 from .metrics.profile import QueryProfile, QueryProfiler, plan_profile_hash
@@ -55,6 +73,9 @@ from .plan import logical as L
 from .plan.input_file import rewrite_input_file_exprs
 from .plan.planner import plan_physical
 from .utils import lockdep
+from .utils.deadline import Deadline
+from .utils.fault_injection import (FaultInjector, InjectedFault,
+                                    maybe_inject)
 
 #: Escalation rounds before a query gives up. Every site has at most
 #: three modes, so a query settles in at most three re-runs.
@@ -63,6 +84,12 @@ _MAX_ATTEMPTS = 4
 #: The mesh's bucket growth stops here; a run that still overflows goes
 #: to the single-device path.
 _MAX_MESH_GROWTH = 64.0
+
+#: Metrics of a discarded attempt carried into the surviving attempt's
+#: profile (under the ``TorchSession`` node).
+_CARRIED_METRICS = ("retryCount", "splitAndRetryCount", "retryBlockTimeNs",
+                    "retryWastedComputeNs", "checksumFailures",
+                    "deadlineCancels")
 
 
 @dataclasses.dataclass
@@ -139,6 +166,22 @@ class TorchSession:
         self._last_profile: Optional[QueryProfile] = None
         self._last_tracer: Optional[TR.Tracer] = None
         self._event_log: Optional[EventLog] = None
+        #: the spill catalog and task semaphore of this device and memory
+        #: configuration (:mod:`.memory.device_manager`)
+        self.device_manager = DeviceManager.get_or_create(self.conf,
+                                                          self.device)
+        #: None unless the conf turns fault injection on
+        self._fault_injector = FaultInjector.maybe(self.conf)
+
+    def set_conf(self, key: str, value) -> None:
+        """Set one conf key for the queries this session runs from now on
+        (Spark's ``spark.conf.set``): a memory key moves the session to
+        the device manager of its new configuration, and the fault
+        injector is made anew from the new conf."""
+        self.conf = TorchConf({**self.conf.as_dict(), key: value})
+        self.device_manager = DeviceManager.get_or_create(self.conf,
+                                                          self.device)
+        self._fault_injector = FaultInjector.maybe(self.conf)
 
     def close(self) -> List[threading.Thread]:
         """Join every worker of the scans' shared pool
@@ -201,33 +244,19 @@ class TorchSession:
         mesh = self.mesh if sig[1] else None
         profiler = QueryProfiler.maybe(self)
         modes = dict(self._learned.get(sig, {}))
+        # one deadline spans the whole query, its re-runs included
+        deadline = Deadline.maybe(self.conf)
+        qos = QosTag(deadline=deadline, trace=tracer)
+        carried: Dict[str, int] = {}
         growth = 1.0
         attempts = rounds = 0
         while True:
             attempts += 1
-            ctx = E.ExecContext(self.device, modes, self.conf, trace=tracer)
-            timing = KCUDA.device_timing(ctx.kernel_events) \
-                if ctx.registry.device_timing else contextlib.nullcontext()
-            with TR.span(tracer, "session.dispatch", cat="session",
-                         attempt=attempts - 1,
-                         path="single" if mesh is None else "mesh"), timing:
-                try:
-                    if mesh is not None:
-                        result, overflowed = MX.mesh_collect(
-                            physical, ctx, mesh, growth)
-                    else:
-                        result, overflowed = E.collect(physical, ctx), False
-                finally:
-                    # every attempt's look-ahead ends with it, re-runs
-                    # included
-                    ctx.run_cleanups()
-                tripped = []
-                if not overflowed and ctx.dense_fails:
-                    flags = torch.stack([f.reshape(()) for _, f in
-                                         ctx.dense_fails]).cpu().tolist()
-                    tripped = [s for (s, _), f in zip(ctx.dense_fails, flags)
-                               if f]
+            ctx, result, overflowed, tripped = self._dispatch(
+                physical, modes, mesh, growth, deadline, qos, tracer,
+                attempts, carried)
             if overflowed:
+                self._carry(ctx, carried)
                 if growth >= _MAX_MESH_GROWTH:
                     mesh = None
                     sig = (sig[0], False)
@@ -236,6 +265,8 @@ class TorchSession:
                     growth *= 8.0
                 continue
             if not tripped:
+                for name, v in carried.items():
+                    ctx.metric("TorchSession", name, v)
                 self._learned[sig] = modes
                 self.last_query = QueryInfo(
                     attempts=attempts,
@@ -251,12 +282,87 @@ class TorchSession:
                     ctx.record_device_time()
                     self._note_profile(profiler, physical, ctx, sig, tracer)
                 return result
+            self._carry(ctx, carried)
             rounds += 1
             if rounds >= _MAX_ATTEMPTS:
                 raise RuntimeError(f"query did not settle in "
                                    f"{_MAX_ATTEMPTS} runs; modes {modes}")
             for s in set(tripped):
                 modes[s] = modes.get(s, 0) + 1
+
+    @staticmethod
+    def _carry(ctx, carried: Dict[str, int]) -> None:
+        """Add a discarded attempt's retry and durability metrics to
+        ``carried``."""
+        for metrics in ctx.registry.snapshot().values():
+            for name in _CARRIED_METRICS:
+                v = metrics.get(name)
+                if v:
+                    carried[name] = carried.get(name, 0) + int(v)
+
+    def _dispatch(self, physical, modes, mesh, growth, deadline, qos,
+                  tracer, attempt: int, carried: Dict[str, int]):
+        """One escalation attempt, re-run in place while it fails with a
+        transient fault or an OOM that escaped every operator (after a
+        synchronization and a full spill), up to
+        ``spark.rapids.tpu.retry.maxRetries`` times. Returns (ctx,
+        result, overflowed, tripped sites)."""
+        dm = self.device_manager
+        policy = R.RetryPolicy.from_conf(self.conf)
+        tries = 0
+        while True:
+            ctx = E.ExecContext(self.device, modes, self.conf, trace=tracer,
+                                catalog=dm.catalog,
+                                fault_injector=self._fault_injector,
+                                semaphore=dm.semaphore, deadline=deadline,
+                                qos=qos)
+            timing = KCUDA.device_timing(ctx.kernel_events) \
+                if ctx.registry.device_timing else contextlib.nullcontext()
+            try:
+                if deadline is not None:
+                    deadline.check("session.dispatch", ctx, "TorchSession")
+                maybe_inject(ctx, "session.dispatch")
+                with TR.span(tracer, "session.dispatch", cat="session",
+                             attempt=attempt - 1, retry=tries,
+                             path="single" if mesh is None else "mesh"), \
+                        timing, dm.semaphore:
+                    try:
+                        if mesh is not None:
+                            result, overflowed = MX.mesh_collect(
+                                physical, ctx, mesh, growth)
+                        else:
+                            result, overflowed = E.collect(physical,
+                                                           ctx), False
+                    finally:
+                        # every attempt's look-ahead and shuffle blocks
+                        # end with it, re-runs included
+                        ctx.run_cleanups()
+                    tripped = []
+                    if not overflowed and ctx.dense_fails:
+                        flags = torch.stack([f.reshape(()) for _, f in
+                                             ctx.dense_fails]).cpu().tolist()
+                        tripped = [s for (s, _), f in
+                                   zip(ctx.dense_fails, flags) if f]
+                return ctx, result, overflowed, tripped
+            except Exception as e:  # noqa: BLE001 - classified below
+                cls = R.classify(e)
+                if cls == R.Classification.FATAL \
+                        or tries >= policy.max_retries:
+                    raise
+                real = not isinstance(e, InjectedFault)
+            # the failed attempt's frames (and tensors) are released here
+            self._carry(ctx, carried)
+            if cls == R.Classification.OOM:
+                with R._OOM_RECOVERY_LOCK:
+                    R.synchronize_device(ctx, collect=real)
+                R.spill_device_below(ctx)
+            carried["retryCount"] = carried.get("retryCount", 0) + 1
+            t0 = time.perf_counter_ns()
+            R.backoff_sleep(policy, "session.dispatch", tries, ctx,
+                            "TorchSession")
+            carried["retryBlockTimeNs"] = carried.get(
+                "retryBlockTimeNs", 0) + time.perf_counter_ns() - t0
+            tries += 1
 
     # -- query-profile layer (metrics/) ---------------------------------------
 

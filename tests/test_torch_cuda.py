@@ -1135,3 +1135,98 @@ def test_cuda_answers_equal_at_metrics_none_and_default(cuda_device):
     for a, b in zip(got["NONE"], got["MODERATE"]):
         assert a[:3] == b[:3]
         assert abs(a[3] - b[3]) <= 1e-9 * abs(b[3])
+
+
+@pytest.mark.cuda
+def test_cuda_crc32c_routine_matches_plain(cuda_device):
+    """The C++ CRC32C (SSE4.2 where the host has it, and its
+    slicing-by-8 path) against the plain version on random buffers of
+    0-65,537 bytes and around the 8 MiB split into threads, with
+    continuation, and the check vector."""
+    from spark_rapids_tpu_torch.utils import checksum as CK
+    rng = np.random.default_rng(19)
+    before = CK._COUNTED.launches
+    # from 8 MiB up the buffer is cut into pieces on several threads
+    for n in list(rng.integers(0, 65_538, 60)) + [0, 1, 7, 8, 12_288,
+                                                  12_289, 1 << 20,
+                                                  (8 << 20) - 1, 8 << 20,
+                                                  20_000_003]:
+        buf = rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+        value = int(rng.integers(0, 1 << 32))
+        want = CK.crc32c_plain(buf, value)
+        assert CK.crc32c_native(buf, value) == want
+        assert CK.crc32c_native(buf, value, tables_only=True) == want
+    assert CK.crc32c(b"123456789", device=cuda_device) == 0xE3069283
+    assert CK._COUNTED.launches > before
+
+
+@pytest.mark.cuda
+def test_cuda_catalog_round_trip_through_pinned_host_and_disk(cuda_device,
+                                                              tmp_path):
+    """A card batch (fixed, dictionary and flat strings, nulls, a lazy
+    mask) through the spill catalog: device -> pinned host -> device and
+    device -> host -> disk -> device, bit for bit; a flipped disk byte
+    raises ChecksumError."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.exec import execs as E
+    from spark_rapids_tpu_torch.memory import spill as SP
+    from spark_rapids_tpu_torch.ops.expression import col, lit
+    from spark_rapids_tpu_torch.ops.strings import Substring
+    from spark_rapids_tpu_torch.utils import checksum as CK
+    rng = np.random.default_rng(3)
+    n = 100_003
+    d = rng.normal(size=n)
+    d[:2] = [np.nan, -0.0]
+    host = HostBatch.from_numpy({
+        "k": rng.integers(0, 1 << 40, n), "d": d,
+        "s": np.array(["w%d" % x for x in rng.integers(0, 500, n)],
+                      dtype=object)})
+    batch = host.to_device(cuda_device)
+    sub = Substring(col("s"), lit(2), lit(2)).bind(batch.schema) \
+        .eval_device(batch)
+    batch = E.ColumnarBatch(
+        batch.columns + (sub,), batch.n_rows,
+        T.Schema(list(batch.schema) + [T.StructField("sub", T.STRING)]))
+    keep = (torch.rand(batch.capacity, device=cuda_device) < 0.9) \
+        & (torch.arange(batch.capacity, device=cuda_device) < n)
+    batch = E.KR.compact(batch, keep)
+    want = HostBatch.from_device(batch)
+
+    def same(b):
+        got = HostBatch.from_device(b)
+        for name in want.columns:
+            np.testing.assert_array_equal(got.validity[name],
+                                          want.validity[name])
+            a, w = got.columns[name], want.columns[name]
+            if a.dtype.kind == "f":
+                a, w = a.view(np.int64), w.view(np.int64)
+            np.testing.assert_array_equal(a, w, err_msg=name)
+
+    cat = SP.BufferCatalog(1 << 40, 1 << 40, str(tmp_path),
+                           device=cuda_device)
+    bid = cat.register_batch(batch)
+    cat.spill_below(SP.ACTIVE_ON_DECK_PRIORITY)
+    assert cat.tier_of(bid) == SP.StorageTier.HOST
+    host_cols = cat._entries[bid].host_batch.columns
+    # the host tier holds views of one pinned buffer
+    assert torch.from_numpy(host_cols[0].data).is_pinned()
+    same(cat.acquire_batch(bid))
+    cat.free(bid)
+    disk = SP.BufferCatalog(0, 0, str(tmp_path), device=cuda_device)
+    bid = disk.register_batch(batch)
+    assert disk.tier_of(bid) == SP.StorageTier.DISK
+    same(disk.acquire_batch(bid))
+    bid2 = disk.register_batch(batch)
+    off, length = disk.disk_range_of(bid2)
+    with open(disk.spill_file.path, "r+b") as f:
+        f.seek(off + length // 3)
+        b = f.read(1)
+        f.seek(off + length // 3)
+        f.write(bytes([b[0] ^ 1]))
+    with pytest.raises(CK.ChecksumError):
+        disk.acquire_batch(bid2)
+    # freed first: a compaction relocating the corrupt range would raise
+    disk.free(bid2)
+    disk.free(bid)
+    disk.close()
+    cat.close()
