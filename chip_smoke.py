@@ -175,7 +175,33 @@ Phases; each one passes or the script exits non-zero:
    aggregate; Q6 once more on the session's default mesh (every visible
    card); and ``distributed_sum_by_key`` of ``l_partkey`` by
    ``l_suppkey`` over the 4 shards: sums and counts equal to numpy's,
-   every group on the shard numpy murmur3 pmod 4 names;
+   every group on the shard numpy murmur3 pmod 4 names.
+   Every query runs on the port's default path: whole-stage fusion, its
+   region captured as one CUDA graph at its second run and replayed
+   after (``exec/fusion.py``). The **fusion phase** (after the TPC-H
+   queries, its TPC-DS, TPCxBB and Mortgage cells beside theirs) runs
+   each of its cells with the region's programs dropped first: the SF1
+   entry stage (1,500,000 keys, sort path), q6, q14, q19 and ds_q96 must
+   go eager, capture, replay, trial (a streaming sample), replay, trial,
+   then the path the plan chose from those samples, every answer equal
+   to numpy and to the streaming path (``fusion.enabled=false``;
+   integers and strings bit for bit); q3 and ds_q3 (top-k roots) only
+   download their boundary; q1, bb_q30 and expr_complex print what they
+   do. Each prints a ``FUSION`` line: the chosen path, warm ms of the
+   replays, the trials and the streaming session, the host's time by
+   step of a replay (signature, boundaries, key, region, head), the
+   host's launch calls and the device's busy share of a traced warm run
+   of each path (the fused one replaying), graphs captured and replayed,
+   capture ms, pool bytes, the launches a replay re-issues (``joinProbe``
+   in q14, q19 and ds_q96; ``segmented`` in the entry stage),
+   boundaries, head bytes, guess misses and refusals with their sync
+   site. ``FUSION_COALESCE`` holds expr_complex's 64
+   exchanged blocks against 8 coalesced batches, ``FUSION_PIPELINE``
+   times sort and mort_features with the pipeline on and off on both
+   paths, ``FUSION_UPLOAD_CACHE`` uploads a frozen orders table twice
+   (a hit) and drains it, and ``FUSION_PHASE`` sums the phase, every
+   refusal of the run by sync site, the paths the run's plans chose and
+   the keys dropped because their resident table died;
 4. at the shapes the queries gave each kernel: kernel vs plain version
    (equal bit for bit), median times over CUDA events with the L2 flushed
    between launches, the memory bound, and a PyTorch library yardstick
@@ -205,6 +231,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import collections
 import dataclasses
 import hashlib
 import json
@@ -6250,10 +6277,19 @@ def run_tpcxbb(torch, ctx, session, wrappers, xbb_clicks: int, seed: int,
             ctx.runs_check["pq_bb"] = check_runs(
                 torch, ctx.E, ctx.PD, ctx.M, written["files"], "pq_bb")
         if label == "bb":
+            # on the streaming path: a replayed graph calls no Python
+            F = ctx.fusion
             with Capture(KJ, "dense_join") as dj:
-                tpcxbb.q05(dfs).collect()
+                tpcxbb.q05(rebind(F.L, dfs, F.stream)).collect()
             left_calls = [c for c in dj.calls if len(c) > 5
                           and c[5] == "left"]
+            t0 = time.perf_counter()
+            F.results["bb_q30"] = fusion_cell(
+                torch, F, "bb_q30", "any",
+                lambda s: tpcxbb.q30(rebind(F.L, dfs, s)),
+                lambda got: check_exact("bb_q30", got, refs["q30"],
+                                        XBB_FLOATS.get("q30", ())), True)
+            F.t_phase += time.perf_counter() - t0
             del dfs, pivot
     return summaries, launches, calls, left_calls
 
@@ -6296,6 +6332,43 @@ def reused_subplans(plan) -> int:
             walk(child)
     walk(plan)
     return len(found)
+
+
+def fusion_ds_cells(torch, ctx, dfs, refs, ss_rows: int, seed: int,
+                    futures: dict, n_cust: int) -> None:
+    """The fusion phase's TPC-DS cells over the resident tables:
+    ``ds_q96`` (must capture; its joins inline), ``ds_q3`` (a top-k
+    root: head only) and ``expr_complex`` with its coalesce."""
+    F = ctx.fusion
+    t0 = time.perf_counter()
+    tpcds, L = ctx.tpcds, F.L
+    for q, kind in (("q96", "capture"), ("q3", "head")):
+        cell = f"ds_{q}"
+        F.results[cell] = fusion_cell(
+            torch, F, cell, kind,
+            lambda s, q=q: tpcds.QUERIES[q](rebind(L, dfs, s)),
+            lambda got, q=q, cell=cell: check_ds(
+                cell, ds_host_rows(got), refs[q], q), True)
+    check(F.results["ds_q96"]["graph_launches"].get("joinProbe", 0) > 0,
+          "ds_q96: joinProbe does not replay inside its graph")
+    M = ctx.M
+    cust = F.session.create_dataframe(customer_array_table(
+        M.HostBatch, M.T, n_cust, seed))
+    ref = reference(futures, "ds", ss_rows, seed, "expr_complex")
+
+    def build(s):
+        return complex_queries(M, rebind(L, dfs, s),
+                               L.DataFrame(cust._plan, s))["complex"]()
+
+    def verify(got):
+        check_exact("expr_complex", rows_in_order(got, ["store"]), ref,
+                    ("e1",))
+    F.FU.clear_fused_cache()
+    F.results["expr_complex_coalesce"] = fusion_coalesce(
+        torch, F, "expr_complex", build, verify)
+    F.results["expr_complex"] = fusion_cell(
+        torch, F, "expr_complex", "any", build, verify, True)
+    F.t_phase += time.perf_counter() - t0
 
 
 def run_tpcds(torch, ctx, session, wrappers, ss_rows: int, seed: int,
@@ -6424,6 +6497,8 @@ def run_tpcds(torch, ctx, session, wrappers, ss_rows: int, seed: int,
         tables["customer"].num_rows, profile, futures)
     summaries.update(cx_summaries)
     record(cx_launches, cx_calls)
+    fusion_ds_cells(torch, ctx, dfs, refs, ss_rows, seed, futures,
+                    tables["customer"].num_rows)
 
     # q5 over parquet (BASELINE configuration 1): the ten tables it reads
     # through the port's writer, every collect scanning them.
@@ -6721,8 +6796,9 @@ def run_mortgage(torch, ctx, session, wrappers, perf_rows: int,
         for k in wrappers.mods:
             launches[k] += got_launches[k]
             calls[k] += got_calls[k]
+        # on the streaming path: a replayed graph calls no Python
         with JoinPaths(ctx.KJ) as paths:
-            builds[q]().collect()
+            ctx.fusion.stream.execute(builds[q]()._plan)
         summaries[cell]["join_paths"] = paths.taken
         summaries[cell]["joinProbe_launches"] = got_launches["joinProbe"]
         kind = "USING loan_id" if q == "etl" else "EqualTo(loan_id, _fl_id)"
@@ -6731,6 +6807,12 @@ def run_mortgage(torch, ctx, session, wrappers, perf_rows: int,
                     f"; its join ({kind}) took {paths.taken}, joinProbe "
                     f"launched {got_launches['joinProbe']} time(s) in the "
                     "cold run")
+    F = ctx.fusion
+    t0 = time.perf_counter()
+    F.results["mort_features_pipeline"] = fusion_pipeline(
+        torch, F, "mort_features",
+        lambda s: mortgage.ml_features(rebind(F.L, dfs, s)), True)
+    F.t_phase += time.perf_counter() - t0
     return summaries, launches, calls
 
 
@@ -8973,6 +9055,289 @@ def run_memory_phase(torch, M, session, wrappers, dfs, tables, refs, ref3,
 
 
 # --------------------------------------------------------------------------
+# The fusion phase: CUDA graphs per plan, the coalesce, the overlapped
+# download and the upload cache
+# --------------------------------------------------------------------------
+
+#: Cells whose region must capture on its second run and replay after,
+#: equal to numpy and to the streaming path (inline roots over joins and
+#: aggregates), and cells expected to download a boundary's result only;
+#: a cell's ``kind`` says which, ``"any"`` a cell whose region is only
+#: printed.
+FUSION_MUST_CAPTURE = ("entry", "q6", "q14", "q19", "ds_q96")
+FUSION_HEAD_ONLY = ("q3", "ds_q3", "bb_q30", "expr_complex")
+#: Runs of a fusion cell on the fused path: cold (eager), the capture,
+#: then the plan's choice between replaying and streaming (a replay and
+#: a streaming run, twice: ``exec/fusion.py`` ``_PathChoice``), then the
+#: chosen path.
+FUSION_RUNS = 7
+#: The fused runs of a must-capture cell up to its last, chosen one.
+FUSION_CAPTURE_SEQ = ["eager", "capture", "replay", "trial", "replay",
+                      "trial"]
+#: CUDA runtime calls that put work on the card, as the profiler names
+#: their host events.
+HOST_LAUNCH_PREFIXES = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                        "cudaMemcpy", "cudaMemset")
+
+
+def launch_profile(torch, run) -> dict:
+    """One traced run of ``run()``: its wall time, the host's launch
+    calls (kernels, graphs, copies, memsets), the device's kernel and
+    copy spans and their busy share of the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    host = sum(1 for e in events if e.device_type == DeviceType.CPU
+               and e.name.startswith(HOST_LAUNCH_PREFIXES))
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = _busy_us(dev)
+    return {"wall_ms": wall_us / 1e3, "host_launches": host,
+            "device_spans": len(dev), "busy_ms": busy / 1e3,
+            "busy_share": busy / wall_us if wall_us else 0.0}
+
+
+def canonical_rows(hb):
+    """``hb`` with its rows sorted by every non-float column (validity
+    first): two paths' answers to a query without a total ORDER BY (Q1
+    has none) compare row for row."""
+    keys = []
+    for i in range(len(hb.schema)):
+        v, ok = hb.column_at(i)
+        if v.dtype.kind == "f":
+            continue
+        keys.append(ok)
+        keys.append(np.array([str(x) for x in v]) if v.dtype == object
+                    else v)
+    if not keys or not hb.num_rows:
+        return hb
+    order = np.lexsort(keys[::-1])
+    return type(hb).from_positional(hb.schema, [
+        (v[order], ok[order]) for v, ok in (hb.column_at(i) for i in range(
+            len(hb.schema)))])
+
+
+def rebind(L, dfs: dict, session) -> dict:
+    """The frames of ``dfs`` over ``session``."""
+    return {k: L.DataFrame(v._plan, session) for k, v in dfs.items()}
+
+
+def fusion_cell(torch, F, cell: str, kind: str, build, check_fn,
+                atomic: bool, prepare=None) -> dict:
+    """One fusion cell: ``build(session)`` (a DataFrame) on the streaming
+    path (``F.stream``: 1 cold and 3 warm runs) and on the fused default
+    (``F.session``: the region's programs dropped first, then
+    ``FUSION_RUNS`` runs: eager, capture, then replays and streaming
+    trials until the plan chooses its path), each answer checked and
+    every fused one equal to the streaming one (integers and strings bit
+    for bit, float sums to ``REV_RTOL``); a traced warm run of each path
+    (the fused one replaying whatever the plan chose) counts the host's
+    launch calls and the device's busy share. ``kind`` ``capture``: the
+    runs must go ``FUSION_CAPTURE_SEQ`` and then the chosen path;
+    ``head``: every run only downloads its boundary's result."""
+    t_cell = time.perf_counter()
+    if prepare is not None:
+        for s in (F.session, F.stream):
+            prepare(s, build(s)._plan)
+    F.FU.clear_fused_cache()
+
+    def run(s):
+        return build(s).collect()
+    want = run(F.stream)
+    check_fn(want)
+    stream_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run(F.stream)
+        stream_ms.append((time.perf_counter() - t0) * 1e3)
+    actions, fused_ms, infos, launches = [], [], [], []
+    identical = True
+    for i in range(FUSION_RUNS):
+        torch.cuda.synchronize()
+        F.wrappers.reset()
+        t0 = time.perf_counter()
+        got = run(F.session)
+        fused_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append({k: v for k, v in F.wrappers.counts().items() if v})
+        info = dict(F.session.last_query.fusion or {})
+        infos.append(info)
+        actions.append(info.get("action"))
+        check_fn(got)
+        # raises unless integers and strings are equal bit for bit and
+        # floats bit for bit or (atomic sums) to REV_RTOL
+        identical &= same_answer(cell, canonical_rows(got),
+                                 canonical_rows(want), atomic)
+    chosen = infos[-1].get("chosen")
+    if kind == "capture":
+        n = len(FUSION_CAPTURE_SEQ)
+        check(actions[:n] == FUSION_CAPTURE_SEQ and chosen in (
+            "fused", "stream") and set(actions[n:]) == {
+                "replay" if chosen == "fused" else "stream"},
+              f"{cell}: fused runs went {actions} (chose {chosen}), not "
+              f"{FUSION_CAPTURE_SEQ} then the chosen path")
+    elif kind == "head":
+        check(set(actions) == {"head"},
+              f"{cell}: fused runs went {actions}, not head only")
+    # the traced fused run replays, whichever path the plan chose
+    chose_stream = [p for p in list(F.FU._FUSED_CACHE.values())
+                    if p.choice.path == "stream"]
+    for p in chose_stream:
+        p.choice.path = "fused"
+    try:
+        prof_fused = launch_profile(torch, lambda: run(F.session))
+    finally:
+        for p in chose_stream:
+            p.choice.path = "stream"
+    prof_stream = launch_profile(torch, lambda: run(F.stream))
+    cap = next((x for x in infos if x.get("action") == "capture"), {})
+    replays = [i for i, x in enumerate(infos) if x.get("action") == "replay"]
+    rep = infos[replays[-1]] if replays else infos[-1]
+    trials = [fused_ms[i] for i, x in enumerate(infos)
+              if x.get("action") == "trial"]
+    out = {
+        "kind": kind, "actions": actions, "chosen": chosen,
+        "fused_warm_ms": statistics.median(
+            [fused_ms[i] for i in replays] if replays else fused_ms[2:]),
+        "fused_runs_ms": fused_ms,
+        "trial_stream_ms": trials,
+        "host_us": rep.get("host_us", {}),
+        "stream_warm_ms": statistics.median(stream_ms),
+        "host_launches": {"fused": prof_fused["host_launches"],
+                          "stream": prof_stream["host_launches"]},
+        "device_spans": {"fused": prof_fused["device_spans"],
+                         "stream": prof_stream["device_spans"]},
+        "busy_share": {"fused": prof_fused["busy_share"],
+                       "stream": prof_stream["busy_share"]},
+        "wrapper_launches": launches[replays[-1]] if replays
+        else launches[-1],
+        "graphs_captured": actions.count("capture"),
+        "replays": actions.count("replay"),
+        "capture_ms": cap.get("capture_ms", 0.0),
+        "pool_bytes": rep.get("pool_bytes", 0),
+        "graph_launches": rep.get("graph_launches", {}),
+        "boundaries": rep.get("boundaries"),
+        "head_bytes": rep.get("head_bytes"),
+        "guess_misses": sum(bool(x.get("guess_miss")) for x in infos),
+        "refusals": sorted({x["site"] for x in infos
+                            if x.get("action") == "refused"}),
+        "bit_identical_to_streaming": identical,
+        "cell_s": time.perf_counter() - t_cell}
+    print(f"FUSION {cell} " + json.dumps(out))
+    return out
+
+
+def fusion_coalesce(torch, F, cell: str, build, check_fn) -> dict:
+    """``expr_complex``'s aggregate input: its exchanged blocks (8
+    partitions of 8 or more), one partial each with coalescing off
+    (``spark.sql.batchSizeRows`` 1: every block its own batch),
+    coalesced to the goal (about one batch a partition) by default; the coalesce's batches in and out, the
+    wrappers' launches and a traced run's host launches and busy share
+    of each, with equal answers."""
+    out = {}
+    want = None
+    for label, s in (("off", F.no_coalesce), ("on", F.session)):
+        got = build(s).collect()  # cold
+        check_fn(got)
+        F.wrappers.reset()
+        got = build(s).collect()
+        wl = {k: v for k, v in F.wrappers.counts().items() if v}
+        tree = s.last_query_profile().tree
+        n_in = _node_metric(tree, "CoalesceBatchesExec", "numInputBatches")
+        n_out = _node_metric(tree, "CoalesceBatchesExec", "numOutputBatches")
+        prof = launch_profile(torch, lambda: build(s).collect())
+        if want is None:
+            want = got
+        same_answer(cell, canonical_rows(got), canonical_rows(want), True)
+        out[label] = {"input_batches": n_in, "output_batches": n_out,
+                      "wrapper_launches": wl, **prof}
+    on, off = out["on"], out["off"]
+    # (the exchanges' block counts follow their input batches, so the
+    # two plans need not see the same number of blocks)
+    check(off["output_batches"] == off["input_batches"] >= 64
+          and 8 <= on["output_batches"] <= on["input_batches"] // 4,
+          f"{cell}: the coalesce took {on['input_batches']} blocks to "
+          f"{on['output_batches']} batches (with batchSizeRows 1: "
+          f"{off['input_batches']} to {off['output_batches']})")
+    print(f"FUSION_COALESCE {cell} " + json.dumps(out))
+    return out
+
+
+def fusion_pipeline(torch, F, cell: str, build, atomic: bool) -> dict:
+    """A cell on the fused and the streaming path with the pipeline on
+    and off (the overlapped and the serial download on the streaming
+    path): one cold and 3 warm runs each, equal answers."""
+    out, want = {}, None
+    for path in ("fused", "stream"):
+        for pipe in ("on", "off"):
+            s = F.pipeline_sessions[(path, pipe)]
+            got = build(s).collect()
+            if want is None:
+                want = got
+            same_answer(cell, canonical_rows(got), canonical_rows(want),
+                        atomic)
+            runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                build(s).collect()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            dl = s.last_query.exec_ms.get("DeviceToHost")
+            out[f"{path}_pipeline_{pipe}"] = {
+                "warm_ms": statistics.median(runs), "runs_ms": runs,
+                "download_ms": dl}
+    print(f"FUSION_PIPELINE {cell} " + json.dumps(out))
+    return out
+
+
+def fusion_upload_cache(torch, F, host_table) -> dict:
+    """A repeated ``create_dataframe`` of a frozen copy of a host table:
+    the first upload misses, the second hits and hands back the same
+    device columns; the OOM drain then empties the cache and releases
+    every graph."""
+    HB, UC = F.HostBatch, F.UC
+    hb = HB.from_positional(host_table.schema, [
+        (v.copy(), ok.copy()) for v, ok in (host_table.column_at(i)
+                                            for i in range(
+                                                len(host_table.schema)))])
+    hb.freeze()
+    before = dict(UC.stats)
+    times = []
+    frames = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames.append(F.session.create_dataframe(hb))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    hits = UC.stats["hits"] - before["hits"]
+    misses = UC.stats["misses"] - before["misses"]
+    n_cols = len(hb.schema)
+    check(misses == n_cols and hits == n_cols
+          and all(a is b for a, b in zip(frames[0]._plan.batch.columns,
+                                         frames[1]._plan.batch.columns)),
+          f"upload cache: {misses} misses, {hits} hits over {n_cols} "
+          "columns, or new device columns on the second upload")
+    cached = UC.cache_bytes()
+    graphs = F.EX.stats()["graphs"]
+    del frames
+    moved = F.R.spill_device_below(F.E.ExecContext(torch.device("cuda")))
+    check(UC.cache_bytes() == 0 and F.EX.stats()["graphs"] == 0,
+          "the OOM drain left the upload cache or a graph behind")
+    out = {"rows": hb.num_rows, "columns": n_cols,
+           "first_upload_ms": times[0], "cached_upload_ms": times[1],
+           "cache_bytes": cached, "graphs_before_drain": graphs,
+           "drained_bytes": moved}
+    print("FUSION_UPLOAD_CACHE " + json.dumps(out))
+    return out
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -9202,6 +9567,56 @@ def main() -> int:
     print(f"  XBB_SCORE max_score: at most {max(xbb_ulps)} ulp from numpy's "
           f"over {len(xbb_ulps)} runs (limit {MAX_SCORE_ULPS})")
 
+    # The fusion phase's TPC-H, entry-stage and upload-cache cells (its
+    # TPC-DS, TPCxBB and Mortgage cells run beside theirs, through the
+    # ``fusion`` namespace of those phases' contexts).
+    from spark_rapids_tpu_torch.compile import executables as EX
+    from spark_rapids_tpu_torch.data import upload_cache as UC
+    from spark_rapids_tpu_torch.exec import fusion as FU
+    from spark_rapids_tpu_torch.memory import retry as RT
+    fusion_off = {"spark.rapids.tpu.fusion.enabled": False}
+    F = types.SimpleNamespace(
+        session=session, wrappers=wrappers, FU=FU, EX=EX, UC=UC, R=RT, E=E,
+        HostBatch=HostBatch, L=L,
+        stream=TorchSession(fusion_off, device="cuda"),
+        no_coalesce=TorchSession({"spark.rapids.sql.batchSizeRows": 1},
+                                 device="cuda"),
+        pipeline_sessions={
+            (path, pipe): TorchSession(
+                {**({} if path == "fused" else fusion_off),
+                 "spark.rapids.tpu.pipeline.enabled": pipe == "on"},
+                device="cuda")
+            for path in ("fused", "stream") for pipe in ("on", "off")},
+        results={}, t0=time.perf_counter())
+    print(f"fusion phase {at()}: the entry stage, q6, q14, q19 (must "
+          "capture), q1, q3, sort's download with the pipeline on and "
+          "off, the upload cache; ds_q96, ds_q3, expr_complex (and its "
+          "coalesce), bb_q30 and mort_features with their phases")
+    t_fusion = time.perf_counter()
+    entry_df, entry_verify = entry_stage_frame(
+        ENTRY, T, HostBatch, A, P, col, lit, session, args.lineitem_rows,
+        1_500_000)
+    F.results["entry"] = fusion_cell(
+        torch, F, "entry", "capture",
+        lambda s: L.DataFrame(entry_df._plan, s), entry_verify, False,
+        prepare=sort_path)
+    check(F.results["entry"]["graph_launches"].get("segmented", 0) > 0,
+          "entry: segmented does not replay inside its graph")
+    for q, cell_kind in (("q6", "capture"), ("q14", "capture"),
+                         ("q19", "capture"), ("q1", "any"), ("q3", "head")):
+        F.results[q] = fusion_cell(
+            torch, F, q, cell_kind,
+            lambda s, q=q: tpch.QUERIES[q](rebind(L, dfs, s)),
+            queries[q][1], True)
+        if q in ("q14", "q19"):
+            check(F.results[q]["graph_launches"].get("joinProbe", 0) > 0,
+                  f"{q}: joinProbe does not replay inside its graph")
+    F.results["sort_pipeline"] = fusion_pipeline(
+        torch, F, "sort", lambda s: sort_lineitem(rebind(L, dfs, s)), False)
+    F.results["upload_cache"] = fusion_upload_cache(torch, F,
+                                                    tables["orders"])
+    F.t_phase = time.perf_counter() - t_fusion
+
     # The bench suite's TPC-H queries over parquet: the SF1 tables written
     # by the port's writer, every collect scanning them (the scan inside
     # every timed run).
@@ -9275,7 +9690,7 @@ def main() -> int:
                                     ColumnarBatch=ColumnarBatch, E=E, PD=PD,
                                     M=M, off_session=off_session,
                                     pipeline_off=pipeline_off,
-                                    runs_check=runs_check)
+                                    runs_check=runs_check, fusion=F)
     xbb_summaries, xbb_launches, xbb_calls, left_calls = run_tpcxbb(
         torch, xbb_ctx, session, wrappers, args.xbb_clicks, args.seed,
         pq_dir, args.profile, futures)
@@ -9294,7 +9709,7 @@ def main() -> int:
     metrics_cells = {}
     ds_ctx = types.SimpleNamespace(tpcds=tpcds, PE=PE, SN=SN,
                                    ColumnarBatch=ColumnarBatch, M=expr_mods,
-                                   metrics_cells=metrics_cells)
+                                   metrics_cells=metrics_cells, fusion=F)
     ds_summaries, ds_launches, ds_calls = run_tpcds(
         torch, ds_ctx, session, wrappers, args.ds_ss_rows, args.seed,
         pq_dir, args.profile, futures)
@@ -9304,7 +9719,7 @@ def main() -> int:
         calls[k] += ds_calls[k]
 
     # Mortgage's ETL and feature table at 2^24 performance records.
-    mort_ctx = types.SimpleNamespace(mortgage=mortgage, KJ=KJ)
+    mort_ctx = types.SimpleNamespace(mortgage=mortgage, KJ=KJ, fusion=F)
     mort_summaries, mort_launches, mort_calls = run_mortgage(
         torch, mort_ctx, session, wrappers, args.mort_perf_rows,
         args.profile, futures)
@@ -9611,6 +10026,26 @@ def main() -> int:
                               if k in ("bytes", "seconds")},
                     "files": len(written["files"]),
                     "snappy": snappy_row}}}))
+    ex = EX.stats()
+    print("FUSION_PHASE " + json.dumps({
+        "seconds": F.t_phase, "cells": {
+            k: {x: v[x] for x in ("actions", "chosen", "fused_warm_ms",
+                                  "trial_stream_ms", "stream_warm_ms",
+                                  "host_us", "host_launches",
+                                  "busy_share", "capture_ms", "pool_bytes",
+                                  "refusals")}
+            for k, v in F.results.items() if "actions" in v},
+        "chosen_paths": dict(collections.Counter(
+            str(p.choice.path) for p in list(FU._FUSED_CACHE.values()))),
+        "refusal_sites": ex["refusal_sites"],
+        "programs": ex["programs"], "captures": ex["captures"],
+        "replays": ex["replays"], "refusals": ex["refusals"],
+        "graphs_live": ex["graphs"], "graph_bytes_live": ex["pool_bytes"],
+        "graphs_released": ex["released_graphs"],
+        "keys_dropped_with_their_table": ex["dead_keys"],
+        "capture_seconds": ex["compile_seconds"]}))
+    print(f"  fusion phase: {F.t_phase:.1f} s; whole run so far "
+          f"{time.perf_counter() - T_START:.1f} s")
     print(f"phase 5 {at()}: results")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

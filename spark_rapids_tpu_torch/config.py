@@ -267,6 +267,44 @@ SHUFFLE_CHECKSUM_ENABLED = conf_bool(
     "in host memory and on disk, so a corrupt block raises ChecksumError "
     "instead of becoming data.")
 
+BATCH_SIZE_ROWS = conf_int(
+    "spark.rapids.sql.batchSizeRows", 1 << 20,
+    "Target rows of the batches a coalesce produces (exec/coalesce.py): "
+    "small batches are concatenated up to this capacity before an "
+    "aggregate, sort or top-k.")
+
+FUSION_ENABLED = conf_bool(
+    "spark.rapids.tpu.fusion.enabled", True,
+    "Run a query's device region as one program (exec/fusion.py): its "
+    "boundaries (scans, exchanges, windows, sorts, top-k) run first, the "
+    "region then runs once eagerly, is captured as one CUDA graph on its "
+    "second run and replayed from then on, and the result comes back in "
+    "one device->host transfer. A region that synchronises with the host "
+    "is refused (counted, with its site) and runs on the streaming "
+    "path.")
+
+FUSION_INLINE_JOINS = conf_bool(
+    "spark.rapids.tpu.fusion.inlineJoins", True,
+    "Inline shuffled hash joins into the fused region instead of making "
+    "each one a boundary.")
+
+COLLECT_GUESS_ROWS = conf_int(
+    "spark.rapids.tpu.collect.guessRows", 1024,
+    "Rows of a fused result that come back in its one head transfer; a "
+    "larger result pays a second download of the full batch.")
+
+UPLOAD_CACHE_BYTES = conf_int(
+    "spark.rapids.tpu.uploadCache.maxBytes", 1 << 30,
+    "Device bytes of the upload cache (data/upload_cache.py): an upload "
+    "of read-only numpy arrays is kept and served again. 0 disables.")
+
+PIPELINE_BOUNDARY_PARALLELISM = conf_int(
+    "spark.rapids.tpu.pipeline.boundaryParallelism", 0,
+    "Fusion boundaries materialised at once on the pipeline's pool "
+    "before a fused dispatch. 0 = auto (min(4, cpu count), at least 2); "
+    "1 materialises them one after another.")
+
+
 class TorchConf:
     """Immutable snapshot of a conf dict with typed access."""
 

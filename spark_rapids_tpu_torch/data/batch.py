@@ -267,15 +267,37 @@ class HostBatch:
                   ) -> ColumnarBatch:
         """Upload at ``capacity`` (default: the ladder rung of the row
         count). Strings are dictionary-encoded here with a sorted
-        ``np.unique``, so codes order like the strings."""
+        ``np.unique``, so codes order like the strings. A column whose
+        arrays are read-only comes from the upload cache when it was
+        uploaded before (:mod:`.upload_cache`)."""
+        from . import upload_cache
         device = torch.device(device)
         n = self.num_rows
         cap = capacity or bucket_capacity(n)
-        cols = [_column_to_device(self.columns[f.name], self.validity[f.name],
-                                  f.data_type, cap, device)
-                for f in self.schema]
+        cols = []
+        for f in self.schema:
+            values, valid = self.columns[f.name], self.validity[f.name]
+            col = upload_cache.lookup(values, valid, f.data_type, cap,
+                                      device)
+            if col is None:
+                col = _column_to_device(values, valid, f.data_type, cap,
+                                        device)
+                upload_cache.insert(values, valid, f.data_type, cap, device,
+                                    col)
+            cols.append(col)
         n_rows = torch.tensor(n, dtype=torch.int64, device=device)
         return ColumnarBatch(tuple(cols), n_rows, self.schema)
+
+    def freeze(self) -> "HostBatch":
+        """Make every array of the batch read-only (the caller promises
+        not to write to them), so its uploads are cached
+        (:mod:`.upload_cache`). Returns the batch."""
+        pairs = self.positional if self.positional is not None else \
+            [(self.columns[n], self.validity[n]) for n in self.columns]
+        for v, ok in pairs:
+            v.setflags(write=False)
+            ok.setflags(write=False)
+        return self
 
     @staticmethod
     def empty(schema: T.Schema) -> "HostBatch":
@@ -298,10 +320,182 @@ class HostBatch:
 
     @staticmethod
     def from_device(batch: ColumnarBatch) -> "HostBatch":
-        """Download the live rows in row order (one host sync per lane)."""
-        mask = batch.row_mask()
+        """Download the live rows in row order (one host sync per lane).
+        A physical batch's live rows are its first ``n_rows``: a slice,
+        read with one sync for the count, instead of a mask (whose
+        indexing over the whole capacity dominates when the batch is
+        already on the host, a :class:`HostCopy`'s)."""
+        mask = slice(0, int(batch.n_rows)) if batch.live is None \
+            else batch.row_mask()
         pairs = [_host_values(c, mask) for c in batch.columns]
         return HostBatch.from_positional(batch.schema, pairs)
+
+
+def _grow_column(c: DeviceColumn, cap: int) -> DeviceColumn:
+    """``c`` at the larger capacity ``cap``: every row lane padded with
+    dead rows (zero, invalid); a flat column's offsets repeat their end,
+    its payload is kept."""
+    old = c.capacity
+
+    def pad(t: torch.Tensor, fill=0) -> torch.Tensor:
+        extra = torch.full((cap - old,) + tuple(t.shape[1:]), fill,
+                           dtype=t.dtype, device=t.device)
+        return torch.cat([t, extra])
+    validity = pad(c.validity, False)
+    if c.is_struct:
+        return dataclasses.replace(c, validity=validity, children=tuple(
+            _grow_column(k, cap) for k in c.children))
+    if c.is_array:
+        return dataclasses.replace(c, data=pad(c.data), validity=validity,
+                                   elem_validity=pad(c.elem_validity, False),
+                                   lengths=pad(c.lengths))
+    if c.is_flat:
+        tail = c.offsets[-1:].expand(cap - old)
+        return dataclasses.replace(c, validity=validity,
+                                   offsets=torch.cat([c.offsets, tail]))
+    if c.is_dict:
+        return dataclasses.replace(c, validity=validity, codes=pad(c.codes))
+    return dataclasses.replace(c, data=pad(c.data), validity=validity)
+
+
+def grow_batch(batch: ColumnarBatch, cap: int) -> ColumnarBatch:
+    """``batch`` at the larger capacity ``cap`` (the reference's
+    ``_grow_batch``): the new rows are dead, so every result is the
+    same."""
+    if cap <= batch.capacity or not batch.columns:
+        return batch
+    live = None if batch.live is None else torch.cat([
+        batch.live, torch.zeros(cap - batch.capacity, dtype=torch.bool,
+                                device=batch.device)])
+    return ColumnarBatch(tuple(_grow_column(c, cap) for c in batch.columns),
+                         batch.n_rows, batch.schema, live=live)
+
+
+def _shrink_column(c: DeviceColumn, cap: int) -> DeviceColumn:
+    """The first ``cap`` rows of ``c``; a flat column keeps the payload
+    those rows can reach (``cap x max_bytes``), a dictionary column drops
+    its device copy of the entries (the host ones decode it)."""
+    if c.is_struct:
+        return dataclasses.replace(c, validity=c.validity[:cap],
+                                   children=tuple(_shrink_column(k, cap)
+                                                  for k in c.children))
+    if c.is_array:
+        return dataclasses.replace(c, data=c.data[:cap],
+                                   validity=c.validity[:cap],
+                                   elem_validity=c.elem_validity[:cap],
+                                   lengths=c.lengths[:cap])
+    if c.is_flat:
+        reach = bucket_byte_capacity(max(cap * max(c.max_bytes, 1), 1))
+        return dataclasses.replace(c, data=c.data[:reach],
+                                   validity=c.validity[:cap],
+                                   offsets=c.offsets[:cap + 1])
+    if c.is_dict:
+        return dataclasses.replace(c, validity=c.validity[:cap],
+                                   codes=c.codes[:cap], dict_bytes=None)
+    return dataclasses.replace(c, data=c.data[:cap],
+                               validity=c.validity[:cap])
+
+
+def shrink_batch(batch: ColumnarBatch, cap: int) -> ColumnarBatch:
+    """The first ``cap`` rows of a physical batch (the reference's
+    ``_shrink_batch``), for the fused result's head: rows past ``cap``
+    are lost, so the caller checks the row count."""
+    assert batch.live is None, "shrink_batch takes a physical batch"
+    if cap >= batch.capacity:
+        return batch
+    return ColumnarBatch(tuple(_shrink_column(c, cap) for c in batch.columns),
+                         batch.n_rows, batch.schema)
+
+
+def flat_payload_fits(batch: ColumnarBatch) -> bool:
+    """Whether every flat string column of a host-side (CPU) batch holds
+    the payload its live rows reach (a head cut at ``guessRows`` may
+    not)."""
+    n = int(batch.n_rows)
+    for c in _flat_columns(batch.columns):
+        if n and int(c.offsets[min(n, c.capacity)]) > c.data.shape[0]:
+            return False
+    return True
+
+
+def _lane_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bytes as a flat uint8 lane (a bool lane as its bytes)."""
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+class HostCopy:
+    """An asynchronous device-to-host copy of a tree of batches, columns
+    and tensors (a fused result's head: many small lanes) as ONE copy
+    into one pinned buffer: the lanes are concatenated on the device (one
+    kernel, each at an 8-byte aligned offset), :meth:`begin` queues the
+    copy on the current stream and returns at once, :meth:`finish` waits
+    for it and returns the same tree over CPU tensors (views of the
+    buffer)."""
+
+    def __init__(self, tree):
+        from ..compile.executables import flatten
+        self.leaves, self.spec = flatten(tree)
+        self.shapes = [tuple(t.shape) for t in self.leaves]
+        self.dtypes = [t.dtype for t in self.leaves]
+        self.sizes = [t.numel() * t.element_size() for t in self.leaves]
+        self.starts, total = [], 0
+        for nb in self.sizes:
+            self.starts.append(total)
+            total += _aligned(nb)
+        self.nbytes = total
+        self.on_card = any(t.is_cuda for t in self.leaves)
+        self.host = None
+        self.event = None
+
+    def begin(self) -> "HostCopy":
+        if not self.on_card:
+            return self
+        dev = next(t.device for t in self.leaves if t.is_cuda)
+        self.host = torch.empty(max(self.nbytes, 1), dtype=torch.uint8,
+                                pin_memory=True)
+        parts, pos = [], 0
+        for t, s, nb in zip(self.leaves, self.starts, self.sizes):
+            if not nb:
+                continue
+            if s > pos:
+                parts.append(torch.zeros(s - pos, dtype=torch.uint8,
+                                         device=dev))
+            parts.append(_lane_bytes(t))
+            pos = s + nb
+        if parts:
+            buf = torch.cat(parts)
+            self.host[:buf.numel()].copy_(buf, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record(torch.cuda.current_stream(dev))
+        return self
+
+    def finish(self):
+        """The tree over CPU tensors (waits for the copy)."""
+        from ..compile.executables import unflatten
+        if not self.on_card:
+            return unflatten(self.spec, self.leaves)
+        with lockdep.blocking("HostCopy.wait"):
+            self.event.synchronize()
+        out = []
+        for shape, dt, s, nb in zip(self.shapes, self.dtypes, self.starts,
+                                    self.sizes):
+            out.append(self.host[s:s + nb].view(dt).reshape(shape))
+        return unflatten(self.spec, out)
+
+
+def host_batch(batch: Optional[ColumnarBatch], schema: T.Schema
+               ) -> "HostBatch":
+    """The live rows of a batch whose tensors are on the host (a
+    :class:`HostCopy`'s), in row order; no rows of ``schema`` for None."""
+    if batch is None:
+        return HostBatch.empty(schema)
+    hb = HostBatch.from_device(batch)
+    # a lane read by slice views the copy's (pinned) buffer: copy it out,
+    # so the buffer goes back to the allocator's cache for the next copy
+    return HostBatch.from_positional(hb.schema, [
+        (v.copy() if v.base is not None else v,
+         ok.copy() if ok.base is not None else ok)
+        for v, ok in (hb.column_at(i) for i in range(len(hb.schema)))])
 
 
 # --------------------------------------------------------------------------

@@ -35,7 +35,10 @@ Complex columns take the reference's layouts:
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -134,6 +137,83 @@ class DeviceColumn:
         return DeviceColumn(lane, validity, self.dtype)
 
 
+_CONST_LOCK = threading.Lock()
+#: (device, dtype, shape, bytes) -> (device tensor, pinned host tensor)
+_CONSTS: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+_CONST_BYTES = [0]
+#: Bytes of device constants kept; the least recently used go first.
+_CONST_MAX_BYTES = 64 << 20
+#: Host arrays above this size are uploaded without being kept.
+_CONST_MAX_ENTRY = 1 << 20
+#: Per thread: the list a capture collects the constants it read into
+#: (:func:`recording_constants`), or None.
+_SINK = threading.local()
+
+
+@contextlib.contextmanager
+def recording_constants():
+    """Collect every ``(device tensor, pinned host tensor)`` pair that
+    :func:`device_constant` hands out in this thread inside the block,
+    cached or not. A CUDA graph captured there reads those addresses at
+    every replay, so its holder keeps the pairs as long as the graph: the
+    cache may evict them meanwhile."""
+    prev = getattr(_SINK, "held", None)
+    held: list = []
+    _SINK.held = held
+    try:
+        yield held
+    finally:
+        _SINK.held = prev
+
+
+def device_constant(host, device, dtype=None) -> torch.Tensor:
+    """A device copy of a small host array that an expression or kernel
+    derived on the host (a literal's bytes, a dictionary's lookup table),
+    READ-ONLY: on the card it is kept per content and device, so a fused
+    region's later runs and its CUDA graph read the same tensor instead
+    of uploading again (an upload from pageable memory synchronises, and
+    a capture cannot run one). The pinned host copy the upload read from
+    is kept with it. A larger array is uploaded from pinned memory
+    without being kept. The cache evicts its least recently used entries,
+    so a capture holds every pair it was handed
+    (:func:`recording_constants`) until its graph is released. On the
+    CPU it is a plain tensor."""
+    host = np.ascontiguousarray(np.asarray(host, dtype=dtype))
+    device = torch.device(device)
+    sink = getattr(_SINK, "held", None)
+    if device.type != "cuda":
+        out = torch.from_numpy(host.copy())
+        if sink is not None:
+            sink.append((out, None))
+        return out
+    nbytes = host.nbytes
+    if nbytes > _CONST_MAX_ENTRY:
+        pinned = torch.from_numpy(host.copy()).pin_memory()
+        dev = pinned.to(device, non_blocking=True)
+        if sink is not None:
+            sink.append((dev, pinned))
+        return dev
+    key = (str(device), host.dtype.str, host.shape, host.tobytes())
+    with _CONST_LOCK:
+        hit = _CONSTS.get(key)
+        if hit is not None:
+            _CONSTS.move_to_end(key)
+    if hit is None:
+        pinned = torch.from_numpy(host.copy()).pin_memory()
+        dev = pinned.to(device, non_blocking=True)
+        with _CONST_LOCK:
+            hit = _CONSTS.setdefault(key, (dev, pinned))
+            if hit[0] is dev:
+                _CONST_BYTES[0] += nbytes
+                while _CONST_BYTES[0] > _CONST_MAX_BYTES \
+                        and len(_CONSTS) > 1:
+                    _, (old, _) = _CONSTS.popitem(last=False)
+                    _CONST_BYTES[0] -= old.numel() * old.element_size()
+    if sink is not None:
+        sink.append(hit)
+    return hit[0]
+
+
 def pow2_len(n: int) -> int:
     """An array column's ``max_len``: the power of two at or above ``n``
     (at least 1), the reference's ``_pow2``."""
@@ -207,8 +287,8 @@ def dictionary_column(codes: torch.Tensor, validity: torch.Tensor,
                         dictionary=dictionary,
                         max_bytes=string_max_bytes(lens.max()),
                         dict_sorted=bool(dict_sorted),
-                        dict_bytes=(torch.from_numpy(payload).to(dev),
-                                    torch.from_numpy(offsets).to(dev)))
+                        dict_bytes=(device_constant(payload, dev),
+                                    device_constant(offsets, dev)))
 
 
 def scalar_column(value, dtype: T.DataType, capacity: int,

@@ -39,7 +39,9 @@ and re-runs the query with the tripped sites escalated
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import itertools
 import time
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -89,7 +91,20 @@ class ExecContext:
     (:mod:`..utils.fault_injection`), ``semaphore``
     (:mod:`..memory.semaphore`), ``deadline`` (:mod:`..utils.deadline`)
     and ``qos`` (the query's :class:`~..memory.spill.QosTag`); the last
-    four are None in a bare context."""
+    four are None in a bare context.
+
+    Whole-stage fusion (:mod:`.fusion`) adds ``in_fusion`` (True in the
+    context a fused region runs in: no catalog registration, no retry,
+    injection or deadline, no CUDA event pairs, sync-free operator
+    variants), ``fused_inputs`` (the region's materialised boundaries),
+    ``join_caps`` / ``join_growth`` (the output capacity of an inlined
+    exact join: learned per site, else the probe's capacity times the
+    growth) and the region's deferred observations ``overflow_flags``
+    and ``join_totals``. Sites are numbered in execution order
+    (``site_ids``, beside ``site_kinds``); a boundary materialised
+    concurrently numbers its sites in a namespace of its own
+    (:meth:`fork_for_boundary`), so the numbers do not depend on thread
+    timing."""
 
     def __init__(self, device: torch.device,
                  dense_modes: Optional[Dict[int, int]] = None,
@@ -123,10 +138,75 @@ class ExecContext:
         self.semaphore = semaphore
         self.deadline = deadline
         self.qos = qos
+        self.in_fusion = False
+        self.fused_inputs = None
+        #: what the fused dispatch did (:func:`.fusion.fused_collect`)
+        self.fusion: Optional[dict] = None
+        self.join_caps: Dict[int, int] = {}
+        self.join_growth = 1.0
+        self.overflow_flags: List[torch.Tensor] = []
+        self.join_totals: List[Tuple[int, torch.Tensor]] = []
+        #: the id of each site of ``site_kinds``, in the same order
+        self.site_ids: List[int] = []
+        self._site_seq = 0
+        self._site_namespace = 0
+        # guards ``reused`` across concurrently materialised boundaries;
+        # held while a shared subplan runs, its pipeline waits included
+        self._reuse_lock = lockdep.rlock("ExecContext._reuse_lock",
+                                         io_ok=True)
 
     def next_site(self, kind: str) -> int:
+        sid = self._site_namespace + self._site_seq
+        self._site_seq += 1
         self.site_kinds.append(kind)
-        return len(self.site_kinds) - 1
+        self.site_ids.append(sid)
+        return sid
+
+    def _fork(self) -> "ExecContext":
+        """A copy sharing the conf, registry, catalog, timers, counters,
+        modes and shared subplans, with private observation lists."""
+        sub = copy.copy(self)
+        sub.dense_fails = []
+        sub.site_kinds = []
+        sub.site_ids = []
+        sub.overflow_flags = []
+        sub.join_totals = []
+        sub._cleanups = []
+        return sub
+
+    def fork_for_boundary(self, ordinal: int) -> "ExecContext":
+        """A context for one boundary materialised on a pool thread
+        (:func:`.pipeline.materialize_boundaries`): private observation
+        lists, merged back in boundary order by :meth:`absorb_boundary`,
+        and the site namespace ``(ordinal + 1) << 20``, which the plan
+        fixes, so learned modes key the same sites on every run."""
+        sub = self._fork()
+        sub._site_seq = 0
+        sub._site_namespace = (ordinal + 1) << 20
+        return sub
+
+    def fork_for_region(self) -> "ExecContext":
+        """The context a fused region runs in (the reference's fused
+        ``ExecContext``): ``in_fusion``, no fault injector, deadline or
+        semaphore, its sites continuing this context's numbering."""
+        sub = self._fork()
+        sub.in_fusion = True
+        sub.fault_injector = None
+        sub.deadline = None
+        sub.semaphore = None
+        return sub
+
+    def absorb_boundary(self, sub: "ExecContext") -> None:
+        """Merge a fork's observations back (in boundary order, after
+        every worker finished)."""
+        self.dense_fails.extend(sub.dense_fails)
+        self.site_kinds.extend(sub.site_kinds)
+        self.site_ids.extend(sub.site_ids)
+        self.overflow_flags.extend(sub.overflow_flags)
+        self.join_totals.extend(sub.join_totals)
+        with self._lock:
+            self._cleanups.extend(sub._cleanups)
+        sub._cleanups = []
 
     def mode(self, site: int) -> int:
         return self.dense_modes.get(site, 0)
@@ -182,7 +262,12 @@ class ExecContext:
         t_ns = time.perf_counter_ns()
         try:
             with trace_range(name):
-                if self.device.type == "cuda" and not host:
+                if self.in_fusion and self.device.type == "cuda":
+                    # a capture cannot read events, and a replay runs no
+                    # Python: the region's one event pair is the fused
+                    # dispatch's deviceTime
+                    yield
+                elif self.device.type == "cuda" and not host:
                     start = torch.cuda.Event(enable_timing=True)
                     end = torch.cuda.Event(enable_timing=True)
                     start.record()
@@ -249,6 +334,16 @@ class TorchExec:
     def describe(self) -> str:
         return self.name
 
+    #: Batch goals of the children (``"target"`` or ``"single"`` per
+    #: child, :func:`.coalesce.insert_coalesce`), or None.
+    children_coalesce_goals: Optional[List[Optional[str]]] = None
+
+    def with_children(self, children: List["TorchExec"]) -> "TorchExec":
+        """A shallow copy of this exec over ``children``."""
+        out = copy.copy(self)
+        out.children = list(children)
+        return out
+
     def tree_string(self, indent: int = 0) -> str:
         out = "  " * indent + self.describe() + "\n"
         for c in self.children:
@@ -283,6 +378,13 @@ def accumulate(child: TorchExec, ctx: ExecContext,
     ``<node>.<site>`` without a split (its consumer takes ONE batch). A
     single batch that never spilled comes back as it is. A
     concatenation's time is ``node``'s ``concatTime`` (DEBUG)."""
+    if ctx.in_fusion:
+        # a fused region has no catalog and no retry (the reference's
+        # fused context has neither)
+        batches = [b for part in child.execute(ctx) for b in part]
+        if not batches:
+            return empty_batch(child.schema, ctx.device)
+        return _coalesce_device(batches)
     catalog = ctx.catalog
     from ..memory import retry as R
     ids: List[int] = []
@@ -373,10 +475,11 @@ class ReusedExec(TorchExec):
         return "Reused"
 
     def execute(self, ctx):
-        parts = ctx.reused.get(id(self))
-        if parts is None:
-            parts = [list(p) for p in self.children[0].execute(ctx)]
-            ctx.reused[id(self)] = parts
+        with ctx._reuse_lock:
+            parts = ctx.reused.get(id(self))
+            if parts is None:
+                parts = [list(p) for p in self.children[0].execute(ctx)]
+                ctx.reused[id(self)] = parts
         return [list(p) for p in parts]
 
 
@@ -647,6 +750,7 @@ class HashAggregateExec(TorchExec):
         self.children = [child]
         self.groupings = groupings
         self.aggregates = aggregates
+        self.children_coalesce_goals = ["target"]
 
     @property
     def schema(self):
@@ -695,7 +799,11 @@ class HashAggregateExec(TorchExec):
             # capacity: a sparse lazy input (a filtered join output) moves
             # to its live bucket first. The global aggregate's masked
             # reductions need not.
-            if self.groupings:
+            if self.groupings and not ctx.in_fusion:
+                # (a fused region cannot read the live count: its input
+                # stays lazy at its capacity, every operator reading the
+                # row mask; the reference compacts it, physical(), at its
+                # execs.py:625, which here would gather every column)
                 batch = KR.shrink_sparse(batch)
             with ctx.timed(self.name):
                 out, fail = aggregate_batch(batch, groupings, aggs,
@@ -708,8 +816,9 @@ class HashAggregateExec(TorchExec):
             # a partial holds its groups at the front of its input's
             # capacity: concatenating whole capacities would size the
             # merge (and a flat string key's char matrix) by the input
-            batch = _coalesce_device([KR.shrink_sparse(b, physical=True)
-                                      for b in batches])
+            batch = _coalesce_device(
+                batches if ctx.in_fusion else
+                [KR.shrink_sparse(b, physical=True) for b in batches])
             with ctx.timed(self.name + ".merge"):
                 out, fail = aggregate_batch(batch, key_refs, aggs,
                                             buf_schema, n_keys, False,
@@ -933,13 +1042,17 @@ class ShuffledHashJoinExec(TorchExec):
                                   site)
 
         from ..memory import retry as R
-        # The probe splits in half by rows when retries alone cannot fit
-        # it: each half joins the same build side, in probe order. A full
-        # join's unmatched build rows need the whole probe, so it only
-        # retries.
-        outs = R.with_retry(ctx, f"{self.name}.probe", probe, join_one,
-                            split=None if jt == "full" else R.halve_by_rows,
-                            node=self.name)
+        if ctx.in_fusion:
+            outs = [join_one(probe)]
+        else:
+            # The probe splits in half by rows when retries alone cannot
+            # fit it: each half joins the same build side, in probe
+            # order. A full join's unmatched build rows need the whole
+            # probe, so it only retries.
+            outs = R.with_retry(
+                ctx, f"{self.name}.probe", probe, join_one,
+                split=None if jt == "full" else R.halve_by_rows,
+                node=self.name)
         return [[b for out in outs for b in out]]
 
     def _join(self, ctx, probe, build, lkeys, rkeys, cond, mode: int,
@@ -966,6 +1079,18 @@ class ShuffledHashJoinExec(TorchExec):
             out, n_pairs = join_residual(jt, probe, build, pk, bk,
                                          self._schema, cond)
             ctx.count(self.name + ".pairs", n_pairs)
+            return [out]
+        if ctx.in_fusion and jt in ("inner", "left"):
+            # sized without a host read: the learned capacity of this
+            # site, else the probe's capacity times the growth; the
+            # total and its overflow ride the fused head, and an
+            # overflow re-runs the query with the learned capacity
+            out_cap = ctx.join_caps.get(site) or bucket_capacity(
+                max(int(probe.capacity * ctx.join_growth), 128))
+            out, total = join_exact(jt, probe, build, pk, bk, self._schema,
+                                    out_cap)
+            ctx.overflow_flags.append(total > out_cap)
+            ctx.join_totals.append((site, total))
             return [out]
         out, total = join_exact(jt, probe, build, pk, bk, self._schema)
         if jt == "inner":
@@ -1149,6 +1274,7 @@ class TopKExec(TorchExec):
         self.children = [child]
         self.orders = orders
         self.n = n
+        self.children_coalesce_goals = ["target"]
 
     @property
     def schema(self):
@@ -1189,6 +1315,7 @@ class SortExec(TorchExec):
     def __init__(self, child: TorchExec, orders):
         self.children = [child]
         self.orders = orders
+        self.children_coalesce_goals = ["target"]
 
     @property
     def schema(self):
@@ -1299,17 +1426,82 @@ class LimitExec(TorchExec):
         return [[ColumnarBatch(cols, n_out, b.schema)]]
 
 
+class DeviceToHostExec(TorchExec):
+    """Device-to-host transition, the root the planner puts over every
+    device plan (the reference's ``DeviceToHostExec``, ``plan/
+    overrides.py:795,806``). ``execute`` yields the live rows of each
+    device batch as a :class:`HostBatch`, partitions in order, each in
+    row order:
+
+    * ``run`` (the pipeline off): each batch downloaded when it arrives;
+    * ``run_overlapped`` (the pipeline on): once a partition has shown
+      a second batch, the rest are pulled on a pool worker
+      (:func:`..utils.prefetch.prefetch_iter`, ``prefetchDepth`` ahead),
+      so the next batch's operators dispatch while this thread
+      downloads the previous one; a partition of one batch, which has
+      nothing to overlap, downloads as ``run`` does. Each download is
+      the serial one: a copy of every batch into one pinned buffer,
+      queued before the host waited on the previous batch (the
+      reference's ``to_arrow_begin``/``finish``), was slower on the card
+      (its whole capacity pinned, then copied out on the host).
+
+    The download's time is ``DeviceToHost`` in ``exec_ms``; the rows and
+    host bytes go to the device root's ``numOutputRows`` and
+    ``downloadBytes`` (the port's profile tree is the device plan)."""
+
+    def __init__(self, child: TorchExec):
+        self.children = [child]
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def describe(self):
+        return "DeviceToHost"
+
+    def execute(self, ctx):
+        from . import pipeline
+        parts = self.children[0].execute(ctx)
+        if not pipeline.parallel_active(ctx):
+            return [self._run(ctx, p) for p in parts]
+        depth = pipeline.prefetch_depth(ctx.conf)
+        return [self._run_overlapped(ctx, p, depth) for p in parts]
+
+    def _run_overlapped(self, ctx, part, depth: int):
+        from ..utils.prefetch import prefetch_iter
+        it = iter(part)
+        first = next(it, None)
+        if first is None:
+            return
+        second = next(it, None)
+        if second is None:
+            yield from self._run(ctx, (first,))
+            return
+        rest = prefetch_iter(it, depth=depth, ctx=ctx, node=self.name)
+        yield from self._run(ctx, itertools.chain((first, second), rest))
+
+    def _run(self, ctx, part):
+        for db in part:
+            with ctx.timed("DeviceToHost", host=True):
+                hb = HostBatch.from_device(db)
+            yield hb
+
+    def collect(self, ctx: ExecContext) -> HostBatch:
+        """Run the plan and concatenate its host batches; the device
+        root's ``numOutputRows`` is set to the answer's rows and its
+        ``downloadBytes`` gets their host bytes."""
+        hosts = [hb for part in self.execute(ctx) for hb in part]
+        out = HostBatch.concat(hosts) if hosts else \
+            HostBatch.empty(self.schema)
+        node = self.children[0].node_name()
+        ctx.registry.set_value(node, "numOutputRows", out.num_rows)
+        ctx.metric(node, "downloadBytes", sum(h.nbytes for h in hosts))
+        return out
+
+
 def collect(root: TorchExec, ctx: ExecContext) -> HostBatch:
-    """Device-to-host transition: run the plan and download the live
-    rows of its result, partitions in order, each in row order. The
-    root's ``numOutputRows`` is set to the answer's rows, and its
-    ``downloadBytes`` gets the host arrays' footprint (both known on the
-    host once downloaded)."""
-    parts = root.execute(ctx)
-    with ctx.timed("DeviceToHost"):
-        hosts = [HostBatch.from_device(b) for part in parts for b in part]
-    out = HostBatch.concat(hosts) if hosts else HostBatch.empty(root.schema)
-    node = root.node_name()
-    ctx.registry.set_value(node, "numOutputRows", out.num_rows)
-    ctx.metric(node, "downloadBytes", sum(h.nbytes for h in hosts))
-    return out
+    """Run a device plan (or a :class:`DeviceToHostExec` over one) on the
+    streaming path and download its result."""
+    if not isinstance(root, DeviceToHostExec):
+        root = DeviceToHostExec(root)
+    return root.collect(ctx)

@@ -49,6 +49,7 @@ from ..parallel import mesh as PM
 from ..shuffle import ici
 from ..shuffle.partitioning import pmod_partition, spark_hash_columns_device
 from . import execs as E
+from .coalesce import CoalesceBatchesExec
 
 Shards = List[ColumnarBatch]
 
@@ -165,6 +166,10 @@ def _compile(node: E.TorchExec, sources: List[E.DeviceSourceExec]
         sources.append(node)
         idx = len(sources) - 1
         return lambda run: run.env[idx]
+
+    if isinstance(node, CoalesceBatchesExec):
+        # a shard's batches are its own; the coalesce has nothing to do
+        return _compile(node.children[0], sources)
 
     if isinstance(node, E.ProjectExec):
         for e in node.exprs:
@@ -474,7 +479,8 @@ def _split_tail(plan: E.TorchExec):
     always = (E.TopKExec, E.LimitExec)
 
     def peelable(n):
-        return isinstance(n, always + (E.ProjectExec,)) or (
+        return isinstance(n, always + (E.ProjectExec, CoalesceBatchesExec)) \
+            or (
             isinstance(n, E.SortExec) and not _sort_mesh_ok(n))
 
     def prefix_has_ordered(n):

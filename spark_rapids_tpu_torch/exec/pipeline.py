@@ -32,13 +32,23 @@ thread, parented by a fork of the span that submitted it.
 the catalog's own slots. A live fault injector forces the serial path
 (:func:`parallel_active`), so which visit of a site faults does not
 depend on thread timing, and the query deadline bounds the consumer's
-wait on a unit (``pipeline.wait:<node>``). Left for the fusion layer:
-``materialize_boundaries``.
+wait on a unit (``pipeline.wait:<node>``).
+
+:func:`materialize_boundaries` runs a fused region's boundaries before
+its dispatch (:mod:`.fusion`): with the pipeline active and more than
+one boundary, each on a pool worker with a forked context
+(:meth:`~.execs.ExecContext.fork_for_boundary`), at most
+``spark.rapids.tpu.pipeline.boundaryParallelism`` at once, each worker
+holding the task semaphore while the dispatching thread releases its
+own; the forks are absorbed in boundary order, so what they observed
+does not depend on thread timing. The time saved is
+``WholeStageFusion.boundaryOverlapNs``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 import queue
 import threading
@@ -47,7 +57,8 @@ from concurrent.futures import CancelledError, Future
 from concurrent.futures import TimeoutError as FutureTimeout
 from typing import Callable, Iterator, List, Optional, Sequence
 
-from ..config import (PIPELINE_DECODE_THREADS, PIPELINE_ENABLED,
+from ..config import (PIPELINE_BOUNDARY_PARALLELISM,
+                      PIPELINE_DECODE_THREADS, PIPELINE_ENABLED,
                       PIPELINE_PREFETCH_DEPTH)
 from ..metrics import trace as TR
 from ..utils import lockdep
@@ -167,7 +178,8 @@ _POOL: Optional[PipelinePool] = None
 _DECODE_SLOTS: Optional[threading.BoundedSemaphore] = None
 #: The confs of the last :func:`configure`; the defaults are the confs'.
 _CONF = {"decode_threads": PIPELINE_DECODE_THREADS.default,
-         "prefetch_depth": PIPELINE_PREFETCH_DEPTH.default}
+         "prefetch_depth": PIPELINE_PREFETCH_DEPTH.default,
+         "boundary_parallelism": PIPELINE_BOUNDARY_PARALLELISM.default}
 
 
 def configure(conf) -> None:
@@ -179,6 +191,8 @@ def configure(conf) -> None:
     with _LOCK:
         _CONF["decode_threads"] = int(conf.get(PIPELINE_DECODE_THREADS))
         _CONF["prefetch_depth"] = int(conf.get(PIPELINE_PREFETCH_DEPTH))
+        _CONF["boundary_parallelism"] = int(
+            conf.get(PIPELINE_BOUNDARY_PARALLELISM))
         _DECODE_SLOTS = None
 
 
@@ -224,6 +238,13 @@ def _decode_limiter(conf=None) -> threading.BoundedSemaphore:
                 or getattr(_DECODE_SLOTS, "_initial_value", None) != n:
             _DECODE_SLOTS = threading.BoundedSemaphore(n)
         return _DECODE_SLOTS
+
+
+def boundary_parallelism(conf=None) -> int:
+    """Boundaries materialised at once (0 in the conf: auto)."""
+    n = _conf_int(conf, PIPELINE_BOUNDARY_PARALLELISM,
+                  "boundary_parallelism")
+    return n if n > 0 else _auto_threads()
 
 
 def prefetch_depth(conf=None) -> int:
@@ -416,3 +437,71 @@ def unit_partitions(fn: Callable, units: Sequence, ctx,
                 for i, u in enumerate(units)]
     sched = _UnitScheduler(fn, units, ctx, node)
     return [sched.partition(i) for i in range(len(units))]
+
+
+# --------------------------------------------------------------------------
+# Concurrent fusion-boundary materialisation
+# --------------------------------------------------------------------------
+
+
+def _materialize(b, ctx, index: int, span_parent) -> tuple:
+    # "fusion.boundary": the scans' units already use "pipeline.boundary"
+    with TR.span(span_parent, "fusion.boundary", cat="pipeline",
+                 index=index, node=b.name):
+        return tuple(tuple(p) for p in b.execute(ctx))
+
+
+def materialize_boundaries(boundaries: Sequence, ctx,
+                           node: str = "WholeStageFusion") -> tuple:
+    """Every boundary subtree's partitions (tuples of device batches), in
+    boundary order: the fused region's inputs. Serial on the calling
+    thread when there is one boundary, the pipeline is off (or a fault
+    injector is live) or ``boundaryParallelism`` is 1."""
+    boundaries = list(boundaries)
+    parallelism = boundary_parallelism(getattr(ctx, "conf", None))
+    tr = getattr(ctx, "trace", None)
+    if len(boundaries) <= 1 or not parallel_active(ctx) \
+            or parallelism <= 1:
+        return tuple(_materialize(b, ctx, i, tr)
+                     for i, b in enumerate(boundaries))
+    subs = [ctx.fork_for_boundary(i) for i in range(len(boundaries))]
+    pool = get_pool()
+    slots = threading.BoundedSemaphore(parallelism)
+    sem = getattr(ctx, "semaphore", None)
+    # forked once here: every worker's span parents under the span open
+    # on the dispatching thread (fusion.boundaries)
+    span_fork = TR.fork(tr)
+
+    def run_one(b, sub, index):
+        with slots:
+            with sem if sem is not None else contextlib.nullcontext():
+                t0 = time.perf_counter_ns()
+                out = _materialize(b, sub, index, span_fork)
+                return out, time.perf_counter_ns() - t0
+
+    t_wall = time.perf_counter_ns()
+    futs = [pool.submit(run_one, b, sub, i)
+            for i, (b, sub) in enumerate(zip(boundaries, subs))]
+    results: List = []
+    err: Optional[BaseException] = None
+    with sem.released() if sem is not None else contextlib.nullcontext():
+        # wait for every worker even after a failure: a fork is absorbed
+        # only once no worker touches it
+        for f in futs:
+            try:
+                with TR.span(tr, "pipeline.boundary_wait", cat="pipeline"), \
+                        lockdep.blocking("pipeline.boundary_wait"):
+                    results.append(_result_or_shutdown(f))
+            # the first failure re-raises after every worker stopped
+            except BaseException as e:  # noqa: BLE001
+                err = err or e
+                results.append(None)
+    for sub in subs:
+        ctx.absorb_boundary(sub)
+    if err is not None:
+        raise err
+    wall = time.perf_counter_ns() - t_wall
+    busy = sum(ns for _, ns in results)
+    if busy > wall:
+        ctx.metric(node, "boundaryOverlapNs", busy - wall)
+    return tuple(out for out, _ in results)

@@ -47,6 +47,7 @@ class WindowExec(TorchExec):
         self.children = [child]
         self.window_exprs = window_exprs
         self._schema = schema
+        self.children_coalesce_goals = ["single"]
 
     @property
     def schema(self):

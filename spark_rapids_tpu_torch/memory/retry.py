@@ -192,16 +192,24 @@ def synchronize_device(ctx=None, collect: bool = True) -> None:
 def spill_device_below(ctx, priority_ceiling: Optional[int] = None) -> int:
     """Push every unpinned catalog buffer below ``priority_ceiling``
     (default: everything under on-deck priority) off the device, the
-    requesting query's own buffers first. Returns the device bytes
-    moved."""
+    requesting query's own buffers first, then empty the upload cache
+    (:mod:`..data.upload_cache`) and release every captured fused graph
+    (:func:`..compile.executables.release_all`). Returns the device
+    bytes moved or freed."""
     from . import spill as SP
     if priority_ceiling is None:
         priority_ceiling = SP.ACTIVE_ON_DECK_PRIORITY
+    moved = 0
     catalog = getattr(ctx, "catalog", None)
-    if catalog is None:
-        return 0
-    return catalog.spill_below(priority_ceiling,
-                               requester=getattr(ctx, "qos", None))
+    if catalog is not None:
+        moved = catalog.spill_below(priority_ceiling,
+                                    requester=getattr(ctx, "qos", None))
+    # pure caches go whole: the upload cache and the fused graphs
+    from ..compile import executables
+    from ..data import upload_cache
+    moved += upload_cache.shrink_by(upload_cache.cache_bytes())
+    moved += executables.release_all()
+    return moved
 
 
 def backoff_sleep(policy: RetryPolicy, site: str, attempt: int,
@@ -236,6 +244,16 @@ def halve_by_rows(batch):
         raise SplitAndRetryOOM(detail=f"a {n}-row batch cannot be halved")
     k = n // 2
     return [slice_rows(batch, 0, k), slice_rows(batch, k, n - k)]
+
+
+def halve_list(items):
+    """A list of inputs (batches or catalog buffer ids) as its two
+    halves; a single item cannot split at the list level."""
+    if len(items) < 2:
+        raise SplitAndRetryOOM(
+            detail="a single pending buffer cannot be split")
+    k = len(items) // 2
+    return [list(items[:k]), list(items[k:])]
 
 
 class SplitTracker:

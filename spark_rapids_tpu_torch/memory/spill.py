@@ -757,8 +757,21 @@ class BufferCatalog:
                         exclude: Optional[int] = None) -> None:
         """Bring device and host usage back under their budgets (a host
         budget lowered at run time cascades to disk); returns once the
-        copies have landed."""
+        copies have landed. The upload cache's and the captured graphs'
+        device bytes count against the device budget and are evicted
+        first."""
         budget = self.device_budget  # resolves the callable off the lock
+        # the upload cache and the fused graphs count against the budget
+        # too; as pure caches they go first (LRU), before a real buffer
+        # spills
+        from ..compile import executables
+        from ..data import upload_cache
+        over = self.device_bytes + upload_cache.cache_bytes() \
+            + executables.graph_bytes() - budget
+        if over > 0:
+            over -= upload_cache.shrink_by(over)
+        if over > 0:
+            executables.release_lru(over)
         t0 = time.perf_counter_ns()
         with self._lock:
             self._note_lock_wait(t0)

@@ -18,8 +18,10 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
+from ..data.column import device_constant
 from .datetime import _civil_from_days, _days_from_civil, _fdiv
 from .strings_util import PAD
 
@@ -221,7 +223,7 @@ def _parse_ymd(m: torch.Tensor, ln: torch.Tensor):
     ok = ok & (md >= 1) & _expect_char(m, p2, "-")
     d, dd, p3 = _parse_int_run(m, p2 + 1, 2)
     ok = ok & (dd >= 1) & (mo >= 1) & (mo <= 12) & (d >= 1)
-    dim = torch.tensor(_DAYS_IN_MONTH, dtype=torch.int64, device=m.device)
+    dim = device_constant(_DAYS_IN_MONTH, m.device, np.int64)
     leap = ((y % 4 == 0) & (y % 100 != 0)) | (y % 400 == 0)
     max_d = dim[(mo - 1).clamp(0, 11)] + (leap & (mo == 2)).to(torch.int64)
     return y, mo, d, p3, ok & (d <= max_d)
@@ -315,9 +317,9 @@ def parse_bool_matrix(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     def word_eq(word: str) -> torch.Tensor:
         if len(word) > w:
             return torch.zeros(n, dtype=torch.bool, device=m.device)
-        row = torch.full((w,), PAD, dtype=torch.int16, device=m.device)
-        row[:len(word)] = torch.tensor([ord(c) for c in word],
-                                       dtype=torch.int16, device=m.device)
+        host = np.full(w, PAD, dtype=np.int16)
+        host[:len(word)] = [ord(c) for c in word]
+        row = device_constant(host, m.device)
         return (lower == row[None, :]).all(1)
     is_true = torch.zeros(n, dtype=torch.bool, device=m.device)
     is_false = torch.zeros(n, dtype=torch.bool, device=m.device)

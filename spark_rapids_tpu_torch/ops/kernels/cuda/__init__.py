@@ -58,6 +58,45 @@ def stats() -> dict:
     return {"launches": launches, "builds": _build.build_stats()}
 
 
+def _owners():
+    """``{(module, attr): the wrapper owning the count}`` of every
+    family's entries."""
+    return {(mod, attr): getattr(importlib.import_module(
+        f"{__name__}.{mod}"), attr)
+        for owners in FAMILIES.values() for mod, attr in owners}
+
+
+def owner_launches() -> dict:
+    """``{(module, attr): launches}`` of every counting wrapper."""
+    return {k: fn.launches for k, fn in _owners().items()}
+
+
+def launch_delta(before: dict) -> dict:
+    """The launches counted since ``before`` (:func:`owner_launches`),
+    per owner, zeros left out: what a CUDA graph's capture recorded."""
+    return {k: n - before.get(k, 0) for k, n in owner_launches().items()
+            if n != before.get(k, 0)}
+
+
+def by_family(delta: dict) -> Dict[str, int]:
+    """A :func:`launch_delta` summed per kernel family."""
+    out: Dict[str, int] = {}
+    for fam, owners in FAMILIES.items():
+        n = sum(delta.get(o, 0) for o in owners)
+        if n:
+            out[fam] = n
+    return out
+
+
+def add_launches(delta: dict) -> None:
+    """Add a captured graph's launches (:func:`launch_delta`) to the
+    wrappers' counts: a replay launches every kernel the capture
+    recorded, and runs none of the wrappers' Python."""
+    owners = _owners()
+    for k, n in delta.items():
+        owners[k].launches += n
+
+
 class _Timing(threading.local):
     #: list of (family, start event, end event), or None: off
     sink = None

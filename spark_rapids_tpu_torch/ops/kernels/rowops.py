@@ -28,7 +28,8 @@ import torch
 from ... import types as T
 from ...data.batch import ColumnarBatch
 from ...data.column import (DeviceColumn, bucket_byte_capacity,
-                            bucket_capacity, dictionary_column)
+                            bucket_capacity, device_constant,
+                            dictionary_column)
 from ..strings_util import char_matrix
 from .cuda import sort_steps as SS
 from .cuda import strings as SG
@@ -256,7 +257,7 @@ def sorted_dictionary(col: DeviceColumn) -> DeviceColumn:
         return dictionary_column(torch.zeros_like(col.codes), col.validity,
                                  np.zeros(0, object), dict_sorted=True)
     entries, rank = np.unique(raw, return_inverse=True)
-    remap = torch.from_numpy(rank.astype(np.int32)).to(col.device)
+    remap = device_constant(rank.astype(np.int32), col.device)
     codes = torch.where(col.validity,
                         remap[col.codes.clamp(0, len(raw) - 1).long()], 0)
     return dictionary_column(codes, col.validity,
@@ -280,7 +281,7 @@ def merged_dictionary_codes(cols: Sequence[DeviceColumn]
         if c.dict_size:
             rank = np.searchsorted(entries, np.asarray(
                 c.dictionary, dtype=object).astype(str))
-            remap = torch.from_numpy(rank.astype(np.int32)).to(c.device)
+            remap = device_constant(rank.astype(np.int32), c.device)
             codes = remap[c.codes.long().clamp(0, c.dict_size - 1)]
         else:
             codes = torch.zeros_like(c.codes)

@@ -30,7 +30,7 @@ import torch
 
 from .. import types as T
 from ..data.batch import ColumnarBatch
-from ..data.column import DeviceColumn
+from ..data.column import DeviceColumn, device_constant
 from .expression import BinaryExpression, Expression, make_column
 from .strings_util import PAD, char_matrix, lift_dict, rows_equal
 
@@ -48,7 +48,7 @@ def dict_compare(op, l: DeviceColumn, r: DeviceColumn) -> torch.Tensor:
     if l.dict_size == 0 or r.dict_size == 0:
         return torch.zeros(l.capacity, dtype=torch.bool, device=l.device)
     mat = op(l.dictionary[:, None], r.dictionary[None, :]).astype(bool)
-    mat = torch.from_numpy(np.ascontiguousarray(mat)).to(l.device)
+    mat = device_constant(mat, l.device)
     li = l.codes.long().clamp(0, l.dict_size - 1)
     ri = r.codes.long().clamp(0, r.dict_size - 1)
     return mat[li, ri]
@@ -214,7 +214,7 @@ class In(Expression):
             def match(m, _lengths):
                 found = torch.zeros(m.shape[0], dtype=torch.bool,
                                     device=m.device)
-                want = torch.from_numpy(rows).to(m.device)
+                want = device_constant(rows, m.device)
                 for i in range(len(needles)):
                     found = found | (m == want[i]).all(1)
                 return found

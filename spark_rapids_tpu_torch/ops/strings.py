@@ -17,11 +17,12 @@ from __future__ import annotations
 
 from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import types as T
 from ..data.batch import ColumnarBatch
-from ..data.column import DeviceColumn, string_max_bytes
+from ..data.column import DeviceColumn, device_constant, string_max_bytes
 from .expression import Expression, Literal, make_column
 from .kernels.rowops import strings_from_matrix
 from .strings_util import (PAD, byte_stream, char_matrix, flat_column,
@@ -100,11 +101,11 @@ class _FixMatch(Expression):
             data = torch.full((c.capacity,), k == 0, dtype=torch.bool,
                               device=dev)
         elif c.is_dict:
-            needle = torch.tensor(list(raw), dtype=torch.int16, device=dev)
+            needle = device_constant(list(raw), dev, np.int16)
             data = lift_dict(c, lambda m, ln: self.match_matrix(m, ln,
                                                                 needle))
         else:
-            needle = torch.tensor(list(raw), dtype=torch.uint8, device=dev)
+            needle = device_constant(list(raw), dev, np.uint8)
             data = self.match_flat(c.data, c.offsets[:-1].long(),
                                    c.offsets[1:].long(), needle)
         return make_column(data, c.validity, T.BOOLEAN)

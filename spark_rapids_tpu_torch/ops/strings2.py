@@ -21,11 +21,12 @@ from __future__ import annotations
 import re
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from .. import types as T
 from ..data.batch import ColumnarBatch
-from ..data.column import DeviceColumn
+from ..data.column import DeviceColumn, device_constant
 from .expression import Expression, make_column
 from .strings_util import (byte_stream, entries_column, flat_column,
                            map_string_column, read_bytes, row_layout)
@@ -132,8 +133,7 @@ class StringReplace(_StringFn):
         n = lens.shape[0]
         out_len = _row_sums(row, contrib, n)
         incl = torch.cumsum(contrib, 0)
-        rep_t = torch.tensor(list(rep) or [0], dtype=torch.int16,
-                             device=payload.device)
+        rep_t = device_constant(list(rep) or [0], payload.device, np.int16)
 
         def byte_fn(orow, oj):
             o = torch.arange(orow.shape[0], device=orow.device)
@@ -185,8 +185,7 @@ class _Pad(_StringFn):
             return flat_column(lens.clamp(max=target).clamp(min=0),
                                col.validity, lambda r, k: read_bytes(
                                    payload, starts[r] + k))
-        pad_t = torch.tensor(list(pad), dtype=torch.int16,
-                             device=payload.device)
+        pad_t = device_constant(list(pad), payload.device, np.int16)
         out_len = torch.full_like(lens, max(target, 0))
         pad_n = (target - lens).clamp(min=0)
 

@@ -44,8 +44,10 @@ from collections import Counter
 from typing import Dict
 
 from .. import types as T
-from ..config import PARQUET_REBASE_READ, TOPK_THRESHOLD, TorchConf
+from ..config import (BATCH_SIZE_ROWS, PARQUET_REBASE_READ, TOPK_THRESHOLD,
+                      TorchConf)
 from ..exec import execs as E
+from ..exec.coalesce import insert_coalesce
 from ..io.parquet_device import ParquetScanExec
 from ..exec.joins import NestedLoopJoinExec
 from ..exec.window_exec import WindowExec
@@ -54,7 +56,20 @@ from ..shuffle.partitioners import partitioner_factory
 from . import logical as L
 
 
-def plan_physical(plan: L.LogicalPlan, conf: TorchConf) -> E.TorchExec:
+def plan_physical(plan: L.LogicalPlan, conf: TorchConf
+                  ) -> E.DeviceToHostExec:
+    """The physical plan of ``plan``: its device plan with coalesce
+    nodes where the operators' batch goals ask for them
+    (:func:`..exec.coalesce.insert_coalesce` at
+    ``spark.rapids.sql.batchSizeRows``, the reference's
+    ``overrides.py:772-774``) under a :class:`~..exec.execs.
+    DeviceToHostExec` root (``overrides.py:795,806``)."""
+    device = insert_coalesce(_device_plan(plan, conf),
+                             int(conf.get(BATCH_SIZE_ROWS)))
+    return E.DeviceToHostExec(device)
+
+
+def _device_plan(plan: L.LogicalPlan, conf: TorchConf) -> E.TorchExec:
     refs: Counter = Counter()
 
     def count(node):

@@ -32,6 +32,18 @@ spillable buffer and re-runs; anything else raises. The port has no
 write plans, so every plan may re-run. Retries of discarded attempts are
 carried into the surviving attempt's profile under ``TorchSession``.
 
+Whole-stage fusion (:mod:`.exec.fusion`, the reference's
+``session.py:621-629``): with ``spark.rapids.tpu.fusion.enabled``
+(default) a single-device plan runs as its boundaries, then its region
+as one CUDA graph (captured at its second run, replayed after), and one
+head transfer that brings back the result and every dense-fail flag; an
+inlined exact join sized without a host read reports its total and an
+overflow flag there, and an overflowed run re-runs with the totals
+learned as that site's capacity (kept per plan shape). Otherwise, and
+for a region refused for synchronising with the host, the plan streams
+(``session.stream_collect``). ``QueryInfo.fusion`` says what the fused
+dispatch did.
+
 Observability (:mod:`.metrics`): above metrics level NONE every query
 leaves a :class:`~.metrics.profile.QueryProfile` of its final attempt
 (:meth:`TorchSession.last_query_profile`, :meth:`query_profile`,
@@ -53,10 +65,13 @@ from typing import Dict, List, Optional
 
 import torch
 
+from . import compile as _compile
 from . import types as T
-from .config import MESH_ENABLED, METRICS_EVENT_LOG_MAX_BYTES, TorchConf
+from .config import (FUSION_ENABLED, MESH_ENABLED,
+                     METRICS_EVENT_LOG_MAX_BYTES, TorchConf)
 from .data.batch import HostBatch
 from .exec import execs as E
+from .exec import fusion as FU
 from .exec import mesh as MX
 from .exec import pipeline
 from .io import parquet_device as PQ
@@ -72,6 +87,7 @@ from .parallel.mesh import Mesh, make_mesh
 from .plan import logical as L
 from .plan.input_file import rewrite_input_file_exprs
 from .plan.planner import plan_physical
+from .compile.ladder import bucket_capacity
 from .utils import lockdep
 from .utils.deadline import Deadline
 from .utils.fault_injection import (FaultInjector, InjectedFault,
@@ -96,9 +112,11 @@ _CARRIED_METRICS = ("retryCount", "splitAndRetryCount", "retryBlockTimeNs",
 class QueryInfo:
     """What the last :meth:`TorchSession.execute` did."""
     attempts: int
-    #: site ordinal -> the mode the final run used (0 = optimistic).
+    #: site position (in ``site_kinds``) -> the mode the final run used
+    #: (0 = optimistic).
     dense_modes: Dict[int, int]
-    #: site ordinal -> "join" | "aggregate" | "topk", in execution order.
+    #: "join" | "aggregate" | "topk" of each site, in execution order
+    #: (a fused plan's boundaries first, then its region).
     site_kinds: List[str]
     #: operator name -> milliseconds of the final run.
     exec_ms: Dict[str, float]
@@ -108,6 +126,25 @@ class QueryInfo:
     shards: int = 1
     #: counter -> value of the final run (the scan's rows and bytes).
     counters: Dict[str, int] = dataclasses.field(default_factory=dict)
+    #: What the fused dispatch of the final run did (None on the
+    #: streaming and mesh paths): ``action`` ("eager", "capture",
+    #: "replay", "refused", "head", "cpu", "trial" or "stream": a
+    #: streaming run while the plan's path is being chosen, or after it
+    #: was), ``chosen`` (the plan's path once chosen), ``site`` (a
+    #: refusal's sync site), ``boundaries``, ``capture_ms``,
+    #: ``pool_bytes``, ``head_bytes``, ``guess_miss``, ``host_us`` (the
+    #: host's time by step: signature, boundaries, key, region, head).
+    fusion: Optional[dict] = None
+
+
+def _host_flags(pairs) -> List[bool]:
+    """The flags of ``(site, flag)`` pairs on the host: as they are when
+    the fused head brought them back, else in one transfer."""
+    flags = [f for _, f in pairs]
+    if all(isinstance(f, bool) for f in flags):
+        return flags
+    return [bool(v) for v in torch.stack(
+        [torch.as_tensor(f).reshape(()) for f in flags]).cpu().tolist()]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -155,9 +192,12 @@ class TorchSession:
         self.conf = TorchConf(conf)
         pipeline.configure(self.conf)
         TR.configure(self.conf)
+        _compile.configure(self.conf)
         self.device = resolve_device(device)
         self._mesh = mesh
         self._learned: Dict[tuple, Dict[int, int]] = {}
+        #: plan shape -> inlined exact join site -> learned capacity
+        self._join_caps: Dict[tuple, Dict[int, int]] = {}
         self._mesh_capable: Dict[tuple, bool] = {}
         self.last_query: Optional[QueryInfo] = None
         self._profiles_lock = lockdep.lock("TorchSession._profiles_lock")
@@ -210,9 +250,11 @@ class TorchSession:
                            self)
 
     def plan(self, logical: L.LogicalPlan) -> E.TorchExec:
-        """The physical plan, after the input-file rewrite
-        (:mod:`.plan.input_file`)."""
-        return plan_physical(rewrite_input_file_exprs(logical), self.conf)
+        """The device plan under the physical plan's
+        :class:`~.exec.execs.DeviceToHostExec` root, after the input-file
+        rewrite (:mod:`.plan.input_file`)."""
+        return plan_physical(rewrite_input_file_exprs(logical),
+                             self.conf).children[0]
 
     def explain(self, logical: L.LogicalPlan) -> str:
         return self.plan(logical).tree_string()
@@ -254,7 +296,25 @@ class TorchSession:
             attempts += 1
             ctx, result, overflowed, tripped = self._dispatch(
                 physical, modes, mesh, growth, deadline, qos, tracer,
-                attempts, carried)
+                attempts, carried, self._join_caps.get(sig, {}))
+            if overflowed and mesh is None:
+                # an inlined exact join outgrew its output: its totals
+                # are the capacities of the re-run
+                self._carry(ctx, carried)
+                caps = self._join_caps.setdefault(sig, {})
+                learned = False
+                for site, total in ctx.join_totals:
+                    cap = bucket_capacity(max(int(total), 128))
+                    if cap > caps.get(site, 0):
+                        caps[site] = cap
+                        learned = True
+                if not learned:
+                    growth *= 8.0
+                rounds += 1
+                if rounds >= 2 * _MAX_ATTEMPTS:
+                    raise RuntimeError("inlined joins did not settle in "
+                                       f"{2 * _MAX_ATTEMPTS} runs")
+                continue
             if overflowed:
                 self._carry(ctx, carried)
                 if growth >= _MAX_MESH_GROWTH:
@@ -270,13 +330,14 @@ class TorchSession:
                 self._learned[sig] = modes
                 self.last_query = QueryInfo(
                     attempts=attempts,
-                    dense_modes={s: modes.get(s, 0)
-                                 for s in range(len(ctx.site_kinds))},
+                    dense_modes={i: modes.get(s, 0)
+                                 for i, s in enumerate(ctx.site_ids)},
                     site_kinds=list(ctx.site_kinds),
                     exec_ms=ctx.exec_ms(),
                     path="single" if mesh is None else "mesh",
                     shards=1 if mesh is None else mesh.size,
-                    counters=dict(ctx.counters))
+                    counters=dict(ctx.counters),
+                    fusion=ctx.fusion)
                 if profiler is not None:
                     # exec_ms synchronised: the events are complete
                     ctx.record_device_time()
@@ -301,7 +362,8 @@ class TorchSession:
                     carried[name] = carried.get(name, 0) + int(v)
 
     def _dispatch(self, physical, modes, mesh, growth, deadline, qos,
-                  tracer, attempt: int, carried: Dict[str, int]):
+                  tracer, attempt: int, carried: Dict[str, int],
+                  caps: Dict[int, int]):
         """One escalation attempt, re-run in place while it fails with a
         transient fault or an OOM that escaped every operator (after a
         synchronization and a full spill), up to
@@ -316,6 +378,9 @@ class TorchSession:
                                 fault_injector=self._fault_injector,
                                 semaphore=dm.semaphore, deadline=deadline,
                                 qos=qos)
+            if mesh is None:
+                ctx.join_caps = dict(caps)
+                ctx.join_growth = growth
             timing = KCUDA.device_timing(ctx.kernel_events) \
                 if ctx.registry.device_timing else contextlib.nullcontext()
             try:
@@ -327,22 +392,27 @@ class TorchSession:
                              path="single" if mesh is None else "mesh"), \
                         timing, dm.semaphore:
                     try:
+                        root = E.DeviceToHostExec(physical)
                         if mesh is not None:
                             result, overflowed = MX.mesh_collect(
                                 physical, ctx, mesh, growth)
+                        elif self.conf.get(FUSION_ENABLED) and \
+                                FU.fusable(root, self.conf):
+                            result, overflowed = FU.fused_collect(root, ctx)
                         else:
-                            result, overflowed = E.collect(physical,
-                                                           ctx), False
+                            with TR.span(tracer, "session.stream_collect",
+                                         cat="dispatch"):
+                                result = root.collect(ctx)
+                            overflowed = FU.any_overflow(ctx)
                     finally:
                         # every attempt's look-ahead and shuffle blocks
                         # end with it, re-runs included
                         ctx.run_cleanups()
                     tripped = []
                     if not overflowed and ctx.dense_fails:
-                        flags = torch.stack([f.reshape(()) for _, f in
-                                             ctx.dense_fails]).cpu().tolist()
-                        tripped = [s for (s, _), f in
-                                   zip(ctx.dense_fails, flags) if f]
+                        tripped = [s for (s, _), f in zip(
+                            ctx.dense_fails, _host_flags(ctx.dense_fails))
+                            if f]
                 return ctx, result, overflowed, tripped
             except Exception as e:  # noqa: BLE001 - classified below
                 cls = R.classify(e)

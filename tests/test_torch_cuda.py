@@ -1230,3 +1230,179 @@ def test_cuda_catalog_round_trip_through_pinned_host_and_disk(cuda_device,
     disk.free(bid)
     disk.close()
     cat.close()
+
+
+# -- whole-stage fusion: CUDA graphs -----------------------------------------
+
+
+def _fused_entry(cuda_device, n=20_000, key_range=50):
+    from spark_rapids_tpu_torch import entry as ENTRY
+    from spark_rapids_tpu_torch.compile import executables as EX
+    forward, (batch,) = ENTRY.entry(n=n, key_range=key_range,
+                                    device=cuda_device)
+    prog = EX.FusedProgram(lambda inputs, ctx: forward(inputs[0])[0],
+                           label="entry")
+    return prog, batch, ENTRY.entry_reference(ENTRY.entry_columns(
+        n, key_range))
+
+
+@pytest.mark.cuda
+def test_cuda_capture_and_replay_equal_eager_for_the_entry_stage(
+        cuda_device):
+    from spark_rapids_tpu_torch.compile import executables as EX
+    prog, batch, want = _fused_entry(cuda_device)
+    counts = []
+    seen = []
+    for _ in range(4):
+        before = JP.dense_build_probe.launches + \
+            SEG.segment_reduce_sorted.launches
+        got = prog((batch,), None, lambda out: HostBatch.from_device(out))
+        counts.append(JP.dense_build_probe.launches
+                      + SEG.segment_reduce_sorted.launches - before)
+        seen.append(prog.last["action"])
+        for k, w in want.items():
+            np.testing.assert_array_equal(got.columns[k], w)
+    assert seen == ["eager", "capture", "replay", "replay"]
+    # a replay counts the launches its capture recorded
+    assert counts[2] == counts[3] == counts[1]
+    assert prog.stats()["graphs"] == 1
+    key = prog.key_of((batch,))[0]
+    assert prog.jit_compiled(key)
+    # another table of the same shapes and a new input is a copy-in
+    prog2_batch = HostBatch.from_device(batch).to_device(cuda_device)
+    again = prog((prog2_batch,), None, HostBatch.from_device)
+    assert prog.last["action"] == "replay"
+    for k, w in want.items():
+        np.testing.assert_array_equal(again.columns[k], w)
+    assert EX.graph_bytes() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_flat_string_projection_is_refused_with_its_site(cuda_device):
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.ops import cast as CA
+    from spark_rapids_tpu_torch.ops.expression import col, lit
+    from spark_rapids_tpu_torch.ops.strings import ConcatStrings
+    from spark_rapids_tpu_torch.session import TorchSession
+    s = TorchSession(device="cuda")
+    off = TorchSession({"spark.rapids.tpu.fusion.enabled": False},
+                       device="cuda")
+    data = {"k": np.arange(3000)}
+
+    def q(sess):
+        # a flat string result whose payload is sized on the host
+        # (ops/strings_util.py flat_column)
+        df = sess.create_dataframe(data)
+        return df.select(ConcatStrings(CA.Cast(col("k"), T.STRING),
+                                       lit("-")).alias("t"), col("k"))
+    got = q(s).collect()
+    info = s.last_query.fusion
+    assert info["action"] == "refused", info
+    assert info["site"].startswith(
+        "spark_rapids_tpu_torch/ops/strings_util.py:"), info
+    assert s.last_query_profile().extras["WholeStageFusion"][
+        "fusionRefusals"] == 1
+    want = q(off).collect()
+    assert list(got.columns["t"]) == list(want.columns["t"])
+    q(s).collect()
+    assert s.last_query.fusion["action"] == "refused"
+
+
+@pytest.mark.cuda
+def test_cuda_graphs_released_by_the_oom_drain(cuda_device):
+    from spark_rapids_tpu_torch.compile import executables as EX
+    from spark_rapids_tpu_torch.data import upload_cache as UC
+    from spark_rapids_tpu_torch.exec import execs as E
+    from spark_rapids_tpu_torch.memory import retry as R
+    prog, batch, want = _fused_entry(cuda_device)
+    for _ in range(2):
+        prog((batch,), None, HostBatch.from_device)
+    assert prog.stats()["graphs"] == 1 and EX.graph_bytes() > 0
+    R.spill_device_below(E.ExecContext(cuda_device))
+    assert prog.stats()["graphs"] == 0 and EX.graph_bytes() == 0
+    assert UC.cache_bytes() == 0
+    # the key went with its graph: it runs eagerly, then captures again
+    for action in ("eager", "capture"):
+        got = prog((batch,), None, HostBatch.from_device)
+        assert prog.last["action"] == action
+        for k, w in want.items():
+            np.testing.assert_array_equal(got.columns[k], w)
+
+
+@pytest.mark.cuda
+def test_cuda_fresh_tables_free_their_memory(cuda_device):
+    """A loop of ``create_dataframe`` and a fused query over fresh tables
+    keeps none of them: a graph's key names a resident table by address
+    and drops itself when the table dies."""
+    import gc
+    from spark_rapids_tpu_torch.compile import executables as EX
+    from spark_rapids_tpu_torch.ops import aggregates as A
+    from spark_rapids_tpu_torch.ops import predicates as P
+    from spark_rapids_tpu_torch.ops.expression import col, lit
+    from spark_rapids_tpu_torch.session import TorchSession
+    s = TorchSession({"spark.rapids.tpu.uploadCache.maxBytes": 0},
+                     device="cuda")
+    n = 1 << 21
+
+    def round_(seed):
+        rng = np.random.default_rng(seed)
+        df = s.create_dataframe({"a": rng.integers(0, 100, n)})
+        acts = []
+        for _ in range(3):
+            got = df.where(P.GreaterThan(col("a"), lit(10))).group_by().agg(
+                A.AggregateExpression(A.Sum(col("a")), "s")).collect()
+            acts.append(s.last_query.fusion["action"])
+        del df
+        return got, acts
+    round_(0)
+    gc.collect()
+    EX.stats()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    dead0 = EX.stats()["dead_keys"]
+    seen = []
+    for seed in range(1, 7):
+        _, acts = round_(seed)
+        seen += acts
+    gc.collect()
+    EX.stats()  # drains the keys whose table died
+    torch.cuda.synchronize()
+    table_bytes = n * (8 + 1)
+    assert "capture" in seen or "replay" in seen, seen
+    assert EX.stats()["dead_keys"] > dead0
+    assert torch.cuda.memory_allocated(cuda_device) <= base + table_bytes, \
+        (torch.cuda.memory_allocated(cuda_device), base)
+
+
+@pytest.mark.cuda
+def test_cuda_capture_keeps_the_constants_it_read(cuda_device):
+    """A graph reads the address of every host-derived constant it used;
+    the constants' cache evicting them must not free them under it."""
+    from spark_rapids_tpu_torch.compile import executables as EX
+    from spark_rapids_tpu_torch.data import column as C
+    host = np.arange(4096, dtype=np.int64) * 3 + 7
+
+    def fn(inputs, ctx):
+        return inputs[0] + C.device_constant(host, inputs[0].device)
+    prog = EX.FusedProgram(fn, label="const")
+    x = torch.arange(4096, device=cuda_device)
+    want = np.arange(4096) + host
+    for action in ("eager", "capture", "replay"):
+        got = prog((x,), None, lambda out: out.cpu().numpy())
+        assert prog.last["action"] == action
+        np.testing.assert_array_equal(got, want)
+    key = prog.key_of((x,))[0]
+    held = prog._table[key].consts
+    assert held and any(np.array_equal(t.cpu().numpy(), host)
+                        for t, _ in held)
+    # evict it from the cache (> 64 MiB of other constants), then hand
+    # its freed blocks to other tensors
+    for i in range(80):
+        C.device_constant(np.full(1 << 20, i % 251, np.uint8), cuda_device)
+    assert not any(v[0] is held[0][0] for v in C._CONSTS.values())
+    junk = [torch.full((4096,), -1, dtype=torch.int64, device=cuda_device)
+            for _ in range(256)]
+    got = prog((x,), None, lambda out: out.cpu().numpy())
+    assert prog.last["action"] == "replay"
+    np.testing.assert_array_equal(got, want)
+    del junk

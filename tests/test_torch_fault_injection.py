@@ -131,8 +131,14 @@ def reference_answer():
     return {n: got.column(n).to_pylist() for n in ("v", "sw", "c")}
 
 
+#: The operator retry sites of a join run on the streaming path: a fused
+#: region has no retry and no injector (the reference's fused context has
+#: neither), so the cases that count them pin fusion off.
+NO_FUSION = {"spark.rapids.tpu.fusion.enabled": False}
+
+
 def test_oom_at_every_site(reference_answer):
-    got, s = _port_answer(_inject_conf(oom=-1))
+    got, s = _port_answer(_inject_conf(oom=-1, **NO_FUSION))
     assert got == reference_answer
     inj = s._fault_injector
     visited = sorted(k for k, v in inj.visits().items() if v)
@@ -147,10 +153,24 @@ def test_oom_at_every_site(reference_answer):
 def test_split_and_retry_escalation(reference_answer):
     got, s = _port_answer(_inject_conf(
         sites="ShuffledHashJoinExec.probe", oom=-4,
-        **{"spark.rapids.tpu.retry.maxRetries": 1}))
+        **{"spark.rapids.tpu.retry.maxRetries": 1}, **NO_FUSION))
     assert got == reference_answer
     eng = s.last_query_profile().engine["retry"]
     assert eng["splitAndRetryCount"] > 0 and eng["retryCount"] > 0, eng
+
+
+def test_oom_at_every_site_of_the_fused_path(reference_answer):
+    """On the fused path only the dispatch is a retry site: the join is
+    inlined, and its assembly and probe run without a retry."""
+    got, s = _port_answer(_inject_conf(oom=-1))
+    assert got == reference_answer
+    inj = s._fault_injector
+    visited = sorted(k for k, v in inj.visits().items() if v)
+    assert "session.dispatch" in visited
+    assert not {"ShuffledHashJoinExec.assemble",
+                "ShuffledHashJoinExec.probe"} & set(visited)
+    assert s.last_query.fusion["boundaries"] == 2
+    assert s.last_query_profile().engine["retry"]["retryCount"] >= 1
 
 
 def test_transient_dispatch_faults_are_retried(reference_answer):

@@ -379,3 +379,83 @@ def test_close_leaves_no_worker_alive(scan_files):
     assert s.read.parquet(scan_files[2]).collect().num_rows == ROWS
     assert s.close() == []
     assert _port_threads() == []
+
+
+# -- fusion boundaries and the overlapped download ---------------------------
+
+
+class _Boundary(E.TorchExec):
+    """A boundary stand-in: one batch of ``value`` after ``delay`` s,
+    reporting a fail flag at a site of its own."""
+
+    name = "_Boundary"
+
+    def __init__(self, value: int, delay: float):
+        self.children = []
+        self.value, self.delay = value, delay
+
+    @property
+    def schema(self):
+        from spark_rapids_tpu_torch import types as T
+        return T.Schema([T.StructField("v", T.LONG)])
+
+    def execute(self, ctx):
+        from spark_rapids_tpu_torch.data.batch import HostBatch
+        time.sleep(self.delay)
+        site = ctx.next_site("join")
+        ctx.report(site, torch.tensor(self.value % 2 == 1))
+        return [[HostBatch.from_numpy(
+            {"v": np.full(3, self.value, np.int64)}).to_device("cpu")]]
+
+
+@pytest.mark.parametrize("conf", [ON, OFF,
+                                  {**ON, "spark.rapids.tpu.pipeline."
+                                   "boundaryParallelism": 1}])
+def test_materialize_boundaries_order_and_sites(conf):
+    # later boundaries finish first when run at once
+    bs = [_Boundary(i, 0.02 * (4 - i)) for i in range(4)]
+    ctx = _ctx(conf)
+    out = PL.materialize_boundaries(bs, ctx)
+    assert [int(p[0][0].columns[0].data[0]) for p in out] == [0, 1, 2, 3]
+    assert ctx.site_kinds == ["join"] * 4
+    parallel = conf is ON
+    # forks number their sites in namespaces the boundary order fixes
+    want = [(i + 1) << 20 for i in range(4)] if parallel else [0, 1, 2, 3]
+    assert ctx.site_ids == want
+    assert [s for s, _ in ctx.dense_fails] == want
+    assert [bool(f) for _, f in ctx.dense_fails] == [False, True] * 2
+    overlap = ctx.registry.snapshot().get("WholeStageFusion", {}).get(
+        "boundaryOverlapNs", 0)
+    assert (overlap > 0) == parallel
+
+
+def test_materialize_boundaries_raises_after_every_worker():
+    class Bad(_Boundary):
+        def execute(self, ctx):
+            raise RuntimeError("boundary failed")
+    ctx = _ctx()
+    bs = [_Boundary(0, 0.05), Bad(1, 0), _Boundary(2, 0.05)]
+    with pytest.raises(RuntimeError, match="boundary failed"):
+        PL.materialize_boundaries(bs, ctx)
+    # the good forks were absorbed before the error re-raised
+    assert len(ctx.site_kinds) == 2
+
+
+def test_overlapped_download_equals_serial(scan_files):
+    def run(conf):
+        s = TorchSession({**conf, "spark.rapids.tpu.fusion.enabled": False},
+                         device="cpu")
+        df = s.read.parquet(scan_files[7])
+        return df.where(P.LessThan(col("k"), lit(10**9))).collect()
+    on, off = run(ON), run(OFF)
+    _host_equal(on, off)
+    assert on.num_rows == ROWS
+    # seven row groups: seven batches downloaded, in order
+    ctx = _ctx(ON)
+    s = TorchSession({"spark.rapids.tpu.fusion.enabled": False},
+                     device="cpu")
+    plan = s.plan(s.read.parquet(scan_files[7])._plan)
+    parts = E.DeviceToHostExec(plan).execute(ctx)
+    hosts = [hb for p in parts for hb in p]
+    assert len(hosts) == 7
+    assert sum(h.num_rows for h in hosts) == ROWS

@@ -329,8 +329,11 @@ def test_join_build_spills_and_equals_the_reference(tmp_path):
     from spark_rapids_tpu.ops import aggregates as RAGG
     from spark_rapids_tpu.ops.expression import col as rcol
     from spark_rapids_tpu.session import TpuSession
+    # the build side registers with the catalog on the streaming path; a
+    # fused region registers nothing (test_fused_join_under_a_tiny_budget)
     s = TorchSession({**TINY, "spark.rapids.memory.tpu.spillDir":
-                      str(tmp_path)}, device="cpu")
+                      str(tmp_path), "spark.rapids.tpu.fusion.enabled":
+                      False}, device="cpu")
     got = _join_query(*_join_frames(s)).collect()
     assert s.device_manager.catalog.metrics["spilled_to_host"] > 0
     assert s.last_query_profile().engine["spillBytes"] > 0
@@ -347,6 +350,21 @@ def test_join_build_spills_and_equals_the_reference(tmp_path):
             ).collect()
     assert got.columns["c"].tolist() == want.column("c").to_pylist()
     assert got.columns["sw"].tolist() == want.column("sw").to_pylist()
+
+
+def test_fused_join_under_a_tiny_budget(tmp_path):
+    """The same join on the fused path: the region holds no catalog
+    entry, so nothing spills, and the answer is the streaming path's."""
+    conf = {**TINY, "spark.rapids.memory.tpu.spillDir": str(tmp_path)}
+    fused = TorchSession(conf, device="cpu")
+    got = _join_query(*_join_frames(fused)).collect()
+    assert fused.last_query.fusion["action"] == "cpu"
+    assert fused.device_manager.catalog.device_bytes == 0
+    off = TorchSession({**conf, "spark.rapids.tpu.fusion.enabled": False},
+                       device="cpu")
+    want = _join_query(*_join_frames(off)).collect()
+    for name in ("c", "sw"):
+        assert got.columns[name].tolist() == want.columns[name].tolist()
 
 
 def test_sort_input_spills_and_equals_the_reference(tmp_path):
