@@ -4,7 +4,17 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--lineitem-rows N] [--xbb-clicks N]
                           [--ds-ss-rows N] [--mort-perf-rows N]
-                          [--seed S] [--profile]
+                          [--seed S] [--profile] [--busy]
+                          [--phase NAME ...]
+
+``--phase NAME`` (repeatable; ``PHASES``) runs the build, the TPC-H
+tables and that phase alone, with the phases it reads from
+(``PHASE_NEEDS``), and prints its lines, ``PHASE_SECONDS`` and the last
+line, but no ``kernels`` line; a run with no arguments runs every phase
+and prints ``PHASE_SECONDS`` (each phase's wall seconds) before the
+``kernels`` line. ``--busy`` adds one traced warm run of every ``bb_*``,
+``ds_*``, ``pq_*``, ``mort_*`` and ``expr_*`` cell for the device's busy
+share (measurement only; a default run leaves it out).
 
 Phases; each one passes or the script exits non-zero:
 
@@ -202,6 +212,19 @@ Phases; each one passes or the script exits non-zero:
    (a hit) and drains it, and ``FUSION_PHASE`` sums the phase, every
    refusal of the run by sync site, the paths the run's plans chose and
    the keys dropped because their resident table died;
+   The **fallback phase** (after the memory phase) runs the plan rewrite
+   with CPU operators on the card: ``fb_q3_agg_cpu`` (Q3 with
+   ``spark.rapids.sql.exec.HashAggregate`` off), ``fb_ds_split_county``
+   (``explode(split(ca_county, ' '))`` on the host, joins on the card),
+   ``fb_ds_price_text`` (a float to string cast on the host), cold and
+   warm (median of 3), and ``off_q1``/``off_q3``/``off_q6`` (TPC-H with
+   ``spark.rapids.sql.enabled`` off, one run each), every answer against
+   its numpy reference, ``joinProbe`` launched by the first three and no
+   kernel by the last three; each prints a ``FALLBACK`` line with the
+   NOT_ON_TPU explain text, the transitions' rows and bytes each way,
+   host-operator against device ms and the kernel families launched.
+   ``PLAN_SWEEP`` plans every query of phase 3 (over 2^14-row tables) in
+   test mode under the sessions' confs: 0 host nodes;
 4. at the shapes the queries gave each kernel: kernel vs plain version
    (equal bit for bit), median times over CUDA events with the L2 flushed
    between launches, the memory bound, and a PyTorch library yardstick
@@ -287,6 +310,46 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+#: The phases ``--phase`` names, in the order a full run takes them.
+#: BUILD and the TPC-H tables always run.
+PHASES = ("EDGE", "TPCH", "FUSION", "PARQUET", "TPCXBB", "TPCDS",
+          "MORTGAGE", "ENTRY", "MESH", "METRICS", "MEMORY", "FALLBACK",
+          "KERNELS")
+#: The phases a phase reads from: they run with it.
+PHASE_NEEDS = {"METRICS": ("TPCDS", "PARQUET"), "MEMORY": ("PARQUET",),
+               "KERNELS": PHASES}
+
+
+def needed_phases(names) -> set:
+    """``names`` and every phase they read from."""
+    out, todo = set(), list(names)
+    while todo:
+        p = todo.pop()
+        if p not in out:
+            out.add(p)
+            todo.extend(PHASE_NEEDS.get(p, ()))
+    return out
+
+
+class PhaseClock:
+    """Wall seconds of each phase: :meth:`start` ends the running one."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._name, self._t0 = None, 0.0
+
+    def start(self, name) -> None:
+        self.stop()
+        self._name, self._t0 = name, time.perf_counter()
+
+    def stop(self) -> None:
+        if self._name is not None:
+            s = time.perf_counter() - self._t0
+            self.seconds[self._name] = self.seconds.get(self._name, 0.0) + s
+            print(f"  phase {self._name} {at()}: {s:.1f} s")
+            self._name = None
 
 
 # --------------------------------------------------------------------------
@@ -6063,6 +6126,8 @@ def reference_answer(task):
     tables = _WORKER_TABLES[key]
     if workload == "tpch":
         fn = numpy_q3 if q == "q3" else NUMPY_REFS[q]
+    elif workload == "ds" and q.startswith("fb_"):
+        fn = FB_REFS[q]
     elif workload == "ds":
         fn = EXPR_REFS[q[5:]] if q.startswith("expr_") else DS_REFS[q]
         if q[5:] in SEEDED_REFS:
@@ -6074,22 +6139,28 @@ def reference_answer(task):
     return task, fn(tables)
 
 
-def start_references(args):
-    """Every numpy reference of phase 3, started in worker processes
-    while the kernels build and phase 2 runs: (the executor, ``{task:
-    future}``)."""
+def start_references(args, phases):
+    """Every numpy reference that ``phases`` need, started in worker
+    processes while the kernels build and phase 2 runs: (the executor,
+    ``{task: future}``)."""
     ex = ProcessPoolExecutor(max_workers=4,
                              mp_context=multiprocessing.get_context("spawn"))
     atexit.register(ex.shutdown, wait=False, cancel_futures=True)
     tasks = [("tpch", args.lineitem_rows, args.seed, q)
              for q in ["q3"] + list(NUMPY_REFS)]
-    tasks += [("xbb", args.xbb_clicks, args.seed, q) for q in XBB_REFS]
-    tasks += [("xbb", BENCH_XBB_CLICKS, args.seed, q) for q in BENCH_XBB]
-    tasks += [("ds", args.ds_ss_rows, args.seed, q) for q in DS_REFS]
-    tasks += [("ds", args.ds_ss_rows, args.seed, f"expr_{c}")
-              for c in EXPR_CELLS + COMPLEX_REFS]
-    tasks += [("mort", args.mort_perf_rows, MORT_SEED, q)
-              for q in MORT_QUERIES]
+    if phases & {"TPCXBB", "MEMORY"}:
+        tasks += [("xbb", args.xbb_clicks, args.seed, q) for q in XBB_REFS]
+        tasks += [("xbb", BENCH_XBB_CLICKS, args.seed, q)
+                  for q in BENCH_XBB]
+    if "TPCDS" in phases:
+        tasks += [("ds", args.ds_ss_rows, args.seed, q) for q in DS_REFS]
+        tasks += [("ds", args.ds_ss_rows, args.seed, f"expr_{c}")
+                  for c in EXPR_CELLS + COMPLEX_REFS]
+    if "FALLBACK" in phases:
+        tasks += [("ds", args.ds_ss_rows, args.seed, q) for q in FB_REFS]
+    if "MORTGAGE" in phases:
+        tasks += [("mort", args.mort_perf_rows, MORT_SEED, q)
+                  for q in MORT_QUERIES]
     return ex, {t: ex.submit(reference_answer, t) for t in tasks}
 
 
@@ -6403,6 +6474,7 @@ def run_tpcds(torch, ctx, session, wrappers, ss_rows: int, seed: int,
     t_ref = time.perf_counter() - t0
     t0 = time.perf_counter()
     dfs = tpcds.load(session, tables)
+    ctx.dfs = dfs  # the fallback phase's tables too
     torch.cuda.synchronize()
     nbytes = sum(c.validity.numel() + (
         c.data.numel() * c.data.element_size() if c.data is not None
@@ -6627,34 +6699,38 @@ def check_topk_rows(cell: str, got, ref: dict) -> int:
 
 def check_refusals(M, dfs, session) -> list:
     """On the card's session: an array grouping, join or sort key and
-    ``split`` raise ``NotImplementedError`` with the reference's reason
-    (nothing falls back). Returns the reasons."""
+    ``split`` no longer raise; each plans with its operator tagged to the
+    host and the reference's reason in the NOT_ON_TPU explain text
+    (``plan/overrides.py``). Planned only: a host join of these arrays
+    over store_sales would pair billions of rows. Returns the reasons."""
+    from spark_rapids_tpu_torch.plan.overrides import host_nodes
     A, P, CPX, col = M.A, M.P, M.CPX, M.col
     frame = dfs["store_sales"].select(
         col("ss_item_sk"), CPX.array(col("ss_quantity")).alias("arr"))
     other = frame.select(col("arr").alias("arr2"))
     cases = {
-        "grouping key": lambda: frame.group_by(col("arr")).agg(
-            A.AggregateExpression(A.Count(), "n")),
-        "join key": lambda: frame.join(other, on=P.EqualTo(col("arr"),
-                                                           col("arr2"))),
-        "sort key": lambda: frame.sort(col("arr")),
-        "split": lambda: dfs["customer"].select(M.StringSplit(
-            col("c_first_name"), "a").alias("parts"))}
+        "grouping key": (lambda: frame.group_by(col("arr")).agg(
+            A.AggregateExpression(A.Count(), "n")), "CpuHashAggregateExec"),
+        "join key": (lambda: frame.join(
+            other, on=P.EqualTo(col("arr"), col("arr2"))), "CpuJoinExec"),
+        "sort key": (lambda: frame.sort(col("arr")), "CpuSortExec"),
+        "split": (lambda: dfs["customer"].select(M.StringSplit(
+            col("c_first_name"), "a").alias("parts")), "CpuProjectExec")}
+    tagger = type(session)({"spark.rapids.sql.explain": "NOT_ON_TPU"},
+                           device=session.device)
     reasons = []
-    for what, build in cases.items():
-        try:
-            build().collect()
-        except NotImplementedError as e:
-            reasons.append(str(e))
-            check(("_no_complex_keys" in str(e)) if what != "split"
-                  else "ARRAY<STRING>" in str(e),
-                  f"an array {what} raised without the reference's reason: "
-                  f"{e}")
-        else:
-            fail(f"an array {what} ran on the card instead of raising")
-    check(session.device.type == "cuda", "the refusals ran off the card")
-    print(f"  refusals on the card: {len(reasons)} NotImplementedError with "
+    for what, (build, node) in cases.items():
+        plan = tagger.plan(build()._plan)
+        text = tagger.last_explain
+        reasons.append(text.strip())
+        check(node in host_nodes(plan),
+              f"an array {what}: {node} is not on the host ({text})")
+        check(("of type array" in text) if what != "split"
+              else "ARRAY<STRING>" in text,
+              f"an array {what} was tagged without the reference's reason: "
+              f"{text}")
+    check(session.device.type == "cuda", "the tags ran off the card")
+    print(f"  host tags on the card's session: {len(reasons)} plans with "
           "the reference's reason (an array grouping, join and sort key, "
           "split)")
     return reasons
@@ -6970,9 +7046,18 @@ def _busy_us(kernels) -> float:
     return busy
 
 
+#: Trace one warm run of each ``bb_*``/``ds_*``/``pq_*``/``mort_*``/
+#: ``expr_*`` cell for its busy share (``--busy``): the run only
+#: measures, so a default run leaves it out.
+BUSY_TRACE = False
+
+
 def busy_share(torch, name, build, exec_ms) -> dict:
     """One traced warm run of a query: its wall time, the device's busy
-    time and share of it, and its launches."""
+    time and share of it, and its launches (None without
+    :data:`BUSY_TRACE`)."""
+    if not BUSY_TRACE:
+        return None
     wall_us, kernels, _ = trace_run(torch, build, set(exec_ms))
     busy = _busy_us(kernels)
     print(f"  {name} traced warm run: wall {wall_us / 1e3:.3f} ms, device "
@@ -9133,7 +9218,8 @@ def fusion_cell(torch, F, cell: str, kind: str, build, check_fn,
     path (``F.stream``: 1 cold and 3 warm runs) and on the fused default
     (``F.session``: the region's programs dropped first, then
     ``FUSION_RUNS`` runs: eager, capture, then replays and streaming
-    trials until the plan chooses its path), each answer checked and
+    trials until the plan chooses its path; two for a plan refused on
+    both, which streams from then on), each answer checked and
     every fused one equal to the streaming one (integers and strings bit
     for bit, float sums to ``REV_RTOL``); a traced warm run of each path
     (the fused one replaying whatever the plan chose) counts the host's
@@ -9173,6 +9259,11 @@ def fusion_cell(torch, F, cell: str, kind: str, build, check_fn,
         # floats bit for bit or (atomic sums) to REV_RTOL
         identical &= same_answer(cell, canonical_rows(got),
                                  canonical_rows(want), atomic)
+        if actions == ["refused", "refused"]:
+            # a refused plan streams on every run from here: the rest
+            # would only repeat its streaming runs
+            break
+    refused = set(actions) == {"refused"}
     chosen = infos[-1].get("chosen")
     if kind == "capture":
         n = len(FUSION_CAPTURE_SEQ)
@@ -9189,12 +9280,14 @@ def fusion_cell(torch, F, cell: str, kind: str, build, check_fn,
                     if p.choice.path == "stream"]
     for p in chose_stream:
         p.choice.path = "fused"
+    prof_stream = launch_profile(torch, lambda: run(F.stream))
     try:
-        prof_fused = launch_profile(torch, lambda: run(F.session))
+        # a refused plan's fused run is a streaming run: one trace serves
+        prof_fused = prof_stream if refused else launch_profile(
+            torch, lambda: run(F.session))
     finally:
         for p in chose_stream:
             p.choice.path = "stream"
-    prof_stream = launch_profile(torch, lambda: run(F.stream))
     cap = next((x for x in infos if x.get("action") == "capture"), {})
     replays = [i for i, x in enumerate(infos) if x.get("action") == "replay"]
     rep = infos[replays[-1]] if replays else infos[-1]
@@ -9203,7 +9296,8 @@ def fusion_cell(torch, F, cell: str, kind: str, build, check_fn,
     out = {
         "kind": kind, "actions": actions, "chosen": chosen,
         "fused_warm_ms": statistics.median(
-            [fused_ms[i] for i in replays] if replays else fused_ms[2:]),
+            [fused_ms[i] for i in replays] if replays
+            else fused_ms[1:] if refused else fused_ms[2:]),
         "fused_runs_ms": fused_ms,
         "trial_stream_ms": trials,
         "host_us": rep.get("host_us", {}),
@@ -9342,6 +9436,330 @@ def fusion_upload_cache(torch, F, host_table) -> dict:
 # --------------------------------------------------------------------------
 
 
+# --------------------------------------------------------------------------
+# the fallback phase: the plan rewrite with CPU operators
+# --------------------------------------------------------------------------
+
+#: The FALLBACK phase's cells (``run_fallback_phase``).
+FB_CELLS = ("fb_q3_agg_cpu", "fb_ds_split_county", "fb_ds_price_text",
+            "off_q1", "off_q3", "off_q6")
+
+
+def fb_split_county_query(M, dfs):
+    """``explode(split(ca_county, ' '))`` over customer_address (a host
+    project and generate: ARRAY<STRING> has no device layout), joined on
+    the card to customer and store_sales, ``ss_net_paid`` summed and rows
+    counted by word, the top 100 by the sum."""
+    A, P, col = M.A, M.P, M.col
+    words = (dfs["customer_address"]
+             .select(col("ca_address_sk"),
+                     M.StringSplit(col("ca_county"), " ").alias("words"))
+             .explode(col("words"), name="word")
+             .select(col("ca_address_sk"), col("word")))
+    cust = dfs["customer"].join(
+        words, on=P.EqualTo(col("c_current_addr_sk"), col("ca_address_sk")))
+    return (dfs["store_sales"]
+            .join(cust, on=P.EqualTo(col("ss_customer_sk"),
+                                     col("c_customer_sk")))
+            .group_by(col("word"))
+            .agg(A.AggregateExpression(A.Sum(col("ss_net_paid")), "paid"),
+                 A.AggregateExpression(A.Count(), "n"))
+            .sort(M.SortOrder(col("paid"), False), M.SortOrder(col("word")))
+            .limit(100))
+
+
+def numpy_fb_split_county(tables):
+    ss, cust, ca = (tables["store_sales"].columns, tables["customer"].columns,
+                    tables["customer_address"].columns)
+    n_cust = len(cust["c_customer_sk"])
+    paid_c = np.bincount(ss["ss_customer_sk"], weights=ss["ss_net_paid"],
+                         minlength=n_cust)
+    rows_c = np.bincount(ss["ss_customer_sk"], minlength=n_cust)
+    addr = np.empty(n_cust, dtype=np.int64)
+    addr[cust["c_customer_sk"]] = cust["c_current_addr_sk"]
+    paid_a = np.zeros(len(ca["ca_address_sk"]))
+    rows_a = np.zeros(len(ca["ca_address_sk"]), dtype=np.int64)
+    np.add.at(paid_a, addr, paid_c)
+    np.add.at(rows_a, addr, rows_c)
+    paid, n = {}, {}
+    for a, county in zip(ca["ca_address_sk"], ca["ca_county"]):
+        if rows_a[a] == 0:
+            continue
+        for w in str(county).split(" "):
+            paid[w] = paid.get(w, 0.0) + paid_a[a]
+            n[w] = n.get(w, 0) + int(rows_a[a])
+    order = sorted(paid, key=lambda w: (-paid[w], w))[:100]
+    return {"word": np.array(order), "paid": np.array([paid[w] for w in order]),
+            "n": np.array([n[w] for w in order], dtype=np.int64)}
+
+
+#: the month of ``fb_ds_price_text``
+FB_YEAR, FB_MOY = 2000, 1
+
+
+def fb_price_text_query(M, dfs):
+    """``cast(ss_sales_price as string)`` (a host project: no device
+    kernel gives the reference's float text) over one month of
+    store_sales (its filter and the ``date_dim`` join on the card), then
+    a count per store and price text, ordered."""
+    A, P, col, lit = M.A, M.P, M.col, M.lit
+    d = dfs["date_dim"].where(P.And(P.EqualTo(col("d_year"), lit(FB_YEAR)),
+                                    P.EqualTo(col("d_moy"), lit(FB_MOY))))
+    return (dfs["store_sales"]
+            .join(d, on=P.EqualTo(col("ss_sold_date_sk"), col("d_date_sk")))
+            .select(col("ss_store_sk"),
+                    M.CA.Cast(col("ss_sales_price"),
+                              M.T.STRING).alias("price_text"))
+            .group_by(col("ss_store_sk"), col("price_text"))
+            .agg(A.AggregateExpression(A.Count(), "n"))
+            .sort(M.SortOrder(col("ss_store_sk")),
+                  M.SortOrder(col("price_text"))))
+
+
+def numpy_fb_price_text(tables):
+    ss, d = tables["store_sales"].columns, tables["date_dim"].columns
+    month = (d["d_year"] == FB_YEAR) & (d["d_moy"] == FB_MOY)
+    keep = month[ss["ss_sold_date_sk"]]
+    counts = collections.Counter(zip(
+        ss["ss_store_sk"][keep].tolist(),
+        [str(float(x)) for x in ss["ss_sales_price"][keep]]))
+    keys = sorted(counts)
+    return {"ss_store_sk": np.array([k[0] for k in keys], dtype=np.int64),
+            "price_text": np.array([k[1] for k in keys]),
+            "n": np.array([counts[k] for k in keys], dtype=np.int64)}
+
+
+FB_REFS = {"fb_split_county": numpy_fb_split_county,
+           "fb_price_text": numpy_fb_price_text}
+
+
+def transitions(info) -> dict:
+    """Rows and bytes each way across a plan's transitions (the
+    ``HostToDevice``/``DeviceToHost`` counters of ``QueryInfo``)."""
+    c = info.counters
+    return {"to_device_rows": c.get("HostToDevice.rows", 0),
+            "to_device_bytes": c.get("HostToDevice.bytes", 0),
+            "to_host_rows": c.get("DeviceToHost.rows", 0),
+            "to_host_bytes": c.get("DeviceToHost.bytes", 0)}
+
+
+def host_device_ms(exec_ms: dict, host: set) -> dict:
+    """A run's per-exec ms split into the host operators', the
+    transitions' and the device execs'."""
+    out = {"host_ms": 0.0, "transition_ms": 0.0, "device_ms": 0.0}
+    for k, v in exec_ms.items():
+        if k in host:
+            out["host_ms"] += v
+        elif k in ("HostToDevice", "DeviceToHost"):
+            out["transition_ms"] += v
+        else:
+            out["device_ms"] += v
+    return out
+
+
+def run_fallback_phase(torch, TorchSession, L, M, wrappers, dfs, ds_dfs,
+                       refs, ref3, futures, ds_key, sweep) -> dict:
+    """The FALLBACK phase: ``fb_q3_agg_cpu`` (Q3 with
+    ``spark.rapids.sql.exec.HashAggregate`` off), ``fb_ds_split_county``
+    and ``fb_ds_price_text`` through :func:`run_query` (cold, then the
+    median of 3 warm runs), and ``off_q1``/``off_q3``/``off_q6`` (TPC-H
+    with ``spark.rapids.sql.enabled`` off, one run each), every answer
+    against its numpy reference; each prints a ``FALLBACK <cell>`` line
+    with its NOT_ON_TPU explain text, transitions, host-operator ms
+    against device ms and the kernel families launched. ``sweep`` plans
+    every query of phase 3 under ``spark.rapids.sql.test.enabled``
+    (``PLAN_SWEEP``)."""
+    from spark_rapids_tpu_torch.plan.overrides import host_nodes
+    from spark_rapids_tpu_torch.workloads import tpch
+    out = {}
+    explain = {"spark.rapids.sql.explain": "NOT_ON_TPU"}
+    cells = {
+        "fb_q3_agg_cpu": (
+            {**explain, "spark.rapids.sql.exec.HashAggregate": False}, dfs,
+            lambda d: tpch.q3(d),
+            lambda got: check_top("Q3", got, ref3,
+                                  ["o_orderkey", "o_orderdate"], "revenue",
+                                  10),
+            ("joinProbe",), {"CpuHashAggregateExec"}),
+        "fb_ds_split_county": (
+            explain, ds_dfs, lambda d: fb_split_county_query(M, d),
+            lambda got: check_top(
+                "fb_ds_split_county", got,
+                reference(futures, *ds_key, "fb_split_county"), ["word", "n"],
+                "paid", 100),
+            ("joinProbe",),
+            {"CpuProjectExec", "CpuGenerateExec"}),
+        "fb_ds_price_text": (
+            explain, ds_dfs, lambda d: fb_price_text_query(M, d),
+            lambda got: check_exact(
+                "fb_ds_price_text", got,
+                reference(futures, *ds_key, "fb_price_text")),
+            ("joinProbe",), {"CpuProjectExec"}),
+    }
+    for cell, (conf, frames, query, check_fn, need, want_host) in \
+            cells.items():
+        # the explain text once, from a session that only plans
+        planner = TorchSession(conf, device="cuda")
+        plan = planner.plan(query(rebind(L, frames, planner))._plan)
+        hosts = host_nodes(plan)
+        text = planner.last_explain
+        s = TorchSession({k: v for k, v in conf.items()
+                          if k not in explain}, device="cuda")
+        bound = rebind(L, frames, s)
+        build = (lambda query=query, bound=bound: query(bound))
+        check(want_host <= set(hosts), f"{cell}: host nodes {hosts}, "
+              f"expected {sorted(want_host)}")
+        got_launches, _, summary, mid = run_query(
+            torch, s, wrappers, cell.upper(), build, check_fn, need)
+        info = s.last_query
+        line = {"cold_ms": summary["cold_ms"],
+                "warm_ms": summary["warm_median_ms"],
+                "explain": [ln.strip() for ln in text.splitlines()
+                            if ln.strip()],
+                "host_nodes": hosts,
+                "transitions": transitions(info),
+                **host_device_ms(mid, set(hosts)),
+                "kernels": {k: v for k, v in got_launches.items() if v}}
+        print(f"FALLBACK {cell} " + json.dumps(line))
+        out[cell] = line
+    # the whole plan on the host: spark.rapids.sql.enabled off
+    off = TorchSession({"spark.rapids.sql.enabled": False}, device="cuda")
+    off_dfs = rebind(L, dfs, off)
+    for q in ("q1", "q3", "q6"):
+        cell = f"off_{q}"
+        plan = off.plan(tpch.QUERIES[q](off_dfs)._plan)
+        hosts = host_nodes(plan)
+        wrappers.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = tpch.QUERIES[q](off_dfs).collect()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in wrappers.counts().items() if v}
+        if q == "q3":
+            check_top("Q3", got, ref3, ["o_orderkey", "o_orderdate"],
+                      "revenue", 10)
+        else:
+            if q == "q1":
+                got = in_key_order(got, ["l_returnflag", "l_linestatus"])
+            check_answer(q, got, refs[q])
+        check(not launches, f"{cell} launched kernels on the host path: "
+              f"{launches}")
+        info = off.last_query
+        line = {"ms": ms, "host_nodes": len(hosts),
+                "transitions": transitions(info),
+                **host_device_ms(info.exec_ms, set(hosts)),
+                "kernels": launches}
+        print(f"FALLBACK {cell} " + json.dumps(line))
+        out[cell] = line
+    out["plan_sweep"] = sweep()
+    return out
+
+
+def sweep_workloads(TorchSession, tpch, tpcds, tpcxbb, mortgage, M,
+                    seed: int) -> dict:
+    """Every query of phase 3 by workload, over tables of 2^14 rows on
+    the card (a plan does not depend on the tables' size): the 22 TPC-H
+    queries and phase 3's own (``sort``, Q1 over two repartitions), the
+    99 TPC-DS queries (their variants plan as they do), the 30 TPCxBB
+    queries, Mortgage's two and the ``expr_*`` cells."""
+    s = TorchSession(device="cuda")
+    h = tpch.load(s, tpch.gen_tables(1 << 14, seed=seed))
+    ds = tpcds.load(s, tpcds.gen_tables(1 << 14, seed=seed))
+    tpch_q = dict(tpch.QUERIES, sort=sort_lineitem,
+                  q1_hash_str=lambda d: tpch.q1(repartitioned(
+                      d, 16, "l_returnflag", "l_linestatus")),
+                  q1_hash_key=lambda d: tpch.q1(repartitioned(
+                      d, 4, "l_orderkey")))
+    return {
+        "tpch": (tpch_q, h),
+        "tpcds": (tpcds.QUERIES, ds),
+        "tpcxbb": (tpcxbb.QUERIES, tpcxbb.load(
+            s, tpcxbb.gen_tables(1 << 14, seed=seed))),
+        "mortgage": ({"etl": mortgage.etl, "features": mortgage.ml_features},
+                     mortgage.load(s, mortgage.gen_tables(1 << 14,
+                                                          seed=MORT_SEED))),
+        "expr": ({c: (lambda d, c=c: expr_queries(M, d)[c]())
+                  for c in EXPR_CELLS}, ds)}
+
+
+def plan_sweep(TorchSession, L, workloads: dict) -> dict:
+    """Plan, without running, every query of ``workloads`` (name ->
+    (query functions by name, frames)) under
+    ``spark.rapids.sql.test.enabled`` with the sessions' confs (the
+    default, the streaming path, the pipeline off): a host node raises
+    ``FallbackOnTpuError``. Prints ``PLAN_SWEEP``: plans and host nodes
+    (must be 0)."""
+    from spark_rapids_tpu_torch.plan.overrides import host_nodes
+    plans = hosts = 0
+    for conf in ({}, {"spark.rapids.tpu.fusion.enabled": False},
+                 {"spark.rapids.tpu.pipeline.enabled": False}):
+        s = TorchSession({**conf, "spark.rapids.sql.test.enabled": True},
+                         device="cuda")
+        for name, (queries, frames) in workloads.items():
+            bound = rebind(L, frames, s)
+            for q, fn in queries.items():
+                hosts += len(host_nodes(s.plan(fn(bound)._plan)))
+                plans += 1
+    line = {"plans": plans, "host_nodes": hosts}
+    print("PLAN_SWEEP " + json.dumps(line))
+    check(hosts == 0, f"{hosts} host nodes in the default plans")
+    return line
+
+
+def fusion_phase(torch, F, ENTRY, T, HostBatch, A, P, col, lit, L, tpch,
+                 dfs, queries, tables, session, args) -> float:
+    """The fusion phase's TPC-H, entry-stage and upload-cache cells (its
+    TPC-DS, TPCxBB and Mortgage cells run beside theirs, through the
+    ``fusion`` namespace of those phases' contexts). Returns its start
+    time."""
+    print(f"fusion phase {at()}: the entry stage, q6, q14, q19 (must "
+          "capture), q1, q3, sort's download with the pipeline on and "
+          "off, the upload cache; ds_q96, ds_q3, expr_complex (and its "
+          "coalesce), bb_q30 and mort_features with their phases")
+    t_fusion = time.perf_counter()
+    entry_df, entry_verify = entry_stage_frame(
+        ENTRY, T, HostBatch, A, P, col, lit, session, args.lineitem_rows,
+        1_500_000)
+    F.results["entry"] = fusion_cell(
+        torch, F, "entry", "capture",
+        lambda s: L.DataFrame(entry_df._plan, s), entry_verify, False,
+        prepare=sort_path)
+    check(F.results["entry"]["graph_launches"].get("segmented", 0) > 0,
+          "entry: segmented does not replay inside its graph")
+    for q, cell_kind in (("q6", "capture"), ("q14", "capture"),
+                         ("q19", "capture"), ("q1", "any"), ("q3", "head")):
+        F.results[q] = fusion_cell(
+            torch, F, q, cell_kind,
+            lambda s, q=q: tpch.QUERIES[q](rebind(L, dfs, s)),
+            queries[q][1], True)
+        if q in ("q14", "q19"):
+            check(F.results[q]["graph_launches"].get("joinProbe", 0) > 0,
+                  f"{q}: joinProbe does not replay inside its graph")
+    F.results["sort_pipeline"] = fusion_pipeline(
+        torch, F, "sort", lambda s: sort_lineitem(rebind(L, dfs, s)), False)
+    F.results["upload_cache"] = fusion_upload_cache(torch, F,
+                                                    tables["orders"])
+    return t_fusion
+
+
+def edge_phase(torch, args, rng, dev, JP, SEG, SS, SG, HK, T, DeviceColumn,
+               PN, E, GC, TorchSession, SN, SC, PD, bucket_byte_capacity):
+    """Phase 2's kernel edge cases, the host snappy routine and the run
+    slicer against their plain versions."""
+    joinprobe_edge_cases(torch, JP, rng, dev)
+    segmented_edge_cases(torch, SEG, rng, dev)
+    sortstep_edge_cases(torch, SS, rng, dev)
+    strings_edge_cases(torch, SG, rng, dev)
+    gather_strings_edge_cases(torch, SG, bucket_byte_capacity, args.seed,
+                              dev)
+    hash_edge_cases(torch, HK, rng, dev)
+    ragged_hash_edge_cases(torch, HK, T, DeviceColumn, PN, rng, dev)
+    row_equal_edge_cases(torch, SG, rng, dev)
+    generate_edge_case(torch, E, GC, TorchSession, SG)
+    snappy_edge_cases(SN, SC)
+    parquet_runs_edge_cases(PD, args.seed)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--lineitem-rows", type=int, default=6_001_215,
@@ -9360,6 +9778,17 @@ def main() -> int:
                     help="also trace two warm runs of each query and "
                          "entry stage with torch.profiler (tables in "
                          "chiprun_out/<query>_profile.txt)")
+    ap.add_argument("--phase", action="append", choices=PHASES,
+                    metavar="NAME",
+                    help="run the build, the tables the phase needs and "
+                         "that phase alone (repeatable; the phases it "
+                         "reads from run too, PHASE_NEEDS); without it "
+                         "every phase runs and the kernels line prints. "
+                         "Names: " + ", ".join(PHASES))
+    ap.add_argument("--busy", action="store_true",
+                    help="trace one more warm run of each bb_*, ds_*, "
+                         "pq_*, mort_* and expr_* cell for the device's "
+                         "busy share (measures only)")
     ap.add_argument("--real-oom", metavar="DIR",
                     help="run only the memory phase's real_oom cell over "
                          "lineitem's parquet files in DIR (the phase runs "
@@ -9367,6 +9796,12 @@ def main() -> int:
     args = ap.parse_args()
     if args.real_oom:
         return real_oom_main(args)
+    global BUSY_TRACE
+    BUSY_TRACE = args.busy
+    full = not args.phase
+    phases = set(PHASES) if full else needed_phases(args.phase)
+    want = phases.__contains__
+    clock = PhaseClock()
 
     import torch
     if not torch.cuda.is_available():
@@ -9418,13 +9853,14 @@ def main() -> int:
     from spark_rapids_tpu_torch.io import snappy_cases as SC
     from spark_rapids_tpu_torch.metrics import eventlog as EL
 
-    ref_workers, futures = start_references(args)
+    ref_workers, futures = start_references(args, phases)
     mem_mods = memory_modules()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     # -- phase 1: build --------------------------------------------------
+    clock.start("BUILD")
     t0 = time.perf_counter()
     reports = _build.build_all()
     OUT_DIR.mkdir(exist_ok=True)
@@ -9443,25 +9879,20 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
 
     # -- phase 2: edge cases ---------------------------------------------
-    print(f"phase 2 {at()}: kernels vs plain versions on edge cases")
     rng = np.random.default_rng(args.seed)
-    joinprobe_edge_cases(torch, JP, rng, dev)
-    segmented_edge_cases(torch, SEG, rng, dev)
-    sortstep_edge_cases(torch, SS, rng, dev)
-    strings_edge_cases(torch, SG, rng, dev)
-    gather_strings_edge_cases(torch, SG, bucket_byte_capacity, args.seed,
-                              dev)
-    hash_edge_cases(torch, HK, rng, dev)
-    ragged_hash_edge_cases(torch, HK, T, DeviceColumn, PN, rng, dev)
-    row_equal_edge_cases(torch, SG, rng, dev)
-    generate_edge_case(torch, E, GC, TorchSession, SG)
-    snappy_edge_cases(SN, SC)
-    parquet_runs_edge_cases(PD, args.seed)
-    fixture = check_fixture_decode(PD, M, HostBatch)
-    runs_check = {"fixture": check_runs(torch, E, PD, M, [str(FIXTURE)],
-                                        "fixture")}
+    fixture, runs_check = None, {}
+    if want("EDGE"):
+        clock.start("EDGE")
+        print(f"phase 2 {at()}: kernels vs plain versions on edge cases")
+        edge_phase(torch, args, rng, dev, JP, SEG, SS, SG, HK, T,
+                   DeviceColumn, PN, E, GC, TorchSession, SN, SC, PD,
+                   bucket_byte_capacity)
+        fixture = check_fixture_decode(PD, M, HostBatch)
+        runs_check = {"fixture": check_runs(torch, E, PD, M, [str(FIXTURE)],
+                                            "fixture")}
 
     # -- phase 3: the queries at SF1 -------------------------------------
+    clock.start("TABLES")
     print(f"phase 3 {at()}: TPC-H Q3, Q1, Q4, Q6, Q22, lineitem sorted by "
           f"l_shipdate, Q1 over two hash repartitions of lineitem, Q5, "
           f"Q12, Q14, Q19, xbb_score, Q10, Q18, Q2, Q7, Q8, Q9, Q11, Q13, "
@@ -9554,7 +9985,11 @@ def main() -> int:
     launches = {k: 0 for k in wrappers.mods}
     calls = {k: [] for k in wrappers.mods}
     summaries = {}
-    for q, (build, check_fn, need) in queries.items():
+    q22_gathers = []
+    if want("TPCH"):
+        clock.start("TPCH")
+    for q, (build, check_fn, need) in (queries.items() if want("TPCH")
+                                       else ()):
         got_launches, got_calls, summaries[q], mid = run_query(
             torch, session, wrappers, q.upper(), build, check_fn, need)
         for k in launches:
@@ -9564,8 +9999,9 @@ def main() -> int:
             q22_gathers = got_calls["strings"]
         if args.profile:
             profile_query(torch, q, build, mid)
-    print(f"  XBB_SCORE max_score: at most {max(xbb_ulps)} ulp from numpy's "
-          f"over {len(xbb_ulps)} runs (limit {MAX_SCORE_ULPS})")
+    if xbb_ulps:
+        print(f"  XBB_SCORE max_score: at most {max(xbb_ulps)} ulp from "
+              f"numpy's over {len(xbb_ulps)} runs (limit {MAX_SCORE_ULPS})")
 
     # The fusion phase's TPC-H, entry-stage and upload-cache cells (its
     # TPC-DS, TPCxBB and Mortgage cells run beside theirs, through the
@@ -9587,117 +10023,102 @@ def main() -> int:
                  "spark.rapids.tpu.pipeline.enabled": pipe == "on"},
                 device="cuda")
             for path in ("fused", "stream") for pipe in ("on", "off")},
-        results={}, t0=time.perf_counter())
-    print(f"fusion phase {at()}: the entry stage, q6, q14, q19 (must "
-          "capture), q1, q3, sort's download with the pipeline on and "
-          "off, the upload cache; ds_q96, ds_q3, expr_complex (and its "
-          "coalesce), bb_q30 and mort_features with their phases")
-    t_fusion = time.perf_counter()
-    entry_df, entry_verify = entry_stage_frame(
-        ENTRY, T, HostBatch, A, P, col, lit, session, args.lineitem_rows,
-        1_500_000)
-    F.results["entry"] = fusion_cell(
-        torch, F, "entry", "capture",
-        lambda s: L.DataFrame(entry_df._plan, s), entry_verify, False,
-        prepare=sort_path)
-    check(F.results["entry"]["graph_launches"].get("segmented", 0) > 0,
-          "entry: segmented does not replay inside its graph")
-    for q, cell_kind in (("q6", "capture"), ("q14", "capture"),
-                         ("q19", "capture"), ("q1", "any"), ("q3", "head")):
-        F.results[q] = fusion_cell(
-            torch, F, q, cell_kind,
-            lambda s, q=q: tpch.QUERIES[q](rebind(L, dfs, s)),
-            queries[q][1], True)
-        if q in ("q14", "q19"):
-            check(F.results[q]["graph_launches"].get("joinProbe", 0) > 0,
-                  f"{q}: joinProbe does not replay inside its graph")
-    F.results["sort_pipeline"] = fusion_pipeline(
-        torch, F, "sort", lambda s: sort_lineitem(rebind(L, dfs, s)), False)
-    F.results["upload_cache"] = fusion_upload_cache(torch, F,
-                                                    tables["orders"])
-    F.t_phase = time.perf_counter() - t_fusion
+        results={}, t0=time.perf_counter(), t_phase=0.0)
+    if want("FUSION"):
+        clock.start("FUSION")
+        t_fusion = fusion_phase(torch, F, ENTRY, T, HostBatch, A, P, col, lit,
+                                L, tpch, dfs, queries, tables, session, args)
+        F.t_phase = time.perf_counter() - t_fusion
 
     # The bench suite's TPC-H queries over parquet: the SF1 tables written
     # by the port's writer, every collect scanning them (the scan inside
     # every timed run).
     pq_dir = tempfile.mkdtemp(prefix="chip_smoke_parquet_")
     atexit.register(shutil.rmtree, pq_dir, True)
-    written = write_sf1_parquet(torch, PE, ColumnarBatch, tables, dfs,
-                                pq_dir)
-    sf1_pages = check_sf1_pages(SN, PD, M, written["files"])
-    pq_dfs = {name: session.read.parquet(d)
-              for name, d in written["dirs"].items()}
-    unordered = {"q1": ["l_returnflag", "l_linestatus"], "q5": ["n_name"],
-                 "q12": ["l_shipmode"], "xbb_score": ["l_returnflag"]}
-
-    def pq_check(q):
-        def check_fn(got):
-            if q in unordered:
-                got = in_key_order(got, unordered[q])
-            if q == "xbb_score":
-                xbb_ulps.append(check_xbb_score(got, refs["xbb_score"]))
-            elif q == "q3":
-                check_top("Q3", got, ref3, ["o_orderkey", "o_orderdate"],
-                          "revenue", 10)
-            else:
-                check_answer(q, got, refs[q])
-        return check_fn
-
-    pq_need = {"q3": ("joinProbe", "segmented"),
-               "q4": ("joinProbe", "sortStep"), "q5": ("joinProbe",),
-               "q12": ("joinProbe",), "q14": ("joinProbe",),
-               "q19": ("joinProbe",)}
-    pq_answers = {}
-    for q in ("q1", "q3", "q4", "q5", "q6", "q12", "q14", "q19",
-              "xbb_score"):
-        cell = f"pq_{q}"
-        build = (lambda q=q: tpch.QUERIES[q](pq_dfs))
-        sn_before = SN.decompress_pages.launches
-        got_launches, got_calls, summaries[cell], mid = run_query(
-            torch, session, wrappers, cell.upper(), build,
-            keep_answer(pq_answers, cell, pq_check(q)), pq_need.get(q, ()))
-        sn_calls = SN.decompress_pages.launches - sn_before
-        check(sn_calls > 0 and summaries[cell]["counters"].get(
-            "ParquetScanExec.snappy_chunks", 0) > 0,
-            f"{cell}: the C++ snappy did not run in the scan")
-        summaries[cell]["snappy_calls"] = sn_calls
-        print_scan(cell.upper(), summaries[cell])
-        for k in launches:
-            launches[k] += got_launches[k]
-            calls[k] += got_calls[k]
-        if args.profile:
-            profile_query(torch, cell, build, mid)
-    # pq_q1 once more with the pipeline off, and every level and index
-    # stream of the SF1 files through both run slicers
     off_session = TorchSession({"spark.rapids.tpu.pipeline.enabled": False},
                                device="cuda")
-    off_dfs = {name: off_session.read.parquet(d)
-               for name, d in written["dirs"].items()}
+    written, sf1_pages, pq_dfs = None, None, None
+    pipeline_off = {}
+    if phases & {"PARQUET", "METRICS", "MEMORY"}:
+        clock.start("PARQUET")
+        written = write_sf1_parquet(torch, PE, ColumnarBatch, tables, dfs,
+                                    pq_dir)
+        sf1_pages = check_sf1_pages(SN, PD, M, written["files"])
+        pq_dfs = {name: session.read.parquet(d)
+                  for name, d in written["dirs"].items()}
+        unordered = {"q1": ["l_returnflag", "l_linestatus"], "q5": ["n_name"],
+                     "q12": ["l_shipmode"], "xbb_score": ["l_returnflag"]}
 
-    def run_off_q1():
-        got = tpch.q1(off_dfs).collect()
-        return got, off_session.last_query
-    pipeline_off = {"pq_q1": pipeline_off_run(
-        torch, "PQ_Q1", run_off_q1, pq_answers["pq_q1"], summaries["pq_q1"],
-        ANSWERS["q1"][1])}
-    pipeline_off["sf1_scans"] = scans_on_off(
-        session, off_session, written["dirs"], ("lineitem", "orders"), "SF1")
-    runs_check["sf1"] = check_runs(torch, E, PD, M, written["files"], "SF1")
+        def pq_check(q):
+            def check_fn(got):
+                if q in unordered:
+                    got = in_key_order(got, unordered[q])
+                if q == "xbb_score":
+                    xbb_ulps.append(check_xbb_score(got, refs["xbb_score"]))
+                elif q == "q3":
+                    check_top("Q3", got, ref3, ["o_orderkey", "o_orderdate"],
+                              "revenue", 10)
+                else:
+                    check_answer(q, got, refs[q])
+            return check_fn
+
+    if want("PARQUET"):
+        pq_need = {"q3": ("joinProbe", "segmented"),
+                   "q4": ("joinProbe", "sortStep"), "q5": ("joinProbe",),
+                   "q12": ("joinProbe",), "q14": ("joinProbe",),
+                   "q19": ("joinProbe",)}
+        pq_answers = {}
+        for q in ("q1", "q3", "q4", "q5", "q6", "q12", "q14", "q19",
+                  "xbb_score"):
+            cell = f"pq_{q}"
+            build = (lambda q=q: tpch.QUERIES[q](pq_dfs))
+            sn_before = SN.decompress_pages.launches
+            got_launches, got_calls, summaries[cell], mid = run_query(
+                torch, session, wrappers, cell.upper(), build,
+                keep_answer(pq_answers, cell, pq_check(q)), pq_need.get(q, ()))
+            sn_calls = SN.decompress_pages.launches - sn_before
+            check(sn_calls > 0 and summaries[cell]["counters"].get(
+                "ParquetScanExec.snappy_chunks", 0) > 0,
+                f"{cell}: the C++ snappy did not run in the scan")
+            summaries[cell]["snappy_calls"] = sn_calls
+            print_scan(cell.upper(), summaries[cell])
+            for k in launches:
+                launches[k] += got_launches[k]
+                calls[k] += got_calls[k]
+            if args.profile:
+                profile_query(torch, cell, build, mid)
+        # pq_q1 once more with the pipeline off, and every level and index
+        # stream of the SF1 files through both run slicers
+        off_dfs = {name: off_session.read.parquet(d)
+                   for name, d in written["dirs"].items()}
+
+        def run_off_q1():
+            got = tpch.q1(off_dfs).collect()
+            return got, off_session.last_query
+        pipeline_off = {"pq_q1": pipeline_off_run(
+            torch, "PQ_Q1", run_off_q1, pq_answers["pq_q1"], summaries["pq_q1"],
+            ANSWERS["q1"][1])}
+        pipeline_off["sf1_scans"] = scans_on_off(
+            session, off_session, written["dirs"], ("lineitem", "orders"), "SF1")
+        runs_check["sf1"] = check_runs(torch, E, PD, M, written["files"], "SF1")
 
     # The bench suite's TPCxBB entries, on uploaded tables and over the
     # port's parquet files.
-    xbb_ctx = types.SimpleNamespace(tpcxbb=tpcxbb, KJ=KJ, JP=JP, PE=PE,
-                                    ColumnarBatch=ColumnarBatch, E=E, PD=PD,
-                                    M=M, off_session=off_session,
-                                    pipeline_off=pipeline_off,
-                                    runs_check=runs_check, fusion=F)
-    xbb_summaries, xbb_launches, xbb_calls, left_calls = run_tpcxbb(
-        torch, xbb_ctx, session, wrappers, args.xbb_clicks, args.seed,
-        pq_dir, args.profile, futures)
-    summaries.update(xbb_summaries)
-    for k in launches:
-        launches[k] += xbb_launches[k]
-        calls[k] += xbb_calls[k]
+    left_calls = []
+    if want("TPCXBB"):
+        clock.start("TPCXBB")
+        xbb_ctx = types.SimpleNamespace(tpcxbb=tpcxbb, KJ=KJ, JP=JP, PE=PE,
+                                        ColumnarBatch=ColumnarBatch, E=E, PD=PD,
+                                        M=M, off_session=off_session,
+                                        pipeline_off=pipeline_off,
+                                        runs_check=runs_check, fusion=F)
+        xbb_summaries, xbb_launches, xbb_calls, left_calls = run_tpcxbb(
+            torch, xbb_ctx, session, wrappers, args.xbb_clicks, args.seed,
+            pq_dir, args.profile, futures)
+        summaries.update(xbb_summaries)
+        for k in launches:
+            launches[k] += xbb_launches[k]
+            calls[k] += xbb_calls[k]
 
     # The TPC-DS queries at SF1's store_sales rows, on uploaded tables.
     expr_mods = types.SimpleNamespace(C=C, P=P, B=B, S=S, S2=S2, CA=CA,
@@ -9709,147 +10130,197 @@ def main() -> int:
     metrics_cells = {}
     ds_ctx = types.SimpleNamespace(tpcds=tpcds, PE=PE, SN=SN,
                                    ColumnarBatch=ColumnarBatch, M=expr_mods,
-                                   metrics_cells=metrics_cells, fusion=F)
-    ds_summaries, ds_launches, ds_calls = run_tpcds(
-        torch, ds_ctx, session, wrappers, args.ds_ss_rows, args.seed,
-        pq_dir, args.profile, futures)
-    summaries.update(ds_summaries)
-    for k in launches:
-        launches[k] += ds_launches[k]
-        calls[k] += ds_calls[k]
+                                   metrics_cells=metrics_cells, fusion=F,
+                                   dfs=None)
+    ds_launches = {}
+    if want("TPCDS"):
+        clock.start("TPCDS")
+        ds_summaries, ds_launches, ds_calls = run_tpcds(
+            torch, ds_ctx, session, wrappers, args.ds_ss_rows, args.seed,
+            pq_dir, args.profile, futures)
+        summaries.update(ds_summaries)
+        for k in launches:
+            launches[k] += ds_launches[k]
+            calls[k] += ds_calls[k]
 
     # Mortgage's ETL and feature table at 2^24 performance records.
-    mort_ctx = types.SimpleNamespace(mortgage=mortgage, KJ=KJ, fusion=F)
-    mort_summaries, mort_launches, mort_calls = run_mortgage(
-        torch, mort_ctx, session, wrappers, args.mort_perf_rows,
-        args.profile, futures)
-    ref_workers.shutdown()
-    summaries.update(mort_summaries)
-    for k in launches:
-        launches[k] += mort_launches[k]
-        calls[k] += mort_calls[k]
+    mort_launches = {}
+    if want("MORTGAGE"):
+        clock.start("MORTGAGE")
+        mort_ctx = types.SimpleNamespace(mortgage=mortgage, KJ=KJ, fusion=F)
+        mort_summaries, mort_launches, mort_calls = run_mortgage(
+            torch, mort_ctx, session, wrappers, args.mort_perf_rows,
+            args.profile, futures)
+        summaries.update(mort_summaries)
+        for k in launches:
+            launches[k] += mort_launches[k]
+            calls[k] += mort_calls[k]
 
     # The engine's entry stage (filter -> aggregate on the sort path): at
     # entry()'s defaults, then at SF1's lineitem rows with entry()'s 50
     # keys and with orders' 1,500,000.
     entry_runs = {}
-    for name, kwargs in (
-            ("entry", {}),
-            ("entry_sf1_keys50", {"n": args.lineitem_rows, "key_range": 50}),
-            ("entry_sf1_keys1500000", {"n": args.lineitem_rows,
-                                       "key_range": 1_500_000})):
-        got_launches, got_calls, entry_runs[name] = run_entry_stage(
-            torch, ENTRY, HostBatch, wrappers, name.upper(), args.profile,
-            device="cuda", **kwargs)
-        for k in launches:
-            launches[k] += got_launches[k]
-        calls["segmented"] += got_calls
-    flat_gathers = check_flat_gathers(torch, SG, KR, T, DeviceColumn,
-                                      q22_gathers)
-    no_matrix = check_no_char_matrix(torch, HK, dfs["lineitem"]._plan.batch,
-                                     col)
-    placement = [check_placement(torch, session, tables, 16,
-                                 ("l_returnflag", "l_linestatus")),
-                 check_placement(torch, session, tables, 4, ("l_orderkey",))]
+    if want("ENTRY"):
+        clock.start("ENTRY")
+        for name, kwargs in (
+                ("entry", {}),
+                ("entry_sf1_keys50", {"n": args.lineitem_rows, "key_range": 50}),
+                ("entry_sf1_keys1500000", {"n": args.lineitem_rows,
+                                           "key_range": 1_500_000})):
+            got_launches, got_calls, entry_runs[name] = run_entry_stage(
+                torch, ENTRY, HostBatch, wrappers, name.upper(), args.profile,
+                device="cuda", **kwargs)
+            for k in launches:
+                launches[k] += got_launches[k]
+            calls["segmented"] += got_calls
+    flat_gathers = no_matrix = None
+    placement, group_ids_runs, equal_keys = [], [], {}
+    if want("TPCH"):
+        clock.start("TPCH")
+        flat_gathers = check_flat_gathers(torch, SG, KR, T, DeviceColumn,
+                                          q22_gathers)
+        no_matrix = check_no_char_matrix(torch, HK, dfs["lineitem"]._plan.batch,
+                                         col)
+        placement = [check_placement(torch, session, tables, 16,
+                                     ("l_returnflag", "l_linestatus")),
+                     check_placement(torch, session, tables, 4, ("l_orderkey",))]
 
-    # group_ids over string keys: lineitem's dictionary l_shipmode and
-    # Q22's flat cntrycode (substring(c_phone, 1, 2) over customer).
-    li_batch = dfs["lineitem"]._plan.batch
-    [[cust]] = session.plan(dfs["customer"].with_column(
-        "cntrycode", Substring(col("c_phone"), lit(1), lit(2)))._plan
-    ).execute(E.ExecContext(dev))
-    code_values = np.array([p.encode()[:2].decode()
-                            for p in tables["customer"].columns["c_phone"]])
-    equal_keys = {"l_shipmode": (li_batch.column("l_shipmode"),
-                                 li_batch.n_rows,
-                                 tables["lineitem"].columns["l_shipmode"]),
-                  "cntrycode": (cust.column("cntrycode"), cust.n_rows,
-                                code_values)}
-    group_ids_runs = []
-    for name, (key_col, n_rows, values) in equal_keys.items():
-        run, gathers = group_by_string_key(
-            torch, KG, T, HostBatch, wrappers, name, key_col, n_rows, values)
-        group_ids_runs.append(run)
-        calls["strings"] += gathers
-        for k, v in group_ids_runs[-1]["launches"].items():
-            launches[k] += v
+        # group_ids over string keys: lineitem's dictionary l_shipmode and
+        # Q22's flat cntrycode (substring(c_phone, 1, 2) over customer).
+        li_batch = dfs["lineitem"]._plan.batch
+        [[cust]] = session.plan(dfs["customer"].with_column(
+            "cntrycode", Substring(col("c_phone"), lit(1), lit(2)))._plan
+        ).execute(E.ExecContext(dev))
+        code_values = np.array([p.encode()[:2].decode()
+                                for p in tables["customer"].columns["c_phone"]])
+        equal_keys = {"l_shipmode": (li_batch.column("l_shipmode"),
+                                     li_batch.n_rows,
+                                     tables["lineitem"].columns["l_shipmode"]),
+                      "cntrycode": (cust.column("cntrycode"), cust.n_rows,
+                                    code_values)}
+        group_ids_runs = []
+        for name, (key_col, n_rows, values) in equal_keys.items():
+            run, gathers = group_by_string_key(
+                torch, KG, T, HostBatch, wrappers, name, key_col, n_rows, values)
+            group_ids_runs.append(run)
+            calls["strings"] += gathers
+            for k, v in group_ids_runs[-1]["launches"].items():
+                launches[k] += v
 
     # The mesh path: four shards on the one card.
-    mesh4 = make_mesh(devices=[dev] * 4)
-    mesh_session = TorchSession({"spark.rapids.tpu.mesh.enabled": True},
-                                device="cuda", mesh=mesh4)
-    mesh_dfs = {k: L.DataFrame(v._plan, mesh_session) for k, v in dfs.items()}
-    mesh_queries = {
-        "mesh_q1": (lambda: tpch.q1(mesh_dfs),
-                    lambda got: check_answer("q1", in_key_order(
-                        got, ["l_returnflag", "l_linestatus"]), refs["q1"]),
-                    ("hash",)),
-        "mesh_q3": (lambda: tpch.q3(mesh_dfs),
-                    lambda got: check_top(
-                        "Q3", got, ref3, ["o_orderkey", "o_orderdate"],
-                        "revenue", 10), ("segmented",)),
-        "mesh_q4": (lambda: tpch.q4(mesh_dfs),
-                    lambda got: check_answer("q4", got, refs["q4"]),
-                    ("hash", "sortStep")),
-        "mesh_q6": (lambda: tpch.q6(mesh_dfs),
-                    lambda got: check_answer("q6", got, refs["q6"]), ()),
-    }
-    for q, (build, check_fn, need) in mesh_queries.items():
-        got_launches, got_calls, summaries[q], mid = run_query(
-            torch, mesh_session, wrappers, q.upper(), build, check_fn, need,
-            shards=mesh4.size)
-        for k in launches:
-            launches[k] += got_launches[k]
-            calls[k] += got_calls[k]
-        if args.profile:
-            profile_query(torch, q, build, mid)
-    # The session's own mesh: every visible card.
-    default_session = TorchSession({"spark.rapids.tpu.mesh.enabled": True},
-                                   device="cuda")
-    t0 = time.perf_counter()
-    got = tpch.q6({k: L.DataFrame(v._plan, default_session)
-                   for k, v in dfs.items()}).collect()
-    default_ms = (time.perf_counter() - t0) * 1e3
-    check_answer("q6", got, refs["q6"])
-    check_path(default_session, "Q6 on the default mesh",
-               torch.cuda.device_count())
-    print(f"  Q6 on the session's default mesh ({default_session.mesh}): "
-          f"path {default_session.last_query.path} over "
-          f"{default_session.last_query.shards} shard(s), {default_ms:.1f} "
-          "ms cold, answer matches the numpy reference")
-    with Capture(*wrappers.mods["hash"]) as cap:
-        wrappers.reset()
-        distributed = check_distributed(torch, D, mesh4, dfs, tables)
-        launches["hash"] += wrappers.counts()["hash"]
-        calls["hash"] += cap.calls
+    distributed, default_ms = None, None
+    if want("MESH"):
+        clock.start("MESH")
+        mesh4 = make_mesh(devices=[dev] * 4)
+        mesh_session = TorchSession({"spark.rapids.tpu.mesh.enabled": True},
+                                    device="cuda", mesh=mesh4)
+        mesh_dfs = {k: L.DataFrame(v._plan, mesh_session) for k, v in dfs.items()}
+        mesh_queries = {
+            "mesh_q1": (lambda: tpch.q1(mesh_dfs),
+                        lambda got: check_answer("q1", in_key_order(
+                            got, ["l_returnflag", "l_linestatus"]), refs["q1"]),
+                        ("hash",)),
+            "mesh_q3": (lambda: tpch.q3(mesh_dfs),
+                        lambda got: check_top(
+                            "Q3", got, ref3, ["o_orderkey", "o_orderdate"],
+                            "revenue", 10), ("segmented",)),
+            "mesh_q4": (lambda: tpch.q4(mesh_dfs),
+                        lambda got: check_answer("q4", got, refs["q4"]),
+                        ("hash", "sortStep")),
+            "mesh_q6": (lambda: tpch.q6(mesh_dfs),
+                        lambda got: check_answer("q6", got, refs["q6"]), ()),
+        }
+        for q, (build, check_fn, need) in mesh_queries.items():
+            got_launches, got_calls, summaries[q], mid = run_query(
+                torch, mesh_session, wrappers, q.upper(), build, check_fn, need,
+                shards=mesh4.size)
+            for k in launches:
+                launches[k] += got_launches[k]
+                calls[k] += got_calls[k]
+            if args.profile:
+                profile_query(torch, q, build, mid)
+        # The session's own mesh: every visible card.
+        default_session = TorchSession({"spark.rapids.tpu.mesh.enabled": True},
+                                       device="cuda")
+        t0 = time.perf_counter()
+        got = tpch.q6({k: L.DataFrame(v._plan, default_session)
+                       for k, v in dfs.items()}).collect()
+        default_ms = (time.perf_counter() - t0) * 1e3
+        check_answer("q6", got, refs["q6"])
+        check_path(default_session, "Q6 on the default mesh",
+                   torch.cuda.device_count())
+        print(f"  Q6 on the session's default mesh ({default_session.mesh}): "
+              f"path {default_session.last_query.path} over "
+              f"{default_session.last_query.shards} shard(s), {default_ms:.1f} "
+              "ms cold, answer matches the numpy reference")
+        with Capture(*wrappers.mods["hash"]) as cap:
+            wrappers.reset()
+            distributed = check_distributed(torch, D, mesh4, dfs, tables)
+            launches["hash"] += wrappers.counts()["hash"]
+            calls["hash"] += cap.calls
 
     # The query-profile and tracing layer over resident cells: the
     # answers, profiles, launches, traces, event log and synchronisations
     # at metrics level NONE, at the defaults and at ESSENTIAL with tracing
     # and device timing.
-    print(f"metrics phase {at()}: {', '.join(METRICS_CELLS)} at NONE, the "
-          "defaults and ESSENTIAL with trace and deviceTiming")
-    metrics_cells["entry_sf1"] = entry_stage_frame(
-        ENTRY, T, HostBatch, A, P, col, lit, session, args.lineitem_rows,
-        1_500_000) + (sort_path,)
-    for q in ("sort", "q22", "q1_hash_str"):
-        metrics_cells[q] = (queries[q][0](), queries[q][1], None)
-    metrics_cells["pq_q1"] = (tpch.q1(pq_dfs), pq_check("q1"), None)
-    metrics = run_metrics_phase(torch, TorchSession, EL, wrappers,
-                                metrics_cells)
-    del metrics_cells
+    metrics = None
+    if want("METRICS"):
+        clock.start("METRICS")
+        print(f"metrics phase {at()}: {', '.join(METRICS_CELLS)} at NONE, the "
+              "defaults and ESSENTIAL with trace and deviceTiming")
+        metrics_cells["entry_sf1"] = entry_stage_frame(
+            ENTRY, T, HostBatch, A, P, col, lit, session, args.lineitem_rows,
+            1_500_000) + (sort_path,)
+        for q in ("sort", "q22", "q1_hash_str"):
+            metrics_cells[q] = (queries[q][0](), queries[q][1], None)
+        metrics_cells["pq_q1"] = (tpch.q1(pq_dfs), pq_check("q1"), None)
+        metrics = run_metrics_phase(torch, TorchSession, EL, wrappers,
+                                    metrics_cells)
+        del metrics_cells
 
     # The memory and robustness phase: the spill catalog's tiers, CRC32C,
     # the external sort over parquet, OOM injection, a real OOM under an
     # allocator cap, the query deadline and the task semaphore.
-    print(f"memory phase {at()}: spill_roundtrip, crc32c, pq_sort_ext, "
-          f"oom_inject_* (Q3, Q5, Q22, q1_hash_str, the Q3 split, bb_q30), "
-          f"real_oom, deadline, semaphore")
-    memory = run_memory_phase(
-        torch, mem_mods, session, wrappers, dfs, tables, refs, ref3,
-        written["dirs"]["lineitem"], futures, args.seed, smi)
+    memory = None
+    if want("MEMORY"):
+        clock.start("MEMORY")
+        print(f"memory phase {at()}: spill_roundtrip, crc32c, pq_sort_ext, "
+              f"oom_inject_* (Q3, Q5, Q22, q1_hash_str, the Q3 split, bb_q30), "
+              f"real_oom, deadline, semaphore")
+        memory = run_memory_phase(
+            torch, mem_mods, session, wrappers, dfs, tables, refs, ref3,
+            written["dirs"]["lineitem"], futures, args.seed, smi)
+
+    # The plan rewrite with CPU fallback: operators on the host beside
+    # device ones, transitions between them, whole plans on the host, and
+    # a sweep that plans every query of phase 3 with no host node.
+    fallback = None
+    if want("FALLBACK"):
+        clock.start("FALLBACK")
+        print(f"fallback phase {at()}: {', '.join(FB_CELLS)}, PLAN_SWEEP")
+        ds_dfs = ds_ctx.dfs
+        if ds_dfs is None:
+            ds_dfs = tpcds.load(session, tpcds.gen_tables(args.ds_ss_rows,
+                                                         seed=args.seed))
+        fallback = run_fallback_phase(
+            torch, TorchSession, L, expr_mods, wrappers, dfs, ds_dfs, refs,
+            ref3, futures, ("ds", args.ds_ss_rows, args.seed),
+            lambda: plan_sweep(TorchSession, L, sweep_workloads(
+                TorchSession, tpch, tpcds, tpcxbb, mortgage, expr_mods,
+                args.seed)))
+        del ds_dfs
+    ref_workers.shutdown()
+    if not full:
+        clock.stop()
+        print("PHASE_SECONDS " + json.dumps(clock.seconds))
+        print(f"phase 5 {at()}: results of {sorted(phases)}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # -- phase 4: kernels at the queries' shapes ---------------------------
+    clock.start("KERNELS")
     print(f"phase 4 {at()}: kernels at the shapes the queries gave them")
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
     rows = []
@@ -10018,7 +10489,7 @@ def main() -> int:
         "mort_launches": mort_launches,
         "distributed_sum_by_key": distributed,
         "q6_default_mesh_ms": default_ms, "entry_stage": entry_runs,
-        "metrics": metrics, "memory": memory,
+        "metrics": metrics, "memory": memory, "fallback": fallback,
         "xbb_score_max_score_ulps": max(xbb_ulps),
         "pipeline_off": pipeline_off, "run_tables": runs_check,
         "parquet": {"fixture": fixture, "sf1_pages": sf1_pages,
@@ -10046,6 +10517,8 @@ def main() -> int:
         "capture_seconds": ex["compile_seconds"]}))
     print(f"  fusion phase: {F.t_phase:.1f} s; whole run so far "
           f"{time.perf_counter() - T_START:.1f} s")
+    clock.stop()
+    print("PHASE_SECONDS " + json.dumps(clock.seconds))
     print(f"phase 5 {at()}: results")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

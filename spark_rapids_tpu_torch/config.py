@@ -9,7 +9,7 @@ reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 _REGISTRY: Dict[str, "ConfEntry"] = {}
 
@@ -40,14 +40,72 @@ def conf_int(key: str, default: int, doc: str) -> ConfEntry:
     return _register(key, default, doc, int)
 
 
+def _to_bool(v: str) -> bool:
+    return v.strip().lower() in ("true", "1", "yes")
+
+
 def conf_bool(key: str, default: bool, doc: str) -> ConfEntry:
-    return _register(key, default, doc,
-                     lambda v: v.strip().lower() == "true")
+    return _register(key, default, doc, _to_bool)
 
 
 def conf_str(key: str, default: str, doc: str) -> ConfEntry:
     return _register(key, default, doc, str)
 
+
+# Core feature gates of the plan rewrite (reference config.py:76-131,
+# RapidsConf.scala:329-478)
+
+SQL_ENABLED = conf_bool(
+    "spark.rapids.sql.enabled", True,
+    "Enable or disable the device's columnar execution of SQL plans "
+    "entirely: false runs every operator on the host (numpy), the port's "
+    "CPU oracle.")
+
+EXPLAIN = conf_str(
+    "spark.rapids.sql.explain", "NONE",
+    "Explain why parts of a query were or were not placed on the device. "
+    "Options: NONE, NOT_ON_TPU, ALL.")
+
+TEST_ENABLED = conf_bool(
+    "spark.rapids.sql.test.enabled", False,
+    "Intended for tests only: fail if any operator of a planned query "
+    "stayed on the host instead of running on the device.")
+
+TEST_ALLOWED_NON_TPU = conf_str(
+    "spark.rapids.sql.test.allowedNonTpu", "",
+    "Comma-separated operator class names allowed to stay on the host when "
+    "spark.rapids.sql.test.enabled is on.")
+
+VARIABLE_FLOAT_AGG = conf_bool(
+    "spark.rapids.sql.variableFloatAgg.enabled", True,
+    "Allow float/double sums and averages on the device, whose last bits "
+    "can differ from the host's because the device adds in a different "
+    "order. False sends them to the host with the reference's reason. "
+    "The reference's default is false; the port's is true, because its "
+    "device path has always run them.")
+
+CAST_STRING_TO_FLOAT = conf_bool(
+    "spark.rapids.sql.castStringToFloat.enabled", True,
+    "Enable string to float casts on the device. The reference's default "
+    "is false; the port's device parser has always run them.")
+
+CAST_STRING_TO_TIMESTAMP = conf_bool(
+    "spark.rapids.sql.castStringToTimestamp.enabled", True,
+    "Enable string to timestamp casts on the device (fixed formats). The "
+    "reference's default is false; the port's device parser has always "
+    "run them.")
+
+REPLACE_SORT_MERGE_JOIN = conf_bool(
+    "spark.rapids.sql.replaceSortMergeJoin.enabled", True,
+    "Replace sort-merge-shaped (shuffled) equi joins with hash joins on "
+    "the device; false keeps them on the host.")
+
+#: Prefixes of the per-operator switches
+#: (``spark.rapids.sql.exec.<Name>``, ``spark.rapids.sql.expression.<Name>``):
+#: a key under them is accepted here by its prefix, and the plan-rewrite
+#: pass (``plan/overrides.py``) checks that it names one of its rules.
+OPERATOR_KEY_PREFIXES = ("spark.rapids.sql.exec.",
+                         "spark.rapids.sql.expression.")
 
 TOPK_THRESHOLD = conf_int(
     "spark.rapids.tpu.sort.topKThreshold", 16384,
@@ -311,7 +369,8 @@ class TorchConf:
     def __init__(self, conf: Optional[Dict[str, Any]] = None):
         self._conf = dict(conf or {})
         for k in self._conf:
-            if k.startswith("spark.rapids.") and k not in _REGISTRY:
+            if k.startswith("spark.rapids.") and k not in _REGISTRY \
+                    and not k.startswith(OPERATOR_KEY_PREFIXES):
                 raise KeyError(f"unknown rapids conf key: {k}")
 
     def get(self, entry: ConfEntry) -> Any:
@@ -324,3 +383,37 @@ class TorchConf:
     @property
     def metrics_event_log_dir(self) -> Optional[str]:
         return self.get(METRICS_EVENT_LOG_DIR) or None
+
+    @property
+    def sql_enabled(self) -> bool:
+        return self.get(SQL_ENABLED)
+
+    @property
+    def explain(self) -> str:
+        return str(self.get(EXPLAIN)).upper()
+
+    @property
+    def test_enabled(self) -> bool:
+        return self.get(TEST_ENABLED)
+
+    @property
+    def allowed_non_tpu(self) -> List[str]:
+        raw = self.get(TEST_ALLOWED_NON_TPU)
+        return [s.strip() for s in raw.split(",") if s.strip()]
+
+    def is_operator_enabled(self, conf_key: str) -> bool:
+        """A per-operator switch: its value when it is set, else on. (The
+        reference's third state, an incompatible operator following
+        ``spark.rapids.sql.incompatibleOps.enabled``, has no operator in
+        the port, so neither that key nor a rule's ``incompat`` flag is
+        ported.)"""
+        raw = self._conf.get(conf_key)
+        if raw is None:
+            return True
+        return raw if isinstance(raw, bool) else _to_bool(raw)
+
+    @staticmethod
+    def operator_conf_key(kind: str, name: str) -> str:
+        """``spark.rapids.sql.<kind>.<name>``: the switch of one exec or
+        expression rule (``kind`` "exec" or "expression")."""
+        return f"spark.rapids.sql.{kind}.{name}"

@@ -22,7 +22,8 @@ from typing import List, Optional
 
 from .. import types as T
 from ..data.batch import ColumnarBatch
-from .execs import (DeviceSourceExec, TorchExec, _coalesce_device,
+from .execs import (DeviceSourceExec, HostToDeviceExec, TorchExec,
+                    _coalesce_device,
                     _pinned_concat)
 
 
@@ -169,7 +170,7 @@ def insert_coalesce(plan: TorchExec, default_target_rows: int) -> TorchExec:
                 produced: Optional[CoalesceGoal] = None
                 if isinstance(c, CoalesceBatchesExec):
                     produced = c.goal
-                elif isinstance(c, DeviceSourceExec):
+                elif isinstance(c, (DeviceSourceExec, HostToDeviceExec)):
                     # an upload, as the reference's HostToDeviceExec
                     # (its goal rows are the batch size)
                     produced = TargetSize(default_target_rows)

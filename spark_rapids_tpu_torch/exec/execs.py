@@ -316,6 +316,10 @@ def _bind_all(exprs: List[Expression], schema: T.Schema) -> List[Expression]:
 
 class TorchExec:
     children: List["TorchExec"] = []
+    #: True for a device exec (its partitions yield ColumnarBatch), False
+    #: for a CPU operator (:mod:`..plan.physical`, HostBatch): Spark's
+    #: ``supportsColumnar``, which the transitions follow.
+    columnar = True
 
     @property
     def schema(self) -> T.Schema:
@@ -466,6 +470,12 @@ class ReusedExec(TorchExec):
 
     def __init__(self, child: TorchExec):
         self.children = [child]
+
+    @property
+    def columnar(self):
+        # on the side of what it shares: a host subplan's batches are
+        # kept as host batches
+        return self.children[0].columnar
 
     @property
     def schema(self):
@@ -1426,6 +1436,50 @@ class LimitExec(TorchExec):
         return [[ColumnarBatch(cols, n_out, b.schema)]]
 
 
+class HostToDeviceExec(TorchExec):
+    """Host-to-device transition (the reference's ``exec/execs.py:89``):
+    a device consumer of a CPU operator reads it through this. The host
+    batches of each partition upload in groups of about
+    ``spark.rapids.sql.batchSizeRows`` rows (``goal_rows``), one device
+    batch a group. Its time is ``HostToDevice`` in ``exec_ms``; its rows
+    and bytes go to its ``numInputRows`` and ``uploadBytes``."""
+
+    def __init__(self, child: TorchExec, goal_rows: int = 1 << 20):
+        self.children = [child]
+        self.goal_rows = max(int(goal_rows), 1)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def describe(self):
+        return "HostToDevice"
+
+    def execute(self, ctx):
+        def upload(group):
+            with ctx.timed("HostToDevice", host=True):
+                hb = HostBatch.concat(group)
+                db = hb.to_device(ctx.device)
+            ctx.metric(self.name, "numInputRows", hb.num_rows)
+            ctx.metric(self.name, "uploadBytes", hb.nbytes)
+            ctx.metric(self.name, "numOutputBatches", 1)
+            ctx.count("HostToDevice.rows", hb.num_rows)
+            ctx.count("HostToDevice.bytes", hb.nbytes)
+            return db
+
+        def run(part):
+            group, rows = [], 0
+            for hb in part:
+                group.append(hb)
+                rows += hb.num_rows
+                if rows >= self.goal_rows:
+                    yield upload(group)
+                    group, rows = [], 0
+            if group:
+                yield upload(group)
+        return [run(p) for p in self.children[0].execute(ctx)]
+
+
 class DeviceToHostExec(TorchExec):
     """Device-to-host transition, the root the planner puts over every
     device plan (the reference's ``DeviceToHostExec``, ``plan/
@@ -1449,8 +1503,12 @@ class DeviceToHostExec(TorchExec):
     host bytes go to the device root's ``numOutputRows`` and
     ``downloadBytes`` (the port's profile tree is the device plan)."""
 
-    def __init__(self, child: TorchExec):
+    def __init__(self, child: TorchExec, mid_plan: bool = False):
         self.children = [child]
+        #: a transition under a CPU operator (not the plan's root): its
+        #: rows and bytes are the counters ``DeviceToHost.rows`` and
+        #: ``.bytes``
+        self.mid_plan = mid_plan
 
     @property
     def schema(self):
@@ -1484,7 +1542,12 @@ class DeviceToHostExec(TorchExec):
         for db in part:
             with ctx.timed("DeviceToHost", host=True):
                 hb = HostBatch.from_device(db)
+            if self.mid_plan:
+                ctx.count("DeviceToHost.rows", hb.num_rows)
+                ctx.count("DeviceToHost.bytes", hb.nbytes)
             yield hb
+
+    columnar = False
 
     def collect(self, ctx: ExecContext) -> HostBatch:
         """Run the plan and concatenate its host batches; the device

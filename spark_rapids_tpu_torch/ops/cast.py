@@ -25,7 +25,8 @@ import torch
 from .. import types as T
 from ..data.column import dictionary_column, string_max_bytes
 from . import cast_string as CS
-from .expression import Expression, UnaryExpression, make_column
+from .expression import (Expression, UnaryExpression, fixed_width,
+                         host_column, make_column)
 from .kernels.rowops import strings_from_matrix
 from .strings_util import PAD, lift_rows
 
@@ -100,6 +101,34 @@ class Cast(UnaryExpression):
         if self.to is T.STRING:
             return self._to_string(self.child.eval_device(batch), src)
         return super().eval_device(batch)
+
+    def eval_host(self, batch):
+        """A float's text is the reference's host text (``ops/cast.py:
+        102 _host_to_string``: Python's ``str`` of the value as a double),
+        which no device kernel gives; an integer's or a boolean's text and
+        every cast between fixed-width types are numpy's; the string
+        parsers and the date and timestamp formats run their device path
+        over CPU tensors (the base class's host route)."""
+        src = self.child.data_type
+        if self.to is T.STRING and src.is_floating:
+            v, ok = self.child.eval_host(batch)
+            text = np.empty(len(ok), dtype=object)
+            text[:] = [str(float(x)) if good else None
+                       for x, good in zip(v, ok)]
+            return text, np.asarray(ok, dtype=bool).copy()
+        if self.to is T.STRING and (src.is_integral or src is T.BOOLEAN):
+            v, ok = self.child.eval_host(batch)
+            text = [("true" if x else "false") if src is T.BOOLEAN
+                    else str(int(x)) for x in v]
+            return host_column(text, ok, T.STRING)
+        if fixed_width(src) and fixed_width(self.to):
+            # the element kernel (cast_values) over the host values
+            v, ok = self.child.eval_host(batch)
+            data, _ = self.do_device(torch.from_numpy(np.ascontiguousarray(
+                np.where(ok, v, np.zeros((), src.np_dtype)).astype(
+                    src.np_dtype, copy=False))))
+            return host_column(data.numpy(), ok, self.to)
+        return super().eval_host(batch)
 
     def _from_string(self, c):
         parse = _PARSERS.get(self.to.name)

@@ -19,6 +19,8 @@ Null semantics are Spark 3.0's without ANSI mode, the reference's:
 
 from __future__ import annotations
 
+import numpy as np
+
 from typing import List, Optional, Sequence
 
 import torch
@@ -26,6 +28,7 @@ import torch
 from .. import types as T
 from ..data.batch import ColumnarBatch
 from ..data.column import DeviceColumn, array_column, null_column
+from .expression import fixed_width, host_column
 from .expression import Expression, Literal, lit, make_column
 
 
@@ -58,6 +61,15 @@ class CreateArray(Expression):
 
     def with_children(self, children):
         return CreateArray(*children)
+
+    def eval_host(self, batch):
+        """One list a row of the elements' host values (``None`` for a
+        null element), as the reference's host path builds it."""
+        cols = [c.eval_host(batch) for c in self.children]
+        rows = np.empty(batch.num_rows, dtype=object)
+        rows[:] = [[v[i] if ok[i] else None for v, ok in cols]
+                   for i in range(batch.num_rows)]
+        return rows, np.ones(batch.num_rows, dtype=bool)
 
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         cols = [c.eval_device(batch) for c in self.children]
@@ -95,6 +107,19 @@ class GetArrayItem(Expression):
     def with_children(self, children):
         return GetArrayItem(children[0], children[1])
 
+    def eval_host(self, batch):
+        arr, ok = self.children[0].eval_host(batch)
+        i = self.ordinal
+        out = [None] * batch.num_rows
+        if i is not None and i >= 0:
+            out = [lst[i] if good and lst is not None and i < len(lst)
+                   else None for lst, good in zip(arr, ok)]
+        return host_column(
+            [0 if x is None and fixed_width(self.data_type) else x
+             for x in out],
+            np.array([x is not None for x in out], dtype=bool),
+            self.data_type)
+
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         if not isinstance(self.children[1], Literal):
             raise NotImplementedError(
@@ -126,6 +151,12 @@ class Size(Expression):
     def with_children(self, children):
         return Size(children[0])
 
+    def eval_host(self, batch):
+        arr, ok = self.children[0].eval_host(batch)
+        n = np.array([len(lst) if good and lst is not None else -1
+                      for lst, good in zip(arr, ok)], dtype=np.int32)
+        return n, np.ones(batch.num_rows, dtype=bool)
+
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         arr = self.children[0].eval_device(batch)
         data = torch.where(arr.validity, arr.lengths, -1)
@@ -151,6 +182,18 @@ class ArrayContains(Expression):
 
     def with_children(self, children):
         return ArrayContains(children[0], children[1])
+
+    def eval_host(self, batch):
+        arr, aok = self.children[0].eval_host(batch)
+        val, vok = self.children[1].eval_host(batch)
+        hit = np.zeros(batch.num_rows, dtype=bool)
+        valid = np.zeros(batch.num_rows, dtype=bool)
+        for i, (lst, a, v) in enumerate(zip(arr, aok, vok)):
+            if not (a and v) or lst is None:
+                continue
+            hit[i] = any(x is not None and x == val[i] for x in lst)
+            valid[i] = hit[i] or all(x is not None for x in lst)
+        return host_column(hit, valid, T.BOOLEAN)
 
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         arr = self.children[0].eval_device(batch)
@@ -183,6 +226,14 @@ class CreateNamedStruct(Expression):
     def with_children(self, children):
         return CreateNamedStruct(self.names, children)
 
+    def eval_host(self, batch):
+        kids = [c.eval_host(batch) for c in self.children]
+        rows = np.empty(batch.num_rows, dtype=object)
+        rows[:] = [{n: (_py(v[i]) if ok[i] else None)
+                    for n, (v, ok) in zip(self.names, kids)}
+                   for i in range(batch.num_rows)]
+        return rows, np.ones(batch.num_rows, dtype=bool)
+
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         kids = tuple(c.eval_device(batch) for c in self.children)
         return DeviceColumn(None, batch.row_mask(), self.data_type,
@@ -214,6 +265,15 @@ class GetStructField(Expression):
     def with_children(self, children):
         return GetStructField(children[0], self.field_name)
 
+    def eval_host(self, batch):
+        v, ok = self.children[0].eval_host(batch)
+        out = [x.get(self.field_name) if good and x is not None else None
+               for x, good in zip(v, ok)]
+        dt = self.data_type
+        return host_column([0 if x is None and fixed_width(dt) else x
+                            for x in out],
+                           np.array([x is not None for x in out], bool), dt)
+
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         s = self.children[0].eval_device(batch)
         kid = s.children[s.dtype.field_index(self.field_name)]
@@ -228,6 +288,11 @@ class GetStructField(Expression):
 
     def __str__(self) -> str:
         return f"{self.children[0]}.{self.field_name}"
+
+
+def _py(x):
+    """A host value as a Python one (a numpy scalar's ``item``)."""
+    return x.item() if isinstance(x, np.generic) else x
 
 
 def array(*elements) -> CreateArray:

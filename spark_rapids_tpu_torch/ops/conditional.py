@@ -17,14 +17,30 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import types as T
 from ..data.batch import ColumnarBatch
 from ..data.column import DeviceColumn, dictionary_column
-from .expression import Expression, make_column
+from .expression import Expression, host_column, make_column
 from .kernels.rowops import merged_dictionary_codes
 from .strings_util import select_rows
+
+
+def host_choose(pairs, choice: np.ndarray, dtype: T.DataType):
+    """Row i of ``pairs[choice[i]]`` (host ``(values, validity)``; a
+    choice of -1 gives null)."""
+    n = len(choice)
+    vals = np.empty(n, dtype=object)
+    valid = np.zeros(n, dtype=bool)
+    for k, (v, ok) in enumerate(pairs):
+        pick = choice == k
+        vals[pick] = np.asarray(v, dtype=object)[pick]
+        valid[pick] = np.asarray(ok, dtype=bool)[pick]
+    if dtype.np_dtype is not None and dtype.np_dtype != object:
+        vals = np.where(valid, vals, 0)
+    return host_column(vals, valid, dtype)
 
 
 def choose_strings(cols: Sequence[DeviceColumn], choice: torch.Tensor,
@@ -57,6 +73,11 @@ class If(Expression):
 
     def with_children(self, children):
         return If(*children)
+
+    def eval_host(self, batch):
+        (pv, pok), t, f = (c.eval_host(batch) for c in self.children)
+        take_true = np.asarray(pv, bool) & pok
+        return host_choose([t, f], np.where(take_true, 0, 1), self.data_type)
 
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         p, t, f = (c.eval_device(batch) for c in self.children)
@@ -94,6 +115,20 @@ class CaseWhen(Expression):
         branches = [(children[2 * i], children[2 * i + 1]) for i in range(n)]
         else_v = children[2 * n] if self.else_value is not None else None
         return CaseWhen(branches, else_v)
+
+    def eval_host(self, batch):
+        n = len(self.branches)
+        choice = np.full(batch.num_rows, -1, dtype=np.int64)
+        pairs = []
+        for k, (c, v) in enumerate(self.branches):
+            cv, cok = c.eval_host(batch)
+            hit = (choice < 0) & np.asarray(cv, bool) & cok
+            choice[hit] = k
+            pairs.append(v.eval_host(batch))
+        if self.else_value is not None:
+            pairs.append(self.else_value.eval_host(batch))
+            choice[choice < 0] = n
+        return host_choose(pairs, choice, self.data_type)
 
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         n = len(self.branches)
@@ -134,6 +169,13 @@ class Coalesce(Expression):
     def with_children(self, children):
         return Coalesce(*children)
 
+    def eval_host(self, batch):
+        pairs = [c.eval_host(batch) for c in self.children]
+        choice = np.full(batch.num_rows, -1, dtype=np.int64)
+        for k, (_, ok) in enumerate(pairs):
+            choice[(choice < 0) & ok] = k
+        return host_choose(pairs, choice, self.data_type)
+
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         cols = [c.eval_device(batch) for c in self.children]
         choice = torch.zeros(batch.capacity, dtype=torch.int64,
@@ -171,3 +213,9 @@ class NaNvl(Expression):
         data = torch.where(isnan, r.data.to(l.data.dtype), l.data)
         validity = torch.where(isnan, r.validity, l.validity)
         return make_column(data, validity, self.data_type)
+
+    def eval_host(self, batch):
+        (lv, lok), (rv, rok) = (c.eval_host(batch) for c in self.children)
+        isnan = np.isnan(np.asarray(lv, dtype=np.float64)) & lok
+        return host_column(np.where(isnan, rv, lv),
+                           np.where(isnan, rok, lok), self.data_type)

@@ -7,20 +7,39 @@ a :class:`DeviceColumn`. Null semantics follow Spark: most operators
 propagate null if any input is null, and data under a null is forced to
 zero so padded lanes never affect results (``make_column``).
 
-The reference also evaluates every expression on the host with pyarrow
-as its CPU oracle; the port has no pyarrow, and its tests hold it
-against the reference package instead.
+``eval_host(batch)`` evaluates it over a :class:`HostBatch` on the host
+and returns ``(values, validity)`` as numpy arrays (strings, arrays and
+structs as object arrays): the host side of the plan rewrite, which the
+CPU operators (``plan/physical.py``) run for a node the device cannot
+take, and the whole plan with ``spark.rapids.sql.enabled`` off. The
+reference's host side is pyarrow compute (``ops/expression.py:58``); the
+port's reuses the device code where it can. A fixed-width unary or binary operator (arithmetic, bitwise, date parts,
+math) runs its ``do_device`` over its children's host values as CPU
+tensors. The predicates, conditionals, casts, arrays, structs and most
+string functions have their own ``eval_host`` (numpy, or per-row Python
+over each row's UTF-8 bytes), including where no device kernel exists
+(``split``, a float's text, arrays of strings, regular expressions,
+``rand``). The rest (``Like``, ``Substring``, the pads, ``reverse``, the
+string parsers and date formats, the time patterns) evaluate their
+device path over the batch's columns uploaded to CPU tensors
+(:func:`host_via_device`), so their host answers are their device
+answers byte for byte (a pad or a substring may cut a character). None
+of these paths touches the card.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import types as T
-from ..data.batch import ColumnarBatch
+from ..data.batch import ColumnarBatch, HostBatch
 from ..data.column import DeviceColumn, scalar_column
+
+#: ``(values, validity)`` of one host column
+HostValues = Tuple[np.ndarray, np.ndarray]
 
 
 class Expression:
@@ -42,6 +61,12 @@ class Expression:
 
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         raise NotImplementedError(type(self).__name__)
+
+    def eval_host(self, batch: HostBatch) -> HostValues:
+        """``(values, validity)`` over ``batch``'s rows on the host. A
+        class without a host kernel of its own runs its device path over
+        CPU tensors (:func:`host_via_device`)."""
+        return host_via_device(self, batch)
 
     def transform(self, fn) -> "Expression":
         """Bottom-up rewrite; ``fn`` returns a replacement or None."""
@@ -110,6 +135,9 @@ class AttributeReference(Expression):
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         return batch.column(self._name)
 
+    def eval_host(self, batch: HostBatch) -> HostValues:
+        return batch.columns[self._name], batch.validity[self._name]
+
     def __str__(self) -> str:
         return self._name
 
@@ -133,6 +161,9 @@ class BoundReference(Expression):
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         return batch.columns[self.ordinal]
 
+    def eval_host(self, batch: HostBatch) -> HostValues:
+        return batch.column_at(self.ordinal)
+
     def __str__(self) -> str:
         return f"input[{self.ordinal}]"
 
@@ -153,6 +184,9 @@ class Literal(Expression):
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         return scalar_column(self.value, self._dtype, batch.capacity,
                              batch.row_mask())
+
+    def eval_host(self, batch: HostBatch) -> HostValues:
+        return host_constant(self.value, self._dtype, batch.num_rows)
 
     def __str__(self) -> str:
         return repr(self.value)
@@ -201,6 +235,9 @@ class Alias(Expression):
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         return self.child.eval_device(batch)
 
+    def eval_host(self, batch: HostBatch) -> HostValues:
+        return self.child.eval_host(batch)
+
     def __str__(self) -> str:
         return f"{self.child} AS {self._alias}"
 
@@ -219,6 +256,84 @@ def make_column(data: torch.Tensor, validity: torch.Tensor,
     data = torch.where(validity, data, torch.zeros((), dtype=data.dtype,
                                                    device=data.device))
     return DeviceColumn(data, validity, dtype)
+
+
+def host_constant(value, dtype: T.DataType, n: int) -> HostValues:
+    """``n`` rows of one value (``None``: null) on the host."""
+    valid = np.full(n, value is not None, dtype=bool)
+    if not fixed_width(dtype):
+        vals = np.empty(n, dtype=object)
+        vals[:] = [value] * n
+        return vals, valid
+    return np.full(n, 0 if value is None else value,
+                   dtype=dtype.np_dtype), valid
+
+
+def host_column(values, validity: np.ndarray, dtype: T.DataType
+                ) -> HostValues:
+    """A host column with the null-data-is-zero invariant (``None``
+    under a null of an object column)."""
+    validity = np.asarray(validity, dtype=bool)
+    if not fixed_width(dtype):
+        if isinstance(values, np.ndarray) and values.dtype == object \
+                and values.ndim == 1:
+            out = values.copy()
+        else:
+            out = np.empty(len(validity), dtype=object)
+            out[:] = list(values)
+        out[~validity] = None
+        return out, validity
+    values = np.asarray(values).astype(dtype.np_dtype, copy=False)
+    return np.where(validity, values, np.zeros((), dtype.np_dtype)), \
+        validity
+
+
+def fixed_width(dt: T.DataType) -> bool:
+    """Whether host values of ``dt`` are a numpy number or bool lane."""
+    return dt.np_dtype is not None and dt.np_dtype != object \
+        and not T.is_complex(dt)
+
+
+def _lane(values: np.ndarray, validity: np.ndarray,
+          dt: T.DataType) -> torch.Tensor:
+    """Host ``values`` as a CPU tensor of ``dt``'s type, zero under a
+    null (the device's null-data-is-zero invariant)."""
+    return torch.from_numpy(np.ascontiguousarray(np.where(
+        validity, values, np.zeros((), values.dtype)).astype(
+            dt.np_dtype, copy=False)))
+
+
+def _from_host(data: torch.Tensor, extra_null: Optional[torch.Tensor],
+               validity: np.ndarray, dtype: T.DataType) -> HostValues:
+    if extra_null is not None:
+        validity = validity & ~extra_null.numpy()
+    return host_column(data.to(dtype.torch_dtype).numpy(), validity, dtype)
+
+
+def _cpu_batch(batch: HostBatch) -> ColumnarBatch:
+    """``batch``'s columns as CPU tensors, made once a batch."""
+    cached = batch.__dict__.get("_cpu_batch")
+    if cached is None:
+        from ..data.batch import _column_to_device
+        from ..data.column import bucket_capacity
+        cpu = torch.device("cpu")
+        cap = bucket_capacity(max(batch.num_rows, 1))
+        cols = [_column_to_device(*batch.column_at(i), f.data_type, cap, cpu)
+                for i, f in enumerate(batch.schema)]
+        cached = ColumnarBatch(tuple(cols), torch.tensor(
+            batch.num_rows, dtype=torch.int64), batch.schema)
+        batch.__dict__["_cpu_batch"] = cached
+    return cached
+
+
+def host_via_device(expr: "Expression", batch: HostBatch) -> HostValues:
+    """``expr``'s device path over ``batch`` uploaded to CPU tensors, its
+    result read back: the host kernel of a class that has none of its
+    own (the plain PyTorch versions run; nothing touches the card)."""
+    from ..data.batch import _host_values
+    col = expr.eval_device(_cpu_batch(batch))
+    vals, ok = _host_values(col, slice(0, batch.num_rows))
+    return host_column(vals, ok, expr.data_type)
 
 
 class UnaryExpression(Expression):
@@ -240,6 +355,18 @@ class UnaryExpression(Expression):
         validity = c.validity if extra_null is None \
             else c.validity & ~extra_null
         return make_column(data, validity, self.data_type)
+
+    def eval_host(self, batch: HostBatch) -> HostValues:
+        """``do_device`` over the child's host values as CPU tensors, when
+        both types are fixed-width and the class keeps the base
+        ``eval_device``; else the device path on CPU tensors."""
+        if type(self).eval_device is not UnaryExpression.eval_device or \
+                not (fixed_width(self.child.data_type)
+                     and fixed_width(self.data_type)):
+            return host_via_device(self, batch)
+        v, ok = self.child.eval_host(batch)
+        data, extra = self.do_device(_lane(v, ok, self.child.data_type))
+        return _from_host(data, extra, ok, self.data_type)
 
     def do_device(self, data: torch.Tensor):
         """Return (result_data, extra_null_mask_or_None)."""
@@ -271,6 +398,20 @@ class BinaryExpression(Expression):
         if extra_null is not None:
             validity = validity & ~extra_null
         return make_column(data, validity, self.data_type)
+
+    def eval_host(self, batch: HostBatch) -> HostValues:
+        """``do_device`` over both children's host values as CPU tensors,
+        when every type is fixed-width and the class keeps the base
+        ``eval_device``; else the device path on CPU tensors."""
+        lt, rt = self.left.data_type, self.right.data_type
+        if type(self).eval_device is not BinaryExpression.eval_device or \
+                not (fixed_width(lt) and fixed_width(rt)
+                     and fixed_width(self.data_type)):
+            return host_via_device(self, batch)
+        lv, lok = self.left.eval_host(batch)
+        rv, rok = self.right.eval_host(batch)
+        data, extra = self.do_device(_lane(lv, lok, lt), _lane(rv, rok, rt))
+        return _from_host(data, extra, lok & rok, self.data_type)
 
     def do_device(self, l: torch.Tensor, r: torch.Tensor):
         """Return (result_data, extra_null_mask_or_None)."""

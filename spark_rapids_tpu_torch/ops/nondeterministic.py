@@ -25,12 +25,14 @@ from __future__ import annotations
 
 import threading
 
+import numpy as np
+
 import torch
 
 from .. import types as T
 from ..data.batch import ColumnarBatch
 from ..data.column import DeviceColumn, scalar_column
-from .expression import Expression, make_column
+from .expression import Expression, host_constant, make_column
 
 _CTX = threading.local()
 _U64 = (1 << 64) - 1
@@ -93,6 +95,23 @@ class Rand(Expression):
         return (self.seed * 0x9E3779B97F4A7C15
                 + partition_id * 0xD1B54A32D192ED03) & _U64
 
+    def bits_np(self, n: int) -> np.ndarray:
+        """The counter's uint64 bits of ``n`` rows from the context's
+        row offset, in numpy's wrapping uint64 arithmetic (the
+        reference's ``_bits_np``)."""
+        ctx = _current()
+        x = np.arange(n, dtype=np.uint64) + np.uint64(int(ctx.row_base))
+        x ^= np.uint64(self._salt(ctx.partition_id))
+        with np.errstate(over="ignore"):
+            x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+            x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return x ^ (x >> np.uint64(31))
+
+    def eval_host(self, batch):
+        bits = self.bits_np(batch.num_rows)
+        vals = (bits >> np.uint64(11)).astype(np.float64) / float(1 << 53)
+        return vals, np.ones(batch.num_rows, dtype=bool)
+
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         ctx = _current()
         live = batch.row_mask()
@@ -126,6 +145,10 @@ class SparkPartitionID(Expression):
     def with_children(self, children):
         return SparkPartitionID()
 
+    def eval_host(self, batch):
+        return np.full(batch.num_rows, _current().partition_id, np.int32), \
+            np.ones(batch.num_rows, dtype=bool)
+
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         live = batch.row_mask()
         data = torch.full((batch.capacity,), _current().partition_id,
@@ -153,6 +176,12 @@ class MonotonicallyIncreasingID(Expression):
 
     def with_children(self, children):
         return MonotonicallyIncreasingID()
+
+    def eval_host(self, batch):
+        ctx = _current()
+        base = (ctx.partition_id << 33) + int(ctx.row_base)
+        return base + np.arange(batch.num_rows, dtype=np.int64), \
+            np.ones(batch.num_rows, dtype=bool)
 
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         ctx = _current()
@@ -195,6 +224,9 @@ class _InputFileExpr(Expression):
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         return scalar_column(self.NO_FILE, self.data_type, batch.capacity,
                              batch.row_mask())
+
+    def eval_host(self, batch):
+        return host_constant(self.NO_FILE, self.data_type, batch.num_rows)
 
     def __str__(self) -> str:
         return f"{type(self).__name__.lower()}()"

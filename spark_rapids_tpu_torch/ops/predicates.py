@@ -31,7 +31,8 @@ import torch
 from .. import types as T
 from ..data.batch import ColumnarBatch
 from ..data.column import DeviceColumn, device_constant
-from .expression import BinaryExpression, Expression, make_column
+from .expression import (BinaryExpression, Expression, fixed_width,
+                         host_column, make_column)
 from .strings_util import PAD, char_matrix, lift_dict, rows_equal
 
 #: Entry-pair product above which a dictionary comparison is refused.
@@ -85,6 +86,21 @@ class Comparison(BinaryExpression):
             data = self.op(l.data, r.data)
         return make_column(data, validity, T.BOOLEAN)
 
+    def eval_host(self, batch):
+        """numpy's comparison of the host values (IEEE for floats, as
+        the device's; strings by code point, which is UTF-8 byte
+        order)."""
+        lv, lok = self.left.eval_host(batch)
+        rv, rok = self.right.eval_host(batch)
+        ok = lok & rok
+        if fixed_width(self.left.data_type) and \
+                fixed_width(self.right.data_type):
+            data = self.op(np.asarray(lv), np.asarray(rv))
+        else:
+            data = np.array([bool(self.op(a, b)) if good else False
+                             for a, b, good in zip(lv, rv, ok)], dtype=bool)
+        return host_column(data, ok, T.BOOLEAN)
+
 
 class EqualTo(Comparison):
     op = staticmethod(operator.eq)
@@ -125,6 +141,14 @@ class And(BinaryExpression):
         validity = (l.validity & r.validity) | known_false
         return make_column(data, validity, T.BOOLEAN)
 
+    def eval_host(self, batch):
+        lv, lok = self.left.eval_host(batch)
+        rv, rok = self.right.eval_host(batch)
+        lv, rv = np.asarray(lv, bool), np.asarray(rv, bool)
+        known_false = (lok & ~lv) | (rok & ~rv)
+        return host_column(lv & rv & lok & rok,
+                           (lok & rok) | known_false, T.BOOLEAN)
+
 
 class Or(BinaryExpression):
     """Kleene OR: true wins over null."""
@@ -139,6 +163,13 @@ class Or(BinaryExpression):
         known_true = (l.validity & l.data) | (r.validity & r.data)
         validity = (l.validity & r.validity) | known_true
         return make_column(known_true, validity, T.BOOLEAN)
+
+    def eval_host(self, batch):
+        lv, lok = self.left.eval_host(batch)
+        rv, rok = self.right.eval_host(batch)
+        known_true = (lok & np.asarray(lv, bool)) | \
+            (rok & np.asarray(rv, bool))
+        return host_column(known_true, (lok & rok) | known_true, T.BOOLEAN)
 
 
 class Not(Expression):
@@ -155,6 +186,10 @@ class Not(Expression):
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         c = self.children[0].eval_device(batch)
         return make_column(~c.data, c.validity, T.BOOLEAN)
+
+    def eval_host(self, batch):
+        v, ok = self.children[0].eval_host(batch)
+        return host_column(~np.asarray(v, bool), ok, T.BOOLEAN)
 
 
 class IsNull(Expression):
@@ -176,6 +211,12 @@ class IsNull(Expression):
         c = self.children[0].eval_device(batch)
         live = batch.row_mask()
         return make_column(~c.validity & live, live, T.BOOLEAN)
+
+    def eval_host(self, batch):
+        _, ok = self.children[0].eval_host(batch)
+        ok = np.asarray(ok, dtype=bool)
+        return (ok if isinstance(self, IsNotNull) else ~ok), \
+            np.ones(len(ok), dtype=bool)
 
 
 class IsNotNull(IsNull):
@@ -226,6 +267,19 @@ class In(Expression):
         validity = c.validity & (found | (not has_null))
         return make_column(found, validity, T.BOOLEAN)
 
+    def eval_host(self, batch):
+        v, ok = self.children[0].eval_host(batch)
+        non_null = [x for x in self.values if x is not None]
+        if fixed_width(self.children[0].data_type):
+            found = np.isin(np.asarray(v), non_null) if non_null \
+                else np.zeros(len(ok), bool)
+        else:
+            wanted = {str(x) for x in non_null}
+            found = np.array([good and str(x) in wanted
+                              for x, good in zip(v, ok)], dtype=bool)
+        has_null = len(non_null) != len(self.values)
+        return host_column(found, ok & (found | (not has_null)), T.BOOLEAN)
+
 
 class EqualNullSafe(BinaryExpression):
     """``a <=> b``: equality where two nulls are equal and a null and a
@@ -254,6 +308,17 @@ class EqualNullSafe(BinaryExpression):
         data = torch.where(both_valid, eq, both_null) & live
         return DeviceColumn(data, live, T.BOOLEAN)
 
+    def eval_host(self, batch):
+        lv, lok = self.left.eval_host(batch)
+        rv, rok = self.right.eval_host(batch)
+        if fixed_width(self.left.data_type) and \
+                fixed_width(self.right.data_type):
+            eq = np.asarray(lv) == np.asarray(rv)
+        else:
+            eq = np.array([a == b for a, b in zip(lv, rv)], dtype=bool)
+        data = np.where(lok & rok, eq, ~lok & ~rok)
+        return data, np.ones(len(data), dtype=bool)
+
 
 class IsNaN(Expression):
     """``isnan(x)``: true for a NaN, false otherwise and for a null."""
@@ -277,6 +342,11 @@ class IsNaN(Expression):
         live = batch.row_mask()
         return DeviceColumn(torch.isnan(c.data) & c.validity & live, live,
                             T.BOOLEAN)
+
+    def eval_host(self, batch):
+        v, ok = self.children[0].eval_host(batch)
+        return np.isnan(np.asarray(v, dtype=np.float64)) & ok, \
+            np.ones(len(ok), dtype=bool)
 
 
 class AtLeastNNonNulls(Expression):
@@ -305,3 +375,8 @@ class AtLeastNNonNulls(Expression):
         for c in self.children:
             count = count + c.eval_device(batch).validity.to(torch.int32)
         return make_column(count >= self.n, batch.row_mask(), T.BOOLEAN)
+
+    def eval_host(self, batch):
+        count = sum(np.asarray(c.eval_host(batch)[1], dtype=np.int64)
+                    for c in self.children)
+        return np.asarray(count >= self.n), np.ones(batch.num_rows, bool)

@@ -23,7 +23,7 @@ import torch
 from .. import types as T
 from ..data.batch import ColumnarBatch
 from ..data.column import DeviceColumn, device_constant, string_max_bytes
-from .expression import Expression, Literal, make_column
+from .expression import Expression, Literal, host_column, make_column
 from .kernels.rowops import strings_from_matrix
 from .strings_util import (PAD, byte_stream, char_matrix, flat_column,
                            lengths, lift_dict, map_string_column,
@@ -92,6 +92,11 @@ class _FixMatch(Expression):
     def with_children(self, children):
         return type(self)(children[0], self.needle)
 
+    def eval_host(self, batch):
+        raw = self.needle.encode()
+        return host_strings(lambda b: self.host_match(b, raw), batch,
+                            self.children[0], T.BOOLEAN)
+
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         c = self.children[0].eval_device(batch)
         raw = self.needle.encode()
@@ -138,6 +143,10 @@ class StartsWith(_FixMatch):
     are the needle's. A flat column reads the needle's ``k`` bytes at
     each row's offset, with the row's length at least ``k``."""
 
+    @staticmethod
+    def host_match(b: bytes, raw: bytes) -> bool:
+        return b.startswith(raw)
+
     def match_matrix(self, m, lengths, needle):
         return (m[:, :needle.shape[0]] == needle[None, :]).all(1)
 
@@ -150,6 +159,10 @@ class EndsWith(_FixMatch):
     """``endswith(str, needle)``: true where the string's last bytes are
     the needle's. A flat column reads the needle's ``k`` bytes at each
     row's end minus ``k``."""
+
+    @staticmethod
+    def host_match(b: bytes, raw: bytes) -> bool:
+        return b.endswith(raw)
 
     def match_matrix(self, m, lengths, needle):
         k = needle.shape[0]
@@ -171,6 +184,10 @@ class Contains(_FixMatch):
     when a mark lies in ``[start, end - k]`` (a match that runs into the
     next row's bytes does not count), which a prefix sum of the marks
     read at the offsets gives."""
+
+    @staticmethod
+    def host_match(b: bytes, raw: bytes) -> bool:
+        return raw in b
 
     def match_matrix(self, m, lengths, needle):
         k = needle.shape[0]
@@ -344,6 +361,21 @@ class Like(Expression):
 # --------------------------------------------------------------------------
 
 
+def host_strings(fn, batch, child: Expression, dtype: T.DataType):
+    """``fn`` over each valid row's UTF-8 bytes of ``child`` on the host
+    (the device's byte semantics): a ``bytes`` result decodes back to a
+    string, any other is kept as it is."""
+    v, ok = child.eval_host(batch)
+    out = [None] * len(ok)
+    for i, (x, good) in enumerate(zip(v, ok)):
+        if good:
+            r = fn(str(x).encode("utf-8"))
+            out[i] = r.decode("utf-8") if isinstance(r, bytes) else r
+    if dtype is T.STRING:
+        return host_column(out, ok, dtype)
+    return host_column([0 if x is None else x for x in out], ok, dtype)
+
+
 class _StringUnary(Expression):
     """One string child."""
 
@@ -369,6 +401,9 @@ class Length(_StringUnary):
     def data_type(self) -> T.DataType:
         return T.INT
 
+    def eval_host(self, batch):
+        return host_strings(len, batch, self.child, T.INT)
+
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         c = self.child.eval_device(batch)
         return make_column(lengths(c), c.validity, T.INT)
@@ -391,6 +426,12 @@ class _CaseMap(_StringUnary):
                                 max_bytes=col.max_bytes)
         return map_string_column(self.child.eval_device(batch), xform)
 
+    def eval_host(self, batch):
+        table = bytes((b + self.delta) if self.lo <= b <= self.hi else b
+                      for b in range(256))
+        return host_strings(lambda b: b.translate(table), batch, self.child,
+                            T.STRING)
+
 
 class Upper(_CaseMap):
     lo, hi, delta = ord("a"), ord("z"), -32
@@ -411,6 +452,13 @@ class ConcatStrings(Expression):
     @property
     def data_type(self) -> T.DataType:
         return T.STRING
+
+    def eval_host(self, batch):
+        parts = [c.eval_host(batch) for c in self.children]
+        ok = np.logical_and.reduce([p[1] for p in parts])
+        out = ["".join(str(v[i]) for v, _ in parts) if good else None
+               for i, good in enumerate(ok)]
+        return host_column(out, ok, T.STRING)
 
     def with_children(self, children):
         return ConcatStrings(*children)
@@ -466,6 +514,14 @@ class _Trim(_StringUnary):
             return flat_column(out_len, col.validity, lambda r, k: read_bytes(
                 payload, starts[r] + lo[r] + k))
         return map_string_column(self.child.eval_device(batch), xform)
+
+
+    def eval_host(self, batch):
+        def trim(b):
+            if self.trim_left and self.trim_right:
+                return b.strip(b" ")
+            return b.lstrip(b" ") if self.trim_left else b.rstrip(b" ")
+        return host_strings(trim, batch, self.child, T.STRING)
 
 
 class StringTrim(_Trim):

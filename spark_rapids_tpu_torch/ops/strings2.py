@@ -2,9 +2,9 @@
 ``StringReplace``, ``RegExpReplace`` (literal patterns only,
 lowered to a replace as in the reference), ``LPad``, ``RPad``,
 ``StringLocate``, ``InitCap``, ``SubstringIndex``, ``Reverse`` and
-``StringRepeat``; ``StringSplit`` plans nowhere, since its ARRAY<STRING>
-result has no device layout (arrays hold fixed-width elements) and the
-reference evaluates it on its host path. Byte semantics, as the reference's device path
+``StringRepeat``; ``StringSplit`` evaluates on the host only, since its
+ARRAY<STRING> result has no device layout (arrays hold fixed-width
+elements), as the reference's does. Byte semantics, as the reference's device path
 (``Reverse`` reverses bytes; ``InitCap`` maps ASCII letters).
 
 Every function works from the column's own layout, with no char matrix:
@@ -28,6 +28,7 @@ from .. import types as T
 from ..data.batch import ColumnarBatch
 from ..data.column import DeviceColumn, device_constant
 from .expression import Expression, make_column
+from .strings import host_strings
 from .strings_util import (byte_stream, entries_column, flat_column,
                            map_string_column, read_bytes, row_layout)
 
@@ -109,6 +110,18 @@ class _StringFn(Expression):
         return map_string_column(self.children[0].eval_device(batch),
                                  self.xform)
 
+    def eval_host(self, batch):
+        """Each row's bytes through :meth:`host_bytes`, where the class
+        has it (its result stays valid UTF-8); else the device path over
+        CPU tensors (the pads and ``reverse`` may cut a character)."""
+        if type(self).host_bytes is _StringFn.host_bytes:
+            return super().eval_host(batch)
+        return host_strings(self.host_bytes, batch, self.children[0],
+                            T.STRING)
+
+    def host_bytes(self, b: bytes) -> bytes:
+        raise NotImplementedError
+
     def xform(self, col: DeviceColumn) -> DeviceColumn:
         raise NotImplementedError
 
@@ -119,6 +132,10 @@ class StringReplace(_StringFn):
     empty ``search`` changes nothing."""
 
     args = ("search", "replace")
+
+    def host_bytes(self, b):
+        search = self.search.encode()
+        return b.replace(search, self.replace.encode()) if search else b
 
     def xform(self, col):
         search, rep = self.search.encode(), self.replace.encode()
@@ -156,6 +173,17 @@ class RegExpReplace(_StringFn):
     @property
     def is_literal_pattern(self) -> bool:
         return not self._META.search(self.pattern)
+
+    def eval_host(self, batch):
+        """Every match of the regular expression replaced in each row
+        (the reference's host path, ``pc.replace_substring_regex``;
+        Python's ``re`` here)."""
+        v, ok = self.children[0].eval_host(batch)
+        rx = re.compile(self.pattern)
+        out = np.empty(len(ok), dtype=object)
+        out[:] = [rx.sub(self.replacement, str(x)) if good else None
+                  for x, good in zip(v, ok)]
+        return out, np.asarray(ok, dtype=bool).copy()
 
     def eval_device(self, batch):
         if not self.is_literal_pattern:
@@ -227,6 +255,17 @@ class StringLocate(Expression):
     def with_children(self, children):
         return StringLocate(self.substr, children[0], self.pos)
 
+    def eval_host(self, batch):
+        needle = self.substr.encode()
+
+        def locate(b):
+            if self.pos < 1:
+                return 0
+            if not needle:
+                return self.pos
+            return b.find(needle, self.pos - 1) + 1
+        return host_strings(locate, batch, self.children[0], T.INT)
+
     def eval_device(self, batch):
         c = self.children[0].eval_device(batch)
         needle = self.substr.encode()
@@ -255,6 +294,16 @@ class InitCap(_StringFn):
     """``initcap``: an ASCII letter after a space (or first) upper case,
     every other ASCII letter lower case."""
 
+    def host_bytes(self, b):
+        out = bytearray(b)
+        for k, c in enumerate(out):
+            first = k == 0 or out[k - 1] == 32
+            if first and 97 <= c <= 122:
+                out[k] = c - 32
+            elif not first and 65 <= c <= 90:
+                out[k] = c + 32
+        return bytes(out)
+
     def xform(self, col):
         payload, starts, lens = row_layout(col)
 
@@ -280,6 +329,15 @@ class SubstringIndex(_StringFn):
 
     def __init__(self, child: Expression, delim: str, count: int):
         super().__init__(child, delim, int(count))
+
+    def host_bytes(self, b):
+        d = self.delim.encode()
+        if not d or self.count == 0:
+            return b""
+        parts = b.split(d)  # left to right, no overlap
+        if self.count > 0:
+            return d.join(parts[:self.count])
+        return d.join(parts[self.count:])
 
     def xform(self, col):
         payload, starts, lens, row, j, src = _stream(col)
@@ -327,6 +385,9 @@ class StringRepeat(_StringFn):
     def __init__(self, child: Expression, n: int):
         super().__init__(child, max(int(n), 0))
 
+    def host_bytes(self, b):
+        return b * self.n
+
     def xform(self, col):
         payload, starts, lens = row_layout(col)
         return flat_column(lens * self.n, col.validity,
@@ -337,14 +398,16 @@ class StringRepeat(_StringFn):
 
 class StringSplit(Expression):
     """``split(str, delimiter[, limit])``: its ARRAY<STRING> result has no
-    device layout, so the reference's rule sends it to the host path
-    (``plan/overrides.py:164-170``). The port has no host path: the
-    planner raises :attr:`REASON`, and so does evaluation."""
+    device layout, so the rule tags the operator that evaluates it to the
+    host (``plan/overrides.py``, the reference's ``:164-170``), where
+    :meth:`eval_host` splits each row (the reference's
+    ``ops/strings2.py:481``): ``limit > 0`` caps the element count, the
+    last element keeping the rest; otherwise the row splits fully,
+    trailing empty strings kept. The device path raises :attr:`REASON`."""
 
     REASON = ("ARRAY<STRING> has no device layout; split(str, delim) "
               "evaluates on the host path (the reference's "
-              "plan/overrides.py _string_split_tag), which the port does "
-              "not have")
+              "plan/overrides.py _string_split_tag)")
 
     def __init__(self, child: Expression, delimiter: str, limit: int = -1):
         self.children = [child]
@@ -364,6 +427,18 @@ class StringSplit(Expression):
 
     def __str__(self):
         return self.name
+
+    def eval_host(self, batch):
+        v, ok = self.children[0].eval_host(batch)
+        out = np.empty(batch.num_rows, dtype=object)
+        for i, (x, good) in enumerate(zip(v, ok)):
+            if not good or x is None:
+                out[i] = None
+            elif self.limit > 0:
+                out[i] = str(x).split(self.delimiter, self.limit - 1)
+            else:
+                out[i] = str(x).split(self.delimiter)
+        return out, np.asarray(ok, dtype=bool).copy()
 
     def eval_device(self, batch: ColumnarBatch) -> DeviceColumn:
         raise NotImplementedError(self.REASON)

@@ -8,13 +8,17 @@ BY`` / frame (:class:`WindowSpec`), the pyspark-style builder
 function over a spec. Evaluation is
 :class:`~..exec.window_exec.WindowExec`'s: one sort per batch, frame
 bounds as index arithmetic and binary searches, aggregates as prefix
-sums and sparse tables (:mod:`.kernels.window`).
+sums and sparse tables (:mod:`.kernels.window`). The host side, which
+the CPU window (``plan/physical.py CpuWindowExec``) runs row by row, is
+:func:`host_rank` and :func:`host_frame_value`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Optional, Sequence
+
+import math
 
 from .. import types as T
 from .aggregates import AggregateFunction, Average, Count, Max, Min, Sum
@@ -245,3 +249,43 @@ def over(func, window) -> WindowExpression:
     Window.partition_by("k").order_by("t"))``."""
     assert isinstance(func, WINDOW_AGG_TYPES + RANKING_TYPES), type(func)
     return WindowExpression(func, _spec_of(window))
+
+
+def host_rank(func, pos: int, peer_start: int, peer_group: int) -> int:
+    """A ranking function's value on the host at the 0-based position
+    ``pos`` of its sorted partition, whose peers (rows equal on the ORDER
+    BY) start at ``peer_start``, in the 0-based ``peer_group``-th run of
+    peers."""
+    if isinstance(func, RowNumber):
+        return pos + 1
+    if isinstance(func, Rank):
+        return peer_start + 1
+    return peer_group + 1
+
+
+def _nan_greatest(v):
+    return (1, 0.0) if isinstance(v, float) and math.isnan(v) else (0, v)
+
+
+def host_frame_value(func, values: list, n_rows: int):
+    """An aggregate window function on the host over its frame's ``n_rows``
+    rows, ``values`` their child values (None for a null; None for
+    ``count(*)``): the count of rows or of valid values, else None over
+    no valid value, a sum in the result's type, an average in double,
+    a min or max with NaN the greatest."""
+    if isinstance(func, Count):
+        return n_rows if values is None else \
+            sum(1 for v in values if v is not None)
+    fv = [v for v in values if v is not None]
+    if not fv:
+        return None
+    if isinstance(func, Sum):
+        total = sum(fv)
+        return float(total) if func.data_type is T.DOUBLE else int(total)
+    if isinstance(func, Average):
+        return float(sum(fv)) / len(fv)
+    if isinstance(func, Min):
+        return min(fv, key=_nan_greatest)
+    if isinstance(func, Max):
+        return max(fv, key=_nan_greatest)
+    raise NotImplementedError(type(func).__name__)

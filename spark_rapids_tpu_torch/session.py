@@ -86,6 +86,9 @@ from .ops.kernels import cuda as KCUDA
 from .parallel.mesh import Mesh, make_mesh
 from .plan import logical as L
 from .plan.input_file import rewrite_input_file_exprs
+from .plan.optimizer import prune_columns
+from .plan.overrides import TorchOverrides
+from .plan.physical import HostExec
 from .plan.planner import plan_physical
 from .compile.ladder import bucket_capacity
 from .utils import lockdep
@@ -200,6 +203,8 @@ class TorchSession:
         self._join_caps: Dict[tuple, Dict[int, int]] = {}
         self._mesh_capable: Dict[tuple, bool] = {}
         self.last_query: Optional[QueryInfo] = None
+        #: the explain text of the last plan (``spark.rapids.sql.explain``)
+        self.last_explain = ""
         self._profiles_lock = lockdep.lock("TorchSession._profiles_lock")
         self._profiles: Dict[int, QueryProfile] = {}
         self._query_seq = 0
@@ -250,11 +255,23 @@ class TorchSession:
                            self)
 
     def plan(self, logical: L.LogicalPlan) -> E.TorchExec:
-        """The device plan under the physical plan's
-        :class:`~.exec.execs.DeviceToHostExec` root, after the input-file
-        rewrite (:mod:`.plan.input_file`)."""
-        return plan_physical(rewrite_input_file_exprs(logical),
-                             self.conf).children[0]
+        """The executable plan of ``logical`` (the reference's
+        ``session.py:255``): the input-file rewrite
+        (:mod:`.plan.input_file`), column pruning (:mod:`.plan.
+        optimizer`), the CPU physical plan (:mod:`.plan.planner`), then
+        the overrides pass (:mod:`.plan.overrides`), which tags every
+        node, explains (``spark.rapids.sql.explain``; the text is also
+        :attr:`last_explain`), converts what the device can run and
+        inserts the transitions. A plan whose root runs on the device
+        comes back without its ``DeviceToHostExec`` root (the device
+        plan); otherwise its root is a CPU operator."""
+        overrides = TorchOverrides(self.conf)
+        cpu = plan_physical(prune_columns(rewrite_input_file_exprs(
+            logical)), self.conf)
+        root = overrides.apply(cpu)
+        self.last_explain = overrides.last_explain
+        return root.children[0] if isinstance(root, E.DeviceToHostExec) \
+            else root
 
     def explain(self, logical: L.LogicalPlan) -> str:
         return self.plan(logical).tree_string()
@@ -262,7 +279,7 @@ class TorchSession:
     def _signature(self, physical: E.TorchExec) -> tuple:
         """The plan's ``(tree_string, mesh)`` key: the learned modes' and
         the profile's ``plan_hash``."""
-        mesh = self.conf.get(MESH_ENABLED) and \
+        mesh = self.conf.get(MESH_ENABLED) and physical.columnar and \
             MX.mesh_capable(physical, self._mesh_capable)
         return (physical.tree_string(), bool(mesh))
 
@@ -392,7 +409,8 @@ class TorchSession:
                              path="single" if mesh is None else "mesh"), \
                         timing, dm.semaphore:
                     try:
-                        root = E.DeviceToHostExec(physical)
+                        root = physical if isinstance(physical, HostExec) \
+                            else E.DeviceToHostExec(physical)
                         if mesh is not None:
                             result, overflowed = MX.mesh_collect(
                                 physical, ctx, mesh, growth)

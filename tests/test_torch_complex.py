@@ -329,8 +329,10 @@ def test_array_topk():
 @pytest.mark.parametrize("what", ["group_by", "join", "sort", "distinct",
                                   "topk"])
 def test_array_keys_raise(what):
-    """An array grouping, join or sort key raises with the reference's
-    reason (its rule tags it off the device); nothing falls back."""
+    """An array grouping, join or sort key no longer raises: the
+    operator is tagged to the host with the reference's reason
+    (``overrides.py _no_complex_keys``) and its answer is the rows'
+    own (arrays ordered element by element, a null element first)."""
     pdf, _ = small()
     other = pdf.select(col("arr").alias("arr2"), col("k").alias("k2"))
     build = {
@@ -342,17 +344,47 @@ def test_array_keys_raise(what):
         "distinct": lambda: pdf.distinct(),
         "topk": lambda: pdf.sort(col("arr")).limit(3),
     }[what]
-    with pytest.raises(NotImplementedError, match="_no_complex_keys"):
-        build().collect()
+    session = pdf._session
+    session.set_conf("spark.rapids.sql.explain", "NOT_ON_TPU")
+    got = build().collect()
+    assert "is not supported on TPU" in session.last_explain
+    assert "_no_complex_keys" not in session.last_explain
+    rows = list(zip(*[[v if ok else None for v, ok in zip(*got.column_at(i))]
+                      for i in range(len(got.schema))]))
+    pairs = list(zip(KEYS, ARR))
+
+    def key(a):
+        return (a is not None, [(e is not None, e) for e in a or []])
+    if what == "group_by":
+        want = {}
+        for a in ARR:
+            t = None if a is None else tuple(a)
+            want[t] = want.get(t, 0) + 1
+        assert {(None if a is None else tuple(a)): n for a, n in rows} == want
+    elif what == "join":
+        want = sorted((k, k2) for k, a in pairs for k2, b in pairs
+                      if a is not None and b is not None and a == b)
+        assert sorted((r[0], r[3]) for r in rows) == want
+    elif what == "distinct":
+        assert sorted(rows, key=repr) == sorted(pairs, key=repr)
+    else:
+        order = [a for _, a in sorted(pairs, key=lambda p: key(p[1]))]
+        if what == "topk":
+            order = order[:3]
+        assert [list(r[1]) if r[1] is not None else None
+                for r in rows] == order
 
 
 def test_string_split_raises():
-    """``split`` gives ARRAY<STRING>, which has no device layout: the
-    reference sends it to the host path; the port raises its reason."""
-    session = TorchSession(device="cpu")
-    df = session.create_dataframe({"s": np.array(["a,b", "c"])})
-    with pytest.raises(NotImplementedError, match="ARRAY<STRING>"):
-        df.select(StringSplit(col("s"), ",").alias("parts")).collect()
+    """``split`` gives ARRAY<STRING>, which has no device layout: its
+    project runs on the host with the reference's reason, as the
+    reference sends it to its host path."""
+    session = TorchSession({"spark.rapids.sql.explain": "NOT_ON_TPU"},
+                           device="cpu")
+    df = session.create_dataframe({"s": np.array(["a,b", "c", ",x,"])})
+    got = df.select(StringSplit(col("s"), ",").alias("parts")).collect()
+    assert list(got.columns["parts"]) == [["a", "b"], ["c"], ["", "x", ""]]
+    assert "ARRAY<STRING> has no device layout" in session.last_explain
 
 
 def test_array_of_strings_raises():
@@ -449,11 +481,15 @@ def test_struct_union_merges_dictionaries():
 
 
 def test_struct_and_array_refuse_the_mesh():
+    """A plan that carries a struct or an array column stays off the
+    mesh (a projection of plain columns over a table plans as a source
+    of those columns, so the complex column is selected too)."""
     pdf, _ = struct_frames()
     session = pdf._session
-    assert not MX.mesh_capable(session.plan(pdf.select(col("k"))._plan))
     assert not MX.mesh_capable(session.plan(
-        small()[0].select(col("k"))._plan))
+        pdf.select(col("k"), col("st"))._plan))
+    assert not MX.mesh_capable(session.plan(
+        small()[0].select(col("k"), col("arr"))._plan))
 
 
 # --------------------------------------------------------------------------

@@ -1406,3 +1406,59 @@ def test_cuda_capture_keeps_the_constants_it_read(cuda_device):
     assert prog.last["action"] == "replay"
     np.testing.assert_array_equal(got, want)
     del junk
+
+
+@pytest.mark.cuda
+def test_cuda_host_project_between_device_execs(cuda_device):
+    """A plan with a host project (a float to string cast, which no
+    device kernel gives) between a device filter and a device aggregate,
+    on CUDA tensors: its answer equals the host-only session's, both
+    transitions carry rows, and ``torch.cuda.memory_allocated`` comes
+    back to within one batch of where it started."""
+    import gc
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.ops import aggregates as A
+    from spark_rapids_tpu_torch.ops import cast as CA
+    from spark_rapids_tpu_torch.ops import predicates as P
+    from spark_rapids_tpu_torch.ops.expression import col, lit
+    from spark_rapids_tpu_torch.plan.overrides import host_nodes
+    from spark_rapids_tpu_torch.plan.logical import DataFrame
+    from spark_rapids_tpu_torch.session import TorchSession
+    n = 1 << 18
+    rng = np.random.default_rng(3)
+    data = {"k": rng.integers(0, 50, n),
+            "x": np.round(rng.normal(0, 100, n), 1)}
+    s = TorchSession({"spark.rapids.tpu.uploadCache.maxBytes": 0},
+                     device="cuda")
+    off = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
+
+    def query(df):
+        return (df.where(P.GreaterThan(col("k"), lit(10)))
+                .select(col("k"), CA.Cast(col("x"), T.STRING).alias("t"))
+                .group_by(col("t")).agg(
+                    A.AggregateExpression(A.Count(), "n"),
+                    A.AggregateExpression(A.Sum(col("k")), "sk")))
+    df = s.create_dataframe(data)
+    plan = s.plan(query(df)._plan)
+    assert host_nodes(plan) == ["CpuProjectExec"] and plan.columnar
+    query(df).collect()  # warm
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    got = query(df).collect()
+    info = s.last_query
+    del plan
+    gc.collect()
+    torch.cuda.synchronize()
+    want = query(DataFrame(off.create_dataframe(data)._plan, off)).collect()
+
+    def rows(hb):
+        return sorted(zip(hb.columns["t"].tolist(), hb.columns["n"].tolist(),
+                          hb.columns["sk"].tolist()))
+    assert rows(got) == rows(want)
+    assert info.counters["DeviceToHost.rows"] == int((data["k"] > 10).sum())
+    assert info.counters["HostToDevice.rows"] == \
+        info.counters["DeviceToHost.rows"]
+    batch_bytes = n * (8 + 8 + 1 + 1)
+    assert torch.cuda.memory_allocated(cuda_device) <= base + batch_bytes, \
+        (torch.cuda.memory_allocated(cuda_device), base)

@@ -75,6 +75,16 @@ def _ref_session(device: bool = True):
                        "spark.rapids.sql.variableFloatAgg.enabled": True})
 
 
+def _nullable(data, valid, name) -> list:
+    ok = valid.get(name, np.ones(len(data[name]), bool))
+    return [v.item() if good else None for v, good in zip(data[name], ok)]
+
+
+def host_nodes_of(session, df) -> list:
+    from spark_rapids_tpu_torch.plan.overrides import host_nodes
+    return host_nodes(session.plan(df._plan))
+
+
 def _port_rows(hb) -> dict:
     return {n: [(v.item() if hasattr(v, "item") else v) if ok else None
                 for v, ok in zip(hb.columns[n], hb.validity[n])]
@@ -315,8 +325,21 @@ def test_outer_join_with_a_residual_raises(how):
         _port_df(session, build, bvalid),
         on=P.And(P.EqualTo(col("pk"), col("bk")),
                  P.LessThan(col("a"), col("b"))), how=how)
-    with pytest.raises(NotImplementedError, match=f"non-equi {how} outer"):
-        df.collect()
+    # the residual applies while rows pair: the host's equi join now,
+    # held against the pairs by brute force
+    got = _port_rows(df.collect())
+    pk, a = _nullable(probe, pvalid, "pk"), probe["a"].tolist()
+    bk, b = _nullable(build, bvalid, "bk"), build["b"].tolist()
+    pairs = [(i, j) for i in range(len(pk)) for j in range(len(bk))
+             if pk[i] is not None and pk[i] == bk[j] and a[i] < b[j]]
+    rows = [(a[i], b[j]) for i, j in pairs]
+    hit_b = {j for _, j in pairs}
+    rows += [(None, b[j]) for j in range(len(bk)) if j not in hit_b]
+    if how == "full":
+        hit_p = {i for i, _ in pairs}
+        rows += [(a[i], None) for i in range(len(pk)) if i not in hit_p]
+    assert sorted(zip(got["a"], got["b"]), key=repr) == sorted(rows, key=repr)
+    assert any(n == "CpuJoinExec" for n in host_nodes_of(session, df))
     with pytest.raises(NotImplementedError, match=f"non-equi {how} outer"):
         _port_df(session, probe, pvalid).join(
             _port_df(session, build, bvalid),
