@@ -225,6 +225,24 @@ Phases; each one passes or the script exits non-zero:
    host-operator against device ms and the kernel families launched.
    ``PLAN_SWEEP`` plans every query of phase 3 (over 2^14-row tables) in
    test mode under the sessions' confs: 0 host nodes;
+   The **IO phase** (after the fallback phase; ``run_io_phase``) writes
+   the columns Q1, Q3 and Q6 read of SF1 lineitem, orders and customer
+   with ``df.write.mode("overwrite")`` as parquet (SNAPPY), ORC (ZLIB)
+   and CSV (a header) under the gitignored ``artifacts/io_phase/``
+   (``io_write_<fmt>``: ms, bytes, files, GB/s; the stats row's bytes
+   equal the files' sizes), lineitem with ``partitionBy("l_returnflag")``
+   as parquet (``io_pq_part``: three directories), runs Q1, Q3 and Q6
+   over the ORC and CSV files and Q1 over the partitioned parquet
+   (``io_<fmt>_<q>``, ``io_pq_part_q1``: cold and warm ms, the scans'
+   timers, the units decoded on the card and on the host, which must be
+   none but over the hive layout, which reads on the host by design), Q6
+   with each format's unit site injected once (``io_fault_<fmt>``:
+   exactly one unit on the host), every answer against the numpy
+   references, and reads the committed files of another writer
+   (``io_fixtures``, ``tests/data/torch_io/``) equal to their stored
+   values; each query cell prints its fused dispatch (each run's action,
+   the graphs it captured and replayed, the graphs and pool bytes live
+   after it), and the phase ends by releasing every captured graph;
 4. at the shapes the queries gave each kernel: kernel vs plain version
    (equal bit for bit), median times over CUDA events with the L2 flushed
    between launches, the memory bound, and a PyTorch library yardstick
@@ -315,7 +333,7 @@ def check(cond: bool, msg: str) -> None:
 #: The phases ``--phase`` names, in the order a full run takes them.
 #: BUILD and the TPC-H tables always run.
 PHASES = ("EDGE", "TPCH", "FUSION", "PARQUET", "TPCXBB", "TPCDS",
-          "MORTGAGE", "ENTRY", "MESH", "METRICS", "MEMORY", "FALLBACK",
+          "MORTGAGE", "ENTRY", "MESH", "METRICS", "MEMORY", "FALLBACK", "IO",
           "KERNELS")
 #: The phases a phase reads from: they run with it.
 PHASE_NEEDS = {"METRICS": ("TPCDS", "PARQUET"), "MEMORY": ("PARQUET",),
@@ -9742,6 +9760,265 @@ def fusion_phase(torch, F, ENTRY, T, HostBatch, A, P, col, lit, L, tpch,
     return t_fusion
 
 
+# --------------------------------------------------------------------------
+# the I/O phase: the three formats written and read back at SF1
+# --------------------------------------------------------------------------
+
+#: the columns of each table that Q1, Q3 and Q6 read (the port's Q3
+#: groups by o_orderkey and o_orderdate: its orders have no
+#: o_shippriority)
+IO_COLUMNS = {
+    "lineitem": ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount",
+                 "l_tax", "l_returnflag", "l_linestatus", "l_shipdate"],
+    "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
+    "customer": ["c_custkey", "c_mktsegment"],
+}
+#: write options of each format: parquet SNAPPY, ORC ZLIB, CSV with a
+#: header
+IO_WRITE = {"parquet": {"compression": "snappy"},
+            "orc": {"compression": "zlib"}, "csv": {"header": True}}
+#: each format's device scan and its per-unit counters
+IO_SCANS = {"parquet": ("ParquetScanExec", "RowGroups"),
+            "orc": ("OrcScanExec", "Stripes"), "csv": ("CsvScanExec", "Files")}
+IO_SITES = {"parquet": "io.parquet.rowGroup", "orc": "io.orc.stripe",
+            "csv": "io.csv.file"}
+IO_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "torch_io"
+#: fixture file -> (format, host fallbacks its read must count)
+IO_FIXTURE_FILES = {"plain.parquet": ("parquet", 0),
+                    "v2_gzip.parquet": ("parquet", 0),
+                    "rle_zlib.orc": ("orc", 0),
+                    "direct_snappy.orc": ("orc", 0),
+                    "quoted_exp.csv": ("csv", 1), "crlf.csv": ("csv", 0)}
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def io_units(counters: dict) -> dict:
+    """Units each device scan decoded on the card and on the host."""
+    out = {}
+    for fmt, (scan, unit) in IO_SCANS.items():
+        dev = counters.get(f"{scan}.deviceDecoded{unit}", 0)
+        host = counters.get(f"{scan}.hostFallback{unit}", 0)
+        if dev or host:
+            out[fmt] = {"device": dev, "host_fallback": host}
+    return out
+
+
+def io_scan_ms(exec_ms: dict) -> dict:
+    """The scans' timers of a run (host clock for the host phases, CUDA
+    events for upload and decode)."""
+    keys = ("ParquetScanExec", "OrcScanExec", "CsvScanExec",
+            "CpuFileScanExec", "HostToDevice")
+    return {k: round(v, 3) for k, v in exec_ms.items()
+            if k.startswith(keys)}
+
+
+def io_query(torch, session, wrappers, cell: str, build, check_fn) -> dict:
+    """A query over files: a cold run with the launch counts set to 0
+    just before and read just after, then 3 timed warm runs, each
+    checked. Returns its summary (cold and warm ms, launches, the median
+    run's scan timers, the units decoded on the card and on the host,
+    and the fused dispatch of each run: its action, the graphs the cell
+    captured and replayed, and the graphs and pool bytes live after
+    it)."""
+    from spark_rapids_tpu_torch.compile import executables as EX
+    ex0 = EX.stats()
+    torch.cuda.synchronize()
+    wrappers.reset()
+    t0 = time.perf_counter()
+    got = build().collect()
+    cold = (time.perf_counter() - t0) * 1e3
+    launches = wrappers.counts()
+    check_fn(got)
+    units = io_units(session.last_query.counters)
+    runs, infos = [], [session.last_query]
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = build().collect()
+        runs.append((time.perf_counter() - t0) * 1e3)
+        infos.append(session.last_query)
+        check_fn(got)
+    ex1 = EX.stats()
+    warm = statistics.median(runs)
+    info = infos[1 + runs.index(warm)]
+    out = {"cold_ms": cold, "warm_median_ms": warm, "warm_runs_ms": runs,
+           "launches": launches, "scan_ms": io_scan_ms(info.exec_ms),
+           "units": units, "read_bytes": sum(
+               v for k, v in info.counters.items()
+               if k.endswith(".read_bytes")),
+           "fusion": {"actions": [(i.fusion or {}).get("action", "none")
+                                  for i in infos],
+                      "captures": ex1["captures"] - ex0["captures"],
+                      "replays": ex1["replays"] - ex0["replays"],
+                      "graphs_live": ex1["graphs"],
+                      "graph_bytes_live": ex1["pool_bytes"]}}
+    out["read_gbps"] = out["read_bytes"] / (warm * 1e6) if warm else 0.0
+    print(f"  {cell.upper()} {at()}: cold {cold:.1f} ms, warm "
+          f"{[round(r, 1) for r in runs]} ms (median {warm:.1f}); "
+          f"{out['read_bytes']} file bytes read, "
+          f"{out['read_gbps']:.3f} GB/s at the warm median; units "
+          f"{units}; launches {launches}; fused dispatch "
+          f"{out['fusion']}; scan (median run) {out['scan_ms']}")
+    return out
+
+
+def io_writes(torch, dfs, base: str, wrappers) -> dict:
+    """``io_write_<fmt>``: Q1's, Q3's and Q6's columns of the SF1 tables
+    through ``df.write.mode("overwrite")`` in each format, then
+    ``io_pq_part``: lineitem with ``partitionBy("l_returnflag")`` as
+    parquet. Returns the directories and each write's numbers."""
+    from spark_rapids_tpu_torch.ops.expression import col
+    out, dirs = {}, {}
+    for fmt, opts in IO_WRITE.items():
+        dirs[fmt] = {}
+        cell = {"ms": 0.0, "bytes": 0, "files": 0, "rows": 0}
+        for name, cols in IO_COLUMNS.items():
+            d = os.path.join(base, fmt, name)
+            w = dfs[name].select(*[col(c) for c in cols]).write \
+                .mode("overwrite")
+            for k, v in opts.items():
+                w = w.option(k, v)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = getattr(w, fmt)(d)
+            cell["ms"] += (time.perf_counter() - t0) * 1e3
+            for k in ("bytes", "files", "rows"):
+                cell[k] += int(stats.columns[k][0])
+            check(int(stats.columns["bytes"][0]) == _dir_bytes(d),
+                  f"io_write_{fmt} {name}: the stats row's bytes differ "
+                  "from the files' sizes")
+            dirs[fmt][name] = d
+        cell["gbps"] = cell["bytes"] / (cell["ms"] * 1e6)
+        out[f"io_write_{fmt}"] = cell
+        print(f"  IO_WRITE_{fmt.upper()} {at()}: {cell['ms']:.1f} ms, "
+              f"{cell['bytes']} bytes, {cell['files']} files, "
+              f"{cell['rows']} rows, {cell['gbps']:.3f} GB/s")
+    d = os.path.join(base, "pq_part")
+    wrappers.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = dfs["lineitem"].select(*[col(c) for c in IO_COLUMNS["lineitem"]]) \
+        .write.mode("overwrite").partition_by("l_returnflag").parquet(d)
+    ms = (time.perf_counter() - t0) * 1e3
+    parts = sorted(x for x in os.listdir(d) if x.startswith("l_returnflag="))
+    check(len(parts) == 3 and int(stats.columns["partitions"][0]) == 3,
+          f"io_pq_part: partitions {parts}")
+    cell = {"ms": ms, "bytes": int(stats.columns["bytes"][0]),
+            "files": int(stats.columns["files"][0]),
+            "launches": wrappers.counts(), "dirs": parts}
+    cell["gbps"] = cell["bytes"] / (ms * 1e6)
+    out["io_pq_part"] = cell
+    dirs["pq_part"] = d
+    print(f"  IO_PQ_PART {at()}: {ms:.1f} ms, {cell['bytes']} bytes, "
+          f"{cell['files']} files in {parts}, {cell['gbps']:.3f} GB/s; "
+          f"launches {cell['launches']}")
+    return out, dirs
+
+
+def io_fixtures(torch, TorchSession, dev) -> dict:
+    """``io_fixtures``: the committed files of another writer read on the
+    card, each column equal to the stored values bit for bit."""
+    want = np.load(IO_FIXTURES / "expected.npz")
+    session = TorchSession(device=dev)
+    out = {}
+    for name, (fmt, fallbacks) in IO_FIXTURE_FILES.items():
+        got = getattr(session.read, fmt)(str(IO_FIXTURES / name)).collect()
+        units = io_units(session.last_query.counters)
+        host = sum(u["host_fallback"] for u in units.values())
+        check(host == fallbacks, f"io_fixtures {name}: {host} host "
+              f"fallbacks, expected {fallbacks}")
+        for c in got.columns:
+            w, ok = want[f"{name}/{c}"], want[f"{name}/{c}/valid"]
+            check(np.array_equal(got.validity[c], ok),
+                  f"io_fixtures {name}: {c} validity")
+            g = np.asarray(got.columns[c])
+            if w.dtype.kind == "f":
+                g, w = g.astype(np.float64).view(np.int64), w.view(np.int64)
+            elif w.dtype.kind == "U":
+                g = g.astype(str)
+            check(np.array_equal(np.where(ok, g, w), w),
+                  f"io_fixtures {name}: {c} values differ")
+        out[name] = {"rows": got.num_rows, "units": units}
+    print(f"  IO_FIXTURES {at()}: {len(out)} files of another writer equal "
+          f"their stored values: {out}")
+    return out
+
+
+def run_io_phase(torch, TorchSession, tpch, dfs, refs, ref3, wrappers,
+                 base: str, dev="cuda") -> tuple:
+    """The I/O phase (see ``io_writes``, ``io_query`` and
+    ``io_fixtures``): the writes, Q1/Q3/Q6 over the ORC and CSV files and
+    Q1 over the partitioned parquet, each equal to the numpy references,
+    Q6 with each format's unit site injected once, then the fixtures.
+    Returns (the cells' summaries, launch counts of the cold runs)."""
+    launches = {k: 0 for k in wrappers.mods}
+    results, dirs = io_writes(torch, dfs, base, wrappers)
+    for k, v in results["io_pq_part"]["launches"].items():
+        launches[k] += v
+    session = TorchSession(device=dev)
+
+    def checker(q):
+        def check_fn(got):
+            if q == "q3":
+                check_top("Q3", got, ref3, ["o_orderkey", "o_orderdate"],
+                          "revenue", 10)
+            else:
+                check_answer(q, in_key_order(
+                    got, ["l_returnflag", "l_linestatus"]) if q == "q1"
+                    else got, refs[q])
+        return check_fn
+
+    cells = [(fmt, q) for fmt in ("orc", "csv") for q in ("q1", "q3", "q6")]
+    cells.append(("pq_part", "q1"))
+    for fmt, q in cells:
+        cell = f"io_{fmt}_{q}"
+        if fmt == "pq_part":
+            frames = {"lineitem": session.read.parquet(dirs["pq_part"])}
+        else:
+            frames = {name: getattr(session.read, fmt)(d)
+                      for name, d in dirs[fmt].items()}
+        r = io_query(torch, session, wrappers, cell,
+                     lambda q=q, frames=frames: tpch.QUERIES[q](frames),
+                     checker(q))
+        if fmt == "pq_part":
+            # the reference's design: a hive layout reads on the host
+            check(not r["units"], f"{cell}: a device scan over a hive "
+                  f"layout: {r['units']}")
+        else:
+            fallback = sum(u["host_fallback"] for u in r["units"].values())
+            check(fallback == 0 and r["units"].get(fmt, {}).get("device"),
+                  f"{cell}: units {r['units']}: every unit must decode on "
+                  "the card")
+        for k, v in r["launches"].items():
+            launches[k] += v
+        results[cell] = r
+    for fmt, site in IO_SITES.items():
+        cell = f"io_fault_{fmt}"
+        s = TorchSession({"spark.rapids.tpu.test.faultInjection.sites": site,
+                          "spark.rapids.tpu.test.faultInjection.oomEveryN":
+                          -1}, device=dev)
+        frames = {"lineitem": getattr(s.read, fmt)(
+            dirs[fmt]["lineitem"])}
+        wrappers.reset()
+        t0 = time.perf_counter()
+        got = tpch.q6(frames).collect()
+        ms = (time.perf_counter() - t0) * 1e3
+        checker("q6")(got)
+        units = io_units(s.last_query.counters).get(fmt, {})
+        check(units.get("host_fallback") == 1,
+              f"{cell}: {units}: exactly one unit must fall back")
+        for k, v in wrappers.counts().items():
+            launches[k] += v
+        results[cell] = {"ms": ms, "units": units}
+        print(f"  {cell.upper()} {at()}: Q6 with {site} injected once: "
+              f"{ms:.1f} ms, units {units}, answer matches numpy")
+    results["io_fixtures"] = io_fixtures(torch, TorchSession, dev)
+    return results, launches
+
+
 def edge_phase(torch, args, rng, dev, JP, SEG, SS, SG, HK, T, DeviceColumn,
                PN, E, GC, TorchSession, SN, SC, PD, bucket_byte_capacity):
     """Phase 2's kernel edge cases, the host snappy routine and the run
@@ -10309,6 +10586,34 @@ def main() -> int:
                 TorchSession, tpch, tpcds, tpcxbb, mortgage, expr_mods,
                 args.seed)))
         del ds_dfs
+
+    # The rest of I/O: the SF1 tables' Q1/Q3/Q6 columns written as
+    # parquet, ORC and CSV, the queries over the files, one injected unit
+    # a format, and the committed files of another writer.
+    io = None
+    if want("IO"):
+        clock.start("IO")
+        print(f"io phase {at()}: io_write_{{parquet,orc,csv}}, io_pq_part, "
+              "io_{orc,csv}_{q1,q3,q6}, io_pq_part_q1, "
+              "io_fault_{parquet,orc,csv}, io_fixtures")
+        io_dir = Path(__file__).resolve().parent / "artifacts" / "io_phase"
+        shutil.rmtree(io_dir, ignore_errors=True)
+        io_dir.mkdir(parents=True)
+        atexit.register(shutil.rmtree, str(io_dir), True)
+        io, io_launches = run_io_phase(torch, TorchSession, tpch, dfs, refs,
+                                       ref3, wrappers, str(io_dir))
+        for k in launches:
+            launches[k] += io_launches[k]
+        shutil.rmtree(io_dir, ignore_errors=True)
+        # the phases after find the card's memory free of the graphs the
+        # phases so far captured (the OOM drain's release)
+        live = EX.stats()
+        io["released"] = {"graphs": live["graphs"],
+                          "graph_bytes": EX.release_all()}
+        torch.cuda.empty_cache()
+        print(f"  IO phase {at()}: released every captured graph "
+              f"{io['released']}; {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+              " GiB allocated")
     ref_workers.shutdown()
     if not full:
         clock.stop()
@@ -10490,6 +10795,7 @@ def main() -> int:
         "distributed_sum_by_key": distributed,
         "q6_default_mesh_ms": default_ms, "entry_stage": entry_runs,
         "metrics": metrics, "memory": memory, "fallback": fallback,
+        "io": io,
         "xbb_score_max_score_ulps": max(xbb_ulps),
         "pipeline_off": pipeline_off, "run_tables": runs_check,
         "parquet": {"fixture": fixture, "sf1_pages": sf1_pages,

@@ -148,6 +148,43 @@ PARQUET_REBASE_READ = conf_str(
     "LEGACY raises (the reader does not rebase).")
 
 
+MAX_READ_BATCH_SIZE_ROWS = conf_int(
+    "spark.rapids.sql.reader.batchSizeRows", 1 << 19,
+    "Soft limit on the rows of a batch the file readers produce (the host "
+    "scan's batches, the CSV parse's slices).")
+
+MAX_READ_BATCH_SIZE_BYTES = conf_int(
+    "spark.rapids.sql.reader.batchSizeBytes", 512 * 1024 * 1024,
+    "Soft limit on the bytes of a batch the host file scan produces.")
+
+PARQUET_DEVICE_DECODE = conf_bool(
+    "spark.rapids.sql.parquet.deviceDecode.enabled", True,
+    "Decode parquet row groups on the device (io/parquet_device.py): the "
+    "host parses the footer and page headers, decompresses and slices "
+    "the hybrid streams into run tables, the device expands them. A file "
+    "the decoder does not take, or every file when this is false, is read "
+    "by the host scan; a row group that meets a device fault falls back "
+    "to the host decode alone.")
+
+ORC_DEVICE_DECODE = conf_bool(
+    "spark.rapids.sql.orc.deviceDecode.enabled", True,
+    "Decode ORC stripes on the device (io/orc_device.py): the host parses "
+    "the protobuf tail, stripe footers and RLEv2 run headers into run "
+    "tables, the device expands the runs, the PRESENT bits and the "
+    "dictionary codes. A file with a column kind out of the device's "
+    "scope, or every file when this is false, is read by the host scan; "
+    "a stripe that fails falls back to the host decode alone.")
+
+CSV_DEVICE_DECODE = conf_bool(
+    "spark.rapids.sql.csv.deviceDecode.enabled", True,
+    "Parse CSV on the device (io/csv_device.py): the host finds the line "
+    "and field boundaries, the file's bytes upload once, and the digit DP "
+    "converts the columns. A file with quoted fields or values beyond "
+    "the parse's exact range falls back to the host reader; a scan with "
+    "nullValue, an escape, a timestamp column, or this false, is read by "
+    "the host scan.")
+
+
 METRICS_LEVEL = conf_str(
     "spark.rapids.tpu.metrics.level", "MODERATE",
     "Operator metrics level (metrics/registry.py): NONE turns the whole "

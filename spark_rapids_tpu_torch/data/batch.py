@@ -331,6 +331,30 @@ class HostBatch:
         return HostBatch.from_positional(batch.schema, pairs)
 
 
+def _move_column(c: DeviceColumn, device) -> DeviceColumn:
+    move = lambda t: None if t is None else t.to(device)  # noqa: E731
+    return dataclasses.replace(
+        c, data=move(c.data), validity=move(c.validity), codes=move(c.codes),
+        offsets=move(c.offsets), elem_validity=move(c.elem_validity),
+        lengths=move(c.lengths),
+        dict_bytes=None if c.dict_bytes is None
+        else tuple(move(t) for t in c.dict_bytes),
+        children=tuple(_move_column(k, device) for k in c.children))
+
+
+def move_batch(batch: ColumnarBatch, device) -> ColumnarBatch:
+    """``batch`` with every tensor on ``device`` (the scans' host
+    fallback uploads what the host decoded this way)."""
+    device = torch.device(device)
+    if batch.device == device:
+        return batch
+    return ColumnarBatch(tuple(_move_column(c, device)
+                               for c in batch.columns),
+                         batch.n_rows.to(device), batch.schema,
+                         live=None if batch.live is None
+                         else batch.live.to(device))
+
+
 def _grow_column(c: DeviceColumn, cap: int) -> DeviceColumn:
     """``c`` at the larger capacity ``cap``: every row lane padded with
     dead rows (zero, invalid); a flat column's offsets repeat their end,

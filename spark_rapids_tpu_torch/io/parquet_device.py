@@ -28,15 +28,28 @@ The work splits as in the reference (and as cuDF's reader does):
 
 A string dictionary is sorted on the host by bytes (the rank of each
 entry remaps the codes on the device), so the column lands as a
-``dict_sorted`` dictionary column. Beyond the reference's device scope
-(the port has no host fallback), a chunk whose dictionary fell back to
-PLAIN pages part way (a dictionary page, dictionary pages, then PLAIN
-pages: pyarrow's fallback) decodes: each non-null slot reads from its
-own page's stream. Out of scope, each raising ``NotImplementedError``
-that names the file, the column and the reason: PLAIN byte-array data
-pages, v2 data pages, nested columns, INT96 and other unsupported
-physical or logical types, dictionary bit widths over 24, PLAIN
-booleans, and codecs other than UNCOMPRESSED and SNAPPY.
+``dict_sorted`` dictionary column; PLAIN byte-array pages (a writer
+without dictionaries, or one whose dictionary filled up) are walked on
+the host and their values merged into that sorted dictionary, their
+codes uploaded. A chunk whose dictionary fell back to PLAIN pages part
+way decodes: each non-null slot reads from its own page's stream. PLAIN
+(and RLE) booleans are one bit-packed run of width 1. v2 data pages
+(levels stored uncompressed ahead of the values) and GZIP (``zlib``)
+decode beside v1 pages, UNCOMPRESSED and SNAPPY. Out of scope, each
+raising ``NotImplementedError`` that names the file, the column and the
+reason: nested columns, INT96 and other unsupported physical or logical
+types, DELTA encodings, dictionary bit widths over 24, and the LZ4,
+ZSTD and BROTLI codecs.
+
+:func:`device_decodable` is the plan's gate (the reference's, ``:740``):
+a file it refuses is read by the host scan (:mod:`.files`), which
+raises the same error. The same decode on CPU tensors is the host
+reader (the host scan's, :func:`.files.host_rows`); the scan falls back
+to it for one row group whose device decode meets a classified device
+fault (an
+OOM, a transient one) or whose ``io.parquet.rowGroup`` site is injected
+(the reference's per-row-group fallback, ``:678-712``), counting
+``hostFallbackRowGroups`` beside ``deviceDecodedRowGroups``.
 """
 
 from __future__ import annotations
@@ -48,13 +61,14 @@ import datetime as _dt
 import os
 import struct
 import threading
-from typing import List, Optional
+import zlib
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .. import types as T
-from ..data.batch import ColumnarBatch
+from ..data.batch import ColumnarBatch, move_batch
 from ..data.column import (DeviceColumn, bucket_capacity, dictionary_column,
                            scalar_column)
 from ..exec.execs import ExecContext, TorchExec
@@ -67,7 +81,7 @@ from .thrift import Thrift, ThriftError
 
 PLAIN, PLAIN_DICTIONARY, RLE, RLE_DICTIONARY = 0, 2, 3, 8
 _PAGE_DATA, _PAGE_INDEX, _PAGE_DICT, _PAGE_DATA_V2 = 0, 1, 2, 3
-_CODECS = ("UNCOMPRESSED", "SNAPPY")
+_CODECS = ("UNCOMPRESSED", "SNAPPY", "GZIP")
 #: PLAIN value width of each fixed-width physical type
 _PHYS_NP = {"INT32": np.dtype(np.int32), "INT64": np.dtype(np.int64),
             "FLOAT": np.dtype(np.float32), "DOUBLE": np.dtype(np.float64)}
@@ -96,6 +110,15 @@ class PageHeader:
     num_values: int = 0
     encoding: int = PLAIN
     def_encoding: int = RLE
+    #: v2 data pages: bytes of the repetition and definition levels,
+    #: stored uncompressed ahead of the values
+    rep_len: int = 0
+    def_len: int = 0
+    compressed: bool = True
+
+    @property
+    def v2(self) -> bool:
+        return self.page_type == _PAGE_DATA_V2
 
 
 def parse_page_header(buf, pos: int) -> PageHeader:
@@ -110,6 +133,13 @@ def parse_page_header(buf, pos: int) -> PageHeader:
     elif ph.page_type == _PAGE_DICT:
         ph.num_values = d[7][1]
         ph.encoding = d[7][2]
+    elif ph.page_type == _PAGE_DATA_V2:
+        v2 = d[8]
+        ph.num_values = v2[1]
+        ph.encoding = v2[4]
+        ph.def_len = v2[5]
+        ph.rep_len = v2[6]
+        ph.compressed = bool(v2.get(7, True))
     return ph
 
 
@@ -304,6 +334,10 @@ class ColumnChunkPlan:
     #: string dictionary, sorted by bytes, and each page entry's rank
     dict_strings: Optional[np.ndarray] = None
     dict_rank: Optional[np.ndarray] = None
+    #: the PLAIN byte-array values' codes into ``dict_strings``
+    plain_codes: Optional[np.ndarray] = None
+    #: a boolean chunk's values: bit-packed (PLAIN) or hybrid (RLE) runs
+    bool_runs: Optional[HybridRuns] = None
 
     @property
     def uses_dict(self) -> bool:
@@ -336,7 +370,7 @@ def _walk_pages(path: str, field: T.StructField, cm: ColumnChunkMeta,
     decoder does not take."""
     if cm.codec not in _CODECS:
         raise _refuse(path, field.name, f"codec {cm.codec} is not "
-                      "supported (UNCOMPRESSED and SNAPPY are)")
+                      "supported (UNCOMPRESSED, SNAPPY and GZIP are)")
     if max_def_level > 1:
         raise _refuse(path, field.name, "nested columns are not supported")
     headers = []
@@ -348,9 +382,10 @@ def _walk_pages(path: str, field: T.StructField, cm: ColumnChunkMeta,
             raise ParquetFormatError(f"{path}: column {field.name!r}: "
                                      f"bad page header at chunk byte {pos}: "
                                      f"{e!r}") from e
-        if ph.page_type == _PAGE_DATA_V2:
-            raise _refuse(path, field.name, "v2 data pages are not "
-                          "supported")
+        if ph.v2 and (ph.rep_len or ph.def_len < 0
+                      or ph.def_len > ph.compressed_size):
+            raise _refuse(path, field.name, "nested columns are not "
+                          "supported (v2 page with repetition levels)")
         end = ph.payload_pos + ph.compressed_size
         if ph.compressed_size < 0 or ph.uncompressed_size < 0 \
                 or end > len(raw):
@@ -360,33 +395,55 @@ def _walk_pages(path: str, field: T.StructField, cm: ColumnChunkMeta,
                 ph.compressed_size != ph.uncompressed_size:
             raise ParquetFormatError(f"{path}: column {field.name!r}: "
                                      "uncompressed page sizes differ")
-        if ph.page_type in (_PAGE_DATA, _PAGE_DICT):
+        if ph.page_type in (_PAGE_DATA, _PAGE_DICT, _PAGE_DATA_V2):
             headers.append(ph)
         pos = end
     return _Chunk(field, cm, max_def_level, raw, headers)
 
 
-def _string_dictionary(payload: bytes, n: int, path: str, column: str):
-    """Entries of a PLAIN byte-array dictionary page (u32 length, bytes),
-    sorted by bytes with duplicates merged: (sorted str array, the rank
-    of each page entry)."""
+def _byte_array_values(payload: bytes, n: int, path: str, column: str,
+                       what: str) -> List[bytes]:
+    """The ``n`` PLAIN byte-array values (u32 length, bytes) at the start
+    of ``payload``."""
     vals = []
     q = 0
     for _ in range(n):
         if q + 4 > len(payload):
-            raise ParquetFormatError(f"{path}: column {column!r}: "
-                                     "dictionary page ends early")
+            raise ParquetFormatError(f"{path}: column {column!r}: {what} "
+                                     "ends early")
         (ln,) = struct.unpack_from("<I", payload, q)
         q += 4
         vals.append(payload[q:q + ln])
         q += ln
     if q > len(payload):
-        raise ParquetFormatError(f"{path}: column {column!r}: dictionary "
+        raise ParquetFormatError(f"{path}: column {column!r}: {what} "
                                  "entry runs past its page")
+    return vals
+
+
+def _sorted_strings(vals: List[bytes]):
+    """Byte strings sorted by bytes with duplicates merged: (sorted str
+    array, the rank of each value)."""
+    if not vals:
+        return np.zeros(0, object), np.zeros(0, np.int64)
     uniq, rank = np.unique(np.array(vals, dtype=object), return_inverse=True)
     strings = np.array([b.decode("utf-8", "replace") for b in uniq],
                        dtype=object)
     return strings, rank.astype(np.int64)
+
+
+def _hybrid(path: str, name: str, staged: np.ndarray, pos: int, end: int,
+            bit_width: int, n_values: int, runs: HybridRuns,
+            native: bool) -> int:
+    """Slice ``staged[pos:end]`` into ``runs``; returns the ones among its
+    values when ``bit_width`` is 1 (the plain parse counts them after)."""
+    if native:
+        return _native_runs(path, name, staged, pos, end, bit_width,
+                            n_values, runs)
+    first = len(runs)
+    parse_hybrid(staged[pos:end].tobytes(), 0, end - pos, bit_width,
+                 n_values, runs, pos)
+    return runs.non_null_count(first, staged) if bit_width == 1 else 0
 
 
 def _plan_chunk(path: str, ch: _Chunk, staged: np.ndarray,
@@ -398,17 +455,19 @@ def _plan_chunk(path: str, ch: _Chunk, staged: np.ndarray,
     field, cm, name = ch.field, ch.meta, ch.field.name
     phys = cm.physical_type
     is_string = phys == "BYTE_ARRAY"
+    is_bool = phys == "BOOLEAN"
     value_dtype = _PHYS_NP.get(phys)
-    if phys == "BOOLEAN":
-        raise _refuse(path, name, "PLAIN booleans (bit-packed values) are "
-                      "not supported")
-    if value_dtype is None and not is_string:
+    if value_dtype is None and not is_string and not is_bool:
         raise _refuse(path, name, f"physical type {phys} is not supported")
     def_runs = HybridRuns() if ch.max_def_level > 0 else None
     idx_runs = HybridRuns()
     plan = ColumnChunkPlan(name, field.data_type, 0, def_runs, idx_runs, [],
                            value_dtype)
+    if is_bool:
+        plan.bool_runs = HybridRuns()
     dict_seen = False
+    dict_raw: List[bytes] = []
+    plain_raw: List[bytes] = []
     for ph, dst in zip(ch.headers, ch.dst):
         size = ph.uncompressed_size
         if ph.page_type == _PAGE_DICT:
@@ -420,11 +479,12 @@ def _plan_chunk(path: str, ch: _Chunk, staged: np.ndarray,
                                          "dictionary pages")
             dict_seen = True
             if is_string:
-                plan.dict_strings, plan.dict_rank = _string_dictionary(
+                dict_raw = _byte_array_values(
                     staged[dst:dst + size].tobytes(), ph.num_values, path,
-                    name)
+                    name, "dictionary page")
             else:
-                if ph.num_values * value_dtype.itemsize > size:
+                if is_bool or \
+                        ph.num_values * value_dtype.itemsize > size:
                     raise ParquetFormatError(f"{path}: column {name!r}: "
                                              "dictionary page ends early")
                 plan.dict_values = (dst, ph.num_values)
@@ -434,29 +494,27 @@ def _plan_chunk(path: str, ch: _Chunk, staged: np.ndarray,
         p = dst
         end = dst + size
         if def_runs is not None:
-            if ph.def_encoding != RLE:
-                raise _refuse(path, name, "definition levels not RLE "
-                              "encoded")
-            if size < 4:
-                raise ParquetFormatError(f"{path}: column {name!r}: data "
-                                         "page ends in its levels")
-            (def_len,) = struct.unpack_from("<I", staged, p)
-            p += 4
+            if ph.v2:
+                def_len = ph.def_len
+            else:
+                if ph.def_encoding != RLE:
+                    raise _refuse(path, name, "definition levels not RLE "
+                                  "encoded")
+                if size < 4:
+                    raise ParquetFormatError(f"{path}: column {name!r}: "
+                                             "data page ends in its levels")
+                (def_len,) = struct.unpack_from("<I", staged, p)
+                p += 4
             if p + def_len > end:
                 raise ParquetFormatError(f"{path}: column {name!r}: "
                                          "definition levels run past the "
                                          "page")
-            if native:
-                non_null = _native_runs(path, name, staged, p, p + def_len,
-                                        1, ph.num_values, def_runs)
-            else:
-                first = len(def_runs)
-                parse_hybrid(staged[p:p + def_len].tobytes(), 0, def_len, 1,
-                             ph.num_values, def_runs, p)
-                non_null = def_runs.non_null_count(first, staged)
+            non_null = _hybrid(path, name, staged, p, p + def_len, 1,
+                               ph.num_values, def_runs, native)
             p += def_len
         else:
             non_null = ph.num_values
+            p += ph.def_len if ph.v2 else 0
         if ph.encoding in (PLAIN_DICTIONARY, RLE_DICTIONARY):
             if not dict_seen:
                 raise ParquetFormatError(f"{path}: column {name!r}: "
@@ -471,17 +529,30 @@ def _plan_chunk(path: str, ch: _Chunk, staged: np.ndarray,
                 raise _refuse(path, name, f"dictionary bit width {bw} is "
                               "over 24")
             p += 1
-            if native:
-                _native_runs(path, name, staged, p, end, bw, non_null,
-                             idx_runs)
-            else:
-                parse_hybrid(staged[p:end].tobytes(), 0, end - p, bw,
-                             non_null, idx_runs, p)
+            _hybrid(path, name, staged, p, end, bw, non_null, idx_runs,
+                    native)
             plan.pages.append((1, non_null, 0))
-        elif ph.encoding == PLAIN:
-            if is_string:
-                raise _refuse(path, name, "PLAIN byte-array data pages are "
-                              "not supported")
+        elif is_bool and ph.encoding in (PLAIN, RLE):
+            if ph.encoding == PLAIN:
+                if p + (non_null + 7) // 8 > end:
+                    raise ParquetFormatError(f"{path}: column {name!r}: "
+                                             "PLAIN booleans run past the "
+                                             "page")
+                plan.bool_runs.add(0, non_null, 0, p * 8, 1)
+            else:
+                if p + 4 > end:
+                    raise ParquetFormatError(f"{path}: column {name!r}: "
+                                             "RLE booleans end early")
+                (ln,) = struct.unpack_from("<I", staged, p)
+                _hybrid(path, name, staged, p + 4, min(p + 4 + ln, end), 1,
+                        non_null, plan.bool_runs, native)
+            plan.pages.append((0, non_null, 0))
+        elif ph.encoding == PLAIN and is_string:
+            plain_raw += _byte_array_values(staged[p:end].tobytes(),
+                                            non_null, path, name,
+                                            "PLAIN byte-array page")
+            plan.pages.append((0, non_null, 0))
+        elif ph.encoding == PLAIN and not is_bool:
             if p + non_null * value_dtype.itemsize > end:
                 raise ParquetFormatError(f"{path}: column {name!r}: PLAIN "
                                          "values run past the page")
@@ -490,10 +561,30 @@ def _plan_chunk(path: str, ch: _Chunk, staged: np.ndarray,
             raise _refuse(path, name, f"data page encoding {ph.encoding} is "
                           "not supported")
         plan.n_rows += ph.num_values
-    if plan.uses_dict and not is_string and not plan.dict_values[1]:
+    if is_string:
+        plan.dict_strings, rank = _sorted_strings(dict_raw + plain_raw)
+        plan.dict_rank = rank[:len(dict_raw)]
+        if plain_raw:
+            plan.plain_codes = rank[len(dict_raw):]
+    if plan.uses_dict and (not dict_raw if is_string
+                           else not plan.dict_values[1]):
         raise ParquetFormatError(f"{path}: column {name!r}: indices into "
                                  "an empty dictionary")
     return plan
+
+
+def _gunzip(ch: _Chunk, page: tuple, host: np.ndarray, path: str) -> None:
+    """One GZIP page into its staging range."""
+    so, n, do, size = page
+    try:
+        out = zlib.decompress(ch.raw[so:so + n].tobytes(), 47)
+    except zlib.error as e:
+        raise ParquetFormatError(f"{path}: column {ch.field.name!r}: bad "
+                                 f"GZIP page: {e}") from e
+    if len(out) != size:
+        raise ParquetFormatError(f"{path}: column {ch.field.name!r}: GZIP "
+                                 "page size differs from its header")
+    host[do:do + size] = np.frombuffer(out, np.uint8)
 
 
 def _native_runs(path: str, column: str, staged: np.ndarray, pos: int,
@@ -595,9 +686,8 @@ def decode_chunk(plan: ColumnChunkPlan, staged: torch.Tensor,
     if n_vals == 0:  # every row null, or no rows
         if plan.dtype is T.STRING:
             zeros = torch.zeros(capacity, dtype=torch.int32, device=dev)
-            return dictionary_column(
-                zeros, validity, plan.dict_strings if plan.dict_strings
-                is not None else np.zeros(0, object), dict_sorted=True)
+            return dictionary_column(zeros, validity, plan.dict_strings,
+                                     dict_sorted=True)
         return DeviceColumn(torch.zeros(capacity, dtype=plan.dtype
                                         .torch_dtype, device=dev),
                             validity, plan.dtype)
@@ -606,20 +696,24 @@ def decode_chunk(plan: ColumnChunkPlan, staged: torch.Tensor,
     slot = (torch.cumsum(validity, 0) - 1).clamp_(0, n_vals - 1)
     idx = expand_hybrid(_TablePack.get(tables, handles["idx"]), staged,
                         n_vals) if plan.uses_dict else None
-    if plan.dtype is T.STRING:
-        rank = _TablePack.get(tables, handles["rank"])
-        codes = rank[idx.clamp_(0, rank.shape[0] - 1)][slot]
-        codes = torch.where(validity, codes, 0).to(torch.int32)
-        return dictionary_column(codes, validity, plan.dict_strings,
-                                 dict_sorted=True)
-    vdt = _TORCH[plan.value_dtype]
     dict_vals = plain = None
-    if plan.uses_dict:
-        off, count = plan.dict_values
-        entries = staged[off:off + count * plan.value_dtype.itemsize]
-        dict_vals = entries.view(vdt)[idx.clamp_(0, count - 1)]
-    if plan.uses_plain:
-        plain = _plain_values(plan, staged)
+    if plan.dtype is T.STRING:
+        if plan.uses_dict:
+            rank = _TablePack.get(tables, handles["rank"])
+            dict_vals = rank[idx.clamp_(0, rank.shape[0] - 1)]
+        if plan.uses_plain:
+            plain = _TablePack.get(tables, handles["plain"])
+    elif plan.bool_runs is not None:
+        plain = expand_hybrid(_TablePack.get(tables, handles["bool"]),
+                              staged, n_vals) == 1
+    else:
+        vdt = _TORCH[plan.value_dtype]
+        if plan.uses_dict:
+            off, count = plan.dict_values
+            entries = staged[off:off + count * plan.value_dtype.itemsize]
+            dict_vals = entries.view(vdt)[idx.clamp_(0, count - 1)]
+        if plan.uses_plain:
+            plain = _plain_values(plan, staged)
     if dict_vals is not None and plain is not None:
         # a dictionary that fell back to PLAIN part way: each slot reads
         # the stream of its own page
@@ -635,7 +729,10 @@ def decode_chunk(plan: ColumnChunkPlan, staged: torch.Tensor,
     else:
         by_slot = dict_vals if dict_vals is not None else plain
     data = torch.where(validity, by_slot[slot],
-                       torch.zeros((), dtype=vdt, device=dev))
+                       torch.zeros((), dtype=by_slot.dtype, device=dev))
+    if plan.dtype is T.STRING:
+        return dictionary_column(data.to(torch.int32), validity,
+                                 plan.dict_strings, dict_sorted=True)
     return DeviceColumn(data.to(plan.dtype.torch_dtype), validity,
                         plan.dtype)
 
@@ -721,15 +818,29 @@ def read_row_group_host(path: str, row_group: int, schema: T.Schema,
     host = staging.numpy()
     with timed(SCAN + ".decompress", host=True):
         for ch in chunks:
-            pages = [(ph.payload_pos, ph.compressed_size, dst,
-                      ph.uncompressed_size)
-                     for ph, dst in zip(ch.headers, ch.dst)]
-            if ch.meta.codec == "SNAPPY":
+            pages = []
+            for ph, dst in zip(ch.headers, ch.dst):
+                # a v2 page's levels are stored uncompressed ahead of its
+                # values, and its values may be stored uncompressed too
+                lv = ph.rep_len + ph.def_len if ph.v2 else 0
+                so = ph.payload_pos
+                host[dst:dst + lv] = ch.raw[so:so + lv]
+                page = (so + lv, ph.compressed_size - lv, dst + lv,
+                        ph.uncompressed_size - lv)
+                if ch.meta.codec == "UNCOMPRESSED" or not ph.compressed:
+                    if page[1] != page[3]:
+                        raise ParquetFormatError(
+                            f"{path}: column {ch.field.name!r}: "
+                            "uncompressed page sizes differ")
+                    host[page[2]:page[2] + page[1]] = \
+                        ch.raw[page[0]:page[0] + page[1]]
+                elif ch.meta.codec == "GZIP":
+                    _gunzip(ch, page, host, path)
+                else:
+                    pages.append(page)
+            if pages:
                 snappy.decompress_pages(ch.raw, np.array(pages, np.int64),
                                         host, device)
-            else:
-                for so, n, do, _ in pages:
-                    host[do:do + n] = ch.raw[so:so + n]
     pack = _TablePack()
     handles = []
     with timed(SCAN + ".runs", host=True):
@@ -744,8 +855,12 @@ def read_row_group_host(path: str, row_group: int, schema: T.Schema,
                 h["def"] = pack.add(plan.def_runs.array())
             if plan.uses_dict:
                 h["idx"] = pack.add(plan.idx_runs.array())
-            if plan.dict_rank is not None:
+            if plan.dict_rank is not None and plan.uses_dict:
                 h["rank"] = pack.add(plan.dict_rank)
+            if plan.plain_codes is not None:
+                h["plain"] = pack.add(plan.plain_codes)
+            if plan.bool_runs is not None:
+                h["bool"] = pack.add(plan.bool_runs.array())
             if plan.uses_dict and plan.uses_plain:
                 h["pages"] = pack.add(np.array(
                     [[k for k, _, _ in plan.pages],
@@ -883,18 +998,25 @@ class ParquetScanExec(TorchExec):
     time ``ParquetScanExec.busy``. Every column of the files' schema is
     decoded; a project above drops what the query does not read. With
     ``emit_file_meta`` (set by the input-file rewrite) the schema ends in
-    the three hidden per-file columns, appended after the decode. There
-    is no fallback: a file the decoder does not take raises, from the
-    worker unchanged."""
+    the three hidden per-file columns, appended after the decode. A row
+    group whose device decode meets a classified device fault, or whose
+    ``io.parquet.rowGroup`` site is injected, decodes on the host
+    (:func:`decode_row_group_device` on CPU tensors) and is uploaded; a
+    file the decoder does not take raises, from the worker unchanged
+    (the plan's gate, :func:`device_decodable`, sends such files to the
+    host scan). ``footers`` are the files' footers the gate has read
+    already (by path); a file without one has its footer read here."""
 
     def __init__(self, files: List[str], schema: T.Schema,
                  rebase_mode: str = "EXCEPTION",
-                 emit_file_meta: bool = False):
+                 emit_file_meta: bool = False,
+                 footers: Optional[Dict[str, FileMeta]] = None):
         self.children = []
         self.files = list(files)
         self._schema = schema
         self.rebase_mode = rebase_mode
         self.emit_file_meta = emit_file_meta
+        self.footers = dict(footers or {})
 
     @property
     def schema(self):
@@ -910,8 +1032,10 @@ class ParquetScanExec(TorchExec):
         data_schema = T.Schema(list(self._schema)[:len(self._schema)
                                                   - n_meta])
         for path in self.files:
-            with ctx.timed(SCAN + ".parse", host=True):
-                meta = read_footer(path)
+            meta = self.footers.get(path)
+            if meta is None:
+                with ctx.timed(SCAN + ".parse", host=True):
+                    meta = read_footer(path)
             got = schema_from_parquet(meta, path)
             if got != data_schema:
                 raise ValueError(f"{path}: schema {got} differs from the "
@@ -927,16 +1051,34 @@ class ParquetScanExec(TorchExec):
             return read_row_group_host(path, rg, data_schema, meta,
                                        ctx=ctx)
 
-        def decode(part, path):
-            for h in part:
-                batch = decode_row_group_device(h, ctx=ctx)
-                yield self._with_file_meta(batch, path) if n_meta else batch
+        def decode(part, unit):
+            from ..memory.retry import Classification, classify
+            from ..utils.fault_injection import maybe_inject
+            path, meta, rg = unit
+            hosts = []
+            try:
+                hosts = list(part)
+                maybe_inject(ctx, "io.parquet.rowGroup")
+                batch = decode_row_group_device(hosts[0], ctx=ctx)
+                ctx.metric(SCAN, "deviceDecodedRowGroups", 1)
+                ctx.count(SCAN + ".deviceDecodedRowGroups", 1)
+            except Exception as e:  # noqa: BLE001 - classified below
+                if classify(e) == Classification.FATAL:
+                    raise
+                with ctx.timed(SCAN + ".hostFallback", host=True):
+                    host = hosts[0] if hosts else read_row_group_host(
+                        path, rg, data_schema, meta, ctx.device)
+                    batch = move_batch(decode_row_group_device(
+                        host, torch.device("cpu")), ctx.device)
+                ctx.metric(SCAN, "hostFallbackRowGroups", 1)
+                ctx.count(SCAN + ".hostFallbackRowGroups", 1)
+            yield self._with_file_meta(batch, path) if n_meta else batch
 
         # The host phase of the next row groups runs on the pipeline's
         # workers; the device phase runs here, on the thread that reads
         # the partition, so device work keeps one thread and one stream,
         # in partition order.
-        return [decode(part, unit[0]) for part, unit in zip(
+        return [decode(part, unit) for part, unit in zip(
             unit_partitions(read_unit, units, ctx, SCAN), units)]
 
     def _with_file_meta(self, batch: ColumnarBatch,
@@ -962,34 +1104,41 @@ class ParquetScanExec(TorchExec):
                              live=batch.live)
 
 
-def _list_dir(d: str) -> List[str]:
-    out = []
-    for name in os.listdir(d):
-        if name.startswith(("_", ".")):
-            continue
-        full = os.path.join(d, name)
-        if os.path.isdir(full):
-            if "=" in name:
-                raise NotImplementedError(
-                    f"{d}: hive-partitioned directory {name!r}: partition "
-                    "columns are not supported")
-            out.extend(_list_dir(full))
-        elif name.endswith(".parquet"):
-            out.append(full)
-    return out
+def device_decodable(meta: FileMeta, schema: T.Schema,
+                     path: str) -> Optional[str]:
+    """None when the device decoder takes every column of ``schema`` in
+    every row group of the file; else the reason (the plan's gate,
+    metadata only: a page-level refusal still raises at decode)."""
+    leaves = {leaf.name: leaf for leaf in meta.leaves}
+    for f in schema:
+        leaf = leaves.get(f.name)
+        if leaf is None:
+            return f"column {f.name!r} is not in {path}"
+        if leaf.max_definition_level > 1 or leaf.max_repetition_level:
+            return f"column {f.name!r} is nested"
+    names = set(schema.names)
+    for rg in meta.row_groups:
+        for c in rg.columns:
+            if c.path_in_schema not in names:
+                continue
+            if c.codec not in _CODECS:
+                return f"column {c.path_in_schema!r}: codec {c.codec}"
+            if c.physical_type not in _PHYS_NP and c.physical_type not in (
+                    "BYTE_ARRAY", "BOOLEAN"):
+                return (f"column {c.path_in_schema!r}: physical type "
+                        f"{c.physical_type}")
+            bad = [e for e in c.encodings if e.startswith("DELTA")
+                   or e == "BYTE_STREAM_SPLIT"]
+            if bad:
+                return f"column {c.path_in_schema!r}: encoding {bad[0]}"
+    return None
 
 
 def scan_files(paths: List[str]) -> List[str]:
     """The parquet files behind a scan's paths: a file as it is, a
     directory's ``*.parquet`` files (recursively, sorted, skipping names
-    that start with ``_`` or ``.``, as pyarrow's dataset does). A hive
-    layout (``key=value`` directories) raises."""
-    files = []
-    for p in paths:
-        if os.path.isdir(p):
-            files.extend(sorted(_list_dir(p)))
-        elif os.path.exists(p):
-            files.append(p)
-        else:
-            raise FileNotFoundError(p)
-    return files
+    that start with ``_`` or ``.``, as pyarrow's dataset does), hive
+    ``key=value`` directories included (:func:`.files.list_files` gives
+    their partition values)."""
+    from .files import list_files
+    return list_files("parquet", paths).files

@@ -15,8 +15,9 @@ Scope, the reference's: flat schemas; INT32/INT64/FLOAT/DOUBLE/BOOLEAN/
 DATE/TIMESTAMP values PLAIN-encoded; dictionary strings as a PLAIN
 dictionary page and an RLE_DICTIONARY data page; OPTIONAL columns with
 RLE definition levels; one row group and one data page per column; pages
-UNCOMPRESSED or SNAPPY (:mod:`.snappy`: the C++ routine for a batch on
-the card). Anything else raises :class:`NotDeviceEncodable` before the
+UNCOMPRESSED, SNAPPY (:mod:`.snappy`: the C++ routine for a batch on
+the card) or GZIP (``zlib``, for the writer's ``compression`` option).
+Anything else raises :class:`NotDeviceEncodable` before the
 file is touched. An UNCOMPRESSED file is byte for byte the reference's
 for the same batch.
 """
@@ -24,6 +25,7 @@ for the same batch.
 from __future__ import annotations
 
 import struct
+import zlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -43,7 +45,7 @@ class NotDeviceEncodable(Exception):
 _PQ_BOOLEAN, _PQ_INT32, _PQ_INT64, _PQ_FLOAT, _PQ_DOUBLE, _PQ_BYTE_ARRAY = \
     0, 1, 2, 4, 5, 6
 _ENC_PLAIN, _ENC_RLE, _ENC_RLE_DICTIONARY = 0, 3, 8
-_CODEC_UNCOMPRESSED, _CODEC_SNAPPY = 0, 1
+_CODEC_UNCOMPRESSED, _CODEC_SNAPPY, _CODEC_GZIP = 0, 1, 2
 
 #: type name -> (parquet physical type, converted type or None)
 _PHYS: Dict[str, Tuple[int, Optional[int]]] = {
@@ -155,6 +157,9 @@ def _length_prefixed(payload: bytes) -> bytes:
 def _compress(payload: bytes, codec: int, device) -> bytes:
     if codec == _CODEC_UNCOMPRESSED:
         return payload
+    if codec == _CODEC_GZIP:
+        c = zlib.compressobj(6, zlib.DEFLATED, 31)
+        return c.compress(payload) + c.flush()
     return snappy.compress(payload, device)
 
 
@@ -225,6 +230,8 @@ def write_device_batch(batch: ColumnarBatch, path: str,
         codec = _CODEC_UNCOMPRESSED
     elif compression == "snappy":
         codec = _CODEC_SNAPPY
+    elif compression == "gzip":
+        codec = _CODEC_GZIP
     else:
         raise NotDeviceEncodable(f"codec {compression!r} not encodable")
     dev = batch.device

@@ -93,8 +93,7 @@ def _rewrite(plan: L.LogicalPlan, use_cols: bool) -> L.LogicalPlan:
     children = [_rewrite(c, use_cols) for c in plan.children]
     here = use_cols and _scan_count(plan) > 0
     if isinstance(plan, L.Scan) and use_cols:
-        new = L.Scan(plan.fmt, plan.files,
-                     T.Schema(list(plan.schema) + META_FIELDS))
+        new = plan.with_schema(T.Schema(list(plan.schema) + META_FIELDS))
         new.emit_file_meta = True
         return new
     if isinstance(plan, L.Project):

@@ -130,17 +130,25 @@ class DeviceRelation(LogicalPlan):
 
 
 class Scan(LogicalPlan):
-    """A file scan (``TorchSession.read.parquet``): the files the paths
-    named, listed when the reader was called, and the schema of the
-    first. The scan decodes every column of that schema, as the
+    """A file scan (``TorchSession.read.parquet``, ``.orc``, ``.csv``):
+    the files the paths named, listed when the reader was called, the
+    reader's options, and the schema of the first file followed by the
+    hive partition columns (``n_part`` of them; ``part_values`` holds
+    each file's). The scan decodes every column of that schema, as the
     reference's does (its ``Scan.projected`` is never set): a
     ``Project`` above drops the rest."""
 
-    def __init__(self, fmt: str, files: List[str], schema: T.Schema):
+    def __init__(self, fmt: str, files: List[str], schema: T.Schema,
+                 options: Optional[dict] = None,
+                 part_values: Optional[List[tuple]] = None,
+                 n_part: int = 0):
         self.children = []
         self.fmt = fmt
         self.files = list(files)
         self._schema = schema
+        self.options = dict(options or {})
+        self.part_values = list(part_values or [() for _ in self.files])
+        self.n_part = n_part
         #: Set by the input-file rewrite (``plan/input_file.py``): the
         #: schema ends in its three hidden per-file columns.
         self.emit_file_meta = False
@@ -148,6 +156,11 @@ class Scan(LogicalPlan):
     @property
     def schema(self) -> T.Schema:
         return self._schema
+
+    def with_schema(self, schema: T.Schema) -> "Scan":
+        """This scan with another schema (the input-file rewrite's)."""
+        return Scan(self.fmt, self.files, schema, self.options,
+                    self.part_values, self.n_part)
 
     def describe(self):
         return f"Scan {self.fmt} [{', '.join(self._schema.names)}] " \
@@ -515,10 +528,91 @@ class GroupedData:
         return out
 
 
+class WriteOp(LogicalPlan):
+    """Write the child to files (the reference's ``WriteOp``, Spark's
+    ``InsertIntoHadoopFsRelationCommand``); its output is the one-row
+    write stats."""
+
+    FORMATS = ("parquet", "orc", "csv")
+
+    def __init__(self, child: LogicalPlan, fmt: str, path: str,
+                 options: dict, partition_by: List[str], mode: str):
+        from ..io.writers import MODES
+        if fmt not in self.FORMATS:
+            raise ValueError(f"unsupported write format '{fmt}'; choose "
+                             f"from {self.FORMATS}")
+        if mode not in MODES:
+            raise ValueError(f"unknown save mode '{mode}'; choose from "
+                             f"{MODES}")
+        self.children = [child]
+        self.fmt = fmt
+        self.path = path
+        self.options = dict(options)
+        self.partition_by = list(partition_by)
+        self.mode = mode
+        for c in self.partition_by:
+            if child.schema.field_maybe(c) is None:
+                raise KeyError(f"partitionBy column '{c}' not in "
+                               f"{child.schema}")
+
+    @property
+    def schema(self) -> T.Schema:
+        from ..io.writers import STATS_SCHEMA
+        return STATS_SCHEMA
+
+    def describe(self):
+        return f"WriteFiles {self.fmt} {self.path}"
+
+
+class DataFrameWriter:
+    """``df.write`` (Spark's ``DataFrameWriter``): ``mode``, ``option``,
+    ``partitionBy``, then ``parquet``, ``orc`` or ``csv``, which run the
+    write and return the stats row (a ``HostBatch``: files,
+    partitions, rows, bytes)."""
+
+    def __init__(self, df: "DataFrame"):
+        self._df = df
+        self._mode = "error"
+        self._options: dict = {}
+        self._partition_by: List[str] = []
+
+    def mode(self, m: str) -> "DataFrameWriter":
+        self._mode = m
+        return self
+
+    def option(self, key: str, value) -> "DataFrameWriter":
+        self._options[key] = value
+        return self
+
+    def partition_by(self, *cols: str) -> "DataFrameWriter":
+        self._partition_by = list(cols)
+        return self
+
+    partitionBy = partition_by
+
+    def _write(self, fmt: str, path: str):
+        plan = WriteOp(self._df._plan, fmt, path, self._options,
+                       self._partition_by, self._mode)
+        return self._df._session.execute(plan)
+
+    def parquet(self, path: str):
+        return self._write("parquet", path)
+
+    def orc(self, path: str):
+        return self._write("orc", path)
+
+    def csv(self, path: str):
+        return self._write("csv", path)
+
+
 class DataFrame:
     def __init__(self, plan: LogicalPlan, session):
         self._plan = plan
         self._session = session
+
+    @property
+    def write(self) -> DataFrameWriter:
+        return DataFrameWriter(self)
 
     @property
     def schema(self) -> T.Schema:

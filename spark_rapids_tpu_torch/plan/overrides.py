@@ -24,9 +24,24 @@ Rules that differ from the reference's (ROADMAP C): the port's
 ``castStringToTimestamp`` default to true, so the default path keeps the
 float sums and the string parsers on the device, as it always ran them;
 a non-inner join's residual is not a reason (the device applies it while
-matching); the sources (``DeviceSourceExec``, ``ParquetScanExec``) and
-the shuffle exchange are device nodes in the CPU plan already (the
-port's scan decodes on the device, and no CPU exchange is ported).
+matching); an uploaded table (``DeviceSourceExec``) and the shuffle
+exchange are device nodes in the CPU plan already (no CPU exchange is
+ported); a parquet scan with the input-file columns decodes on the
+device (the reference reads it on the host).
+
+The file scan's rule (``FileSourceScan``, the reference's
+``_device_scan_or_none``, ``overrides.py:690-760``) swaps the host scan
+(:class:`~..io.files.CpuFileScanExec`) for the device scan of its
+format, :class:`~..io.parquet_device.ParquetScanExec`,
+:class:`~..io.orc_device.OrcScanExec` or
+:class:`~..io.csv_device.CsvScanExec`, unless its
+``spark.rapids.sql.<format>.deviceDecode.enabled`` is false, the layout
+is hive-partitioned, an ORC or CSV scan emits the input-file columns,
+or a file is out of the device's scope (the format's
+``device_decodable``); the reason shows in the explain, and the host
+scan is a legitimate host node in test mode, as there. The writer's
+rule (``DataWritingCommand``, ``:568-577``) swaps the host writer for
+:class:`~..io.writers.WriteFilesExec`, which reads device batches.
 
 A node reaches the host only here, by its tag: no device exec, kernel or
 launch falls back to the host at run time.
@@ -38,13 +53,17 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Type
 
 from .. import types as T
-from ..config import (BATCH_SIZE_ROWS, OPERATOR_KEY_PREFIXES,
+from ..config import (BATCH_SIZE_ROWS, CSV_DEVICE_DECODE,
+                      OPERATOR_KEY_PREFIXES, ORC_DEVICE_DECODE,
+                      PARQUET_DEVICE_DECODE, PARQUET_REBASE_READ,
                       REPLACE_SORT_MERGE_JOIN, TOPK_THRESHOLD,
                       VARIABLE_FLOAT_AGG, TorchConf)
 from ..exec import execs as E
 from ..exec.execs import ReusedExec
 from ..exec.joins import NestedLoopJoinExec
 from ..exec.window_exec import WindowExec
+from ..io.files import CpuFileScanExec
+from ..io.writers import CpuWriteFilesExec, WriteFilesExec
 from ..ops import aggregates as AGG
 from ..ops import complex as CPX
 from ..ops import datetime as DT
@@ -418,7 +437,74 @@ def _global_limit(n: P.CpuLimitExec, ch, conf: TorchConf) -> E.TorchExec:
     return E.LimitExec(inner, n.n)
 
 
+_DECODE_KEYS = {"parquet": PARQUET_DEVICE_DECODE, "orc": ORC_DEVICE_DECODE,
+                "csv": CSV_DEVICE_DECODE}
+
+
+def _scan_gate(node: CpuFileScanExec, conf: TorchConf):
+    """(device scan, None), or (None, the reason the files stay on the
+    host scan); computed once a node."""
+    cached = getattr(node, "_gate", None)
+    if cached is not None:
+        return cached
+    node._gate = out = _device_scan(node, conf)
+    return out
+
+
+def _device_scan(node: CpuFileScanExec, conf: TorchConf):
+    entry = _DECODE_KEYS[node.fmt]
+    if not conf.get(entry):
+        return None, f"{entry.key} is false"
+    if node.n_part:
+        return None, ("hive-partitioned layout: the host scan adds the "
+                      "partition columns")
+    schema = node.data_schema
+    if node.fmt == "parquet":
+        from ..io import parquet_device as PD
+        from ..io.parquet_meta import read_footer
+        footers = {}
+        for f in node.files:
+            footers[f] = read_footer(f)
+            reason = PD.device_decodable(footers[f], schema, f)
+            if reason:
+                return None, f"{f}: {reason}"
+        return PD.ParquetScanExec(node.files, node.schema,
+                                  conf.get(PARQUET_REBASE_READ),
+                                  emit_file_meta=node.emit_file_meta,
+                                  footers=footers), None
+    if node.emit_file_meta:
+        return None, ("input_file_name() columns are added by the host "
+                      "scan")
+    if node.fmt == "orc":
+        from ..io import orc_device as OD
+        tails = {}
+        for f in node.files:
+            tails[f] = OD.read_tail(f)
+            reason = OD.device_decodable(tails[f], schema)
+            if reason:
+                return None, f"{f}: {reason}"
+        return OD.OrcScanExec(node.files, node.schema, tails), None
+    from ..io import csv_device as CD
+    reason = CD.device_decodable(schema, node.options)
+    if reason:
+        return None, reason
+    return CD.CsvScanExec(node.files, node.schema, node.options), None
+
+
+def _scan_tag(meta: ExecMeta, conf: TorchConf) -> None:
+    _, reason = _scan_gate(meta.node, conf)
+    if reason:
+        meta.will_not_work(reason)
+
+
 EXEC_RULES: Dict[type, ExecRule] = {
+    CpuFileScanExec: ExecRule(
+        "FileSourceScan", lambda n: [],
+        lambda n, ch, conf: _scan_gate(n, conf)[0], tag=_scan_tag),
+    CpuWriteFilesExec: ExecRule(
+        "DataWritingCommand", lambda n: [],
+        lambda n, ch, conf: WriteFilesExec(ch[0], n.fmt, n.path, n.options,
+                                           n.partition_by, n.mode)),
     P.CpuProjectExec: ExecRule(
         "Project", lambda n: n.exprs,
         lambda n, ch, conf: E.ProjectExec(ch[0], n.exprs)),
@@ -483,9 +569,8 @@ def check_operator_keys(conf: TorchConf) -> None:
             raise KeyError(f"unknown rapids conf key: {k}")
 
 #: Nodes that stay on the host legitimately (the reference's
-#: ``HOST_SOURCE_NODES``, ``overrides.py:624``): the port's sources are
-#: device nodes already.
-HOST_SOURCE_NODES = ("DeviceSourceExec", "ParquetScanExec")
+#: ``HOST_SOURCE_NODES``, ``overrides.py:624``).
+HOST_SOURCE_NODES = ("DeviceSourceExec", "CpuFileScanExec")
 
 
 def _is_kept(node: E.TorchExec) -> bool:
@@ -545,7 +630,10 @@ class TorchOverrides:
         bad: List[str] = []
 
         def check(node):
-            if not node.columnar and node.node_name() not in allowed:
+            # a writer reads device batches and returns a host row
+            consumes_device = getattr(node, "children_columnar",
+                                      node.columnar)
+            if not consumes_device and node.node_name() not in allowed:
                 bad.append(node.node_name())
             for c in node.children:
                 check(c)
@@ -591,11 +679,13 @@ def insert_transitions(plan: E.TorchExec, goal_rows: int = 1 << 20
         if id(node) in memo:
             return memo[id(node)]
         kids = []
+        # a writer reads device batches and returns a host row
+        wants = getattr(node, "children_columnar", node.columnar)
         for c in node.children:
             c = fix(c)
-            if node.columnar and not c.columnar:
+            if wants and not c.columnar:
                 c = E.HostToDeviceExec(c, goal_rows)
-            elif not node.columnar and c.columnar:
+            elif not wants and c.columnar:
                 c = E.DeviceToHostExec(c, mid_plan=True)
             kids.append(c)
         out = node

@@ -3,13 +3,14 @@
 
 Every logical node plans to its CPU operator (:mod:`.physical`); the
 overrides pass (:mod:`.overrides`) then converts what the device can
-take into the port's device execs. The sources stay what they are, the
-reference's ``HOST_SOURCE_NODES``: an uploaded table is a
-:class:`~..exec.execs.DeviceSourceExec` and a parquet scan a
-:class:`~..io.parquet_device.ParquetScanExec`, which decodes on the
-device; a CPU consumer reads them through a ``DeviceToHostExec``. A
-repartition plans as the device's shuffle exchange (no CPU exchange is
-ported).
+take into the port's device execs. The sources are the reference's
+``HOST_SOURCE_NODES``: an uploaded table is a
+:class:`~..exec.execs.DeviceSourceExec` (a CPU consumer reads it
+through a ``DeviceToHostExec``), a file scan of any format a
+:class:`~..io.files.CpuFileScanExec`, which the overrides pass swaps for
+the device scan of its format where that takes the files. A write is a
+:class:`~..io.writers.CpuWriteFilesExec`. A repartition plans as the
+device's shuffle exchange (no CPU exchange is ported).
 
 Joins follow the reference's ``_plan_join`` (``:47-81``): a cross join
 is a nested-loop join; an equi join of every type is a
@@ -31,9 +32,10 @@ from __future__ import annotations
 from collections import Counter
 from typing import Dict
 
-from ..config import PARQUET_REBASE_READ, TorchConf
+from ..config import TorchConf
 from ..exec import execs as E
-from ..io.parquet_device import ParquetScanExec
+from ..io.files import CpuFileScanExec
+from ..io.writers import CpuWriteFilesExec
 from ..shuffle.exchange import ShuffleExchangeExec
 from ..shuffle.partitioners import partitioner_factory
 from . import logical as L
@@ -56,7 +58,7 @@ def plan_physical(plan: L.LogicalPlan, conf: TorchConf) -> E.TorchExec:
         if id(node) not in memo:
             ex = _plan_node(node, conf, build)
             if refs[id(node)] > 1 and not isinstance(
-                    ex, (E.DeviceSourceExec, ParquetScanExec)):
+                    ex, (E.DeviceSourceExec, CpuFileScanExec)):
                 ex = E.ReusedExec(ex)
             memo[id(node)] = ex
         return memo[id(node)]
@@ -78,11 +80,12 @@ def _plan_node(plan: L.LogicalPlan, conf: TorchConf, sub) -> E.TorchExec:
     if isinstance(plan, L.DeviceRelation):
         return E.DeviceSourceExec(plan.batch)
     if isinstance(plan, L.Scan):
-        if plan.fmt != "parquet":
-            raise NotImplementedError(f"{plan.fmt} scans are not ported")
-        return ParquetScanExec(plan.files, plan.schema,
-                               conf.get(PARQUET_REBASE_READ),
-                               emit_file_meta=plan.emit_file_meta)
+        return CpuFileScanExec(plan.fmt, plan.files, plan.schema,
+                               plan.options, plan.part_values, plan.n_part,
+                               plan.emit_file_meta)
+    if isinstance(plan, L.WriteOp):
+        return CpuWriteFilesExec(sub(plan.children[0]), plan.fmt, plan.path,
+                                 plan.options, plan.partition_by, plan.mode)
     if isinstance(plan, L.Project):
         return P.CpuProjectExec(sub(plan.children[0]), plan.exprs)
     if isinstance(plan, L.Filter):

@@ -28,9 +28,11 @@ the task semaphore (``spark.rapids.sql.concurrentTpuTasks``). A fault
 that escaped every operator-level retry is classified
 (:func:`.memory.retry.classify`): a transient one re-runs the attempt in
 place after the backoff; an OOM synchronizes the card, spills every
-spillable buffer and re-runs; anything else raises. The port has no
-write plans, so every plan may re-run. Retries of discarded attempts are
-carried into the surviving attempt's profile under ``TorchSession``.
+spillable buffer and re-runs; anything else raises. Every plan may
+re-run: a write applies its save mode once and a re-run deletes the
+files of the attempt before it (:mod:`.io.writers`). Retries of
+discarded attempts are carried into the surviving attempt's profile
+under ``TorchSession``.
 
 Whole-stage fusion (:mod:`.exec.fusion`, the reference's
 ``session.py:621-629``): with ``spark.rapids.tpu.fusion.enabled``
@@ -74,8 +76,7 @@ from .exec import execs as E
 from .exec import fusion as FU
 from .exec import mesh as MX
 from .exec import pipeline
-from .io import parquet_device as PQ
-from .io.parquet_meta import read_footer, schema_from_parquet
+from .io import files as FILES
 from .memory import retry as R
 from .memory.device_manager import DeviceManager
 from .memory.spill import QosTag
@@ -163,21 +164,39 @@ def resolve_device(device=None) -> torch.device:
 
 class DataFrameReader:
     """``session.read``: file sources (the reference's
-    ``session.py:26``). Only parquet is ported."""
+    ``session.py:26``): ``option(key, value)``, then ``parquet``, ``orc``
+    or ``csv`` over files or directories of them (a directory's files of
+    the format, names starting with ``_`` or ``.`` skipped, hive
+    ``key=value`` directories as partition columns), typed by the first
+    file (:func:`.io.files.infer_schema`). Each decodes on the session's
+    device when collected, on the host where the plan's gate says so
+    (:mod:`.plan.overrides`)."""
 
     def __init__(self, session: "TorchSession"):
         self._session = session
+        self._options: Dict[str, object] = {}
+
+    def option(self, key: str, value) -> "DataFrameReader":
+        self._options[key] = value
+        return self
+
+    def _scan(self, fmt: str, paths) -> L.DataFrame:
+        listing = FILES.list_files(fmt, list(paths))
+        if not listing.files:
+            raise FileNotFoundError(f"no {fmt} files under {list(paths)}")
+        schema = FILES.infer_schema(fmt, listing, self._options)
+        return L.DataFrame(L.Scan(fmt, listing.files, schema, self._options,
+                                  listing.part_values,
+                                  len(listing.part_fields)), self._session)
 
     def parquet(self, *paths: str) -> L.DataFrame:
-        """A DataFrame over parquet files or directories of them (their
-        ``*.parquet`` files; names starting with ``_`` or ``.`` are
-        skipped), typed by the first file's schema. It decodes on the
-        session's device when collected."""
-        files = PQ.scan_files(list(paths))
-        if not files:
-            raise FileNotFoundError(f"no parquet files under {paths}")
-        schema = schema_from_parquet(read_footer(files[0]), files[0])
-        return L.DataFrame(L.Scan("parquet", files, schema), self._session)
+        return self._scan("parquet", paths)
+
+    def orc(self, *paths: str) -> L.DataFrame:
+        return self._scan("orc", paths)
+
+    def csv(self, *paths: str) -> L.DataFrame:
+        return self._scan("csv", paths)
 
 
 class TorchSession:

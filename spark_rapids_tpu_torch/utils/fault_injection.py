@@ -21,8 +21,11 @@ schedule read from the conf (``spark.rapids.tpu.test.faultInjection.``):
 
 Same conf, same schedule: the counters are per injector, and the session
 makes one injector a session. Site names are ``<node>.<boundary>``
-(``ShuffledHashJoinExec.probe``, ``session.dispatch``, ...);
-:func:`known_sites` lists those visited so far in the process. The
+(``ShuffledHashJoinExec.probe``, ``session.dispatch``, ...), and the
+scans' units (:data:`IO_SITES`: a parquet row group, an ORC stripe, a
+CSV file), where a fault makes that unit decode on the host;
+:func:`known_sites` lists those visited so far in the process, and the
+scans' from import on. The
 reference's network, serving and mesh fault classes wait for the port's
 net plane, serving layer and mesh failover.
 """
@@ -49,10 +52,19 @@ def register_site(site: str) -> None:
         _KNOWN_SITES.add(site)
 
 
+#: The device scans' per-unit sites: a fault there decodes the unit on
+#: the host (io/parquet_device.py, io/orc_device.py, io/csv_device.py).
+IO_SITES = ("io.parquet.rowGroup", "io.orc.stripe", "io.csv.file")
+
+
 def known_sites() -> list:
     """Every site name registered so far in this process, sorted."""
     with _SITES_LOCK:
         return sorted(_KNOWN_SITES)
+
+
+for _site in IO_SITES:
+    register_site(_site)
 
 
 class InjectedFault(Exception):

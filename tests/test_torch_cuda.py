@@ -1,7 +1,9 @@
 """The CUDA kernels of ``spark_rapids_tpu_torch`` against their plain
 PyTorch versions, on the card, and the parquet scan's host snappy and
 run-table routines and card decode against their plain and CPU versions
-(and the scan with its decode-ahead pipeline on against it off). Every test here needs an NVIDIA GPU and
+(and the scan with its decode-ahead pipeline on against it off), and the
+CSV parse, the ORC run expansion and partitioned writes on the card
+against their host paths. Every test here needs an NVIDIA GPU and
 skips without one; the module imports neither JAX nor the JAX package,
 so it runs on a machine that has only PyTorch:
 
@@ -1462,3 +1464,105 @@ def test_cuda_host_project_between_device_execs(cuda_device):
     batch_bytes = n * (8 + 8 + 1 + 1)
     assert torch.cuda.memory_allocated(cuda_device) <= base + batch_bytes, \
         (torch.cuda.memory_allocated(cuda_device), base)
+
+
+# -- the rest of I/O: CSV parse, ORC run expansion, partitioned writes ----------
+
+IO_FIXTURES = Path(__file__).resolve().parent / "data" / "torch_io"
+
+
+def _host_rows_equal(got: HostBatch, want: HostBatch) -> None:
+    assert got.schema.names == want.schema.names
+    for i, name in enumerate(want.schema.names):
+        gv, gok = got.column_at(i)
+        wv, wok = want.column_at(i)
+        np.testing.assert_array_equal(gok, wok, err_msg=name)
+        gv, wv = np.asarray(gv), np.asarray(wv)
+        if wv.dtype.kind == "f":
+            gv, wv = gv.view(np.int64), wv.view(np.int64)
+        assert [a for a, o in zip(gv.tolist(), wok) if o] == \
+            [b for b, o in zip(wv.tolist(), wok) if o], name
+
+
+@pytest.mark.cuda
+def test_cuda_csv_parse_matches_host_reader(cuda_device, tmp_path):
+    """The device parse of a file the port's writer made (ints, doubles
+    of 2 decimals, dates, booleans, strings, nulls) against the host
+    reader, bit for bit."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.io import csv_device as CD
+    from spark_rapids_tpu_torch.session import TorchSession
+    rng = np.random.default_rng(9)
+    n = 300_000
+    hb = HostBatch.from_numpy(
+        {"k": rng.integers(-10 ** 15, 10 ** 15, n),
+         "p": np.round(rng.uniform(-1e5, 1e5, n), 2),
+         "d": rng.integers(-5000, 30000, n).astype(np.int32),
+         "b": rng.random(n) < 0.5,
+         "s": np.array(["AIR", "MAIL", "SHIP", "", "RAIL"])[
+             rng.integers(0, 5, n)].astype(object)},
+        T.Schema([T.StructField("k", T.LONG), T.StructField("p", T.DOUBLE),
+                  T.StructField("d", T.DATE), T.StructField("b", T.BOOLEAN),
+                  T.StructField("s", T.STRING)]),
+        validity={"p": rng.random(n) < 0.9})
+    path = str(tmp_path / "w")
+    TorchSession(device="cpu").create_dataframe(hb).write.csv(path)
+    [f] = [str(tmp_path / "w" / x) for x in (tmp_path / "w").iterdir()
+           if x.name.endswith(".csv")]
+    schema = CD.infer_schema(f, {})
+    batches = CD.decode_file(f, schema, {}, cuda_device, max_rows=1 << 17)
+    assert len(batches) == 3
+    got = HostBatch.concat([HostBatch.from_device(b) for b in batches])
+    _host_rows_equal(got, CD.read_host(f, schema, {}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rle_zlib.orc", "direct_snappy.orc"])
+def test_cuda_orc_run_expansion_matches_cpu(cuda_device, name):
+    """Every stripe of the committed pyarrow ORC files (all four RLEv2
+    runs, both string encodings) decoded on the card equals its decode
+    on CPU tensors, and the host phase with the C++ snappy equals the
+    plain one."""
+    from spark_rapids_tpu_torch.io import orc_device as OD
+    tail = OD.read_tail(str(IO_FIXTURES / name))
+    schema = OD.schema_from_tail(tail)
+    for k in range(len(tail.stripes)):
+        got = OD.decode_stripe(tail, k, schema, cuda_device)
+        want = OD.decode_stripe(tail, k, schema, "cpu")
+        _host_rows_equal(HostBatch.from_device(got),
+                         HostBatch.from_device(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["parquet", "orc", "csv"])
+def test_cuda_partitioned_write_matches_host_writer(cuda_device, tmp_path,
+                                                    fmt):
+    """``partitionBy`` on the card (the device sort by a dictionary key,
+    runs sliced on the card for parquet) writes the rows the host writer
+    writes, read back by the port."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.session import TorchSession
+    rng = np.random.default_rng(5)
+    n = 200_000
+    data = {"flag": np.array(["A", "N", "R"])[rng.integers(0, 3, n)]
+            .astype(object),
+            "q": rng.integers(1, 50, n), "x": np.round(rng.normal(size=n), 2)}
+    schema = T.Schema([T.StructField("flag", T.STRING),
+                       T.StructField("q", T.LONG),
+                       T.StructField("x", T.DOUBLE)])
+    card = TorchSession(device="cuda")
+    host = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
+    for s, d in ((card, "card"), (host, "host")):
+        df = s.create_dataframe(HostBatch.from_numpy(data, schema))
+        stats = getattr(df.write.partition_by("flag"), fmt)(
+            str(tmp_path / d))
+        assert int(stats.columns["partitions"][0]) == 3
+    reader = TorchSession(device="cpu").read
+
+    def rows(d):
+        hb = getattr(reader, fmt)(str(tmp_path / d)).collect()
+        return sorted(zip(hb.columns["flag"].tolist(),
+                          hb.columns["q"].tolist(),
+                          np.asarray(hb.columns["x"]).view(np.int64)
+                          .tolist()))
+    assert rows("card") == rows("host")

@@ -119,10 +119,6 @@ def test_snappy_file_reads_back_through_pyarrow_and_the_port(name,
     assert {c.codec for c in meta.row_groups[0].columns} == {"SNAPPY"}
     want = _as_pylist(pa.Table.from_batches([rb]))
     assert _as_pylist(pq.read_table(path)) == want
-    if "b" in rb.schema.names:   # the scan refuses PLAIN booleans
-        with pytest.raises(NotImplementedError, match="PLAIN booleans"):
-            TorchSession(device="cpu").read.parquet(path).collect()
-        return
     got = TorchSession(device="cpu").read.parquet(path).collect()
     back = HostBatch.from_device(batch)
     for n in rb.schema.names:

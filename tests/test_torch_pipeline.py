@@ -283,23 +283,56 @@ def test_scan_query_on_equals_off(scan_files):
     _host_equal(out["on"], out["off"])
 
 
-def test_decode_error_reaches_the_consumer_unchanged(tmp_path):
-    """A column the decoder does not take (a GZIP chunk) raises the same
-    ``NotImplementedError``, naming file, column and reason, with the
-    pipeline on (raised on a worker) and off."""
-    path = str(tmp_path / "gzip.parquet")
-    tbl = _table(900)
-    pq.write_table(tbl, path, row_group_size=300,
-                   compression={"k": "snappy", "i": "snappy", "x": "gzip",
+def _zstd_file(tmp_path) -> str:
+    """A file with one ZSTD column (``x``), which neither decoder takes."""
+    path = str(tmp_path / "zstd.parquet")
+    pq.write_table(_table(900), path, row_group_size=300,
+                   compression={"k": "snappy", "i": "snappy", "x": "zstd",
                                 "d": "snappy", "s": "snappy"})
-    errors = {}
-    for name, conf in (("on", ON), ("off", OFF)):
-        with pytest.raises(NotImplementedError) as e:
-            TorchSession(conf, device="cpu").read.parquet(path).collect()
-        errors[name] = str(e.value)
+    return path
+
+
+def _scan_error(path: str, conf) -> str:
+    """The error ``ParquetScanExec`` itself raises over ``path`` (built
+    directly: the plan's gate would send the file to the host scan)."""
+    from spark_rapids_tpu_torch.io.parquet_device import ParquetScanExec
+    from spark_rapids_tpu_torch.io.parquet_meta import (read_footer,
+                                                        schema_from_parquet)
+    ctx = _ctx(conf)
+    scan = ParquetScanExec([path], schema_from_parquet(read_footer(path),
+                                                       path))
+    with pytest.raises(NotImplementedError) as e:
+        for part in scan.execute(ctx):
+            list(part)
+    ctx.run_cleanups()
+    assert not ctx.counters.get("ParquetScanExec.hostFallbackRowGroups")
+    return str(e.value)
+
+
+def test_decode_error_reaches_the_consumer_unchanged(tmp_path):
+    """A column the decoder does not take (a ZSTD chunk) raises the same
+    ``NotImplementedError``, naming file, column and reason, from
+    ``ParquetScanExec`` with the pipeline on (raised on a worker) and
+    off; the per-row-group fallback does not swallow it."""
+    path = _zstd_file(tmp_path)
+    errors = {name: _scan_error(path, conf)
+              for name, conf in (("on", ON), ("off", OFF))}
     assert errors["on"] == errors["off"]
     assert path in errors["on"] and "'x'" in errors["on"] \
-        and "GZIP" in errors["on"]
+        and "ZSTD" in errors["on"]
+
+
+def test_host_scan_raises_the_same_decode_error(tmp_path):
+    """Through the session the plan's gate sends the ZSTD file to the
+    host scan, which raises the device scan's error, pipeline on or
+    off."""
+    path = _zstd_file(tmp_path)
+    want = _scan_error(path, OFF)
+    for conf in (ON, OFF):
+        s = TorchSession(conf, device="cpu")
+        with pytest.raises(NotImplementedError) as e:
+            s.read.parquet(path).collect()
+        assert str(e.value) == want
 
 
 def test_scan_partitions_are_generators_read_once(scan_files):
