@@ -224,7 +224,9 @@ Phases; each one passes or the script exits non-zero:
    NOT_ON_TPU explain text, the transitions' rows and bytes each way,
    host-operator against device ms and the kernel families launched.
    ``PLAN_SWEEP`` plans every query of phase 3 (over 2^14-row tables) in
-   test mode under the sessions' confs: 0 host nodes;
+   test mode under the sessions' confs, plan lint on: 0 host nodes, 0
+   lint errors and 0 lint warns, with the lint's ms per plan (median and
+   max) beside the planning's;
    The **IO phase** (after the fallback phase; ``run_io_phase``) writes
    the columns Q1, Q3 and Q6 read of SF1 lineitem, orders and customer
    with ``df.write.mode("overwrite")`` as parquet (SNAPPY), ORC (ZLIB)
@@ -243,6 +245,35 @@ Phases; each one passes or the script exits non-zero:
    values; each query cell prints its fused dispatch (each run's action,
    the graphs it captured and replayed, the graphs and pool bytes live
    after it), and the phase ends by releasing every captured graph;
+   The **LINT phase** (``run_lint_phase``) puts plans with a known fault
+   through ``TorchSession`` on the card: ``lint_inject_partitions``
+   (customers per nation over hash exchanges of 4 and 8 partitions) warns
+   once, falls back to the CPU plan and answers as numpy, with the
+   fallback counted in ``QueryInfo.lint`` and the profile; the same plan
+   raises ``PlanLintError`` under ``planLint.failOnWarn`` and in test
+   mode; an illegal cast and a device node over a host child (the
+   overrides pass's transitions left out) raise at plan time, no kernel
+   launched. ``lint_concurrency`` runs the static analyzer's command line
+   over the port's tree (its seconds, locks, order edges and findings,
+   which must be 0 against the empty baseline), then Q3, ``pq_q1`` and
+   ``io_orc_q3`` over 2^20 lineitem rows in a process with
+   ``TPU_LOCKDEP=1`` (``--lockdep-run``): every lock-order edge lockdep
+   observes must be an edge of the static graph, and no violation;
+   The **PERSIST phase** (``run_persist_phase``, over the SF1 parquet
+   files) runs the nine ``pq_*`` queries cold in three fresh processes
+   (``--persist-run``) sharing one compile manifest under the gitignored
+   ``artifacts/persist_phase/``: A starts it empty and writes it, B reads
+   it, C reads it and runs each query twice; each ``PERSIST pq_<q>``
+   line prints A's and B's attempts and cold ms, C's runs and its second
+   run's path, and ``PERSIST`` the manifest's plans and bytes; every
+   answer against the numpy references, the plan hash equal across the
+   processes, and a query that took more than one attempt in A takes one
+   in B. C also runs Q6, Q14 and Q19 three times over uploaded tables of
+   2^20 lineitem rows (``PERSIST capture_<q>``; a parquet scan's fused
+   keys never repeat): the second run must capture its graph on the
+   query thread and the third replay it; ``warmup_bound_ms``, the second
+   run less the third, is the most a capture made ahead of the second
+   run could save;
 4. at the shapes the queries gave each kernel: kernel vs plain version
    (equal bit for bit), median times over CUDA events with the L2 flushed
    between launches, the memory bound, and a PyTorch library yardstick
@@ -278,6 +309,7 @@ import hashlib
 import json
 import multiprocessing
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -285,6 +317,7 @@ import sys
 import tempfile
 import time
 import types
+import warnings
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
@@ -334,10 +367,10 @@ def check(cond: bool, msg: str) -> None:
 #: BUILD and the TPC-H tables always run.
 PHASES = ("EDGE", "TPCH", "FUSION", "PARQUET", "TPCXBB", "TPCDS",
           "MORTGAGE", "ENTRY", "MESH", "METRICS", "MEMORY", "FALLBACK", "IO",
-          "KERNELS")
+          "LINT", "PERSIST", "KERNELS")
 #: The phases a phase reads from: they run with it.
 PHASE_NEEDS = {"METRICS": ("TPCDS", "PARQUET"), "MEMORY": ("PARQUET",),
-               "KERNELS": PHASES}
+               "PERSIST": ("PARQUET",), "KERNELS": PHASES}
 
 
 def needed_phases(names) -> set:
@@ -2738,7 +2771,10 @@ def expr_queries(M, dfs) -> dict:
             agg(A.Sum, CA.Cast(S.ConcatStrings(lit(" "), col("tix"),
                                                lit("\t")), T.INT), "ti"),
             agg(A.Count, CA.Cast(col("tag"), T.LONG), "bad"),
-            agg(A.Sum, CA.Cast(CA.Cast(dtext, T.DATE), T.LONG), "days"),
+            # days since the epoch of the parsed dates (a date has no
+            # cast to a number: plan lint's cast lattice refuses it)
+            agg(A.Sum, D.DateDiff(CA.Cast(dtext, T.DATE), lit(0, T.DATE)),
+                "days"),
             agg(A.Max, CA.Cast(CA.Cast(dtext, T.TIMESTAMP), T.STRING), "ts"),
             count_true(CA.Cast(CA.Cast(P.GreaterThan(
                 col("ss_quantity"), lit(50)), T.STRING), T.BOOLEAN), "yes"),
@@ -6574,6 +6610,19 @@ def run_tpcds(torch, ctx, session, wrappers, ss_rows: int, seed: int,
     for key, name in (("warm_median_ms", "warm_ms"), ("cold_ms", "cold_ms")):
         geomean[name] = float(np.exp(np.mean(np.log(
             [summaries[f"ds_{q}"][key] for q in DS_QUERIES]))))
+    # plan lint's own ms in the cells (QueryInfo.lint["ms"], both
+    # checks): the cold run, and the warm runs, whose verdicts come from
+    # the session's memo
+    cells = [summaries[f"ds_{q}"] for q in DS_QUERIES]
+    warm_lint = [statistics.median(c["lint_ms"][2:]) for c in cells]
+    geomean["lint"] = {
+        "cold_ms_median": statistics.median(c["lint_ms"][0] for c in cells),
+        "cold_ms_max": max(c["lint_ms"][0] for c in cells),
+        "cold_memo_hits": sum(c["lint_memo"][0] for c in cells),
+        "warm_ms_median": statistics.median(warm_lint),
+        "warm_ms_max": max(warm_lint),
+        "warm_share_median": statistics.median(
+            w / c["warm_median_ms"] for w, c in zip(warm_lint, cells))}
     summaries["ds_geomean"] = geomean
     print("DS_GEOMEAN " + json.dumps(geomean))
 
@@ -7239,7 +7288,10 @@ def run_query(torch, session, wrappers, name, build, check_fn, need,
                "warm_runs_ms": runs, "attempts": info.attempts,
                "path": info.path, "shards": info.shards,
                "peak_gib": peak_gib, "launches": launches,
-               "per_exec_ms": mid, "counters": mid_info.counters}
+               "per_exec_ms": mid, "counters": mid_info.counters,
+               # plan lint's ms and memo hits in each run (QueryInfo.lint)
+               "lint_ms": [i.lint.get("ms", 0.0) for i in infos],
+               "lint_memo": [i.lint.get("memo", 0) for i in infos]}
     return launches, calls, summary, mid
 
 
@@ -9704,23 +9756,61 @@ def plan_sweep(TorchSession, L, workloads: dict) -> dict:
     """Plan, without running, every query of ``workloads`` (name ->
     (query functions by name, frames)) under
     ``spark.rapids.sql.test.enabled`` with the sessions' confs (the
-    default, the streaming path, the pipeline off): a host node raises
-    ``FallbackOnTpuError``. Prints ``PLAN_SWEEP``: plans and host nodes
-    (must be 0)."""
+    default, the streaming path, the pipeline off), plan lint on: a host
+    node raises ``FallbackOnTpuError``, a lint error or warn
+    ``PlanLintError``. Prints ``PLAN_SWEEP``: plans, host nodes, lint
+    errors and warns (all three must be 0) and the lint's and the
+    planning's ms per plan (median and max); then the default session
+    plans each query again, and ``PLAN_SWEEP memo`` prints the lint's ms
+    with both verdicts from the session's memo (``lint_memo_ms_*``)."""
+    from spark_rapids_tpu_torch.analysis.plan_lint import PlanLintError
     from spark_rapids_tpu_torch.plan.overrides import host_nodes
-    plans = hosts = 0
+    plans = hosts = errors = warns = 0
+    lint_ms, plan_ms, memo_ms = [], [], []
+    first = None
     for conf in ({}, {"spark.rapids.tpu.fusion.enabled": False},
                  {"spark.rapids.tpu.pipeline.enabled": False}):
         s = TorchSession({**conf, "spark.rapids.sql.test.enabled": True},
                          device="cuda")
+        first = first or s
         for name, (queries, frames) in workloads.items():
             bound = rebind(L, frames, s)
             for q, fn in queries.items():
-                hosts += len(host_nodes(s.plan(fn(bound)._plan)))
                 plans += 1
-    line = {"plans": plans, "host_nodes": hosts}
+                t0 = time.perf_counter()
+                try:
+                    plan, lint = s.plan_with_lint(fn(bound)._plan)
+                except PlanLintError as e:
+                    errors += sum(v.severity == "error"
+                                  for v in e.violations)
+                    warns += sum(v.severity == "warn" for v in e.violations)
+                    print(f"  PLAN_SWEEP {name} {q}: {e}")
+                    continue
+                plan_ms.append((time.perf_counter() - t0) * 1e3)
+                lint_ms.append(lint["ms"])
+                hosts += len(host_nodes(plan))
+    line = {"plans": plans, "host_nodes": hosts, "lint_errors": errors,
+            "lint_warns": warns,
+            "lint_ms_median": statistics.median(lint_ms),
+            "lint_ms_max": max(lint_ms),
+            "plan_ms_median": statistics.median(plan_ms),
+            "plan_ms_max": max(plan_ms)}
     print("PLAN_SWEEP " + json.dumps(line))
     check(hosts == 0, f"{hosts} host nodes in the default plans")
+    check(errors == 0 and warns == 0, f"plan lint: {errors} error(s), "
+          f"{warns} warn(s) in the default plans")
+    for name, (queries, frames) in workloads.items():
+        bound = rebind(L, frames, first)
+        for q, fn in queries.items():
+            _, lint = first.plan_with_lint(fn(bound)._plan)
+            check(lint["memo"] == 2, f"PLAN_SWEEP {name} {q}: planned "
+                  f"again, {lint['memo']} of 2 verdicts from the memo")
+            memo_ms.append(lint["ms"])
+    line.update(lint_memo_ms_median=statistics.median(memo_ms),
+                lint_memo_ms_max=max(memo_ms))
+    print("PLAN_SWEEP memo " + json.dumps(
+        {"plans": len(memo_ms), "lint_memo_ms_median": line[
+            "lint_memo_ms_median"], "lint_memo_ms_max": max(memo_ms)}))
     return line
 
 
@@ -10019,6 +10109,455 @@ def run_io_phase(torch, TorchSession, tpch, dfs, refs, ref3, wrappers,
     return results, launches
 
 
+# --------------------------------------------------------------------------
+# LINT: plan verification on the card and the static concurrency gate
+# --------------------------------------------------------------------------
+
+#: rows of the lockdep run's own TPC-H tables (its parquet and ORC files)
+LOCKDEP_LINEITEM_ROWS = 1 << 20
+
+
+def lint_partitions_query(d, n_left: int = 4, n_right: int = 8):
+    """Customers per nation over hash exchanges whose partition counts
+    disagree (4 against 8): plan lint warns at the shuffled join."""
+    from spark_rapids_tpu_torch.ops import aggregates as A
+    from spark_rapids_tpu_torch.ops.expression import col
+    from spark_rapids_tpu_torch.ops.predicates import EqualTo
+    cust = d["customer"].repartition(n_left, col("c_nationkey"))
+    nation = d["nation"].repartition(n_right, col("n_nationkey"))
+    return (cust.join(nation, on=EqualTo(col("c_nationkey"),
+                                         col("n_nationkey")))
+            .group_by(col("n_name"))
+            .agg(A.AggregateExpression(A.Count(col("c_custkey")),
+                                       "customers")))
+
+
+def numpy_lint_partitions(tables) -> dict:
+    """The same answer in numpy: nation name -> its customers."""
+    c = tables["customer"].columns
+    n = tables["nation"].columns
+    counts = np.bincount(c["c_nationkey"], minlength=len(n["n_nationkey"]))
+    name = dict(zip(n["n_nationkey"].tolist(), n["n_name"].tolist()))
+    return {name[k]: int(counts[k]) for k in n["n_nationkey"].tolist()
+            if counts[k]}
+
+
+def _raises_lint(torch, wrappers, build, want: set) -> dict:
+    """``build()`` must raise ``PlanLintError`` at plan time with the
+    (check, severity) pairs ``want`` among its violations, launching no
+    kernel. Returns the cell's line."""
+    from spark_rapids_tpu_torch.analysis.plan_lint import PlanLintError
+    wrappers.reset()
+    t0 = time.perf_counter()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            build()
+    except PlanLintError as e:
+        ms = (time.perf_counter() - t0) * 1e3
+        found = {(v.check, v.severity) for v in e.violations}
+        launched = {k: v for k, v in wrappers.counts().items() if v}
+        check(want <= found, f"plan lint raised {sorted(found)}, expected "
+              f"{sorted(want)}: {e}")
+        check(not launched, f"kernels launched before the plan-lint "
+              f"error: {launched}")
+        return {"raised": sorted(f"{c}/{s}" for c, s in found), "ms": ms,
+                "paths": sorted({v.node_path for v in e.violations}),
+                "launches": {}}
+    fail(f"no PlanLintError (expected {sorted(want)})")
+
+
+def lint_inject_cells(torch, TorchSession, L, tpch, dfs, tables,
+                      wrappers) -> dict:
+    """The ``lint_inject_*`` cells: plans with a known fault through
+    ``TorchSession`` on the card (see :func:`run_lint_phase`)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.ops.cast import Cast
+    from spark_rapids_tpu_torch.ops.expression import col
+    from spark_rapids_tpu_torch.ops.predicates import IsNull
+    from spark_rapids_tpu_torch.plan import overrides as OV
+    out = {}
+    # shuffled join sides of 4 and 8 partitions: a warn, the CPU plan
+    s = TorchSession(device="cuda")
+    d = rebind(L, dfs, s)
+    wrappers.reset()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = lint_partitions_query(d).collect()
+    ms = (time.perf_counter() - t0) * 1e3
+    lint = s.last_query.lint
+    printed = [str(w.message) for w in caught
+               if "falling back to the CPU plan" in str(w.message)]
+    want = numpy_lint_partitions(tables)
+    have = dict(zip(np.asarray(got.columns["n_name"]).astype(str).tolist(),
+                    np.asarray(got.columns["customers"]).tolist()))
+    check(have == want, f"lint_inject_partitions: {have} vs numpy {want}")
+    check(lint["fallback"] and lint["warns"] == 1 and len(printed) == 1,
+          f"lint_inject_partitions: lint {lint}, warnings {printed}")
+    prof = s.last_query_profile()
+    check(prof is not None and prof.engine["planLint"]["fallback"],
+          "lint_inject_partitions: the profile does not count the "
+          "fallback")
+    out["lint_inject_partitions"] = {
+        "ms": ms, "lint": lint, "warning": printed[0][:200],
+        "rows": len(have), "launches": {k: v for k, v in
+                                        wrappers.counts().items() if v}}
+    # the same plan raises under failOnWarn and in test mode
+    for cell, conf in (("lint_inject_fail_on_warn",
+                        {"spark.rapids.tpu.planLint.failOnWarn": True}),
+                       ("lint_inject_test_mode",
+                        {"spark.rapids.sql.test.enabled": True})):
+        s2 = TorchSession(conf, device="cuda")
+        d2 = rebind(L, dfs, s2)
+        out[cell] = _raises_lint(
+            torch, wrappers, lambda: lint_partitions_query(d2).collect(),
+            {("partitioning", "warn")})
+    # an illegal cast (boolean -> date)
+    s3 = TorchSession(device="cuda")
+    d3 = rebind(L, dfs, s3)
+    out["lint_inject_cast"] = _raises_lint(
+        torch, wrappers, lambda: d3["lineitem"].select(
+            Cast(IsNull(col("l_orderkey")), T.DATE).alias("d")).collect(),
+        {("cast", "error")})
+    # a device node over a host child: the overrides pass's transitions
+    # left out, as a broken rule would
+    real = OV.insert_transitions
+    OV.insert_transitions = lambda plan, goal_rows=0: plan
+    try:
+        out["lint_inject_transition"] = _raises_lint(
+            torch, wrappers, lambda: tpch.q6(d3).collect(),
+            {("transition", "error")})
+    finally:
+        OV.insert_transitions = real
+    check(s3.last_query is None, "a query of the injected plans ran")
+    for cell, line in out.items():
+        print(f"LINT {cell} " + json.dumps(line))
+    return out
+
+
+def lint_concurrency(torch, smi: str) -> dict:
+    """``lint_concurrency``: the static analyzer over the port's tree, as
+    its CLI (``--inventory`` and the gate), then Q3, ``pq_q1`` and
+    ``io_orc_q3`` in a process with ``TPU_LOCKDEP=1``, whose observed
+    lock-order edges must all be edges of the static graph."""
+    from spark_rapids_tpu_torch.analysis import concurrency as CC
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    inv = subprocess.run([sys.executable, "-m",
+                          "spark_rapids_tpu_torch.analysis.concurrency",
+                          "--inventory"], cwd=repo, capture_output=True,
+                         text=True, timeout=120)
+    gate = subprocess.run([sys.executable, "-m",
+                           "spark_rapids_tpu_torch.analysis.concurrency",
+                           "--list"], cwd=repo, capture_output=True,
+                          text=True, timeout=120)
+    cli_s = time.perf_counter() - t0
+    check(inv.returncode == 0, f"the analyzer's inventory failed: "
+          f"{inv.stdout[-2000:]} {inv.stderr[-2000:]}")
+    check(gate.returncode == 0, "the concurrency gate failed: "
+          f"{gate.stdout[-3000:]} {gate.stderr[-3000:]}")
+    counts = re.search(r"(\d+) lock\(s\), (\d+) order edge\(s\), (\d+) "
+                       r"finding\(s\)", inv.stdout)
+    check(counts is not None, f"inventory: {inv.stdout[-500:]}")
+    locks, n_edges, findings = (int(x) for x in counts.groups())
+    check(findings == 0, f"the analyzer found {findings} fault(s)")
+    check(CC.load_baseline(CC.BASELINE_PATH) == {},
+          "the concurrency baseline is not empty")
+    t0 = time.perf_counter()
+    model = CC.analyze_tree(CC.PACKAGE_ROOT)
+    analyze_s = time.perf_counter() - t0
+    check("jax" not in sys.modules and "spark_rapids_tpu" not in sys.modules,
+          "the analyzer's process imported JAX or the JAX package")
+    name_of = {lid: (dd.declared or lid) for lid, dd in model.locks.items()}
+    static = {(name_of[a], name_of[b]) for a, dd in model.edges.items()
+              for b in dd}
+    # lockdep reads its gate when a lock is made: a process of its own
+    t0 = time.perf_counter()
+    env = dict(os.environ, TPU_LOCKDEP="1")
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--lockdep-run",
+         "--lineitem-rows", str(LOCKDEP_LINEITEM_ROWS)], cwd=repo, env=env,
+        capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines, f"the lockdep run exited "
+          f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    for line in lines[:-1]:
+        print(line)
+    run = json.loads(lines[-1])
+    observed = sorted((a, b) for a, bs in run["edges"].items() for b in bs)
+    missing = [f"{a} -> {b}" for a, b in observed if (a, b) not in static]
+    check(not missing, f"lockdep observed edges the static graph lacks: "
+          f"{missing}")
+    check(not run["violations"], f"lockdep violations: {run['violations']}")
+    line = {"cli_s": cli_s, "analyze_s": analyze_s, "locks": locks,
+            "order_edges": n_edges, "findings": findings,
+            "baseline": "empty",
+            "lockdep_edges": [f"{a} -> {b}" for a, b in observed],
+            "lockdep_violations": len(run["violations"]),
+            "lockdep_run_s": time.perf_counter() - t0,
+            "lockdep_cells": run["cells"], "launches": run["launches"],
+            "card": smi}
+    print("LINT lint_concurrency " + json.dumps(line))
+    return line
+
+
+def lockdep_main(args) -> int:
+    """``--lockdep-run`` (with ``TPU_LOCKDEP=1``): Q3 over uploaded TPC-H
+    tables of ``--lineitem-rows`` rows, ``pq_q1`` over their lineitem
+    written as parquet and ``io_orc_q3`` over their tables written as
+    ORC, each against numpy; the last line is the lock-order edges
+    lockdep observed, its violations and the kernels' launches."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("CUDA is not available; this smoke run needs an NVIDIA GPU")
+    from spark_rapids_tpu_torch.ops.expression import col
+    from spark_rapids_tpu_torch.ops.kernels import cuda as KCUDA
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.utils import lockdep
+    from spark_rapids_tpu_torch.workloads import tpch
+    check(lockdep.enabled(), "the lockdep run needs TPU_LOCKDEP=1")
+    tables = tpch.gen_tables(args.lineitem_rows, seed=args.seed)
+    ref3 = numpy_q3(tables)
+    ref1 = numpy_q1(tables)
+    before = KCUDA.stats()["launches"]
+    s = TorchSession(device="cuda")
+    d = tpch.load(s, tables)
+    cells = {}
+
+    def run(cell, build, check_fn):
+        t0 = time.perf_counter()
+        got = build().collect()
+        cells[cell] = {"ms": (time.perf_counter() - t0) * 1e3,
+                       "attempts": s.last_query.attempts}
+        check_fn(got)
+
+    def top3(got):
+        check_top("Q3", got, ref3, ["o_orderkey", "o_orderdate"], "revenue",
+                  10)
+    run("q3", lambda: tpch.q3(d), top3)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lockdep_")
+    try:
+        d["lineitem"].write.mode("overwrite").parquet(
+            os.path.join(tmp, "lineitem"))
+        pq = {"lineitem": s.read.parquet(os.path.join(tmp, "lineitem"))}
+        run("pq_q1", lambda: tpch.q1(pq), lambda got: check_answer(
+            "q1", in_key_order(got, ["l_returnflag", "l_linestatus"]),
+            ref1))
+        orc = {}
+        for name, cols in IO_COLUMNS.items():
+            path = os.path.join(tmp, "orc", name)
+            d[name].select(*[col(c) for c in cols]).write.mode(
+                "overwrite").option("compression", "zlib").orc(path)
+            orc[name] = s.read.orc(path)
+        run("io_orc_q3", lambda: tpch.q3(orc), top3)
+    finally:
+        shutil.rmtree(tmp, True)
+    s.close()
+    now = KCUDA.stats()["launches"]
+    print(json.dumps({
+        "edges": lockdep.edges(),
+        "violations": [str(v) for v in lockdep.violations()],
+        "cells": cells,
+        "launches": {k: now[k] - before.get(k, 0) for k in now}}))
+    return 0
+
+
+def run_lint_phase(torch, TorchSession, L, tpch, dfs, tables, wrappers,
+                   smi: str) -> tuple:
+    """The LINT phase: the ``lint_inject_*`` cells (a warn that falls back
+    to the CPU plan with numpy's answer and one counted fallback; the same
+    plan raising under ``failOnWarn`` and in test mode; an illegal cast
+    and a device node over a host child raising at plan time, before any
+    launch) and ``lint_concurrency``. Returns (its lines, the launches of
+    its runs by kernel)."""
+    out = lint_inject_cells(torch, TorchSession, L, tpch, dfs, tables,
+                            wrappers)
+    launches = {k: 0 for k in wrappers.mods}
+    for k, v in out["lint_inject_partitions"]["launches"].items():
+        launches[k] += v
+    out["lint_concurrency"] = lint_concurrency(torch, smi)
+    for k, v in out["lint_concurrency"]["launches"].items():
+        if k in launches:
+            launches[k] += v
+    return out, launches
+
+
+# --------------------------------------------------------------------------
+# PERSIST: the compile manifest across processes, and what a warm-up
+# could save
+# --------------------------------------------------------------------------
+
+#: The bench suite's nine TPC-H queries over the SF1 parquet files.
+PQ_QUERIES = ("q1", "q3", "q4", "q5", "q6", "q12", "q14", "q19",
+              "xbb_score")
+#: Process C's ``capture_<q>`` cells: queries over uploaded tables of
+#: this many lineitem rows, whose fused keys repeat (a parquet scan's do
+#: not), each run three times: eager, the graph captured on the query
+#: thread, a replay. The second run less the third is the most a capture
+#: made ahead of the second run (the reference's warm-up) could save.
+CAPTURE_QUERIES = ("q6", "q14", "q19")
+CAPTURE_LINEITEM_ROWS = 1 << 20
+PERSIST_DIR = Path(__file__).resolve().parent / "artifacts" / "persist_phase"
+
+
+def persist_main(args) -> int:
+    """``--persist-run SPEC``: the nine ``pq_*`` queries, cold, in this
+    fresh process, over the parquet directories of SPEC (JSON: ``dirs``,
+    ``cache``, ``uploaded``, ``runs``, ``answers``) with the compile
+    manifest in ``cache``, and with ``uploaded`` the ``CAPTURE_QUERIES``
+    three times each over uploaded tables (checked here against numpy);
+    the answers of each ``pq_*`` query's first run are pickled to
+    ``answers``; the last line is each query's runs and the manifest's
+    status."""
+    import pickle
+    import torch
+    if not torch.cuda.is_available():
+        fail("CUDA is not available; this smoke run needs an NVIDIA GPU")
+    from spark_rapids_tpu_torch.ops.kernels import cuda as KCUDA
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.workloads import tpch
+    spec = json.loads(args.persist_run)
+    conf = {"spark.rapids.tpu.compileCache.enabled": True,
+            "spark.rapids.tpu.compileCache.dir": spec["cache"]}
+    before = KCUDA.stats()["launches"]
+    s = TorchSession(conf, device="cuda")
+    pq = {name: s.read.parquet(d) for name, d in spec["dirs"].items()}
+    out, answers = {}, {}
+    for q in PQ_QUERIES:
+        runs = []
+        for r in range(spec["runs"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = tpch.QUERIES[q](pq).collect()
+            ms = (time.perf_counter() - t0) * 1e3
+            info = s.last_query
+            fusion = info.fusion or {}
+            runs.append({"ms": ms, "attempts": info.attempts,
+                         "manifest": info.manifest,
+                         "action": fusion.get("action"),
+                         "chosen": fusion.get("chosen")})
+            if r == 0:
+                answers[q] = {"columns": dict(got.columns),
+                              "validity": dict(got.validity)}
+        out[q] = runs
+    uploaded = {}
+    if spec["uploaded"]:
+        tables = tpch.gen_tables(CAPTURE_LINEITEM_ROWS, seed=SPARK_SEED)
+        d = tpch.load(s, tables)
+        for q in CAPTURE_QUERIES:
+            runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = tpch.QUERIES[q](d).collect()
+                fusion = s.last_query.fusion
+                runs.append({"ms": (time.perf_counter() - t0) * 1e3,
+                             "attempts": s.last_query.attempts,
+                             "action": fusion["action"],
+                             "capture_ms": fusion.get("capture_ms")})
+                check_answer(q, got, NUMPY_REFS[q](tables))
+            uploaded[q] = runs
+    status = s.compile_status()
+    s.close()
+    with open(spec["answers"], "wb") as f:
+        pickle.dump(answers, f)
+    now = KCUDA.stats()["launches"]
+    print(json.dumps({"queries": out, "uploaded": uploaded,
+                      "manifest": status["persistent_cache"],
+                      "launches": {k: now[k] - before.get(k, 0)
+                                   for k in now}}))
+    return 0
+
+
+def run_persist_phase(dirs: dict, pq_check, smi: str, launches: dict
+                      ) -> dict:
+    """The PERSIST phase: the nine ``pq_*`` queries once each, cold, in
+    three fresh processes sharing one compile manifest: A starts it
+    empty and writes it, B reads it, C reads it and runs each query
+    twice, then ``CAPTURE_QUERIES`` three times over uploaded tables:
+    eager, a capture on the query thread, a replay (``PERSIST
+    capture_<q>``: ``warmup_bound_ms``, the second run less the third,
+    is what a capture made ahead of the second run could save). Every
+    answer against the numpy references; a query that took more than
+    one attempt in A must take one in B. Adds the processes' launches to
+    ``launches``."""
+    import pickle
+    shutil.rmtree(PERSIST_DIR, ignore_errors=True)
+    PERSIST_DIR.mkdir(parents=True)
+    atexit.register(shutil.rmtree, str(PERSIST_DIR), True)
+    cache = str(PERSIST_DIR / "cache")
+    procs = {}
+    for name, uploaded, runs in (("A", False, 1), ("B", False, 1),
+                                 ("C", True, 2)):
+        t0 = time.perf_counter()
+        spec = {"dirs": dirs, "cache": cache, "uploaded": uploaded,
+                "runs": runs,
+                "answers": str(PERSIST_DIR / f"answers_{name}.pkl")}
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--persist-run",
+             json.dumps(spec)], capture_output=True, text=True, timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        check(proc.returncode == 0 and lines,
+              f"persist process {name} exited {proc.returncode}: "
+              f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+        got = json.loads(lines[-1])
+        got["process_s"] = time.perf_counter() - t0
+        with open(spec["answers"], "rb") as f:
+            for q, ans in pickle.load(f).items():
+                pq_check(q)(types.SimpleNamespace(**ans))
+        for k, v in got["launches"].items():
+            if k in launches:
+                launches[k] += v
+        procs[name] = got
+    a, b, c = procs["A"]["queries"], procs["B"]["queries"], \
+        procs["C"]["queries"]
+    for q in PQ_QUERIES:
+        ra, rb, rc = a[q][0], b[q][0], c[q]
+        check(ra["manifest"]["plan_hash"] == rb["manifest"]["plan_hash"]
+              == rc[0]["manifest"]["plan_hash"],
+              f"pq_{q}: the plan hash differs between processes: "
+              f"{ra['manifest']} {rb['manifest']}")
+        if ra["attempts"] > 1:
+            check(rb["attempts"] == 1 and rb["manifest"]["seeded"],
+                  f"pq_{q}: {ra['attempts']} attempts in A, "
+                  f"{rb['attempts']} in B (seeded "
+                  f"{rb['manifest']['seeded']})")
+        why = "" if ra["attempts"] > 1 or rb["attempts"] == 1 else \
+            "B took more attempts than A"
+        line = {"A": {"attempts": ra["attempts"], "cold_ms": ra["ms"]},
+                "B": {"attempts": rb["attempts"], "cold_ms": rb["ms"],
+                      "seeded": rb["manifest"]["seeded"]},
+                "C": {"attempts": [r["attempts"] for r in rc],
+                      "ms": [r["ms"] for r in rc],
+                      "second_run": rc[1]["action"],
+                      "chosen": rc[1]["chosen"]},
+                "plan_hash": ra["manifest"]["plan_hash"], "card": smi}
+        if why:
+            line["why"] = why
+        print(f"PERSIST pq_{q} " + json.dumps(line))
+    summary = {
+        name: {"process_s": p["process_s"],
+               "manifest_plans": p["manifest"].get("plans"),
+               "manifest_bytes": p["manifest"].get("bytes"),
+               "manifest_reason": p["manifest"].get("reason")}
+        for name, p in procs.items()}
+    for q, runs in procs["C"]["uploaded"].items():
+        actions = [r["action"] for r in runs]
+        line = {"runs": runs,
+                "warmup_bound_ms": runs[1]["ms"] - runs[2]["ms"],
+                "card": smi}
+        print(f"PERSIST capture_{q} " + json.dumps(line))
+        check(actions[1:] == ["capture", "replay"],
+              f"capture_{q}: the second and third runs did {actions[1:]}, "
+              "not a capture and a replay")
+    print("PERSIST " + json.dumps(summary))
+    return {"queries": {q: {"A": a[q], "B": b[q], "C": c[q]}
+                        for q in PQ_QUERIES},
+            "capture_uploaded": procs["C"]["uploaded"],
+            "processes": summary}
+
+
 def edge_phase(torch, args, rng, dev, JP, SEG, SS, SG, HK, T, DeviceColumn,
                PN, E, GC, TorchSession, SN, SC, PD, bucket_byte_capacity):
     """Phase 2's kernel edge cases, the host snappy routine and the run
@@ -10070,9 +10609,22 @@ def main() -> int:
                     help="run only the memory phase's real_oom cell over "
                          "lineitem's parquet files in DIR (the phase runs "
                          "it this way, in a process of its own)")
+    ap.add_argument("--lockdep-run", action="store_true",
+                    help="run only the LINT phase's lockdep cells (Q3, "
+                         "pq_q1, io_orc_q3 over --lineitem-rows rows; the "
+                         "phase runs them this way, with TPU_LOCKDEP=1)")
+    ap.add_argument("--persist-run", metavar="SPEC",
+                    help="run only one PERSIST process (SPEC: JSON of the "
+                         "parquet dirs, manifest dir, uploaded cells and "
+                         "runs; "
+                         "the phase runs three this way)")
     args = ap.parse_args()
     if args.real_oom:
         return real_oom_main(args)
+    if args.lockdep_run:
+        return lockdep_main(args)
+    if args.persist_run:
+        return persist_main(args)
     global BUSY_TRACE
     BUSY_TRACE = args.busy
     full = not args.phase
@@ -10316,7 +10868,7 @@ def main() -> int:
                                device="cuda")
     written, sf1_pages, pq_dfs = None, None, None
     pipeline_off = {}
-    if phases & {"PARQUET", "METRICS", "MEMORY"}:
+    if phases & {"PARQUET", "METRICS", "MEMORY", "PERSIST"}:
         clock.start("PARQUET")
         written = write_sf1_parquet(torch, PE, ColumnarBatch, tables, dfs,
                                     pq_dir)
@@ -10614,6 +11166,28 @@ def main() -> int:
         print(f"  IO phase {at()}: released every captured graph "
               f"{io['released']}; {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
               " GiB allocated")
+    # Plan verification on the card (injected faults, the CPU-plan
+    # fallback) and the static concurrency gate against runtime lockdep.
+    lint = None
+    if want("LINT"):
+        clock.start("LINT")
+        print(f"lint phase {at()}: lint_inject_{{partitions,fail_on_warn,"
+              "test_mode,cast,transition}, lint_concurrency")
+        lint, lint_launches = run_lint_phase(torch, TorchSession, L, tpch,
+                                             dfs, tables, wrappers, smi)
+        for k in launches:
+            launches[k] += lint_launches[k]
+
+    # The compile manifest across three fresh processes, and what a
+    # warm-up could save.
+    persist_run = None
+    if want("PERSIST"):
+        clock.start("PERSIST")
+        print(f"persist phase {at()}: the nine pq_* queries cold in "
+              "processes A (empty manifest), B (reads it) and C (reads it, "
+              "two runs; capture_q6/q14/q19, three runs)")
+        persist_run = run_persist_phase(written["dirs"], pq_check, smi,
+                                        launches)
     ref_workers.shutdown()
     if not full:
         clock.stop()
@@ -10795,7 +11369,7 @@ def main() -> int:
         "distributed_sum_by_key": distributed,
         "q6_default_mesh_ms": default_ms, "entry_stage": entry_runs,
         "metrics": metrics, "memory": memory, "fallback": fallback,
-        "io": io,
+        "io": io, "lint": lint, "persist": persist_run,
         "xbb_score_max_score_ulps": max(xbb_ulps),
         "pipeline_off": pipeline_off, "run_tables": runs_check,
         "parquet": {"fixture": fixture, "sf1_pages": sf1_pages,

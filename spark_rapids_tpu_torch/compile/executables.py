@@ -59,8 +59,9 @@ to the session's retry, whose re-run streams the plan. Any other error
 of a capture or a replay propagates as it is.
 
 Launch counts: the kernel wrappers count their launches in Python, and
-a replay runs none; each graph keeps the launches its capture counted
-and adds them to the wrappers' counts at every replay
+a replay runs none; each graph keeps the launches its capturing thread
+counted (:func:`..ops.kernels.cuda.recording_launches`) and adds them to
+the wrappers' counts at every replay
 (:func:`..ops.kernels.cuda.add_launches`).
 """
 
@@ -420,7 +421,9 @@ class FusedProgram:
                 self.last = {"action": "cpu"}
                 with self._lock:
                     self._stats["eager_calls"] += 1
-                return consume(self.fn(inputs, ctx))
+                # the region runs its plan's operators (fusion.py)
+                out = self.fn(inputs, ctx)  # concurrency: calls execute
+                return consume(out)
             if entry is None:
                 return self._first(inputs, ctx, consume, key, refs, flat[0])
             if entry.state == "refused":
@@ -497,7 +500,8 @@ class FusedProgram:
 
     def _first(self, inputs, ctx, consume, key, refs, leaves):
         try:
-            out = run_sync_checked(self.fn, inputs, ctx)
+            out = run_sync_checked(
+                self.fn, inputs, ctx)  # concurrency: calls execute
         except RegionRefused as r:
             self._add_entry(key, _Entry("refused", refs, site=r.site),
                             leaves)
@@ -531,14 +535,14 @@ class FusedProgram:
         static_inputs = unflatten(spec, [s if c else t for s, t, c in zip(
             static_in, leaves, copy_in)])
         graph = torch.cuda.CUDAGraph()
-        before = KCUDA.owner_launches()
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side), KCUDA.device_timing(None), \
-                recording_constants() as consts:
+                recording_constants() as consts, \
+                KCUDA.recording_launches() as launches:
             graph.capture_begin(capture_error_mode="thread_local")
             try:
-                out = self.fn(static_inputs, ctx)
+                out = self.fn(static_inputs, ctx)  # concurrency: calls execute
             except BaseException:
                 try:
                     graph.capture_end()
@@ -548,7 +552,6 @@ class FusedProgram:
             graph.capture_end()
         del static_inputs
         torch.cuda.current_stream(dev).wait_stream(side)
-        launches = KCUDA.launch_delta(before)
         out_leaves, out_spec = flatten(out)
         del out
         # an output that is a resident input itself is taken from each

@@ -32,7 +32,9 @@ def _register(key: str, default, doc: str, conv) -> ConfEntry:
     if key in _REGISTRY:
         raise ValueError(f"duplicate conf key {key}")
     e = ConfEntry(key, default, doc, conv)
-    _REGISTRY[key] = e
+    # runs at import only: the analyzer reaches it from worker threads
+    # through lockdep's own _register, by name
+    _REGISTRY[key] = e  # concurrency: ignore (import time only)
     return e
 
 
@@ -398,6 +400,42 @@ PIPELINE_BOUNDARY_PARALLELISM = conf_int(
     "Fusion boundaries materialised at once on the pipeline's pool "
     "before a fused dispatch. 0 = auto (min(4, cpu count), at least 2); "
     "1 materialises them one after another.")
+
+# Plan verification (analysis/plan_lint.py; reference config.py:873-887)
+
+PLAN_LINT_ENABLED = conf_bool(
+    "spark.rapids.tpu.planLint.enabled", True,
+    "Statically verify every physical plan after planning and again after "
+    "the overrides pass (analysis/plan_lint.py): per-node schema "
+    "consistency, cast legality, host<->device transitions, the "
+    "partitioning of shuffled join inputs and the parquet writer's "
+    "physical widths. An error raises PlanLintError naming the node; a "
+    "warn falls the query back to the CPU plan (raises in test mode).")
+
+PLAN_LINT_FAIL_ON_WARN = conf_bool(
+    "spark.rapids.tpu.planLint.failOnWarn", False,
+    "Raise PlanLintError on warn-severity plan-lint violations too, "
+    "instead of falling back to the CPU plan. For CI and tests.")
+
+# Compile manifest (compile/persist.py; reference config.py:640-678). A
+# session's own keys: a session that leaves them off changes nothing for
+# another that sets them.
+
+COMPILE_CACHE_ENABLED = conf_bool(
+    "spark.rapids.tpu.compileCache.enabled", False,
+    "Keep a manifest of what each plan shape learned (its dense modes "
+    "and exact join capacities) in "
+    "spark.rapids.tpu.compileCache.dir, so a new process runs a query "
+    "shape an earlier process ran in its final modes from its first run. "
+    "A CUDA graph names device addresses and cannot be kept on disk, so "
+    "the manifest holds no executables. A corrupt or unwritable manifest "
+    "disables it with a reason (compile_status()); it never fails a "
+    "query.")
+
+COMPILE_CACHE_DIR = conf_str(
+    "spark.rapids.tpu.compileCache.dir", None,
+    "Directory of the compile manifest. Default: "
+    "~/.cache/spark_rapids_tpu_torch.")
 
 
 class TorchConf:

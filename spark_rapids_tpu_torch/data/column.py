@@ -187,28 +187,36 @@ def device_constant(host, device, dtype=None) -> torch.Tensor:
             sink.append((out, None))
         return out
     nbytes = host.nbytes
-    if nbytes > _CONST_MAX_ENTRY:
+    small = nbytes <= _CONST_MAX_ENTRY
+    if small:
+        key = (str(device), host.dtype.str, host.shape, host.tobytes())
+        with _CONST_LOCK:
+            hit = _CONSTS.get(key)
+            if hit is not None:
+                _CONSTS.move_to_end(key)
+        if hit is not None:
+            if sink is not None:
+                sink.append(hit)
+            return hit[0]
+    # A copy made while this thread captures a graph runs at the graph's
+    # first replay, not now: such a constant is not shared, or another
+    # thread could read it before it holds its value.
+    if not small or torch.cuda.is_current_stream_capturing():
         pinned = torch.from_numpy(host.copy()).pin_memory()
         dev = pinned.to(device, non_blocking=True)
         if sink is not None:
             sink.append((dev, pinned))
         return dev
-    key = (str(device), host.dtype.str, host.shape, host.tobytes())
+    pinned = torch.from_numpy(host.copy()).pin_memory()
+    dev = pinned.to(device, non_blocking=True)
     with _CONST_LOCK:
-        hit = _CONSTS.get(key)
-        if hit is not None:
-            _CONSTS.move_to_end(key)
-    if hit is None:
-        pinned = torch.from_numpy(host.copy()).pin_memory()
-        dev = pinned.to(device, non_blocking=True)
-        with _CONST_LOCK:
-            hit = _CONSTS.setdefault(key, (dev, pinned))
-            if hit[0] is dev:
-                _CONST_BYTES[0] += nbytes
-                while _CONST_BYTES[0] > _CONST_MAX_BYTES \
-                        and len(_CONSTS) > 1:
-                    _, (old, _) = _CONSTS.popitem(last=False)
-                    _CONST_BYTES[0] -= old.numel() * old.element_size()
+        hit = _CONSTS.setdefault(key, (dev, pinned))
+        if hit[0] is dev:
+            _CONST_BYTES[0] += nbytes
+            while _CONST_BYTES[0] > _CONST_MAX_BYTES \
+                    and len(_CONSTS) > 1:
+                _, (old, _) = _CONSTS.popitem(last=False)
+                _CONST_BYTES[0] -= old.numel() * old.element_size()
     if sink is not None:
         sink.append(hit)
     return hit[0]

@@ -144,6 +144,9 @@ class ExecContext:
         self.fusion: Optional[dict] = None
         self.join_caps: Dict[int, int] = {}
         self.join_growth = 1.0
+        #: what plan lint found in the plan (``QueryInfo.lint``), set by
+        #: the session on the attempt it keeps
+        self.plan_lint: Optional[dict] = None
         self.overflow_flags: List[torch.Tensor] = []
         self.join_totals: List[Tuple[int, torch.Tensor]] = []
         #: the id of each site of ``site_kinds``, in the same order
@@ -156,10 +159,13 @@ class ExecContext:
                                          io_ok=True)
 
     def next_site(self, kind: str) -> int:
-        sid = self._site_namespace + self._site_seq
-        self._site_seq += 1
-        self.site_kinds.append(kind)
-        self.site_ids.append(sid)
+        # under the lock: the overlapped download runs a device plan's
+        # operators on a prefetch worker while this context is shared
+        with self._lock:
+            sid = self._site_namespace + self._site_seq
+            self._site_seq += 1
+            self.site_kinds.append(kind)
+            self.site_ids.append(sid)
         return sid
 
     def _fork(self) -> "ExecContext":

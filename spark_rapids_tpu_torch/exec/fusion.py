@@ -159,6 +159,12 @@ OOM_SITE = "fused path out of memory"
 _MAX_PROGRAMS = 512
 
 
+def fused_cache_size() -> int:
+    """Fused programs kept (:data:`_FUSED_CACHE`)."""
+    with _CACHE_LOCK:
+        return len(_FUSED_CACHE)
+
+
 def clear_fused_cache() -> None:
     from ..compile import executables
     executables.release_all()

@@ -15,6 +15,9 @@ A :class:`QueryProfile` snapshots, at query end:
   ``nvcc`` builds the query paid for (``engine["compile"]``, the
   reference's kernel-cache misses).
 
+* ``planLint`` (what plan lint found: ``warns``, ``fallback``, ``ms``,
+  ``memo``) and ``persistent_cache`` (the session's compile manifest's
+  status, as the reference's ``compile_status`` has it);
 * the memory sections (:mod:`..memory`), under the reference's key
   names: ``semaphoreWaitNs``, ``spillBytes`` (``spillBytesToHost`` +
   ``spillBytesToDisk``), ``diskSpillFileBytes``,
@@ -180,6 +183,7 @@ class QueryProfiler:
         self._t0 = time.perf_counter_ns()
         self._cuda0 = _cuda.stats()
         self._ck0 = _checksum.stats()
+        self._manifest = getattr(session, "manifest", None)
         self._dm = getattr(session, "device_manager", None)
         if self._dm is not None:
             self._spill0 = dict(self._dm.catalog.metrics)
@@ -229,6 +233,10 @@ class QueryProfiler:
                                                    "deadlineCancels"),
             },
         }
+        if ctx.plan_lint is not None:
+            engine["planLint"] = dict(ctx.plan_lint)
+        from ..compile import persist
+        engine["persistent_cache"] = persist.status(self._manifest)
         if self._dm is not None:
             engine.update(self._memory_sections())
         return QueryProfile(

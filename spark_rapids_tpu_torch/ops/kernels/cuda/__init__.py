@@ -66,20 +66,50 @@ def _owners():
         for owners in FAMILIES.values() for mod, attr in owners}
 
 
-def owner_launches() -> dict:
-    """``{(module, attr): launches}`` of every counting wrapper."""
-    return {k: fn.launches for k, fn in _owners().items()}
+#: Guards the wrappers' ``launches`` counts: kernels launch from the
+#: query thread and the pipeline's workers, of one query or of several.
+_COUNT_LOCK = threading.Lock()
 
 
-def launch_delta(before: dict) -> dict:
-    """The launches counted since ``before`` (:func:`owner_launches`),
-    per owner, zeros left out: what a CUDA graph's capture recorded."""
-    return {k: n - before.get(k, 0) for k, n in owner_launches().items()
-            if n != before.get(k, 0)}
+class _Recording(threading.local):
+    #: ``{id(owner): launches}`` of the capture open on this thread, or
+    #: None
+    sink = None
+
+
+_RECORDING = _Recording()
+
+
+def count_launch(owner) -> None:
+    """Count one launch of the wrapper ``owner``: its ``launches`` count,
+    and the recording of a capture open on this thread
+    (:func:`recording_launches`)."""
+    with _COUNT_LOCK:
+        owner.launches += 1
+    sink = _RECORDING.sink
+    if sink is not None:
+        sink[id(owner)] = sink.get(id(owner), 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """While open, the launches this thread counts are also recorded;
+    yields a dict that holds them afterwards as ``{(module, attr): n}``
+    per owner: what a CUDA graph's capture recorded. Launches of other
+    threads (a pipeline worker, another query) are not in it."""
+    prev, _RECORDING.sink = _RECORDING.sink, {}
+    out: dict = {}
+    try:
+        yield out
+    finally:
+        sink, _RECORDING.sink = _RECORDING.sink, prev
+        out.update({k: sink[id(fn)] for k, fn in _owners().items()
+                    if id(fn) in sink})
 
 
 def by_family(delta: dict) -> Dict[str, int]:
-    """A :func:`launch_delta` summed per kernel family."""
+    """A capture's recorded launches (:func:`recording_launches`) summed
+    per kernel family."""
     out: Dict[str, int] = {}
     for fam, owners in FAMILIES.items():
         n = sum(delta.get(o, 0) for o in owners)
@@ -89,12 +119,13 @@ def by_family(delta: dict) -> Dict[str, int]:
 
 
 def add_launches(delta: dict) -> None:
-    """Add a captured graph's launches (:func:`launch_delta`) to the
-    wrappers' counts: a replay launches every kernel the capture
+    """Add a captured graph's launches (:func:`recording_launches`) to
+    the wrappers' counts: a replay launches every kernel the capture
     recorded, and runs none of the wrappers' Python."""
     owners = _owners()
-    for k, n in delta.items():
-        owners[k].launches += n
+    with _COUNT_LOCK:
+        for k, n in delta.items():
+            owners[k].launches += n
 
 
 class _Timing(threading.local):

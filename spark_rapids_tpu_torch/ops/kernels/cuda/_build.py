@@ -17,10 +17,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+from ....utils import lockdep
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "_build"
@@ -33,12 +34,15 @@ HOST_ROUTINES = ("snappy", "parquet_runs", "crc32c")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LOCK = threading.Lock()
+#: Serialises the first load of each library, its build included: it
+#: exists to be held across the ``nvcc`` run, so a second caller waits
+#: for the build instead of starting its own.
+_LOCK = lockdep.lock("_build._LOCK", io_ok=True)
 _LOADED: Dict[str, ctypes.CDLL] = {}
 #: Sources compiled by this process and the wall time of their builds
 #: (the profile's ``engine["compile"]``).
 _BUILDS = {"count": 0, "ns": 0}
-_STATS_LOCK = threading.Lock()
+_STATS_LOCK = lockdep.lock("_build._STATS_LOCK")
 
 
 def build_stats() -> Dict[str, int]:

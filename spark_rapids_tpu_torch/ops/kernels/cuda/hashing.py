@@ -27,7 +27,7 @@ from ....shuffle.partitioning import \
     murmur3_bytes_rows as murmur3_bytes_rows_plain  # noqa: F401
 from ....shuffle.partitioning import \
     murmur3_string_rows as murmur3_string_rows_plain  # noqa: F401
-from . import _build, launch_events
+from . import _build, count_launch, launch_events
 
 
 def _lib() -> ctypes.CDLL:
@@ -79,7 +79,7 @@ def murmur3_bytes_rows(mat: torch.Tensor, lengths: torch.Tensor,
                                       lengths.data_ptr(), seed.data_ptr(),
                                       out.data_ptr(), stream)
     _build.check(lib, rc, "murmur3 launch")
-    _COUNTED.launches += 1
+    count_launch(_COUNTED)
     return out
 
 
@@ -128,7 +128,7 @@ def murmur3_string_rows(payload: torch.Tensor, offsets: torch.Tensor,
                 entries, None if codes is None else codes.data_ptr(), n,
                 width, seed.data_ptr(), out.data_ptr(), stream)
     _build.check(lib, rc, "murmur3 string launch")
-    _STRING_COUNTED.launches += 1
+    count_launch(_STRING_COUNTED)
     return out
 
 

@@ -16,7 +16,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build, launch_events
+from . import _build, count_launch, launch_events
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -94,7 +94,7 @@ def dense_build_probe(bslot: torch.Tensor, pslot: torch.Tensor, tbl: int
                 table.data_ptr(), cnt_out.data_ptr(), row_out.data_ptr(),
                 max_out.data_ptr(), stream)
     _build.check(lib, rc, "joinProbe launch")
-    _COUNTED.launches += 1
+    count_launch(_COUNTED)
     return cnt_out, row_out, max_out
 
 

@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from . import _build, launch_events
+from . import _build, count_launch, launch_events
 
 OPS = ("sum", "min", "max")
 _OP_CODES = {"sum": 0, "min": 1, "max": 2}
@@ -149,7 +149,7 @@ def segment_reduce_sorted(x: torch.Tensor, gid: torch.Tensor, capacity: int,
                 None if scratch is None else scratch.data_ptr(), nbytes,
                 out.data_ptr(), stream)
     _build.check(lib, rc, "segmented launch")
-    _COUNTED.launches += 1
+    count_launch(_COUNTED)
     return out[:, 0] if x.dim() == 1 else out
 
 

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from . import _build, launch_events
+from . import _build, count_launch, launch_events
 
 #: Bits of the packed lane that hold the row index (the reference's).
 INDEX_BITS = 27
@@ -80,7 +80,7 @@ def _launch(lane: torch.Tensor):
                 lane.data_ptr(), n, None if scratch is None else
                 scratch.data_ptr(), nbytes, out.data_ptr(), stream)
     _build.check(lib, rc, "sortStep launch")
-    _COUNTED.launches += 1
+    count_launch(_COUNTED)
     return out, scratch, lib
 
 

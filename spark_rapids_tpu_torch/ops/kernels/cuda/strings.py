@@ -33,7 +33,7 @@ from typing import Tuple
 import torch
 
 from ...strings_util import PAD, _matrix_from_offsets
-from . import _build, launch_events
+from . import _build, count_launch, launch_events
 
 def ragged_gather_plain(mat: torch.Tensor, idx: torch.Tensor,
                         valid: torch.Tensor) -> torch.Tensor:
@@ -153,7 +153,7 @@ def gather_strings(payload: torch.Tensor, offsets: torch.Tensor,
                 idx.data_ptr(), valid.data_ptr(), m, width, buf.data_ptr(),
                 byte_cap, out_offsets.data_ptr(), stream)
     _build.check(lib, rc, "strings gather launch")
-    _GATHER_COUNTED.launches += 1
+    count_launch(_GATHER_COUNTED)
     return buf[:byte_cap], out_offsets
 
 
@@ -201,7 +201,7 @@ def ragged_gather(mat: torch.Tensor, idx: torch.Tensor,
                                        valid.data_ptr(), m, out.data_ptr(),
                                        stream)
     _build.check(lib, rc, "strings gather launch")
-    _COUNTED.launches += 1
+    count_launch(_COUNTED)
     return out
 
 
@@ -238,7 +238,7 @@ def ragged_row_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             rc = lib.srt_row_equal(a.data_ptr(), b.data_ptr(), n, w, vec,
                                    out.data_ptr(), stream)
     _build.check(lib, rc, "strings compare launch")
-    _COUNTED_EQUAL.launches += 1
+    count_launch(_COUNTED_EQUAL)
     return out
 
 

@@ -29,8 +29,10 @@ they are referenced.
 
 from __future__ import annotations
 
+import time
+import warnings
 from collections import Counter
-from typing import Dict
+from typing import Dict, Optional
 
 from ..config import TorchConf
 from ..exec import execs as E
@@ -60,9 +62,36 @@ def plan_physical(plan: L.LogicalPlan, conf: TorchConf) -> E.TorchExec:
             if refs[id(node)] > 1 and not isinstance(
                     ex, (E.DeviceSourceExec, CpuFileScanExec)):
                 ex = E.ReusedExec(ex)
-            memo[id(node)] = ex
+            # planning runs on the caller's thread: the analyzer reaches
+            # this closure from workers only through data/batch.py's
+            # build(), by name
+            memo[id(node)] = ex  # concurrency: ignore (planning thread)
         return memo[id(node)]
     return build(plan)
+
+
+def plan_and_verify(plan: L.LogicalPlan, conf: TorchConf,
+                    lint_ns: Optional[list] = None, memo=None,
+                    hits: Optional[list] = None) -> E.TorchExec:
+    """The CPU physical plan of ``plan``, statically verified: the
+    planner-side plan-lint hook (the reference's ``planner.py:83``; the
+    session verifies again after the overrides pass). An error raises
+    :class:`~..analysis.plan_lint.PlanLintError`; a warn is only warned
+    here, since no rewritten plan exists yet to fall back from. The
+    check's nanoseconds are added to ``lint_ns[0]`` when it is given;
+    ``memo`` and ``hits`` go to :func:`~..analysis.plan_lint.verify_plan`."""
+    from ..analysis.plan_lint import verify_plan
+    physical = plan_physical(plan, conf)
+    t0 = time.perf_counter_ns()
+    try:
+        warns = verify_plan(physical, conf, stage="planned", memo=memo,
+                            hits=hits)
+    finally:
+        if lint_ns is not None:
+            lint_ns[0] += time.perf_counter_ns() - t0
+    for w in warns:
+        warnings.warn(f"plan-lint: {w}", stacklevel=2)
+    return physical
 
 
 def _plan_join(plan: L.Join, sub) -> E.TorchExec:

@@ -46,6 +46,17 @@ for a region refused for synchronising with the host, the plan streams
 (``session.stream_collect``). ``QueryInfo.fusion`` says what the fused
 dispatch did.
 
+Plan lint (:mod:`.analysis.plan_lint`, the reference's
+``session.py:255-285``) verifies the CPU plan and the overrides pass's
+result: an error raises before anything runs, a warn runs the CPU plan
+instead (it raises in test mode and under ``planLint.failOnWarn``). The
+session keeps each verdict by plan (:class:`~.analysis.plan_lint.
+LintMemo`), so a plan it runs again is not checked again. With
+``spark.rapids.tpu.compileCache.enabled`` the session's compile
+manifest (:mod:`.compile.persist`) gives a plan this session has not run
+the dense modes and join capacities an earlier process learned for it,
+and keeps what this session learns.
+
 Observability (:mod:`.metrics`): above metrics level NONE every query
 leaves a :class:`~.metrics.profile.QueryProfile` of its final attempt
 (:meth:`TorchSession.last_query_profile`, :meth:`query_profile`,
@@ -63,6 +74,7 @@ import contextlib
 import dataclasses
 import threading
 import time
+import warnings
 from typing import Dict, List, Optional
 
 import torch
@@ -88,9 +100,11 @@ from .parallel.mesh import Mesh, make_mesh
 from .plan import logical as L
 from .plan.input_file import rewrite_input_file_exprs
 from .plan.optimizer import prune_columns
-from .plan.overrides import TorchOverrides
+from .analysis.plan_lint import LintMemo, PlanLintError, verify_plan
+from .plan.overrides import TorchOverrides, finalize_plan
 from .plan.physical import HostExec
-from .plan.planner import plan_physical
+from .plan.planner import plan_and_verify
+from .compile import persist
 from .compile.ladder import bucket_capacity
 from .utils import lockdep
 from .utils.deadline import Deadline
@@ -139,6 +153,17 @@ class QueryInfo:
     #: ``pool_bytes``, ``head_bytes``, ``guess_miss``, ``host_us`` (the
     #: host's time by step: signature, boundaries, key, region, head).
     fusion: Optional[dict] = None
+    #: What plan lint found in the query's plan (:mod:`.analysis.
+    #: plan_lint`): ``warns`` (warn-severity violations after the
+    #: overrides pass), ``fallback`` (the query ran its CPU plan for
+    #: them), ``ms`` (the checks' time, key included) and ``memo`` (of
+    #: the two checks, those whose verdict the session already held).
+    lint: Dict[str, object] = dataclasses.field(default_factory=dict)
+    #: The compile manifest's part (:mod:`.compile.persist`; empty while
+    #: it is off): ``plan_hash``, ``seeded`` (the first run took modes
+    #: or capacities an earlier process learned) and ``recorded`` (this
+    #: query changed what the manifest holds).
+    manifest: Dict[str, object] = dataclasses.field(default_factory=dict)
 
 
 def _host_flags(pairs) -> List[bool]:
@@ -215,8 +240,16 @@ class TorchSession:
         pipeline.configure(self.conf)
         TR.configure(self.conf)
         _compile.configure(self.conf)
+        #: this session's compile manifest (:mod:`.compile.persist`), or
+        #: None while its conf leaves it off
+        self.manifest = persist.configure(self.conf)
+        #: plan-lint verdicts of the plans this session ran
+        self._lint_memo = LintMemo()
         self.device = resolve_device(device)
         self._mesh = mesh
+        #: guards what concurrent queries of this session learn and
+        #: leave: ``_learned``, ``_join_caps`` and the ``last_*`` slots
+        self._state_lock = lockdep.lock("TorchSession._state_lock")
         self._learned: Dict[tuple, Dict[int, int]] = {}
         #: plan shape -> inlined exact join site -> learned capacity
         self._join_caps: Dict[tuple, Dict[int, int]] = {}
@@ -246,6 +279,9 @@ class TorchSession:
         self.device_manager = DeviceManager.get_or_create(self.conf,
                                                           self.device)
         self._fault_injector = FaultInjector.maybe(self.conf)
+        self.manifest = persist.configure(self.conf)
+        # a verdict holds for the conf it was reached under
+        self._lint_memo = LintMemo()
 
     def close(self) -> List[threading.Thread]:
         """Join every worker of the scans' shared pool
@@ -253,6 +289,20 @@ class TorchSession:
         not stop in time (none, normally). The pool is made anew at its
         next use, so the session keeps working after ``close``."""
         return pipeline.shutdown()
+
+    def compile_status(self) -> dict:
+        """The compile layer's state (the reference's ``session.py:189``):
+        the ladder, this session's manifest (``persistent_cache``), the
+        fused programs' statistics and the fused cache's size. The
+        reference's ``warmup`` counters have no counterpart: the port
+        captures a graph on the query thread."""
+        from .compile import executables
+        return {
+            "ladder": dataclasses.asdict(_compile.get_ladder()),
+            "persistent_cache": persist.status(self.manifest),
+            "fused_programs": executables.stats(),
+            "fused_cache_entries": FU.fused_cache_size(),
+        }
 
     @property
     def mesh(self) -> Mesh:
@@ -277,20 +327,54 @@ class TorchSession:
         """The executable plan of ``logical`` (the reference's
         ``session.py:255``): the input-file rewrite
         (:mod:`.plan.input_file`), column pruning (:mod:`.plan.
-        optimizer`), the CPU physical plan (:mod:`.plan.planner`), then
-        the overrides pass (:mod:`.plan.overrides`), which tags every
-        node, explains (``spark.rapids.sql.explain``; the text is also
+        optimizer`), the CPU physical plan, verified
+        (:func:`.plan.planner.plan_and_verify`), then the overrides pass
+        (:mod:`.plan.overrides`), which tags every node, explains
+        (``spark.rapids.sql.explain``; the text is also
         :attr:`last_explain`), converts what the device can run and
-        inserts the transitions. A plan whose root runs on the device
-        comes back without its ``DeviceToHostExec`` root (the device
-        plan); otherwise its root is a CPU operator."""
+        inserts the transitions, and plan lint again over its result
+        (:mod:`.analysis.plan_lint`): an error raises
+        :class:`~.analysis.plan_lint.PlanLintError` before anything runs;
+        a warn falls back to the CPU plan, or raises in test mode and
+        under ``planLint.failOnWarn``. A plan whose root runs on the
+        device comes back without its ``DeviceToHostExec`` root (the
+        device plan); otherwise its root is a CPU operator."""
+        return self.plan_with_lint(logical)[0]
+
+    def plan_with_lint(self, logical: L.LogicalPlan):
+        """:meth:`plan` and what plan lint did there: ``(plan, {"warns",
+        "fallback", "ms", "memo"})``, which a query keeps as
+        ``QueryInfo.lint``."""
         overrides = TorchOverrides(self.conf)
-        cpu = plan_physical(prune_columns(rewrite_input_file_exprs(
-            logical)), self.conf)
+        lint_ns, hits = [0], [0]
+        memo = self._lint_memo
+        cpu = plan_and_verify(prune_columns(rewrite_input_file_exprs(
+            logical)), self.conf, lint_ns, memo, hits)
         root = overrides.apply(cpu)
-        self.last_explain = overrides.last_explain
-        return root.children[0] if isinstance(root, E.DeviceToHostExec) \
+        with self._state_lock:
+            self.last_explain = overrides.last_explain
+        t0 = time.perf_counter_ns()
+        try:
+            warns = verify_plan(root, self.conf, stage="post-overrides",
+                                memo=memo, hits=hits)
+        finally:
+            lint_ns[0] += time.perf_counter_ns() - t0
+        if warns:
+            if self.conf.test_enabled:
+                # test mode promises no silent host fallback: a quiet one
+                # here would compare the CPU plan with itself
+                raise PlanLintError(warns)
+            for w in warns:
+                warnings.warn(f"plan-lint: {w}; falling back to the CPU "
+                              "plan", stacklevel=3)
+            # finalized as every plan is: transitions over the device
+            # nodes the CPU plan holds (uploaded tables, exchanges)
+            root = finalize_plan(cpu, self.conf)
+        lint = {"warns": len(warns), "fallback": bool(warns),
+                "ms": lint_ns[0] / 1e6, "memo": hits[0]}
+        plan = root.children[0] if isinstance(root, E.DeviceToHostExec) \
             else root
+        return plan, lint
 
     def explain(self, logical: L.LogicalPlan) -> str:
         return self.plan(logical).tree_string()
@@ -315,13 +399,14 @@ class TorchSession:
 
     def _execute(self, logical: L.LogicalPlan, tracer) -> HostBatch:
         with TR.span(tracer, "session.plan", cat="session"):
-            physical = self.plan(logical)
+            physical, lint = self.plan_with_lint(logical)
             # Modes are learned per path: the mesh path numbers only the
             # sites of its single-device tail.
             sig = self._signature(physical)
         mesh = self.mesh if sig[1] else None
         profiler = QueryProfiler.maybe(self)
-        modes = dict(self._learned.get(sig, {}))
+        manifest = self._seed_from_manifest(sig)
+        modes = self._modes_of(sig)
         # one deadline spans the whole query, its re-runs included
         deadline = Deadline.maybe(self.conf)
         qos = QosTag(deadline=deadline, trace=tracer)
@@ -332,18 +417,19 @@ class TorchSession:
             attempts += 1
             ctx, result, overflowed, tripped = self._dispatch(
                 physical, modes, mesh, growth, deadline, qos, tracer,
-                attempts, carried, self._join_caps.get(sig, {}))
+                attempts, carried, self._caps_of(sig))
             if overflowed and mesh is None:
                 # an inlined exact join outgrew its output: its totals
                 # are the capacities of the re-run
                 self._carry(ctx, carried)
-                caps = self._join_caps.setdefault(sig, {})
                 learned = False
-                for site, total in ctx.join_totals:
-                    cap = bucket_capacity(max(int(total), 128))
-                    if cap > caps.get(site, 0):
-                        caps[site] = cap
-                        learned = True
+                with self._state_lock:
+                    caps = self._join_caps.setdefault(sig, {})
+                    for site, total in ctx.join_totals:
+                        cap = bucket_capacity(max(int(total), 128))
+                        if cap > caps.get(site, 0):
+                            caps[site] = cap
+                            learned = True
                 if not learned:
                     growth *= 8.0
                 rounds += 1
@@ -356,15 +442,19 @@ class TorchSession:
                 if growth >= _MAX_MESH_GROWTH:
                     mesh = None
                     sig = (sig[0], False)
-                    modes = dict(self._learned.get(sig, {}))
+                    manifest = self._seed_from_manifest(sig)
+                    modes = self._modes_of(sig)
                 else:
                     growth *= 8.0
                 continue
             if not tripped:
                 for name, v in carried.items():
                     ctx.metric("TorchSession", name, v)
-                self._learned[sig] = modes
-                self.last_query = QueryInfo(
+                with self._state_lock:
+                    self._learned[sig] = modes
+                self._record_in_manifest(sig, modes, manifest)
+                ctx.plan_lint = lint
+                info = QueryInfo(
                     attempts=attempts,
                     dense_modes={i: modes.get(s, 0)
                                  for i, s in enumerate(ctx.site_ids)},
@@ -373,7 +463,10 @@ class TorchSession:
                     path="single" if mesh is None else "mesh",
                     shards=1 if mesh is None else mesh.size,
                     counters=dict(ctx.counters),
-                    fusion=ctx.fusion)
+                    fusion=ctx.fusion, lint=dict(lint),
+                    manifest=dict(manifest))
+                with self._state_lock:
+                    self.last_query = info
                 if profiler is not None:
                     # exec_ms synchronised: the events are complete
                     ctx.record_device_time()
@@ -386,6 +479,46 @@ class TorchSession:
                                    f"{_MAX_ATTEMPTS} runs; modes {modes}")
             for s in set(tripped):
                 modes[s] = modes.get(s, 0) + 1
+
+    def _seed_from_manifest(self, sig: tuple) -> Dict[str, object]:
+        """The manifest's part of a query (``QueryInfo.manifest``; empty
+        while the manifest is off). A plan this session has not run yet
+        takes the dense modes and join capacities an earlier process
+        learned for it, so its first run here is already in its final
+        modes."""
+        m = self.manifest
+        if m is None:
+            return {}
+        phash = persist.plan_hash(sig)
+        out = {"plan_hash": phash, "seeded": False, "recorded": False}
+        with self._state_lock:
+            known = sig in self._learned
+        got = None if known else m.learned_for(phash)
+        if got is not None:
+            modes, caps = got
+            with self._state_lock:
+                self._learned.setdefault(sig, modes)
+                if caps:
+                    self._join_caps.setdefault(sig, caps)
+            out["seeded"] = True
+        return out
+
+    def _record_in_manifest(self, sig: tuple, modes: Dict[int, int],
+                            manifest: Dict[str, object]) -> None:
+        m = self.manifest
+        if m is not None and manifest:
+            manifest["recorded"] = m.record_learned(
+                manifest["plan_hash"], modes, self._caps_of(sig))
+
+    def _modes_of(self, sig: tuple) -> Dict[int, int]:
+        """A copy of the dense modes learned for the plan ``sig``."""
+        with self._state_lock:
+            return dict(self._learned.get(sig, {}))
+
+    def _caps_of(self, sig: tuple) -> Dict[int, int]:
+        """A copy of the join capacities learned for the plan ``sig``."""
+        with self._state_lock:
+            return dict(self._join_caps.get(sig, {}))
 
     @staticmethod
     def _carry(ctx, carried: Dict[str, int]) -> None:
@@ -505,7 +638,8 @@ class TorchSession:
         """Keep a session-made tracer as :meth:`last_trace` and export it
         beside the event log (best-effort: an export failure never fails
         the query)."""
-        self._last_tracer = tracer
+        with self._state_lock:
+            self._last_tracer = tracer
         TR.export_chrome(tracer, TR.export_dir(self.conf))
 
     def query_profile(self, query_id: int) -> Optional[QueryProfile]:
@@ -523,7 +657,8 @@ class TorchSession:
 
     def last_trace(self) -> Optional[TR.Tracer]:
         """The span tracer of the most recent traced query, or None."""
-        return self._last_tracer
+        with self._state_lock:
+            return self._last_tracer
 
     def explain_metrics(self, logical: L.LogicalPlan) -> str:
         """The metric-annotated EXPLAIN tree (``df.explain(metrics=True)``):

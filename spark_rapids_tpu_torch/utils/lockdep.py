@@ -383,6 +383,13 @@ def blocking(kind: str):
 # ---------------------------------------------------------------------------
 
 
+def edges() -> Dict[str, List[str]]:
+    """The observed lock-order graph: lock name -> the names taken while
+    it was held."""
+    with _GUARD:
+        return {a: sorted(d) for a, d in _EDGES.items()}
+
+
 def violations() -> List[LockdepViolation]:
     with _GUARD:
         return list(_VIOLATIONS)

@@ -13,9 +13,13 @@ runs. ``paths`` counts what the last run of each query did on the fused
 path (``QueryInfo.fusion``: its action, and the path a captured plan
 chose), where the checkout has one; ``reserved_gb`` and ``gc_objects``
 are the allocator's reserved device memory and the collector's tracked
-objects after each query's runs. ``--profile q88,...`` traces one more
-warm run of each named query after the suite (``torch.profiler``) and
-prints its 20 costliest host events by self time (``host_events``);
+objects after each query's runs; ``lint_ms`` is plan lint's own time in
+the queries (``QueryInfo.lint["ms"]``, where the checkout has it): the
+cold runs' and the timed runs' medians over the queries, and the timed
+runs' median share of their query's warm median. ``--profile q88,...``
+traces one more warm run of each named query after the suite
+(``torch.profiler``) and prints its 20 costliest host events by self
+time (``host_events``);
 ``--cprofile q88,...`` runs each named query twice more under
 ``cProfile`` and prints its 25 costliest Python functions by own time
 (``python_top``).
@@ -79,15 +83,22 @@ def main() -> int:
     warm, cold = {}, {}
     paths: dict = {}
     reserved, objects = {}, {}
+    lint_cold, lint_warm = {}, {}
     for q, query in tpcds.QUERIES.items():
-        times = []
+        times, lints = [], []
         for i in range(1 + args.warmup + args.runs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             query(dfs).collect()
             times.append((time.perf_counter() - t0) * 1e3)
+            lint = getattr(getattr(session, "last_query", None), "lint",
+                           None)
+            lints.append(lint.get("ms") if lint else None)
         cold[q] = times[0]
         warm[q] = statistics.median(times[1 + args.warmup:])
+        if lints[0] is not None:
+            lint_cold[q] = lints[0]
+            lint_warm[q] = statistics.median(lints[1 + args.warmup:])
         info = getattr(getattr(session, "last_query", None), "fusion",
                        None) or {}
         path = f"{info.get('action')}/{info.get('chosen')}"
@@ -110,6 +121,14 @@ def main() -> int:
             [e.key, e.count, round(e.self_cpu_time_total / 1e3, 3)]
             for e in top[:20]]}
     session.close()
+    lint_ms = {
+        "cold_median": statistics.median(lint_cold.values()),
+        "cold_max": max(lint_cold.values()),
+        "warm_median": statistics.median(lint_warm.values()),
+        "warm_max": max(lint_warm.values()),
+        "warm_share_median": statistics.median(
+            lint_warm[q] / warm[q] for q in lint_warm)} if lint_warm \
+        else None
     print(json.dumps({
         "label": args.label, "card": smi, "conf": conf,
         "ss_rows": args.ss_rows, "runs": args.runs,
@@ -120,7 +139,7 @@ def main() -> int:
             math.log(v) for v in cold.values())),
         "python_top": python_top(tpcds, dfs, torch, args.cprofile),
         "paths": paths, "reserved_gb": reserved, "gc_objects": objects,
-        "host_events": host_events, "warm_ms": warm}))
+        "host_events": host_events, "lint_ms": lint_ms, "warm_ms": warm}))
     return 0
 
 
